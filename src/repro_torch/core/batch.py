@@ -1,17 +1,29 @@
 """Typed GAS batch structures: `GASBatch` + `BlockStructure`.
 
 The port of `repro.core.batch`. Plain frozen dataclasses: the host side
-(`core.gas.subgraph_batch`) fills them with numpy arrays, and `.to(device)`
-returns a copy whose array fields are torch tensors on that device. Index
-conventions are the reference's: `batch_nodes`/`halo_nodes` are global ids
-padded with N, `edge_dst` is local in [0, max_b) (pad -> trash row max_b),
-`edge_src` is local in [0, max_b+max_h] (pad -> dummy zero row).
+(`core.gas.build_batches`, `core.gas.subgraph_batch`) fills them with
+numpy arrays, and `.to(device)` returns a copy whose array fields are
+torch tensors on that device. Index conventions are the reference's:
+`batch_nodes`/`halo_nodes` are global ids padded with N, `edge_dst` is
+local in [0, max_b) (pad -> trash row max_b), `edge_src` is local in
+[0, max_b+max_h] (pad -> dummy zero row).
 
-Block families (each a `BlockStructure` of dense `vals` [R, K, bn, bn] at
-column blocks `cols` [R, K]; padding slots are all-zero blocks at column
-0): `forward` holds the GCN-normalized local adjacency
-[max_b, max_b+max_h+1]; `transposed` holds its transpose, which the
-backward of the training slice reads.
+A batch is either stacked (from `build_batches`: every array field has a
+leading `num_batches` axis) or single (`stacked[b]`, or `subgraph_batch`);
+the pads and counts describe the per-batch shapes either way. The
+reference registers both classes as JAX pytrees so that `jax.lax.scan`
+can walk a stack; the port indexes the stack in a Python loop.
+
+Block families (each a `BlockStructure` of dense `vals` [..., R, K, bn,
+bn] at column blocks `cols` [..., R, K]; padding slots are all-zero
+blocks at column 0):
+
+  * ``forward``          — GCN-normalized local adjacency
+                           [max_b, max_b+max_h+1]
+  * ``transposed``       — its transpose, which the backward reads
+  * ``unit``             — unit-weight (edge-multiplicity) values for the
+                           ops that never read the normalized weights (GAT)
+  * ``unit_transposed``  — its transpose
 """
 from __future__ import annotations
 
@@ -32,31 +44,36 @@ def _to(a, device: torch.device):
 
 @dataclass(frozen=True)
 class BlockStructure:
-    """One BCSR family: dense `vals` [R, K, bn, bn] at column blocks
-    `cols` [R, K]."""
+    """One BCSR family: dense `vals` [..., R, K, bn, bn] at column blocks
+    `cols` [..., R, K]."""
     vals: Any
     cols: Any
 
     def to(self, device) -> "BlockStructure":
         return BlockStructure(_to(self.vals, device), _to(self.cols, device))
 
+    def __getitem__(self, b) -> "BlockStructure":
+        return BlockStructure(self.vals[b], self.cols[b])
 
-_BLOCK_FIELDS = ("forward", "transposed")
+
+_BLOCK_FIELDS = ("forward", "transposed", "unit", "unit_transposed")
 
 
 @dataclass(frozen=True)
 class GASBatch:
-    """One padded GAS batch (the single-batch form of the reference's
-    `GASBatch`; the port has no stacked form yet)."""
-    batch_nodes: Any             # [max_b] int32, padded with N
-    batch_mask: Any              # [max_b] bool
-    halo_nodes: Any              # [max_h] int32, padded with N
-    halo_mask: Any               # [max_h] bool
-    edge_dst: Any                # [max_e] int32
-    edge_src: Any                # [max_e] int32
-    edge_w: Any                  # [max_e] float32, 0 for padding
+    """One padded GAS batch, or the stack of a partition's batches."""
+    batch_nodes: Any             # [*, max_b] int32, padded with N
+    batch_mask: Any              # [*, max_b] bool
+    halo_nodes: Any              # [*, max_h] int32, padded with N
+    halo_mask: Any               # [*, max_h] bool
+    edge_dst: Any                # [*, max_e] int32
+    edge_src: Any                # [*, max_e] int32
+    edge_w: Any                  # [*, max_e] float32, 0 for padding
     forward: Optional[BlockStructure] = None
     transposed: Optional[BlockStructure] = None
+    unit: Optional[BlockStructure] = None
+    unit_transposed: Optional[BlockStructure] = None
+    num_batches: int = 1
     max_b: int = 0
     max_h: int = 0
     max_e: int = 0
@@ -64,10 +81,40 @@ class GASBatch:
 
     @property
     def blocks(self) -> Optional[Tuple]:
-        """(vals, cols) of the forward family, or None."""
+        """Weighted-SpMM blocks for `kernels.ops`: (vals, cols[, vals_t,
+        cols_t]); the transposed pair is what the backward reads."""
         if self.forward is None:
             return None
-        return (self.forward.vals, self.forward.cols)
+        out = (self.forward.vals, self.forward.cols)
+        if self.transposed is not None:
+            out += (self.transposed.vals, self.transposed.cols)
+        return out
+
+    @property
+    def ublocks(self) -> Optional[Tuple]:
+        """Unit-weight (multiplicity) 4-tuple for the GAT kernels. Unit
+        blocks are only ever built alongside their transpose
+        (`core.gas.build_batches`), so this is always a 4-tuple."""
+        if self.unit is None:
+            return None
+        return (self.unit.vals, self.unit.cols,
+                self.unit_transposed.vals, self.unit_transposed.cols)
+
+    def __getitem__(self, b) -> "GASBatch":
+        """Slice one batch (or a range) off the leading axis of every array
+        field; an integer index also sets `num_batches` to 1. On torch
+        fields the slices are views, so no block is copied."""
+        kw = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            if f.name in _BLOCK_FIELDS or isinstance(
+                    v, (np.ndarray, torch.Tensor)):
+                kw[f.name] = v[b]
+        if isinstance(b, (int, np.integer)):
+            kw["num_batches"] = 1
+        return replace(self, **kw)
 
     def to(self, device) -> "GASBatch":
         """A copy whose array fields are torch tensors on `device`."""

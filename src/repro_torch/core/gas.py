@@ -1,12 +1,15 @@
-"""GAS batch construction (numpy) and the executor helpers serving needs.
+"""GAS batch construction (numpy) and the per-layer executor helpers.
 
-The port of the serving half of `repro.core.gas`: the GCN-normalized
-global COO, the weighted in-edge CSR, `subgraph_batch` (one padded batch
-over an arbitrary node set, optionally tiled into BCSR blocks) and the
-per-layer helpers `staleness_diags` / `materialize_x_all`. The host code
-is a copy of the reference's numpy code, so its arrays are bitwise the
-reference's (tests/test_torch_host.py). Partition-based `build_batches`
-belongs to the training slice (ROADMAP Queue A).
+The port of `repro.core.gas`: the GCN-normalized global COO, the weighted
+in-edge CSR, `build_batches` (the stacked padded batches of one
+partition, with the weighted or the unit-weight BCSR families),
+`group_partition` / `padding_bounds` (several clusters per batch),
+`subgraph_batch` (one padded batch over an arbitrary node set, serving's)
+and the per-layer helpers `staleness_diags` / `materialize_x_all`. The
+host code is a copy of the reference's numpy code, so its arrays are
+bitwise the reference's (tests/test_torch_host.py,
+tests/test_torch_train.py). `patch_batches` (evolving graphs) is not
+ported yet (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -45,20 +48,154 @@ def weighted_in_csr(graph: Graph) -> Tuple[np.ndarray, np.ndarray,
     return indptr, src[order], w[order]
 
 
+def group_partition(part: np.ndarray, clusters_per_batch: int,
+                    rng=None) -> np.ndarray:
+    """Relabel clusters into batches of `clusters_per_batch` random clusters
+    (PyGAS dataloader semantics: mixing clusters per batch de-correlates
+    label-pure clusters, e.g. SBM communities)."""
+    num_clusters = int(part.max()) + 1
+    order = (np.random.default_rng(0) if rng is None else rng
+             ).permutation(num_clusters)
+    group_of = np.empty(num_clusters, np.int32)
+    for i, c in enumerate(order):
+        group_of[c] = i // clusters_per_batch
+    return group_of[part]
+
+
+def padding_bounds(graph: Graph, part: np.ndarray, clusters_per_batch: int,
+                   add_self_loops: bool = True):
+    """Worst-case (max_b, max_h, max_e) over any grouping of k clusters:
+    sums of the k largest per-cluster sizes (halo/edges are subadditive)."""
+    singles = build_batches(graph, part, add_self_loops, build_blocks=False)
+    k = clusters_per_batch
+    b_sizes = np.sort(singles.batch_mask.sum(1))[::-1]
+    h_sizes = np.sort(singles.halo_mask.sum(1))[::-1]
+    e_sizes = np.sort((singles.edge_w > 0).sum(1))[::-1]
+    return (int(b_sizes[:k].sum()), int(max(h_sizes[:k].sum(), 1)),
+            int(e_sizes[:k].sum()))
+
+
+def build_batches(graph: Graph, part: np.ndarray,
+                  add_self_loops: bool = True,
+                  pad_to: Optional[tuple] = None,
+                  build_blocks: bool = False,
+                  bn: int = 128,
+                  pad_k: Optional[int] = None,
+                  pad_k_t: Optional[int] = None,
+                  unit_weights: bool = False) -> GASBatch:
+    """The stacked host `GASBatch` of one partition (numpy leaves with a
+    leading batch axis; `.to(device)` moves it). The BCSR families
+    describe each batch's local [max_b, max_b+max_h+1] adjacency
+    (GCN-normalized weights baked in) tiled into bn x bn blocks, plus its
+    transpose, which the backward reads. With `unit_weights=True` (GAT)
+    the unit-weight (edge-multiplicity) families are built instead of the
+    weighted ones, sharing the same column structure. `pad_to` floors
+    (max_b, max_h, max_e), `pad_k`/`pad_k_t` floor the block counts.
+
+    The reference builds blocks by default exactly when its kernel
+    backend is not "jnp"; the port has no such backend, so blocks are
+    built when `build_blocks=True` and `core.runtime.build_plan` always
+    asks for them."""
+    N = graph.num_nodes
+    B = int(part.max()) + 1
+    dst, src, w = gcn_edge_weights(graph, add_self_loops)
+
+    order = np.argsort(part[dst], kind="stable")
+    dst_s, src_s, w_s = dst[order], src[order], w[order]
+    edge_part = part[dst_s]
+    bounds = np.searchsorted(edge_part, np.arange(B + 1))
+
+    batches, halos, edges = [], [], []
+    for b in range(B):
+        nodes_b = np.flatnonzero(part == b).astype(np.int32)
+        e0, e1 = bounds[b], bounds[b + 1]
+        d_b, s_b, w_b = dst_s[e0:e1], src_s[e0:e1], w_s[e0:e1]
+        halo = np.setdiff1d(s_b, nodes_b)
+        # local index map: batch nodes -> [0, nb), halo -> [nb, nb+nh)
+        batches.append(nodes_b)
+        halos.append(halo.astype(np.int32))
+        edges.append((d_b, s_b, w_b))
+
+    max_b = max(len(x) for x in batches)
+    max_h = max(max(len(x) for x in halos), 1)
+    max_e = max(len(e[0]) for e in edges)
+    if pad_to is not None:
+        max_b = max(max_b, pad_to[0])
+        max_h = max(max_h, pad_to[1])
+        max_e = max(max_e, pad_to[2])
+
+    bnode = np.full((B, max_b), N, np.int32)
+    bmask = np.zeros((B, max_b), bool)
+    hn = np.full((B, max_h), N, np.int32)
+    hm = np.zeros((B, max_h), bool)
+    ed = np.full((B, max_e), max_b, np.int32)          # trash row
+    es = np.full((B, max_e), max_b + max_h, np.int32)  # dummy zero row
+    ew = np.zeros((B, max_e), np.float32)
+
+    for b in range(B):
+        nodes_b, halo = batches[b], halos[b]
+        d_b, s_b, w_b = edges[b]
+        nb, nh, ne = len(nodes_b), len(halo), len(d_b)
+        bnode[b, :nb] = nodes_b
+        bmask[b, :nb] = True
+        hn[b, :nh] = halo
+        hm[b, :nh] = True
+        # global -> local
+        lookup = np.full(N + 1, max_b + max_h, np.int64)
+        lookup[nodes_b] = np.arange(nb)
+        lookup[halo] = max_b + np.arange(nh)
+        ed[b, :ne] = lookup[d_b]      # always < nb (dst in batch)
+        es[b, :ne] = lookup[s_b]
+        ew[b, :ne] = w_b
+
+    fwd = tr = un = un_t = None
+    if build_blocks:
+        # K/K_t padded to the max over batches (pad_k/pad_k_t keep
+        # regrouped epochs at one shape, see runtime._regroup)
+        per = [_emit_part_blocks(ed[b], es[b], ew[b], max_b, max_h, bn,
+                                 unit_weights) for b in range(B)]
+        R = per[0]["v"].shape[0]
+        R_t = per[0]["vt"].shape[0]
+        K = max(max(e["c"].shape[1] for e in per), pad_k or 1)
+        K_t = max(max(e["ct"].shape[1] for e in per), pad_k_t or 1)
+        vals = np.zeros((B, R, K, bn, bn), np.float32)
+        blk_cols = np.zeros((B, R, K), np.int32)
+        vals_t = np.zeros((B, R_t, K_t, bn, bn), np.float32)
+        blk_cols_t = np.zeros((B, R_t, K_t), np.int32)
+        for b, e in enumerate(per):
+            vals[b, :, :e["v"].shape[1]] = e["v"]
+            blk_cols[b, :, :e["c"].shape[1]] = e["c"]
+            vals_t[b, :, :e["vt"].shape[1]] = e["vt"]
+            blk_cols_t[b, :, :e["ct"].shape[1]] = e["ct"]
+        if unit_weights:
+            un = BlockStructure(vals, blk_cols)
+            un_t = BlockStructure(vals_t, blk_cols_t)
+        else:
+            fwd = BlockStructure(vals, blk_cols)
+            tr = BlockStructure(vals_t, blk_cols_t)
+    return GASBatch(bnode, bmask, hn, hm, ed, es, ew,
+                    forward=fwd, transposed=tr, unit=un, unit_transposed=un_t,
+                    num_batches=B, max_b=max_b, max_h=max_h, max_e=max_e,
+                    bn=bn)
+
+
 def _emit_part_blocks(ed_row: np.ndarray, es_row: np.ndarray,
                       ew_row: np.ndarray, max_b: int, max_h: int,
-                      bn: int, transposed: bool = True) -> dict:
+                      bn: int, unit_weights: bool = False,
+                      transposed: bool = True) -> dict:
     """BCSR forward (+ transposed, unless `transposed=False`) blocks for
     one batch's padded local COO. Valid slots are `ew > 0` —
-    GCN-normalized weights are strictly positive, padding is 0."""
+    GCN-normalized weights are strictly positive, padding is 0. With
+    `unit_weights` (GAT) the values are the edge multiplicities."""
     valid = ew_row > 0
     d_b, s_b, w_b = ed_row[valid], es_row[valid], ew_row[valid]
+    wv = np.ones_like(w_b) if unit_weights else w_b
     n_cols = max_b + max_h + 1
-    v, c, _, _ = ops.build_bcsr_rect(d_b, s_b, w_b, max_b, n_cols, bn=bn)
+    v, c, _, _ = ops.build_bcsr_rect(d_b, s_b, wv, max_b, n_cols, bn=bn)
     out = {"v": v, "c": c}
     if transposed:
         out["vt"], out["ct"], _, _ = ops.build_bcsr_rect(
-            s_b, d_b, w_b, n_cols, max_b, bn=bn)
+            s_b, d_b, wv, n_cols, max_b, bn=bn)
     return out
 
 
@@ -142,7 +279,8 @@ def subgraph_batch(indptr: np.ndarray, src: np.ndarray, w: np.ndarray,
 
     fwd = tr = None
     if build_blocks:
-        e = _emit_part_blocks(ed, es, ew, max_b, max_h, bn, transposed)
+        e = _emit_part_blocks(ed, es, ew, max_b, max_h, bn,
+                              transposed=transposed)
         fwd = _pad_blocks(e["v"], e["c"], pad_k, bn)
         if transposed:
             tr = _pad_blocks(e["vt"], e["ct"], pad_k_t, bn)
@@ -163,15 +301,20 @@ def staleness_diags(age: torch.Tensor, halo_nodes: torch.Tensor,
 
 
 def materialize_x_all(ell: int, x_cur: torch.Tensor, xh: torch.Tensor,
-                      store, batch: GASBatch) -> torch.Tensor:
+                      store, batch: GASBatch,
+                      use_history: bool = True) -> torch.Tensor:
     """Unfused layer input `x_all = [x_cur ; halo_rows ; dummy-zero row]`:
     layer 0 uses the exact halo rows `xh`; layers >= 1 pull the previous
-    layer's history rows."""
+    layer's history rows (zeros when history is off)."""
     if ell == 0:
         halo_rows = xh
-    else:
+    elif use_history:
         halo_rows = store.pull(ell - 1, batch.halo_nodes)
         halo_rows = halo_rows * batch.halo_mask[:, None]
+    else:
+        halo_rows = torch.zeros((batch.halo_nodes.shape[0],
+                                 x_cur.shape[-1]), dtype=x_cur.dtype,
+                                device=x_cur.device)
     dummy = torch.zeros((1, x_cur.shape[-1]), dtype=x_cur.dtype,
                         device=x_cur.device)
     return torch.cat([x_cur, halo_rows, dummy], dim=0)

@@ -54,7 +54,10 @@ class HistoryStore:
         return len(self.tables)
 
     def pull(self, ell: int, idx: torch.Tensor) -> torch.Tensor:
-        """Gather rows of H̄^(ell) (idx clipped to the table)."""
+        """Gather rows of H̄^(ell) (idx clipped to the table), at the
+        table's own width: the reference's `pad_out=True` pull, which
+        keeps its gather kernel's 128-lane padding, has no counterpart
+        because the port's kernels mask ragged widths."""
         return ops.pull_rows(self.tables[ell], idx)
 
     def push(self, ell: int, idx: torch.Tensor, values: torch.Tensor,
@@ -81,6 +84,14 @@ class HistoryStore:
         hit[torch.where(mask, idx.long(), n)] = True
         self.age.masked_fill_(hit[:n], 0)
         return self
+
+    def clone(self) -> "HistoryStore":
+        """A copy with its own tables and clock. The reference's stores are
+        immutable, so its `predict` scans over a copy for free; the port's
+        pushes are in place, so `runtime.predict` runs on a clone."""
+        return HistoryStore(tables=[t.clone() for t in self.tables],
+                            age=self.age.clone(),
+                            history_dtype=self.history_dtype)
 
     def bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tables)

@@ -1,0 +1,349 @@
+"""GAS training runtime: `GASConfig` -> `GASPlan` -> `GASState`.
+
+The port of `repro.core.runtime`, the paper's Algorithm 1 as a training
+loop:
+
+    plan  = build_plan(graph, spec, config)            # static, built once
+    state = init_state(plan)                           # params, opt, store
+    state, metrics = train_step(plan, state, batch)    # one cluster batch
+    state, metrics = train_epoch(plan, state, epoch)   # shuffled epoch
+    logits         = predict(plan, state)              # history inference
+    accs           = evaluate_exact(plan, state)       # full propagation
+
+The reference jits the step, donates the whole state and, with
+`fused_epoch`, scans an epoch in one dispatch. The port runs eagerly:
+a step records the batch forward under autograd, takes the gradients
+with `torch.autograd.grad`, clips them and applies AdamW in place on the
+params and moments; the history pushes are in place too. So a step
+returns the state it was given, updated, and an epoch is always the
+per-step loop, which computes what the reference's scan computes; the
+port's `GASConfig` has no `fused_epoch`. `predict` runs on a clone of
+the store, since the reference's `predict` leaves the state's tables
+untouched.
+
+Entry points run on the card (`device=None` means "cuda") unless the
+caller asks for the CPU, where every kernel runs its plain version.
+Not ported yet: `prefetch_depth > 0` and `history_storage="host"`
+(ROADMAP Queue A item 4), `halo_age_decay > 0` (Queue A item 2), and the
+quantized stores with their vq refit knobs (Queue A item 3).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data.graphs import Graph
+from repro_torch.train.optimizer import (AdamWState, adamw_init,
+                                         adamw_update, clip_by_global_norm,
+                                         grad_leaves)
+from . import gas as G
+from .batch import GASBatch
+from .config import HistoryExecConfig, resolve_device
+from .history import HistoryStore
+from .partition import metis_like_partition, random_partition
+
+
+@dataclass(frozen=True, kw_only=True)
+class GASConfig(HistoryExecConfig):
+    """Every knob of a GAS training run, with the reference's names and
+    defaults (the paper's citation-graph hyperparameters). The shared
+    `history_dtype` / `staleness_slo` come from `HistoryExecConfig`. The
+    reference's `backend` has no counterpart (the tensors' device picks
+    the kernel or its plain version), nor do its vq refit knobs, which
+    come with the quantized stores, nor `fused_epoch`: an epoch is
+    always the eager per-step loop."""
+    num_parts: int
+    partitioner: str = "metis"          # "metis" | "random"
+    clusters_per_batch: int = 1
+    use_history: bool = True
+    fuse_halo: bool = True
+    halo_age_decay: float = 0.0
+    prefetch_depth: int = 0
+    history_storage: Optional[str] = None  # "device" | "host"
+    lr: float = 0.01
+    weight_decay: float = 5e-4
+    grad_clip: float = 2.0
+    epochs: int = 100
+    seed: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.partitioner not in ("metis", "random"):
+            raise ValueError(f"partitioner must be metis or random, got "
+                             f"{self.partitioner!r}")
+        if self.prefetch_depth > 0 or self.history_storage == "host":
+            raise NotImplementedError(
+                "prefetch_depth > 0 and history_storage='host' (the async "
+                "history pipeline) are not ported yet (ROADMAP Queue A "
+                "item 4)")
+        if self.history_storage not in (None, "device", "host"):
+            raise ValueError(f"history_storage must be device or host, got "
+                             f"{self.history_storage!r}")
+        if self.halo_age_decay:
+            raise NotImplementedError(
+                "halo_age_decay (staleness compensation) is not ported yet "
+                "(ROADMAP Queue A item 2)")
+
+
+@dataclass
+class GASState:
+    """Everything that changes during training: the params tree, the AdamW
+    state, the history store and `rng`, the uint32 key data the reference
+    keeps beside them. The port draws no random numbers in a step (no
+    dropout, no regularizer), so `rng` stays the initial key data
+    `[0, seed + 1]` of the reference's `jax.random.key(seed + 1)`; it is
+    carried so that a checkpoint has every key the reference reads."""
+    params: Any
+    opt_state: AdamWState
+    histories: HistoryStore
+    rng: np.ndarray
+
+    def replace(self, **kw) -> "GASState":
+        return replace(self, **kw)
+
+
+@dataclass
+class GASPlan:
+    """Static execution plan, built once by `build_plan`. Mutable only in
+    that `clusters_per_batch > 1` epochs regroup the clusters (`_regroup`),
+    which swaps `batches` / `batch_stack` keeping the padded shapes."""
+    graph: Graph
+    spec: Any                            # gnn.model.GNNSpec
+    config: GASConfig
+    device: torch.device
+    part: np.ndarray
+    batches: Optional[GASBatch]          # host (numpy) stack
+    batch_stack: Optional[GASBatch]      # device stack
+    x: torch.Tensor
+    y: torch.Tensor                      # [N+1] padded labels
+    train_mask: torch.Tensor             # [N+1]
+    eval_edges: Tuple[torch.Tensor, torch.Tensor]
+    eval_w: torch.Tensor
+    unit_blocks: bool
+    _pad_to: Optional[Tuple[int, int, int]] = None
+    _pad_k: int = 1
+    _pad_k_t: int = 1
+    _np_rng: Any = None
+
+    def batch(self, b) -> GASBatch:
+        """One device batch off the stack (views, no copy)."""
+        return self.batch_stack[b]
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    pred = torch.argmax(logits, dim=-1)
+    ok = (pred == labels) & mask
+    return ok.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def build_plan(graph: Graph, spec, config: GASConfig,
+               device=None) -> GASPlan:
+    """Partition the graph, build the stacked batches (with the op's block
+    families and their transposes) and upload them, the features, labels
+    and the exact-evaluation COO to `device` (None means "cuda"). The
+    reference builds blocks only for its kernel backends; the port's
+    every op runs on blocks, so it always builds them."""
+    from repro_torch.gnn.model import UNIT_BLOCK_OPS, _check_op
+
+    _check_op(spec)
+    dev = resolve_device(device)
+    N = graph.num_nodes
+    if config.partitioner == "metis":
+        part = metis_like_partition(graph.indptr, graph.indices,
+                                    config.num_parts, seed=config.seed)
+    else:
+        part = random_partition(N, config.num_parts, seed=config.seed)
+    dst, src, w = G.gcn_edge_weights(graph)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    plan = GASPlan(
+        graph=graph, spec=spec, config=config, device=dev, part=part,
+        batches=None, batch_stack=None, x=t(graph.x),
+        y=t(np.concatenate([graph.y, np.zeros(1, np.int32)])),
+        train_mask=t(np.concatenate([graph.train_mask, [False]])),
+        eval_edges=(t(dst), t(src)), eval_w=t(w),
+        unit_blocks=spec.op in UNIT_BLOCK_OPS,
+        _np_rng=np.random.default_rng(config.seed + 17))
+    if config.clusters_per_batch > 1:
+        # k random clusters per batch, regrouped each epoch: pad to the
+        # worst case so every epoch has one shape; K grows lazily
+        plan._pad_to = G.padding_bounds(graph, part,
+                                        config.clusters_per_batch)
+        _regroup(plan)
+    else:
+        plan.batches = G.build_batches(graph, part, build_blocks=True,
+                                       unit_weights=plan.unit_blocks)
+        plan.batch_stack = plan.batches.to(dev)
+    return plan
+
+
+def _regroup(plan: GASPlan) -> None:
+    cfg = plan.config
+    grouped = G.group_partition(plan.part, cfg.clusters_per_batch,
+                                plan._np_rng)
+    plan.batches = G.build_batches(plan.graph, grouped, pad_to=plan._pad_to,
+                                   build_blocks=True, pad_k=plan._pad_k,
+                                   pad_k_t=plan._pad_k_t,
+                                   unit_weights=plan.unit_blocks)
+    fwd = plan.batches.unit if plan.unit_blocks else plan.batches.forward
+    tr = plan.batches.unit_transposed if plan.unit_blocks \
+        else plan.batches.transposed
+    plan._pad_k = max(plan._pad_k, fwd.cols.shape[2])
+    plan._pad_k_t = max(plan._pad_k_t, tr.cols.shape[2])
+    plan.batch_stack = plan.batches.to(plan.device)
+
+
+def init_state(plan: GASPlan, params=None) -> GASState:
+    """Fresh params (the port's `init_gnn(spec, seed)` unless `params` is
+    given, e.g. the reference's carried across), a zero AdamW state, a
+    zero f32 history store and the initial rng key data."""
+    from repro_torch.gnn.model import init_gnn
+
+    cfg = plan.config
+    if params is None:
+        params = init_gnn(plan.spec, seed=cfg.seed, device=plan.device)
+    store = HistoryStore.create(plan.graph.num_nodes + 1,
+                                plan.spec.hist_dims(),
+                                history_dtype=cfg.history_dtype,
+                                device=plan.device)
+    return GASState(params=params, opt_state=adamw_init(params),
+                    histories=store,
+                    rng=np.array([0, cfg.seed + 1], np.uint32))
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """The reference's loss: mean cross-entropy over the masked rows."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, labels[:, None])[:, 0]
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1)
+
+
+def _loss(plan: GASPlan, logits: torch.Tensor, batch: GASBatch):
+    """The loss and accuracy over the batch's training nodes."""
+    idx = batch.batch_nodes.long().clamp(0, plan.y.shape[0] - 1)
+    labels = plan.y[idx].long()
+    m = plan.train_mask[idx] & batch.batch_mask
+    return masked_cross_entropy(logits, labels, m), _accuracy(logits, labels,
+                                                              m)
+
+
+def grads_and_metrics(plan: GASPlan, state: GASState, batch: GASBatch
+                      ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The step's forward and backward without the update: the gradients
+    (a list in `tree_leaves(params)` order, unclipped) and the metrics.
+    The history pushes of the forward land in `state.histories`."""
+    from repro_torch.gnn.model import gas_batch_forward
+
+    cfg = plan.config
+    params, leaves = grad_leaves(state.params)
+    logits, _, diags = gas_batch_forward(
+        params, plan.spec, plan.x, batch, state.histories,
+        use_history=cfg.use_history, fuse_halo=cfg.fuse_halo)
+    ce, acc = _loss(plan, logits, batch)
+    grads = list(torch.autograd.grad(ce, leaves))
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    metrics = {"loss": ce.detach(), "ce": ce.detach(), "acc": acc,
+               "reg": zero, **diags}
+    return grads, metrics
+
+
+def apply_update(plan: GASPlan, state: GASState,
+                 grads: List[torch.Tensor]) -> GASState:
+    """The step's update: global-norm clipping, then AdamW with b2 = 0.999
+    (as the reference's step passes), in place on the params and moments.
+    Returns `state`."""
+    cfg = plan.config
+    grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    _, state.opt_state = adamw_update(
+        grads, state.opt_state, state.params, lr=cfg.lr, b1=0.9, b2=0.999,
+        weight_decay=cfg.weight_decay)
+    return state
+
+
+def train_step(plan: GASPlan, state: GASState, batch: GASBatch
+               ) -> Tuple[GASState, Dict[str, torch.Tensor]]:
+    """One optimization step on one cluster batch: forward with history
+    pushes, backward through the kernels' autograd.Functions
+    (`grads_and_metrics`), then `apply_update`, all in place on `state`,
+    which is returned. Metrics stay tensors on the device (no host
+    sync)."""
+    grads, metrics = grads_and_metrics(plan, state, batch)
+    return apply_update(plan, state, grads), metrics
+
+
+def train_epoch(plan: GASPlan, state: GASState, epoch: int
+                ) -> Tuple[GASState, Dict[str, float]]:
+    """One epoch over every cluster batch in the reference's shuffled
+    order (`default_rng(seed * 1000 + epoch).permutation`). With
+    `clusters_per_batch > 1` the clusters are regrouped first (from epoch
+    1 on). Returns the per-step metrics' means."""
+    cfg = plan.config
+    if cfg.clusters_per_batch > 1 and epoch > 0:
+        _regroup(plan)
+    order = np.random.default_rng(cfg.seed * 1000 + epoch).permutation(
+        plan.batches.num_batches)
+    agg = []
+    for b in order:
+        state, metrics = train_step(plan, state, plan.batch(int(b)))
+        agg.append(metrics)
+    stacked = {k: torch.stack([m[k].to(torch.float32) for m in agg]).cpu()
+               for k in agg[0]}
+    return state, {k: float(np.mean(v.numpy())) for k, v in stacked.items()}
+
+
+def fit(plan: GASPlan, state: GASState, epochs: Optional[int] = None,
+        log_every: int = 0) -> Tuple[GASState, List[Dict[str, float]]]:
+    out = []
+    for e in range(epochs or plan.config.epochs):
+        state, m = train_epoch(plan, state, e)
+        out.append(m)
+        if log_every and (e + 1) % log_every == 0:
+            ev = evaluate_exact(plan, state)
+            print(f"epoch {e+1}: loss={m['loss']:.4f} "
+                  f"val={ev['val_acc']:.4f} test={ev['test_acc']:.4f}")
+    return state, out
+
+
+@torch.no_grad()
+def predict(plan: GASPlan, state: GASState) -> torch.Tensor:
+    """History-based inference (the paper's constant-memory advantage):
+    every batch in stack order against a clone of the store, so the
+    state's tables and clock are left as they were. Returns [N, C]."""
+    from repro_torch.gnn.model import gas_batch_forward
+
+    cfg = plan.config
+    N, C = plan.graph.num_nodes, plan.spec.num_classes
+    store = state.histories.clone()
+    out = torch.zeros((N + 1, C), dtype=torch.float32, device=plan.device)
+    for b in range(plan.batches.num_batches):
+        batch = plan.batch(b)
+        logits, store, _ = gas_batch_forward(
+            state.params, plan.spec, plan.x, batch, store,
+            use_history=cfg.use_history, fuse_halo=cfg.fuse_halo)
+        safe = torch.where(batch.batch_mask, batch.batch_nodes.long(),
+                           torch.full_like(batch.batch_nodes.long(), N))
+        # each node lives in exactly one cluster: order-independent
+        out[safe] = logits
+    return out[:N]
+
+
+@torch.no_grad()
+def evaluate_exact(plan: GASPlan, state: GASState) -> Dict[str, float]:
+    """Exact full-propagation evaluation (the paper evaluates exactly),
+    over the COO in plain tensor code."""
+    from repro_torch.gnn.model import full_forward
+
+    g = plan.graph
+    logits = full_forward(state.params, plan.spec, plan.x, plan.eval_edges,
+                          plan.eval_w, g.num_nodes)
+    y = plan.y[:g.num_nodes]
+    out = {}
+    for name, mask in (("train", g.train_mask), ("val", g.val_mask),
+                       ("test", g.test_mask)):
+        m = torch.from_numpy(np.asarray(mask)).to(plan.device)
+        out[f"{name}_acc"] = float(_accuracy(logits, y, m))
+    return out

@@ -104,6 +104,11 @@ def build_serve_plan(graph: Graph, spec, config: ServeConfig,
                      device=None) -> ServePlan:
     """CSR + padding bounds + bucket ladders, and the features uploaded to
     `device` (None means "cuda")."""
+    if spec.op != "gcn":
+        raise NotImplementedError(
+            f"serving a {spec.op!r} model is not ported yet: serve batches "
+            "carry the GCN-weighted forward blocks only (ROADMAP Queue A "
+            "item 6)")
     dev = resolve_device(device)
     N = graph.num_nodes
     indptr, src_s, w_s = G.weighted_in_csr(graph)

@@ -1,17 +1,30 @@
-"""GNN model assembled for GAS batches and for the full graph — GCN so far.
+"""GNN model assembled for GAS batches and for the full graph — GCN and GAT.
 
-The port of `repro.gnn.model` for the GCN operator. A model is (pre,
-prop-layer stack, post); `gas_batch_forward` runs Algorithm 1 on one
-padded batch against the history store, `full_forward` runs the same
-layers on the whole graph (the exact reference of serving at SLO=0).
+The port of `repro.gnn.model` for the GCN and GAT operators. A model is
+(pre, prop-layer stack, post); `gas_batch_forward` runs Algorithm 1 on
+one padded batch against the history store, `full_forward` runs the same
+layers on the whole graph (the exact evaluation, and the full-batch
+baseline).
 
-`gas_batch_forward` ports the serving branch of the reference: histories
-on, the fused halo route for layers >= 1, no Eq. 3 regularizer, no
-staleness decay and no prefetched pulls. Layer 0 aggregates the exact
-[in-batch ; halo ; 0] features through `bcsr_spmm`; layers >= 1
-aggregate through `gather_spmm`, which reads halo rows straight out of
-the history table; each hidden layer's in-batch rows are pushed into the
-store in place.
+`gas_batch_forward` keeps the reference's gating of its three routes
+(except that the fused route does not need the transposed blocks until
+a backward runs, so forward-only serve batches take it too):
+
+  * materialized (layer 0, and every layer when `fuse_halo=False` or
+    `use_history=False`): `x_all = [x_b ; halo ; 0]`, aggregated through
+    `bcsr_spmm` (GCN) or the edge-softmax kernels (GAT) over the batch's
+    blocks;
+  * fused (GCN layers >= 1): `gather_spmm` reads halo rows straight out
+    of the history table;
+  * halo-split (GAT layers >= 1): the halo rows are pulled from the table
+    and transformed apart from the in-batch rows (`gat_transform_split`).
+
+Each hidden layer's in-batch rows are pushed into the store in place,
+detached. The reference traces this under `jax.value_and_grad` and XLA
+applies the pushes to the donated tables; here autograd records the
+step eagerly while the pushes write the tables as it goes, which is safe
+because no backward saves a table. The Eq. 3 regularizer, dropout and
+staleness decay are not ported (ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.batch import GASBatch
 from repro_torch.core.config import resolve_device
@@ -27,16 +41,50 @@ from repro_torch.core.history import HistoryStore
 from repro_torch.kernels import ops
 from . import layers as L
 
-_OPS_PORTED = ("gcn",)
+_OPS_PORTED = ("gcn", "gat")
+# fixed-weight SpMM ops: the fused history-gather route for layers >= 1
+FUSED_OPS = ("gcn",)
+# data-dependent aggregations: the halo-split route for layers >= 1
+HALO_SPLIT_OPS = ("gat",)
+# ops that read the unit-weight (multiplicity) blocks
+UNIT_BLOCK_OPS = ("gat",)
+
+
+# the reference's defaults of the fields only unported operators read
+_UNPORTED_DEFAULTS = {"alpha": 0.1, "lam": 0.5, "log_deg_mean": 1.0}
 
 
 @dataclass(frozen=True)
 class GNNSpec:
-    op: str                     # gcn (the other operators: ROADMAP Queue A)
+    op: str                     # gcn | gat (the rest: ROADMAP Queue A)
     d_in: int
     d_hidden: int
     num_classes: int
     num_layers: int             # number of propagation layers K
+    heads: int = 8              # gat
+    alpha: float = 0.1          # appnp / gcnii
+    lam: float = 0.5            # gcnii identity-map strength
+    dropout: float = 0.0
+    reg_delta: float = 0.0      # Eq. 3 perturbation radius (0 = off)
+    reg_weight: float = 0.0
+    log_deg_mean: float = 1.0   # pna
+
+    def __post_init__(self):
+        for name, op in (("alpha", "appnp / gcnii"), ("lam", "gcnii"),
+                         ("log_deg_mean", "pna")):
+            if getattr(self, name) != _UNPORTED_DEFAULTS[name]:
+                raise NotImplementedError(
+                    f"{name} is read only by {op}, which is not ported yet "
+                    f"(ROADMAP Queue A item 2); leave it at its default "
+                    f"{_UNPORTED_DEFAULTS[name]}")
+        if self.dropout != 0.0:
+            raise NotImplementedError(
+                "dropout is not ported yet (ROADMAP Queue A item 2); the "
+                "reference's default is 0.0")
+        if self.reg_weight != 0.0 or self.reg_delta != 0.0:
+            raise NotImplementedError(
+                "the Eq. 3 regularizer (reg_delta / reg_weight) is not "
+                "ported yet (ROADMAP Queue A item 2)")
 
     def hist_dims(self) -> List[int]:
         """Dims of H̄^(1..K-1) — outputs of prop layers 0..K-2."""
@@ -46,8 +94,8 @@ class GNNSpec:
 def _check_op(spec: GNNSpec) -> None:
     if spec.op not in _OPS_PORTED:
         raise NotImplementedError(
-            f"op {spec.op!r} is not ported yet (ROADMAP Queue A, operator "
-            f"zoo); ported: {_OPS_PORTED}")
+            f"op {spec.op!r} is not ported yet (ROADMAP Queue A item 2, "
+            f"operator zoo); ported: {_OPS_PORTED}")
 
 
 def to_device(params, device) -> Any:
@@ -60,17 +108,22 @@ def to_device(params, device) -> Any:
 
 
 def init_gnn(spec: GNNSpec, seed: int = 0, device=None) -> Dict[str, Any]:
-    """Glorot weights and zero biases, drawn from a `torch.Generator`
-    seeded with `seed` (on the CPU, so every device gets the same
-    values), then moved to `device` (None means "cuda")."""
+    """The reference's initializers' distributions, drawn from a
+    `torch.Generator` seeded with `seed` (on the CPU, so every device gets
+    the same values), then moved to `device` (None means "cuda")."""
     _check_op(spec)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     dims = [spec.d_in] + [spec.d_hidden] * (spec.num_layers - 1) + \
         [spec.num_classes]
-    params = {"layers": [L.init_gcn(gen, dims[i], dims[i + 1])
-                         for i in range(spec.num_layers)]}
-    return to_device(params, dev)
+    if spec.op == "gcn":
+        layers = [L.init_gcn(gen, dims[i], dims[i + 1])
+                  for i in range(spec.num_layers)]
+    else:
+        layers = [L.init_gat(gen, dims[i], dims[i + 1],
+                             spec.heads if i < spec.num_layers - 1 else 1)
+                  for i in range(spec.num_layers)]
+    return to_device({"layers": layers}, dev)
 
 
 def _pre(params, spec: GNNSpec, x):
@@ -81,25 +134,50 @@ def _post(params, spec: GNNSpec, h):
     return h
 
 
+def _act(spec: GNNSpec, ell: int, h):
+    if ell == spec.num_layers - 1:
+        return h
+    return torch.relu(h) if spec.op == "gcn" else F.elu(h)
+
+
 def _prop(params, spec: GNNSpec, ell: int, x_all, edges, edge_w, n_out,
-          blocks=None):
+          batch=None):
+    """One propagation layer over a materialized x_all: on the batch's
+    blocks when `batch` is given, over the COO otherwise."""
     _check_op(spec)
-    h = L.gcn(params["layers"][ell], x_all, edges, edge_w, n_out,
-              blocks=blocks)
-    return h if ell == spec.num_layers - 1 else torch.relu(h)
+    p = params["layers"][ell]
+    if spec.op == "gcn":
+        h = L.gcn(p, x_all, edges, edge_w, n_out,
+                  blocks=None if batch is None else batch.blocks)
+    else:
+        h = L.gat(p, x_all, edges, edge_w, n_out,
+                  ublocks=None if batch is None else batch.ublocks)
+    return _act(spec, ell, h)
 
 
 def _fused_prop(params, spec: GNNSpec, ell: int, x_cur,
                 store: HistoryStore, batch: GASBatch):
-    """One propagation layer on the fused path: the aggregation reads halo
-    columns straight out of the layer's history table (no materialized
-    x_all), then the op's combine transform."""
-    _check_op(spec)
+    """One GCN layer on the fused path: the aggregation reads halo columns
+    straight out of the layer's history table (no materialized x_all),
+    then the combine transform."""
     n_out = batch.batch_mask.shape[0]
     agg = ops.gas_aggregate(x_cur, store.tables[ell - 1], batch.halo_nodes,
                             batch.halo_mask, n_out, batch.blocks)
-    h = L.gcn_combine(params["layers"][ell], agg)
-    return h if ell == spec.num_layers - 1 else torch.relu(h)
+    return _act(spec, ell, L.gcn_combine(params["layers"][ell], agg))
+
+
+def _halo_prop(params, spec: GNNSpec, ell: int, x_cur,
+               store: HistoryStore, batch: GASBatch, edges, edge_w):
+    """One GAT layer on the halo-split path: the halo rows are pulled from
+    the previous layer's table at its own width and transformed apart
+    from the in-batch rows (`gat_transform_split`), then the edge softmax
+    runs over the unit-weight blocks."""
+    n_out = batch.batch_mask.shape[0]
+    xh = store.pull(ell - 1, batch.halo_nodes) * batch.halo_mask[:, None]
+    wx, a_d, a_s = L.gat_transform_split(params["layers"][ell], x_cur, xh)
+    att = ops.edge_softmax_aggregate(wx, a_d, a_s, edges, edge_w, n_out,
+                                     batch.ublocks)
+    return _act(spec, ell, L.gat_combine(att))
 
 
 def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
@@ -109,26 +187,27 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                                  Dict[str, torch.Tensor]]:
     """Returns (logits [max_b, C], the store, diagnostics). The store is
     updated in place: each hidden layer's in-batch rows are pushed and the
-    clock is ticked. `batch` must be on the store's device and carry its
-    forward blocks. Diagnostics: mean/max history age of the halo rows
-    (read before the pushes) and `hist_quant_err`, 0 for f32 stores.
-
-    Only the serving branch of the reference is ported; the other
-    branches raise."""
+    clock is ticked. `batch` must be a single batch on the store's device
+    carrying the op's block family (forward blocks for GCN, unit blocks
+    for GAT; the transposed ones too when a gradient is taken).
+    Diagnostics: mean/max history age of the halo rows (read before the
+    pushes) and `hist_quant_err`, 0 for f32 stores. The reference's third
+    return value, the Eq. 3 regularizer, is always 0 here and left out."""
     _check_op(spec)
-    if not (use_history and fuse_halo):
-        raise NotImplementedError(
-            "gas_batch_forward ports the serving branch only "
-            "(use_history=True, fuse_halo=True); the unfused and "
-            "history-free paths come with the training slice (ROADMAP "
-            "Queue A)")
-    if batch.forward is None:
-        raise ValueError("gas_batch_forward needs the batch's forward BCSR "
-                         "blocks (subgraph_batch(build_blocks=True))")
+    unit = spec.op in UNIT_BLOCK_OPS
+    if (batch.ublocks if unit else batch.blocks) is None:
+        raise ValueError(
+            "gas_batch_forward needs the batch's "
+            f"{'unit-weight' if unit else 'forward'} BCSR blocks "
+            "(build_batches(build_blocks=True"
+            f"{', unit_weights=True' if unit else ''}))")
     bmask = batch.batch_mask
     hmask = batch.halo_mask
     edges = (batch.edge_dst, batch.edge_src)
     max_b = bmask.shape[0]
+    # a backward without the transposed blocks raises in ops.gas_aggregate
+    fuse = fuse_halo and use_history and spec.op in FUSED_OPS
+    halo_split = fuse_halo and use_history and spec.op in HALO_SPLIT_OPS
 
     xb = ops.pull_rows(x_global, batch.batch_nodes) * bmask[:, None]
     xh = ops.pull_rows(x_global, batch.halo_nodes) * hmask[:, None]
@@ -138,12 +217,16 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     diags = staleness_diags(store.age, batch.halo_nodes, hmask)
     x_cur = hb
     for ell in range(spec.num_layers):
-        if ell > 0:
+        if ell > 0 and fuse:
             x_next = _fused_prop(params, spec, ell, x_cur, store, batch)
+        elif ell > 0 and halo_split:
+            x_next = _halo_prop(params, spec, ell, x_cur, store, batch,
+                                edges, batch.edge_w)
         else:
-            x_all = materialize_x_all(ell, x_cur, hh, store, batch)
+            x_all = materialize_x_all(ell, x_cur, hh, store, batch,
+                                      use_history)
             x_next = _prop(params, spec, ell, x_all, edges, batch.edge_w,
-                           max_b, blocks=batch.blocks)
+                           max_b, batch)
         if ell < spec.num_layers - 1:
             store.push(ell, batch.batch_nodes, x_next.detach(), bmask)
         x_cur = x_next
@@ -158,7 +241,7 @@ def full_forward(params, spec: GNNSpec, x: torch.Tensor,
                  edges: Tuple[torch.Tensor, torch.Tensor],
                  edge_w: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """The whole graph, halo-free, aggregated over the COO in plain tensor
-    code (no kernel): the exact reference serving is checked against."""
+    code (no kernel): the exact evaluation and the full-batch baseline."""
     h = _pre(params, spec, x)
     for ell in range(spec.num_layers):
         dummy = torch.zeros((1, h.shape[-1]), dtype=h.dtype, device=h.device)

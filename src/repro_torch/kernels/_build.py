@@ -33,17 +33,26 @@ LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
+KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
+           "edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_gather_rows_f32": [_P, _P, _P, _I, _I, _P],
     "repro_scatter_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_bcsr_spmm_f32": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "repro_gather_spmm_f32": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                               _P, _P],
+    "repro_edge_softmax_fwd_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
+                                   _I, _F, _P, _P, _P, _P],
+    "repro_edge_softmax_bwd_row_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P, _P, _I, _I, _F, _P, _P],
+    "repro_edge_softmax_bwd_col_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P, _P, _I, _I, _F, _P, _P,
+                                       _P],
 }
 
 _lock = threading.Lock()

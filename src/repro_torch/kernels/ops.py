@@ -10,8 +10,13 @@ node counts to whole blocks before every kernel call and slices the
 result back; the CUDA kernels mask ragged edges themselves, so nothing
 here pads or copies an operand.
 
-Forward only: the custom VJPs of `spmm`/`gas_aggregate` come with the
-training slice (ROADMAP Queue A).
+The reference's custom VJPs are `torch.autograd.Function`s here, whose
+backwards are kernels too: `spmm` / `gcn_aggregate` and `gas_aggregate`
+run `bcsr_spmm` on the transposed blocks, and `edge_softmax_aggregate`
+runs GAT's row and column backward kernels. The adjacency blocks are
+constants (zero cotangent), as in the reference. None of them saves a
+history table for the backward: the forward pushes into the tables in
+place, and autograd refuses a saved tensor that was modified since.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ import numpy as np
 import torch
 
 from .bcsr_spmm import bcsr_spmm
+from .edge_softmax import (edge_softmax_bwd_col, edge_softmax_bwd_row,
+                           edge_softmax_fwd)
 from .fused import gather_plan, gather_spmm
 from .gather import gather_rows
+from .ref import edge_softmax_coo
 from .scatter import scatter_rows
 
 
@@ -81,27 +89,81 @@ def build_bcsr(dst: np.ndarray, src: np.ndarray, w: np.ndarray,
 # Ops
 # ---------------------------------------------------------------------------
 
-def spmm(x: torch.Tensor, blk_vals: torch.Tensor,
-         blk_cols: torch.Tensor) -> torch.Tensor:
-    """Block-CSR SpMM: out [R*bn, D] = A @ x (forward)."""
-    return bcsr_spmm(x, blk_vals, blk_cols)
+class _SpMM(torch.autograd.Function):
+    """out = A @ x on the forward blocks; dx = A^T @ g on the transposed
+    blocks (`ops.py:157-175` of the reference). The blocks get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, blk_vals, blk_cols, blk_vals_t, blk_cols_t):
+        ctx.n_src = x.shape[0]
+        ctx.blocks_t = (blk_vals_t, blk_cols_t)
+        return bcsr_spmm(x, blk_vals, blk_cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals_t, cols_t = ctx.blocks_t
+        if vals_t is None:
+            raise ValueError(
+                "spmm backward needs the transposed blocks: build the "
+                "batch with them (core.gas.build_batches(build_blocks="
+                "True)); the forward-only serving batches carry none")
+        dx = bcsr_spmm(g.contiguous(), vals_t, cols_t)[:ctx.n_src]
+        return dx, None, None, None, None
+
+
+def spmm(x: torch.Tensor, blk_vals: torch.Tensor, blk_cols: torch.Tensor,
+         blk_vals_t: Optional[torch.Tensor] = None,
+         blk_cols_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-CSR SpMM: out [R*bn, D] = A @ x. Differentiable w.r.t. x
+    when the transposed pair is given: the backward is `bcsr_spmm` on it."""
+    return _SpMM.apply(x, blk_vals, blk_cols, blk_vals_t, blk_cols_t)
 
 
 def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
                   n_out: int, blocks=None) -> torch.Tensor:
     """GAS neighbor aggregation: out[d] = sum_e w_e * x_all[src_e].
 
-    With `blocks = (blk_vals, blk_cols, ...)` it runs the block SpMM
-    (`bcsr_spmm`, the serving path); with blocks=None it sums over the
-    padded COO in plain tensor code (`index_add_`), which only the
-    full-graph reference forward uses."""
+    With `blocks = (blk_vals, blk_cols[, blk_vals_t, blk_cols_t])` it runs
+    the block SpMM (`bcsr_spmm`, forward and, on the transposed pair,
+    backward); with blocks=None it sums over the padded COO in plain
+    tensor code (`index_add_`), which only the full-graph forward uses."""
     if blocks is None:
         dst, src = edges
         msg = x_all[src.long()] * edge_w[:, None]
         out = torch.zeros((n_out + 1, x_all.shape[1]), dtype=msg.dtype,
                           device=msg.device)
         return out.index_add_(0, dst.long(), msg)[:n_out]
-    return spmm(x_all, blocks[0], blocks[1])[:n_out]
+    t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
+    return spmm(x_all, blocks[0], blocks[1], *t)[:n_out]
+
+
+class _GasAggregate(torch.autograd.Function):
+    """out = A @ [x_in ; table[halo] * mask ; 0] without the bracket;
+    dx_in = (A^T @ g)[:n_in] on the transposed blocks (`ops.py:268-302`
+    of the reference). Only a row count is kept for the backward, never
+    the table, which later pushes overwrite in place."""
+
+    @staticmethod
+    def forward(ctx, x_in, table, halo_nodes, halo_mask, blk_vals, blk_cols,
+                blk_vals_t, blk_cols_t):
+        bn = blk_vals.shape[-1]
+        sel, xrow, trow = gather_plan(blk_cols, halo_nodes, halo_mask,
+                                      x_in.shape[0], table.shape[0], bn)
+        ctx.n_in = x_in.shape[0]
+        ctx.blocks_t = (blk_vals_t, blk_cols_t)
+        return gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals_t, cols_t = ctx.blocks_t
+        if vals_t is None:
+            raise ValueError(
+                "gas_aggregate backward needs the transposed blocks: build "
+                "the batch with them (core.gas.build_batches(build_blocks="
+                "True))")
+        dx_all = bcsr_spmm(g.contiguous(), vals_t, cols_t)
+        return (dx_all[:ctx.n_in], None, None, None, None, None, None, None)
 
 
 def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
@@ -113,15 +175,75 @@ def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
     without building the bracket: the gather plan is computed on the
     blocks' device, then `gather_spmm` reads in-batch rows from x_in,
     halo rows straight out of the history table and zeros elsewhere.
-    `blocks` is (blk_vals, blk_cols[, ...]); only the forward pair is
-    read."""
-    blk_vals, blk_cols = blocks[0], blocks[1]
-    bn = blk_vals.shape[-1]
-    sel, xrow, trow = gather_plan(blk_cols, halo_nodes, halo_mask,
-                                  x_in.shape[0], table.shape[0], bn)
-    out = gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow,
-                      scales, codebook)
-    return out[:n_out]
+    `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
+    Differentiable w.r.t. x_in (the backward is `bcsr_spmm` on the
+    transposed pair); the table's gradient is live only in GCNII/APPNP,
+    which are not ported (ROADMAP Queue A item 2), so a table that
+    requires grad raises."""
+    if scales is not None or codebook is not None:
+        raise NotImplementedError(
+            "gather_spmm over int8 (scales) or vq (codebook) history tables "
+            "is not ported yet (ROADMAP Queue B, quantized histories)")
+    if table.requires_grad:
+        raise NotImplementedError(
+            "gas_aggregate does not differentiate the table: its gradient "
+            "is live only for GCNII/APPNP layer-0 halo transforms, which are "
+            "not ported yet (ROADMAP Queue A item 2)")
+    t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
+    return _GasAggregate.apply(x_in, table, halo_nodes, halo_mask,
+                               blocks[0], blocks[1], *t)[:n_out]
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    """GAT's aggregation over the unit-weight blocks (`ops.py:385-422` of
+    the reference): the forward kernel, then for the backward delta =
+    sum_f g * out in plain tensor code, the row kernel for dad and the
+    column kernel for dwx and das."""
+
+    @staticmethod
+    def forward(ctx, wx, ad, as_, uv, uc, uvt, uct, neg_slope):
+        out, mmax, lsum = edge_softmax_fwd(ad, as_, wx, uv, uc, neg_slope)
+        ctx.save_for_backward(ad, as_, wx, out, mmax, lsum)
+        ctx.blocks = (uv, uc, uvt, uct)
+        ctx.neg_slope = neg_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ad, as_, wx, out, mmax, lsum = ctx.saved_tensors
+        uv, uc, uvt, uct = ctx.blocks
+        g = g.contiguous()
+        delta = (g * out).sum(-1)
+        dad = edge_softmax_bwd_row(ad, as_, wx, g, mmax, lsum, delta, uv, uc,
+                                   ctx.neg_slope)
+        dwx, das = edge_softmax_bwd_col(ad, as_, wx, g, mmax, lsum, delta,
+                                        uvt, uct, ctx.neg_slope)
+        return dwx, dad, das, None, None, None, None, None
+
+
+def edge_softmax_aggregate(wx: torch.Tensor, ad: torch.Tensor,
+                           as_: torch.Tensor, edges, edge_w: torch.Tensor,
+                           n_out: int, ublocks=None, *,
+                           neg_slope: float = 0.2) -> torch.Tensor:
+    """GAT aggregation: out[i, h] = sum_j softmax_j(e_ijh) * wx[j, h] with
+    e_ijh = leaky_relu(ad[i, h] + as_[j, h]) over the valid edges.
+
+    wx [M, H, F] per-head values, ad/as_ [M, H] per-node logit halves
+    (destinations are rows 0..n_out-1). With `ublocks = (ublk_vals,
+    blk_cols, ublk_vals_t, blk_cols_t)` it runs the edge-softmax kernels,
+    forward and backward (an autograd.Function); with ublocks=None the
+    per-edge segment softmax over the COO in plain tensor code
+    (`ref.edge_softmax_coo`). Returns [n_out, H, F]; no operand is padded
+    to whole blocks or 128 lanes."""
+    if ublocks is None:
+        return edge_softmax_coo(wx, ad, as_, edges, edge_w, n_out, neg_slope)
+    if len(ublocks) != 4:
+        raise ValueError("edge_softmax_aggregate needs the unit-weight "
+                         "4-tuple (ublk_vals, blk_cols, ublk_vals_t, "
+                         "blk_cols_t): build_batches(unit_weights=True)")
+    uv, uc, uvt, uct = ublocks
+    return _EdgeSoftmax.apply(wx.contiguous(), ad[:n_out].contiguous(),
+                              as_.contiguous(), uv, uc, uvt, uct, neg_slope)
 
 
 def pull_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -154,5 +276,7 @@ def push_rows(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
 
 
 __all__ = ["build_bcsr", "build_bcsr_rect", "spmm", "gcn_aggregate",
-           "gas_aggregate", "pull_rows", "push_rows", "bcsr_spmm",
-           "gather_plan", "gather_spmm", "gather_rows", "scatter_rows"]
+           "gas_aggregate", "edge_softmax_aggregate", "pull_rows",
+           "push_rows", "bcsr_spmm", "gather_plan", "gather_spmm",
+           "gather_rows", "scatter_rows", "edge_softmax_fwd",
+           "edge_softmax_bwd_row", "edge_softmax_bwd_col"]

@@ -1,11 +1,16 @@
-"""Plain PyTorch versions of the port's four CUDA kernels.
+"""Plain PyTorch versions of the port's seven CUDA kernels.
 
 Each function computes what its kernel computes, on the same arguments, in
 plain tensor code: the kernel wrappers (`gather.py`, `scatter.py`,
-`bcsr_spmm.py`, `fused.py`) run them when handed CPU tensors, the tests
-hold them against the JAX package's Pallas kernels, and `chip_smoke.py`
-holds each kernel against them on the card. They repeat the kernels'
-arithmetic and are no yardstick of speed.
+`bcsr_spmm.py`, `fused.py`, `edge_softmax.py`) run them when handed CPU
+tensors, the tests hold them against the JAX package's Pallas kernels,
+and `chip_smoke.py` holds each kernel against them on the card. They
+repeat the kernels' arithmetic and are no yardstick of speed.
+
+`edge_softmax_coo` is not a kernel's plain version: it is the per-edge
+(segment) softmax of the reference's "jnp" route, which `full_forward`
+and `evaluate_exact` run in plain tensor code, as the reference's
+`evaluate_exact` does on every backend.
 """
 from __future__ import annotations
 
@@ -76,3 +81,155 @@ def gather_spmm_ref(x_in: torch.Tensor, table: torch.Tensor,
     g = torch.where(s == 0, xs, torch.where(s == 1, ts, torch.zeros_like(ts)))
     out = torch.einsum("rkab,rkbd->rad", blk_vals, g)
     return out.reshape(R * bn, D)
+
+
+# ---------------------------------------------------------------------------
+# Edge softmax (GAT): the three kernels of csrc/edge_softmax.cu
+# ---------------------------------------------------------------------------
+#
+# Layouts are the port's, node-major (the reference's kernels take head-
+# major [H, rows] operands padded to whole blocks and 128 lanes; the port's
+# take the op's own layouts): ad [n_out, H] destination logit halves,
+# as_ [M, H] source halves, wx [M, H, F] values, g [n_out, H, F] the
+# output cotangent, M/L/delta [n_out, H]. Blocks are the unit-weight
+# (multiplicity) families: ublk_vals [R, K, 128, 128] over destinations x
+# sources with R*128 >= n_out, ublk_vals_t [R_t, K_t, 128, 128] over
+# sources x destinations with R_t*128 >= M.
+
+NEG = -1e30     # the reference kernels' score mask and row-max floor
+TINY = 1e-30    # their normalizer floor
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(t, (0,) * (2 * t.dim() - 2) + (0, rows - t.shape[0]))
+
+
+def _block_scores(a_rows: torch.Tensor, b_cols: torch.Tensor,
+                  mult: torch.Tensor, neg_slope: float):
+    """z [R, K, bn_a, bn_b, H] = a_rows[r, a] + b_cols[r, k, b] and the
+    masked leaky-ReLU scores s (NEG where mult == 0)."""
+    z = a_rows[:, None, :, None, :] + b_cols[:, :, None, :, :]
+    s = torch.where(z > 0, z, neg_slope * z)
+    s = torch.where(mult[..., None] > 0, s, torch.full_like(s, NEG))
+    return z, s
+
+
+def _softmax_weights(ad, as_, ublk_vals, blk_cols, M_, L_, neg_slope):
+    """Recompute alpha and alpha' = alpha * lrelu'(z) over the forward
+    blocks, [R, K, bn, bn, H]."""
+    R, K, bn, _ = ublk_vals.shape
+    adb = _pad_rows(ad, R * bn).view(R, bn, -1)
+    asb = _gather_blocks(as_, blk_cols, bn)                 # [R, K, bn, H]
+    z, s = _block_scores(adb, asb, ublk_vals, neg_slope)
+    Mb = _pad_rows(M_, R * bn).view(R, 1, bn, 1, -1)
+    Lb = _pad_rows(L_, R * bn).view(R, 1, bn, 1, -1)
+    p = ublk_vals[..., None] * torch.exp(s - Mb)
+    alpha = p / torch.clamp(Lb, min=TINY)
+    slope = torch.where(z > 0, torch.ones_like(z),
+                        torch.full_like(z, neg_slope))
+    return alpha, alpha * slope
+
+
+def edge_softmax_fwd_ref(ad: torch.Tensor, as_: torch.Tensor,
+                         wx: torch.Tensor, ublk_vals: torch.Tensor,
+                         blk_cols: torch.Tensor, neg_slope: float = 0.2):
+    """out[i, h] = sum_j softmax_j(leaky_relu(ad[i, h] + as_[j, h])) wx[j, h]
+    over the multiplicity blocks, each duplicate edge its own term.
+    Returns (out [n_out, H, F], M [n_out, H] the row max of the masked
+    scores (NEG for a row without edges), L [n_out, H] the normalizer).
+    Rows without edges come out exactly 0."""
+    n_out, H = ad.shape
+    R, K, bn, _ = ublk_vals.shape
+    Fd = wx.shape[2]
+    adb = _pad_rows(ad, R * bn).view(R, bn, H)
+    asb = _gather_blocks(as_, blk_cols, bn)                 # [R, K, bn, H]
+    _, s = _block_scores(adb, asb, ublk_vals, neg_slope)
+    M_ = torch.clamp(s.amax(dim=(1, 3)), min=NEG)           # [R, bn, H]
+    p = ublk_vals[..., None] * torch.exp(s - M_[:, None, :, None, :])
+    L_ = p.sum(dim=(1, 3))                                  # [R, bn, H]
+    wxb = _gather_blocks(wx.reshape(wx.shape[0], H * Fd), blk_cols, bn)
+    wxb = wxb.view(R, K, bn, H, Fd)
+    acc = torch.einsum("rkabh,rkbhf->rahf", p, wxb)
+    out = acc / torch.clamp(L_, min=TINY)[..., None]
+    return (out.reshape(R * bn, H, Fd)[:n_out],
+            M_.reshape(R * bn, H)[:n_out], L_.reshape(R * bn, H)[:n_out])
+
+
+def edge_softmax_bwd_row_ref(ad, as_, wx, g, M_, L_, delta, ublk_vals,
+                             blk_cols, neg_slope: float = 0.2
+                             ) -> torch.Tensor:
+    """dad [n_out, H] = sum_j alpha'_ij (g_i . wx_j) - delta_i sum_j
+    alpha'_ij over the forward blocks, alpha recomputed from (ad, as_, M,
+    L); delta = sum_f g * out."""
+    n_out, H = ad.shape
+    R, K, bn, _ = ublk_vals.shape
+    Fd = wx.shape[2]
+    _, ap = _softmax_weights(ad, as_, ublk_vals, blk_cols, M_, L_,
+                             neg_slope)
+    wxb = _gather_blocks(wx.reshape(wx.shape[0], H * Fd), blk_cols, bn)
+    wxb = wxb.view(R, K, bn, H, Fd)
+    gb = _pad_rows(g, R * bn).view(R, bn, H, Fd)
+    gv = torch.einsum("rahf,rkbhf->rkabh", gb, wxb)
+    dad = (ap * gv).sum(dim=(1, 3)) - \
+        _pad_rows(delta, R * bn).view(R, bn, H) * ap.sum(dim=(1, 3))
+    return dad.reshape(R * bn, H)[:n_out]
+
+
+def edge_softmax_bwd_col_ref(ad, as_, wx, g, M_, L_, delta, ublk_vals_t,
+                             blk_cols_t, neg_slope: float = 0.2):
+    """Over the transposed blocks (sources x destinations): dwx [M, H, F]
+    = sum_i alpha_ij g_i and das [M, H] = sum_i alpha'_ij (g_i . wx_j -
+    delta_i). Each source row has one owner block row, so there is no
+    reduction across block rows."""
+    n_src, H, Fd = wx.shape
+    R_t, K_t, bn, _ = ublk_vals_t.shape
+    asb = _pad_rows(as_, R_t * bn).view(R_t, bn, H)
+    adb = _gather_blocks(ad, blk_cols_t, bn)                 # [R_t, K_t, bn, H]
+    z, s = _block_scores(asb, adb, ublk_vals_t, neg_slope)
+    Mb = _gather_blocks(M_, blk_cols_t, bn)[:, :, None]      # dst-side stats
+    Lb = _gather_blocks(L_, blk_cols_t, bn)[:, :, None]
+    db = _gather_blocks(delta, blk_cols_t, bn)[:, :, None]
+    p = ublk_vals_t[..., None] * torch.exp(s - Mb)
+    alpha = p / torch.clamp(Lb, min=TINY)
+    ap = alpha * torch.where(z > 0, torch.ones_like(z),
+                             torch.full_like(z, neg_slope))
+    gb = _gather_blocks(g.reshape(g.shape[0], H * Fd), blk_cols_t, bn)
+    gb = gb.view(R_t, K_t, bn, H, Fd)
+    dwx = torch.einsum("rkjah,rkahf->rjhf", alpha, gb)
+    wxb = _pad_rows(wx, R_t * bn).view(R_t, bn, H, Fd)
+    gv = torch.einsum("rjhf,rkahf->rkjah", wxb, gb)
+    das = (ap * gv).sum(dim=(1, 3)) - (ap * db).sum(dim=(1, 3))
+    return (dwx.reshape(R_t * bn, H, Fd)[:n_src],
+            das.reshape(R_t * bn, H)[:n_src])
+
+
+def edge_softmax_coo(wx: torch.Tensor, ad: torch.Tensor, as_: torch.Tensor,
+                     edges, edge_w: torch.Tensor, n_out: int,
+                     neg_slope: float = 0.2) -> torch.Tensor:
+    """The per-edge (segment) edge softmax of the reference's "jnp" route
+    (`repro.kernels.ops.edge_softmax_aggregate` with ublocks=None), over
+    the padded COO: weight-0 edges are masked with the f32 cap
+    finfo.min / 2, destination n_out is the trash row. The row max is
+    detached; the softmax does not depend on it, so the gradient is the
+    same."""
+    dst, src = edges[0].long(), edges[1].long()
+    e = ad[dst] + as_[src]
+    e = torch.where(e > 0, e, neg_slope * e)
+    neg = torch.finfo(e.dtype).min / 2
+    valid = (edge_w > 0)[:, None]
+    e = torch.where(valid, e, torch.full_like(e, neg))
+    H = e.shape[1]
+    emax = torch.full((n_out + 1, H), neg, dtype=e.dtype, device=e.device)
+    emax = emax.scatter_reduce(0, dst[:, None].expand(-1, H), e.detach(),
+                               reduce="amax", include_self=False)[:n_out]
+    emax = torch.clamp(emax, neg, -neg)
+    emax = F.pad(emax, (0, 0, 0, 1))                        # trash row
+    ee = torch.exp(e - emax[dst])
+    ee = torch.where(valid, ee, torch.zeros_like(ee))
+    denom = torch.zeros((n_out + 1, H), dtype=e.dtype, device=e.device
+                        ).index_add(0, dst, ee)[:n_out]
+    msg = ee[:, :, None] * wx[src]
+    out = torch.zeros((n_out + 1,) + wx.shape[1:], dtype=msg.dtype,
+                      device=msg.device).index_add(0, dst, msg)[:n_out]
+    tiny = torch.finfo(denom.dtype).tiny
+    return out / torch.clamp(denom, min=tiny)[:, :, None]

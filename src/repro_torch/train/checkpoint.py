@@ -1,22 +1,28 @@
-"""Reading the reference's checkpoints (numpy only).
+"""Checkpoints in the reference's npz layout (numpy only).
 
 `repro.train.checkpoint.save_gas_state` writes one flat npz whose keys are
 the path strings of the flattened `GASState`:
 
-    state/params/layers/{i}/w, state/params/layers/{i}/b
-    state/histories/tables/{l}       [N+1, d] f32
-    state/histories/age              [N+1] int32
-    state/opt/..., state/rng         (training only; serving ignores them)
+    state/params/layers/{i}/{w,b}            (GCN)
+    state/params/layers/{i}/{w,a_src,a_dst}  (GAT)
+    state/opt_state/step                     () int32
+    state/opt_state/{m,v}/layers/{i}/...     the AdamW moments
+    state/histories/tables/{l}               [N+1, d] f32
+    state/histories/age                      [N+1] int32
+    state/rng                                [2] uint32 key data
     step, and meta_json when the writer passed `meta`
 
 `load_gas_state_npz` reads such a file into the port's params dict and an
-f32 `HistoryStore`; `params_from_numpy` maps a flattened param tree given
-as numpy arrays into the params dict. Saving from the port, and
-optimizer state, come with the training slice (ROADMAP Queue A).
+f32 `HistoryStore` (what serving needs); `load_gas_state` reads the whole
+training state, optimizer included; `save_gas_state` writes the port's
+state in the same layout, so the reference's `load_gas_state` reads it.
+`params_from_numpy` maps a flattened param tree given as numpy arrays
+into the params dict.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -26,23 +32,25 @@ import torch
 from repro_torch.core.config import resolve_device
 from repro_torch.core.history import HistoryStore
 
-_PARAM_KEY = re.compile(r"^layers/(\d+)/(w|b)$")
+_PARAM_KEY = re.compile(r"^layers/(\d+)/(w|b|a_src|a_dst)$")
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray],
                       device=None) -> Dict[str, Any]:
     """{"layers/0/w": array, "layers/0/b": array, ...} (keys as the
-    reference flattens its param tree; a "params/" or "state/params/"
-    prefix is accepted) -> {"layers": [{"w": tensor, "b": tensor}, ...]}
-    on `device` (None means "cuda")."""
+    reference flattens its param tree; a prefix ending in "params/" or
+    "state/opt_state/m/" etc. is accepted) -> {"layers": [{"w": tensor,
+    "b": tensor}, ...]} on `device` (None means "cuda"). GCN layers hold
+    w and b, GAT layers w, a_src and a_dst."""
     dev = resolve_device(device)
     layers: Dict[int, Dict[str, torch.Tensor]] = {}
     for key, arr in flat.items():
-        name = key.split("params/", 1)[-1]
+        name = key[key.index("layers/"):] if "layers/" in key else key
         m = _PARAM_KEY.match(name)
         if m is None:
             raise KeyError(f"unsupported param key {key!r} (the port "
-                           "holds GCN params: layers/{i}/w and /b)")
+                           "holds GCN and GAT params: layers/{i}/ w and b, "
+                           "or w, a_src and a_dst)")
         layers.setdefault(int(m.group(1)), {})[m.group(2)] = \
             torch.from_numpy(np.array(arr, np.float32)).to(dev)
     if sorted(layers) != list(range(len(layers))):
@@ -87,3 +95,53 @@ def load_gas_meta(path: str) -> Optional[dict]:
         if "meta_json" not in data.files:
             return None
         return json.loads(str(data["meta_json"]))
+
+
+def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
+    return {f"{prefix}layers/{i}/{k}": v.detach().cpu().numpy()
+            for i, layer in enumerate(params["layers"])
+            for k, v in layer.items()}
+
+
+def save_gas_state(path: str, state, step: int = 0,
+                   meta: Optional[dict] = None) -> None:
+    """Write a `core.runtime.GASState` (params, AdamW state, f32 history
+    tables and clock, rng key data) as one flat npz in the reference's
+    layout, which `repro.train.checkpoint.load_gas_state` restores."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    opt = state.opt_state
+    arrays = _flat_params("state/params/", state.params)
+    arrays["state/opt_state/step"] = np.asarray(
+        opt.step.cpu().numpy(), np.int32)
+    arrays.update(_flat_params("state/opt_state/m/", opt.m))
+    arrays.update(_flat_params("state/opt_state/v/", opt.v))
+    for ell, t in enumerate(state.histories.tables):
+        arrays[f"state/histories/tables/{ell}"] = t.cpu().numpy()
+    arrays["state/histories/age"] = state.histories.age.cpu().numpy()
+    arrays["state/rng"] = np.asarray(state.rng, np.uint32)
+    arrays["step"] = np.asarray(step)
+    if meta is not None:
+        arrays["meta_json"] = np.asarray(json.dumps(meta))
+    np.savez(path, **arrays)
+
+
+def load_gas_state(path: str, device=None):
+    """Read a whole training state written by either package's
+    `save_gas_state`: returns (`core.runtime.GASState`, step) on `device`
+    (None means "cuda")."""
+    from repro_torch.core.runtime import GASState
+    from .optimizer import AdamWState
+
+    dev = resolve_device(device)
+    params, store, step = load_gas_state_npz(path, device=dev)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    opt = AdamWState(
+        step=torch.from_numpy(np.asarray(
+            flat["state/opt_state/step"], np.int32)).to(dev),
+        m=params_from_numpy({k: v for k, v in flat.items()
+                             if k.startswith("state/opt_state/m/")}, dev),
+        v=params_from_numpy({k: v for k, v in flat.items()
+                             if k.startswith("state/opt_state/v/")}, dev))
+    return GASState(params=params, opt_state=opt, histories=store,
+                    rng=np.asarray(flat["state/rng"], np.uint32)), step

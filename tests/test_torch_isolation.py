@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import runtime as t_rt
 from repro_torch.core import serve as t_serve
 from repro_torch.core.history import HistoryStore
 from repro_torch.data.graphs import citation_graph
 from repro_torch.gnn import model as t_model
-from repro_torch.launch import serve_gas
+from repro_torch.launch import serve_gas, train_gas
 from repro_torch.train import checkpoint as t_ckpt
+from repro_torch.train.gas_trainer import FullBatchTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -72,6 +74,10 @@ def test_entry_points_default_to_cuda():
             {"layers/0/w": np.zeros((4, 8), np.float32)}),
         lambda: t_ckpt.load_gas_state_npz("never-read.npz"),
         lambda: serve_gas.main(["--smoke"]),
+        lambda: t_rt.build_plan(g, spec, t_rt.GASConfig(num_parts=2)),
+        lambda: FullBatchTrainer(g, spec),
+        lambda: t_ckpt.load_gas_state("never-read.npz"),
+        lambda: train_gas.main(["--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -79,7 +85,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    spec = t_model.GNNSpec(op="gat", d_in=4, d_hidden=8, num_classes=2,
+    spec = t_model.GNNSpec(op="pna", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.init_gnn(spec, device="cpu")

@@ -194,9 +194,17 @@ def test_gas_batch_forward_matches_reference(weights):
     np.testing.assert_array_equal(tstore.age.numpy(), np.asarray(rstore2.age))
     for k in ("halo_age_mean", "halo_age_max", "hist_quant_err"):
         assert float(td[k]) == float(rd[k]), k
-    with pytest.raises(NotImplementedError, match="serving branch"):
-        t_model.gas_batch_forward(tparams, tspec, torch.from_numpy(tg.x),
-                                  hb.to("cpu"), tstore, fuse_halo=False)
+    # the unfused (materialized) branch, from the same store
+    rstore, tstore = _stores(tables, age)
+    rl, rstore2, _, _ = r_model.gas_batch_forward(
+        rparams, rspec, jnp.asarray(rg.x), rbatch, rstore,
+        backend="interpret", fuse_halo=False)
+    tl, _, _ = t_model.gas_batch_forward(
+        tparams, tspec, torch.from_numpy(tg.x), hb.to("cpu"), tstore,
+        fuse_halo=False)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(rl), **TOL)
+    for a, b in zip(rstore2.tables, tstore.tables):
+        np.testing.assert_allclose(b.numpy()[:N], np.asarray(a)[:N], **TOL)
 
 
 @pytest.mark.parametrize("ell", [0, 1])
