@@ -9,41 +9,57 @@ with a non-zero exit at the first failure:
 1. toolchain — torch/CUDA versions and the card's name and power limit;
    build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, one
    process per source, into build/torch_kernels/).
-2. kernels — each of the four kernels of the serving path against its
-   plain PyTorch version, on seeded inputs at the shapes the path gives
-   it (the PubMed-shaped features, the history tables and the blocks of
-   a real SLO=0 refresh batch), timed with CUDA events (warm-up, then the
-   median of 25 launches) beside the plain version, one PyTorch library
-   call where one computes the same function, and the card's bound.
-   Then GAT's three edge-softmax kernels the same way, on the unit blocks
-   of a Cora-shaped training batch at the hidden layer's shapes (8 heads
-   of 8; the output layer's, 1 head of 7, on a line of their own), and
-   `bcsr_spmm` on the transposed blocks of a quickstart batch (the GCN
-   backward's use of it).
+2. kernels — each of the kernels of the serving path against its plain
+   PyTorch version, on seeded inputs at the shapes the path gives it (the
+   PubMed-shaped features, the history tables and the blocks of a real
+   SLO=0 refresh batch, d = 256), timed with CUDA events (warm-up, then
+   the median of 25 launches) beside the plain version, one PyTorch
+   library call (or a composition of a few, marked so) where one computes
+   the same function, and the card's bound: the f32 kernels, the int8
+   body of `gather_spmm` and `scatter_rows_q` over an int8 store, and the
+   bf16 instantiations of `gather_spmm` and `scatter_rows`. Then GAT's
+   three edge-softmax kernels the same way, on the unit blocks of a
+   Cora-shaped training batch at the hidden layer's shapes (8 heads of 8;
+   the output layer's, 1 head of 7, on a line of their own), the GAT
+   hidden layer's history pull from an int8 table (`gather_rows_dq`) and
+   a bf16 one, and `bcsr_spmm` on the transposed blocks of a quickstart
+   batch (the GCN backward's use of it).
 3. serving — the PubMed-shaped graph (19,717 nodes, degree 4.5, 500
    features, 3 classes) and a 3-layer, 256-wide GCN with seeded random
    weights and a zero f32 history store; 16 requests x 128 queries at
    SLO=0, then the same 16 at SLO=None. Checks: halo_age_max <= slo,
    SLO=0 logits against the plain full-graph forward on the card, the
    SLO=None pass against SLO=0, a repeated request bit-identical, and
-   every kernel's launch counter risen during the 32 requests.
+   every kernel's launch counter risen during the 32 requests. Then the
+   same over a zero int8 store and over a zero bf16 one: SLO=0 (every
+   refresh push quantizes or rounds) against the port's CPU
+   `serve_request` on the same store and queries, SLO=None, a
+   bit-identical warm repeat, `hist_quant_err`, the store's bytes, and
+   the counters of the store's kernels (these runs give the launches of
+   the int8 and bf16 rows timed in phase 2 at their shapes).
 4. training — (a) the GCN quickstart (2,500 nodes, 128 features, 7
    classes, 16 METIS parts, 2 layers, d_hidden=64) and (b) GAT on the
    Cora shape (2,708 nodes, 1,433 features, 7 classes, 16 parts, 2
-   layers, 8 heads of 8), f32 histories. For each: two steps on the card
-   against the same steps on the CPU with the plain versions, each from
-   the same state (loss, gradients and history tables at 1e-4; the
-   update from the card's gradients on both devices, params and moments
-   at 1e-6); 60 epochs with the step time's p50/p99, the epoch time and
-   the peak device memory; `evaluate_exact`'s test accuracy at most 1 pp
-   below the reference's on the same partition (keyed by its hash); the
-   launch counters of the path's kernels; and one more epoch under
-   torch.profiler for the device's busy share.
+   layers, 8 heads of 8), f32 histories; then both over int8 histories
+   and the GCN over bf16 ones, on the same partitions. For each: two
+   steps on the card against the same steps on the CPU with the plain
+   versions, each from the same state (loss and gradients at 1e-4; f32
+   tables at 1e-4, quantized tables within one quantization step per
+   row with the share of equal codes; the update from the card's
+   gradients on both devices, params and moments at 1e-6); 60 epochs
+   with the step time's p50/p99, the epoch time and the peak device
+   memory; the store's bytes and `hist_quant_err`; `evaluate_exact`'s
+   test accuracy at most 1 pp below the reference's at the same
+   precision on the same partition (keyed by its hash); the launch
+   counters of the path's kernels; and one more epoch under
+   torch.profiler for the device's busy share. Two steps of a bf16 GAT
+   show the bf16 history pull (`gather_rows_bf16`) on its path.
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
 also writes the two training partitions (the port's METIS-like
-partitioner on this host) for `tests/test_torch_train.py --reference-acc`.
+partitioner on this host) for `tests/test_torch_train.py --reference-acc
+[--history-dtype ...]`.
 
 Then it prints the kernels line (JSON), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Without
@@ -80,8 +96,10 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import edge_softmax as esk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
-from repro_torch.kernels.gather import gather_rows  # noqa: E402
-from repro_torch.kernels.scatter import scatter_rows  # noqa: E402
+from repro_torch.kernels.gather import (  # noqa: E402
+    gather_rows, gather_rows_dq)
+from repro_torch.kernels.scatter import (  # noqa: E402
+    scatter_rows, scatter_rows_q)
 from repro_torch.train.optimizer import (  # noqa: E402
     clip_by_global_norm, tree_leaves)
 
@@ -102,33 +120,67 @@ RTOL, ATOL = 1e-4, 1e-4
 TIMED_REPS = 25
 
 # Phase 4. The training configurations and the reference's exact test
-# accuracy for each after 60 epochs on the "jnp" backend, from the port's
-# initial params (`init_gnn(spec, seed=0)`) carried across, so both runs
-# share graph, partition, weights and hyperparameters. The METIS-like
+# accuracy for each after 60 epochs on the "jnp" backend, per history
+# precision, from the port's initial params (`init_gnn(spec, seed=0)`)
+# carried across, so both runs share graph, partition, weights, store
+# precision and hyperparameters. The METIS-like
 # partition depends on the host (the same code and seed gave an H100 host
 # other partitions than the CPU where the reference ran; the `[setup]`
 # lines show whether the coarsening's degree orders part ways), so each
 # accuracy is keyed by the first 12 hex digits of the sha256 of its
 # partition. Measured on a CPU (jax 0.9.0)
 # with `PYTHONPATH=src python tests/test_torch_train.py --reference-acc
-# [PARTITIONS.npz]`: the first entry on the partitions computed there, the
-# second on the ones an H100 host computed (`--save-partitions` above).
+# [PARTITIONS.npz] [--history-dtype int8|bf16]`: the first entry on the
+# partitions computed there, the second on the ones an H100 host computed
+# (`--save-partitions` above).
 TRAIN_EPOCHS, TRAIN_PARTS, TRAIN_HIDDEN = 60, 16, 64
 TRAIN_CONFIGS = {
     "gcn": dict(graph=dict(num_nodes=2500, num_features=128, num_classes=7,
                            homophily=0.75, feature_noise=2.0, seed=0),
-                ref_test_acc={"8667bd3900f3": 0.9586901664733887,
-                              "c2fcdf3f120a": 0.9591939449310303}),
+                ref_test_acc={
+                    "f32": {"8667bd3900f3": 0.9586901664733887,
+                            "c2fcdf3f120a": 0.9591939449310303},
+                    "int8": {"8667bd3900f3": 0.9586901664733887,
+                             "c2fcdf3f120a": 0.9591939449310303},
+                    "bf16": {"8667bd3900f3": 0.9586901664733887,
+                             "c2fcdf3f120a": 0.9591939449310303}}),
     "gat": dict(graph=dict(num_nodes=2708, num_features=1433, num_classes=7,
                            seed=0),
-                ref_test_acc={"368f7b8cb6f7": 0.9680851101875305,
-                              "41734945d697": 0.9764107465744019}),
+                ref_test_acc={
+                    "f32": {"368f7b8cb6f7": 0.9680851101875305,
+                            "41734945d697": 0.9764107465744019},
+                    "int8": {"368f7b8cb6f7": 0.9653099179267883,
+                             "41734945d697": 0.977798342704773}}),
 }
+# the training runs of phase 4, in order: (op, history precision)
+TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("gcn", "int8"),
+              ("gat", "int8"), ("gcn", "bf16"))
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
+# serving over a quantized store, SLO=0 on the card against the CPU: the
+# logits' rtol (atol ATOL). An int8 push matched the CPU's codes in full
+# at this shape; a bf16 push rounds each entry to 8 significant bits, and
+# an entry the two devices compute a few f32 ulps apart near a rounding
+# boundary lands one bf16 step apart (2 of 384 logits moved 1.7e-4, a
+# relative 1.8e-3, on an H100): held to one bf16 step, 2^-8, relative
+SERVE_Q_TOL = {"int8": RTOL, "bf16": 2.0 ** -8}
+# serving over a quantized store: the feature pull and layer 0's
+# aggregation as at f32, the push and the fused aggregation at the store's
+SERVE_Q_KERNELS = {
+    "int8": ("gather_rows", "scatter_rows_q", "bcsr_spmm", "gather_spmm_dq"),
+    "bf16": ("gather_rows", "scatter_rows_bf16", "bcsr_spmm",
+             "gather_spmm_bf16")}
+# each run's kernels; the GCN's second is its fused aggregation
+_ES = ("edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col")
 TRAIN_KERNELS = {
-    "gcn": ("bcsr_spmm", "gather_spmm", "gather_rows", "scatter_rows"),
-    "gat": ("edge_softmax_fwd", "edge_softmax_bwd_row",
-            "edge_softmax_bwd_col", "gather_rows", "scatter_rows"),
+    ("gcn", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
+                     "scatter_rows"),
+    ("gat", "f32"): _ES + ("gather_rows", "scatter_rows"),
+    ("gcn", "int8"): ("bcsr_spmm", "gather_spmm_dq", "gather_rows",
+                      "scatter_rows_q"),
+    ("gat", "int8"): _ES + ("gather_rows_dq", "gather_rows",
+                            "scatter_rows_q"),
+    ("gcn", "bf16"): ("bcsr_spmm", "gather_spmm_bf16", "gather_rows",
+                      "scatter_rows_bf16"),
 }
 ACC_SLACK = 0.01             # at most 1 pp below the reference
 # the optimizer on the card against the CPU's, both fed the card's
@@ -219,13 +271,18 @@ def _bound(n_bytes: float, flops: float, exps: float = 0.0,
 
 
 def _row(name, source, replaces, err, ms, plain_ms, library_ms, n_bytes,
-         flops, exps=0.0, clock_hz=1.0):
+         flops, exps=0.0, clock_hz=1.0, library=None):
+    """One kernel row; `library` names the yardstick where it is a
+    composition of several PyTorch calls rather than one."""
     bound_ms, bound_by = _bound(n_bytes, flops, exps, clock_hz)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "max_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "max_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    if library is not None:
+        row["library"] = library
+    return row
 
 
 def kernel_phase(g, spec, device):
@@ -316,11 +373,15 @@ def kernel_phase(g, spec, device):
                                               x_all.shape[1])], 0)
     torch.testing.assert_close(torch.sparse.mm(a_csr, x_pad), want,
                                rtol=RTOL, atol=ATOL)
-    _phase("kernels", f"blocks hold {a_csr._nnz()} nonzeros in "
-           f"{vals.numel()} stored values")
+    nnz = a_csr._nnz()
+    _phase("kernels", f"blocks hold {nnz} nonzeros in {vals.numel()} "
+           f"stored values")
     # every bound counts the blocks as the reference stores them (all
     # R*K*128*128 values, padding blocks included), the source rows the
-    # blocks' columns reach, each once, and the output written once
+    # blocks' columns reach, each once, and the output written once; and
+    # the operations this run's blocks need: one FMA (2 flops) per nonzero
+    # entry and output column. The kernels multiply every stored value,
+    # zeros included: that is their own cost, not the function's
     blk_bytes = vals.numel() * 4 + cols.numel() * 4
     n_x = sum(min(128, x_all.shape[0] - c * 128)
               for c in torch.unique(cols).tolist())
@@ -331,7 +392,7 @@ def kernel_phase(g, spec, device):
         _time_ms(lambda: ref.bcsr_spmm_ref(x_all, vals, cols)),
         _time_ms(lambda: torch.sparse.mm(a_csr, x_pad)),
         blk_bytes + n_x * x_all.shape[1] * 4 + R * 128 * x_all.shape[1] * 4,
-        2.0 * R * K * 128 * 128 * x_all.shape[1]))
+        2.0 * nnz * x_all.shape[1]))
 
     # gather_spmm: the layer-1 aggregation, halo rows out of the table
     x_in = torch.randn((bucket, D_HIDDEN), generator=gen, device=device)
@@ -353,7 +414,10 @@ def kernel_phase(g, spec, device):
         None,
         blk_bytes + 3 * sel.numel() * 4 + (n_xrows + n_trows) * D_HIDDEN * 4
         + R * 128 * D_HIDDEN * 4,
-        2.0 * R * K * 128 * 128 * D_HIDDEN))
+        2.0 * nnz * D_HIDDEN))
+    rows += _quantized_kernel_rows(
+        hist, x_in, vals, cols, (sel, xrow, trow), vals_p, dup, push_idx,
+        uniq_idx, uniq_vals, blk_bytes, nnz)
     for r in rows:
         _phase("kernels", f"{r['name']}: err {r['max_abs_err']:.3g}, "
                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -361,6 +425,141 @@ def kernel_phase(g, spec, device):
                f"{r['bound_by']})")
     del batch, x_all, xb, xh
     return rows, kplan
+
+
+def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
+                           push_idx, uniq_idx, uniq_vals, blk_bytes, nnz):
+    """Phase 2 over an int8 and a bf16 store of the refresh batch's table
+    (the rows of the int8 serving path, and the bf16 lines): the int8
+    body of gather_spmm, the quantizing push, and the bf16 instantiations
+    of gather_spmm and scatter_rows, each against its plain version."""
+    sel, xrow, trow = plan
+    R, K = cols.shape
+    D, N = hist.shape[1], hist.shape[0] - 1
+    rows = []
+    n_xrows = int(torch.unique(xrow[sel == 0]).numel())
+    n_trows = int(torch.unique(trow[sel == 1]).numel())
+    flops = 2.0 * nnz * D
+    fixed = blk_bytes + 3 * sel.numel() * 4 + n_xrows * D * 4 + \
+        R * 128 * D * 4
+    q8, s8 = ref.quantize_rows(hist)
+    b16 = hist.to(torch.bfloat16)
+    for name, table, scales, body, row_bytes in (
+            ("gather_spmm_dq", q8, s8, "int8 body _make_kernel_dq :181",
+             D + 4),
+            ("gather_spmm_bf16", b16, None, "f32 body :172 over a bf16 table",
+             2 * D)):
+        out = gather_spmm(x_in, table, vals, cols, sel, xrow, trow, scales)
+        want = ref.gather_spmm_ref(x_in, table, vals, cols, sel, xrow, trow,
+                                   scales)
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+        assert torch.equal(out, gather_spmm(x_in, table, vals, cols, sel,
+                                            xrow, trow, scales)), \
+            f"{name}: a warm repeat differs"
+        rows.append(_row(
+            name, "src/repro_torch/kernels/csrc/fused.cu",
+            f"src/repro/kernels/fused.py:203 ({body})",
+            float((out - want).abs().max()),
+            _time_ms(lambda: gather_spmm(x_in, table, vals, cols, sel, xrow,
+                                         trow, scales)),
+            _time_ms(lambda: ref.gather_spmm_ref(x_in, table, vals, cols,
+                                                 sel, xrow, trow, scales)),
+            None, fixed + n_trows * row_bytes, flops))
+
+    # scatter_rows_q: the push of the refresh batch into the int8 store,
+    # codes and scales bitwise (duplicates and masked rows first), each
+    # pushed row's relative error to rounding (sums in another order)
+    err_e = 0.0
+    for idx in (dup, push_idx):
+        a = scatter_rows_q(q8.clone(), s8.clone(), idx, vals_p)
+        b = ref.scatter_rows_q_ref(q8.clone(), s8.clone(), idx, vals_p)
+        assert torch.equal(a[0][:N], b[0][:N]) and \
+            torch.equal(a[1][:N], b[1][:N]), "scatter_rows_q differs"
+        torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-7)
+        err_e = max(err_e, float((a[2] - b[2]).abs().max()))
+    M = push_idx.shape[0]
+    n_tgt = int(torch.unique(push_idx).numel())
+    tq, ts = q8.clone(), s8.clone()
+    valid = push_idx < N                     # the rows uniq_idx names
+
+    def composition():
+        q, sc = ref.quantize_rows(vals_p)
+        tq.index_copy_(0, uniq_idx, q[valid])
+        ts.index_copy_(0, uniq_idx, sc[valid])
+        return ref.relative_row_error(vals_p, ref.dequantize_rows(q, sc))
+
+    q_row = _row(
+        "scatter_rows_q", "src/repro_torch/kernels/csrc/scatter.cu",
+        "src/repro/kernels/scatter.py:85", err_e,
+        _time_ms(lambda: scatter_rows_q(tq, ts, push_idx, vals_p)),
+        _time_ms(lambda: ref.scatter_rows_q_ref(tq, ts, push_idx, vals_p)),
+        _time_ms(composition),
+        M * 4 + M * D * 4 + n_tgt * (D + 4) + M * 4, 0,
+        library="composition: quantize_rows, two index_copy_, the row "
+                "errors (plain)")
+    # the codes and scales alone: the table the push writes
+    q_row["codes_scales_err"] = 0.0
+    rows.append(q_row)
+
+    # scatter_rows on a bf16 table: the values are rounded to bf16 first,
+    # as the push does, so the kernel moves 2-byte rows
+    vb = vals_p.to(torch.bfloat16)
+    for idx in (dup, push_idx):
+        a = scatter_rows(b16.clone(), idx, vb)
+        b = ref.scatter_rows_ref(b16.clone(), idx, vb)
+        assert torch.equal(a[:N], b[:N]), "scatter_rows (bf16) differs"
+    tb, ub = b16.clone(), uniq_vals.to(torch.bfloat16)
+    rows.append(_row(
+        "scatter_rows_bf16", "src/repro_torch/kernels/csrc/scatter.cu",
+        "src/repro/kernels/scatter.py:39 (bf16 table)", 0.0,
+        _time_ms(lambda: scatter_rows(tb, push_idx, vb)),
+        _time_ms(lambda: ref.scatter_rows_ref(tb, push_idx, vb)),
+        _time_ms(lambda: tb.index_copy_(0, uniq_idx, ub)),
+        M * 4 + 2 * n_tgt * D * 2, 0))
+    return rows
+
+
+def _history_pull_rows(plan, device, gen):
+    """Phase 2: the GAT hidden layer's history pull (batch 0's halo rows,
+    d = 64) from an int8 table (`gather_rows_dq`) and a bf16 one
+    (`gather_rows_bf16`), bitwise against the plain versions."""
+    batch = plan.batch(0)
+    n1 = plan.graph.num_nodes + 1
+    idx = torch.clamp(batch.halo_nodes, 0, n1 - 1).to(torch.int32)
+    hist = torch.randn((n1, TRAIN_HIDDEN), generator=gen, device=device)
+    q8, s8 = ref.quantize_rows(hist)
+    b16 = hist.to(torch.bfloat16)
+    M, D = idx.shape[0], TRAIN_HIDDEN
+    n_src = int(torch.unique(idx).numel())
+    out = gather_rows_dq(q8, s8, idx)
+    assert torch.equal(out, ref.gather_rows_dq_ref(q8, s8, idx)), \
+        "gather_rows_dq differs from its plain version"
+    assert torch.equal(out, gather_rows_dq(q8, s8, idx))
+    out = gather_rows(b16, idx)
+    assert torch.equal(out, ref.gather_rows_ref(b16, idx)), \
+        "gather_rows (bf16) differs from its plain version"
+    rows = [
+        _row("gather_rows_dq", "src/repro_torch/kernels/csrc/gather.cu",
+             "src/repro/kernels/gather.py:107", 0.0,
+             _time_ms(lambda: gather_rows_dq(q8, s8, idx)),
+             _time_ms(lambda: ref.gather_rows_dq_ref(q8, s8, idx)),
+             _time_ms(lambda: torch.index_select(q8, 0, idx).to(
+                 torch.float32).mul_(torch.index_select(s8, 0, idx)[:, None])),
+             M * 4 + n_src * (D + 4) + M * D * 4, 0,
+             library="composition: index_select of codes and scales, "
+                     "convert, multiply"),
+        _row("gather_rows_bf16", "src/repro_torch/kernels/csrc/gather.cu",
+             "src/repro/kernels/gather.py:37 (bf16 table)", 0.0,
+             _time_ms(lambda: gather_rows(b16, idx)),
+             _time_ms(lambda: ref.gather_rows_ref(b16, idx)),
+             _time_ms(lambda: torch.index_select(b16, 0, idx)),
+             M * 4 + n_src * D * 2 + M * D * 2, 0)]
+    _phase("kernels", f"GAT hidden layer's history pull ({M} halo rows, "
+           f"d = {D}): " + "; ".join(
+               f"{r['name']}: err 0, {r['ms']:.4f} ms (plain "
+               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+               f"{r['bound_ms']:.5f} by {r['bound_by']})" for r in rows))
+    return rows
 
 
 def _train_graph(op):
@@ -495,6 +694,7 @@ def training_kernel_phase(plans, device, clock_hz):
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"],
                                                   o["max_abs_err"])
         rows.append(row)
+    rows += _history_pull_rows(plans["gat"], device, gen)
 
     # bcsr_spmm's backward use: the transposed blocks of a quickstart
     # batch against the cotangent of the layer-0 aggregation (128 wide)
@@ -506,12 +706,12 @@ def training_kernel_phase(plans, device, clock_hz):
     out = bcsr_spmm(gout, vt, ct)
     want = ref.bcsr_spmm_ref(gout, vt, ct)
     torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
-    R_t, K_t = ct.shape
+    R_t = ct.shape[0]
     n_x = sum(min(128, gout.shape[0] - c * 128)
               for c in torch.unique(ct).tolist())
     bound_ms, bound_by = _bound(
         vt.numel() * 4 + ct.numel() * 4 + n_x * d * 4 + R_t * 128 * d * 4,
-        2.0 * R_t * K_t * 128 * 128 * d)
+        2.0 * int((vt != 0).sum()) * d)
     _phase("kernels", f"bcsr_spmm on transposed blocks {list(vt.shape)} "
            f"(the GCN backward, D={d}): err {float((out - want).abs().max()):.3g}, "
            f"{_time_ms(lambda: bcsr_spmm(gout, vt, ct)):.4f} ms (plain "
@@ -532,40 +732,69 @@ def _plan_on_cpu(plan):
 
 @torch.no_grad()
 def _copy_state(dst, src):
-    """Overwrite a training state's params, moments and history store with
-    another's, across devices."""
+    """Overwrite a training state's params, moments and history store
+    (scales included) with another's, across devices."""
     pairs = list(zip(tree_leaves(dst.params), tree_leaves(src.params)))
     for tree in ("m", "v"):
         pairs += zip(tree_leaves(getattr(dst.opt_state, tree)),
                      tree_leaves(getattr(src.opt_state, tree)))
     pairs += zip(dst.histories.tables, src.histories.tables)
+    pairs += zip(dst.histories.scales or [], src.histories.scales or [])
     pairs += [(dst.histories.age, src.histories.age),
               (dst.opt_state.step, src.opt_state.step)]
     for a, b in pairs:
         a.copy_(b)
 
 
-def training_phase(op, plan, device):
-    """Phase 4 for one op. Returns the launch counts of its 60 epochs."""
-    cfg = TRAIN_CONFIGS[op]
-    cplan = _plan_on_cpu(plan)
+def _quantized_tables_close(store, cstore, max_steps=1 + 1e-5):
+    """A quantized store on the card against the CPU's: every row (the
+    sentinel row, which takes masked pushes, left out) within `max_steps`
+    quantization steps (int8: s_i, by default plus 1e-5 of it for the
+    scale's own rounding; bf16: one bf16 step at the larger magnitude
+    plus the f32 tables' ATOL; None: not bounded), and >= 99.9% of the
+    codes equal; returns (the largest error in steps, the share of equal
+    codes)."""
+    n = cstore.age.shape[0] - 1
+    idx = torch.arange(n, dtype=torch.int32)
+    worst, same = 0.0, []
+    for ell, (a, c) in enumerate(zip(store.tables, cstore.tables)):
+        got = store.pull(ell, idx.to(store.device)).float().cpu()
+        want = cstore.pull(ell, idx).float()
+        step = (cstore.scales[ell][:n, None] if cstore.scales is not None
+                else torch.maximum(got.abs(), want.abs()) * 2.0 ** -7 + ATOL)
+        ratio = float(((got - want).abs() / step.clamp(min=1e-30)).max())
+        assert max_steps is None or ratio <= max_steps, \
+            f"table {ell}: {ratio} steps apart"
+        worst = max(worst, ratio)
+        same.append((a[:n].cpu() == c[:n]).float().mean().item())
+    assert min(same) >= 0.999, same
+    return worst, min(same)
+
+
+def _compare_steps(plan, cplan):
+    """Two steps on the card against the same steps on the CPU, each from
+    the same state (the card's is copied over before the second). The
+    update runs on both devices from the card's gradients: fed their own,
+    an element whose gradient sits at rounding level, where the two
+    devices may round to opposite signs, moves by lr one way and not the
+    other in AdamW's first steps. Returns the line's text."""
     state, cstate = RT.init_state(plan), RT.init_state(cplan)
-    # (i) two steps on the card against the same steps on the CPU, each
-    # from the same state (the card's is copied over before the second).
-    # The update runs on both devices from the card's gradients: fed their
-    # own, an element whose gradient sits at rounding level, where the two
-    # devices may round to opposite signs, moves by lr one way and not the
-    # other in AdamW's first steps
-    errs, opt_errs, norm_errs = [], {t: 0.0 for t in OPT_TOL}, []
+    quant = state.histories.history_dtype != "f32"
+    errs, opt_errs, norm_errs, tabs = [], {t: 0.0 for t in OPT_TOL}, [], []
     for b in (0, 1):
         if b:
             _copy_state(cstate, state)
         grads, m = RT.grads_and_metrics(plan, state, plan.batch(b))
         cgrads, cm = RT.grads_and_metrics(cplan, cstate, cplan.batch(b))
-        # the tables' last row is the push's sentinel, unspecified
-        pairs = [(m["loss"], cm["loss"])] + list(zip(grads, cgrads)) + [
-            (a[:-1], c[:-1]) for a, c in zip(state.histories.tables,
-                                             cstate.histories.tables)]
+        pairs = [(m["loss"], cm["loss"])] + list(zip(grads, cgrads))
+        if quant:
+            pairs.append((m["hist_quant_err"], cm["hist_quant_err"]))
+            tabs.append(_quantized_tables_close(state.histories,
+                                                cstate.histories))
+        else:
+            # the tables' last row is the push's sentinel, unspecified
+            pairs += [(a[:-1], c[:-1]) for a, c in zip(
+                state.histories.tables, cstate.histories.tables)]
         for a, c in pairs:
             torch.testing.assert_close(a.cpu(), c, rtol=RTOL, atol=ATOL)
             errs.append(float((a.cpu() - c).abs().max()))
@@ -584,18 +813,39 @@ def training_phase(op, plan, device):
                 torch.testing.assert_close(a.cpu(), c, rtol=rtol, atol=atol)
                 opt_errs[tree] = max(opt_errs[tree],
                                      float((a.cpu() - c).abs().max()))
-    _phase("training", f"{op}: two steps on the card vs the CPU's plain "
-           f"versions: loss, {len(grads)} gradients and the history tables "
-           f"within {max(errs):.3g}; the update from the same gradients: "
-           f"global norms within a relative {max(norm_errs):.3g}, "
-           + ", ".join(f"{t} within {e:.3g}" for t, e in opt_errs.items()))
+    tables = ("the history tables" if not quant else
+              "hist_quant_err; the tables within "
+              f"{max(t[0] for t in tabs):.6g} quantization steps, "
+              f"{100 * min(t[1] for t in tabs):.3f}% of the codes equal")
+    return (f"two steps on the card vs the CPU's plain versions: loss, "
+            f"{len(grads)} gradients and {tables} within {max(errs):.3g}; "
+            f"the update from the same gradients: global norms within a "
+            f"relative {max(norm_errs):.3g}, "
+            + ", ".join(f"{t} within {e:.3g}" for t, e in opt_errs.items()))
+
+
+def with_history_dtype(plan, history_dtype):
+    """The same plan (partition, batches, device arrays) over another
+    store precision: `init_state` reads the config's `history_dtype`."""
+    return dataclasses.replace(plan, config=dataclasses.replace(
+        plan.config, history_dtype=history_dtype))
+
+
+def training_phase(op, hd, plan, device):
+    """Phase 4 for one op at one store precision. Returns the launch
+    counts of its 60 epochs."""
+    cfg = TRAIN_CONFIGS[op]
+    tag = f"{op} {hd}"
+    plan = with_history_dtype(plan, hd)
+    # (i) two steps on the card against the same steps on the CPU
+    _phase("training", f"{tag}: " + _compare_steps(plan, _plan_on_cpu(plan)))
 
     # (ii) 60 epochs from fresh params, each step timed to its sync
     state = RT.init_state(plan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    steps, epochs, losses = [], [], []
+    steps, epochs, losses, qerrs = [], [], [], []
     nb = plan.batches.num_batches
     for e in range(TRAIN_EPOCHS):
         order = np.random.default_rng(plan.config.seed * 1000 + e
@@ -607,44 +857,69 @@ def training_phase(op, plan, device):
             torch.cuda.synchronize()
             steps.append((time.perf_counter() - t0) * 1e3)
             losses.append(m["loss"])
+            qerrs.append(m["hist_quant_err"])
         epochs.append((time.perf_counter() - t_ep) * 1e3)
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     loss = torch.stack(losses[-nb:]).mean().item()
+    qerr = torch.stack(qerrs[-nb:]).mean().item()
     assert np.isfinite(loss), loss
-    # (iii) exact evaluation against the reference's accuracy on the same
-    # partition; a partition the table does not hold is held to the first
-    # entry, and the line says that the comparison crosses partitions
+    store = state.histories
+    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    assert (qerr == 0.0) == (hd == "f32"), qerr
+    # (iii) exact evaluation against the reference's accuracy at the same
+    # precision on the same partition; a partition the table does not
+    # hold is held to the first entry, and the line says that the
+    # comparison crosses partitions
     acc = RT.evaluate_exact(plan, state)
     logits = RT.predict(plan, state)
     assert logits.shape == (plan.graph.num_nodes, plan.spec.num_classes)
     assert torch.isfinite(logits).all(), "non-finite predict logits"
     digest = _digest(plan.part)
-    refs = cfg["ref_test_acc"]
+    refs = cfg["ref_test_acc"][hd]
     ref_acc = refs.get(digest, next(iter(refs.values())))
     ref_note = "same partition" if digest in refs else \
         f"partition {digest} not in the table: crosses partitions"
-    assert acc["test_acc"] >= ref_acc - ACC_SLACK, (op, acc, ref_acc)
+    assert acc["test_acc"] >= ref_acc - ACC_SLACK, (tag, acc, ref_acc)
     # (iv) the path's kernels, and the backward's launches: per GCN step
     # one bcsr_spmm forward (layer 0) and one backward (layer 1's fused
     # aggregation), per GAT step each edge-softmax kernel once per layer
-    missing = [k for k in TRAIN_KERNELS[op] if launches[k] == 0]
-    assert not missing, f"{op}: kernels never launched: {missing}"
+    kernels = TRAIN_KERNELS[(op, hd)]
+    missing = [k for k in kernels if launches[k] == 0]
+    assert not missing, f"{tag}: kernels never launched: {missing}"
     n = len(steps)
     if op == "gcn":
-        assert launches["bcsr_spmm"] == 2 * n == 2 * launches["gather_spmm"]
+        assert launches["bcsr_spmm"] == 2 * n == 2 * launches[kernels[1]]
     else:
-        assert all(launches[k] == 2 * n for k in TRAIN_KERNELS[op][:3])
+        assert all(launches[k] == 2 * n for k in _ES)
     busy = _profiled_epoch(plan, state)
-    _phase("training", f"{op}: {TRAIN_EPOCHS} epochs x {nb} steps: step "
+    _phase("training", f"{tag}: {TRAIN_EPOCHS} epochs x {nb} steps: step "
            f"p50 {np.percentile(steps, 50):.3f} ms, p99 "
            f"{np.percentile(steps, 99):.3f} ms; epoch median "
            f"{np.median(epochs):.1f} ms (first {epochs[0]:.1f} ms); peak "
-           f"device memory {peak / 2**20:.1f} MiB; last-epoch loss "
+           f"device memory {peak / 2**20:.1f} MiB; history store "
+           f"{store.bytes():,} bytes ({f32_bytes / store.bytes():.2f}x vs "
+           f"f32), last-epoch hist_quant_err {qerr:.4g}; last-epoch loss "
            f"{loss:.3g}; test acc {acc['test_acc']:.4f} (reference "
-           f"{ref_acc:.4f}, {ref_note}), val {acc['val_acc']:.4f}; "
-           f"launches {launches}")
-    _phase("training", f"{op}: one more epoch under torch.profiler: {busy}")
+           f"{ref_acc:.4f} at {hd}, {ref_note}), val {acc['val_acc']:.4f}; "
+           f"launches " + str({k: v for k, v in launches.items() if v}))
+    _phase("training", f"{tag}: one more epoch under torch.profiler: {busy}")
+    return launches
+
+
+def bf16_pull_steps(plan):
+    """The bf16 history pull on its path: GAT's halo-split layer over a
+    bf16 store, two steps against the CPU's. Returns the launch counts of
+    the card's steps."""
+    plan = with_history_dtype(plan, "bf16")
+    cplan = _plan_on_cpu(plan)
+    _build.reset_launch_counts()
+    line = _compare_steps(plan, cplan)
+    launches = dict(_build.launch_counts)
+    assert launches["gather_rows_bf16"] > 0 and \
+        launches["scatter_rows_bf16"] > 0, launches
+    _phase("training", f"gat bf16: {line}; launches "
+           + str({k: v for k, v in launches.items() if v}))
     return launches
 
 
@@ -758,6 +1033,100 @@ def serving_phase(g, spec, device, kplan):
     return launches
 
 
+def serving_quant_phase(g, spec, device, hd):
+    """Phase 3 over a zero int8 or bf16 store (`hd`: every SLO=0 refresh
+    push quantizes or rounds, every fused aggregation dequantizes or
+    upcasts). Returns the launch counts of the 32 timed requests."""
+    N = g.num_nodes
+    params = model.init_gnn(spec, seed=SEED, device=device)
+    cfg0 = S.ServeConfig(staleness_slo=0, history_dtype=hd)
+    plan0 = S.build_serve_plan(g, spec, cfg0, device=device)
+    plan_none = dataclasses.replace(plan0, config=S.ServeConfig(
+        staleness_slo=None, history_dtype=hd))
+
+    def fresh_state(plan, p):
+        store = HistoryStore.create(N + 1, spec.hist_dims(), hd,
+                                    plan.device)
+        return S.init_serve_state(plan, S.ServeState(p, store))
+
+    rng = np.random.default_rng(SEED + 1)
+    queries = [rng.choice(N, size=QUERY_SIZE, replace=False)
+               for _ in range(N_REQUESTS)]
+    # SLO=0 on the card against the port's CPU serve_request (the plain
+    # versions) on the same store and queries: two requests, as the CPU
+    # takes seconds for each refresh at this shape. The stores: >= 99.9% of
+    # the entries equal, and an int8 store's within one quantization step
+    # per row, plus 127 * RTOL of it: a row's scale is its max / 127, an
+    # f32 value the two devices compute at this depth and width to RTOL
+    # apart (a row 1.0093 steps apart on an H100: its scales at least
+    # 7.3e-5 apart). A bf16 store's differing entries are not bounded in
+    # steps: an upper layer's refresh in the same request reads a lower
+    # table's entries that rounded apart, so its own entries inherit that
+    # difference (table 1 2.9 steps apart on an H100); the logits bound
+    # what it does. The logits at SERVE_Q_TOL
+    cplan = S.build_serve_plan(g, spec, cfg0, device="cpu")
+    state = fresh_state(plan0, params)
+    cstate = fresh_state(cplan, model.to_device(params, "cpu"))
+    errs, tabs = [], []
+    for q in queries[:2]:
+        lg, state, _ = S.serve_request(plan0, state, q)
+        clg, cstate, _ = S.serve_request(cplan, cstate, q)
+        tabs.append(_quantized_tables_close(
+            state.histories, cstate.histories,
+            1 + 127 * RTOL if hd == "int8" else None))
+        np.testing.assert_allclose(lg, clg, rtol=SERVE_Q_TOL[hd],
+                                   atol=ATOL)
+        errs.append(float(np.abs(lg - clg).max()))
+    del cplan, cstate
+
+    state = fresh_state(plan0, params)
+    results = {}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for slo, plan in ((0, plan0), (None, plan_none)):
+        lat, logits, host_ms, qerr = [], [], 0.0, []
+        for q in queries:
+            t0 = time.perf_counter()
+            lg, state, d = S.serve_request(plan, state, q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert lg.shape == (QUERY_SIZE, N_CLASSES), lg.shape
+            assert np.isfinite(lg).all(), "non-finite logits"
+            if slo is not None:
+                assert d["halo_age_max"] <= slo, (d, slo)
+            assert d["host_build_ms"] > 0 and d["hist_quant_err"] > 0, d
+            logits.append(lg)
+            host_ms += d["host_build_ms"]
+            qerr.append(d["hist_quant_err"])
+        results[slo] = (lat, logits, host_ms, qerr)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    missing = [k for k in SERVE_Q_KERNELS[hd] if launches[k] == 0]
+    assert not missing, f"kernels never launched serving {hd}: {missing}"
+    rep1 = S.serve_request(plan_none, state, queries[0])[0]
+    rep2 = S.serve_request(plan_none, state, queries[0])[0]
+    assert np.array_equal(rep1, rep2), f"{hd} warm-cache repeat differs"
+    store = state.histories
+    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    err_none = max(float(np.abs(a - b).max())
+                   for a, b in zip(results[None][1], results[0][1]))
+    for slo, (lat, _, host_ms, qerr) in results.items():
+        _phase("serving", f"{hd} slo={slo}: {N_REQUESTS} x {QUERY_SIZE} "
+               f"queries, p50 {np.percentile(lat, 50):.3f} ms, p99 "
+               f"{np.percentile(lat, 99):.3f} ms, total {sum(lat):.1f} ms "
+               f"of which host batch build {host_ms:.1f} ms; "
+               f"hist_quant_err mean {np.mean(qerr):.4g}")
+    _phase("serving", f"{hd}: SLO=0 vs the CPU's serve_request on the same "
+           f"store and queries max abs err {max(errs):.3g} (2 requests; "
+           f"the stores within {max(t[0] for t in tabs):.3g} quantization "
+           f"steps, {100 * min(t[1] for t in tabs):.3f}% of the entries "
+           f"equal); "
+           f"SLO=None vs SLO=0 {err_none:.3g}; repeat bit-identical; store "
+           f"{store.bytes():,} bytes ({f32_bytes / store.bytes():.2f}x vs "
+           f"f32); launches " + str({k: v for k, v in launches.items()
+                                     if v}))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
@@ -799,14 +1168,24 @@ def main() -> int:
             np.savez(args.save_partitions,
                      **{op: p.part for op, p in plans.items()})
         rows += training_kernel_phase(plans, device, _clock_hz())
-        launches = serving_phase(g, spec, device, kplan)
-    del kplan
-    train_launches = {op: training_phase(op, plans[op], device)
-                      for op in plans}
-    # rows 1-4 count the serving phase, the edge-softmax rows GAT training
+        launches = {"f32 serving": serving_phase(g, spec, device, kplan)}
+        del kplan
+        for hd in ("int8", "bf16"):
+            launches[f"{hd} serving"] = serving_quant_phase(g, spec, device,
+                                                            hd)
+    for op, hd in TRAIN_RUNS:
+        launches[f"{op} {hd}"] = training_phase(op, hd, plans[op], device)
+    launches["gat bf16"] = bf16_pull_steps(plans["gat"])
+    # each row's launches come from the run of the path it was timed on
+    source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":
+              "gat f32", "edge_softmax_bwd_col": "gat f32",
+              "gather_spmm_dq": "int8 serving", "scatter_rows_q":
+              "int8 serving", "gather_rows_dq": "gat int8",
+              "gather_spmm_bf16": "bf16 serving", "scatter_rows_bf16":
+              "bf16 serving", "gather_rows_bf16": "gat bf16"}
     for r in rows:
-        r["launches"] = (train_launches["gat"] if r["name"].startswith(
-            "edge_softmax") else launches)[r["name"]]
+        r["launches"] = launches[source.get(r["name"], "f32 serving")][
+            r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,21 +18,6 @@ from typing import Optional, Union
 
 import torch
 
-HISTORY_DTYPES = ("f32", "bf16", "int8", "vq")
-
-
-def check_history_dtype(history_dtype: str) -> None:
-    """Only f32 stores are ported. The other reference precisions raise
-    with the ROADMAP item that brings them."""
-    if history_dtype not in HISTORY_DTYPES:
-        raise ValueError(f"history_dtype must be one of {HISTORY_DTYPES}, "
-                         f"got {history_dtype}")
-    if history_dtype != "f32":
-        raise NotImplementedError(
-            f"history_dtype={history_dtype!r} is not ported yet (ROADMAP "
-            "Queue A, quantized histories); the port serves f32 stores")
-
-
 def resolve_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
     """None -> "cuda" (as the indexed current device, so devices compare
@@ -58,9 +43,10 @@ def resolve_device(device: Union[None, str, torch.device] = None
 
 @dataclass(frozen=True, kw_only=True)
 class HistoryExecConfig:
-    """`history_dtype` — history-table storage precision; only "f32" is
-    ported (None means "f32"). Serving validates it against the bound
-    store.
+    """`history_dtype` — history-table storage precision, a name of the
+    codec registry (`core.history.get_codec`): "f32", "bf16" or "int8"
+    ("vq" is not ported; None means "f32"). Serving validates it against
+    the bound store.
 
     `staleness_slo` — max acceptable history age (steps since a row was
     last pushed) of any row an execution may read. Serving overrides the
@@ -71,4 +57,5 @@ class HistoryExecConfig:
 
     def __post_init__(self):
         if self.history_dtype is not None:
-            check_history_dtype(self.history_dtype)
+            from .history import get_codec  # history imports this module
+            get_codec(self.history_dtype)

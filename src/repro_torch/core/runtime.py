@@ -23,9 +23,11 @@ untouched.
 
 Entry points run on the card (`device=None` means "cuda") unless the
 caller asks for the CPU, where every kernel runs its plain version.
+The store's precision is `GASConfig.history_dtype` (f32, bf16 or int8;
+the epoch metrics carry `hist_quant_err`, the error its pushes incur).
 Not ported yet: `prefetch_depth > 0` and `history_storage="host"`
-(ROADMAP Queue A item 4), `halo_age_decay > 0` (Queue A item 2), and the
-quantized stores with their vq refit knobs (Queue A item 3).
+(ROADMAP Queue A item 4), `halo_age_decay > 0` (Queue A item 2), and vq
+stores with their refit knobs (Queue A item 3).
 """
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ class GASConfig(HistoryExecConfig):
     `history_dtype` / `staleness_slo` come from `HistoryExecConfig`. The
     reference's `backend` has no counterpart (the tensors' device picks
     the kernel or its plain version), nor do its vq refit knobs, which
-    come with the quantized stores, nor `fused_epoch`: an epoch is
-    always the eager per-step loop."""
+    come with vq stores, nor `fused_epoch`: an epoch is always the eager
+    per-step loop."""
     num_parts: int
     partitioner: str = "metis"          # "metis" | "random"
     clusters_per_batch: int = 1
@@ -199,7 +201,8 @@ def _regroup(plan: GASPlan) -> None:
 def init_state(plan: GASPlan, params=None) -> GASState:
     """Fresh params (the port's `init_gnn(spec, seed)` unless `params` is
     given, e.g. the reference's carried across), a zero AdamW state, a
-    zero f32 history store and the initial rng key data."""
+    zero history store of `config.history_dtype` and the initial rng key
+    data."""
     from repro_torch.gnn.model import init_gnn
 
     cfg = plan.config

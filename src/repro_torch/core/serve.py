@@ -1,7 +1,8 @@
 """GAS serving: history tables as a low-latency node-embedding cache.
 
-The port of `repro.core.serve` for f32 stores and the GCN operator. A
-batched inference request for a query set Q is answered by ONE padded
+The port of `repro.core.serve` for the GCN operator, over f32, bf16 and
+int8 history stores (a quantized store is bound as it is, and every
+refresh push quantizes on the way in). A batched inference request for a query set Q is answered by ONE padded
 batch over Q whose halo rows come straight out of the history tables.
 
 Staleness SLO (the reference's contract, unchanged). Every table row
@@ -36,7 +37,7 @@ returned by `serve_request` shares its store with the one passed in
 (thread the returned state; the old one sees the same tables).
 `version` is bumped by every writing step, as in the reference.
 Not ported yet (ROADMAP Queue A): `apply_feature_update`, the deprecated
-`bind_state`/`serve` shims, quantized stores and `serve_service`.
+`bind_state`/`serve` shims, vq stores and `serve_service`.
 """
 from __future__ import annotations
 

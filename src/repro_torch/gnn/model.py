@@ -158,22 +158,26 @@ def _prop(params, spec: GNNSpec, ell: int, x_all, edges, edge_w, n_out,
 def _fused_prop(params, spec: GNNSpec, ell: int, x_cur,
                 store: HistoryStore, batch: GASBatch):
     """One GCN layer on the fused path: the aggregation reads halo columns
-    straight out of the layer's history table (no materialized x_all),
-    then the combine transform."""
+    straight out of the layer's history table (no materialized x_all;
+    int8 rows are dequantized in the kernel against the store's per-row
+    scales), then the combine transform."""
     n_out = batch.batch_mask.shape[0]
     agg = ops.gas_aggregate(x_cur, store.tables[ell - 1], batch.halo_nodes,
-                            batch.halo_mask, n_out, batch.blocks)
+                            batch.halo_mask, n_out, batch.blocks,
+                            scales=store.layer_scales(ell - 1))
     return _act(spec, ell, L.gcn_combine(params["layers"][ell], agg))
 
 
 def _halo_prop(params, spec: GNNSpec, ell: int, x_cur,
                store: HistoryStore, batch: GASBatch, edges, edge_w):
     """One GAT layer on the halo-split path: the halo rows are pulled from
-    the previous layer's table at its own width and transformed apart
-    from the in-batch rows (`gat_transform_split`), then the edge softmax
-    runs over the unit-weight blocks."""
+    the previous layer's table at its own width (int8 rows dequantized in
+    the gather, bf16 rows upcast here) and transformed apart from the
+    in-batch rows (`gat_transform_split`), then the edge softmax runs over
+    the unit-weight blocks."""
     n_out = batch.batch_mask.shape[0]
-    xh = store.pull(ell - 1, batch.halo_nodes) * batch.halo_mask[:, None]
+    xh = store.pull(ell - 1, batch.halo_nodes).to(x_cur.dtype) * \
+        batch.halo_mask[:, None]
     wx, a_d, a_s = L.gat_transform_split(params["layers"][ell], x_cur, xh)
     att = ops.edge_softmax_aggregate(wx, a_d, a_s, edges, edge_w, n_out,
                                      batch.ublocks)
@@ -191,8 +195,10 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     carrying the op's block family (forward blocks for GCN, unit blocks
     for GAT; the transposed ones too when a gradient is taken).
     Diagnostics: mean/max history age of the halo rows (read before the
-    pushes) and `hist_quant_err`, 0 for f32 stores. The reference's third
-    return value, the Eq. 3 regularizer, is always 0 here and left out."""
+    pushes) and `hist_quant_err`, the mean over the hidden layers of the
+    relative error their pushes incur at the store's precision (0 for f32
+    stores). The reference's third return value, the Eq. 3 regularizer,
+    is always 0 here and left out."""
     _check_op(spec)
     unit = spec.op in UNIT_BLOCK_OPS
     if (batch.ublocks if unit else batch.blocks) is None:
@@ -215,6 +221,7 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     hh = _pre(params, spec, xh)
 
     diags = staleness_diags(store.age, batch.halo_nodes, hmask)
+    qerr = None                # the sum of the lossy pushes' errors
     x_cur = hb
     for ell in range(spec.num_layers):
         if ell > 0 and fuse:
@@ -228,11 +235,15 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
             x_next = _prop(params, spec, ell, x_all, edges, batch.edge_w,
                            max_b, batch)
         if ell < spec.num_layers - 1:
-            store.push(ell, batch.batch_nodes, x_next.detach(), bmask)
+            err = store.push_measured(ell, batch.batch_nodes,
+                                      x_next.detach(), bmask)
+            if err is not None:
+                qerr = err if qerr is None else qerr + err
         x_cur = x_next
 
-    diags["hist_quant_err"] = torch.zeros((), dtype=torch.float32,
-                                          device=x_cur.device)
+    diags["hist_quant_err"] = (
+        torch.zeros((), dtype=torch.float32, device=hb.device)
+        if qerr is None else qerr / max(spec.num_layers - 1, 1))
     store.tick(batch.batch_nodes, bmask)
     return _post(params, spec, x_cur), store, diags
 

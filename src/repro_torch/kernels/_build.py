@@ -30,11 +30,19 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
+# no --use_fast_math: the int8 kernels divide and multiply with IEEE
+# rounding, so their codes and dequantized rows are bitwise the plain
+# versions'
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# the int8 bodies are kernels of their own; the bf16 instantiations of
+# gather_rows, scatter_rows and gather_spmm share their f32 kernels'
+# sources and count apart ("*_bf16"), so a run shows which tables it read
 KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
-           "edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col")
+           "edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col",
+           "gather_rows_dq", "scatter_rows_q", "gather_spmm_dq",
+           "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -42,10 +50,18 @@ _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_gather_rows_f32": [_P, _P, _P, _I, _I, _P],
+    "repro_gather_rows_bf16": [_P, _P, _P, _I, _I, _P],
+    "repro_gather_rows_dq": [_P, _P, _P, _P, _I, _I, _P],
     "repro_scatter_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_scatter_rows_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_scatter_rows_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_bcsr_spmm_f32": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "repro_gather_spmm_f32": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                               _P, _P],
+    "repro_gather_spmm_bf16": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                               _P, _P],
+    "repro_gather_spmm_dq": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                             _P, _P],
     "repro_edge_softmax_fwd_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
                                    _I, _F, _P, _P, _P, _P],
     "repro_edge_softmax_bwd_row_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -3,8 +3,9 @@
 Replaces `src/repro/kernels/bcsr_spmm.py:42 bcsr_spmm`. On CUDA tensors it
 launches `csrc/bcsr_spmm.cu` (one CTA per row block and 64-column tile,
 the loop over the K column blocks inside the CTA, f32 sums in registers;
-bound by operations: 2*R*K*128*128*D f32 on the CUDA cores); on CPU
-tensors it runs the plain version `ref.bcsr_spmm_ref`.
+bound by bytes, the blocks as stored, against 2*D f32 operations per
+nonzero entry: `csrc/block_spmm.cuh`); on CPU tensors it runs the plain
+version `ref.bcsr_spmm_ref`.
 """
 from __future__ import annotations
 

@@ -18,11 +18,16 @@ struct BlockRows {
   const int32_t* cols;
   int64_t K;
 
-  __device__ __forceinline__ const float* row(int64_t r, int64_t k,
-                                              int b) const {
+  using Row = const float*;
+
+  __device__ __forceinline__ Row row(int64_t r, int64_t k, int b) const {
     const int64_t i = static_cast<int64_t>(__ldg(cols + r * K + k)) *
                           repro::kBn + b;
     return (i >= 0 && i < n_x) ? x + i * d : nullptr;
+  }
+
+  __device__ __forceinline__ float load(Row p, int64_t c) const {
+    return p != nullptr ? __ldg(p + c) : 0.f;
   }
 };
 

@@ -2,10 +2,17 @@
 //
 //   out[r*128 + a, c] = sum_k sum_b vals[r, k, a, b] * rows_k[b, c]
 //
-// where rows_k[b, :] is the b-th staged row of column block k. The two
-// kernels differ only in where a staged row comes from (the RowSrc
-// functor): bcsr_spmm reads x[cols[r, k]*128 + b], gather_spmm routes the
-// row through the gather plan to x_in, the history table or zeros.
+// where rows_k[b, :] is the b-th staged row of column block k. The
+// kernels differ only in where a staged row comes from and how its
+// elements become f32 (the RowSrc functor): bcsr_spmm reads
+// x[cols[r, k]*128 + b]; gather_spmm routes the row through the gather
+// plan to x_in, the history table or zeros, and its bodies read an f32
+// table, a bf16 table (upcast exactly) or an int8 table with its per-row
+// scale (one multiply per element, as the reference's dequant). A RowSrc
+// has a `Row` type (a small handle, e.g. a pointer, or a pointer and a
+// scale), `row(r, k, b)` returning the handle of staged row b of block
+// (r, k), and `load(handle, c)` returning element c of that row as f32
+// (zero for a handle that names no row).
 //
 // One CTA per (row block r, 64-column tile of D). The TPU kernels walk K
 // as a sequential grid axis and keep the sum in VMEM; here the loop over
@@ -19,12 +26,15 @@
 // counts. Padding blocks (column 0, all-zero values) are multiplied like
 // any other, as the reference does.
 //
-// Bound: operations. Both kernels do 2*R*K*128*128*D f32 operations on
-// the CUDA cores (no tensor cores: the reference contracts in f32) for
-// R*K*64 KB of block values; at the serving shapes that is far past the
-// card's f32 ridge point. This simple layout re-reads each block once per
-// 64-column tile; making it fast (wgmma on tf32-split operands, TMA
-// rings, split-K across CTAs) is later work.
+// Bound: bytes. The function needs 2*D f32 operations per nonzero block
+// entry and reads the blocks as stored, R*K*64 KB; a refresh batch's
+// blocks hold about one nonzero in two thousand stored values, so the
+// block bytes bound it. This simple kernel multiplies every stored
+// value, zeros included (2*R*K*128*128*D f32 operations on the CUDA
+// cores, no tensor cores: the reference contracts in f32), and re-reads
+// each block once per 64-column tile, so it runs far above that bound;
+// skipping empty blocks and chunks, wgmma on tf32-split operands, TMA
+// rings and split-K across CTAs are later work.
 #pragma once
 
 #include "common.cuh"
@@ -44,7 +54,7 @@ block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
                   float* __restrict__ out, const RowSrc src) {
   __shared__ __align__(16) float a_s[kBk][kBn];   // a_s[b][a] = vals[a, b]
   __shared__ __align__(16) float b_s[kBk][kTd];
-  __shared__ const float* rows[kBk];
+  __shared__ typename RowSrc::Row rows[kBk];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -76,8 +86,7 @@ block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
       for (int i = tid; i < kBk * kTd; i += kThreads) {
         const int b = i / kTd;
         const int c = i % kTd;
-        const float* p = rows[b];
-        b_s[b][c] = (p != nullptr && d0 + c < d) ? __ldg(p + d0 + c) : 0.f;
+        b_s[b][c] = d0 + c < d ? src.load(rows[b], d0 + c) : 0.f;
       }
       __syncthreads();  // b_s is complete
 #pragma unroll

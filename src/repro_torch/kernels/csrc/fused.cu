@@ -1,28 +1,54 @@
-// gather_spmm (f32): out = A @ [x_in ; table[halo] * mask ; 0] without
+// gather_spmm: out = A @ [x_in ; dequant(table)[halo] * mask ; 0] without
 // building the bracket (the fused history-gather aggregation of layers
-// >= 1).
+// >= 1), over an f32, a bf16 or an int8 history table.
 //
-// Replaces the f32 body of src/repro/kernels/fused.py:203 gather_spmm
-// (`_make_kernel` :172 over `_pipelined_block` :107): per grid step the
-// TPU kernel DMAs the 128 rows of block (r, k) one by one into a VMEM
-// slot, double-buffered against the previous block's MXU contraction,
+// Replaces src/repro/kernels/fused.py:203 gather_spmm: its f32 body
+// (`_make_kernel` :172, which also runs the reference's bf16 tables) and
+// its int8 body (`_make_kernel_dq` :181), both over `_pipelined_block`
+// :107: per grid step the TPU kernel DMAs the 128 rows of block (r, k)
+// one by one into a VMEM slot, double-buffered against the previous
+// block's MXU contraction, dequantizes the staged table rows (int8 times
+// the pre-gathered per-plan-row scale `rscl = scales[trow]`, bf16 upcast)
 // and routes them through a `gx` scratch. Here the same routing picks the
 // staged rows of the shared contraction (block_spmm.cuh, which also
-// states the bound): row b of block (r, k) is x_in[xrow] where
-// sel == 0, table[trow] where sel == 1, zeros where sel == 2 — the
-// gather plan of kernels/fused.py:gather_plan, computed on the device
-// before the launch. The `gx` rounding barrier of the reference is the
-// identity in f32 and has no counterpart; neither has its DMA
-// double-buffering (each CTA stages its rows through shared memory, and
-// the other resident CTAs hide the load latency).
+// states the bound): row b of block (r, k) is x_in[xrow] where sel == 0,
+// the table row trow where sel == 1, zeros where sel == 2 — the gather
+// plan of kernels/fused.py:gather_plan, computed on the device before the
+// launch. A table row becomes f32 as it is staged: bf16 exactly
+// (__bfloat162float), int8 as float(q) * scales[trow] with one IEEE
+// multiply (__fmul_rn, never contracted into the FMAs that follow), so
+// the staged operand is bitwise the plain version's. The int8 body reads
+// scales[trow] once per staged row where the row handle is made, instead
+// of pre-gathering the reference's [R, K, 128] rscl operand: the same
+// value, without a second plan-sized array in device memory. The `gx`
+// rounding barrier of the reference is the identity in f32 and has no
+// counterpart; neither has its DMA double-buffering (each CTA stages its
+// rows through shared memory, and the other resident CTAs hide the load
+// latency).
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "block_spmm.cuh"
 
 namespace {
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// T: the table's element type (float, bf16 bits as uint16_t, or int8_t);
+// kScaled: int8 codes with a per-row f32 scale table.
+template <typename T, bool kScaled>
 struct PlanRows {
   const float* x_in;
   int64_t n_in;
-  const float* table;
+  const T* table;
+  const float* scales;
   int64_t n_table;
   int64_t d;
   const int32_t* sel;
@@ -30,21 +56,58 @@ struct PlanRows {
   const int32_t* trow;
   int64_t K;
 
-  __device__ __forceinline__ const float* row(int64_t r, int64_t k,
-                                              int b) const {
+  // An f32 table's rows read as in-batch rows do, so the f32 body stages
+  // through a plain pointer (null: zeros). The other bodies' handle names
+  // an in-batch row, or a table row with its scale, or neither.
+  static constexpr bool kPlain = std::is_same_v<T, float> && !kScaled;
+  struct Mixed {
+    const float* x;
+    const T* t;
+    float s;
+  };
+  using Row = std::conditional_t<kPlain, const float*, Mixed>;
+
+  __device__ __forceinline__ Row row(int64_t r, int64_t k, int b) const {
     const int64_t p = (r * K + k) * repro::kBn + b;
     const int32_t s = __ldg(sel + p);
     if (s == 0) {
       const int64_t i = __ldg(xrow + p);
-      return (i >= 0 && i < n_in) ? x_in + i * d : nullptr;
-    }
-    if (s == 1) {
+      if (i >= 0 && i < n_in) {
+        if constexpr (kPlain) return x_in + i * d;
+        else return {x_in + i * d, nullptr, 1.f};
+      }
+    } else if (s == 1) {
       const int64_t i = __ldg(trow + p);
-      return (i >= 0 && i < n_table) ? table + i * d : nullptr;
+      if (i >= 0 && i < n_table) {
+        if constexpr (kPlain) return table + i * d;
+        else return {nullptr, table + i * d, kScaled ? __ldg(scales + i) : 1.f};
+      }
     }
-    return nullptr;
+    if constexpr (kPlain) return nullptr;
+    else return {nullptr, nullptr, 1.f};
+  }
+
+  __device__ __forceinline__ float load(const Row& h, int64_t c) const {
+    if constexpr (kPlain) {
+      return h != nullptr ? __ldg(h + c) : 0.f;
+    } else {
+      if (h.x != nullptr) return __ldg(h.x + c);
+      if (h.t == nullptr) return 0.f;
+      const float v = to_f32(__ldg(h.t + c));
+      return kScaled ? __fmul_rn(v, h.s) : v;
+    }
   }
 };
+
+template <typename T, bool kScaled>
+int launch(const float* x_in, int64_t n_in, const T* table,
+           const float* scales, int64_t n_table, int64_t d, const float* vals,
+           const int32_t* sel, const int32_t* xrow, const int32_t* trow,
+           int64_t R, int64_t K, float* out, void* stream) {
+  const PlanRows<T, kScaled> src{x_in, n_in, table, scales, n_table, d,
+                                 sel,  xrow, trow,  K};
+  return repro::launch_block_spmm(vals, R, K, d, out, src, stream);
+}
 
 }  // namespace
 
@@ -54,6 +117,27 @@ REPRO_API int repro_gather_spmm_f32(const float* x_in, int64_t n_in,
                                     const int32_t* sel, const int32_t* xrow,
                                     const int32_t* trow, int64_t R, int64_t K,
                                     float* out, void* stream) {
-  const PlanRows src{x_in, n_in, table, n_table, d, sel, xrow, trow, K};
-  return repro::launch_block_spmm(vals, R, K, d, out, src, stream);
+  return launch<float, false>(x_in, n_in, table, nullptr, n_table, d, vals,
+                              sel, xrow, trow, R, K, out, stream);
+}
+
+REPRO_API int repro_gather_spmm_bf16(const float* x_in, int64_t n_in,
+                                     const uint16_t* table, int64_t n_table,
+                                     int64_t d, const float* vals,
+                                     const int32_t* sel, const int32_t* xrow,
+                                     const int32_t* trow, int64_t R,
+                                     int64_t K, float* out, void* stream) {
+  return launch<uint16_t, false>(x_in, n_in, table, nullptr, n_table, d,
+                                 vals, sel, xrow, trow, R, K, out, stream);
+}
+
+REPRO_API int repro_gather_spmm_dq(const float* x_in, int64_t n_in,
+                                   const int8_t* table, const float* scales,
+                                   int64_t n_table, int64_t d,
+                                   const float* vals, const int32_t* sel,
+                                   const int32_t* xrow, const int32_t* trow,
+                                   int64_t R, int64_t K, float* out,
+                                   void* stream) {
+  return launch<int8_t, true>(x_in, n_in, table, scales, n_table, d, vals,
+                              sel, xrow, trow, R, K, out, stream);
 }

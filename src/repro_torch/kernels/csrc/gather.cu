@@ -1,18 +1,28 @@
 // gather_rows: out[i, :] = table[idx[i], :]  (the history pull / feature
-// gather).
+// gather), for f32 and bf16 tables; and gather_rows_dq: out[i, :] =
+// float(q[idx[i], :]) * scales[idx[i]] (the dequantizing pull of an int8
+// history table).
 //
 // Replaces src/repro/kernels/gather.py:37 gather_rows (Pallas, one
-// (1, bd) row tile per grid step, lane-padded to a multiple of 128).
+// (1, bd) row tile per grid step, lane-padded to a multiple of 128) and
+// gather.py:107 gather_rows_dq (Pallas, (8, bd) int8 tiles DMA'd row by
+// row into a double-buffered VMEM slot, then one multiply per element by
+// the row's scale from the scalar-prefetch lane).
 //
-// Bound: bytes. It reads M*D*4 bytes of table rows and writes M*D*4 bytes
-// (plus 4*M of indices) and does no arithmetic. Design: one warp per
-// output row, 8 rows per 256-thread CTA; each lane moves 16 bytes (float4)
-// per step when D % 4 == 0 and both buffers are 16-byte aligned, so a
-// warp moves 512 contiguous bytes per instruction and a row is read
-// exactly once. The ragged edge is masked in the loop bound, so no
-// caller pads the table to a tile width (the reference pads the whole
-// [N, D] feature table to 128-column tiles on every pull). The index is
-// read in the kernel; callers pre-clip it to [0, N).
+// Bound: bytes. gather_rows reads M*D*E bytes of table rows and writes
+// M*D*E bytes (E = 4 for f32, 2 for bf16; plus 4*M of indices) and does no
+// arithmetic; gather_rows_dq reads M*D int8 bytes and 8*M bytes of index
+// and scale and writes 4*M*D bytes, one multiply per element. Design: one
+// warp per output row, 8 rows per 256-thread CTA. The row copy moves 16
+// bytes per lane (4 f32 or 8 bf16) when the row's bytes and both buffers
+// allow, so a warp moves 512 contiguous bytes per instruction; the
+// dequant reads 4 codes per lane (char4) and writes a float4 when D % 4
+// == 0 and the buffers are aligned. The ragged edge is masked in the loop
+// bound, so no caller pads the table to a tile width. The index is read
+// in the kernel; callers pre-clip it to [0, N). The dequant is one
+// IEEE-rounded multiply per element (__fmul_rn, never contracted into
+// anything), so the result is bitwise the plain version's and the
+// reference's `dequantize_rows`.
 #include "common.cuh"
 
 namespace {
@@ -34,24 +44,84 @@ gather_rows_kernel(const V* __restrict__ table,
   for (int64_t c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
 }
 
+// A row copy of `elem`-byte elements: 16-byte lanes (uint4) where the
+// row's bytes and both buffers allow, else one element (E) per lane.
+template <typename E>
+int launch_row_copy(const void* table, const int32_t* idx, void* out,
+                    int64_t m, int64_t d, void* stream) {
+  if (m == 0 || d == 0) return 0;
+  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int64_t kPerVec = sizeof(uint4) / sizeof(E);
+  const bool vec = d % kPerVec == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    gather_rows_kernel<uint4><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint4*>(table), idx, static_cast<uint4*>(out), m,
+        d / kPerVec);
+  } else {
+    gather_rows_kernel<E><<<grid, kThreads, 0, s>>>(
+        static_cast<const E*>(table), idx, static_cast<E*>(out), m, d);
+  }
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_rows_dq_kernel(const int8_t* __restrict__ q,
+                      const float* __restrict__ scales,
+                      const int32_t* __restrict__ idx,
+                      float* __restrict__ out, int64_t m, int64_t d,
+                      bool vec) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+  if (row >= m) return;
+  const int lane = threadIdx.x % 32;
+  const int64_t t = __ldg(idx + row);
+  const float s = __ldg(scales + t);
+  const int8_t* src = q + t * d;
+  float* dst = out + row * d;
+  if (vec) {
+    const char4* src4 = reinterpret_cast<const char4*>(src);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int64_t c = lane; c < d / 4; c += 32) {
+      const char4 v = __ldg(src4 + c);
+      dst4[c] = make_float4(__fmul_rn(static_cast<float>(v.x), s),
+                            __fmul_rn(static_cast<float>(v.y), s),
+                            __fmul_rn(static_cast<float>(v.z), s),
+                            __fmul_rn(static_cast<float>(v.w), s));
+    }
+  } else {
+    for (int64_t c = lane; c < d; c += 32)
+      dst[c] = __fmul_rn(static_cast<float>(__ldg(src + c)), s);
+  }
+}
+
 }  // namespace
 
 REPRO_API int repro_gather_rows_f32(const float* table, const int32_t* idx,
                                     float* out, int64_t m, int64_t d,
                                     void* stream) {
+  return launch_row_copy<float>(table, idx, out, m, d, stream);
+}
+
+REPRO_API int repro_gather_rows_bf16(const uint16_t* table,
+                                     const int32_t* idx, uint16_t* out,
+                                     int64_t m, int64_t d, void* stream) {
+  return launch_row_copy<uint16_t>(table, idx, out, m, d, stream);
+}
+
+REPRO_API int repro_gather_rows_dq(const int8_t* q, const float* scales,
+                                   const int32_t* idx, float* out, int64_t m,
+                                   int64_t d, void* stream) {
   if (m == 0 || d == 0) return 0;
   const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    gather_rows_kernel<float4><<<grid, kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(table), idx,
-        reinterpret_cast<float4*>(out), m, d / 4);
-  } else {
-    gather_rows_kernel<float><<<grid, kThreads, 0, s>>>(table, idx, out, m, d);
-  }
+  gather_rows_dq_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      q, scales, idx, out, m, d, vec);
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -1,23 +1,27 @@
 """Fused history-gather + block-CSR SpMM: `gather_plan`, `gather_spmm`.
 
-Replaces the f32 body of `src/repro/kernels/fused.py:203 gather_spmm`.
-The layer input of a GAS layer >= 1 is the virtual operand
+Replaces `src/repro/kernels/fused.py:203 gather_spmm`, its f32 body
+(`_make_kernel` :172, which the reference also runs over bf16 tables) and
+its int8 body (`_make_kernel_dq` :181). The layer input of a GAS layer
+>= 1 is the virtual operand
 
-    x_all = [x_in ; table[halo_nodes] * halo_mask ; 0]
+    x_all = [x_in ; dequant(table)[halo_nodes] * halo_mask ; 0]
 
 which the fused kernel never builds: the gather plan (`gather_plan`, one
 entry per adjacency-block row) says where virtual column
 `blk_cols[r, k] * 128 + b` lives —
 
     sel == 0 : in-batch  -> x_in[xrow]
-    sel == 1 : halo      -> table[trow]  (read straight out of the history)
+    sel == 1 : halo      -> table[trow]  (read straight out of the history,
+                            bf16 upcast, int8 times scales[trow])
     sel == 2 : masked halo / dummy / padding -> zeros
 
 On CUDA tensors `gather_spmm` launches `csrc/fused.cu` (the block
-contraction of `csrc/block_spmm.cuh` with plan-routed rows; bound by
-operations, 2*R*K*128*128*D f32 on the CUDA cores); on CPU tensors it
-runs the plain version `ref.gather_spmm_ref`. The reference's int8 and vq
-bodies (quantized histories) are not ported yet.
+contraction of `csrc/block_spmm.cuh` with plan-routed rows, dequantized
+as they are staged; bound by bytes, the blocks as stored, as
+`bcsr_spmm`); on CPU tensors it runs the plain version
+`ref.gather_spmm_ref`.
+The reference's vq body (codebook-quantized tables) is not ported yet.
 """
 from __future__ import annotations
 
@@ -55,28 +59,40 @@ def gather_plan(blk_cols: torch.Tensor, halo_nodes: torch.Tensor,
     return sel, xrow, trow
 
 
+_BODIES = {torch.float32: ("repro_gather_spmm_f32", "gather_spmm"),
+           torch.bfloat16: ("repro_gather_spmm_bf16", "gather_spmm_bf16"),
+           torch.int8: ("repro_gather_spmm_dq", "gather_spmm_dq")}
+
+
 def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
                 blk_vals: torch.Tensor, blk_cols: torch.Tensor,
                 sel: torch.Tensor, xrow: torch.Tensor, trow: torch.Tensor,
                 scales: torch.Tensor = None,
                 codebook: torch.Tensor = None) -> torch.Tensor:
-    """out [R*128, D] f32 = A @ [x_in ; table[halo] ; 0] per the gather
-    plan. x_in [n_in, D] and table [N, D] are f32 of one width D (ragged D
-    is masked in the kernel); xrow/trow must be pre-clipped to their
-    source's rows (as `gather_plan` makes them)."""
-    if scales is not None or codebook is not None:
+    """out [R*128, D] f32 = A @ [x_in ; dequant(table)[halo] ; 0] per the
+    gather plan. x_in [n_in, D] is f32; table [N, D] is f32, bf16, or int8
+    with `scales` [N] f32 (one width D; ragged D is masked in the kernel);
+    xrow/trow must be pre-clipped to their source's rows (as `gather_plan`
+    makes them). An int8 table launches the int8 body (`gather_spmm_dq`),
+    the others the f32 one (`gather_spmm`)."""
+    if codebook is not None:
         raise NotImplementedError(
-            "gather_spmm over int8 (scales) or vq (codebook) history tables "
-            "is not ported yet (ROADMAP Queue B, quantized histories)")
-    if all(t.device.type == "cpu"
-           for t in (x_in, table, blk_vals, blk_cols, sel, xrow, trow)):
+            "gather_spmm over vq (codebook) history tables is not ported "
+            "yet (ROADMAP Queue A item 3, Queue B item 16)")
+    if (table.dtype == torch.int8) != (scales is not None):
+        raise TypeError("gather_spmm: an int8 table needs its scales, and "
+                        "only an int8 table takes scales")
+    operands = (x_in, table, blk_vals, blk_cols, sel, xrow, trow) + \
+        (() if scales is None else (scales,))
+    if all(t.device.type == "cpu" for t in operands):
         return gather_spmm_ref(x_in, table, blk_vals, blk_cols, sel, xrow,
-                               trow)
-    name = "gather_spmm"
-    dev = B.require_cuda(name, x_in, table, blk_vals, blk_cols, sel, xrow,
-                         trow)
+                               trow, scales)
+    if table.dtype not in _BODIES:
+        raise TypeError(f"gather_spmm: table must be float32, bfloat16 or "
+                        f"int8, got {table.dtype}")
+    symbol, name = _BODIES[table.dtype]
+    dev = B.require_cuda(name, *operands)
     B.require_dtype(name, x_in, torch.float32, "x_in")
-    B.require_dtype(name, table, torch.float32, "table")
     check_blocks(name, blk_vals, blk_cols)
     R, K = blk_cols.shape
     for t, what in ((sel, "sel"), (xrow, "xrow"), (trow, "trow")):
@@ -88,9 +104,16 @@ def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
     if table.dim() != 2 or table.shape[1] != d:
         raise ValueError(f"{name}: table {tuple(table.shape)} must be "
                          f"[N, {d}]")
+    tab = (table.data_ptr(),)
+    if scales is not None:
+        B.require_dtype(name, scales, torch.float32, "scales")
+        if scales.shape != (table.shape[0],):
+            raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
+                             f"{(table.shape[0],)}")
+        tab += (scales.data_ptr(),)
     out = torch.empty((R * BN, d), dtype=torch.float32, device=dev)
-    B.check(B.lib().repro_gather_spmm_f32(
-        x_in.data_ptr(), n_in, table.data_ptr(), table.shape[0], d,
+    B.check(getattr(B.lib(), symbol)(
+        x_in.data_ptr(), n_in, *tab, table.shape[0], d,
         blk_vals.data_ptr(), sel.data_ptr(), xrow.data_ptr(),
         trow.data_ptr(), R, K, out.data_ptr(), B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1

@@ -1,35 +1,74 @@
-"""History pull (row gather): `gather_rows`.
+"""History pull (row gather): `gather_rows` and the dequantizing
+`gather_rows_dq`.
 
-Replaces `src/repro/kernels/gather.py:37 gather_rows`. On CUDA tensors it
-launches `csrc/gather.cu` (one warp per row, 16-byte lanes, ragged D
-masked in the kernel; bound by bytes: M*D*4 read plus M*D*4 written); on
-CPU tensors it runs the plain version `ref.gather_rows_ref`.
+Replaces `src/repro/kernels/gather.py:37 gather_rows` (f32 and bf16
+tables) and `gather.py:107 gather_rows_dq` (int8 tables with a per-row f32
+scale). On CUDA tensors each launches its kernel in `csrc/gather.cu` (one
+warp per row, 16-byte lanes, ragged D masked in the kernel; bound by
+bytes: M*D*E read plus M*D*E written for the row copy, E = 4 or 2;
+M*D int8 bytes and 8*M of index and scale read plus M*D*4 written for the
+dequant); on CPU tensors it runs the plain version in `ref.py`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build as B
-from .ref import gather_rows_ref
+from .ref import gather_rows_dq_ref, gather_rows_ref
 
-__all__ = ["gather_rows", "gather_rows_ref"]
+__all__ = ["gather_rows", "gather_rows_ref", "gather_rows_dq",
+           "gather_rows_dq_ref"]
+
+_ROW_COPY = {torch.float32: ("repro_gather_rows_f32", "gather_rows"),
+             torch.bfloat16: ("repro_gather_rows_bf16", "gather_rows_bf16")}
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out [M, D] = table[idx]; `idx` int32 [M], pre-clipped to [0, N)."""
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return gather_rows_ref(table, idx)
-    name = "gather_rows"
-    dev = B.require_cuda(name, table, idx)
-    B.require_dtype(name, table, torch.float32, "table")
+def _check_shapes(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     B.require_dtype(name, idx, torch.int32, "idx")
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"{name}: table [N, D] and idx [M], got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out [M, D] = table[idx], in the table's type (f32 or bf16); `idx`
+    int32 [M], pre-clipped to [0, N)."""
+    if table.device.type == "cpu" and idx.device.type == "cpu":
+        return gather_rows_ref(table, idx)
+    if table.dtype not in _ROW_COPY:
+        raise TypeError(f"gather_rows: table must be float32 or bfloat16, "
+                        f"got {table.dtype}")
+    symbol, name = _ROW_COPY[table.dtype]
+    dev = B.require_cuda(name, table, idx)
+    _check_shapes(name, table, idx)
     m, d = idx.shape[0], table.shape[1]
     out = torch.empty((m, d), dtype=table.dtype, device=dev)
-    B.check(B.lib().repro_gather_rows_f32(
+    B.check(getattr(B.lib(), symbol)(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, d,
         B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return out
+
+
+def gather_rows_dq(table: torch.Tensor, scales: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """out [M, D] f32 = float(table[idx]) * scales[idx][:, None]: the pull
+    of an int8 table [N, D] with its f32 scale table [N]; `idx` int32
+    [M], pre-clipped to [0, N)."""
+    if all(t.device.type == "cpu" for t in (table, scales, idx)):
+        return gather_rows_dq_ref(table, scales, idx)
+    name = "gather_rows_dq"
+    dev = B.require_cuda(name, table, scales, idx)
+    B.require_dtype(name, table, torch.int8, "table")
+    B.require_dtype(name, scales, torch.float32, "scales")
+    _check_shapes(name, table, idx)
+    if scales.shape != (table.shape[0],):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
+                         f"{(table.shape[0],)}")
+    m, d = idx.shape[0], table.shape[1]
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    B.check(B.lib().repro_gather_rows_dq(
+        table.data_ptr(), scales.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        m, d, B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return out

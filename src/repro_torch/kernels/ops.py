@@ -29,9 +29,9 @@ from .bcsr_spmm import bcsr_spmm
 from .edge_softmax import (edge_softmax_bwd_col, edge_softmax_bwd_row,
                            edge_softmax_fwd)
 from .fused import gather_plan, gather_spmm
-from .gather import gather_rows
+from .gather import gather_rows, gather_rows_dq
 from .ref import edge_softmax_coo
-from .scatter import scatter_rows
+from .scatter import scatter_rows, scatter_rows_q
 
 
 # ---------------------------------------------------------------------------
@@ -139,20 +139,24 @@ def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
 
 
 class _GasAggregate(torch.autograd.Function):
-    """out = A @ [x_in ; table[halo] * mask ; 0] without the bracket;
-    dx_in = (A^T @ g)[:n_in] on the transposed blocks (`ops.py:268-302`
-    of the reference). Only a row count is kept for the backward, never
-    the table, which later pushes overwrite in place."""
+    """out = A @ [x_in ; dequant(table)[halo] * mask ; 0] without the
+    bracket; dx_in = (A^T @ g)[:n_in] on the transposed blocks
+    (`ops.py:268-302` of the reference). The table and its scales get no
+    gradient: a quantized table's cotangents are the reference's hard
+    zeros, and a float table's is live only in the unported GCNII/APPNP.
+    Only a row count is kept for the backward, never the table, which
+    later pushes overwrite in place."""
 
     @staticmethod
-    def forward(ctx, x_in, table, halo_nodes, halo_mask, blk_vals, blk_cols,
-                blk_vals_t, blk_cols_t):
+    def forward(ctx, x_in, table, scales, halo_nodes, halo_mask, blk_vals,
+                blk_cols, blk_vals_t, blk_cols_t):
         bn = blk_vals.shape[-1]
         sel, xrow, trow = gather_plan(blk_cols, halo_nodes, halo_mask,
                                       x_in.shape[0], table.shape[0], bn)
         ctx.n_in = x_in.shape[0]
         ctx.blocks_t = (blk_vals_t, blk_cols_t)
-        return gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow)
+        return gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow,
+                           scales)
 
     @staticmethod
     def backward(ctx, g):
@@ -163,7 +167,7 @@ class _GasAggregate(torch.autograd.Function):
                 "the batch with them (core.gas.build_batches(build_blocks="
                 "True))")
         dx_all = bcsr_spmm(g.contiguous(), vals_t, cols_t)
-        return (dx_all[:ctx.n_in], None, None, None, None, None, None, None)
+        return (dx_all[:ctx.n_in],) + (None,) * 8
 
 
 def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
@@ -171,26 +175,28 @@ def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
                   n_out: int, blocks, *,
                   scales: Optional[torch.Tensor] = None,
                   codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused GAS aggregation: out = A @ [x_in ; table[halo]*mask ; 0]
-    without building the bracket: the gather plan is computed on the
+    """Fused GAS aggregation: out = A @ [x_in ; dequant(table)[halo]*mask
+    ; 0] without building the bracket: the gather plan is computed on the
     blocks' device, then `gather_spmm` reads in-batch rows from x_in,
-    halo rows straight out of the history table and zeros elsewhere.
-    `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
+    halo rows straight out of the history table (f32, bf16, or int8 with
+    `scales` [N] f32, dequantized as they are staged) and zeros
+    elsewhere. `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
     Differentiable w.r.t. x_in (the backward is `bcsr_spmm` on the
-    transposed pair); the table's gradient is live only in GCNII/APPNP,
-    which are not ported (ROADMAP Queue A item 2), so a table that
-    requires grad raises."""
-    if scales is not None or codebook is not None:
+    transposed pair); a quantized table gets no gradient (the reference's
+    hard zeros), and a float table's gradient is live only in
+    GCNII/APPNP, which are not ported (ROADMAP Queue A item 2), so a
+    table that requires grad raises. vq tables (`codebook`) raise too."""
+    if codebook is not None:
         raise NotImplementedError(
-            "gather_spmm over int8 (scales) or vq (codebook) history tables "
-            "is not ported yet (ROADMAP Queue B, quantized histories)")
+            "gas_aggregate over vq (codebook) history tables is not ported "
+            "yet (ROADMAP Queue A item 3, Queue B item 16)")
     if table.requires_grad:
         raise NotImplementedError(
             "gas_aggregate does not differentiate the table: its gradient "
             "is live only for GCNII/APPNP layer-0 halo transforms, which are "
             "not ported yet (ROADMAP Queue A item 2)")
     t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
-    return _GasAggregate.apply(x_in, table, halo_nodes, halo_mask,
+    return _GasAggregate.apply(x_in, table, scales, halo_nodes, halo_mask,
                                blocks[0], blocks[1], *t)[:n_out]
 
 
@@ -246,11 +252,31 @@ def edge_softmax_aggregate(wx: torch.Tensor, ad: torch.Tensor,
                               as_.contiguous(), uv, uc, uvt, uct, neg_slope)
 
 
-def pull_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """History pull: out[i] = table[idx[i]] (idx clipped to [0, N)).
-    Dequantizing pulls (int8/vq stores) are not ported yet."""
+def pull_rows(table: torch.Tensor, idx: torch.Tensor, *,
+              scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """History pull: out[i] = table[idx[i]] (idx clipped to [0, N)), in
+    the table's type for f32 and bf16 tables. With `scales` [N] f32 the
+    table holds int8 rows and the pull dequantizes: out[i] =
+    float(table[idx[i]]) * scales[idx[i]] in f32 (`gather_rows_dq`, the
+    multiply fused into the row gather, so only int8 table bytes are
+    read)."""
     idx = torch.clamp(idx, 0, table.shape[0] - 1).to(torch.int32)
+    if scales is not None:
+        return gather_rows_dq(table, scales, idx)
     return gather_rows(table, idx)
+
+
+def _push_index(idx: torch.Tensor, mask: torch.Tensor, n: int,
+                scratch_last_row: bool) -> torch.Tensor:
+    """The scatter index of a masked push: masked rows go to the
+    sacrificial last row, or out of range (dropped)."""
+    if scratch_last_row:
+        safe = torch.where(mask, torch.clamp(idx, 0, n - 2),
+                           torch.full_like(idx, n - 1))
+    else:
+        safe = torch.where(mask, torch.clamp(idx, 0, n - 1),
+                           torch.full_like(idx, n))
+    return safe.to(torch.int32)
 
 
 def push_rows(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
@@ -258,25 +284,39 @@ def push_rows(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
               scratch_last_row: bool = False) -> torch.Tensor:
     """History push, in place: table[idx[i]] = values[i] where mask[i];
     returns `table`. Duplicate valid indices resolve to the last writer.
+    A bf16 table takes the values rounded to bf16 first (nearest, ties to
+    even, as the reference's `astype`), so the scatter moves 2-byte rows.
 
     `scratch_last_row=True` declares the last table row sacrificial (GAS
     history tables are [N+1, d] with a sentinel row that is only ever read
     through a mask): masked rows are redirected into it, and its contents
     become unspecified; valid indices must stay below N-1. Otherwise
     masked rows are dropped."""
-    N = table.shape[0]
-    if scratch_last_row:
-        safe = torch.where(mask, torch.clamp(idx, 0, N - 2),
-                           torch.full_like(idx, N - 1))
-    else:
-        safe = torch.where(mask, torch.clamp(idx, 0, N - 1),
-                           torch.full_like(idx, N))
-    return scatter_rows(table, safe.to(torch.int32),
-                        values.to(table.dtype).contiguous())
+    safe = _push_index(idx, mask, table.shape[0], scratch_last_row)
+    return scatter_rows(table, safe, values.to(table.dtype).contiguous())
+
+
+def push_rows_q(table: torch.Tensor, scales: torch.Tensor,
+                idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                *, scratch_last_row: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantizing history push, in place, the dual of the dequantizing
+    pull: `table` [N, D] int8 and `scales` [N] f32. Each pushed row is
+    quantized as `ref.quantize_rows` does (s = max|v| / 127, q =
+    round(v / s)) and its codes and scale land at the same row
+    (`scatter_rows_q`: the row max, divide, round and clip run inside the
+    scatter, so no quantized copy of the payload is made). Masking and
+    `scratch_last_row` as in `push_rows` (the sentinel row's scale becomes
+    unspecified too). Returns (table, scales, err), err [M] each pushed
+    row's relative quantization error (masked rows' too)."""
+    safe = _push_index(idx, mask, table.shape[0], scratch_last_row)
+    return scatter_rows_q(table, scales, safe,
+                          values.to(torch.float32).contiguous())
 
 
 __all__ = ["build_bcsr", "build_bcsr_rect", "spmm", "gcn_aggregate",
            "gas_aggregate", "edge_softmax_aggregate", "pull_rows",
-           "push_rows", "bcsr_spmm", "gather_plan", "gather_spmm",
-           "gather_rows", "scatter_rows", "edge_softmax_fwd",
-           "edge_softmax_bwd_row", "edge_softmax_bwd_col"]
+           "push_rows", "push_rows_q", "bcsr_spmm", "gather_plan",
+           "gather_spmm", "gather_rows", "gather_rows_dq", "scatter_rows",
+           "scatter_rows_q", "edge_softmax_fwd", "edge_softmax_bwd_row",
+           "edge_softmax_bwd_col"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's seven CUDA kernels.
+"""Plain PyTorch versions of the port's ten CUDA kernels.
 
 Each function computes what its kernel computes, on the same arguments, in
 plain tensor code: the kernel wrappers (`gather.py`, `scatter.py`,
@@ -7,6 +7,13 @@ tensors, the tests hold them against the JAX package's Pallas kernels,
 and `chip_smoke.py` holds each kernel against them on the card. They
 repeat the kernels' arithmetic and are no yardstick of speed.
 
+`row_scales`, `quantize_rows` and `dequantize_rows` are the symmetric
+per-row int8 codec of `repro.core.history` (`:217-245`), and
+`relative_row_error` the per-row term of its quantization error (`:366`):
+the one definition the int8 store, the quantizing push's plain version and
+`core.history.quantization_error` share; the CUDA kernels mirror them
+op for op (`csrc/scatter.cu`, `csrc/gather.cu`, `csrc/fused.cu`).
+
 `edge_softmax_coo` is not a kernel's plain version: it is the per-edge
 (segment) softmax of the reference's "jnp" route, which `full_forward`
 and `evaluate_exact` run in plain tensor code, as the reference's
@@ -14,13 +21,76 @@ and `evaluate_exact` run in plain tensor code, as the reference's
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
 
+def row_scales(values: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-row scale `s_i = max|v_i| / 127` (1.0 for all-zero
+    rows, so the dequant stays finite), in f32: a max is exact in any
+    order, and the one division rounds as the reference's does. The
+    divisor is a tensor: PyTorch's CUDA division multiplies by the
+    reciprocal of a Python-number divisor, which rounds otherwise."""
+    amax = torch.amax(torch.abs(values.to(torch.float32)), dim=-1)
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                       torch.ones_like(amax))
+
+
+def quantize_rows(values: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """values [M, d] -> (q int8 [M, d], scales f32 [M]): `q_i =
+    clip(round(v_i / s_i), -127, 127)`, rounding half to even (as
+    `jnp.round`); the division is a division, never a multiply by the
+    reciprocal, as in the reference. Per-element error <= s_i / 2."""
+    v = values.to(torch.float32)
+    scales = row_scales(v)
+    q = torch.clamp(torch.round(v / scales[:, None]), -127, 127)
+    return q.to(torch.int8), scales
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(q int8 [M, d], scales f32 [M]) -> f32 [M, d], one multiply per
+    element."""
+    return q.to(torch.float32) * scales[:, None]
+
+
+def relative_row_error(values: torch.Tensor,
+                       back: torch.Tensor) -> torch.Tensor:
+    """Per-row relative L2 error `||v - back|| / (||v|| + 1e-12)` in f32:
+    the per-row term of `core.history.quantization_error`."""
+    v = values.to(torch.float32)
+    num = torch.sqrt(torch.sum(torch.square(v - back), dim=-1))
+    den = torch.sqrt(torch.sum(torch.square(v), dim=-1)) + 1e-12
+    return num / den
+
+
 def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = table[idx[i]]; idx pre-clipped to [0, N)."""
+    """out[i] = table[idx[i]] (f32 or bf16 rows, in the table's type);
+    idx pre-clipped to [0, N)."""
     return table[idx.long()]
+
+
+def gather_rows_dq_ref(table: torch.Tensor, scales: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """The dequantizing pull: out[i] = float(q[idx[i]]) * scales[idx[i]]
+    in f32, bitwise `dequantize_rows` of the gathered rows; idx
+    pre-clipped to [0, N)."""
+    i = idx.long()
+    return dequantize_rows(table[i], scales[i])
+
+
+def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The positions that write under last-writer-wins: per target row in
+    [0, n) the largest position naming it; out-of-range rows never
+    write."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    ok = (idx >= 0) & (idx < n)
+    tgt = torch.where(ok, idx, torch.full_like(idx, n))
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=idx.device)
+    last.scatter_reduce_(0, tgt, pos, reduce="amax")
+    return ok & (last[tgt] == pos)
 
 
 def scatter_rows_ref(table: torch.Tensor, idx: torch.Tensor,
@@ -30,17 +100,31 @@ def scatter_rows_ref(table: torch.Tensor, idx: torch.Tensor,
     Rows whose index lies outside [0, N) are dropped. Duplicate indices
     resolve to the LAST occurrence in row order (the reference's
     sequential-grid semantics): a first pass takes, per target row, the
-    largest position that names it, and only that position writes."""
-    N = table.shape[0]
+    largest position that names it, and only that position writes. A
+    bf16 table takes the values rounded to bf16 (nearest, ties to even,
+    as XLA's convert)."""
     idx = idx.long()
-    pos = torch.arange(idx.shape[0], device=idx.device)
-    ok = (idx >= 0) & (idx < N)
-    tgt = torch.where(ok, idx, torch.full_like(idx, N))
-    last = torch.full((N + 1,), -1, dtype=torch.long, device=idx.device)
-    last.scatter_reduce_(0, tgt, pos, reduce="amax")
-    win = ok & (last[tgt] == pos)
+    win = _last_writer(idx, table.shape[0])
     table[idx[win]] = values[win].to(table.dtype)
     return table
+
+
+def scatter_rows_q_ref(table: torch.Tensor, scales: torch.Tensor,
+                       idx: torch.Tensor, values: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The quantizing push, in place: for each pushed f32 row i, s_i =
+    `row_scales(values)_i` and q_i = `quantize_rows(values)_i`; table
+    [N, D] int8 takes q_i and scales [N] f32 takes s_i at row idx[i].
+    Rows outside [0, N) are dropped; duplicates resolve to the last
+    occurrence for the code row and its scale alike (one owner per
+    target row). Returns (table, scales, err), err [M] the relative error
+    of every pushed row, dropped rows included."""
+    idx = idx.long()
+    win = _last_writer(idx, table.shape[0])
+    q, s = quantize_rows(values)
+    table[idx[win]] = q[win]
+    scales[idx[win]] = s[win]
+    return table, scales, relative_row_error(values, dequantize_rows(q, s))
 
 
 def _gather_blocks(rows: torch.Tensor, blk_cols: torch.Tensor,
@@ -66,17 +150,24 @@ def bcsr_spmm_ref(x: torch.Tensor, blk_vals: torch.Tensor,
 def gather_spmm_ref(x_in: torch.Tensor, table: torch.Tensor,
                     blk_vals: torch.Tensor, blk_cols: torch.Tensor,
                     sel: torch.Tensor, xrow: torch.Tensor,
-                    trow: torch.Tensor) -> torch.Tensor:
-    """f32 fused history-gather aggregation, routed by the gather plan
+                    trow: torch.Tensor,
+                    scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused history-gather aggregation, routed by the gather plan
     (`fused.gather_plan`): row b of block (r, k) is x_in[xrow] where
-    sel == 0, table[trow] where sel == 1 and zeros where sel == 2; the
-    staged [R, K, bn, D] operand is contracted with the blocks. Returns
+    sel == 0, the table row trow where sel == 1 and zeros where sel == 2;
+    the staged [R, K, bn, D] operand is contracted with the blocks.
+    Table rows are f32, bf16 (upcast exactly) or, with `scales` [N] f32,
+    int8 codes dequantized as `dequantize_rows` does (one multiply). Returns
     [R*bn, D] f32 (the reference's `ref.gather_spmm_ref` builds the same
-    operand as x_all = [x_in ; table[halo] * mask ; 0] instead)."""
+    operand as x_all = [x_in ; dequant(table)[halo] * mask ; 0]
+    instead)."""
     R, K, bn, _ = blk_vals.shape
     D = x_in.shape[1]
     xs = x_in[xrow.long()]                          # [R, K, bn, D]
-    ts = table[trow.long()]
+    t = trow.long()
+    ts = table[t].to(torch.float32)
+    if scales is not None:
+        ts = ts * scales[t][..., None]
     s = sel[..., None]
     g = torch.where(s == 0, xs, torch.where(s == 1, ts, torch.zeros_like(ts)))
     out = torch.einsum("rkab,rkbd->rad", blk_vals, g)

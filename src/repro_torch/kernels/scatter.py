@@ -1,44 +1,92 @@
-"""History push (row scatter): `scatter_rows`, in place.
+"""History push (row scatter), in place: `scatter_rows` and the
+quantizing `scatter_rows_q`.
 
-Replaces `src/repro/kernels/scatter.py:39 scatter_rows`. The reference
-aliases the table into the Pallas output, and with a donated buffer XLA
-performs the push in place; here the push writes into the table tensor
-itself. On CUDA tensors it launches `csrc/scatter.cu` (a per-target
-winner pass so that duplicate indices resolve to the last writer, then a
-row copy; bound by bytes: M*D*4 read plus M*D*4 written); on CPU tensors
-it runs the plain version `ref.scatter_rows_ref`.
+Replaces `src/repro/kernels/scatter.py:39 scatter_rows` (f32 and bf16
+tables) and `scatter.py:85 scatter_rows_q` (int8 tables with a per-row
+f32 scale). The reference aliases the table into the Pallas output, and
+with a donated buffer XLA performs the push in place; here the push
+writes into the table tensor itself. On CUDA tensors each launches its
+kernel in `csrc/scatter.cu` (a per-target winner pass so that duplicate
+indices resolve to the last writer, then a row copy, or for int8 a row
+max, divide, round and clip, and each pushed row's relative error;
+bound by bytes: M*D*E read plus M*D*E written for the copy, E = 4 or 2;
+M*D*4 read plus M*D + 8*M written for the quantizing push); on CPU
+tensors it runs the plain version in `ref.py`.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from . import _build as B
-from .ref import scatter_rows_ref
+from .ref import scatter_rows_q_ref, scatter_rows_ref
 
-__all__ = ["scatter_rows", "scatter_rows_ref"]
+__all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
+           "scatter_rows_q_ref"]
+
+_ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
+             torch.bfloat16: ("repro_scatter_rows_bf16", "scatter_rows_bf16")}
+
+
+def _check_push(name: str, table: torch.Tensor, idx: torch.Tensor,
+                values: torch.Tensor) -> None:
+    B.require_dtype(name, idx, torch.int32, "idx")
+    m, d = idx.shape[0], table.shape[1]
+    if values.shape != (m, d):
+        raise ValueError(f"{name}: values {tuple(values.shape)} != {(m, d)}")
+    if m >= 2 ** 31:
+        raise ValueError(f"{name}: {m} rows exceed the int32 winner pass")
 
 
 def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """In place: table[idx[i]] = values[i] for idx[i] in [0, N); other
-    rows are dropped; duplicates resolve to the last occurrence. Returns
-    `table`."""
+    rows are dropped; duplicates resolve to the last occurrence. `values`
+    has the table's type (f32 or bf16). Returns `table`."""
     if all(t.device.type == "cpu" for t in (table, idx, values)):
         return scatter_rows_ref(table, idx, values)
-    name = "scatter_rows"
+    if table.dtype not in _ROW_COPY:
+        raise TypeError(f"scatter_rows: table must be float32 or bfloat16, "
+                        f"got {table.dtype}")
+    symbol, name = _ROW_COPY[table.dtype]
     dev = B.require_cuda(name, table, idx, values)
-    B.require_dtype(name, table, torch.float32, "table")
-    B.require_dtype(name, values, torch.float32, "values")
-    B.require_dtype(name, idx, torch.int32, "idx")
+    B.require_dtype(name, values, table.dtype, "values")
+    _check_push(name, table, idx, values)
     n, d = table.shape
-    m = idx.shape[0]
-    if values.shape != (m, d):
-        raise ValueError(f"{name}: values {tuple(values.shape)} != {(m, d)}")
-    if m >= 2 ** 31:
-        raise ValueError(f"{name}: {m} rows exceed the int32 winner pass")
     winner = torch.empty((n,), dtype=torch.int32, device=dev)
-    B.check(B.lib().repro_scatter_rows_f32(
+    B.check(getattr(B.lib(), symbol)(
         table.data_ptr(), idx.data_ptr(), values.data_ptr(),
-        winner.data_ptr(), m, n, d, B.stream_ptr(dev)), name)
+        winner.data_ptr(), idx.shape[0], n, d, B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return table
+
+
+def scatter_rows_q(table: torch.Tensor, scales: torch.Tensor,
+                   idx: torch.Tensor, values: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """In place: for idx[i] in [0, N), table[idx[i]] (int8 [N, D]) takes
+    the codes of f32 row values[i] and scales[idx[i]] (f32 [N]) its scale
+    (`ref.quantize_rows`); other rows are dropped; duplicates resolve to
+    the last occurrence, codes and scale alike. Returns (table, scales,
+    err): err [M] f32 is every pushed row's relative error
+    (`ref.relative_row_error`), dropped rows included."""
+    if all(t.device.type == "cpu" for t in (table, scales, idx, values)):
+        return scatter_rows_q_ref(table, scales, idx, values)
+    name = "scatter_rows_q"
+    dev = B.require_cuda(name, table, scales, idx, values)
+    B.require_dtype(name, table, torch.int8, "table")
+    B.require_dtype(name, scales, torch.float32, "scales")
+    B.require_dtype(name, values, torch.float32, "values")
+    _check_push(name, table, idx, values)
+    n, d = table.shape
+    if scales.shape != (n,):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
+    winner = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = torch.empty((idx.shape[0],), dtype=torch.float32, device=dev)
+    B.check(B.lib().repro_scatter_rows_q(
+        table.data_ptr(), scales.data_ptr(), err.data_ptr(), idx.data_ptr(),
+        values.data_ptr(), winner.data_ptr(), idx.shape[0], n, d,
+        B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return table, scales, err

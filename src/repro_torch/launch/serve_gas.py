@@ -1,9 +1,9 @@
 """GAS serving launcher (PyTorch port): history tables as a warm cache.
 
-Binds a GCN's params and f32 history tables — loaded from a checkpoint
-written by the reference's `save_gas_state`, or freshly initialized (the
-port cannot train yet; a fresh state is what the reference serves with
-`--epochs 0`) — and answers a stream of batched query-node requests under
+Binds a GCN's params and history tables — loaded from a checkpoint
+written by either package's `save_gas_state`, or freshly initialized at
+`--history-dtype` (f32, bf16 or int8; a fresh state is what the
+reference serves with `--epochs 0`) — and answers a stream of batched query-node requests under
 a staleness SLO, printing p50/p99 latency, accuracy and cache
 diagnostics:
 
@@ -11,12 +11,18 @@ diagnostics:
         --nodes 600 --slo 0 --requests 16 --batch 32
     PYTHONPATH=src python -m repro_torch.launch.serve_gas --checkpoint gas.npz
     PYTHONPATH=src python -m repro_torch.launch.serve_gas --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_gas --smoke \
+        --device cpu --history-dtype int8
 
 `--device` defaults to cuda. `--smoke` serves two requests on a tiny graph
 and asserts the SLO contract: `halo_age_max <= slo`, a repeated request
 is served bit-identically, and SLO=0 logits match the full-graph forward
 (to f32 tolerance: the batch aggregates block by block, the full forward
-edge by edge). Only the in-process role of the reference (`--role both`)
+edge by edge; over a bf16 or int8 store the halo rows carry the store's
+rounding, so the smoke holds them to the store's precision instead:
+2e-2 for bf16 and 5e-2 for int8, a few quantization steps of logits of
+order 1). The cache line prints the store's bytes and its compression
+against f32. Only the in-process role of the reference (`--role both`)
 is ported; the store service and its frontends come later (ROADMAP
 Queue A).
 """
@@ -37,8 +43,8 @@ from repro_torch.gnn.model import GNNSpec, full_forward, init_gnn
 from repro_torch.train.checkpoint import load_gas_meta, load_gas_state_npz
 
 # SLO=0 serving against the full forward: the same sums in another order
-SMOKE_RTOL = 1e-4
-SMOKE_ATOL = 1e-4
+# for an f32 store; for a quantized one the pushed rows carry its rounding
+SMOKE_TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 5e-2}
 
 
 def _parse_slo(s: str):
@@ -64,11 +70,13 @@ def _state(args, device):
                     setattr(args, k, v)
         g, spec = _build(args)
         params, store, step = load_gas_state_npz(args.checkpoint, device)
+        args.history_dtype = store.history_dtype
         print(f"loaded {args.checkpoint} (step {step})")
     else:
         g, spec = _build(args)
         params = init_gnn(spec, seed=args.seed, device=device)
         store = HistoryStore.create(g.num_nodes + 1, spec.hist_dims(),
+                                    history_dtype=args.history_dtype,
                                     device=device)
         print("serving a freshly initialized state (no --checkpoint)")
     return g, spec, S.ServeState(params=params, histories=store)
@@ -89,8 +97,10 @@ def run(args):
         device=device)
     state = S.init_serve_state(splan, state)
     store = state.histories
+    f32_bytes = sum(t.numel() * 4 for t in store.tables)
     print(f"cache: {store.num_layers} tables x {g.num_nodes} rows, "
-          f"{store.bytes():,} bytes ({store.history_dtype}), "
+          f"{store.bytes():,} bytes ({store.history_dtype}, "
+          f"{f32_bytes / max(store.bytes(), 1):.2f}x vs f32), "
           f"device={device}, slo={args.slo}, buckets={splan.query_buckets}")
 
     queries = _query_stream(args, g.num_nodes)
@@ -112,7 +122,9 @@ def run(args):
           f"p99 {np.percentile(lat, 99):.2f} ms, "
           f"acc {correct / (args.requests * args.batch):.3f}, "
           f"halo_age_max {max(d['halo_age_max'] for *_, d in results):.0f}, "
-          f"refreshed {sum(d['refreshed'] for *_, d in results):.0f} rows")
+          f"refreshed {sum(d['refreshed'] for *_, d in results):.0f} rows, "
+          f"hist_quant_err "
+          f"{np.mean([d['hist_quant_err'] for *_, d in results]):.3g}")
 
     if args.smoke:
         _smoke_asserts(args, g, spec, splan, state, results)
@@ -136,9 +148,9 @@ def _smoke_asserts(args, g, spec, splan, state, results):
                 state.params, spec, splan.x,
                 (torch.from_numpy(dst).to(dev), torch.from_numpy(src).to(dev)),
                 torch.from_numpy(w).to(dev), g.num_nodes).cpu().numpy()
+        tol = SMOKE_TOL[state.histories.history_dtype]
         for q, lg, _ in results:
-            np.testing.assert_allclose(lg, exact[q], rtol=SMOKE_RTOL,
-                                       atol=SMOKE_ATOL)
+            np.testing.assert_allclose(lg, exact[q], rtol=tol, atol=tol)
 
 
 def main(argv=None):
@@ -159,8 +171,12 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--history-dtype", default="f32",
+                    choices=("f32", "bf16", "int8"),
+                    help="precision of a fresh store (a checkpoint's store "
+                         "keeps its own)")
     ap.add_argument("--checkpoint", default=None,
-                    help="serve a state written by the reference's "
+                    help="serve a state written by either package's "
                          "save_gas_state")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")

@@ -2,14 +2,16 @@
 
 The counterpart of `examples/quickstart.py`: the synthetic citation graph
 (homophily 0.75, feature noise 2.0, seed 0), a 2-layer model with
-`d_hidden=64` (GAT: 8 heads of 8, one output head), f32 histories, a
-METIS-like partition, `--epochs` epochs of full-batch training and of GAS
+`d_hidden=64` (GAT: 8 heads of 8, one output head), histories stored at
+`--history-dtype` (f32, bf16 or int8), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
 training, then both test accuracies from the exact full-graph forward
-and the GAS one from `predict` beside them.
+and the GAS one from `predict` beside them, with the history store's
+bytes, its compression against f32 and the last epoch's
+`hist_quant_err`.
 
     python -m repro_torch.launch.train_gas [--op gcn|gat] [--nodes N]
         [--features F] [--classes C] [--parts P] [--epochs E]
-        [--device cuda|cpu] [--smoke]
+        [--history-dtype f32|bf16|int8] [--device cuda|cpu] [--smoke]
 
 `--device` defaults to cuda and raises without a card; `--device cpu`
 runs every kernel's plain version. `--smoke` shrinks the run (400
@@ -44,6 +46,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--classes", type=int, default=7)
     ap.add_argument("--parts", type=int, default=16)
     ap.add_argument("--epochs", type=int, default=60)
+    ap.add_argument("--history-dtype", default="f32",
+                    choices=("f32", "bf16", "int8"),
+                    help="history-table storage precision")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true")
@@ -71,7 +76,8 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     config = R.GASConfig(num_parts=args.parts, partitioner="metis",
-                         epochs=args.epochs, lr=0.01)
+                         epochs=args.epochs, lr=0.01,
+                         history_dtype=args.history_dtype)
     plan = R.build_plan(graph, spec, config, device=device)
     t_plan = time.perf_counter() - t0
     state = R.init_state(plan)
@@ -91,6 +97,11 @@ def main(argv=None) -> dict:
           f"(paper Table 1: GAS matches full-batch)")
     print(f"gas_predict    : logits {tuple(logits.shape)}, test acc "
           f"{pred_acc:.4f} from the histories")
+    store = state.histories
+    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    print(f"history store  : {store.bytes():,} bytes "
+          f"({store.history_dtype}, {f32_bytes / max(store.bytes(), 1):.2f}x"
+          f" vs f32), hist_quant_err {metrics[-1]['hist_quant_err']:.3g}")
     if args.smoke:
         losses = [m["loss"] for m in metrics] + [h["loss"] for h in hist]
         assert np.isfinite(losses).all(), losses

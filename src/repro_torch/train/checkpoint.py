@@ -7,15 +7,21 @@ the path strings of the flattened `GASState`:
     state/params/layers/{i}/{w,a_src,a_dst}  (GAT)
     state/opt_state/step                     () int32
     state/opt_state/{m,v}/layers/{i}/...     the AdamW moments
-    state/histories/tables/{l}               [N+1, d] f32
+    state/histories/tables/{l}               [N+1, d] f32, int8 codes,
+                                             or bf16 widened to f32
     state/histories/age                      [N+1] int32
+    state/histories/scales/{l}               [N+1] f32 (int8 stores only)
     state/rng                                [2] uint32 key data
     step, and meta_json when the writer passed `meta`
 
-`load_gas_state_npz` reads such a file into the port's params dict and an
-f32 `HistoryStore` (what serving needs); `load_gas_state` reads the whole
-training state, optimizer included; `save_gas_state` writes the port's
-state in the same layout, so the reference's `load_gas_state` reads it.
+`load_gas_state_npz` reads such a file into the port's params dict and a
+`HistoryStore` of the precision it holds (what serving needs);
+`load_gas_state` reads the whole training state, optimizer included;
+`save_gas_state` writes the port's state in the same layout, so the
+reference's `load_gas_state` reads it. An int8 store is told apart by its
+int8 tables and scale tables; a bf16 store only by the writer's meta
+(`args.history_dtype`) or the caller's `history_dtype`, since npz cannot
+hold bf16 and both packages widen it to f32 (exactly) on disk.
 `params_from_numpy` maps a flattened param tree given as numpy arrays
 into the params dict.
 """
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import resolve_device
-from repro_torch.core.history import HistoryStore
+from repro_torch.core.history import HistoryStore, get_codec
 
 _PARAM_KEY = re.compile(r"^layers/(\d+)/(w|b|a_src|a_dst)$")
 
@@ -58,34 +64,54 @@ def params_from_numpy(flat: Mapping[str, np.ndarray],
     return {"layers": [layers[i] for i in range(len(layers))]}
 
 
-def load_gas_state_npz(path: str, device=None
+def _store_dtype(flat: Mapping[str, np.ndarray],
+                 history_dtype: Optional[str]) -> str:
+    """The precision of the store in a flat checkpoint: the caller's, else
+    the writer's meta, else int8 where scale tables are present, else
+    f32; raises where the arrays contradict it."""
+    meta = json.loads(str(flat["meta_json"])) if "meta_json" in flat else {}
+    scaled = any(k.startswith("state/histories/scales/") for k in flat)
+    hd = history_dtype or meta.get("args", {}).get("history_dtype") or (
+        "int8" if scaled else "f32")
+    codec = get_codec(hd)
+    if codec.scaled != scaled:
+        raise ValueError(f"checkpoint {'has' if scaled else 'lacks'} scale "
+                         f"tables, which a {hd} store "
+                         f"{'lacks' if scaled else 'needs'}")
+    return hd
+
+
+def load_gas_state_npz(path: str, device=None,
+                       history_dtype: Optional[str] = None
                        ) -> Tuple[Dict[str, Any], HistoryStore, int]:
-    """Read a `.npz` written by the reference's `save_gas_state`. Returns
-    (params, f32 `HistoryStore`, step) on `device` (None means "cuda")."""
+    """Read a `.npz` written by either package's `save_gas_state`. Returns
+    (params, `HistoryStore`, step) on `device` (None means "cuda"). The
+    store's precision is `history_dtype`, else the one the writer's meta
+    names, else int8 where the file has scale tables, else f32 (a bf16
+    store written without meta must be named here)."""
     dev = resolve_device(device)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    # bf16 tables are widened to f32 on disk, so the writer's meta and the
-    # scale tables are what tell a quantized store apart
-    meta = json.loads(str(flat["meta_json"])) if "meta_json" in flat else {}
-    hd = meta.get("args", {}).get("history_dtype")
-    if hd not in (None, "f32") or any(
-            k.startswith("state/histories/scales/") for k in flat):
-        raise NotImplementedError(
-            f"{path} holds a quantized ({hd}) history store; the port reads "
-            "f32 stores only (ROADMAP Queue A, quantized histories)")
+    hd = _store_dtype(flat, history_dtype)
+    storage = get_codec(hd).storage
     params = params_from_numpy(
         {k: v for k, v in flat.items() if k.startswith("state/params/")},
         device=dev)
     n_tables = sum(1 for k in flat if k.startswith("state/histories/tables/"))
-    tables = []
+    tables, scales = [], []
     for ell in range(n_tables):
-        t = np.ascontiguousarray(flat[f"state/histories/tables/{ell}"],
-                                 np.float32)
-        tables.append(torch.from_numpy(t).to(dev))
+        t = torch.from_numpy(np.ascontiguousarray(
+            flat[f"state/histories/tables/{ell}"]))
+        if storage == torch.int8 and t.dtype != torch.int8:
+            raise ValueError(f"an int8 store's table {ell} holds {t.dtype}")
+        tables.append(t.to(storage).to(dev))
+        if get_codec(hd).scaled:
+            scales.append(torch.from_numpy(np.ascontiguousarray(
+                flat[f"state/histories/scales/{ell}"], np.float32)).to(dev))
     age = torch.from_numpy(
         flat["state/histories/age"].astype(np.int32)).to(dev)
-    store = HistoryStore(tables=tables, age=age, history_dtype="f32")
+    store = HistoryStore(tables=tables, age=age, history_dtype=hd,
+                         scales=scales or None)
     return params, store, int(flat["step"])
 
 
@@ -105,9 +131,11 @@ def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
 
 def save_gas_state(path: str, state, step: int = 0,
                    meta: Optional[dict] = None) -> None:
-    """Write a `core.runtime.GASState` (params, AdamW state, f32 history
-    tables and clock, rng key data) as one flat npz in the reference's
-    layout, which `repro.train.checkpoint.load_gas_state` restores."""
+    """Write a `core.runtime.GASState` (params, AdamW state, history
+    tables, int8 scale tables and clock, rng key data) as one flat npz in
+    the reference's layout, which `repro.train.checkpoint.load_gas_state`
+    restores (bf16 tables widened to f32, as the reference writes
+    them)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     opt = state.opt_state
     arrays = _flat_params("state/params/", state.params)
@@ -115,8 +143,13 @@ def save_gas_state(path: str, state, step: int = 0,
         opt.step.cpu().numpy(), np.int32)
     arrays.update(_flat_params("state/opt_state/m/", opt.m))
     arrays.update(_flat_params("state/opt_state/v/", opt.v))
-    for ell, t in enumerate(state.histories.tables):
+    store = state.histories
+    for ell, t in enumerate(store.tables):
+        if t.dtype == torch.bfloat16:   # npz cannot hold bf16
+            t = t.to(torch.float32)
         arrays[f"state/histories/tables/{ell}"] = t.cpu().numpy()
+    for ell, sc in enumerate(store.scales or []):
+        arrays[f"state/histories/scales/{ell}"] = sc.cpu().numpy()
     arrays["state/histories/age"] = state.histories.age.cpu().numpy()
     arrays["state/rng"] = np.asarray(state.rng, np.uint32)
     arrays["step"] = np.asarray(step)
@@ -125,15 +158,17 @@ def save_gas_state(path: str, state, step: int = 0,
     np.savez(path, **arrays)
 
 
-def load_gas_state(path: str, device=None):
+def load_gas_state(path: str, device=None,
+                   history_dtype: Optional[str] = None):
     """Read a whole training state written by either package's
     `save_gas_state`: returns (`core.runtime.GASState`, step) on `device`
-    (None means "cuda")."""
+    (None means "cuda"); `history_dtype` as in `load_gas_state_npz`."""
     from repro_torch.core.runtime import GASState
     from .optimizer import AdamWState
 
     dev = resolve_device(device)
-    params, store, step = load_gas_state_npz(path, device=dev)
+    params, store, step = load_gas_state_npz(path, device=dev,
+                                             history_dtype=history_dtype)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     opt = AdamWState(

@@ -9,9 +9,15 @@ and `nvcc`:
 
 The first call builds the kernels (kernels/_build.py). Tolerances: the
 row max M of the edge softmax is bitwise its plain version's (a max over
-the same scores); everything else compares at rtol = atol = 1e-4 (sums
-in another order, and expf against torch.exp in the last bits); a warm
-repeat of each kernel is bitwise identical (no atomics)."""
+the same scores), and so are the row moves: the f32 and bf16 gathers and
+scatters, the dequantizing gather and the quantizing scatter (codes and
+scales; the same division, rounding and multiply); everything else
+compares at rtol = atol = 1e-4 (sums in another order, and expf against
+torch.exp in the last bits); a warm repeat of each kernel is bitwise
+identical (no atomics). Quantized training steps hold the tables as
+dequantized values within one quantization step s_i per row, with at
+least 99.9% of the codes equal: a pushed value a rounding away from a
+code's .5 boundary may land on the other side."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +29,9 @@ from repro_torch.gnn.model import GNNSpec
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import edge_softmax as esk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
+from repro_torch.kernels.fused import gather_plan, gather_spmm
+from repro_torch.kernels.gather import gather_rows, gather_rows_dq
+from repro_torch.kernels.scatter import scatter_rows, scatter_rows_q
 from repro_torch.train.optimizer import tree_leaves
 
 pytestmark = pytest.mark.cuda
@@ -179,7 +188,192 @@ def _state_tensors(state):
     opt = state.opt_state
     return (tree_leaves(state.params) + tree_leaves(opt.m)
             + tree_leaves(opt.v) + list(state.histories.tables)
+            + list(state.histories.scales or [])
             + [state.histories.age, opt.step])
+
+
+def _assert_tables_close(got, want):
+    """Quantized history tables on two devices: int8 dequantized within
+    one step s_i per row and 1e-5 of it for the scales' own rounding, bf16
+    within one bf16 step at the larger magnitude plus the f32 tables'
+    1e-4 (the sentinel row, which takes masked pushes, left out); at
+    least 99.9% of the codes equal."""
+    n = want.tables[0].shape[0] - 1
+    for ell, (a, b) in enumerate(zip(got.tables, want.tables)):
+        idx = torch.arange(n, dtype=torch.int32)
+        ra = got.pull(ell, idx.to(got.device)).float().cpu()
+        rb = want.pull(ell, idx).float()
+        step = (want.scales[ell][:n, None] if want.scales is not None
+                else torch.maximum(ra.abs(), rb.abs()) * 2.0 ** -7 + 1e-4)
+        assert torch.all((ra - rb).abs() <= step * (1 + 1e-5))
+        same = (a[:n].cpu() == b[:n]).float().mean().item()
+        assert same >= 0.999, same
+
+
+def _quant_values(rng, m, d):
+    """Rows for the quantizing push: normal rows, an all-zero row, rows
+    whose v / s land exactly on .5 (ties to even) or on the clip, negative
+    zeros, and rows of 1e30 and 1e-30."""
+    v = rng.normal(size=(m, d)).astype(np.float32)
+    v[0] = 0.0
+    v[1] = (rng.integers(-127, 127, d) + 0.5).astype(np.float32)
+    v[1, 0] = 127.0                              # s = 1: v / s = v exactly
+    v[2] = -0.0
+    v[2, d // 2] = -3.0
+    v[3] *= 1e30
+    v[4] *= 1e-30
+    v[5, :] = 127.0
+    return v
+
+
+@pytest.mark.parametrize("d", [256, 64, 20, 130])
+def test_int8_row_kernels_match_plain(dev, d):
+    """`gather_rows_dq` and `scatter_rows_q` against their plain versions,
+    bitwise: duplicate indices (last writer wins, for codes and scales
+    alike), dropped out-of-range rows, the sentinel row, ties, clipping
+    and zero rows; aligned (D % 4 == 0) and ragged D; a warm repeat
+    bit-identical. The push's per-row relative errors at 1e-5."""
+    rng = np.random.default_rng(d)
+    n, m = 301, 220
+    v = torch.from_numpy(_quant_values(rng, m, d))
+    idx = rng.integers(0, n - 1, m).astype(np.int32)
+    idx[10:30] = idx[30:50]                     # duplicates
+    idx[60:70] = n - 1                          # masked -> sentinel row
+    idx[70:75] = n + 5                          # out of range: dropped
+    idx = torch.from_numpy(idx)
+    q0 = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8))
+    s0 = torch.from_numpy(rng.random(n).astype(np.float32))
+    want_q, want_s, want_e = ref.scatter_rows_q_ref(q0.clone(), s0.clone(),
+                                                    idx, v)
+    # the plain version on the card rounds as on the CPU (a tensor divisor:
+    # PyTorch's CUDA division by a Python number multiplies by its inverse)
+    on_card = ref.scatter_rows_q_ref(q0.clone().to(dev), s0.clone().to(dev),
+                                     idx.to(dev), v.to(dev))
+    assert torch.equal(on_card[0].cpu(), want_q)
+    assert torch.equal(on_card[1].cpu(), want_s)
+    errs = []
+    for _ in range(2):
+        got_q, got_s, got_e = scatter_rows_q(
+            q0.clone().to(dev), s0.clone().to(dev), idx.to(dev), v.to(dev))
+        assert torch.equal(got_q.cpu(), want_q)
+        assert torch.equal(got_s.cpu(), want_s)
+        errs.append(got_e.cpu())
+    # each row's relative error, every row (dropped ones too): the same
+    # sums in another order, so f32 rounding apart (row 3's squares pass
+    # f32's range: NaN on both sides, as in the reference); a warm repeat
+    # is bit-identical
+    assert torch.isnan(want_e[3]) and int(torch.isnan(want_e).sum()) == 1
+    torch.testing.assert_close(errs[0], want_e, rtol=1e-5, atol=1e-7,
+                               equal_nan=True)
+    assert torch.equal(errs[0].isnan(), errs[1].isnan())
+    assert torch.equal(errs[0].nan_to_num(), errs[1].nan_to_num())
+    gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
+    want = ref.gather_rows_dq_ref(want_q, want_s, gidx)
+    for _ in range(2):
+        got = gather_rows_dq(got_q, got_s, gidx.to(dev))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", [256, 20])
+def test_bf16_row_kernels_match_plain(dev, d):
+    """The bf16 instantiations of `gather_rows` and `scatter_rows`
+    (through `ops.push_rows`, which rounds the f32 rows to bf16 first)
+    against their plain versions, bitwise."""
+    rng = np.random.default_rng(d + 1)
+    n, m = 301, 220
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                             ).to(torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, n - 1, m).astype(np.int32))
+    idx[10:30] = idx[30:50].clone()
+    mask = torch.from_numpy(rng.random(m) > 0.1)
+    want = ops.push_rows(table.clone(), idx, v, mask, scratch_last_row=True)
+    got = ops.push_rows(table.clone().to(dev), idx.to(dev), v.to(dev),
+                        mask.to(dev), scratch_last_row=True)
+    assert torch.equal(got.cpu()[:-1], want[:-1])
+    gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
+    out = gather_rows(got, gidx.to(dev))
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu(), ref.gather_rows_ref(got.cpu(), gidx))
+    before = dict(_build.launch_counts)
+    scatter_rows(got, gidx[:4].to(dev), out[:4])
+    assert _build.launch_counts["scatter_rows_bf16"] == \
+        before["scatter_rows_bf16"] + 1
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("d", [256, 20])
+def test_quantized_gather_spmm_matches_plain(dev, dtype, d):
+    """The int8 body (`gather_spmm_dq`) and the bf16 instantiation of
+    `gather_spmm` against the plain version over a real batch's blocks
+    and gather plan; a warm repeat bit-identical."""
+    g = citation_graph(num_nodes=600, num_features=8, num_classes=3,
+                       seed=2)
+    from repro_torch.core import gas as G
+    from repro_torch.core.partition import metis_like_partition
+    part = metis_like_partition(g.indptr, g.indices, 3)
+    b = G.build_batches(g, part, build_blocks=True).to("cpu")[0]
+    rng = np.random.default_rng(d)
+    n_table = g.num_nodes + 1
+    x_in = torch.from_numpy(rng.normal(size=(b.max_b, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.normal(size=(n_table, d)).astype(np.float32))
+    if dtype == "int8":
+        table, scales = ref.quantize_rows(rows)
+    else:
+        table, scales = rows.to(torch.bfloat16), None
+    vals, cols = b.forward.vals, b.forward.cols
+    plan = gather_plan(cols, b.halo_nodes, b.halo_mask, b.max_b, n_table)
+    assert set(torch.unique(plan[0]).tolist()) == {0, 1, 2}
+    want = ref.gather_spmm_ref(x_in, table, vals, cols, *plan, scales)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    args = [on(t) for t in (x_in, table, vals, cols, *plan)]
+    name = "gather_spmm_dq" if dtype == "int8" else "gather_spmm_bf16"
+    before = _build.launch_counts[name]
+    got = gather_spmm(*args, scales=on(scales))
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    assert torch.equal(gather_spmm(*args, scales=on(scales)), got)
+    assert _build.launch_counts[name] == before + 2
+
+
+@pytest.mark.parametrize("history_dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("op", ["gcn", "gat"])
+def test_quantized_train_step_on_card_matches_cpu(dev, op, history_dtype):
+    """Two steps over an int8 or bf16 store on both devices, each from the
+    same state: loss and gradients at 1e-4, the tables within one
+    quantization step per row with >= 99.9% of the codes equal, and the
+    quantized path's kernels launched (GCN: gather_spmm_dq or
+    gather_spmm_bf16; GAT: gather_rows_dq or gather_rows_bf16; both:
+    scatter_rows_q or scatter_rows_bf16)."""
+    g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
+                       seed=1)
+    spec = GNNSpec(op=op, d_in=40, d_hidden=32, num_classes=4,
+                   num_layers=2, heads=4)
+    cfg = R.GASConfig(num_parts=4, history_dtype=history_dtype)
+    plans = {d: R.build_plan(g, spec, cfg, device=d) for d in ("cpu", dev)}
+    states = {d: R.init_state(p) for d, p in plans.items()}
+    before = dict(_build.launch_counts)
+    for b in (0, 1):
+        if b:
+            with torch.no_grad():
+                for x, y in zip(_state_tensors(states["cpu"]),
+                                _state_tensors(states[dev])):
+                    x.copy_(y)
+        out = {}
+        for d, p in plans.items():
+            grads, m = R.grads_and_metrics(p, states[d], p.batch(b))
+            out[d] = (m["loss"].cpu(), [x.cpu() for x in grads],
+                      m["hist_quant_err"].cpu())
+        for x, y in zip(out[dev], out["cpu"]):
+            for a, c in zip(x if isinstance(x, list) else [x],
+                            y if isinstance(y, list) else [y]):
+                torch.testing.assert_close(a, c, **TOL)
+        _assert_tables_close(states[dev].histories, states["cpu"].histories)
+    ran = {k for k in _build.launch_counts
+           if _build.launch_counts[k] > before[k]}
+    sfx = "_q" if history_dtype == "int8" else "_bf16"
+    read = ("gather_spmm" if op == "gcn" else "gather_rows") + (
+        "_dq" if history_dtype == "int8" else "_bf16")
+    assert {"scatter_rows" + sfx, read} <= ran, ran
 
 
 def test_bcsr_spmm_on_transposed_blocks(dev):

@@ -90,7 +90,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.init_gnn(spec, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_serve.ServeConfig(history_dtype="int8")
+        t_serve.ServeConfig(history_dtype="vq")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HistoryStore.create(5, [4], history_dtype="vq", device="cpu")
     with pytest.raises(ValueError, match="history_dtype"):

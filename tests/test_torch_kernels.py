@@ -209,11 +209,15 @@ def test_gas_aggregate_matches_reference(d):
 
 
 def test_quantized_gather_spmm_not_ported():
+    """The vq body (codebook-quantized tables) is not ported yet; int8
+    and bf16 tables are (tests/test_torch_quant.py)."""
     z = torch.zeros((1, 1, 128), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fused.gather_spmm(torch.zeros(4, 8), torch.zeros(4, 8),
+        t_fused.gather_spmm(torch.zeros(4, 8), torch.zeros(4, 1,
+                                                           dtype=torch.uint8),
                             torch.zeros(1, 1, 128, 128), z[..., 0], z, z, z,
-                            scales=torch.ones(4))
+                            scales=torch.ones(4),
+                            codebook=torch.zeros(1, 256, 8))
 
 
 def test_wrappers_launch_or_raise_off_cpu():

@@ -10,7 +10,11 @@ interpret mode, the port on the CPU (its kernels' plain versions).
 Floats compare at rtol=1e-5, atol=2e-5 (the tolerance tests/test_serve.py
 uses for kernel backends: the block sums are taken in another order);
 ages, versions, the refresh/step/chunk counts and the halo-age
-diagnostics compare exactly."""
+diagnostics compare exactly. Over int8 and bf16 stores (the same
+requests, SLO=0, None and 2) the logits and `hist_quant_err` compare at
+1e-4 and the tables as dequantized values within one quantization step
+per row, at least 99.9% of the codes equal: a pushed value a rounding away
+from a code's .5 boundary may round to either side."""
 import dataclasses
 import os
 import subprocess
@@ -289,3 +293,72 @@ def test_launcher_smoke_cpu():
         cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "smoke OK" in out.stdout
+
+
+def _quantized_stores(history_dtype, tables=None, age=None):
+    """Both packages' stores at `history_dtype`, empty or holding the f32
+    `tables` quantized by the reference's codec."""
+    dims = [D] * (L - 1)
+    rs = r_hist.HistoryStore.create(N + 1, dims, backend="interpret",
+                                    history_dtype=history_dtype)
+    ts = t_hist.HistoryStore.create(N + 1, dims, history_dtype, "cpu")
+    if tables is None:
+        return rs, ts
+    if history_dtype == "int8":
+        enc = [r_hist.quantize_rows(jnp.asarray(t)) for t in tables]
+        rs = dataclasses.replace(rs, tables=tuple(q for q, _ in enc),
+                                 scales=tuple(s for _, s in enc),
+                                 age=jnp.asarray(age))
+        ts.scales = [torch.from_numpy(np.array(s)) for _, s in enc]
+    else:
+        rs = dataclasses.replace(rs, tables=tuple(
+            jnp.asarray(t).astype(jnp.bfloat16) for t in tables),
+            age=jnp.asarray(age))
+    ts.tables = [torch.from_numpy(np.array(t, np.float32)).to(
+        t_hist.get_codec(history_dtype).storage) for t in rs.tables]
+    ts.age = torch.from_numpy(age.copy())
+    return rs, ts
+
+
+@pytest.mark.parametrize("history_dtype,slo", [("int8", 0), ("int8", None),
+                                               ("int8", 2), ("bf16", 0)])
+def test_serve_quantized_matches_reference(weights, history_dtype, slo):
+    """A quantized store bound as it is: the requests of the f32 tests
+    (SLO=0 refreshes push quantized rows), against the reference's
+    `serve_request` over the same store; a plan pinning another precision
+    refuses it."""
+    rparams, tparams = weights
+    fill = (None, None) if slo == 0 else _random_store(slo or 1)
+    rstore, tstore = _quantized_stores(history_dtype, *fill)
+    pinned = t_serve.build_serve_plan(_graphs()[1], _specs()[1],
+                                      t_serve.ServeConfig(history_dtype="f32"),
+                                      device="cpu")
+    with pytest.raises(ValueError, match="pins history_dtype"):
+        t_serve.init_serve_state(pinned, t_serve.ServeState(tparams, tstore))
+    rplan, rstate, tplan, tstate = _serving(slo, rparams, rstore, tparams,
+                                            tstore)
+    for q in _requests():
+        rl, rstate, rd = r_serve.serve_request(rplan, rstate, q)
+        tl, tstate, td = t_serve.serve_request(tplan, tstate, q)
+        np.testing.assert_allclose(tl, rl, rtol=1e-4, atol=1e-4)
+        for k in ("refreshed", "num_steps", "num_chunks", "halo_age_mean",
+                  "halo_age_max"):
+            assert td[k] == rd[k], (k, td[k], rd[k])
+        np.testing.assert_allclose(td["hist_quant_err"],
+                                   rd["hist_quant_err"], rtol=1e-4)
+        assert td["hist_quant_err"] > 0       # every step pushes
+        np.testing.assert_array_equal(tstate.histories.age.numpy(),
+                                      np.asarray(rstate.histories.age))
+    rs, ts = rstate.histories, tstate.histories
+    every = np.arange(N, dtype=np.int32)
+    for ell in range(L - 1):
+        want = np.asarray(rs.pull(ell, jnp.asarray(every)).astype(
+            jnp.float32))
+        got = ts.pull(ell, torch.from_numpy(every)).float().numpy()
+        step = (np.asarray(rs.scales[ell])[:N, None]
+                if history_dtype == "int8"
+                else np.maximum(np.abs(got), np.abs(want)) * 2.0 ** -7 + 1e-4)
+        assert np.all(np.abs(got - want) <= step * (1 + 1e-5))
+        same = np.mean(np.asarray(rs.tables[ell], np.float32)[:N]
+                       == ts.tables[ell].float().numpy()[:N])
+        assert same >= 0.999, same

@@ -1,9 +1,9 @@
 """PyTorch port, the training slice against the JAX reference.
 
 Host code compares bitwise: partitions, the stacked batches of every block
-family, cluster grouping and padding bounds. The optimizer compares at
-1e-6 on the same numpy gradients (the same f32 expressions; the bias
-corrections' powers may round one ulp apart between the frameworks).
+family, cluster grouping and padding bounds. The global-norm clip
+compares at 1e-6 (the two frameworks sum a leaf in different orders);
+the AdamW update, fed the reference's clipped gradients, bitwise.
 
 The runtime runs GCN and GAT (300 nodes, 4 parts, d_hidden=16, 2 heads)
 from the reference's `init_gnn` params carried across. One step's loss,
@@ -16,12 +16,12 @@ m / sqrt(v) is sign(g)). Two epochs' per-epoch mean losses compare at
 1e-3 against backend="jnp" (segment sums, and the trajectories drift
 apart by such flips), and the exact accuracies at 2 test nodes.
 
-`python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]`
-prints the reference's GAS test accuracy for chip_smoke.py's two training
-configurations, from the port's initial params, on this host's partitions
-or on the ones in the file (see `reference_accuracy`)."""
+`python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
+[--history-dtype f32|bf16|int8] [--op gcn|gat]` prints the reference's
+GAS test accuracy for chip_smoke.py's training configurations, from the
+port's initial params, on this host's partitions or on the ones in the
+file (see `reference_accuracy`), over a store of the given precision."""
 import hashlib
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -142,22 +142,29 @@ def test_group_partition_and_padding_bounds_bitwise():
 # Optimizer
 # ---------------------------------------------------------------------------
 
-def test_adamw_and_clip_match_reference():
+def _opt_case():
     rng = np.random.default_rng(0)
     shapes = {"layers/0/w": (7, 5), "layers/0/b": (5,), "layers/1/w": (5, 3),
               "layers/1/b": (3,)}
     p0 = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.normal(size=s) * 10 ** (step - 1)).astype(np.float32)
+              for k, s in shapes.items()} for step in range(3)]
 
     def tree(flat, conv):
         return {"layers": [{k: conv(flat[f"layers/{i}/{k}"]) for k in "bw"}
                            for i in range(2)]}
 
-    rp = tree(p0, jnp.asarray)
-    tp = tree(p0, lambda a: T(a.copy()))
-    r_state, t_state = r_opt.adamw_init(rp), t_opt.adamw_init(tp)
-    for step in range(3):
-        g = {k: (rng.normal(size=s) * 10 ** (step - 1)).astype(np.float32)
-             for k, s in shapes.items()}
+    return p0, grads, tree
+
+
+def test_adamw_and_clip_match_reference():
+    """The clip against the reference, at the gradients' three scales. The
+    global norm may differ by an ulp: `jnp.sum` and `torch.sum` reduce a
+    leaf in different orders (7.433969974517822 against 7.433969497680664
+    at step 1 on one host), so the norm and the clipped leaves hold at
+    rtol 1e-6, not bitwise."""
+    _, grads, tree = _opt_case()
+    for g in grads:
         rg_, r_gn = r_opt.clip_by_global_norm(tree(g, jnp.asarray), 2.0)
         tl, t_gn = t_opt.clip_by_global_norm(
             t_opt.tree_leaves(tree(g, T)), 2.0)
@@ -165,19 +172,31 @@ def test_adamw_and_clip_match_reference():
         for a, b in zip(tl, jax.tree_util.tree_leaves(rg_)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                        atol=1e-6)
+
+
+def test_adamw_update_bitwise_from_reference_clip():
+    """The update against the reference: three AdamW steps, each fed the
+    reference's clipped gradients (through numpy), give params and both
+    moments bitwise equal to the reference's. Fed the port's own clip
+    instead, an ulp of the global norm would compound through the moments
+    under cancellation, which is the clip's tolerance, not the update's."""
+    p0, grads, tree = _opt_case()
+    rp = tree(p0, jnp.asarray)
+    tp = tree(p0, lambda a: T(a.copy()))
+    r_state, t_state = r_opt.adamw_init(rp), t_opt.adamw_init(tp)
+    for step, g in enumerate(grads):
+        rg_, _ = r_opt.clip_by_global_norm(tree(g, jnp.asarray), 2.0)
+        tl = [T(np.array(a)) for a in jax.tree_util.tree_leaves(rg_)]
         rp, r_state = r_opt.adamw_update(rg_, r_state, rp, lr=0.01, b1=0.9,
                                          b2=0.999, weight_decay=5e-4)
         tp, t_state = t_opt.adamw_update(tl, t_state, tp, lr=0.01, b1=0.9,
                                          b2=0.999, weight_decay=5e-4)
         assert int(t_state.step) == int(r_state.step) == step + 1
-        for a, b in zip(t_opt.tree_leaves(tp), jax.tree_util.tree_leaves(rp)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
-                                       atol=1e-6)
-        for tm, rm in ((t_state.m, r_state.m), (t_state.v, r_state.v)):
-            for a, b in zip(t_opt.tree_leaves(tm),
-                            jax.tree_util.tree_leaves(rm)):
-                np.testing.assert_allclose(a.numpy(), np.asarray(b),
-                                           rtol=1e-6, atol=1e-9)
+        for tt, rt in ((tp, rp), (t_state.m, r_state.m),
+                       (t_state.v, r_state.v)):
+            for a, b in zip(t_opt.tree_leaves(tt),
+                            jax.tree_util.tree_leaves(rt)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +209,13 @@ def _specs(op):
     return r_model.GNNSpec(**kw), t_model.GNNSpec(**kw)
 
 
-def _plans(op, backend="interpret", **cfg):
+def _plans(op, backend="interpret", history_dtype="f32", **cfg):
     rg, tg = _graphs()
     rspec, tspec = _specs(op)
     rplan = r_rt.build_plan(rg, rspec, r_rt.GASConfig(
-        num_parts=4, backend=backend, history_dtype="f32", **cfg))
-    tplan = t_rt.build_plan(tg, tspec, t_rt.GASConfig(num_parts=4, **cfg),
-                            device="cpu")
+        num_parts=4, backend=backend, history_dtype=history_dtype, **cfg))
+    tplan = t_rt.build_plan(tg, tspec, t_rt.GASConfig(
+        num_parts=4, history_dtype=history_dtype, **cfg), device="cpu")
     rstate = r_rt.init_state(rplan)
     tstate = t_rt.init_state(tplan, params=t_ckpt.params_from_numpy(
         _flat(rstate.params), device="cpu"))
@@ -315,6 +334,31 @@ def test_two_epochs_and_accuracy_match_reference(op):
                                rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("op", ["gcn", "gat"])
+def test_two_int8_epochs_match_reference(op):
+    """Two shuffled epochs over an int8 store against the reference's
+    "jnp" route: per-epoch mean losses and `hist_quant_err` at 1e-3 (the
+    f32 test's tolerance: the trajectories drift by the same flips, and a
+    pushed value at a code's .5 boundary may round to either side), the
+    exact accuracies at 2 test nodes."""
+    rplan, rstate, tplan, tstate = _plans(op, backend="jnp",
+                                          history_dtype="int8")
+    for e in range(2):
+        rstate, rm = r_rt.train_epoch(rplan, rstate, e)
+        tstate, tm = t_rt.train_epoch(tplan, tstate, e)
+        np.testing.assert_allclose(tm["loss"], rm["loss"], rtol=1e-3)
+        assert tm["hist_quant_err"] > 0
+        np.testing.assert_allclose(tm["hist_quant_err"],
+                                   rm["hist_quant_err"], rtol=1e-3)
+        assert tm["halo_age_max"] == rm["halo_age_max"]
+    assert tstate.histories.tables[0].dtype == torch.int8
+    r_acc = r_rt.evaluate_exact(rplan, rstate)
+    t_acc = t_rt.evaluate_exact(tplan, tstate)
+    n_test = int(tplan.graph.test_mask.sum())
+    for k in ("train_acc", "val_acc", "test_acc"):
+        assert abs(t_acc[k] - r_acc[k]) <= 2.0 / n_test, (k, t_acc, r_acc)
+
+
 def test_clusters_per_batch_regroup_matches_reference():
     """Two clusters per batch, regrouped each epoch: the same padded
     batches as the reference's, epoch after epoch."""
@@ -382,15 +426,17 @@ def test_unported_training_options_raise():
 # The reference accuracy chip_smoke.py holds the port to
 # ---------------------------------------------------------------------------
 
-def reference_accuracy(op: str, epochs: int = 60, part=None):
+def reference_accuracy(op: str, epochs: int = 60, part=None,
+                       history_dtype: str = "f32"):
     """The reference's exact accuracies after `epochs` GAS epochs on the
     "jnp" backend for chip_smoke.py's configuration of `op` (GCN: the
     quickstart; GAT: the Cora shape), starting from the port's
     `init_gnn(spec, seed=0)` params carried across, so that both runs
     share graph, partition, initial weights and hyperparameters. `part`
     replaces the partition this host computes (e.g. one computed on
-    another host, which may order equal degrees otherwise). Returns
-    (the partition's digest as chip_smoke.py prints it, accuracies)."""
+    another host, which may order equal degrees otherwise);
+    `history_dtype` is the store's precision. Returns (the partition's
+    digest as chip_smoke.py prints it, accuracies)."""
     if op == "gcn":
         kw = dict(num_nodes=2500, num_features=128, num_classes=7,
                   homophily=0.75, feature_noise=2.0, seed=0)
@@ -405,7 +451,7 @@ def reference_accuracy(op: str, epochs: int = 60, part=None):
     try:
         plan = r_rt.build_plan(g, r_model.GNNSpec(**spec_kw), r_rt.GASConfig(
             num_parts=16, partitioner="metis", backend="jnp",
-            history_dtype="f32", epochs=epochs, lr=0.01))
+            history_dtype=history_dtype, epochs=epochs, lr=0.01))
     finally:
         r_rt.metis_like_partition = real
     tparams = t_model.init_gnn(t_model.GNNSpec(**spec_kw), seed=0,
@@ -423,11 +469,19 @@ def reference_accuracy(op: str, epochs: int = 60, part=None):
 
 if __name__ == "__main__":
     # python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
-    if sys.argv[1:2] == ["--reference-acc"]:
-        parts = np.load(sys.argv[2]) if len(sys.argv) > 2 else None
-        for op in ("gcn", "gat"):
-            print(op, *reference_accuracy(
-                op, part=None if parts is None else parts[op]), flush=True)
+    #     [--history-dtype f32|bf16|int8] [--op gcn|gat]
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reference-acc", action="store_true", required=True)
+    ap.add_argument("partitions", nargs="?")
+    ap.add_argument("--history-dtype", default="f32")
+    ap.add_argument("--op", choices=("gcn", "gat"), action="append")
+    args = ap.parse_args()
+    parts = np.load(args.partitions) if args.partitions else None
+    for op in args.op or ("gcn", "gat"):
+        print(op, args.history_dtype, *reference_accuracy(
+            op, part=None if parts is None else parts[op],
+            history_dtype=args.history_dtype), flush=True)
 
 
 @pytest.mark.parametrize("op", ["gcn", "gat"])
