@@ -22,8 +22,11 @@ with a non-zero exit at the first failure:
    Cora-shaped training batch at the hidden layer's shapes (8 heads of 8;
    the output layer's, 1 head of 7, on a line of their own), the GAT
    hidden layer's history pull from an int8 table (`gather_rows_dq`) and
-   a bf16 one, and `bcsr_spmm` on the transposed blocks of a quickstart
-   batch (the GCN backward's use of it).
+   a bf16 one, `bcsr_spmm` on the transposed blocks of a quickstart
+   batch (the GCN backward's use of it), and PNA's three `pna_reduce`
+   kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
+   (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
+   beside a composition of PyTorch calls over the blocks' nonzeros).
 3. serving — the PubMed-shaped graph (19,717 nodes, degree 4.5, 500
    features, 3 classes) and a 3-layer, 256-wide GCN with seeded random
    weights and a zero f32 history store; 16 requests x 128 queries at
@@ -38,26 +41,29 @@ with a non-zero exit at the first failure:
    the counters of the store's kernels (these runs give the launches of
    the int8 and bf16 rows timed in phase 2 at their shapes).
 4. training — (a) the GCN quickstart (2,500 nodes, 128 features, 7
-   classes, 16 METIS parts, 2 layers, d_hidden=64) and (b) GAT on the
+   classes, 16 METIS parts, 2 layers, d_hidden=64), (b) GAT on the
    Cora shape (2,708 nodes, 1,433 features, 7 classes, 16 parts, 2
-   layers, 8 heads of 8), f32 histories; then both over int8 histories
-   and the GCN over bf16 ones, on the same partitions. For each: two
-   steps on the card against the same steps on the CPU with the plain
-   versions, each from the same state (loss and gradients at 1e-4; f32
-   tables at 1e-4, quantized tables within one quantization step per
-   row with the share of equal codes; the update from the card's
-   gradients on both devices, params and moments at 1e-6); 60 epochs
-   with the step time's p50/p99, the epoch time and the peak device
-   memory; the store's bytes and `hist_quant_err`; `evaluate_exact`'s
-   test accuracy at most 1 pp below the reference's at the same
-   precision on the same partition (keyed by its hash); the launch
+   layers, 8 heads of 8) and (c) table 5's `gas-pna` (4,000 nodes, 64
+   features, 6 classes, 16 parts, 2 layers, d_hidden=48,
+   log_deg_mean=1.8), f32 histories; then the three over int8
+   histories and the GCN over bf16 ones, on the same partitions. For
+   each: two steps on the card against the same steps on the CPU with
+   the plain versions, each from the same state (loss and gradients at
+   1e-4; f32 tables at 1e-4, quantized tables within one quantization
+   step per row with the share of equal codes; the update from the
+   card's gradients on both devices, params and moments at 1e-6); 60
+   epochs with the step time's p50/p99, the epoch time and the peak
+   device memory; the store's bytes and `hist_quant_err`;
+   `evaluate_exact`'s test accuracy at most 1 pp below the reference's
+   at the same precision on the same partition (keyed by its hash; for
+   PNA the lowest of the reference's runs one ulp apart); the launch
    counters of the path's kernels; and one more epoch under
    torch.profiler for the device's busy share. Two steps of a bf16 GAT
    show the bf16 history pull (`gather_rows_bf16`) on its path.
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
-also writes the two training partitions (the port's METIS-like
+also writes the three training partitions (the port's METIS-like
 partitioner on this host) for `tests/test_torch_train.py --reference-acc
 [--history-dtype ...]`.
 
@@ -94,6 +100,7 @@ from repro_torch.data.graphs import citation_graph  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import edge_softmax as esk  # noqa: E402
+from repro_torch.kernels import pna_reduce as pnk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
@@ -132,8 +139,18 @@ TIMED_REPS = 25
 # with `PYTHONPATH=src python tests/test_torch_train.py --reference-acc
 # [PARTITIONS.npz] [--history-dtype int8|bf16]`: the first entry on the
 # partitions computed there, the second on the ones an H100 host computed
-# (`--save-partitions` above).
+# (`--save-partitions` above). PNA's training is chaotic at table 5's
+# lr 0.01: two trajectories that agree step by step at rounding level
+# part within a few epochs (`tests/test_torch_train.py --trajectory`), and
+# the reference's own test accuracy moves by several pp when its initial
+# weights move by one ulp. So a PNA entry holds the reference's runs from
+# the unperturbed weights and from one-ulp perturbations of them
+# (`--perturb 0 1 ...`), and the port is held at most 1 pp below the
+# lowest of them.
 TRAIN_EPOCHS, TRAIN_PARTS, TRAIN_HIDDEN = 60, 16, 64
+# each configuration's spec beside its graph: GCN and GAT at TRAIN_HIDDEN;
+# PNA is table 5's `gas-pna` (benchmarks/table5_baselines.py: its graph,
+# d_hidden=48, log_deg_mean=1.8, lr 0.01)
 TRAIN_CONFIGS = {
     "gcn": dict(graph=dict(num_nodes=2500, num_features=128, num_classes=7,
                            homophily=0.75, feature_noise=2.0, seed=0),
@@ -151,10 +168,29 @@ TRAIN_CONFIGS = {
                             "41734945d697": 0.9764107465744019},
                     "int8": {"368f7b8cb6f7": 0.9653099179267883,
                              "41734945d697": 0.977798342704773}}),
+    "pna": dict(graph=dict(num_nodes=4000, num_features=64, num_classes=6,
+                           homophily=0.7, feature_noise=2.5, seed=80),
+                spec=dict(d_hidden=48, log_deg_mean=1.8),
+                ref_test_acc={
+                    "f32": {"2f9649d2dcc0": 0.8664634227752686,
+                            "b441af5c2589": (0.8454268574714661,
+                                             0.8161585330963135,
+                                             0.8515244126319885,
+                                             0.8615853786468506,
+                                             0.8853658437728882,
+                                             0.8493902683258057)},
+                    "int8": {"2f9649d2dcc0": 0.8634146451950073,
+                             "b441af5c2589": (0.8253048658370972,
+                                              0.8804877996444702,
+                                              0.8850609660148621,
+                                              0.8582317233085632,
+                                              0.8615853786468506,
+                                              0.8844512104988098)}}),
 }
 # the training runs of phase 4, in order: (op, history precision)
-TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("gcn", "int8"),
-              ("gat", "int8"), ("gcn", "bf16"))
+TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
+              ("gcn", "int8"), ("gat", "int8"), ("pna", "int8"),
+              ("gcn", "bf16"))
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
 # serving over a quantized store, SLO=0 on the card against the CPU: the
 # logits' rtol (atol ATOL). An int8 push matched the CPU's codes in full
@@ -171,6 +207,7 @@ SERVE_Q_KERNELS = {
              "gather_spmm_bf16")}
 # each run's kernels; the GCN's second is its fused aggregation
 _ES = ("edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col")
+_PNA = ("pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col")
 TRAIN_KERNELS = {
     ("gcn", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
                      "scatter_rows"),
@@ -179,6 +216,9 @@ TRAIN_KERNELS = {
                       "scatter_rows_q"),
     ("gat", "int8"): _ES + ("gather_rows_dq", "gather_rows",
                             "scatter_rows_q"),
+    ("pna", "f32"): _PNA + ("gather_rows", "scatter_rows"),
+    ("pna", "int8"): _PNA + ("gather_rows_dq", "gather_rows",
+                             "scatter_rows_q"),
     ("gcn", "bf16"): ("bcsr_spmm", "gather_spmm_bf16", "gather_rows",
                       "scatter_rows_bf16"),
 }
@@ -565,13 +605,14 @@ def _history_pull_rows(plan, device, gen):
 def _train_graph(op):
     cfg = TRAIN_CONFIGS[op]
     g = citation_graph(**cfg["graph"])
-    spec = model.GNNSpec(op=op, d_in=g.x.shape[1], d_hidden=TRAIN_HIDDEN,
-                         num_classes=g.num_classes, num_layers=2, heads=8)
+    spec_kw = {"d_hidden": TRAIN_HIDDEN, **cfg.get("spec", {})}
+    spec = model.GNNSpec(op=op, d_in=g.x.shape[1], num_classes=g.num_classes,
+                         num_layers=2, heads=8, **spec_kw)
     return g, spec
 
 
 def train_plans(device):
-    """The two training plans (partition, stacked batches on the card)."""
+    """The training plans (partition, stacked batches on the card)."""
     plans = {}
     for op in TRAIN_CONFIGS:
         t0 = time.perf_counter()
@@ -580,8 +621,9 @@ def train_plans(device):
             num_parts=TRAIN_PARTS, epochs=TRAIN_EPOCHS, lr=0.01),
             device=device)
         b = plans[op].batches
-        fam = b.unit if op == "gat" else b.forward
-        fam_t = b.unit_transposed if op == "gat" else b.transposed
+        unit = op in model.UNIT_BLOCK_OPS
+        fam = b.unit if unit else b.forward
+        fam_t = b.unit_transposed if unit else b.transposed
         # the partition's digest keys the reference accuracy
         _phase("setup", f"{op}: {g.num_nodes} nodes, {g.num_edges} edges, "
                f"{g.x.shape[1]} features; {b.num_batches} batches, max_b "
@@ -671,10 +713,143 @@ def _edge_softmax_case(plan, H, Fd, device, gen, clock_hz):
             for name, (e, fn, plain, n_bytes, flops, exps) in cases.items()}
 
 
+def _block_coo(vals, cols):
+    """The blocks' nonzero entries as a weighted COO: (row ids, column
+    ids, multiplicities), for the yardstick compositions."""
+    nz = vals.nonzero(as_tuple=True)
+    return (nz[0] * 128 + nz[2], cols[nz[0], nz[1]].long() * 128 + nz[3],
+            vals[nz])
+
+
+def _pna_kernel_rows(plan, device, gen):
+    """PNA's three kernels on batch 0's unit blocks with seeded operands
+    at the layers' width (d_hidden): the stats and tie counts bitwise
+    against the plain versions, the sums and gradients at 1e-5, a warm
+    repeat bit-identical; times, bounds, and the time of a PyTorch
+    composition over the blocks' nonzeros. Returns the kernel rows."""
+    batch = plan.batch(0)
+    uv, uc, uvt, uct = batch.ublocks
+    n_out, M = batch.max_b, batch.max_b + batch.max_h + 1
+    Fd = plan.spec.d_hidden
+    randn = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa
+    xd, xs = randn(n_out, Fd), randn(M, Fd)
+    gs, gmn, gmx = randn(n_out, Fd), randn(n_out, Fd), randn(n_out, Fd)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    out = pnk.pna_reduce_fwd(xd, xs, uv, uc)
+    want = ref.pna_reduce_fwd_ref(xd, xs, uv, uc)
+    for name, a, b in zip(("s", "mn", "mx", "cnt", "cmin", "cmax"), out,
+                          want):
+        if name == "s":
+            torch.testing.assert_close(a, b, **tol)
+        else:
+            assert torch.equal(a, b), f"pna_reduce_fwd: {name} differs"
+    s, mn, mx, cnt, cmin, cmax = want
+    stats = (gs, gmn, gmx, mn, mx, cmin, cmax)
+    dxd = pnk.pna_reduce_bwd_row(xd, xs, *stats, uv, uc)
+    p_dxd = ref.pna_reduce_bwd_row_ref(xd, xs, *stats, uv, uc)
+    torch.testing.assert_close(dxd, p_dxd, **tol)
+    dxs = pnk.pna_reduce_bwd_col(xd, xs, *stats, uvt, uct)
+    p_dxs = ref.pna_reduce_bwd_col_ref(xd, xs, *stats, uvt, uct)
+    torch.testing.assert_close(dxs, p_dxs, **tol)
+    for a, b in zip(pnk.pna_reduce_fwd(xd, xs, uv, uc), out):
+        assert torch.equal(a, b), "pna_reduce_fwd: a warm repeat differs"
+    assert torch.equal(pnk.pna_reduce_bwd_col(xd, xs, *stats, uvt, uct),
+                       dxs), "pna_reduce_bwd_col: a warm repeat differs"
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    stat_err = max(err(a, b) for a, b in zip(out[1:], want[1:]))
+    assert stat_err == 0.0
+
+    # the yardsticks: the same functions over the blocks' nonzeros as a
+    # weighted COO (index_select, relu, scatter_reduce / index_add); the
+    # forward's leaves out the tie counts, the backward's reuse them
+    dst, src, mu = _block_coo(uv, uc)
+    idx = dst[:, None].expand(-1, Fd)
+
+    def comp_fwd():
+        msg = torch.relu(xd.index_select(0, dst) + xs.index_select(0, src))
+        s_ = xd.new_zeros((n_out, Fd)).index_add_(0, dst, mu[:, None] * msg)
+        mn_ = xd.new_full((n_out, Fd), ref.BIG).scatter_reduce_(
+            0, idx, msg, "amin")
+        mx_ = xd.new_full((n_out, Fd), -ref.BIG).scatter_reduce_(
+            0, idx, msg, "amax")
+        return s_, mn_, mx_, xd.new_zeros(n_out).index_add_(0, dst, mu)
+
+    gmn_c, gmx_c = gmn / cmin.clamp(min=1.0), gmx / cmax.clamp(min=1.0)
+
+    def comp_dmsg():
+        z = xd.index_select(0, dst) + xs.index_select(0, src)
+        m = torch.relu(z)
+        g = gs.index_select(0, dst) + torch.where(
+            m == mn.index_select(0, dst), gmn_c.index_select(0, dst), 0.0) + \
+            torch.where(m == mx.index_select(0, dst),
+                        gmx_c.index_select(0, dst), 0.0)
+        return torch.where(z > 0, mu[:, None] * g, 0.0)
+
+    torch.testing.assert_close(comp_fwd()[0], s, **tol)
+    torch.testing.assert_close(
+        xd.new_zeros((n_out, Fd)).index_add_(0, dst, comp_dmsg()), p_dxd,
+        **tol)
+    nnz = int(mu.numel())
+    # bytes: the blocks as stored, each other operand once (the source
+    # rows the blocks' columns reach), each output once; operations over
+    # the nonzero entries, per entry and feature: the add, the ReLU, the
+    # multiply and the sum's add, and the two comparisons (forward); the
+    # add, the ReLU test, the two tie tests, the multiply and the sum's
+    # add (each backward)
+    node = Fd * 4
+    blk = uv.numel() * 4 + uc.numel() * 4
+    blk_t = uvt.numel() * 4 + uct.numel() * 4
+    n_x = sum(min(128, M - c * 128) for c in torch.unique(uc).tolist())
+    n_d = sum(min(128, n_out - c * 128) for c in torch.unique(uct).tolist())
+    ops6 = 6.0 * nnz * Fd
+    cases = {
+        "pna_reduce_fwd": (
+            max(err(out[0], s), stat_err),
+            lambda: pnk.pna_reduce_fwd(xd, xs, uv, uc),
+            lambda: ref.pna_reduce_fwd_ref(xd, xs, uv, uc), comp_fwd,
+            blk + n_out * node + n_x * node + 5 * n_out * node + n_out * 4),
+        "pna_reduce_bwd_row": (
+            err(dxd, p_dxd),
+            lambda: pnk.pna_reduce_bwd_row(xd, xs, *stats, uv, uc),
+            lambda: ref.pna_reduce_bwd_row_ref(xd, xs, *stats, uv, uc),
+            lambda: xd.new_zeros((n_out, Fd)).index_add_(0, dst,
+                                                         comp_dmsg()),
+            blk + 8 * n_out * node + n_x * node + n_out * node),
+        "pna_reduce_bwd_col": (
+            err(dxs, p_dxs),
+            lambda: pnk.pna_reduce_bwd_col(xd, xs, *stats, uvt, uct),
+            lambda: ref.pna_reduce_bwd_col_ref(xd, xs, *stats, uvt, uct),
+            lambda: xs.new_zeros((M, Fd)).index_add_(0, src, comp_dmsg()),
+            blk_t + M * node + 8 * n_d * node + M * node),
+    }
+    line = {"pna_reduce_fwd": 98, "pna_reduce_bwd_row": 194,
+            "pna_reduce_bwd_col": 254}
+    rows = []
+    for name, (e, fn, plain, comp, n_bytes) in cases.items():
+        row = _row(name, "src/repro_torch/kernels/csrc/pna_reduce.cu",
+                   f"src/repro/kernels/pna_reduce.py:{line[name]}", e,
+                   _time_ms(fn), _time_ms(plain), _time_ms(comp), n_bytes,
+                   ops6, library="composition: index_select over the "
+                   "blocks' nonzeros, relu, " + (
+                       "scatter_reduce amin/amax, index_add (no tie counts)"
+                       if name == "pna_reduce_fwd" else
+                       "the even split, index_add"))
+        row["stats_err"] = stat_err
+        rows.append(row)
+    _phase("kernels", f"PNA batch 0 (F={Fd}): unit blocks {list(uv.shape)} "
+           f"and transposed {list(uvt.shape)} hold {nnz} nonzeros; " +
+           "; ".join(f"{r['name']}: err {r['max_abs_err']:.3g} (stats "
+                     f"{r['stats_err']:.3g}), {r['ms']:.4f} ms (plain "
+                     f"{r['plain_ms']:.4f}, comp. {r['library_ms']:.4f}, "
+                     f"bound {r['bound_ms']:.5f} by {r['bound_by']})"
+                     for r in rows))
+    return rows
+
+
 def training_kernel_phase(plans, device, clock_hz):
-    """Phase 2, the training slice's kernels. Returns the three
-    edge-softmax rows (the hidden layer's shapes; launches filled in
-    later)."""
+    """Phase 2, the training slices' kernels. Returns the three
+    edge-softmax rows (the hidden layer's shapes), the GAT history pulls
+    and the three PNA rows (launches filled in later)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     uv = plans["gat"].batch(0).ublocks[0]
     _phase("kernels", f"GAT batch 0: unit blocks {list(uv.shape)} hold "
@@ -695,6 +870,7 @@ def training_kernel_phase(plans, device, clock_hz):
                                                   o["max_abs_err"])
         rows.append(row)
     rows += _history_pull_rows(plans["gat"], device, gen)
+    rows += _pna_kernel_rows(plans["pna"], device, gen)
 
     # bcsr_spmm's backward use: the transposed blocks of a quickstart
     # batch against the cotangent of the layer-0 aggregation (128 wide)
@@ -868,22 +1044,29 @@ def training_phase(op, hd, plan, device):
     f32_bytes = sum(t.numel() * 4 for t in store.tables)
     assert (qerr == 0.0) == (hd == "f32"), qerr
     # (iii) exact evaluation against the reference's accuracy at the same
-    # precision on the same partition; a partition the table does not
-    # hold is held to the first entry, and the line says that the
-    # comparison crosses partitions
+    # precision on the same partition (the lowest of its runs where the
+    # entry holds several); a partition the table does not hold is held to
+    # the first entry, and the line says that the comparison crosses
+    # partitions
     acc = RT.evaluate_exact(plan, state)
     logits = RT.predict(plan, state)
     assert logits.shape == (plan.graph.num_nodes, plan.spec.num_classes)
     assert torch.isfinite(logits).all(), "non-finite predict logits"
     digest = _digest(plan.part)
     refs = cfg["ref_test_acc"][hd]
-    ref_acc = refs.get(digest, next(iter(refs.values())))
+    runs = np.atleast_1d(refs.get(digest, next(iter(refs.values()))))
+    ref_acc = float(runs.min())
     ref_note = "same partition" if digest in refs else \
         f"partition {digest} not in the table: crosses partitions"
+    if len(runs) > 1:
+        ref_note += (f"; the lowest of {len(runs)} runs one ulp of the "
+                     f"initial weights apart, {runs.min():.4f}-"
+                     f"{runs.max():.4f}")
     assert acc["test_acc"] >= ref_acc - ACC_SLACK, (tag, acc, ref_acc)
     # (iv) the path's kernels, and the backward's launches: per GCN step
     # one bcsr_spmm forward (layer 0) and one backward (layer 1's fused
-    # aggregation), per GAT step each edge-softmax kernel once per layer
+    # aggregation), per GAT (PNA) step each edge-softmax (pna_reduce)
+    # kernel once per layer
     kernels = TRAIN_KERNELS[(op, hd)]
     missing = [k for k in kernels if launches[k] == 0]
     assert not missing, f"{tag}: kernels never launched: {missing}"
@@ -891,7 +1074,7 @@ def training_phase(op, hd, plan, device):
     if op == "gcn":
         assert launches["bcsr_spmm"] == 2 * n == 2 * launches[kernels[1]]
     else:
-        assert all(launches[k] == 2 * n for k in _ES)
+        assert all(launches[k] == 2 * n for k in kernels[:3])
     busy = _profiled_epoch(plan, state)
     _phase("training", f"{tag}: {TRAIN_EPOCHS} epochs x {nb} steps: step "
            f"p50 {np.percentile(steps, 50):.3f} ms, p99 "
@@ -1130,7 +1313,7 @@ def serving_quant_phase(g, spec, device, hd):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
-                    help="also write the two training partitions here")
+                    help="also write the training partitions here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1182,7 +1365,8 @@ def main() -> int:
               "gather_spmm_dq": "int8 serving", "scatter_rows_q":
               "int8 serving", "gather_rows_dq": "gat int8",
               "gather_spmm_bf16": "bf16 serving", "scatter_rows_bf16":
-              "bf16 serving", "gather_rows_bf16": "gat bf16"}
+              "bf16 serving", "gather_rows_bf16": "gat bf16",
+              **{k: "pna f32" for k in _PNA}}
     for r in rows:
         r["launches"] = launches[source.get(r["name"], "f32 serving")][
             r["name"]]

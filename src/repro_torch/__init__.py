@@ -3,13 +3,15 @@
 The JAX package `repro` is the reference; this package imports nothing of
 it and never imports `jax`. It mirrors the reference's layout
 (`data`, `core`, `gnn`, `kernels`, `train`, `launch`) and so far covers
-serving a GCN over the history cache with f32 histories:
+GAS training (the paper's Algorithm 1) of GCN, GAT and PNA, and serving
+a GCN over the history cache, over f32, bf16 and int8 history tables:
 
+    GASConfig -> build_plan -> init_state -> train_step / train_epoch
+        -> predict / evaluate_exact
     ServeConfig -> build_serve_plan -> init_serve_state -> serve_request
 
-Its main path runs four CUDA kernels written for `sm_90a`
-(`kernels/csrc/*.cu`): `gather_rows`, `scatter_rows`, `bcsr_spmm` and the
-f32 `gather_spmm`. Entry points take `device=None`, which means "cuda";
-the CPU runs only when a caller asks for it (`device="cpu"`), and then
-every kernel wrapper runs its plain PyTorch version.
+Its kernels are written in CUDA for `sm_90a` (`kernels/csrc/*.cu`).
+Entry points take `device=None`, which means "cuda"; the CPU runs only
+when a caller asks for it (`device="cpu"`), and then every kernel
+wrapper runs its plain PyTorch version.
 """

@@ -1,6 +1,6 @@
-"""Message-passing operators over padded GAS subgraphs — GCN and GAT.
+"""Message-passing operators over padded GAS subgraphs — GCN, GAT and PNA.
 
-The port of the GCN and GAT parts of `repro.gnn.layers`, with the
+The port of the GCN, GAT and PNA parts of `repro.gnn.layers`, with the
 reference's calling convention:
 
     apply(params, x_all, edges, edge_w, n_out, blocks=None) -> [n_out, d_out]
@@ -17,8 +17,14 @@ GAT splits into the per-node `gat_transform` (head-split values and the
 two additive logit halves), the edge softmax (`ops.edge_softmax_aggregate`:
 the CUDA kernels over the batch's unit-weight blocks, or the per-edge
 softmax over the COO when no blocks are given) and `gat_combine` (heads
-concatenated). The other operators of the reference's zoo (GIN, GCNII,
-APPNP, PNA) are not ported yet (ROADMAP Queue A item 2).
+concatenated).
+
+PNA splits the same way: `pna_transform` (the two per-node halves of
+its edge MLP), the multi-aggregator reduction (`ops.pna_reduce`: the
+CUDA kernels over the unit-weight blocks, or the segment reduction over
+the COO) and `pna_combine` (degree scalers and the readout MLP). The
+other operators of the reference's zoo (GIN, GCNII, APPNP) are not
+ported yet (ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -117,3 +123,78 @@ def gat(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
     att = ops.edge_softmax_aggregate(wx, a_d, a_s, edges, edge_w, n_out,
                                      ublocks)
     return gat_combine(att)
+
+
+# ---------------------------------------------------------------------------
+# PNA (Corso et al. 2020): multi-aggregator + degree scalers
+# ---------------------------------------------------------------------------
+
+def init_pna(gen: torch.Generator, d_in: int, d_out: int) -> Params:
+    """Glorot `w1` [2 d_in, f] (the edge MLP over [x_dst ; x_src]) and `w2`
+    [d_in + 9 f, d_out] (the readout over [x ; 3 aggregators x 3
+    scalers]), zero biases; f = d_out (the reference's shapes and
+    distributions, drawn on the CPU from `gen`)."""
+    f = d_out
+    w1 = _glorot(gen, (2 * d_in, f))
+    w2 = _glorot(gen, (d_in + 9 * f, d_out))
+    return {"w1": w1, "b1": torch.zeros((f,), dtype=torch.float32),
+            "w2": w2, "b2": torch.zeros((d_out,), dtype=torch.float32)}
+
+
+def pna_transform(params: Params, x_all: torch.Tensor):
+    """Per-node halves of PNA's edge MLP: relu([x_dst ; x_src] @ w1 + b1)
+    splits exactly into relu(xd[dst] + xs[src]) with xd = x_all @ w1[:d]
+    and xs = x_all @ w1[d:] + b1."""
+    d_in = x_all.shape[-1]
+    xd = x_all @ params["w1"][:d_in]
+    xs = x_all @ params["w1"][d_in:] + params["b1"]
+    return xd, xs
+
+
+def pna_combine(params: Params, x_in: torch.Tensor, s, mn, mx, cnt,
+                log_deg_mean: float) -> torch.Tensor:
+    """Post-aggregation transform: the degree scalers (identity,
+    amplification log(d + 1) / log_deg_mean, attenuation log_deg_mean /
+    log(d + 1)) over the (mean, min, max) aggregators, then the readout
+    MLP over [x_in ; the nine]. `cnt`/`mn`/`mx` follow the
+    `ops.pna_reduce` contract (mn/mx are 0 for empty destinations). The
+    divisions by `log_deg_mean` divide by a tensor: PyTorch multiplies by
+    the reciprocal for a Python-number divisor on CUDA and for a
+    Python-number numerator everywhere, which rounds otherwise than the
+    reference's division."""
+    deg = torch.clamp(cnt, min=1.0)
+    mean = s / deg[:, None]
+    logd = torch.log(deg + 1.0)
+    ldm = logd.new_tensor(log_deg_mean)
+    s_amp = (logd / ldm)[:, None]
+    s_att = (ldm / torch.clamp(logd, min=1e-6))[:, None]
+    aggs = []
+    for agg in (mean, mn, mx):
+        aggs.extend([agg, agg * s_amp, agg * s_att])
+    h = torch.cat([x_in] + aggs, dim=-1)
+    return h @ params["w2"] + params["b2"]
+
+
+def pna_transform_split(params: Params, x_b: torch.Tensor,
+                        xh: torch.Tensor):
+    """The halo-split PNA transform of layers >= 1: `x_b` [n_b, d] holds
+    the exact in-batch rows, `xh` [n_h, d] the pulled halo rows. Halo rows
+    are never edge destinations, so their xd half is zeros; the dummy
+    row's xs half is b1, as `pna_transform` gives it over a zero row.
+    Returns what `pna_transform` returns over [x_b ; xh ; 0]. The
+    reference computes both halves at 128 lanes from a lane-padded pull
+    and zero-padded weights; the port computes them at the width f
+    unpadded, as the kernels mask the ragged features."""
+    d = x_b.shape[-1]
+    wd, ws, b1 = params["w1"][:d], params["w1"][d:], params["b1"]
+    n_h = xh.shape[0]
+    xd = torch.cat([x_b @ wd, x_b.new_zeros((n_h + 1, wd.shape[1]))], 0)
+    xs = torch.cat([x_b @ ws + b1, xh @ ws + b1, b1[None]], 0)
+    return xd, xs
+
+
+def pna(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
+        n_out: int, log_deg_mean: float, *, ublocks=None) -> torch.Tensor:
+    xd, xs = pna_transform(params, x_all)
+    s, mn, mx, cnt = ops.pna_reduce(xd, xs, edges, edge_w, n_out, ublocks)
+    return pna_combine(params, x_all[:n_out], s, mn, mx, cnt, log_deg_mean)

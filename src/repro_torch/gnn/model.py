@@ -1,6 +1,7 @@
-"""GNN model assembled for GAS batches and for the full graph — GCN and GAT.
+"""GNN model assembled for GAS batches and for the full graph — GCN, GAT
+and PNA.
 
-The port of `repro.gnn.model` for the GCN and GAT operators. A model is
+The port of `repro.gnn.model` for the GCN, GAT and PNA operators. A model is
 (pre, prop-layer stack, post); `gas_batch_forward` runs Algorithm 1 on
 one padded batch against the history store, `full_forward` runs the same
 layers on the whole graph (the exact evaluation, and the full-batch
@@ -12,12 +13,13 @@ a backward runs, so forward-only serve batches take it too):
 
   * materialized (layer 0, and every layer when `fuse_halo=False` or
     `use_history=False`): `x_all = [x_b ; halo ; 0]`, aggregated through
-    `bcsr_spmm` (GCN) or the edge-softmax kernels (GAT) over the batch's
-    blocks;
+    `bcsr_spmm` (GCN), the edge-softmax kernels (GAT) or the
+    `pna_reduce` kernels (PNA) over the batch's blocks;
   * fused (GCN layers >= 1): `gather_spmm` reads halo rows straight out
     of the history table;
-  * halo-split (GAT layers >= 1): the halo rows are pulled from the table
-    and transformed apart from the in-batch rows (`gat_transform_split`).
+  * halo-split (GAT and PNA layers >= 1): the halo rows are pulled from
+    the table and transformed apart from the in-batch rows
+    (`gat_transform_split`, `pna_transform_split`).
 
 Each hidden layer's in-batch rows are pushed into the store in place,
 detached. The reference traces this under `jax.value_and_grad` and XLA
@@ -41,22 +43,25 @@ from repro_torch.core.history import HistoryStore
 from repro_torch.kernels import ops
 from . import layers as L
 
-_OPS_PORTED = ("gcn", "gat")
+_OPS_PORTED = ("gcn", "gat", "pna")
 # fixed-weight SpMM ops: the fused history-gather route for layers >= 1
 FUSED_OPS = ("gcn",)
 # data-dependent aggregations: the halo-split route for layers >= 1
-HALO_SPLIT_OPS = ("gat",)
+HALO_SPLIT_OPS = ("gat", "pna")
 # ops that read the unit-weight (multiplicity) blocks
-UNIT_BLOCK_OPS = ("gat",)
+UNIT_BLOCK_OPS = ("gat", "pna")
+# ops with a readout head after the propagation layers, each of which
+# ends in a ReLU, the last one included
+HEAD_OPS = ("pna",)
 
 
 # the reference's defaults of the fields only unported operators read
-_UNPORTED_DEFAULTS = {"alpha": 0.1, "lam": 0.5, "log_deg_mean": 1.0}
+_UNPORTED_DEFAULTS = {"alpha": 0.1, "lam": 0.5}
 
 
 @dataclass(frozen=True)
 class GNNSpec:
-    op: str                     # gcn | gat (the rest: ROADMAP Queue A)
+    op: str                     # gcn | gat | pna (the rest: ROADMAP Queue A)
     d_in: int
     d_hidden: int
     num_classes: int
@@ -70,8 +75,7 @@ class GNNSpec:
     log_deg_mean: float = 1.0   # pna
 
     def __post_init__(self):
-        for name, op in (("alpha", "appnp / gcnii"), ("lam", "gcnii"),
-                         ("log_deg_mean", "pna")):
+        for name, op in (("alpha", "appnp / gcnii"), ("lam", "gcnii")):
             if getattr(self, name) != _UNPORTED_DEFAULTS[name]:
                 raise NotImplementedError(
                     f"{name} is read only by {op}, which is not ported yet "
@@ -114,6 +118,13 @@ def init_gnn(spec: GNNSpec, seed: int = 0, device=None) -> Dict[str, Any]:
     _check_op(spec)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    if spec.op == "pna":
+        dims = [spec.d_in] + [spec.d_hidden] * spec.num_layers
+        layers = [L.init_pna(gen, dims[i], dims[i + 1])
+                  for i in range(spec.num_layers)]
+        head = {"w": L._glorot(gen, (spec.d_hidden, spec.num_classes)),
+                "b": torch.zeros((spec.num_classes,), dtype=torch.float32)}
+        return to_device({"layers": layers, "head": head}, dev)
     dims = [spec.d_in] + [spec.d_hidden] * (spec.num_layers - 1) + \
         [spec.num_classes]
     if spec.op == "gcn":
@@ -131,10 +142,18 @@ def _pre(params, spec: GNNSpec, x):
 
 
 def _post(params, spec: GNNSpec, h):
+    if spec.op in HEAD_OPS:
+        return h @ params["head"]["w"] + params["head"]["b"]
     return h
 
 
 def _act(spec: GNNSpec, ell: int, h):
+    """The layer's nonlinearity: GCN's ReLU and GAT's ELU on the hidden
+    layers only (the last one is the logits); PNA's ReLU on every layer,
+    the last one included, as its head follows (`model.py:142-146` of
+    the reference)."""
+    if spec.op in HEAD_OPS:
+        return torch.relu(h)
     if ell == spec.num_layers - 1:
         return h
     return torch.relu(h) if spec.op == "gcn" else F.elu(h)
@@ -149,8 +168,11 @@ def _prop(params, spec: GNNSpec, ell: int, x_all, edges, edge_w, n_out,
     if spec.op == "gcn":
         h = L.gcn(p, x_all, edges, edge_w, n_out,
                   blocks=None if batch is None else batch.blocks)
-    else:
+    elif spec.op == "gat":
         h = L.gat(p, x_all, edges, edge_w, n_out,
+                  ublocks=None if batch is None else batch.ublocks)
+    else:
+        h = L.pna(p, x_all, edges, edge_w, n_out, spec.log_deg_mean,
                   ublocks=None if batch is None else batch.ublocks)
     return _act(spec, ell, h)
 
@@ -170,15 +192,23 @@ def _fused_prop(params, spec: GNNSpec, ell: int, x_cur,
 
 def _halo_prop(params, spec: GNNSpec, ell: int, x_cur,
                store: HistoryStore, batch: GASBatch, edges, edge_w):
-    """One GAT layer on the halo-split path: the halo rows are pulled from
-    the previous layer's table at its own width (int8 rows dequantized in
-    the gather, bf16 rows upcast here) and transformed apart from the
-    in-batch rows (`gat_transform_split`), then the edge softmax runs over
-    the unit-weight blocks."""
+    """One GAT or PNA layer on the halo-split path: the halo rows are
+    pulled from the previous layer's table at its own width (int8 rows
+    dequantized in the gather, bf16 rows upcast here) and transformed
+    apart from the in-batch rows (`gat_transform_split`,
+    `pna_transform_split`), then the edge softmax or PNA's reduction runs
+    over the unit-weight blocks."""
     n_out = batch.batch_mask.shape[0]
+    p = params["layers"][ell]
     xh = store.pull(ell - 1, batch.halo_nodes).to(x_cur.dtype) * \
         batch.halo_mask[:, None]
-    wx, a_d, a_s = L.gat_transform_split(params["layers"][ell], x_cur, xh)
+    if spec.op == "pna":
+        xd, xs = L.pna_transform_split(p, x_cur, xh)
+        s, mn, mx, cnt = ops.pna_reduce(xd, xs, edges, edge_w, n_out,
+                                        batch.ublocks)
+        return _act(spec, ell, L.pna_combine(p, x_cur, s, mn, mx, cnt,
+                                             spec.log_deg_mean))
+    wx, a_d, a_s = L.gat_transform_split(p, x_cur, xh)
     att = ops.edge_softmax_aggregate(wx, a_d, a_s, edges, edge_w, n_out,
                                      batch.ublocks)
     return _act(spec, ell, L.gat_combine(att))
@@ -193,7 +223,7 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     updated in place: each hidden layer's in-batch rows are pushed and the
     clock is ticked. `batch` must be a single batch on the store's device
     carrying the op's block family (forward blocks for GCN, unit blocks
-    for GAT; the transposed ones too when a gradient is taken).
+    for GAT and PNA; the transposed ones too when a gradient is taken).
     Diagnostics: mean/max history age of the halo rows (read before the
     pushes) and `hist_quant_err`, the mean over the hidden layers of the
     relative error their pushes incur at the store's precision (0 for f32

@@ -32,7 +32,8 @@ BUILD_DIR = ROOT / "build" / "torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 # no --use_fast_math: the int8 kernels divide and multiply with IEEE
 # rounding, so their codes and dequantized rows are bitwise the plain
-# versions'
+# versions', and PNA's backward passes divide the min/max cotangents by
+# their tie counts as the reference does
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
            "edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col",
            "gather_rows_dq", "scatter_rows_q", "gather_spmm_dq",
-           "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16")
+           "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16",
+           "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -69,6 +71,12 @@ _SIGNATURES = {
     "repro_edge_softmax_bwd_col_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _P, _P, _I, _I, _F, _P, _P,
                                        _P],
+    "repro_pna_reduce_fwd_f32": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                                 _P, _P, _P, _P, _P],
+    "repro_pna_reduce_bwd_row_f32": [_P] * 9 + [_I, _I, _I, _P, _P, _I, _I,
+                                                _P, _P],
+    "repro_pna_reduce_bwd_col_f32": [_P] * 9 + [_I, _I, _I, _P, _P, _I, _I,
+                                                _P, _P],
 }
 
 _lock = threading.Lock()

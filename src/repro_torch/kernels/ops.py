@@ -12,11 +12,12 @@ here pads or copies an operand.
 
 The reference's custom VJPs are `torch.autograd.Function`s here, whose
 backwards are kernels too: `spmm` / `gcn_aggregate` and `gas_aggregate`
-run `bcsr_spmm` on the transposed blocks, and `edge_softmax_aggregate`
-runs GAT's row and column backward kernels. The adjacency blocks are
-constants (zero cotangent), as in the reference. None of them saves a
-history table for the backward: the forward pushes into the tables in
-place, and autograd refuses a saved tensor that was modified since.
+run `bcsr_spmm` on the transposed blocks, `edge_softmax_aggregate` runs
+GAT's row and column backward kernels, and `pna_reduce` PNA's. The
+adjacency blocks are constants (zero cotangent), as in the reference.
+None of them saves a history table for the backward: the forward pushes
+into the tables in place, and autograd refuses a saved tensor that was
+modified since.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ from .edge_softmax import (edge_softmax_bwd_col, edge_softmax_bwd_row,
                            edge_softmax_fwd)
 from .fused import gather_plan, gather_spmm
 from .gather import gather_rows, gather_rows_dq
-from .ref import edge_softmax_coo
+from .pna_reduce import (pna_reduce_bwd_col, pna_reduce_bwd_row,
+                         pna_reduce_fwd)
+from .ref import edge_softmax_coo, pna_reduce_coo
 from .scatter import scatter_rows, scatter_rows_q
 
 
@@ -252,6 +255,59 @@ def edge_softmax_aggregate(wx: torch.Tensor, ad: torch.Tensor,
                               as_.contiguous(), uv, uc, uvt, uct, neg_slope)
 
 
+class _PNAReduce(torch.autograd.Function):
+    """PNA's reduction over the unit-weight blocks (`ops.py:481-511` of
+    the reference): the forward kernel, saving the stats (mn, mx) and the
+    tie counts (cmin, cmax); the backward runs the row kernel for dxd over
+    the forward blocks and the column kernel for dxs over the transposed
+    ones. cnt depends on the blocks alone: its cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, xd, xs, uv, uc, uvt, uct):
+        s, mn, mx, cnt, cmin, cmax = pna_reduce_fwd(xd, xs, uv, uc)
+        ctx.save_for_backward(xd, xs, mn, mx, cmin, cmax)
+        ctx.blocks = (uv, uc, uvt, uct)
+        ctx.mark_non_differentiable(cnt)
+        return s, mn, mx, cnt
+
+    @staticmethod
+    def backward(ctx, gs, gmn, gmx, _gcnt):
+        xd, xs, mn, mx, cmin, cmax = ctx.saved_tensors
+        uv, uc, uvt, uct = ctx.blocks
+        gs, gmn, gmx = (torch.zeros_like(mn) if g is None else g.contiguous()
+                        for g in (gs, gmn, gmx))
+        stats = (gs, gmn, gmx, mn, mx, cmin, cmax)
+        dxd = pna_reduce_bwd_row(xd, xs, *stats, uv, uc)
+        dxs = pna_reduce_bwd_col(xd, xs, *stats, uvt, uct)
+        return dxd, dxs, None, None, None, None
+
+
+def pna_reduce(xd: torch.Tensor, xs: torch.Tensor, edges,
+               edge_w: torch.Tensor, n_out: int, ublocks=None
+               ) -> Tuple[torch.Tensor, ...]:
+    """PNA's reduction of msg_e = relu(xd[dst_e] + xs[src_e]) per
+    destination: (s, mn, mx, cnt) = (sum, min, max, edge count), mn and mx
+    0 on destinations without edges; [n_out, F] each, cnt [n_out].
+
+    xd/xs [M, F] are the destination and source halves of PNA's edge MLP
+    (destinations are rows 0..n_out-1). With `ublocks = (ublk_vals,
+    blk_cols, ublk_vals_t, blk_cols_t)` it runs the three `pna_reduce`
+    kernels, forward and backward (an autograd.Function: the min/max
+    cotangents split evenly across multiplicity-weighted ties, as
+    `jax.ops.segment_min/max` split them); with ublocks=None the segment
+    reduction over the COO in plain tensor code (`ref.pna_reduce_coo`).
+    No operand is padded to whole blocks or 128 lanes."""
+    if ublocks is None:
+        return pna_reduce_coo(xd, xs, edges, edge_w, n_out)
+    if len(ublocks) != 4:
+        raise ValueError("pna_reduce needs the unit-weight 4-tuple "
+                         "(ublk_vals, blk_cols, ublk_vals_t, blk_cols_t): "
+                         "build_batches(unit_weights=True)")
+    uv, uc, uvt, uct = ublocks
+    return _PNAReduce.apply(xd[:n_out].contiguous(), xs.contiguous(), uv, uc,
+                            uvt, uct)
+
+
 def pull_rows(table: torch.Tensor, idx: torch.Tensor, *,
               scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """History pull: out[i] = table[idx[i]] (idx clipped to [0, N)), in
@@ -319,4 +375,5 @@ __all__ = ["build_bcsr", "build_bcsr_rect", "spmm", "gcn_aggregate",
            "push_rows", "push_rows_q", "bcsr_spmm", "gather_plan",
            "gather_spmm", "gather_rows", "gather_rows_dq", "scatter_rows",
            "scatter_rows_q", "edge_softmax_fwd", "edge_softmax_bwd_row",
-           "edge_softmax_bwd_col"]
+           "edge_softmax_bwd_col", "pna_reduce", "pna_reduce_fwd",
+           "pna_reduce_bwd_row", "pna_reduce_bwd_col"]

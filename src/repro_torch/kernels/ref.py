@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the port's ten CUDA kernels.
+"""Plain PyTorch versions of the port's thirteen CUDA kernels.
 
 Each function computes what its kernel computes, on the same arguments, in
 plain tensor code: the kernel wrappers (`gather.py`, `scatter.py`,
-`bcsr_spmm.py`, `fused.py`, `edge_softmax.py`) run them when handed CPU
-tensors, the tests hold them against the JAX package's Pallas kernels,
-and `chip_smoke.py` holds each kernel against them on the card. They
-repeat the kernels' arithmetic and are no yardstick of speed.
+`bcsr_spmm.py`, `fused.py`, `edge_softmax.py`, `pna_reduce.py`) run them
+when handed CPU tensors, the tests hold them against the JAX package's
+Pallas kernels, and `chip_smoke.py` holds each kernel against them on
+the card. They repeat the kernels' arithmetic and are no yardstick of
+speed.
 
 `row_scales`, `quantize_rows` and `dequantize_rows` are the symmetric
 per-row int8 codec of `repro.core.history` (`:217-245`), and
@@ -14,10 +15,10 @@ the one definition the int8 store, the quantizing push's plain version and
 `core.history.quantization_error` share; the CUDA kernels mirror them
 op for op (`csrc/scatter.cu`, `csrc/gather.cu`, `csrc/fused.cu`).
 
-`edge_softmax_coo` is not a kernel's plain version: it is the per-edge
-(segment) softmax of the reference's "jnp" route, which `full_forward`
-and `evaluate_exact` run in plain tensor code, as the reference's
-`evaluate_exact` does on every backend.
+`edge_softmax_coo` and `pna_reduce_coo` are not kernels' plain versions:
+they are the per-edge (segment) routes of the reference's "jnp" backend,
+which `full_forward` and `evaluate_exact` run in plain tensor code, as
+the reference's `evaluate_exact` does on every backend.
 """
 from __future__ import annotations
 
@@ -324,3 +325,160 @@ def edge_softmax_coo(wx: torch.Tensor, ad: torch.Tensor, as_: torch.Tensor,
                       device=msg.device).index_add(0, dst, msg)[:n_out]
     tiny = torch.finfo(denom.dtype).tiny
     return out / torch.clamp(denom, min=tiny)[:, :, None]
+
+
+# ---------------------------------------------------------------------------
+# PNA's multi-aggregator reduction: the three kernels of csrc/pna_reduce.cu
+# ---------------------------------------------------------------------------
+#
+# msg = relu(xd[dst] + xs[src]) per edge, reduced per destination and
+# feature into (sum, min, max, count) weighted by the edge multiplicities
+# of the unit-weight blocks, with the multiplicity-weighted tie counts at
+# the min and max that the backward passes split the min/max cotangents
+# by. Layouts are unpadded and node-major: xd [n_dst, F] (the destination
+# rows), xs [n_src, F]; ublk_vals [R, K, 128, 128] over destinations x
+# sources with R*128 >= n_dst, ublk_vals_t [R_t, K_t, 128, 128] over
+# sources x destinations with R_t*128 >= n_src. Rows past n_dst / n_src
+# read as zeros (the reference pads with zeros).
+
+BIG = 1e30      # the reference kernels' min/max sentinel
+
+
+def _pna_rows(xd, xs, blk_cols, bn):
+    """xd as [R, bn, F] block rows and xs gathered per block [R, K, bn, F]."""
+    R = blk_cols.shape[0]
+    return _pad_rows(xd, R * bn).view(R, bn, -1), \
+        _gather_blocks(xs, blk_cols, bn)
+
+
+def pna_reduce_fwd_ref(xd: torch.Tensor, xs: torch.Tensor,
+                       ublk_vals: torch.Tensor, blk_cols: torch.Tensor):
+    """(s, mn, mx, cnt, cmin, cmax) over the forward multiplicity blocks:
+    s/mn/mx/cmin/cmax [n_dst, F] f32, cnt [n_dst] f32; mn and mx are 0 on
+    rows without edges. One K step at a time, as the reference's grid
+    walks K: a strictly better block value resets a tie count, an equal
+    one adds its multiplicity (`pna_reduce.py:68-84`), so the counts are
+    the multiplicity sums of the entries equal to the final min and max.
+    Masked entries are left out, never multiplied."""
+    n_dst, Fd = xd.shape
+    R, K, bn, _ = ublk_vals.shape
+    xdb, xsb = _pna_rows(xd, xs, blk_cols, bn)
+    shape = (R, bn, Fd)
+    s = xd.new_zeros(shape)
+    cnt = xd.new_zeros((R, bn, 1))
+    mn, mx = xd.new_full(shape, BIG), xd.new_full(shape, -BIG)
+    cmin, cmax = xd.new_zeros(shape), xd.new_zeros(shape)
+    for k in range(K):
+        m = ublk_vals[:, k, :, :, None]                     # [R, a, b, 1]
+        v = m > 0
+        msg = torch.relu(xdb[:, :, None, :] + xsb[:, k, None, :, :])
+        s = s + torch.where(v, m * msg, 0.0).sum(2)
+        cnt = cnt + m.sum(2)
+        for acc, cacc, fill, pick in ((mn, cmin, BIG, torch.minimum),
+                                      (mx, cmax, -BIG, torch.maximum)):
+            blk = torch.where(v, msg, fill)
+            new = pick(acc, blk.amin(2) if fill > 0 else blk.amax(2))
+            here = torch.where(v & (msg == new[:, :, None]), m, 0.0).sum(2)
+            cacc.copy_(torch.where(acc == new, cacc, 0.0) + here)
+            acc.copy_(new)
+    has = cnt > 0
+    mn = torch.where(has, mn, 0.0)
+    mx = torch.where(has, mx, 0.0)
+    flat = lambda t: t.reshape(R * bn, -1)[:n_dst]  # noqa: E731
+    return (flat(s), flat(mn), flat(mx), flat(cnt)[:, 0], flat(cmin),
+            flat(cmax))
+
+
+def _pna_dmsg(z, m, gs, gmn_c, gmx_c, mn, mx):
+    """The even-split cotangent of one message block (`pna_reduce.py:156-
+    165`): relu'(z) * m * (gs + [msg == mn] gmn / max(cmin, 1) + [msg ==
+    mx] gmx / max(cmax, 1)) on the valid entries, 0 elsewhere. The stats
+    broadcast against z; gmn_c and gmx_c are the divided cotangents."""
+    msg = torch.relu(z)
+    v = m > 0
+    grad = gs + torch.where(msg == mn, gmn_c, 0.0) + \
+        torch.where(msg == mx, gmx_c, 0.0)
+    return torch.where(v & (z > 0), m * grad, 0.0)
+
+
+def _split_cotangents(gmn, gmx, cmin, cmax):
+    """gmn / max(cmin, 1) and gmx / max(cmax, 1): each tie's share."""
+    return gmn / torch.clamp(cmin, min=1.0), gmx / torch.clamp(cmax, min=1.0)
+
+
+def pna_reduce_bwd_row_ref(xd, xs, gs, gmn, gmx, mn, mx, cmin, cmax,
+                           ublk_vals, blk_cols) -> torch.Tensor:
+    """dxd [n_dst, F] = sum over the sources of each destination of the
+    even-split message cotangent, messages recomputed over the forward
+    blocks; gs/gmn/gmx are the (s, mn, mx) cotangents and mn/mx/cmin/cmax
+    the forward's saved stats, all [n_dst, F]."""
+    n_dst, Fd = xd.shape
+    R, K, bn, _ = ublk_vals.shape
+    xdb, xsb = _pna_rows(xd, xs, blk_cols, bn)
+    gmn_c, gmx_c = _split_cotangents(gmn, gmx, cmin, cmax)
+    rows = [_pad_rows(t, R * bn).view(R, bn, 1, Fd)
+            for t in (gs, gmn_c, gmx_c, mn, mx)]
+    dxd = xd.new_zeros((R, bn, Fd))
+    for k in range(K):
+        z = xdb[:, :, None, :] + xsb[:, k, None, :, :]      # [R, a, b, F]
+        dxd = dxd + _pna_dmsg(z, ublk_vals[:, k, :, :, None], *rows).sum(2)
+    return dxd.reshape(R * bn, Fd)[:n_dst]
+
+
+def pna_reduce_bwd_col_ref(xd, xs, gs, gmn, gmx, mn, mx, cmin, cmax,
+                           ublk_vals_t, blk_cols_t) -> torch.Tensor:
+    """dxs [n_src, F] = sum over the destinations of each source of the
+    even-split message cotangent, over the transposed blocks (rows are
+    sources): the destination-side stats are fetched through the
+    transposed column ids, so each source row has one owner block row."""
+    n_src, Fd = xs.shape
+    R_t, K_t, bn, _ = ublk_vals_t.shape
+    xsb, xdb = _pna_rows(xs, xd, blk_cols_t, bn)
+    gmn_c, gmx_c = _split_cotangents(gmn, gmx, cmin, cmax)
+    cols = [_gather_blocks(t, blk_cols_t, bn)
+            for t in (gs, gmn_c, gmx_c, mn, mx)]            # [R_t, K_t, a, F]
+    dxs = xs.new_zeros((R_t, bn, Fd))
+    for k in range(K_t):
+        z = xsb[:, :, None, :] + xdb[:, k, None, :, :]      # [R_t, j, a, F]
+        dxs = dxs + _pna_dmsg(z, ublk_vals_t[:, k, :, :, None],
+                              *(c[:, k, None] for c in cols)).sum(2)
+    return dxs.reshape(R_t * bn, Fd)[:n_src]
+
+
+def pna_reduce_coo(xd: torch.Tensor, xs: torch.Tensor, edges,
+                   edge_w: torch.Tensor, n_out: int):
+    """The segment reduction of the reference's "jnp" route
+    (`repro.kernels.ops.pna_reduce` with ublocks=None, `ops.py:534-548`)
+    over the padded COO: (s, mn, mx, cnt) = sum / min / max / count of
+    relu(xd[dst] + xs[src]) over the valid (weight > 0) edges, min and
+    max 0 on rows without one; destination n_out is the trash row.
+    Differentiable w.r.t. xd and xs: the min and max split their
+    cotangents evenly across the tied edges, as `jax.ops.segment_min` /
+    `segment_max` do (each tie gets g / ties). Not a kernel's plain
+    version: `full_forward` and `evaluate_exact` run it, as the
+    reference's `evaluate_exact` runs the segment route on every
+    backend."""
+    dst, src = edges[0].long(), edges[1].long()
+    valid = (edge_w > 0)[:, None]
+    pre = torch.relu(xd[dst] + xs[src])
+    n1, Fd = n_out + 1, pre.shape[1]
+    big = torch.finfo(pre.dtype).max / 2        # the reference's -neg_cap
+    idx = dst[:, None].expand(-1, Fd)
+    cnt = pre.new_zeros(n1).index_add(0, dst, valid[:, 0].to(pre.dtype))
+    s = pre.new_zeros((n1, Fd)).index_add(
+        0, dst, torch.where(valid, pre, 0.0))[:n_out]
+    has = (cnt[:n_out] > 0)[:, None]
+    out = [s]
+    for fill, reduce in ((big, "amin"), (-big, "amax")):
+        v = torch.where(valid, pre, fill).detach()
+        ext = pre.new_full((n1, Fd), fill).scatter_reduce(
+            0, idx, v, reduce=reduce, include_self=True)
+        # the value is the detached extreme; its gradient reaches each
+        # tied edge as g / ties through a term that adds exact zeros
+        tie = valid & (v == ext[dst])
+        ties = pre.new_zeros((n1, Fd)).index_add(0, dst, tie.to(pre.dtype))
+        share = torch.where(tie, (pre - v) / torch.clamp(ties[dst], min=1.0),
+                            0.0)
+        ext = ext + pre.new_zeros((n1, Fd)).index_add(0, dst, share)
+        out.append(torch.where(has, ext[:n_out], 0.0))
+    return out[0], out[1], out[2], cnt[:n_out]

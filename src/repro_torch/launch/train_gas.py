@@ -2,14 +2,16 @@
 
 The counterpart of `examples/quickstart.py`: the synthetic citation graph
 (homophily 0.75, feature noise 2.0, seed 0), a 2-layer model with
-`d_hidden=64` (GAT: 8 heads of 8, one output head), histories stored at
+`d_hidden=64` (GAT: 8 heads of 8, one output head; PNA: table 5's
+`gas-pna` spec, `d_hidden=48` and `log_deg_mean=1.8`, as
+`benchmarks/table5_baselines.py` runs it), histories stored at
 `--history-dtype` (f32, bf16 or int8), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
 training, then both test accuracies from the exact full-graph forward
 and the GAS one from `predict` beside them, with the history store's
 bytes, its compression against f32 and the last epoch's
 `hist_quant_err`.
 
-    python -m repro_torch.launch.train_gas [--op gcn|gat] [--nodes N]
+    python -m repro_torch.launch.train_gas [--op gcn|gat|pna] [--nodes N]
         [--features F] [--classes C] [--parts P] [--epochs E]
         [--history-dtype f32|bf16|int8] [--device cuda|cpu] [--smoke]
 
@@ -40,7 +42,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--op", choices=("gcn", "gat"), default="gcn")
+    ap.add_argument("--op", choices=("gcn", "gat", "pna"), default="gcn")
     ap.add_argument("--nodes", type=int, default=2500)
     ap.add_argument("--features", type=int, default=128)
     ap.add_argument("--classes", type=int, default=7)
@@ -62,8 +64,10 @@ def main(argv=None) -> dict:
                            feature_noise=2.0, seed=0)
     print(f"graph: {graph.num_nodes} nodes, {graph.num_edges} edges, "
           f"{graph.num_classes} classes; device {device}")
-    spec = GNNSpec(op=args.op, d_in=args.features, d_hidden=64,
-                   num_classes=args.classes, num_layers=2, heads=8)
+    spec = GNNSpec(op=args.op, d_in=args.features,
+                   d_hidden=48 if args.op == "pna" else 64,
+                   num_classes=args.classes, num_layers=2, heads=8,
+                   log_deg_mean=1.8 if args.op == "pna" else 1.0)
 
     t0 = time.perf_counter()
     full = FullBatchTrainer(graph, spec, TrainConfig(epochs=args.epochs),

@@ -5,6 +5,8 @@ the path strings of the flattened `GASState`:
 
     state/params/layers/{i}/{w,b}            (GCN)
     state/params/layers/{i}/{w,a_src,a_dst}  (GAT)
+    state/params/layers/{i}/{w1,b1,w2,b2}    (PNA)
+    state/params/head/{w,b}                  (PNA's readout)
     state/opt_state/step                     () int32
     state/opt_state/{m,v}/layers/{i}/...     the AdamW moments
     state/histories/tables/{l}               [N+1, d] f32, int8 codes,
@@ -38,7 +40,8 @@ import torch
 from repro_torch.core.config import resolve_device
 from repro_torch.core.history import HistoryStore, get_codec
 
-_PARAM_KEY = re.compile(r"^layers/(\d+)/(w|b|a_src|a_dst)$")
+_PARAM_KEY = re.compile(
+    r"(?:^|/)(?:layers/(\d+)/(w|b|a_src|a_dst|w1|b1|w2|b2)|head/(w|b))$")
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray],
@@ -46,22 +49,30 @@ def params_from_numpy(flat: Mapping[str, np.ndarray],
     """{"layers/0/w": array, "layers/0/b": array, ...} (keys as the
     reference flattens its param tree; a prefix ending in "params/" or
     "state/opt_state/m/" etc. is accepted) -> {"layers": [{"w": tensor,
-    "b": tensor}, ...]} on `device` (None means "cuda"). GCN layers hold
-    w and b, GAT layers w, a_src and a_dst."""
+    "b": tensor}, ...]} on `device` (None means "cuda"), with a "head"
+    dict where the keys hold one. GCN layers hold w and b, GAT layers w,
+    a_src and a_dst, PNA layers w1, b1, w2 and b2 beside a head/{w,b}."""
     dev = resolve_device(device)
     layers: Dict[int, Dict[str, torch.Tensor]] = {}
+    head: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
-        name = key[key.index("layers/"):] if "layers/" in key else key
-        m = _PARAM_KEY.match(name)
+        m = _PARAM_KEY.search(key)
         if m is None:
             raise KeyError(f"unsupported param key {key!r} (the port "
-                           "holds GCN and GAT params: layers/{i}/ w and b, "
-                           "or w, a_src and a_dst)")
-        layers.setdefault(int(m.group(1)), {})[m.group(2)] = \
-            torch.from_numpy(np.array(arr, np.float32)).to(dev)
+                           "holds GCN, GAT and PNA params: layers/{i}/ w "
+                           "and b, or w, a_src and a_dst, or w1, b1, w2 and "
+                           "b2; head/ w and b)")
+        t = torch.from_numpy(np.array(arr, np.float32)).to(dev)
+        if m.group(3) is not None:
+            head[m.group(3)] = t
+        else:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
     if sorted(layers) != list(range(len(layers))):
         raise KeyError(f"layer indices {sorted(layers)} are not 0..L-1")
-    return {"layers": [layers[i] for i in range(len(layers))]}
+    out: Dict[str, Any] = {"layers": [layers[i] for i in range(len(layers))]}
+    if head:
+        out["head"] = head
+    return out
 
 
 def _store_dtype(flat: Mapping[str, np.ndarray],
@@ -124,9 +135,12 @@ def load_gas_meta(path: str) -> Optional[dict]:
 
 
 def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
-    return {f"{prefix}layers/{i}/{k}": v.detach().cpu().numpy()
+    flat = {f"{prefix}layers/{i}/{k}": v.detach().cpu().numpy()
             for i, layer in enumerate(params["layers"])
             for k, v in layer.items()}
+    flat.update({f"{prefix}head/{k}": v.detach().cpu().numpy()
+                 for k, v in params.get("head", {}).items()})
+    return flat
 
 
 def save_gas_state(path: str, state, step: int = 0,

@@ -9,7 +9,9 @@ and `nvcc`:
 
 The first call builds the kernels (kernels/_build.py). Tolerances: the
 row max M of the edge softmax is bitwise its plain version's (a max over
-the same scores), and so are the row moves: the f32 and bf16 gathers and
+the same scores), and so are PNA's min, max, count and tie counts (one
+add and a max per message, sums of small integers; its sums and
+gradients at 1e-5), and the row moves: the f32 and bf16 gathers and
 scatters, the dequantizing gather and the quantizing scatter (codes and
 scales; the same division, rounding and multiply); everything else
 compares at rtol = atol = 1e-4 (sums in another order, and expf against
@@ -28,6 +30,7 @@ from repro_torch.data.graphs import citation_graph
 from repro_torch.gnn.model import GNNSpec
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import edge_softmax as esk
+from repro_torch.kernels import pna_reduce as pnk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
 from repro_torch.kernels.fused import gather_plan, gather_spmm
 from repro_torch.kernels.gather import gather_rows, gather_rows_dq
@@ -103,10 +106,70 @@ def test_edge_softmax_kernels_match_plain(dev, H, F, n_out, M):
                                             uc_d)[0], out)
 
 
+@pytest.mark.parametrize("F,n_out,M,ties", [(48, 300, 474, True),
+                                             (16, 194, 474, False),
+                                             (130, 260, 520, True),
+                                             (5, 130, 260, True)])
+def test_pna_kernels_match_plain(dev, F, n_out, M, ties):
+    """The three PNA kernels against their plain versions on the card: the
+    table-5 width (48, two feature tiles), one tile, F past four tiles and
+    ragged in every one, a width below one thread's 8; duplicate edges,
+    the last 5 destinations without edges, inputs on a 0.5 grid for ties
+    at the min and max, and the last 40 sources reached by no edge
+    carrying poisoned values. min, max, count and tie counts bitwise, the
+    sums and both gradients at 1e-5, and a warm repeat bit-identical."""
+    (uv, uc, uvt, uct), rng = _blocks(F + n_out, n_out, M, 6 * n_out,
+                                      empty_from=n_out - 5)
+    xd = rng.normal(size=(n_out, F)).astype(np.float32)
+    xs = rng.normal(size=(M, F)).astype(np.float32)
+    if ties:
+        xd, xs = np.round(xd * 2) / 2, np.round(xs * 2) / 2
+    xs[M - 40:] = np.where(rng.random((40, F)) < 0.5, 1e30, -1e30)
+    g = [rng.normal(size=(n_out, F)).astype(np.float32) for _ in range(3)]
+    xd_d, xs_d, uv_d, uc_d, uvt_d, uct_d = (
+        t.to(dev) for t in (torch.from_numpy(xd), torch.from_numpy(xs), uv,
+                            uc, uvt, uct))
+    g_d = [torch.from_numpy(a).to(dev) for a in g]
+    tol = dict(rtol=1e-5, atol=1e-5)
+
+    before = dict(_build.launch_counts)
+    out = pnk.pna_reduce_fwd(xd_d, xs_d, uv_d, uc_d)
+    want = ref.pna_reduce_fwd_ref(xd_d, xs_d, uv_d, uc_d)
+    for name, a, b in zip(("s", "mn", "mx", "cnt", "cmin", "cmax"), out,
+                          want):
+        if name == "s":
+            torch.testing.assert_close(a, b, **tol)
+        else:
+            assert torch.equal(a, b), name
+    s, mn, mx, cnt, cmin, cmax = want
+    assert torch.all(cnt[n_out - 5:] == 0) and torch.all(mn[n_out - 5:] == 0)
+    if ties:
+        assert float(cmin.max()) >= 2 and float(cmax.max()) >= 2
+    stats = (*g_d, mn, mx, cmin, cmax)
+    dxd = pnk.pna_reduce_bwd_row(xd_d, xs_d, *stats, uv_d, uc_d)
+    torch.testing.assert_close(dxd, ref.pna_reduce_bwd_row_ref(
+        xd_d, xs_d, *stats, uv_d, uc_d), **tol)
+    dxs = pnk.pna_reduce_bwd_col(xd_d, xs_d, *stats, uvt_d, uct_d)
+    torch.testing.assert_close(dxs, ref.pna_reduce_bwd_col_ref(
+        xd_d, xs_d, *stats, uvt_d, uct_d), **tol)
+    assert torch.all(dxs[M - 40:] == 0)
+    # a warm repeat of each is bitwise the same
+    for a, b in zip(pnk.pna_reduce_fwd(xd_d, xs_d, uv_d, uc_d), out):
+        assert torch.equal(a, b)
+    assert torch.equal(pnk.pna_reduce_bwd_row(xd_d, xs_d, *stats, uv_d,
+                                              uc_d), dxd)
+    assert torch.equal(pnk.pna_reduce_bwd_col(xd_d, xs_d, *stats, uvt_d,
+                                              uct_d), dxs)
+    torch.cuda.synchronize()
+    for k in ("pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col"):
+        assert _build.launch_counts[k] == before[k] + 2, k
+
+
 def test_autograd_functions_launch_their_kernels(dev):
     """`ops.edge_softmax_aggregate` and `ops.gcn_aggregate` on the card:
     the backward launches the backward kernels (bcsr_spmm on the
-    transposed blocks for GCN) and agrees with the same op on the CPU."""
+    transposed blocks for GCN) and agrees with the same op on the CPU;
+    then `ops.pna_reduce`'s forward and both backward kernels."""
     (uv, uc, uvt, uct), rng = _blocks(3, 194, 474, 1200)
     H, F = 8, 8
     wx = torch.from_numpy(rng.normal(size=(474, H, F)).astype(np.float32))
@@ -137,9 +200,24 @@ def test_autograd_functions_launch_their_kernels(dev):
         if d != "cpu":
             assert _build.launch_counts["bcsr_spmm"] == before + 1
     torch.testing.assert_close(grads[str(dev)], grads["cpu"], **TOL)
+    for d in ("cpu", dev):
+        ts = [h.to(d).requires_grad_(True) for h in (x[:, :48], x[:, 16:])]
+        blocks = tuple(t.to(d) for t in (uv, uc, uvt, uct))
+        before = dict(_build.launch_counts)
+        out = ops.pna_reduce(*ts, None, None, 194, blocks)
+        grads[str(d)] = [o.detach().cpu() for o in out] + [
+            t.cpu() for t in torch.autograd.grad(
+                sum(o.square().sum() for o in out[:3]), ts)]
+        if d != "cpu":
+            torch.cuda.synchronize()
+            for k in ("pna_reduce_fwd", "pna_reduce_bwd_row",
+                      "pna_reduce_bwd_col"):
+                assert _build.launch_counts[k] == before[k] + 1, k
+    for x, y in zip(grads["cpu"], grads[str(dev)]):
+        torch.testing.assert_close(y, x, **TOL)
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
 def test_train_step_on_card_matches_cpu(dev, op):
     """Two steps on both devices, each from the same state (the CPU state
     takes the card's before the second): loss, gradients and history
@@ -152,7 +230,8 @@ def test_train_step_on_card_matches_cpu(dev, op):
     g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
                        seed=1)
     spec = GNNSpec(op=op, d_in=40, d_hidden=32, num_classes=4,
-                   num_layers=2, heads=4)
+                   num_layers=2, heads=4,
+                   log_deg_mean=1.8 if op == "pna" else 1.0)
     cfg = R.GASConfig(num_parts=4)
     plans = {d: R.build_plan(g, spec, cfg, device=d) for d in ("cpu", dev)}
     states = {d: R.init_state(p) for d, p in plans.items()}

@@ -85,7 +85,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    spec = t_model.GNNSpec(op="pna", d_in=4, d_hidden=8, num_classes=2,
+    spec = t_model.GNNSpec(op="gin", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.init_gnn(spec, device="cpu")

@@ -5,8 +5,9 @@ family, cluster grouping and padding bounds. The global-norm clip
 compares at 1e-6 (the two frameworks sum a leaf in different orders);
 the AdamW update, fed the reference's clipped gradients, bitwise.
 
-The runtime runs GCN and GAT (300 nodes, 4 parts, d_hidden=16, 2 heads)
-from the reference's `init_gnn` params carried across. One step's loss,
+The runtime runs GCN, GAT and PNA (300 nodes, 4 parts, d_hidden=16, 2
+heads; PNA with log_deg_mean=1.8) from the reference's `init_gnn`
+params carried across. One step's loss,
 gradients and history tables compare at 1e-4 against the reference on
 backend="interpret" (block sums in another order). The update then runs
 in both frameworks on the reference's gradients and compares at 1e-6: fed
@@ -17,10 +18,13 @@ m / sqrt(v) is sign(g)). Two epochs' per-epoch mean losses compare at
 apart by such flips), and the exact accuracies at 2 test nodes.
 
 `python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
-[--history-dtype f32|bf16|int8] [--op gcn|gat]` prints the reference's
-GAS test accuracy for chip_smoke.py's training configurations, from the
-port's initial params, on this host's partitions or on the ones in the
-file (see `reference_accuracy`), over a store of the given precision."""
+[--history-dtype f32|bf16|int8] [--op gcn|gat|pna] [--perturb N ...]`
+prints the reference's GAS test accuracy for chip_smoke.py's training
+configurations, from the port's initial params (moved by one ulp for
+each `--perturb N > 0`), on this host's partitions or on the ones in the
+file (see `reference_accuracy`), over a store of the given precision;
+`--port-acc` runs the same on the port, on the CPU, and `--trajectory
+EPOCHS` prints both packages' per-epoch mean losses side by side."""
 import hashlib
 
 import jax
@@ -56,9 +60,12 @@ def _graphs(seed=0, n=N, f=F, c=C, **kw):
 
 
 def _flat(params):
-    return {f"layers/{i}/{k}": np.asarray(v)
+    flat = {f"layers/{i}/{k}": np.asarray(v)
             for i, layer in enumerate(params["layers"])
             for k, v in layer.items()}
+    flat.update({f"head/{k}": np.asarray(v)
+                 for k, v in params.get("head", {}).items()})
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -200,12 +207,12 @@ def test_adamw_update_bitwise_from_reference_clip():
 
 
 # ---------------------------------------------------------------------------
-# Runtime, GCN and GAT
+# Runtime, GCN, GAT and PNA
 # ---------------------------------------------------------------------------
 
 def _specs(op):
     kw = dict(op=op, d_in=F, d_hidden=D, num_classes=C, num_layers=2,
-              heads=2)
+              heads=2, log_deg_mean=1.8 if op == "pna" else 1.0)
     return r_model.GNNSpec(**kw), t_model.GNNSpec(**kw)
 
 
@@ -242,7 +249,7 @@ def _ref_grads(rplan, rstate, batch):
     return loss, grads, store
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
 def test_one_step_matches_reference(op):
     """Loss, every gradient and the pushed history tables of one step
     (batch 2, after a first step on batch 0 fills the tables), then the
@@ -306,7 +313,7 @@ def _carry(rstate):
                          rng=np.asarray(flat["rng"], np.uint32))
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
 def test_two_epochs_and_accuracy_match_reference(op):
     """Two shuffled epochs' mean losses against the reference's segment
     ("jnp") route, the exact accuracies after them, and `predict`, which
@@ -334,7 +341,7 @@ def test_two_epochs_and_accuracy_match_reference(op):
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
 def test_two_int8_epochs_match_reference(op):
     """Two shuffled epochs over an int8 store against the reference's
     "jnp" route: per-epoch mean losses and `hist_quant_err` at 1e-3 (the
@@ -408,7 +415,7 @@ def test_unported_training_options_raise():
         t_model.GNNSpec(op="gat", d_in=4, d_hidden=8, num_classes=2,
                         num_layers=2, reg_weight=0.1, reg_delta=0.1)
     # fields that only the unported operators read
-    for kw in (dict(alpha=0.2), dict(lam=1.0), dict(log_deg_mean=2.0)):
+    for kw in (dict(alpha=0.2), dict(lam=1.0)):
         with pytest.raises(NotImplementedError, match="Queue A item 2"):
             t_model.GNNSpec(op="gcn", d_in=4, d_hidden=8, num_classes=2,
                             num_layers=2, **kw)
@@ -426,24 +433,41 @@ def test_unported_training_options_raise():
 # The reference accuracy chip_smoke.py holds the port to
 # ---------------------------------------------------------------------------
 
+def _reference_config(op: str):
+    """chip_smoke.py's graph and spec keywords for `op` (GCN: the
+    quickstart; GAT: the Cora shape; PNA: table 5's `gas-pna` graph and
+    spec, `benchmarks/table5_baselines.py`)."""
+    if op == "gcn":
+        kw = dict(num_nodes=2500, num_features=128, num_classes=7,
+                  homophily=0.75, feature_noise=2.0, seed=0)
+    elif op == "gat":
+        kw = dict(num_nodes=2708, num_features=1433, num_classes=7, seed=0)
+    else:
+        kw = dict(num_nodes=4000, num_features=64, num_classes=6,
+                  homophily=0.7, feature_noise=2.5, seed=80)
+    spec_kw = dict(op=op, d_in=kw["num_features"],
+                   d_hidden=48 if op == "pna" else 64,
+                   num_classes=kw["num_classes"], num_layers=2, heads=8,
+                   log_deg_mean=1.8 if op == "pna" else 1.0)
+    return kw, spec_kw
+
+
 def reference_accuracy(op: str, epochs: int = 60, part=None,
-                       history_dtype: str = "f32"):
+                       history_dtype: str = "f32", perturb: int = 0):
     """The reference's exact accuracies after `epochs` GAS epochs on the
-    "jnp" backend for chip_smoke.py's configuration of `op` (GCN: the
-    quickstart; GAT: the Cora shape), starting from the port's
+    "jnp" backend for chip_smoke.py's configuration of `op`
+    (`_reference_config`), starting from the port's
     `init_gnn(spec, seed=0)` params carried across, so that both runs
     share graph, partition, initial weights and hyperparameters. `part`
     replaces the partition this host computes (e.g. one computed on
     another host, which may order equal degrees otherwise);
-    `history_dtype` is the store's precision. Returns (the partition's
-    digest as chip_smoke.py prints it, accuracies)."""
-    if op == "gcn":
-        kw = dict(num_nodes=2500, num_features=128, num_classes=7,
-                  homophily=0.75, feature_noise=2.0, seed=0)
-    else:
-        kw = dict(num_nodes=2708, num_features=1433, num_classes=7, seed=0)
-    spec_kw = dict(op=op, d_in=kw["num_features"], d_hidden=64,
-                   num_classes=7, num_layers=2, heads=8)
+    `history_dtype` is the store's precision. `perturb` > 0 moves every
+    initial weight by one ulp, up or down as `default_rng(perturb)` draws:
+    a run that differs from the unperturbed one by rounding alone, whose
+    accuracy shows how far such differences carry after `epochs` epochs.
+    Returns (the partition's digest as chip_smoke.py prints it,
+    accuracies)."""
+    kw, spec_kw = _reference_config(op)
     g = r_citation(**kw)
     real = r_rt.metis_like_partition
     if part is not None:
@@ -456,8 +480,7 @@ def reference_accuracy(op: str, epochs: int = 60, part=None,
         r_rt.metis_like_partition = real
     tparams = t_model.init_gnn(t_model.GNNSpec(**spec_kw), seed=0,
                                device="cpu")
-    params = {"layers": [{k: jnp.asarray(v.numpy()) for k, v in l.items()}
-                         for l in tparams["layers"]]}
+    params = jax.tree_util.tree_map(jnp.asarray, _nudged(tparams, perturb))
     state = r_rt.init_state(plan).replace(params=params,
                                           opt_state=r_opt.adamw_init(params))
     for e in range(epochs):
@@ -467,24 +490,131 @@ def reference_accuracy(op: str, epochs: int = 60, part=None,
     return digest, r_rt.evaluate_exact(plan, state)
 
 
+def _nudged(params, perturb: int):
+    """The params tree with every weight moved by one ulp, up or down as
+    `default_rng(perturb)` draws (unchanged for perturb 0), as numpy."""
+    rng = np.random.default_rng(perturb)
+
+    def nudge(a):
+        if perturb:
+            a = np.nextafter(a, np.where(rng.random(a.shape) < 0.5, -np.inf,
+                                         np.inf).astype(np.float32))
+        return a
+
+    out = {"layers": [{k: nudge(l[k].numpy().copy()) for k in sorted(l)}
+                      for l in params["layers"]]}
+    if "head" in params:
+        out["head"] = {k: nudge(params["head"][k].numpy().copy())
+                       for k in sorted(params["head"])}
+    return out
+
+
+def port_accuracy(op: str, epochs: int = 60, part=None,
+                  history_dtype: str = "f32", perturb: int = 0):
+    """`reference_accuracy`'s run on the port, on the CPU: the same graph,
+    partition, initial weights (one-ulp perturbations included) and
+    hyperparameters. Returns (the partition's digest, accuracies)."""
+    kw, spec_kw = _reference_config(op)
+    real = t_rt.metis_like_partition
+    if part is not None:
+        t_rt.metis_like_partition = lambda *a, **k: np.asarray(part, np.int32)
+    try:
+        plan = t_rt.build_plan(t_citation(**kw), t_model.GNNSpec(**spec_kw),
+                               t_rt.GASConfig(num_parts=16,
+                                              partitioner="metis",
+                                              history_dtype=history_dtype,
+                                              epochs=epochs, lr=0.01),
+                               device="cpu")
+    finally:
+        t_rt.metis_like_partition = real
+    params = t_model.init_gnn(t_model.GNNSpec(**spec_kw), seed=0,
+                              device="cpu")
+    flat = _flat(_nudged(params, perturb))
+    state = t_rt.init_state(plan, params=t_ckpt.params_from_numpy(flat,
+                                                                  "cpu"))
+    for e in range(epochs):
+        state, _ = t_rt.train_epoch(plan, state, e)
+    digest = hashlib.sha256(np.ascontiguousarray(
+        plan.part, np.int32).tobytes()).hexdigest()[:12]
+    return digest, t_rt.evaluate_exact(plan, state)
+
+
+def loss_trajectories(op: str, epochs: int, part=None,
+                      history_dtype: str = "f32"):
+    """Per-epoch mean losses of the port (on the CPU) and of the reference
+    ("jnp") side by side, for chip_smoke.py's configuration of `op`, both
+    from the port's `init_gnn(spec, seed=0)` params on one partition
+    (`part`, else this host's): where two trajectories that agree step by
+    step part ways, and how fast. Returns [(port, reference), ...]."""
+    kw, spec_kw = _reference_config(op)
+    rg = r_citation(**kw)
+    r_real, t_real = r_rt.metis_like_partition, t_rt.metis_like_partition
+    if part is not None:
+        fixed = lambda *a, **k: np.asarray(part, np.int32)  # noqa: E731
+        r_rt.metis_like_partition = t_rt.metis_like_partition = fixed
+    try:
+        cfg = dict(num_parts=16, partitioner="metis",
+                   history_dtype=history_dtype, epochs=epochs, lr=0.01)
+        rplan = r_rt.build_plan(rg, r_model.GNNSpec(**spec_kw),
+                                r_rt.GASConfig(backend="jnp", **cfg))
+        tplan = t_rt.build_plan(t_citation(**kw), t_model.GNNSpec(**spec_kw),
+                                t_rt.GASConfig(**cfg), device="cpu")
+    finally:
+        r_rt.metis_like_partition, t_rt.metis_like_partition = r_real, t_real
+    tstate = t_rt.init_state(tplan)
+    # copies: the port's update writes its params in place, and
+    # `jnp.asarray` may alias a numpy buffer on the CPU
+    rparams = jax.tree_util.tree_map(lambda t: jnp.array(t.numpy()),
+                                     tstate.params)
+    rstate = r_rt.init_state(rplan).replace(
+        params=rparams, opt_state=r_opt.adamw_init(rparams))
+    out = []
+    for e in range(epochs):
+        tstate, tm = t_rt.train_epoch(tplan, tstate, e)
+        rstate, rm = r_rt.train_epoch(rplan, rstate, e)
+        out.append((tm["loss"], float(rm["loss"])))
+    return out
+
+
 if __name__ == "__main__":
-    # python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
-    #     [--history-dtype f32|bf16|int8] [--op gcn|gat]
+    # python tests/test_torch_train.py --reference-acc|--port-acc
+    #     [PARTITIONS.npz] [--history-dtype f32|bf16|int8]
+    #     [--op gcn|gat|pna] [--perturb N ...]
+    # python tests/test_torch_train.py --trajectory EPOCHS [PARTITIONS.npz]
+    #     [--history-dtype ...] [--op ...]
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reference-acc", action="store_true", required=True)
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--reference-acc", action="store_true")
+    mode.add_argument("--port-acc", action="store_true",
+                      help="the same runs on the port, on the CPU")
+    mode.add_argument("--trajectory", type=int, metavar="EPOCHS",
+                      help="print the port's and the reference's per-epoch "
+                           "mean losses side by side instead")
     ap.add_argument("partitions", nargs="?")
     ap.add_argument("--history-dtype", default="f32")
-    ap.add_argument("--op", choices=("gcn", "gat"), action="append")
+    ap.add_argument("--op", choices=("gcn", "gat", "pna"), action="append")
+    ap.add_argument("--perturb", type=int, action="append",
+                    help="one-ulp perturbations of the initial weights (the "
+                         "seed of each; 0 = none)")
     args = ap.parse_args()
     parts = np.load(args.partitions) if args.partitions else None
-    for op in args.op or ("gcn", "gat"):
-        print(op, args.history_dtype, *reference_accuracy(
-            op, part=None if parts is None else parts[op],
-            history_dtype=args.history_dtype), flush=True)
+    for op in args.op or ("gcn", "gat", "pna"):
+        if args.trajectory:
+            for e, (t, r) in enumerate(loss_trajectories(
+                    op, args.trajectory, None if parts is None else parts[op],
+                    args.history_dtype)):
+                print(op, args.history_dtype, f"epoch {e}: port {t!r}, "
+                      f"reference {r!r}", flush=True)
+            continue
+        run = port_accuracy if args.port_acc else reference_accuracy
+        for pt in args.perturb or (0,):
+            print(op, args.history_dtype, f"perturb {pt}", *run(
+                op, part=None if parts is None else parts[op],
+                history_dtype=args.history_dtype, perturb=pt), flush=True)
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
 def test_layer_routes(op, monkeypatch):
     """Layers >= 1 take the fused route (GCN, even on a forward-only serve
     batch, which has no transposed blocks) or the halo-split route (GAT);
