@@ -8,7 +8,9 @@ with a non-zero exit at the first failure:
 
 1. toolchain — torch/CUDA versions and the card's name and power limit;
    build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, one
-   process per source, into build/torch_kernels/).
+   process per source, into build/torch_kernels/). From the start, three
+   worker processes compute phase 4's partitions (host work) while the
+   card runs phases 2 and 3.
 2. kernels — each of the kernels of the serving path against its plain
    PyTorch version, on seeded inputs at the shapes the path gives it (the
    PubMed-shaped features, the history tables and the blocks of a real
@@ -16,13 +18,17 @@ with a non-zero exit at the first failure:
    the median of 25 launches) beside the plain version, one PyTorch
    library call (or a composition of a few, marked so) where one computes
    the same function, and the card's bound: the f32 kernels, the int8
-   body of `gather_spmm` and `scatter_rows_q` over an int8 store, and the
-   bf16 instantiations of `gather_spmm` and `scatter_rows`. Then GAT's
+   body of `gather_spmm` and `scatter_rows_q` over an int8 store, the
+   bf16 instantiations of `gather_spmm` and `scatter_rows`, and the vq
+   body of `gather_spmm` and `scatter_rows_vq` over a vq store (S = 32
+   codes a row, a 256 KB codebook; codes and scales bitwise). After
+   phase 3 (they need the training plans), GAT's
    three edge-softmax kernels the same way, on the unit blocks of a
    Cora-shaped training batch at the hidden layer's shapes (8 heads of 8;
    the output layer's, 1 head of 7, on a line of their own), the GAT
-   hidden layer's history pull from an int8 table (`gather_rows_dq`) and
-   a bf16 one, `bcsr_spmm` on the transposed blocks of a quickstart
+   hidden layer's history pull from an int8 table (`gather_rows_dq`), a
+   bf16 one and a vq one (`gather_rows_vq`), `bcsr_spmm` on the
+   transposed blocks of a quickstart
    batch (the GCN backward's use of it), and PNA's three `pna_reduce`
    kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
    (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
@@ -34,19 +40,23 @@ with a non-zero exit at the first failure:
    SLO=0 logits against the plain full-graph forward on the card, the
    SLO=None pass against SLO=0, a repeated request bit-identical, and
    every kernel's launch counter risen during the 32 requests. Then the
-   same over a zero int8 store and over a zero bf16 one: SLO=0 (every
-   refresh push quantizes or rounds) against the port's CPU
-   `serve_request` on the same store and queries, SLO=None, a
-   bit-identical warm repeat, `hist_quant_err`, the store's bytes, and
-   the counters of the store's kernels (these runs give the launches of
-   the int8 and bf16 rows timed in phase 2 at their shapes).
+   same over a zero int8, a zero bf16 and a zero vq store: SLO=0 (every
+   refresh push quantizes, rounds or encodes) against the port's CPU
+   `serve_request` on the same store and queries (a vq store's codes
+   >= 99.9% equal, each differing code a near-tie), SLO=None, a
+   bit-identical warm repeat, `hist_quant_err`, the store's bytes, the
+   vq codebooks and statistics unchanged by serving, and the counters of
+   the store's kernels (these runs give the launches of the int8, bf16
+   and vq rows timed in phase 2 at their shapes).
 4. training — (a) the GCN quickstart (2,500 nodes, 128 features, 7
    classes, 16 METIS parts, 2 layers, d_hidden=64), (b) GAT on the
    Cora shape (2,708 nodes, 1,433 features, 7 classes, 16 parts, 2
    layers, 8 heads of 8) and (c) table 5's `gas-pna` (4,000 nodes, 64
    features, 6 classes, 16 parts, 2 layers, d_hidden=48,
    log_deg_mean=1.8), f32 histories; then the three over int8
-   histories and the GCN over bf16 ones, on the same partitions. For
+   histories, the GCN over bf16 ones and the GCN and GAT over vq ones
+   (refit off, as `examples/quickstart.py --history-dtype vq`), on the
+   same partitions. For
    each: two steps on the card against the same steps on the CPU with
    the plain versions, each from the same state (loss and gradients at
    1e-4; f32 tables at 1e-4, quantized tables within one quantization
@@ -59,7 +69,10 @@ with a non-zero exit at the first failure:
    PNA the lowest of the reference's runs one ulp apart); the launch
    counters of the path's kernels; and one more epoch under
    torch.profiler for the device's busy share. Two steps of a bf16 GAT
-   show the bf16 history pull (`gather_rows_bf16`) on its path.
+   show the bf16 history pull (`gather_rows_bf16`) on its path, two
+   steps of PNA over a vq store PNA's vq path, and a GCN vq run with
+   `vq_refit_every=2` over 4 epochs the codebook refit on the card
+   against the same refit on the CPU.
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
@@ -75,9 +88,12 @@ result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -95,7 +111,8 @@ from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.core import runtime as RT  # noqa: E402
 from repro_torch.core import serve as S  # noqa: E402
 from repro_torch.core.config import resolve_device  # noqa: E402
-from repro_torch.core.history import HistoryStore  # noqa: E402
+from repro_torch.core.history import (  # noqa: E402
+    HistoryStore, vq_init_codebook)
 from repro_torch.data.graphs import citation_graph  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -104,9 +121,9 @@ from repro_torch.kernels import pna_reduce as pnk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
-    gather_rows, gather_rows_dq)
+    gather_rows, gather_rows_dq, gather_rows_vq)
 from repro_torch.kernels.scatter import (  # noqa: E402
-    scatter_rows, scatter_rows_q)
+    scatter_rows, scatter_rows_q, scatter_rows_vq)
 from repro_torch.train.optimizer import (  # noqa: E402
     clip_by_global_norm, tree_leaves)
 
@@ -137,7 +154,8 @@ TIMED_REPS = 25
 # accuracy is keyed by the first 12 hex digits of the sha256 of its
 # partition. Measured on a CPU (jax 0.9.0)
 # with `PYTHONPATH=src python tests/test_torch_train.py --reference-acc
-# [PARTITIONS.npz] [--history-dtype int8|bf16]`: the first entry on the
+# [PARTITIONS.npz] [--history-dtype int8|bf16|vq]` (vq: the reference
+# starts from the port's initial codebooks): the first entry on the
 # partitions computed there, the second on the ones an H100 host computed
 # (`--save-partitions` above). PNA's training is chaotic at table 5's
 # lr 0.01: two trajectories that agree step by step at rounding level
@@ -146,7 +164,10 @@ TIMED_REPS = 25
 # weights move by one ulp. So a PNA entry holds the reference's runs from
 # the unperturbed weights and from one-ulp perturbations of them
 # (`--perturb 0 1 ...`), and the port is held at most 1 pp below the
-# lowest of them.
+# lowest of them. GAT over a vq store is chaotic too (its six runs span
+# 0.9667-0.9824 on the card's partition and 0.9672-0.9824 on the CPU's;
+# GCN's over vq agree to all digits at perturb 0, 1 and 2), so its
+# entries hold six runs as PNA's do.
 TRAIN_EPOCHS, TRAIN_PARTS, TRAIN_HIDDEN = 60, 16, 64
 # each configuration's spec beside its graph: GCN and GAT at TRAIN_HIDDEN;
 # PNA is table 5's `gas-pna` (benchmarks/table5_baselines.py: its graph,
@@ -160,14 +181,28 @@ TRAIN_CONFIGS = {
                     "int8": {"8667bd3900f3": 0.9586901664733887,
                              "c2fcdf3f120a": 0.9591939449310303},
                     "bf16": {"8667bd3900f3": 0.9586901664733887,
-                             "c2fcdf3f120a": 0.9591939449310303}}),
+                             "c2fcdf3f120a": 0.9591939449310303},
+                    "vq": {"8667bd3900f3": 0.9612090587615967,
+                           "c2fcdf3f120a": 0.9627203941345215}}),
     "gat": dict(graph=dict(num_nodes=2708, num_features=1433, num_classes=7,
                            seed=0),
                 ref_test_acc={
                     "f32": {"368f7b8cb6f7": 0.9680851101875305,
                             "41734945d697": 0.9764107465744019},
                     "int8": {"368f7b8cb6f7": 0.9653099179267883,
-                             "41734945d697": 0.977798342704773}}),
+                             "41734945d697": 0.977798342704773},
+                    "vq": {"368f7b8cb6f7": (0.9824236631393433,
+                                            0.9814985990524292,
+                                            0.9768732786178589,
+                                            0.979185938835144,
+                                            0.978723406791687,
+                                            0.9671600461006165),
+                           "41734945d697": (0.9824236631393433,
+                                            0.9759482145309448,
+                                            0.9824236631393433,
+                                            0.9666975140571594,
+                                            0.9694727063179016,
+                                            0.9722478985786438)}}),
     "pna": dict(graph=dict(num_nodes=4000, num_features=64, num_classes=6,
                            homophily=0.7, feature_noise=2.5, seed=80),
                 spec=dict(d_hidden=48, log_deg_mean=1.8),
@@ -190,21 +225,27 @@ TRAIN_CONFIGS = {
 # the training runs of phase 4, in order: (op, history precision)
 TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
               ("gcn", "int8"), ("gat", "int8"), ("pna", "int8"),
-              ("gcn", "bf16"))
+              ("gcn", "bf16"), ("gcn", "vq"), ("gat", "vq"))
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
 # serving over a quantized store, SLO=0 on the card against the CPU: the
 # logits' rtol (atol ATOL). An int8 push matched the CPU's codes in full
 # at this shape; a bf16 push rounds each entry to 8 significant bits, and
 # an entry the two devices compute a few f32 ulps apart near a rounding
 # boundary lands one bf16 step apart (2 of 384 logits moved 1.7e-4, a
-# relative 1.8e-3, on an H100): held to one bf16 step, 2^-8, relative
-SERVE_Q_TOL = {"int8": RTOL, "bf16": 2.0 ** -8}
+# relative 1.8e-3, on an H100): held to one bf16 step, 2^-8, relative. A
+# vq push chose every code as the CPU did at this shape (all 1,261,888
+# codes of the two tables equal after each of two requests on an H100; a
+# code that flipped would move its subvector by a whole codebook step),
+# so its logits differ by the f32 sums' order alone (1.1e-6): held to
+# RTOL
+SERVE_Q_TOL = {"int8": RTOL, "bf16": 2.0 ** -8, "vq": RTOL}
 # serving over a quantized store: the feature pull and layer 0's
 # aggregation as at f32, the push and the fused aggregation at the store's
 SERVE_Q_KERNELS = {
     "int8": ("gather_rows", "scatter_rows_q", "bcsr_spmm", "gather_spmm_dq"),
     "bf16": ("gather_rows", "scatter_rows_bf16", "bcsr_spmm",
-             "gather_spmm_bf16")}
+             "gather_spmm_bf16"),
+    "vq": ("gather_rows", "scatter_rows_vq", "bcsr_spmm", "gather_spmm_vq")}
 # each run's kernels; the GCN's second is its fused aggregation
 _ES = ("edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col")
 _PNA = ("pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col")
@@ -221,7 +262,16 @@ TRAIN_KERNELS = {
                              "scatter_rows_q"),
     ("gcn", "bf16"): ("bcsr_spmm", "gather_spmm_bf16", "gather_rows",
                       "scatter_rows_bf16"),
+    ("gcn", "vq"): ("bcsr_spmm", "gather_spmm_vq", "gather_rows",
+                    "scatter_rows_vq"),
+    ("gat", "vq"): _ES + ("gather_rows_vq", "gather_rows", "scatter_rows_vq"),
+    ("pna", "vq"): _PNA + ("gather_rows_vq", "gather_rows",
+                           "scatter_rows_vq"),
 }
+# a code the card and the CPU chose apart must be a near-tie: the two
+# entries' distances to the card's pushed subvector (summed left to right
+# in f32, as the encode sums them) within this of each other
+VQ_TIE = 1e-6
 ACC_SLACK = 0.01             # at most 1 pp below the reference
 # the optimizer on the card against the CPU's, both fed the card's
 # gradients (rtol, atol by tree): the clip's global norm sums every
@@ -458,6 +508,8 @@ def kernel_phase(g, spec, device):
     rows += _quantized_kernel_rows(
         hist, x_in, vals, cols, (sel, xrow, trow), vals_p, dup, push_idx,
         uniq_idx, uniq_vals, blk_bytes, nnz)
+    rows += _vq_kernel_rows(hist, x_in, vals, cols, (sel, xrow, trow),
+                            vals_p, dup, push_idx, uniq_idx, blk_bytes, nnz)
     for r in rows:
         _phase("kernels", f"{r['name']}: err {r['max_abs_err']:.3g}, "
                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -559,10 +611,108 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
     return rows
 
 
+def _vq_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup, push_idx,
+                    uniq_idx, blk_bytes, nnz):
+    """Phase 2 over a vq store of the refresh batch's table (d = 256,
+    S = 32 subvectors, codebook [32, 256, 8], 256 KB: the rows of the vq
+    serving path): the vq body of gather_spmm and the encoding push, each
+    against its plain version on the same inputs; the plain encode on the
+    card is first held to the CPU's, bitwise."""
+    sel, xrow, trow = plan
+    R, K = cols.shape
+    D, N = hist.shape[1], hist.shape[0] - 1
+    S = D // 8
+    cb = vq_init_codebook(D, device=hist.device)
+    codes, scales = ref.vq_encode_rows(hist, cb)
+    cq, cs = ref.vq_encode_rows(hist[:1024].cpu(), cb.cpu())
+    assert torch.equal(codes[:1024].cpu(), cq) and \
+        torch.equal(scales[:1024].cpu(), cs), \
+        "the plain vq encode differs between the card and the CPU"
+    rows = []
+    n_xrows = int(torch.unique(xrow[sel == 0]).numel())
+    halo = torch.unique(trow[sel == 1])
+    n_trows = int(halo.numel())
+    # the codebook entries the halo code rows name: the only ones the
+    # decode reads (32 B each)
+    offs = torch.arange(S, device=cb.device) * 256
+    n_entries = int(torch.unique(codes[halo.long()].long() + offs).numel())
+    out = gather_spmm(x_in, codes, vals, cols, sel, xrow, trow, scales, cb)
+    want = ref.gather_spmm_ref(x_in, codes, vals, cols, sel, xrow, trow,
+                               scales, cb)
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(out, gather_spmm(x_in, codes, vals, cols, sel, xrow,
+                                        trow, scales, cb)), \
+        "gather_spmm_vq: a warm repeat differs"
+    # bytes: as the int8 body, with S code bytes and a scale per halo row
+    # and each codebook entry those rows name once; operations: the
+    # contraction's, and one multiply per decoded element
+    rows.append(_row(
+        "gather_spmm_vq", "src/repro_torch/kernels/csrc/fused.cu",
+        "src/repro/kernels/fused.py:203 (vq body _make_kernel_vq :191)",
+        float((out - want).abs().max()),
+        _time_ms(lambda: gather_spmm(x_in, codes, vals, cols, sel, xrow,
+                                     trow, scales, cb)),
+        _time_ms(lambda: ref.gather_spmm_ref(x_in, codes, vals, cols, sel,
+                                             xrow, trow, scales, cb)),
+        None,
+        blk_bytes + 3 * sel.numel() * 4 + n_xrows * D * 4 + R * 128 * D * 4
+        + n_trows * (S + 4) + n_entries * 32, 2.0 * nnz * D + n_trows * D))
+
+    # scatter_rows_vq: the push of the refresh batch into the vq store:
+    # table codes, scales and every pushed row's codes bitwise (duplicates
+    # and masked rows first), each row's relative error to rounding
+    err_e = 0.0
+    for idx in (dup, push_idx):
+        a = scatter_rows_vq(codes.clone(), scales.clone(), idx, vals_p, cb)
+        b = ref.scatter_rows_vq_ref(codes.clone(), scales.clone(), idx,
+                                    vals_p, cb)
+        assert torch.equal(a[0][:N], b[0][:N]) and \
+            torch.equal(a[1][:N], b[1][:N]) and torch.equal(a[2], b[2]), \
+            "scatter_rows_vq differs from its plain version"
+        torch.testing.assert_close(a[3], b[3], rtol=1e-5, atol=1e-7)
+        err_e = max(err_e, float((a[3] - b[3]).abs().max()))
+    M = push_idx.shape[0]
+    n_tgt = int(torch.unique(push_idx).numel())
+    tq, ts = codes.clone(), scales.clone()
+    valid = push_idx < N                     # the rows uniq_idx names
+    sub = torch.arange(S, device=cb.device)
+
+    def composition():
+        amax = vals_p.abs().amax(1)
+        sc = torch.where(amax > 0, amax, torch.ones_like(amax))
+        u = (vals_p / sc[:, None]).view(M, S, 8).transpose(0, 1)
+        q = torch.cdist(u, cb).argmin(-1).t()
+        tq.index_copy_(0, uniq_idx, q[valid].to(torch.uint8))
+        ts.index_copy_(0, uniq_idx, sc[valid])
+        back = cb[sub, q].reshape(M, D) * sc[:, None]
+        return ref.relative_row_error(vals_p, back)
+
+    # bytes: the index, the values, each target's codes and scale, every
+    # pushed row's codes and error, the whole codebook once (each row is
+    # held against every entry); operations: per
+    # pushed row, subvector and entry 8 subtracts, 8 multiplies, 7 adds
+    # and a comparison (24), and the row's max and division
+    q_row = _row(
+        "scatter_rows_vq", "src/repro_torch/kernels/csrc/scatter.cu",
+        "src/repro/kernels/scatter.py:141", err_e,
+        _time_ms(lambda: scatter_rows_vq(tq, ts, push_idx, vals_p, cb)),
+        _time_ms(lambda: ref.scatter_rows_vq_ref(tq, ts, push_idx, vals_p,
+                                                 cb)),
+        _time_ms(composition),
+        M * 4 + M * D * 4 + n_tgt * (S + 4) + M * (S + 4) + cb.numel() * 4,
+        24.0 * M * S * 256 + 2.0 * M * D,
+        library="composition: row max, divide, cdist (matmul form), "
+                "argmin, two index_copy_, the row errors (plain)")
+    q_row["codes_scales_err"] = 0.0
+    rows.append(q_row)
+    return rows
+
+
 def _history_pull_rows(plan, device, gen):
     """Phase 2: the GAT hidden layer's history pull (batch 0's halo rows,
-    d = 64) from an int8 table (`gather_rows_dq`) and a bf16 one
-    (`gather_rows_bf16`), bitwise against the plain versions."""
+    d = 64) from an int8 table (`gather_rows_dq`), a bf16 one
+    (`gather_rows_bf16`) and a vq one (`gather_rows_vq`, S = 8, codebook
+    [8, 256, 8]), bitwise against the plain versions."""
     batch = plan.batch(0)
     n1 = plan.graph.num_nodes + 1
     idx = torch.clamp(batch.halo_nodes, 0, n1 - 1).to(torch.int32)
@@ -578,6 +728,18 @@ def _history_pull_rows(plan, device, gen):
     out = gather_rows(b16, idx)
     assert torch.equal(out, ref.gather_rows_ref(b16, idx)), \
         "gather_rows (bf16) differs from its plain version"
+    cb = vq_init_codebook(D, device=device)
+    vq, vs = ref.vq_encode_rows(hist, cb)
+    S = D // 8
+    out = gather_rows_vq(vq, cb, vs, idx)
+    assert torch.equal(out, ref.gather_rows_vq_ref(vq, cb, vs, idx)), \
+        "gather_rows_vq differs from its plain version"
+    assert torch.equal(out, gather_rows_vq(vq, cb, vs, idx))
+    offs = torch.arange(S, device=device) * 256
+    cb_rows = cb.view(-1, 8)
+    # the codebook entries the pulled rows name: the only ones the kernel
+    # reads (32 B each)
+    n_entries = int(torch.unique(vq[idx.long()].long() + offs).numel())
     rows = [
         _row("gather_rows_dq", "src/repro_torch/kernels/csrc/gather.cu",
              "src/repro/kernels/gather.py:107", 0.0,
@@ -593,7 +755,17 @@ def _history_pull_rows(plan, device, gen):
              _time_ms(lambda: gather_rows(b16, idx)),
              _time_ms(lambda: ref.gather_rows_ref(b16, idx)),
              _time_ms(lambda: torch.index_select(b16, 0, idx)),
-             M * 4 + n_src * D * 2 + M * D * 2, 0)]
+             M * 4 + n_src * D * 2 + M * D * 2, 0),
+        _row("gather_rows_vq", "src/repro_torch/kernels/csrc/gather.cu",
+             "src/repro/kernels/gather.py:189", 0.0,
+             _time_ms(lambda: gather_rows_vq(vq, cb, vs, idx)),
+             _time_ms(lambda: ref.gather_rows_vq_ref(vq, cb, vs, idx)),
+             _time_ms(lambda: cb_rows.index_select(0, (torch.index_select(
+                 vq, 0, idx).long() + offs).view(-1)).view(M, D).mul_(
+                 torch.index_select(vs, 0, idx)[:, None])),
+             M * 4 + n_src * (S + 4) + n_entries * 32 + M * D * 4, M * D,
+             library="composition: index_select of codes and scales, "
+                     "index_select of codebook entries, multiply")]
     _phase("kernels", f"GAT hidden layer's history pull ({M} halo rows, "
            f"d = {D}): " + "; ".join(
                f"{r['name']}: err 0, {r['ms']:.4f} ms (plain "
@@ -611,15 +783,29 @@ def _train_graph(op):
     return g, spec
 
 
-def train_plans(device):
-    """The training plans (partition, stacked batches on the card)."""
+def _train_config():
+    return RT.GASConfig(num_parts=TRAIN_PARTS, epochs=TRAIN_EPOCHS, lr=0.01)
+
+
+def _partition(op):
+    """The partition of `op`'s training graph and the seconds it took: host
+    work, run in a process of its own while the card runs the first
+    phases."""
+    t0 = time.perf_counter()
+    g, _ = _train_graph(op)
+    return RT.partition(g, _train_config()), time.perf_counter() - t0
+
+
+def train_plans(device, parts):
+    """The training plans (stacked batches on the card) over the
+    partitions `parts` ({op: `_partition(op)`})."""
     plans = {}
     for op in TRAIN_CONFIGS:
         t0 = time.perf_counter()
+        part, part_s = parts[op]
         g, spec = _train_graph(op)
-        plans[op] = RT.build_plan(g, spec, RT.GASConfig(
-            num_parts=TRAIN_PARTS, epochs=TRAIN_EPOCHS, lr=0.01),
-            device=device)
+        plans[op] = RT.build_plan(g, spec, _train_config(), device=device,
+                                  part=part)
         b = plans[op].batches
         unit = op in model.UNIT_BLOCK_OPS
         fam = b.unit if unit else b.forward
@@ -630,7 +816,8 @@ def train_plans(device):
                f"{b.max_b}, max_h {b.max_h}, blocks "
                f"{list(fam.vals.shape)} and transposed "
                f"{list(fam_t.vals.shape)} in "
-               f"{time.perf_counter() - t0:.1f} s; partition "
+               f"{time.perf_counter() - t0:.1f} s (the partition in "
+               f"{part_s:.1f} s in a worker process); partition "
                f"{_digest(plans[op].part)}, "
                f"{_degree_orders(g, TRAIN_PARTS)}")
     return plans
@@ -909,13 +1096,16 @@ def _plan_on_cpu(plan):
 @torch.no_grad()
 def _copy_state(dst, src):
     """Overwrite a training state's params, moments and history store
-    (scales included) with another's, across devices."""
+    (scales, vq codebooks and statistics included) with another's, across
+    devices."""
     pairs = list(zip(tree_leaves(dst.params), tree_leaves(src.params)))
     for tree in ("m", "v"):
         pairs += zip(tree_leaves(getattr(dst.opt_state, tree)),
                      tree_leaves(getattr(src.opt_state, tree)))
     pairs += zip(dst.histories.tables, src.histories.tables)
-    pairs += zip(dst.histories.scales or [], src.histories.scales or [])
+    for name in ("scales", "codebooks", "cb_counts", "cb_sums"):
+        pairs += zip(getattr(dst.histories, name) or [],
+                     getattr(src.histories, name) or [])
     pairs += [(dst.histories.age, src.histories.age),
               (dst.opt_state.step, src.opt_state.step)]
     for a, b in pairs:
@@ -947,6 +1137,77 @@ def _quantized_tables_close(store, cstore, max_steps=1 + 1e-5):
     return worst, min(same)
 
 
+@contextlib.contextmanager
+def _recorded_pushes(store, on=True):
+    """Record every push into `store` inside the block (layer, index,
+    values, mask, on the CPU) for `_vq_codes_close`'s near-tie test
+    (nothing when `on` is False); the store's own method is back after
+    it, so the store no longer refers to itself and is freed as soon as
+    its last user lets go."""
+    pushes = []
+    if not on:
+        yield pushes
+        return
+    real = store.push_measured
+
+    def push_measured(ell, idx, values, mask, stats=True):
+        pushes.append((ell, idx.cpu().numpy(), values.cpu().numpy(),
+                       mask.cpu().numpy()))
+        return real(ell, idx, values, mask, stats)
+
+    store.push_measured = push_measured
+    try:
+        yield pushes
+    finally:
+        del store.push_measured
+
+
+def _tie_gap(u, cb, a, b):
+    """|d(u, cb[a]) - d(u, cb[b])|, each distance summed left to right in
+    f32 over the subvector, as the encode sums it."""
+    def dist(c):
+        acc = np.float32(0.0)
+        for j in range(u.shape[0]):
+            diff = np.float32(u[j] - c[j])
+            acc = np.float32(acc + diff * diff)
+        return acc
+    return float(abs(dist(cb[a]) - dist(cb[b])))
+
+
+def _vq_codes_close(store, cstore, pushes):
+    """A vq store on the card against the CPU's (the sentinel row, which
+    takes masked pushes, left out): >= 99.9% of the codes equal, the scales
+    at RTOL, and every code that differs a near-tie (VQ_TIE) for the row
+    the card pushed into it last (`pushes`, from `_recorded_pushes`).
+    Returns (the share of equal codes, the number of differing codes, the
+    largest tie gap)."""
+    n = cstore.age.shape[0] - 1
+    shares, flips, gap = [], 0, 0.0
+    for ell, (a, c) in enumerate(zip(store.tables, cstore.tables)):
+        got, want = a[:n].cpu().numpy(), c[:n].numpy()
+        torch.testing.assert_close(store.scales[ell][:n].cpu(),
+                                   cstore.scales[ell][:n], rtol=RTOL,
+                                   atol=0.0)
+        shares.append(float(np.mean(got == want)))
+        rows, subs = np.nonzero(got != want)
+        flips += len(rows)
+        if not len(rows):
+            continue
+        last = {}
+        for e, idx, v, m in pushes:
+            if e == ell:
+                for j in np.flatnonzero(m):
+                    last[int(idx[j])] = v[j]
+        cb = cstore.codebooks[ell].numpy()
+        for r, sub in zip(rows, subs):
+            v = last[int(r)]
+            u = (v / np.abs(v).max()).astype(np.float32).reshape(-1, 8)[sub]
+            gap = max(gap, _tie_gap(u, cb[sub], got[r, sub], want[r, sub]))
+    assert min(shares) >= 0.999, shares
+    assert gap <= VQ_TIE, f"a vq code flipped {gap} away from a tie"
+    return min(shares), flips, gap
+
+
 def _compare_steps(plan, cplan):
     """Two steps on the card against the same steps on the CPU, each from
     the same state (the card's is copied over before the second). The
@@ -955,15 +1216,27 @@ def _compare_steps(plan, cplan):
     devices may round to opposite signs, moves by lr one way and not the
     other in AdamW's first steps. Returns the line's text."""
     state, cstate = RT.init_state(plan), RT.init_state(cplan)
-    quant = state.histories.history_dtype != "f32"
+    hd = state.histories.history_dtype
+    quant = hd != "f32"
     errs, opt_errs, norm_errs, tabs = [], {t: 0.0 for t in OPT_TOL}, [], []
     for b in (0, 1):
         if b:
             _copy_state(cstate, state)
-        grads, m = RT.grads_and_metrics(plan, state, plan.batch(b))
+        with _recorded_pushes(state.histories, hd == "vq") as pushes:
+            grads, m = RT.grads_and_metrics(plan, state, plan.batch(b))
         cgrads, cm = RT.grads_and_metrics(cplan, cstate, cplan.batch(b))
         pairs = [(m["loss"], cm["loss"])] + list(zip(grads, cgrads))
-        if quant:
+        if hd == "vq":
+            pairs.append((m["hist_quant_err"], cm["hist_quant_err"]))
+            tabs.append(_vq_codes_close(state.histories, cstate.histories,
+                                        pushes))
+            # the statistics: one count per pushed subvector, each entry's
+            # count moved by at most one per differing code
+            for a, c in zip(state.histories.cb_counts,
+                            cstate.histories.cb_counts):
+                assert float(a.sum()) == float(c.sum())
+                assert float((a.cpu() - c).abs().max()) <= tabs[-1][1]
+        elif quant:
             pairs.append((m["hist_quant_err"], cm["hist_quant_err"]))
             tabs.append(_quantized_tables_close(state.histories,
                                                 cstate.histories))
@@ -989,10 +1262,17 @@ def _compare_steps(plan, cplan):
                 torch.testing.assert_close(a.cpu(), c, rtol=rtol, atol=atol)
                 opt_errs[tree] = max(opt_errs[tree],
                                      float((a.cpu() - c).abs().max()))
-    tables = ("the history tables" if not quant else
-              "hist_quant_err; the tables within "
-              f"{max(t[0] for t in tabs):.6g} quantization steps, "
-              f"{100 * min(t[1] for t in tabs):.3f}% of the codes equal")
+    if hd == "vq":
+        tables = ("hist_quant_err; the scales, and the codes "
+                  f"{100 * min(t[0] for t in tabs):.3f}% equal "
+                  f"({sum(t[1] for t in tabs)} differing, each a tie to "
+                  f"{max(t[2] for t in tabs):.3g})")
+    elif quant:
+        tables = ("hist_quant_err; the tables within "
+                  f"{max(t[0] for t in tabs):.6g} quantization steps, "
+                  f"{100 * min(t[1] for t in tabs):.3f}% of the codes equal")
+    else:
+        tables = "the history tables"
     return (f"two steps on the card vs the CPU's plain versions: loss, "
             f"{len(grads)} gradients and {tables} within {max(errs):.3g}; "
             f"the update from the same gradients: global norms within a "
@@ -1041,7 +1321,7 @@ def training_phase(op, hd, plan, device):
     qerr = torch.stack(qerrs[-nb:]).mean().item()
     assert np.isfinite(loss), loss
     store = state.histories
-    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    f32_bytes = store.f32_bytes()
     assert (qerr == 0.0) == (hd == "f32"), qerr
     # (iii) exact evaluation against the reference's accuracy at the same
     # precision on the same partition (the lowest of its runs where the
@@ -1090,18 +1370,85 @@ def training_phase(op, hd, plan, device):
     return launches
 
 
-def bf16_pull_steps(plan):
-    """The bf16 history pull on its path: GAT's halo-split layer over a
-    bf16 store, two steps against the CPU's. Returns the launch counts of
-    the card's steps."""
-    plan = with_history_dtype(plan, "bf16")
+def two_steps(plan, hd, kernels):
+    """Two steps of `plan`'s op over a store of precision `hd` on the card
+    against the CPU's (`_compare_steps`), for a path the 60-epoch runs do
+    not take: GAT over bf16 (the bf16 history pull) and PNA over vq.
+    Returns the launch counts of the card's steps."""
+    plan = with_history_dtype(plan, hd)
     cplan = _plan_on_cpu(plan)
     _build.reset_launch_counts()
     line = _compare_steps(plan, cplan)
     launches = dict(_build.launch_counts)
-    assert launches["gather_rows_bf16"] > 0 and \
-        launches["scatter_rows_bf16"] > 0, launches
-    _phase("training", f"gat bf16: {line}; launches "
+    missing = [k for k in kernels if launches[k] == 0]
+    assert not missing, f"{plan.spec.op} {hd}: never launched: {missing}"
+    _phase("training", f"{plan.spec.op} {hd}: {line}; launches "
+           + str({k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def vq_refit_phase(plan):
+    """Phase 4, the codebook refit: the GCN quickstart over a vq store with
+    `vq_refit_every=2` for 4 epochs (the refit runs at the start of epoch
+    2). After epoch 1 the card's store is copied to the CPU and both
+    refit their copy (the card decodes every row through gather_rows_vq
+    and re-encodes it through scatter_rows_vq): the codebooks within 1e-6,
+    >= 99.9% of the codes equal. Then the run goes on: the codebooks
+    moved, entry 0 zero, the statistics finite and non-negative, the
+    losses finite. Returns the launch counts of the 4 epochs."""
+    cfg = dataclasses.replace(plan.config, history_dtype="vq",
+                              vq_refit_every=2)
+    plan = dataclasses.replace(plan, config=cfg)
+    state = RT.init_state(plan)
+    init = [c.clone() for c in state.histories.codebooks]
+    _build.reset_launch_counts()
+    losses = []
+    for e in range(2):
+        state, m = RT.train_epoch(plan, state, e)
+        losses.append(m["loss"])
+    # the GCN's path decodes no rows outside the fused body: every
+    # gather_rows_vq launch from here on is the refit's
+    assert _build.launch_counts["gather_rows_vq"] == 0
+    card, cpu = state.histories.clone(), state.histories.to("cpu")
+    before = dict(_build.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.refit_codebooks()
+    torch.cuda.synchronize()
+    refit_ms = (time.perf_counter() - t0) * 1e3
+    n_layers = card.num_layers
+    for k in ("gather_rows_vq", "scatter_rows_vq"):
+        assert _build.launch_counts[k] - before[k] == n_layers, k
+    cpu.refit_codebooks()
+    cb_err, same = 0.0, []
+    for a, c in zip(card.codebooks, cpu.codebooks):
+        torch.testing.assert_close(a.cpu(), c, rtol=0.0, atol=1e-6)
+        cb_err = max(cb_err, float((a.cpu() - c).abs().max()))
+        assert torch.all(a[:, 0] == 0)
+    for a, c in zip(card.tables, cpu.tables):
+        same.append(float((a.cpu() == c).float().mean()))
+    assert min(same) >= 0.999, same
+    for a, c in zip(card.scales, cpu.scales):
+        torch.testing.assert_close(a.cpu(), c, rtol=RTOL, atol=0.0)
+    for e in (2, 3):
+        state, m = RT.train_epoch(plan, state, e)
+        losses.append(m["loss"])
+    assert np.isfinite(losses).all(), losses
+    hist = state.histories
+    for cb, cb0, cnt in zip(hist.codebooks, init, hist.cb_counts):
+        assert not torch.equal(cb, cb0) and torch.all(cb[:, 0] == 0)
+        assert (cnt >= 0).all() and torch.isfinite(cnt).all()
+    launches = dict(_build.launch_counts)
+    assert launches["gather_rows_vq"] == 2 * n_layers, launches
+    acc = RT.evaluate_exact(plan, state)
+    _phase("training", f"gcn vq refit (vq_refit_every=2, 4 epochs): the "
+           f"refit of the epoch-1 store on the card ({refit_ms:.2f} ms, "
+           f"{n_layers} table(s) of {card.tables[0].shape[0]} rows) vs the "
+           f"same refit on the CPU: codebooks within {cb_err:.3g}, "
+           f"{100 * min(same):.3f}% of the codes equal; epoch-2 refit in "
+           f"the run: codebooks moved, entry 0 zero; losses "
+           + ", ".join(f"{x:.4g}" for x in losses) + f"; test acc "
+           f"{acc['test_acc']:.4f}; launches "
            + str({k: v for k, v in launches.items() if v}))
     return launches
 
@@ -1217,9 +1564,10 @@ def serving_phase(g, spec, device, kplan):
 
 
 def serving_quant_phase(g, spec, device, hd):
-    """Phase 3 over a zero int8 or bf16 store (`hd`: every SLO=0 refresh
-    push quantizes or rounds, every fused aggregation dequantizes or
-    upcasts). Returns the launch counts of the 32 timed requests."""
+    """Phase 3 over a zero int8, bf16 or vq store (`hd`: every SLO=0
+    refresh push quantizes, rounds or encodes, every fused aggregation
+    dequantizes, upcasts or decodes). Returns the launch counts of the 32
+    timed requests."""
     N = g.num_nodes
     params = model.init_gnn(spec, seed=SEED, device=device)
     cfg0 = S.ServeConfig(staleness_slo=0, history_dtype=hd)
@@ -1246,23 +1594,41 @@ def serving_quant_phase(g, spec, device, hd):
     # steps: an upper layer's refresh in the same request reads a lower
     # table's entries that rounded apart, so its own entries inherit that
     # difference (table 1 2.9 steps apart on an H100); the logits bound
-    # what it does. The logits at SERVE_Q_TOL
+    # what it does. A vq store's codes >= 99.9% equal, every code the two
+    # chose apart a near-tie for the row the card pushed (VQ_TIE), the
+    # scales at RTOL. The logits at SERVE_Q_TOL
     cplan = S.build_serve_plan(g, spec, cfg0, device="cpu")
     state = fresh_state(plan0, params)
     cstate = fresh_state(cplan, model.to_device(params, "cpu"))
     errs, tabs = [], []
-    for q in queries[:2]:
-        lg, state, _ = S.serve_request(plan0, state, q)
-        clg, cstate, _ = S.serve_request(cplan, cstate, q)
-        tabs.append(_quantized_tables_close(
-            state.histories, cstate.histories,
-            1 + 127 * RTOL if hd == "int8" else None))
-        np.testing.assert_allclose(lg, clg, rtol=SERVE_Q_TOL[hd],
-                                   atol=ATOL)
-        errs.append(float(np.abs(lg - clg).max()))
+    with _recorded_pushes(state.histories, hd == "vq") as pushes:
+        for q in queries[:2]:
+            lg, state, _ = S.serve_request(plan0, state, q)
+            clg, cstate, _ = S.serve_request(cplan, cstate, q)
+            if hd == "vq":
+                tabs.append(_vq_codes_close(state.histories,
+                                            cstate.histories, pushes))
+            else:
+                tabs.append(_quantized_tables_close(
+                    state.histories, cstate.histories,
+                    1 + 127 * RTOL if hd == "int8" else None))
+            np.testing.assert_allclose(lg, clg, rtol=SERVE_Q_TOL[hd],
+                                       atol=ATOL)
+            errs.append(float(np.abs(lg - clg).max()))
+    if hd == "vq":
+        stores = (f"the codes {100 * min(t[0] for t in tabs):.3f}% equal, "
+                  f"{sum(t[1] for t in tabs)} differing, each a tie to "
+                  f"{max(t[2] for t in tabs):.3g}")
+    else:
+        stores = (f"the stores within {max(t[0] for t in tabs):.3g} "
+                  f"quantization steps, {100 * min(t[1] for t in tabs):.3f}"
+                  f"% of the entries equal")
     del cplan, cstate
 
     state = fresh_state(plan0, params)
+    aux = ("codebooks", "cb_counts", "cb_sums")
+    frozen = {k: [t.clone() for t in getattr(state.histories, k) or []]
+              for k in aux}
     results = {}
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -1289,7 +1655,12 @@ def serving_quant_phase(g, spec, device, hd):
     rep2 = S.serve_request(plan_none, state, queries[0])[0]
     assert np.array_equal(rep1, rep2), f"{hd} warm-cache repeat differs"
     store = state.histories
-    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    # serving leaves a vq store's codebooks and statistics bitwise as they
+    # were (the tables moved)
+    for k in aux:
+        for a, b in zip(frozen[k], getattr(store, k) or []):
+            assert torch.equal(a, b), f"serving changed the store's {k}"
+    f32_bytes = store.f32_bytes()
     err_none = max(float(np.abs(a - b).max())
                    for a, b in zip(results[None][1], results[0][1]))
     for slo, (lat, _, host_ms, qerr) in results.items():
@@ -1300,10 +1671,9 @@ def serving_quant_phase(g, spec, device, hd):
                f"hist_quant_err mean {np.mean(qerr):.4g}")
     _phase("serving", f"{hd}: SLO=0 vs the CPU's serve_request on the same "
            f"store and queries max abs err {max(errs):.3g} (2 requests; "
-           f"the stores within {max(t[0] for t in tabs):.3g} quantization "
-           f"steps, {100 * min(t[1] for t in tabs):.3f}% of the entries "
-           f"equal); "
-           f"SLO=None vs SLO=0 {err_none:.3g}; repeat bit-identical; store "
+           f"{stores}); SLO=None vs SLO=0 {err_none:.3g}; repeat "
+           f"bit-identical; " + ("codebooks and statistics unchanged; "
+                                 if hd == "vq" else "") + "store "
            f"{store.bytes():,} bytes ({f32_bytes / store.bytes():.2f}x vs "
            f"f32); launches " + str({k: v for k, v in launches.items()
                                      if v}))
@@ -1315,10 +1685,29 @@ def main() -> int:
     ap.add_argument("--save-partitions", metavar="NPZ",
                     help="also write the training partitions here")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    # the training partitions (host work, 25-39 s) in worker processes
+    # while the card builds its kernels and serves
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRAIN_CONFIGS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {op: pool.submit(_partition, op) for op in TRAIN_CONFIGS}
+
+        def partitions():
+            """{op: (partition, seconds)} once all are done; the workers
+            then exit."""
+            out = {op: f.result() for op, f in futures.items()}
+            pool.shutdown()
+            return out
+
+        return _smoke(args, partitions, t_start)
+
+
+def _smoke(args, partitions, t_start) -> int:
     smi = _smi()
     _phase("toolchain", f"python {sys.version.split()[0]}, torch "
            f"{torch.__version__}, numpy {np.__version__}, CUDA "
@@ -1334,6 +1723,15 @@ def main() -> int:
             print("  " + line.strip())
 
     device = resolve_device("cuda")
+    spent = {}                   # wall seconds per phase, for the budget
+    clock = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        spent[name] = spent.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
+    lap("toolchain and build")
     with torch.no_grad():
         t0 = time.perf_counter()
         g = citation_graph(num_nodes=N_NODES, avg_degree=AVG_DEGREE,
@@ -1344,21 +1742,35 @@ def main() -> int:
         _phase("setup", f"graph {g.num_nodes} nodes, {g.num_edges} edges, "
                f"{N_FEATURES} features in {time.perf_counter() - t0:.1f} s")
         rows, kplan = kernel_phase(g, spec, device)
-        plans = train_plans(device)
+        lap("serving kernels")
+        launches = {"f32 serving": serving_phase(g, spec, device, kplan)}
+        del kplan
+        lap("f32 serving")
+        for hd in ("int8", "bf16", "vq"):
+            launches[f"{hd} serving"] = serving_quant_phase(g, spec, device,
+                                                            hd)
+            lap(f"{hd} serving")
+        parts = partitions()
+        lap("waiting for the partitions")
+        plans = train_plans(device, parts)
+        lap("training plans")
         if args.save_partitions:
             Path(args.save_partitions).parent.mkdir(parents=True,
                                                     exist_ok=True)
             np.savez(args.save_partitions,
                      **{op: p.part for op, p in plans.items()})
         rows += training_kernel_phase(plans, device, _clock_hz())
-        launches = {"f32 serving": serving_phase(g, spec, device, kplan)}
-        del kplan
-        for hd in ("int8", "bf16"):
-            launches[f"{hd} serving"] = serving_quant_phase(g, spec, device,
-                                                            hd)
+        lap("training kernels")
     for op, hd in TRAIN_RUNS:
         launches[f"{op} {hd}"] = training_phase(op, hd, plans[op], device)
-    launches["gat bf16"] = bf16_pull_steps(plans["gat"])
+        lap(f"{op} {hd}")
+    launches["gat bf16"] = two_steps(plans["gat"], "bf16", (
+        "gather_rows_bf16", "scatter_rows_bf16"))
+    launches["pna vq"] = two_steps(plans["pna"], "vq",
+                                   TRAIN_KERNELS[("pna", "vq")])
+    launches["gcn vq refit"] = vq_refit_phase(plans["gcn"])
+    lap("two-step lines and the refit")
+    _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":
               "gat f32", "edge_softmax_bwd_col": "gat f32",
@@ -1366,6 +1778,8 @@ def main() -> int:
               "int8 serving", "gather_rows_dq": "gat int8",
               "gather_spmm_bf16": "bf16 serving", "scatter_rows_bf16":
               "bf16 serving", "gather_rows_bf16": "gat bf16",
+              "gather_spmm_vq": "vq serving", "scatter_rows_vq":
+              "vq serving", "gather_rows_vq": "gat vq",
               **{k: "pna f32" for k in _PNA}}
     for r in rows:
         r["launches"] = launches[source.get(r["name"], "f32 serving")][

@@ -44,9 +44,9 @@ def resolve_device(device: Union[None, str, torch.device] = None
 @dataclass(frozen=True, kw_only=True)
 class HistoryExecConfig:
     """`history_dtype` — history-table storage precision, a name of the
-    codec registry (`core.history.get_codec`): "f32", "bf16" or "int8"
-    ("vq" is not ported; None means "f32"). Serving validates it against
-    the bound store.
+    codec registry (`core.history.get_codec`): "f32", "bf16", "int8" or
+    "vq" (None means "f32"). Serving validates it against the bound
+    store.
 
     `staleness_slo` — max acceptable history age (steps since a row was
     last pushed) of any row an execution may read. Serving overrides the

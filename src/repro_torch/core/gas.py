@@ -305,8 +305,8 @@ def materialize_x_all(ell: int, x_cur: torch.Tensor, xh: torch.Tensor,
                       use_history: bool = True) -> torch.Tensor:
     """Unfused layer input `x_all = [x_cur ; halo_rows ; dummy-zero row]`:
     layer 0 uses the exact halo rows `xh`; layers >= 1 pull the previous
-    layer's history rows through the store (dequantized for int8, upcast
-    for bf16; zeros when history is off)."""
+    layer's history rows through the store (dequantized for int8, decoded
+    for vq, upcast for bf16; zeros when history is off)."""
     if ell == 0:
         halo_rows = xh
     elif use_history:

@@ -13,30 +13,53 @@ per-row codes beside a per-row f32 scale table `scales` [N+1] (push
 quantizes `s_i = max|v_i| / 127`, `q_i = round(v_i / s_i)`, pull
 dequantizes `q_i * s_i` in f32; `kernels.ref.quantize_rows`). The added
 error of a push is `quantization_error`, the `hist_quant_err` diagnostic.
-vq (codebook) stores are in the registry and raise (ROADMAP Queue A
-item 3).
+vq stores (product quantization, `repro.core.history:258-344`) hold one
+uint8 code per 8-wide subvector, [N+1, d/8] per layer, beside the per-row
+f32 scale `max|v_i|` and a per-layer codebook [d/8, 256, 8] f32 whose
+entry 0 is pinned to zero; a push encodes each subvector of `v_i / s_i`
+as its nearest entry (`kernels.ref.vq_encode_rows`), a pull decodes. Each
+push also folds its rows' codes into k-means statistics (`cb_counts`
+[d/8, 256], `cb_sums` [d/8, 256, 8]), from which `refit_codebooks` moves
+the codebooks and re-encodes every stored row (`GASConfig.vq_refit_every`
+and `vq_refit_drift` decide when).
 
 The reference store is a frozen pytree whose methods return new stores,
 and XLA performs its push in place only when the jitted step donates the
 tables. Here the store is mutable: `push` scatters into the table (and
 scale) tensors themselves and `tick` updates `age` in place, and both
-return the store for chaining. Host-memory tables are not ported yet.
+return the store for chaining; a refit replaces the codebooks and zeroes
+the statistics in place. Host-memory tables are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.gather import gather_rows_vq
 from repro_torch.kernels.ref import (dequantize_rows, quantize_rows,
-                                     relative_row_error, row_scales)
+                                     relative_row_error, row_scales,
+                                     vq_decode_rows, vq_encode_rows,
+                                     vq_row_scales)
+from repro_torch.kernels.scatter import scatter_rows_vq
 from .config import resolve_device
 
 __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec", "row_scales",
            "quantize_rows", "dequantize_rows", "quantization_error",
+           "VQ_SUBDIM", "VQ_CODES", "VQ_SEED", "vq_table_width",
+           "vq_init_codebook", "vq_row_scales", "vq_encode_rows",
+           "vq_decode_rows", "vq_accumulate_stats", "vq_refit_codebook",
            "HistoryStore"]
+
+# Product quantization (history_dtype="vq"): each row is split into
+# d / VQ_SUBDIM subvectors, each stored as one uint8 index into a
+# per-layer [S, VQ_CODES, VQ_SUBDIM] f32 codebook (the reference's
+# constants, `repro.core.history:58-63`).
+VQ_SUBDIM = 8
+VQ_CODES = 256
+VQ_SEED = 0
 
 
 # ---------------------------------------------------------------------------
@@ -49,23 +72,32 @@ __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec", "row_scales",
 class HistoryCodec:
     """One row of the registry. `lossless`: push/pull round-trips
     bit-exact (quantization error 0). `scaled`: a per-row f32 scale table
-    rides beside each layer table. `vq`: a per-layer codebook rides along
-    (not ported). `roundtrip(values)` is the f32 reconstruction a
-    push-then-pull returns."""
+    rides beside each layer table. `vq`: a per-layer codebook (and its
+    refit statistics) rides along, and the layer table holds uint8 codes
+    of width d / VQ_SUBDIM. `roundtrip(values, codebook)` is the f32
+    reconstruction a push-then-pull returns."""
     name: str
     storage: torch.dtype
     lossless: bool
     scaled: bool
     vq: bool
-    roundtrip: Callable = field(default=lambda v: v)
+    roundtrip: Callable = field(default=lambda v, cb: v)
+
+    def table_width(self, d: int) -> int:
+        return vq_table_width(d) if self.vq else d
 
 
-def _roundtrip_bf16(v: torch.Tensor) -> torch.Tensor:
+def _roundtrip_bf16(v: torch.Tensor, cb) -> torch.Tensor:
     return v.to(torch.bfloat16).to(torch.float32)
 
 
-def _roundtrip_int8(v: torch.Tensor) -> torch.Tensor:
+def _roundtrip_int8(v: torch.Tensor, cb) -> torch.Tensor:
     return dequantize_rows(*quantize_rows(v))
+
+
+def _roundtrip_vq(v: torch.Tensor, cb) -> torch.Tensor:
+    codes, scales = vq_encode_rows(v, cb)
+    return vq_decode_rows(codes, cb, scales)
 
 
 _CODECS = {
@@ -76,7 +108,7 @@ _CODECS = {
     "int8": HistoryCodec("int8", torch.int8, lossless=False, scaled=True,
                          vq=False, roundtrip=_roundtrip_int8),
     "vq": HistoryCodec("vq", torch.uint8, lossless=False, scaled=True,
-                       vq=True),
+                       vq=True, roundtrip=_roundtrip_vq),
 }
 
 HISTORY_DTYPES = tuple(_CODECS)
@@ -84,29 +116,93 @@ HISTORY_DTYPES = tuple(_CODECS)
 
 def get_codec(history_dtype: str) -> HistoryCodec:
     """Registry lookup. An unknown name raises the reference's ValueError,
-    word for word; "vq" raises NotImplementedError (not ported)."""
+    word for word."""
     codec = _CODECS.get(history_dtype)
     if codec is None:
         raise ValueError(
             f"history_dtype must be one of {HISTORY_DTYPES}, "
             f"got {history_dtype}")
-    if codec.vq:
-        raise NotImplementedError(
-            "history_dtype='vq' (codebook-quantized histories) is not "
-            "ported yet (ROADMAP Queue A item 3)")
     return codec
 
 
+# ---------------------------------------------------------------------------
+# vq helpers (`repro.core.history:258-344`). The encode and decode are the
+# plain versions of the kernels (`kernels.ref`); the k-means statistics
+# and the refit are plain tensor code.
+# ---------------------------------------------------------------------------
+
+def vq_table_width(d: int) -> int:
+    """Code-table width S for a d-wide layer; vq needs d % VQ_SUBDIM == 0
+    (the reference's ValueError, word for word)."""
+    if d % VQ_SUBDIM:
+        raise ValueError(
+            f"history_dtype='vq' requires feature dims divisible by "
+            f"{VQ_SUBDIM}, got {d}")
+    return d // VQ_SUBDIM
+
+
+def vq_init_codebook(d: int, seed: int = VQ_SEED,
+                     device=None) -> torch.Tensor:
+    """The initial codebook [S, VQ_CODES, VQ_SUBDIM] f32, uniform in
+    [-1, 1) from a `torch.Generator` seeded with `seed` (on the CPU, so
+    every device gets the same values), entry 0 pinned to the zero vector
+    so that all-zero rows, a fresh table's, round-trip exactly. The
+    reference draws from `jax.random`: the same distribution, other
+    values (tests carry the reference's codebooks across)."""
+    s = vq_table_width(d)
+    gen = torch.Generator().manual_seed(seed)
+    cb = torch.rand((s, VQ_CODES, VQ_SUBDIM), generator=gen,
+                    dtype=torch.float32) * 2.0 - 1.0
+    cb[:, 0, :] = 0.0
+    return cb.to(resolve_device(device))
+
+
+def vq_accumulate_stats(codes: torch.Tensor, values: torch.Tensor,
+                        scales: torch.Tensor, mask: torch.Tensor,
+                        counts: torch.Tensor, sums: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold one push's assignments into the k-means statistics (counts
+    [S, C], sums [S, C, ds]; the E-step came free with the encode):
+    returns the new (counts, sums). Masked rows contribute nothing;
+    duplicates count once each. The sums are the one-hot assignments
+    times the normalized subvectors as one batched matrix product, so
+    they are deterministic on the card (no atomics)."""
+    s_, c = counts.shape
+    v = values.to(torch.float32)
+    u = (v / scales[:, None]).reshape(v.shape[0], s_, -1)
+    entries = torch.arange(c, device=codes.device)
+    onehot = (codes.long()[:, :, None] == entries).to(torch.float32)
+    onehot = onehot * mask.to(torch.float32)[:, None, None]
+    dsum = torch.bmm(onehot.permute(1, 2, 0), u.permute(1, 0, 2))
+    return counts + onehot.sum(0), sums + dsum
+
+
+def vq_refit_codebook(codebook: torch.Tensor, counts: torch.Tensor,
+                      sums: torch.Tensor) -> torch.Tensor:
+    """The k-means M-step: entries with assignments move to the mean of
+    their assigned normalized subvectors, the others stay, entry 0 stays
+    at zero."""
+    hit = (counts > 0)[:, :, None]
+    new = torch.where(hit, sums / torch.clamp(counts, min=1.0)[:, :, None],
+                      codebook)
+    new[:, 0, :] = 0.0
+    return new
+
+
 def quantization_error(values: torch.Tensor, mask: torch.Tensor,
-                       history_dtype: str) -> torch.Tensor:
+                       history_dtype: str,
+                       codebook: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Mean per-row relative L2 error `||v - dq(q(v))|| / ||v||` a push of
-    `values` incurs under `history_dtype`, over the `mask`-valid rows;
-    exactly 0 for a lossless codec (`repro.core.history:347`)."""
+    `values` incurs under `history_dtype` (vq: against `codebook`), over
+    the `mask`-valid rows; exactly 0 for a lossless codec
+    (`repro.core.history:347`)."""
     codec = get_codec(history_dtype)
     if codec.lossless:
         return torch.zeros((), dtype=torch.float32, device=values.device)
     v = values.to(torch.float32)
-    return _masked_mean(relative_row_error(v, codec.roundtrip(v)), mask)
+    return _masked_mean(relative_row_error(v, codec.roundtrip(v, codebook)),
+                        mask)
 
 
 def _masked_mean(row_err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -119,26 +215,38 @@ class HistoryStore:
     tables: List[torch.Tensor]
     age: torch.Tensor
     history_dtype: str = "f32"
-    scales: Optional[List[torch.Tensor]] = None   # int8: [N+1] f32 each
+    scales: Optional[List[torch.Tensor]] = None     # int8/vq: [N+1] f32
+    codebooks: Optional[List[torch.Tensor]] = None  # vq: [S, 256, 8] f32
+    cb_counts: Optional[List[torch.Tensor]] = None  # vq: [S, 256] f32
+    cb_sums: Optional[List[torch.Tensor]] = None    # vq: [S, 256, 8] f32
 
     @classmethod
     def create(cls, num_nodes: int, dims: List[int],
                history_dtype: Optional[str] = None,
                device=None) -> "HistoryStore":
-        """Zero tables (zero codes at scale 1.0 for int8, as the
-        reference's `create`) and ages. `num_nodes` must include the
-        sentinel row (pass N + 1). `history_dtype=None` means "f32";
+        """Zero tables (zero codes at scale 1.0 for int8 and vq, as the
+        reference's `create`; a vq store also gets `vq_init_codebook(d)`
+        per layer and zero statistics) and ages. `num_nodes` must include
+        the sentinel row (pass N + 1). `history_dtype=None` means "f32";
         `device=None` means "cuda"."""
         hd = history_dtype or "f32"
         codec = get_codec(hd)
+        widths = [codec.table_width(d) for d in dims]
         dev = resolve_device(device)
         scales = ([torch.ones((num_nodes,), dtype=torch.float32, device=dev)
                    for _ in dims] if codec.scaled else None)
-        return cls(tables=[torch.zeros((num_nodes, d), dtype=codec.storage,
-                                       device=dev) for d in dims],
+        codebooks = counts = sums = None
+        if codec.vq:
+            codebooks = [vq_init_codebook(d, device=dev) for d in dims]
+            counts = [torch.zeros(cb.shape[:2], dtype=torch.float32,
+                                  device=dev) for cb in codebooks]
+            sums = [torch.zeros_like(cb) for cb in codebooks]
+        return cls(tables=[torch.zeros((num_nodes, w), dtype=codec.storage,
+                                       device=dev) for w in widths],
                    age=torch.zeros((num_nodes,), dtype=torch.int32,
                                    device=dev),
-                   history_dtype=hd, scales=scales)
+                   history_dtype=hd, scales=scales, codebooks=codebooks,
+                   cb_counts=counts, cb_sums=sums)
 
     @property
     def device(self) -> torch.device:
@@ -149,36 +257,54 @@ class HistoryStore:
         return len(self.tables)
 
     def layer_scales(self, ell: int) -> Optional[torch.Tensor]:
-        """The per-row f32 scale table of layer `ell` (None unless
-        int8)."""
+        """The per-row f32 scale table of layer `ell` (None unless int8 or
+        vq)."""
         return None if self.scales is None else self.scales[ell]
+
+    def layer_codebook(self, ell: int) -> Optional[torch.Tensor]:
+        """The [S, 256, 8] f32 codebook of layer `ell` (None unless vq)."""
+        return None if self.codebooks is None else self.codebooks[ell]
 
     def pull(self, ell: int, idx: torch.Tensor) -> torch.Tensor:
         """Gather rows of H̄^(ell) (idx clipped to the table), dequantized:
-        f32 rows for f32 and int8 stores, bf16 rows for bf16 stores
+        f32 rows for f32, int8 and vq stores, bf16 rows for bf16 stores
         (upcast where they are consumed), as the reference's pull. At the
-        table's own width: the reference's `pad_out=True` pull, which
+        layer's own width: the reference's `pad_out=True` pull, which
         keeps its kernels' 128-lane padding, has no counterpart because
         the port's kernels mask ragged widths."""
         return ops.pull_rows(self.tables[ell], idx,
-                             scales=self.layer_scales(ell))
+                             scales=self.layer_scales(ell),
+                             codebook=self.layer_codebook(ell))
 
     def push(self, ell: int, idx: torch.Tensor, values: torch.Tensor,
              mask: torch.Tensor) -> "HistoryStore":
         """Scatter fresh rows into H̄^(ell) in place where `mask`,
         quantizing to the store's precision on the way in; masked rows go
-        to the sentinel row."""
+        to the sentinel row. A vq push also folds the rows' codes into the
+        layer's k-means statistics."""
         self.push_measured(ell, idx, values, mask)
         return self
 
     def push_measured(self, ell: int, idx: torch.Tensor,
-                      values: torch.Tensor,
-                      mask: torch.Tensor) -> Optional[torch.Tensor]:
+                      values: torch.Tensor, mask: torch.Tensor,
+                      stats: bool = True) -> Optional[torch.Tensor]:
         """`push`, returning the error it incurred: `quant_error` of the
         same rows (the push's term of `hist_quant_err`), or None for a
-        lossless store, whose term is exactly 0. An int8 push takes the
-        per-row errors its kernel writes beside the codes, so the codec
-        does not run a second time."""
+        lossless store, whose term is exactly 0. An int8 or vq push takes
+        the per-row errors its kernel writes beside the codes, so the
+        codec does not run a second time; a vq push folds the per-row
+        codes the kernel writes into the statistics, unless `stats` is
+        False (serving, which must leave them as they are)."""
+        if self.codebooks is not None:
+            _, _, codes, err = ops.push_rows_vq(
+                self.tables[ell], self.scales[ell], idx, values, mask,
+                self.codebooks[ell], scratch_last_row=True)
+            if stats:
+                v = values.to(torch.float32)
+                self.cb_counts[ell], self.cb_sums[ell] = vq_accumulate_stats(
+                    codes, v, vq_row_scales(v), mask, self.cb_counts[ell],
+                    self.cb_sums[ell])
+            return _masked_mean(err, mask)
         if self.scales is not None:
             err = ops.push_rows_q(self.tables[ell], self.scales[ell], idx,
                                   values, mask, scratch_last_row=True)[2]
@@ -187,13 +313,40 @@ class HistoryStore:
                       scratch_last_row=True)
         if get_codec(self.history_dtype).lossless:
             return None
-        return self.quant_error(values, mask)
+        return self.quant_error(values, mask, ell)
 
-    def quant_error(self, values: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+    def quant_error(self, values: torch.Tensor, mask: torch.Tensor,
+                    ell: int = 0) -> torch.Tensor:
         """The relative error a push of `values` incurs at this precision
-        (the `hist_quant_err` diagnostic; exactly 0 for f32 stores)."""
-        return quantization_error(values, mask, self.history_dtype)
+        (the `hist_quant_err` diagnostic; exactly 0 for f32 stores); `ell`
+        picks the codebook of a vq store."""
+        return quantization_error(values, mask, self.history_dtype,
+                                  self.layer_codebook(ell))
+
+    def refit_codebooks(self) -> "HistoryStore":
+        """In place: the k-means M-step from the statistics the pushes
+        since the last refit gathered (`vq_refit_codebook`), then every
+        stored row (the sentinel's too) decoded under the old codebook and
+        re-encoded under the new one, as the reference's refit, and the
+        statistics zeroed. The decode and the encode are the pull's and
+        the push's kernels (`gather_rows_vq`, `scatter_rows_vq`) over all
+        rows; a transient f32 copy of each table is made. A no-op for
+        other stores."""
+        if self.codebooks is None:
+            return self
+        for ell in range(self.num_layers):
+            cb_old = self.codebooks[ell]
+            cb = vq_refit_codebook(cb_old, self.cb_counts[ell],
+                                   self.cb_sums[ell])
+            table, scales = self.tables[ell], self.scales[ell]
+            idx = torch.arange(table.shape[0], dtype=torch.int32,
+                               device=table.device)
+            rows = gather_rows_vq(table, cb_old, scales, idx)
+            scatter_rows_vq(table, scales, idx, rows, cb)
+            self.codebooks[ell] = cb
+            self.cb_counts[ell].zero_()
+            self.cb_sums[ell].zero_()
+        return self
 
     def tick(self, batch_idx: torch.Tensor,
              mask: torch.Tensor) -> "HistoryStore":
@@ -213,19 +366,38 @@ class HistoryStore:
         return self
 
     def clone(self) -> "HistoryStore":
-        """A copy with its own tables, scales and clock. The reference's
-        stores are immutable, so its `predict` scans over a copy for free;
-        the port's pushes are in place, so `runtime.predict` runs on a
-        clone."""
+        """A copy with its own tables, scales, codebooks, statistics and
+        clock. The reference's stores are immutable, so its `predict`
+        scans over a copy for free; the port's pushes are in place, so
+        `runtime.predict` runs on a clone."""
+        return self.to(self.device)
+
+    def to(self, device) -> "HistoryStore":
+        """A copy on `device` (tables, scales, codebooks, statistics and
+        clock)."""
+        def move(ts):
+            return None if ts is None else [t.to(device, copy=True)
+                                             for t in ts]
+
         return HistoryStore(
-            tables=[t.clone() for t in self.tables], age=self.age.clone(),
-            history_dtype=self.history_dtype,
-            scales=None if self.scales is None
-            else [s.clone() for s in self.scales])
+            tables=move(self.tables), age=self.age.to(device, copy=True),
+            history_dtype=self.history_dtype, scales=move(self.scales),
+            codebooks=move(self.codebooks), cb_counts=move(self.cb_counts),
+            cb_sums=move(self.cb_sums))
 
     def bytes(self) -> int:
-        """Table bytes, the scale tables included (the reference's
-        `bytes_per_table` summed)."""
-        aux = self.scales or []
+        """Table bytes, the scale tables, codebooks and their statistics
+        included (the reference's `bytes_per_table` summed)."""
+        parts = [self.tables, self.scales, self.codebooks, self.cb_counts,
+                 self.cb_sums]
         return sum(t.numel() * t.element_size()
-                   for t in list(self.tables) + list(aux))
+                   for ts in parts if ts is not None for t in ts)
+
+    def f32_bytes(self) -> int:
+        """The bytes the same tables take at f32 (rows times the layers'
+        feature widths times 4), the yardstick of the store's
+        compression."""
+        widths = [t.shape[1] if cb is None else cb.shape[0] * cb.shape[2]
+                  for t, cb in zip(self.tables, self.codebooks or
+                                   [None] * self.num_layers)]
+        return sum(t.shape[0] * w * 4 for t, w in zip(self.tables, widths))

@@ -23,11 +23,12 @@ untouched.
 
 Entry points run on the card (`device=None` means "cuda") unless the
 caller asks for the CPU, where every kernel runs its plain version.
-The store's precision is `GASConfig.history_dtype` (f32, bf16 or int8;
-the epoch metrics carry `hist_quant_err`, the error its pushes incur).
+The store's precision is `GASConfig.history_dtype` (f32, bf16, int8 or
+vq; the epoch metrics carry `hist_quant_err`, the error its pushes
+incur). A vq store's codebooks are refit at the start of an epoch on the
+reference's cadence (`vq_refit_every`) or drift (`vq_refit_drift`) gate.
 Not ported yet: `prefetch_depth > 0` and `history_storage="host"`
-(ROADMAP Queue A item 4), `halo_age_decay > 0` (Queue A item 2), and vq
-stores with their refit knobs (Queue A item 3).
+(ROADMAP Queue A item 4) and `halo_age_decay > 0` (Queue A item 2).
 """
 from __future__ import annotations
 
@@ -52,16 +53,20 @@ from .partition import metis_like_partition, random_partition
 class GASConfig(HistoryExecConfig):
     """Every knob of a GAS training run, with the reference's names and
     defaults (the paper's citation-graph hyperparameters). The shared
-    `history_dtype` / `staleness_slo` come from `HistoryExecConfig`. The
-    reference's `backend` has no counterpart (the tensors' device picks
-    the kernel or its plain version), nor do its vq refit knobs, which
-    come with vq stores, nor `fused_epoch`: an epoch is always the eager
-    per-step loop."""
+    `history_dtype` / `staleness_slo` come from `HistoryExecConfig`. For
+    "vq", `vq_refit_every = k > 0` refits the codebooks from the pushes'
+    statistics at the start of every k-th epoch, and `vq_refit_drift > 0`
+    also whenever the previous epoch's mean `hist_quant_err` exceeded it
+    (0 turns either off). The reference's `backend` has no counterpart
+    (the tensors' device picks the kernel or its plain version), nor has
+    `fused_epoch`: an epoch is always the eager per-step loop."""
     num_parts: int
     partitioner: str = "metis"          # "metis" | "random"
     clusters_per_batch: int = 1
     use_history: bool = True
     fuse_halo: bool = True
+    vq_refit_every: int = 0             # epochs between vq codebook refits
+    vq_refit_drift: float = 0.0         # hist_quant_err that forces one
     halo_age_decay: float = 0.0
     prefetch_depth: int = 0
     history_storage: Optional[str] = None  # "device" | "host"
@@ -129,6 +134,8 @@ class GASPlan:
     _pad_k: int = 1
     _pad_k_t: int = 1
     _np_rng: Any = None
+    # the last epoch's mean hist_quant_err, which vq_refit_drift reads
+    _last_qerr: Optional[float] = None
 
     def batch(self, b) -> GASBatch:
         """One device batch off the stack (views, no copy)."""
@@ -142,9 +149,20 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return ok.sum() / torch.clamp(mask.sum(), min=1)
 
 
+def partition(graph: Graph, config: GASConfig) -> np.ndarray:
+    """The graph's partition under `config` (its partitioner, part count
+    and seed): the part of every node."""
+    if config.partitioner == "metis":
+        return metis_like_partition(graph.indptr, graph.indices,
+                                    config.num_parts, seed=config.seed)
+    return random_partition(graph.num_nodes, config.num_parts,
+                            seed=config.seed)
+
+
 def build_plan(graph: Graph, spec, config: GASConfig,
-               device=None) -> GASPlan:
-    """Partition the graph, build the stacked batches (with the op's block
+               device=None, part: Optional[np.ndarray] = None) -> GASPlan:
+    """Partition the graph (or take `part`, `partition(graph, config)`
+    computed beforehand), build the stacked batches (with the op's block
     families and their transposes) and upload them, the features, labels
     and the exact-evaluation COO to `device` (None means "cuda"). The
     reference builds blocks only for its kernel backends; the port's
@@ -154,11 +172,10 @@ def build_plan(graph: Graph, spec, config: GASConfig,
     _check_op(spec)
     dev = resolve_device(device)
     N = graph.num_nodes
-    if config.partitioner == "metis":
-        part = metis_like_partition(graph.indptr, graph.indices,
-                                    config.num_parts, seed=config.seed)
-    else:
-        part = random_partition(N, config.num_parts, seed=config.seed)
+    if part is None:
+        part = partition(graph, config)
+    elif part.shape != (N,):
+        raise ValueError(f"part must have shape ({N},), got {part.shape}")
     dst, src, w = G.gcn_edge_weights(graph)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     plan = GASPlan(
@@ -283,8 +300,18 @@ def train_epoch(plan: GASPlan, state: GASState, epoch: int
     """One epoch over every cluster batch in the reference's shuffled
     order (`default_rng(seed * 1000 + epoch).permutation`). With
     `clusters_per_batch > 1` the clusters are regrouped first (from epoch
-    1 on). Returns the per-step metrics' means."""
+    1 on). A vq store's codebooks are refit first when the cadence
+    (`vq_refit_every`) or the drift gate (`vq_refit_drift`, against the
+    previous epoch's mean `hist_quant_err`) says so, as the reference's
+    epoch does. Returns the per-step metrics' means."""
     cfg = plan.config
+    cadence_due = (cfg.vq_refit_every > 0 and epoch > 0
+                   and epoch % cfg.vq_refit_every == 0)
+    drift_due = (cfg.vq_refit_drift > 0 and plan._last_qerr is not None
+                 and plan._last_qerr > cfg.vq_refit_drift)
+    if (cadence_due or drift_due) and \
+            state.histories.history_dtype == "vq":
+        state.histories.refit_codebooks()
     if cfg.clusters_per_batch > 1 and epoch > 0:
         _regroup(plan)
     order = np.random.default_rng(cfg.seed * 1000 + epoch).permutation(
@@ -295,7 +322,9 @@ def train_epoch(plan: GASPlan, state: GASState, epoch: int
         agg.append(metrics)
     stacked = {k: torch.stack([m[k].to(torch.float32) for m in agg]).cpu()
                for k in agg[0]}
-    return state, {k: float(np.mean(v.numpy())) for k, v in stacked.items()}
+    out = {k: float(np.mean(v.numpy())) for k, v in stacked.items()}
+    plan._last_qerr = out["hist_quant_err"]
+    return state, out
 
 
 def fit(plan: GASPlan, state: GASState, epochs: Optional[int] = None,

@@ -1,8 +1,10 @@
 """GAS serving: history tables as a low-latency node-embedding cache.
 
-The port of `repro.core.serve` for the GCN operator, over f32, bf16 and
-int8 history stores (a quantized store is bound as it is, and every
-refresh push quantizes on the way in). A batched inference request for a query set Q is answered by ONE padded
+The port of `repro.core.serve` for the GCN operator, over f32, bf16, int8
+and vq history stores (a quantized store is bound as it is, and every
+refresh push quantizes on the way in; a vq store's codebooks and k-means
+statistics are left exactly as they were: serving pushes encode against
+the bound codebook and gather no statistics). A batched inference request for a query set Q is answered by ONE padded
 batch over Q whose halo rows come straight out of the history tables.
 
 Staleness SLO (the reference's contract, unchanged). Every table row
@@ -37,7 +39,7 @@ returned by `serve_request` shares its store with the one passed in
 (thread the returned state; the old one sees the same tables).
 `version` is bumped by every writing step, as in the reference.
 Not ported yet (ROADMAP Queue A): `apply_feature_update`, the deprecated
-`bind_state`/`serve` shims, vq stores and `serve_service`.
+`bind_state`/`serve` shims and `serve_service`.
 """
 from __future__ import annotations
 
@@ -244,12 +246,14 @@ def serve_step(plan: ServePlan, state: ServeState, batch: GASBatch,
     rows read out of the history tables), in-place pushes of the freshly
     computed rows, and the age resets in `reset_idx`/`reset_mask`
     ([max_b], padding masked). Serving does not advance the staleness
-    clock: the pre-step ages are kept and only the reset rows clear.
-    Returns (logits [max_b, C], the next state, diagnostics)."""
+    clock: the pre-step ages are kept and only the reset rows clear. Nor
+    does it touch a vq store's codebooks or statistics (the reference
+    restores both after its step). Returns (logits [max_b, C], the next
+    state, diagnostics)."""
     store = state.histories
     age0 = store.age.clone()
     logits, store, diags = gas_batch_forward(state.params, plan.spec, plan.x,
-                                             batch, store)
+                                             batch, store, vq_stats=False)
     store.age.copy_(age0)
     store.reset_age(reset_idx, reset_mask)
     return logits, state.replace(version=state.version + 1), diags

@@ -181,12 +181,14 @@ def _fused_prop(params, spec: GNNSpec, ell: int, x_cur,
                 store: HistoryStore, batch: GASBatch):
     """One GCN layer on the fused path: the aggregation reads halo columns
     straight out of the layer's history table (no materialized x_all;
-    int8 rows are dequantized in the kernel against the store's per-row
-    scales), then the combine transform."""
+    int8 rows are dequantized and vq code rows decoded in the kernel
+    against the store's per-row scales and codebook), then the combine
+    transform."""
     n_out = batch.batch_mask.shape[0]
     agg = ops.gas_aggregate(x_cur, store.tables[ell - 1], batch.halo_nodes,
                             batch.halo_mask, n_out, batch.blocks,
-                            scales=store.layer_scales(ell - 1))
+                            scales=store.layer_scales(ell - 1),
+                            codebook=store.layer_codebook(ell - 1))
     return _act(spec, ell, L.gcn_combine(params["layers"][ell], agg))
 
 
@@ -194,7 +196,8 @@ def _halo_prop(params, spec: GNNSpec, ell: int, x_cur,
                store: HistoryStore, batch: GASBatch, edges, edge_w):
     """One GAT or PNA layer on the halo-split path: the halo rows are
     pulled from the previous layer's table at its own width (int8 rows
-    dequantized in the gather, bf16 rows upcast here) and transformed
+    dequantized and vq code rows decoded in the gather, bf16 rows upcast
+    here) and transformed
     apart from the in-batch rows (`gat_transform_split`,
     `pna_transform_split`), then the edge softmax or PNA's reduction runs
     over the unit-weight blocks."""
@@ -216,7 +219,8 @@ def _halo_prop(params, spec: GNNSpec, ell: int, x_cur,
 
 def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                       batch: GASBatch, store: HistoryStore,
-                      use_history: bool = True, fuse_halo: bool = True
+                      use_history: bool = True, fuse_halo: bool = True,
+                      vq_stats: bool = True
                       ) -> Tuple[torch.Tensor, HistoryStore,
                                  Dict[str, torch.Tensor]]:
     """Returns (logits [max_b, C], the store, diagnostics). The store is
@@ -228,7 +232,9 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     pushes) and `hist_quant_err`, the mean over the hidden layers of the
     relative error their pushes incur at the store's precision (0 for f32
     stores). The reference's third return value, the Eq. 3 regularizer,
-    is always 0 here and left out."""
+    is always 0 here and left out. `vq_stats=False` keeps a vq store's
+    k-means statistics as they are (serving; the reference restores them
+    after its serving step)."""
     _check_op(spec)
     unit = spec.op in UNIT_BLOCK_OPS
     if (batch.ublocks if unit else batch.blocks) is None:
@@ -266,7 +272,7 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                            max_b, batch)
         if ell < spec.num_layers - 1:
             err = store.push_measured(ell, batch.batch_nodes,
-                                      x_next.detach(), bmask)
+                                      x_next.detach(), bmask, vq_stats)
             if err is not None:
                 qerr = err if qerr is None else qerr + err
         x_cur = x_next

@@ -30,21 +30,22 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
-# no --use_fast_math: the int8 kernels divide and multiply with IEEE
-# rounding, so their codes and dequantized rows are bitwise the plain
+# no --use_fast_math: the int8 and vq kernels divide and multiply with
+# IEEE rounding, so their codes and dequantized rows are bitwise the plain
 # versions', and PNA's backward passes divide the min/max cotangents by
 # their tie counts as the reference does
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# the int8 bodies are kernels of their own; the bf16 instantiations of
+# the int8 and vq bodies are kernels of their own; the bf16 instantiations of
 # gather_rows, scatter_rows and gather_spmm share their f32 kernels'
 # sources and count apart ("*_bf16"), so a run shows which tables it read
 KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
            "edge_softmax_fwd", "edge_softmax_bwd_row", "edge_softmax_bwd_col",
            "gather_rows_dq", "scatter_rows_q", "gather_spmm_dq",
            "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16",
-           "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col")
+           "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col",
+           "gather_rows_vq", "scatter_rows_vq", "gather_spmm_vq")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "repro_gather_rows_f32": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_bf16": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_dq": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_gather_rows_vq": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_scatter_rows_vq": [_P] * 8 + [_I] * 4 + [_P],
+    "repro_gather_spmm_vq": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                             _I, _P, _P],
     "repro_scatter_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_scatter_rows_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_scatter_rows_q": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -7,8 +7,10 @@
 // elements become f32 (the RowSrc functor): bcsr_spmm reads
 // x[cols[r, k]*128 + b]; gather_spmm routes the row through the gather
 // plan to x_in, the history table or zeros, and its bodies read an f32
-// table, a bf16 table (upcast exactly) or an int8 table with its per-row
-// scale (one multiply per element, as the reference's dequant). A RowSrc
+// table, a bf16 table (upcast exactly), an int8 table with its per-row
+// scale (one multiply per element, as the reference's dequant) or a vq
+// code table decoded against its codebook (one lookup and the same one
+// multiply). A RowSrc
 // has a `Row` type (a small handle, e.g. a pointer, or a pointer and a
 // scale), `row(r, k, b)` returning the handle of staged row b of block
 // (r, k), and `load(handle, c)` returning element c of that row as f32

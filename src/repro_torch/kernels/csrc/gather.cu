@@ -1,13 +1,18 @@
 // gather_rows: out[i, :] = table[idx[i], :]  (the history pull / feature
-// gather), for f32 and bf16 tables; and gather_rows_dq: out[i, :] =
+// gather), for f32 and bf16 tables; gather_rows_dq: out[i, :] =
 // float(q[idx[i], :]) * scales[idx[i]] (the dequantizing pull of an int8
-// history table).
+// history table); and gather_rows_vq: out[i, 8s + j] =
+// codebook[s, codes[idx[i], s], j] * scales[idx[i]] (the decoding pull of
+// a vq history table: one uint8 code per 8-wide subvector).
 //
 // Replaces src/repro/kernels/gather.py:37 gather_rows (Pallas, one
 // (1, bd) row tile per grid step, lane-padded to a multiple of 128) and
 // gather.py:107 gather_rows_dq (Pallas, (8, bd) int8 tiles DMA'd row by
 // row into a double-buffered VMEM slot, then one multiply per element by
-// the row's scale from the scalar-prefetch lane).
+// the row's scale from the scalar-prefetch lane) and gather.py:189
+// gather_rows_vq (Pallas, the same double-buffered (8, S) code tiles, then
+// one one-hot matmul per subvector against the VMEM-resident codebook and
+// a multiply by the scale, the output lane-padded to 128).
 //
 // Bound: bytes. gather_rows reads M*D*E bytes of table rows and writes
 // M*D*E bytes (E = 4 for f32, 2 for bf16; plus 4*M of indices) and does no
@@ -23,6 +28,17 @@
 // IEEE-rounded multiply per element (__fmul_rn, never contracted into
 // anything), so the result is bitwise the plain version's and the
 // reference's `dequantize_rows`.
+//
+// gather_rows_vq reads S code bytes and 8 bytes of index and scale per row
+// and writes 4*S*8 bytes, one multiply per element: bound by bytes (the
+// codebook, S*256*8*4 bytes, <= 256 KB at d = 256, is read once from
+// device memory and then from L2). Design: one warp per output row, each
+// lane a 4-wide half of one subvector: it reads the row's code for that
+// subvector, one float4 of the codebook entry and writes one float4, so
+// a warp writes 512 contiguous bytes; the codebook stays in L2 and no
+// shared memory is staged, whatever S. The output is exactly S*8 wide
+// (the reference pads it to 128 lanes and its callers slice). Each
+// element is one IEEE multiply (__fmul_rn), bitwise `vq_decode_rows`.
 #include "common.cuh"
 
 namespace {
@@ -98,6 +114,32 @@ gather_rows_dq_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// codes [N, S] uint8, codebook [S, 256, 8] f32, out [M, S*8] f32
+__global__ void __launch_bounds__(kThreads)
+gather_rows_vq_kernel(const uint8_t* __restrict__ codes,
+                      const float* __restrict__ codebook,
+                      const float* __restrict__ scales,
+                      const int32_t* __restrict__ idx,
+                      float* __restrict__ out, int64_t m, int64_t s_n,
+                      int64_t n_codes) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+  if (row >= m) return;
+  const int lane = threadIdx.x % 32;
+  const int64_t t = __ldg(idx + row);
+  const float s = __ldg(scales + t);
+  const uint8_t* src = codes + t * s_n;
+  float4* dst = reinterpret_cast<float4*>(out + row * s_n * 8);
+  const float4* cb = reinterpret_cast<const float4*>(codebook);
+  for (int64_t q = lane; q < 2 * s_n; q += 32) {
+    const int64_t sub = q / 2;
+    const int64_t code = __ldg(src + sub);
+    const float4 v = __ldg(cb + (sub * n_codes + code) * 2 + q % 2);
+    dst[q] = make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s),
+                         __fmul_rn(v.z, s), __fmul_rn(v.w, s));
+  }
+}
+
 }  // namespace
 
 REPRO_API int repro_gather_rows_f32(const float* table, const int32_t* idx,
@@ -122,6 +164,24 @@ REPRO_API int repro_gather_rows_dq(const int8_t* q, const float* scales,
   gather_rows_dq_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       q, scales, idx, out, m, d, vec);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+REPRO_API int repro_gather_rows_vq(const uint8_t* codes,
+                                   const float* codebook,
+                                   const float* scales, const int32_t* idx,
+                                   float* out, int64_t m, int64_t s_n,
+                                   int64_t n_codes, void* stream) {
+  if (m == 0 || s_n == 0) return 0;
+  // float4 lanes: the wrapper hands 16-byte aligned codebook and output
+  if (reinterpret_cast<uintptr_t>(codebook) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
+  gather_rows_vq_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      codes, codebook, scales, idx, out, m, s_n, n_codes);
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -11,7 +11,10 @@
 // table aliased into the output) and scatter.py:85 scatter_rows_q (the
 // same grid with the divide-round-clip in the kernel; the reference takes
 // s_i from `history.row_scales` outside the kernel and scatters the
-// scales with XLA).
+// scales with XLA) and scatter.py:141 scatter_rows_vq (the same grid, the
+// nearest-entry search of `jnp.sum(jnp.square(u - cb), -1)` and
+// `jnp.argmin` over the VMEM-resident codebook in the kernel, s_i again
+// from outside).
 //
 // Semantics: rows whose index lies outside [0, N) are dropped; duplicate
 // valid indices resolve to the LAST occurrence in row order. The TPU
@@ -43,6 +46,31 @@
 // and sums the squares of the differences and of the values in the
 // warp, so the error costs no second read of the row; its sums are taken
 // in another order than the plain version's, so it agrees to rounding.
+//
+// scatter_rows_vq: bound by operations at the serving refresh shape. Per
+// pushed row and subvector every one of the 256 entries costs 8 rounded
+// subtracts, 8 multiplies and 7 adds (24 f32 operations counted), so a
+// row of d = 256 needs 32 * 256 * 24 = 196,608 operations against 1 KB of
+// values. Design: a CTA of 256 threads takes a group of up to 8 pushed
+// rows (fewer for wide rows: their normalized values sit in dynamic
+// shared memory, at most 48 KB); thread c is codebook entry c. The CTA
+// reduces each row's max (a max is exact in any order, so s_i is bitwise
+// `vq_row_scales`), stores u = v / s_i (__fdiv_rn, the reference
+// divides), then per subvector each thread loads its entry's 8 values
+// once (two float4 reads, adjacent threads on adjacent entries, from L2)
+// and scores all the group's rows against it: the distance is summed
+// left to right with __fsub_rn, __fmul_rn and __fadd_rn, so that the
+// build's FMA contraction cannot fuse a square into the sum, exactly as
+// XLA and the plain version sum it. The argmin reduces (distance, index)
+// pairs, a smaller index winning a tie, across the warp with shuffles and
+// across the 8 warps in shared memory, so the first minimum wins, as in
+// jnp.argmin. One thread per row then writes the code of every pushed row
+// (codes_out, for the codebook statistics) and, if the row is its
+// target's last writer (the claim passes above), the table's code and the
+// scale; it also decodes the code (one __fmul_rn, as the pull) and sums
+// the squared error and the squared values for the row's relative error.
+// The codebook is read from L2 once per group and subvector; the tensor
+// cores are not used (the distances are summed in this order on purpose).
 #include "common.cuh"
 
 namespace {
@@ -168,6 +196,122 @@ scatter_rows_q_kernel(int8_t* __restrict__ q, float* __restrict__ scales,
   }
 }
 
+constexpr int kCodes = 256;    // codebook entries: one per thread
+constexpr int kSub = 8;        // subvector width
+constexpr int kVqRows = 8;     // pushed rows per CTA (at most)
+constexpr int kVqSmem = 48 * 1024;
+
+__device__ __forceinline__ void argmin_pair(float& d, int& i, float od,
+                                            int oi) {
+  if (od < d || (od == d && oi < i)) {
+    d = od;
+    i = oi;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_vq_kernel(uint8_t* __restrict__ table, float* __restrict__ scales,
+                       uint8_t* __restrict__ codes_out,
+                       float* __restrict__ err,
+                       const int32_t* __restrict__ idx,
+                       const float* __restrict__ vals,
+                       const float* __restrict__ codebook,
+                       const int32_t* __restrict__ winner, int64_t m,
+                       int64_t n, int64_t s_n, int rows) {
+  extern __shared__ float u_s[];             // [rows][d]
+  __shared__ float red_d[kVqRows][kThreads / 32];
+  __shared__ int red_i[kVqRows][kThreads / 32];
+  __shared__ float scale_s[kVqRows];
+  __shared__ int64_t tgt_s[kVqRows];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int64_t d = s_n * kSub;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int nr = m - row0 < rows ? static_cast<int>(m - row0) : rows;
+
+  // the rows' max |v| (a block reduction per row)
+  for (int r = 0; r < nr; ++r) {
+    const float* src = vals + (row0 + r) * d;
+    float amax = 0.f;
+    for (int64_t j = tid; j < d; j += kThreads)
+      amax = fmaxf(amax, fabsf(__ldg(src + j)));
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) red_d[r][warp] = amax;
+  }
+  __syncthreads();
+  if (tid < nr) {
+    float amax = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) amax = fmaxf(amax, red_d[tid][w]);
+    scale_s[tid] = amax > 0.f ? amax : 1.f;
+    const int64_t row = row0 + tid;
+    const int32_t t = idx[row];
+    tgt_s[tid] = (t >= 0 && t < n && winner[t] == static_cast<int32_t>(row))
+                     ? t : -1;
+  }
+  __syncthreads();
+  for (int r = 0; r < nr; ++r) {
+    const float* src = vals + (row0 + r) * d;
+    for (int64_t j = tid; j < d; j += kThreads)
+      u_s[r * d + j] = __fdiv_rn(__ldg(src + j), scale_s[r]);
+  }
+  __syncthreads();
+
+  float num = 0.f, den = 0.f;                // thread r < nr: row r's sums
+  for (int64_t sub = 0; sub < s_n; ++sub) {
+    const float4* e4 = reinterpret_cast<const float4*>(
+        codebook + (sub * kCodes + tid) * kSub);
+    const float4 lo = __ldg(e4), hi = __ldg(e4 + 1);
+    const float e[kSub] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    for (int r = 0; r < nr; ++r) {
+      const float* u = u_s + r * d + sub * kSub;
+      float diff = __fsub_rn(u[0], e[0]);
+      float acc = __fmul_rn(diff, diff);
+#pragma unroll
+      for (int j = 1; j < kSub; ++j) {
+        diff = __fsub_rn(u[j], e[j]);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+      }
+      int best = tid;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        argmin_pair(acc, best, __shfl_xor_sync(0xffffffffu, acc, off),
+                    __shfl_xor_sync(0xffffffffu, best, off));
+      if (lane == 0) {
+        red_d[r][warp] = acc;
+        red_i[r][warp] = best;
+      }
+    }
+    __syncthreads();
+    if (tid < nr) {
+      float bd = red_d[tid][0];
+      int bi = red_i[tid][0];
+      for (int w = 1; w < kThreads / 32; ++w)
+        argmin_pair(bd, bi, red_d[tid][w], red_i[tid][w]);
+      const int64_t row = row0 + tid;
+      const uint8_t code = static_cast<uint8_t>(bi);
+      codes_out[row * s_n + sub] = code;
+      if (tgt_s[tid] >= 0) table[tgt_s[tid] * s_n + sub] = code;
+      const float* ent = codebook + (sub * kCodes + bi) * kSub;
+      const float* src = vals + row * d + sub * kSub;
+      for (int j = 0; j < kSub; ++j) {
+        const float v = __ldg(src + j);
+        const float diff = __fsub_rn(v, __fmul_rn(__ldg(ent + j), scale_s[tid]));
+        num = __fadd_rn(num, __fmul_rn(diff, diff));
+        den = __fadd_rn(den, __fmul_rn(v, v));
+      }
+    }
+    __syncthreads();  // red_* are reused by the next subvector
+  }
+  if (tid < nr) {
+    if (tgt_s[tid] >= 0) scales[tgt_s[tid]] = scale_s[tid];
+    err[row0 + tid] =
+        __fdiv_rn(__fsqrt_rn(num), __fadd_rn(__fsqrt_rn(den), 1e-12f));
+  }
+}
+
 }  // namespace
 
 REPRO_API int repro_scatter_rows_f32(float* table, const int32_t* idx,
@@ -194,6 +338,41 @@ REPRO_API int repro_scatter_rows_q(int8_t* q, float* scales, float* err,
   const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
   scatter_rows_q_kernel<<<grid, kThreads, 0, s>>>(q, scales, err, idx,
                                                   vals, winner, m, n, d);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+REPRO_API int repro_scatter_rows_vq(uint8_t* table, float* scales,
+                                    uint8_t* codes_out, float* err,
+                                    const int32_t* idx, const float* vals,
+                                    const float* codebook, int32_t* winner,
+                                    int64_t m, int64_t n, int64_t s_n,
+                                    int64_t n_codes, void* stream) {
+  if (m == 0 || s_n == 0) return 0;
+  // one thread per entry, float4 reads of the entries: the wrapper hands a
+  // [S, 256, 8] codebook, 16-byte aligned
+  if (n_codes != kCodes) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(codebook) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // static and dynamic shared memory together stay within the 48 KB a
+  // launch may take without an opt-in
+  static int64_t static_smem = -1;
+  if (static_smem < 0) {
+    cudaFuncAttributes attr;
+    if (cudaError_t e = cudaFuncGetAttributes(&attr, scatter_rows_vq_kernel))
+      return static_cast<int>(e);
+    static_smem = static_cast<int64_t>(attr.sharedSizeBytes);
+  }
+  const int64_t row_bytes = s_n * kSub * static_cast<int64_t>(sizeof(float));
+  const int64_t fit = (kVqSmem - static_smem) / row_bytes;
+  const int rows = fit < kVqRows ? static_cast<int>(fit) : kVqRows;
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int rc = claim(idx, winner, m, n, s)) return rc;
+  const dim3 grid(static_cast<unsigned>((m + rows - 1) / rows));
+  scatter_rows_vq_kernel<<<grid, kThreads, rows * row_bytes, s>>>(
+      table, scales, codes_out, err, idx, vals, codebook, winner, m, n, s_n,
+      rows);
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -1,8 +1,9 @@
 """Fused history-gather + block-CSR SpMM: `gather_plan`, `gather_spmm`.
 
 Replaces `src/repro/kernels/fused.py:203 gather_spmm`, its f32 body
-(`_make_kernel` :172, which the reference also runs over bf16 tables) and
-its int8 body (`_make_kernel_dq` :181). The layer input of a GAS layer
+(`_make_kernel` :172, which the reference also runs over bf16 tables), its
+int8 body (`_make_kernel_dq` :181) and its vq body (`_make_kernel_vq`
+:191). The layer input of a GAS layer
 >= 1 is the virtual operand
 
     x_all = [x_in ; dequant(table)[halo_nodes] * halo_mask ; 0]
@@ -13,7 +14,9 @@ entry per adjacency-block row) says where virtual column
 
     sel == 0 : in-batch  -> x_in[xrow]
     sel == 1 : halo      -> table[trow]  (read straight out of the history,
-                            bf16 upcast, int8 times scales[trow])
+                            bf16 upcast, int8 times scales[trow], vq codes
+                            decoded against the codebook, times
+                            scales[trow])
     sel == 2 : masked halo / dummy / padding -> zeros
 
 On CUDA tensors `gather_spmm` launches `csrc/fused.cu` (the block
@@ -21,7 +24,6 @@ contraction of `csrc/block_spmm.cuh` with plan-routed rows, dequantized
 as they are staged; bound by bytes, the blocks as stored, as
 `bcsr_spmm`); on CPU tensors it runs the plain version
 `ref.gather_spmm_ref`.
-The reference's vq body (codebook-quantized tables) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from . import _build as B
 from .bcsr_spmm import BN, check_blocks
+from .gather import check_codebook
 from .ref import gather_spmm_ref
 
 __all__ = ["gather_plan", "gather_spmm", "gather_spmm_ref"]
@@ -61,7 +64,8 @@ def gather_plan(blk_cols: torch.Tensor, halo_nodes: torch.Tensor,
 
 _BODIES = {torch.float32: ("repro_gather_spmm_f32", "gather_spmm"),
            torch.bfloat16: ("repro_gather_spmm_bf16", "gather_spmm_bf16"),
-           torch.int8: ("repro_gather_spmm_dq", "gather_spmm_dq")}
+           torch.int8: ("repro_gather_spmm_dq", "gather_spmm_dq"),
+           torch.uint8: ("repro_gather_spmm_vq", "gather_spmm_vq")}
 
 
 def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
@@ -71,25 +75,26 @@ def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
                 codebook: torch.Tensor = None) -> torch.Tensor:
     """out [R*128, D] f32 = A @ [x_in ; dequant(table)[halo] ; 0] per the
     gather plan. x_in [n_in, D] is f32; table [N, D] is f32, bf16, or int8
-    with `scales` [N] f32 (one width D; ragged D is masked in the kernel);
+    with `scales` [N] f32, or uint8 vq codes [N, D/8] with `scales` [N] f32
+    and `codebook` [D/8, 256, 8] f32 (ragged D is masked in the kernel);
     xrow/trow must be pre-clipped to their source's rows (as `gather_plan`
     makes them). An int8 table launches the int8 body (`gather_spmm_dq`),
-    the others the f32 one (`gather_spmm`)."""
-    if codebook is not None:
-        raise NotImplementedError(
-            "gather_spmm over vq (codebook) history tables is not ported "
-            "yet (ROADMAP Queue A item 3, Queue B item 16)")
-    if (table.dtype == torch.int8) != (scales is not None):
-        raise TypeError("gather_spmm: an int8 table needs its scales, and "
-                        "only an int8 table takes scales")
+    a vq table the vq body (`gather_spmm_vq`), the others the f32 one
+    (`gather_spmm`)."""
+    scaled = table.dtype in (torch.int8, torch.uint8)
+    if scaled != (scales is not None) or \
+            (table.dtype == torch.uint8) != (codebook is not None):
+        raise TypeError("gather_spmm: an int8 table needs its scales, a vq "
+                        "(uint8) table its scales and codebook, and no "
+                        "other table takes either")
     operands = (x_in, table, blk_vals, blk_cols, sel, xrow, trow) + \
-        (() if scales is None else (scales,))
+        tuple(t for t in (scales, codebook) if t is not None)
     if all(t.device.type == "cpu" for t in operands):
         return gather_spmm_ref(x_in, table, blk_vals, blk_cols, sel, xrow,
-                               trow, scales)
+                               trow, scales, codebook)
     if table.dtype not in _BODIES:
-        raise TypeError(f"gather_spmm: table must be float32, bfloat16 or "
-                        f"int8, got {table.dtype}")
+        raise TypeError(f"gather_spmm: table must be float32, bfloat16, "
+                        f"int8 or uint8, got {table.dtype}")
     symbol, name = _BODIES[table.dtype]
     dev = B.require_cuda(name, *operands)
     B.require_dtype(name, x_in, torch.float32, "x_in")
@@ -101,9 +106,11 @@ def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != "
                              f"{(R, K, BN)}")
     n_in, d = x_in.shape
-    if table.dim() != 2 or table.shape[1] != d:
+    width = d // 8 if codebook is not None else d
+    if table.dim() != 2 or table.shape[1] != width or \
+            (codebook is not None and d % 8):
         raise ValueError(f"{name}: table {tuple(table.shape)} must be "
-                         f"[N, {d}]")
+                         f"[N, {width}] for x_in of width {d}")
     tab = (table.data_ptr(),)
     if scales is not None:
         B.require_dtype(name, scales, torch.float32, "scales")
@@ -111,6 +118,9 @@ def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
             raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
                              f"{(table.shape[0],)}")
         tab += (scales.data_ptr(),)
+    if codebook is not None:
+        check_codebook(name, codebook, width)
+        tab += (codebook.data_ptr(),)
     out = torch.empty((R * BN, d), dtype=torch.float32, device=dev)
     B.check(getattr(B.lib(), symbol)(
         x_in.data_ptr(), n_in, *tab, table.shape[0], d,

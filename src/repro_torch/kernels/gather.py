@@ -1,23 +1,27 @@
-"""History pull (row gather): `gather_rows` and the dequantizing
-`gather_rows_dq`.
+"""History pull (row gather): `gather_rows`, the dequantizing
+`gather_rows_dq` and the decoding `gather_rows_vq`.
 
 Replaces `src/repro/kernels/gather.py:37 gather_rows` (f32 and bf16
-tables) and `gather.py:107 gather_rows_dq` (int8 tables with a per-row f32
-scale). On CUDA tensors each launches its kernel in `csrc/gather.cu` (one
-warp per row, 16-byte lanes, ragged D masked in the kernel; bound by
-bytes: M*D*E read plus M*D*E written for the row copy, E = 4 or 2;
-M*D int8 bytes and 8*M of index and scale read plus M*D*4 written for the
-dequant); on CPU tensors it runs the plain version in `ref.py`.
+tables), `gather.py:107 gather_rows_dq` (int8 tables with a per-row f32
+scale) and `gather.py:189 gather_rows_vq` (vq code tables with a per-row
+f32 scale and a codebook). On CUDA tensors each launches its kernel in
+`csrc/gather.cu` (one warp per row, 16-byte lanes, ragged D masked in the
+kernel; bound by bytes: M*D*E read plus M*D*E written for the row copy,
+E = 4 or 2; M*D int8 bytes and 8*M of index and scale read plus M*D*4
+written for the dequant; M*S code bytes, 8*M and the codebook read plus
+M*S*8*4 written for the decode); on CPU tensors it runs the plain version
+in `ref.py`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build as B
-from .ref import gather_rows_dq_ref, gather_rows_ref
+from .ref import gather_rows_dq_ref, gather_rows_ref, gather_rows_vq_ref
 
 __all__ = ["gather_rows", "gather_rows_ref", "gather_rows_dq",
-           "gather_rows_dq_ref"]
+           "gather_rows_dq_ref", "gather_rows_vq", "gather_rows_vq_ref",
+           "check_codebook"]
 
 _ROW_COPY = {torch.float32: ("repro_gather_rows_f32", "gather_rows"),
              torch.bfloat16: ("repro_gather_rows_bf16", "gather_rows_bf16")}
@@ -70,5 +74,42 @@ def gather_rows_dq(table: torch.Tensor, scales: torch.Tensor,
     B.check(B.lib().repro_gather_rows_dq(
         table.data_ptr(), scales.data_ptr(), idx.data_ptr(), out.data_ptr(),
         m, d, B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return out
+
+
+def check_codebook(name: str, codebook: torch.Tensor, width: int) -> None:
+    """A vq codebook as the kernels take it: f32 [S, 256, 8] for a code
+    table of width S."""
+    B.require_dtype(name, codebook, torch.float32, "codebook")
+    if codebook.shape != (width, 256, 8):
+        raise ValueError(f"{name}: codebook {tuple(codebook.shape)} != "
+                         f"{(width, 256, 8)}")
+
+
+def gather_rows_vq(table: torch.Tensor, codebook: torch.Tensor,
+                   scales: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out [M, S*8] f32 = decode(table[idx], codebook) * scales[idx][:, None]:
+    the pull of a vq table (uint8 codes [N, S]) with its codebook [S, 256,
+    8] f32 and its f32 scale table [N]; `idx` int32 [M], pre-clipped to
+    [0, N). Unpadded: exactly S*8 columns."""
+    operands = (table, codebook, scales, idx)
+    if all(t.device.type == "cpu" for t in operands):
+        return gather_rows_vq_ref(table, codebook, scales, idx)
+    name = "gather_rows_vq"
+    dev = B.require_cuda(name, *operands)
+    B.require_dtype(name, table, torch.uint8, "table")
+    B.require_dtype(name, scales, torch.float32, "scales")
+    _check_shapes(name, table, idx)
+    n, s_n = table.shape
+    check_codebook(name, codebook, s_n)
+    if scales.shape != (n,):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
+    m = idx.shape[0]
+    out = torch.empty((m, s_n * 8), dtype=torch.float32, device=dev)
+    B.check(B.lib().repro_gather_rows_vq(
+        table.data_ptr(), codebook.data_ptr(), scales.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), m, s_n, codebook.shape[1],
+        B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return out

@@ -30,11 +30,11 @@ from .bcsr_spmm import bcsr_spmm
 from .edge_softmax import (edge_softmax_bwd_col, edge_softmax_bwd_row,
                            edge_softmax_fwd)
 from .fused import gather_plan, gather_spmm
-from .gather import gather_rows, gather_rows_dq
+from .gather import gather_rows, gather_rows_dq, gather_rows_vq
 from .pna_reduce import (pna_reduce_bwd_col, pna_reduce_bwd_row,
                          pna_reduce_fwd)
 from .ref import edge_softmax_coo, pna_reduce_coo
-from .scatter import scatter_rows, scatter_rows_q
+from .scatter import scatter_rows, scatter_rows_q, scatter_rows_vq
 
 
 # ---------------------------------------------------------------------------
@@ -144,22 +144,23 @@ def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
 class _GasAggregate(torch.autograd.Function):
     """out = A @ [x_in ; dequant(table)[halo] * mask ; 0] without the
     bracket; dx_in = (A^T @ g)[:n_in] on the transposed blocks
-    (`ops.py:268-302` of the reference). The table and its scales get no
-    gradient: a quantized table's cotangents are the reference's hard
-    zeros, and a float table's is live only in the unported GCNII/APPNP.
+    (`ops.py:246-300` of the reference). The table, its scales and a vq
+    codebook get no gradient: a quantized table's cotangents (the
+    codebook's included) are the reference's hard zeros, and a float
+    table's is live only in the unported GCNII/APPNP.
     Only a row count is kept for the backward, never the table, which
     later pushes overwrite in place."""
 
     @staticmethod
-    def forward(ctx, x_in, table, scales, halo_nodes, halo_mask, blk_vals,
-                blk_cols, blk_vals_t, blk_cols_t):
+    def forward(ctx, x_in, table, scales, codebook, halo_nodes, halo_mask,
+                blk_vals, blk_cols, blk_vals_t, blk_cols_t):
         bn = blk_vals.shape[-1]
         sel, xrow, trow = gather_plan(blk_cols, halo_nodes, halo_mask,
                                       x_in.shape[0], table.shape[0], bn)
         ctx.n_in = x_in.shape[0]
         ctx.blocks_t = (blk_vals_t, blk_cols_t)
         return gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow,
-                           scales)
+                           scales, codebook)
 
     @staticmethod
     def backward(ctx, g):
@@ -170,7 +171,7 @@ class _GasAggregate(torch.autograd.Function):
                 "the batch with them (core.gas.build_batches(build_blocks="
                 "True))")
         dx_all = bcsr_spmm(g.contiguous(), vals_t, cols_t)
-        return (dx_all[:ctx.n_in],) + (None,) * 8
+        return (dx_all[:ctx.n_in],) + (None,) * 9
 
 
 def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
@@ -181,26 +182,23 @@ def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
     """Fused GAS aggregation: out = A @ [x_in ; dequant(table)[halo]*mask
     ; 0] without building the bracket: the gather plan is computed on the
     blocks' device, then `gather_spmm` reads in-batch rows from x_in,
-    halo rows straight out of the history table (f32, bf16, or int8 with
-    `scales` [N] f32, dequantized as they are staged) and zeros
-    elsewhere. `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
+    halo rows straight out of the history table (f32, bf16, int8 with
+    `scales` [N] f32, or vq codes with `scales` and `codebook` [S, 256, 8],
+    dequantized or decoded as they are staged) and zeros elsewhere.
+    `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
     Differentiable w.r.t. x_in (the backward is `bcsr_spmm` on the
-    transposed pair); a quantized table gets no gradient (the reference's
-    hard zeros), and a float table's gradient is live only in
-    GCNII/APPNP, which are not ported (ROADMAP Queue A item 2), so a
-    table that requires grad raises. vq tables (`codebook`) raise too."""
-    if codebook is not None:
-        raise NotImplementedError(
-            "gas_aggregate over vq (codebook) history tables is not ported "
-            "yet (ROADMAP Queue A item 3, Queue B item 16)")
+    transposed pair); a quantized table and its codebook get no gradient
+    (the reference's hard zeros), and a float table's gradient is live
+    only in GCNII/APPNP, which are not ported (ROADMAP Queue A item 2), so
+    a table that requires grad raises."""
     if table.requires_grad:
         raise NotImplementedError(
             "gas_aggregate does not differentiate the table: its gradient "
             "is live only for GCNII/APPNP layer-0 halo transforms, which are "
             "not ported yet (ROADMAP Queue A item 2)")
     t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
-    return _GasAggregate.apply(x_in, table, scales, halo_nodes, halo_mask,
-                               blocks[0], blocks[1], *t)[:n_out]
+    return _GasAggregate.apply(x_in, table, scales, codebook, halo_nodes,
+                               halo_mask, blocks[0], blocks[1], *t)[:n_out]
 
 
 class _EdgeSoftmax(torch.autograd.Function):
@@ -309,14 +307,19 @@ def pna_reduce(xd: torch.Tensor, xs: torch.Tensor, edges,
 
 
 def pull_rows(table: torch.Tensor, idx: torch.Tensor, *,
-              scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+              scales: Optional[torch.Tensor] = None,
+              codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
     """History pull: out[i] = table[idx[i]] (idx clipped to [0, N)), in
     the table's type for f32 and bf16 tables. With `scales` [N] f32 the
     table holds int8 rows and the pull dequantizes: out[i] =
     float(table[idx[i]]) * scales[idx[i]] in f32 (`gather_rows_dq`, the
     multiply fused into the row gather, so only int8 table bytes are
-    read)."""
+    read). With `codebook` [S, 256, 8] as well, the table holds uint8 vq
+    code rows [N, S] and the pull decodes them into [M, S*8] f32
+    (`gather_rows_vq`: only S code bytes per row are read)."""
     idx = torch.clamp(idx, 0, table.shape[0] - 1).to(torch.int32)
+    if codebook is not None:
+        return gather_rows_vq(table, codebook, scales, idx)
     if scales is not None:
         return gather_rows_dq(table, scales, idx)
     return gather_rows(table, idx)
@@ -370,10 +373,29 @@ def push_rows_q(table: torch.Tensor, scales: torch.Tensor,
                           values.to(torch.float32).contiguous())
 
 
+def push_rows_vq(table: torch.Tensor, scales: torch.Tensor,
+                 idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                 codebook: torch.Tensor, *, scratch_last_row: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Encoding history push, in place (`ops.py:711-761` of the
+    reference): `table` [N, S] uint8 codes, `scales` [N] f32, `codebook`
+    [S, 256, 8] f32. Each pushed row is normalized by its `max|v|` and
+    each 8-wide subvector takes the index of its nearest codebook entry
+    (`ref.vq_encode_rows`); codes and scale land at the same row
+    (`scatter_rows_vq`: the scale, the division and the nearest-entry
+    search run inside the scatter). Masking and `scratch_last_row` as in
+    `push_rows`. Returns (table, scales, codes, err): codes [M, S] and err
+    [M], each pushed row's codes and relative error (masked rows' too)."""
+    safe = _push_index(idx, mask, table.shape[0], scratch_last_row)
+    return scatter_rows_vq(table, scales, safe,
+                           values.to(torch.float32).contiguous(), codebook)
+
+
 __all__ = ["build_bcsr", "build_bcsr_rect", "spmm", "gcn_aggregate",
            "gas_aggregate", "edge_softmax_aggregate", "pull_rows",
-           "push_rows", "push_rows_q", "bcsr_spmm", "gather_plan",
-           "gather_spmm", "gather_rows", "gather_rows_dq", "scatter_rows",
-           "scatter_rows_q", "edge_softmax_fwd", "edge_softmax_bwd_row",
+           "push_rows", "push_rows_q", "push_rows_vq", "bcsr_spmm",
+           "gather_plan", "gather_spmm", "gather_rows", "gather_rows_dq",
+           "gather_rows_vq", "scatter_rows", "scatter_rows_q",
+           "scatter_rows_vq", "edge_softmax_fwd", "edge_softmax_bwd_row",
            "edge_softmax_bwd_col", "pna_reduce", "pna_reduce_fwd",
            "pna_reduce_bwd_row", "pna_reduce_bwd_col"]

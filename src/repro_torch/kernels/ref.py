@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's thirteen CUDA kernels.
+"""Plain PyTorch versions of the port's sixteen CUDA kernels.
 
 Each function computes what its kernel computes, on the same arguments, in
 plain tensor code: the kernel wrappers (`gather.py`, `scatter.py`,
@@ -14,6 +14,12 @@ per-row int8 codec of `repro.core.history` (`:217-245`), and
 the one definition the int8 store, the quantizing push's plain version and
 `core.history.quantization_error` share; the CUDA kernels mirror them
 op for op (`csrc/scatter.cu`, `csrc/gather.cu`, `csrc/fused.cu`).
+`vq_row_scales`, `vq_encode_rows` and `vq_decode_rows` are the product
+quantizer of `repro.core.history` (`:258-309`) the same way: one code per
+8-wide subvector, the nearest (L2) entry of a per-layer codebook to the
+row divided by its `max|v|`, the distances summed left to right over the
+subvector and the first minimum taken, which is the order in which XLA's
+sum over the last axis adds them.
 
 `edge_softmax_coo` and `pna_reduce_coo` are not kernels' plain versions:
 they are the per-edge (segment) routes of the reference's "jnp" backend,
@@ -67,6 +73,63 @@ def relative_row_error(values: torch.Tensor,
     return num / den
 
 
+def vq_row_scales(values: torch.Tensor) -> torch.Tensor:
+    """Per-row normalizer `s_i = max|v_i|` (1.0 for all-zero rows) in f32,
+    not divided by anything: the codebook entries live in [-1, 1]^ds."""
+    amax = torch.amax(torch.abs(values.to(torch.float32)), dim=-1)
+    return torch.where(amax > 0, amax, torch.ones_like(amax))
+
+
+# distances per chunk of rows in `vq_nearest` (64 MiB of f32), so that a
+# refresh batch's push does not build its [M, S, C] distances at once
+_VQ_CHUNK = 1 << 24
+
+
+def vq_nearest(u: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """u [M, S, ds] normalized subvectors -> uint8 [M, S], per subvector
+    the index of the nearest entry of `codebook` [S, C, ds]: the squared
+    distance summed left to right over the ds components, each term one
+    rounded subtract and multiply, and the first minimum (as XLA's
+    `jnp.sum(jnp.square(u - cb), -1)` and `jnp.argmin`)."""
+    m, s_, ds = u.shape
+    c = codebook.shape[1]
+    out = torch.empty((m, s_), dtype=torch.uint8, device=u.device)
+    step = max(1, _VQ_CHUNK // max(s_ * c, 1))
+    for i in range(0, m, step):
+        uc = u[i:i + step]
+        d2 = None
+        for j in range(ds):
+            diff = uc[:, :, None, j] - codebook[None, :, :, j]
+            sq = diff * diff
+            d2 = sq if d2 is None else d2 + sq
+        out[i:i + step] = torch.argmin(d2, dim=-1).to(torch.uint8)
+    return out
+
+
+def vq_encode_rows(values: torch.Tensor, codebook: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """values [M, S*ds] -> (codes uint8 [M, S], scales f32 [M]): the
+    nearest entry to each subvector of `v_i / s_i`, s = `vq_row_scales`;
+    the divisor is a tensor (see `row_scales`)."""
+    v = values.to(torch.float32)
+    scales = vq_row_scales(v)
+    s_, _, ds = codebook.shape
+    u = (v / scales[:, None]).reshape(v.shape[0], s_, ds)
+    return vq_nearest(u, codebook), scales
+
+
+def vq_decode_rows(codes: torch.Tensor, codebook: torch.Tensor,
+                   scales: torch.Tensor) -> torch.Tensor:
+    """(codes uint8 [M, S], codebook [S, C, ds], scales f32 [M]) -> f32
+    [M, S*ds]: each element one codebook element times the row's scale,
+    one multiply."""
+    s_, _, ds = codebook.shape
+    sub = torch.arange(s_, device=codes.device)[None, :]
+    rec = codebook[sub, codes.long()]
+    return rec.reshape(codes.shape[0], s_ * ds) * \
+        scales[:, None].to(torch.float32)
+
+
 def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = table[idx[i]] (f32 or bf16 rows, in the table's type);
     idx pre-clipped to [0, N)."""
@@ -80,6 +143,16 @@ def gather_rows_dq_ref(table: torch.Tensor, scales: torch.Tensor,
     pre-clipped to [0, N)."""
     i = idx.long()
     return dequantize_rows(table[i], scales[i])
+
+
+def gather_rows_vq_ref(table: torch.Tensor, codebook: torch.Tensor,
+                       scales: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """The decoding pull of a vq table: out[i] = decode(table[idx[i]]) *
+    scales[idx[i]] in f32 [M, S*ds], bitwise `vq_decode_rows` of the
+    gathered code rows; idx pre-clipped to [0, N)."""
+    i = idx.long()
+    return vq_decode_rows(table[i], codebook, scales[i])
 
 
 def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -128,6 +201,27 @@ def scatter_rows_q_ref(table: torch.Tensor, scales: torch.Tensor,
     return table, scales, relative_row_error(values, dequantize_rows(q, s))
 
 
+def scatter_rows_vq_ref(table: torch.Tensor, scales: torch.Tensor,
+                        idx: torch.Tensor, values: torch.Tensor,
+                        codebook: torch.Tensor
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The encoding push of a vq table, in place: for each pushed f32 row
+    i, (codes_i, s_i) = `vq_encode_rows(values)_i`; table [N, S] uint8
+    takes codes_i and scales [N] f32 takes s_i at row idx[i]. Rows outside
+    [0, N) are dropped; duplicates resolve to the last occurrence for the
+    code row and its scale alike. Returns (table, scales, codes, err):
+    codes [M, S] uint8 every pushed row's codes and err [M] its relative
+    error (dropped rows included), what the codebook statistics and
+    `hist_quant_err` read."""
+    idx = idx.long()
+    win = _last_writer(idx, table.shape[0])
+    codes, s = vq_encode_rows(values, codebook)
+    table[idx[win]] = codes[win]
+    scales[idx[win]] = s[win]
+    err = relative_row_error(values, vq_decode_rows(codes, codebook, s))
+    return table, scales, codes, err
+
+
 def _gather_blocks(rows: torch.Tensor, blk_cols: torch.Tensor,
                    bn: int) -> torch.Tensor:
     """[n, D] rows -> [R, K, bn, D]: the bn-row block at each column block
@@ -152,13 +246,16 @@ def gather_spmm_ref(x_in: torch.Tensor, table: torch.Tensor,
                     blk_vals: torch.Tensor, blk_cols: torch.Tensor,
                     sel: torch.Tensor, xrow: torch.Tensor,
                     trow: torch.Tensor,
-                    scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    scales: Optional[torch.Tensor] = None,
+                    codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused history-gather aggregation, routed by the gather plan
     (`fused.gather_plan`): row b of block (r, k) is x_in[xrow] where
     sel == 0, the table row trow where sel == 1 and zeros where sel == 2;
     the staged [R, K, bn, D] operand is contracted with the blocks.
     Table rows are f32, bf16 (upcast exactly) or, with `scales` [N] f32,
-    int8 codes dequantized as `dequantize_rows` does (one multiply). Returns
+    int8 codes dequantized as `dequantize_rows` does (one multiply), or,
+    with `codebook` [S, C, ds] too, uint8 vq code rows [N, S] decoded as
+    `vq_decode_rows` does (D = S*ds). Returns
     [R*bn, D] f32 (the reference's `ref.gather_spmm_ref` builds the same
     operand as x_all = [x_in ; dequant(table)[halo] * mask ; 0]
     instead)."""
@@ -166,9 +263,13 @@ def gather_spmm_ref(x_in: torch.Tensor, table: torch.Tensor,
     D = x_in.shape[1]
     xs = x_in[xrow.long()]                          # [R, K, bn, D]
     t = trow.long()
-    ts = table[t].to(torch.float32)
-    if scales is not None:
-        ts = ts * scales[t][..., None]
+    if codebook is not None:
+        ts = vq_decode_rows(table[t].reshape(-1, table.shape[1]), codebook,
+                            scales[t].reshape(-1)).reshape(R, K, bn, D)
+    else:
+        ts = table[t].to(torch.float32)
+        if scales is not None:
+            ts = ts * scales[t][..., None]
     s = sel[..., None]
     g = torch.where(s == 0, xs, torch.where(s == 1, ts, torch.zeros_like(ts)))
     out = torch.einsum("rkab,rkbd->rad", blk_vals, g)

@@ -1,38 +1,42 @@
-"""History push (row scatter), in place: `scatter_rows` and the
-quantizing `scatter_rows_q`.
+"""History push (row scatter), in place: `scatter_rows`, the
+quantizing `scatter_rows_q` and the encoding `scatter_rows_vq`.
 
 Replaces `src/repro/kernels/scatter.py:39 scatter_rows` (f32 and bf16
-tables) and `scatter.py:85 scatter_rows_q` (int8 tables with a per-row
-f32 scale). The reference aliases the table into the Pallas output, and
+tables), `scatter.py:85 scatter_rows_q` (int8 tables with a per-row f32
+scale) and `scatter.py:141 scatter_rows_vq` (vq code tables with a
+per-row f32 scale and a codebook). The reference aliases the table into the Pallas output, and
 with a donated buffer XLA performs the push in place; here the push
 writes into the table tensor itself. On CUDA tensors each launches its
 kernel in `csrc/scatter.cu` (a per-target winner pass so that duplicate
 indices resolve to the last writer, then a row copy, or for int8 a row
 max, divide, round and clip, and each pushed row's relative error;
 bound by bytes: M*D*E read plus M*D*E written for the copy, E = 4 or 2;
-M*D*4 read plus M*D + 8*M written for the quantizing push); on CPU
-tensors it runs the plain version in `ref.py`.
+M*D*4 read plus M*D + 8*M written for the quantizing push; the encoding
+push's nearest-entry search, 24 f32 operations per value and codebook
+entry, bounds it by operations); on CPU tensors it runs the plain version
+in `ref.py`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build as B
-from .ref import scatter_rows_q_ref, scatter_rows_ref
+from .gather import check_codebook
+from .ref import scatter_rows_q_ref, scatter_rows_ref, scatter_rows_vq_ref
 
 __all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
-           "scatter_rows_q_ref"]
+           "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref"]
 
 _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
              torch.bfloat16: ("repro_scatter_rows_bf16", "scatter_rows_bf16")}
 
 
 def _check_push(name: str, table: torch.Tensor, idx: torch.Tensor,
-                values: torch.Tensor) -> None:
+                values: torch.Tensor, d: Optional[int] = None) -> None:
     B.require_dtype(name, idx, torch.int32, "idx")
-    m, d = idx.shape[0], table.shape[1]
+    m, d = idx.shape[0], table.shape[1] if d is None else d
     if values.shape != (m, d):
         raise ValueError(f"{name}: values {tuple(values.shape)} != {(m, d)}")
     if m >= 2 ** 31:
@@ -90,3 +94,39 @@ def scatter_rows_q(table: torch.Tensor, scales: torch.Tensor,
         B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return table, scales, err
+
+
+def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
+                    idx: torch.Tensor, values: torch.Tensor,
+                    codebook: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """In place: for idx[i] in [0, N), table[idx[i]] (uint8 codes [N, S])
+    takes the codes of f32 row values[i] [S*8] against `codebook` [S, 256,
+    8] and scales[idx[i]] (f32 [N]) its scale (`ref.vq_encode_rows`);
+    other rows are dropped; duplicates resolve to the last occurrence,
+    codes and scale alike. Returns (table, scales, codes, err): codes [M, S]
+    uint8 and err [M] f32 are every pushed row's codes and relative error,
+    dropped rows included."""
+    operands = (table, scales, idx, values, codebook)
+    if all(t.device.type == "cpu" for t in operands):
+        return scatter_rows_vq_ref(table, scales, idx, values, codebook)
+    name = "scatter_rows_vq"
+    dev = B.require_cuda(name, *operands)
+    B.require_dtype(name, table, torch.uint8, "table")
+    B.require_dtype(name, scales, torch.float32, "scales")
+    B.require_dtype(name, values, torch.float32, "values")
+    n, s_n = table.shape
+    _check_push(name, table, idx, values, d=s_n * 8)
+    check_codebook(name, codebook, s_n)
+    if scales.shape != (n,):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
+    m = idx.shape[0]
+    winner = torch.empty((n,), dtype=torch.int32, device=dev)
+    codes = torch.empty((m, s_n), dtype=torch.uint8, device=dev)
+    err = torch.empty((m,), dtype=torch.float32, device=dev)
+    B.check(B.lib().repro_scatter_rows_vq(
+        table.data_ptr(), scales.data_ptr(), codes.data_ptr(),
+        err.data_ptr(), idx.data_ptr(), values.data_ptr(),
+        codebook.data_ptr(), winner.data_ptr(), m, n, s_n,
+        codebook.shape[1], B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return table, scales, codes, err

@@ -5,7 +5,7 @@ The counterpart of `examples/quickstart.py`: the synthetic citation graph
 `d_hidden=64` (GAT: 8 heads of 8, one output head; PNA: table 5's
 `gas-pna` spec, `d_hidden=48` and `log_deg_mean=1.8`, as
 `benchmarks/table5_baselines.py` runs it), histories stored at
-`--history-dtype` (f32, bf16 or int8), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
+`--history-dtype` (f32, bf16, int8 or vq), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
 training, then both test accuracies from the exact full-graph forward
 and the GAS one from `predict` beside them, with the history store's
 bytes, its compression against f32 and the last epoch's
@@ -13,7 +13,7 @@ bytes, its compression against f32 and the last epoch's
 
     python -m repro_torch.launch.train_gas [--op gcn|gat|pna] [--nodes N]
         [--features F] [--classes C] [--parts P] [--epochs E]
-        [--history-dtype f32|bf16|int8] [--device cuda|cpu] [--smoke]
+        [--history-dtype f32|bf16|int8|vq] [--device cuda|cpu] [--smoke]
 
 `--device` defaults to cuda and raises without a card; `--device cpu`
 runs every kernel's plain version. `--smoke` shrinks the run (400
@@ -49,7 +49,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--parts", type=int, default=16)
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--history-dtype", default="f32",
-                    choices=("f32", "bf16", "int8"),
+                    choices=("f32", "bf16", "int8", "vq"),
                     help="history-table storage precision")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -102,7 +102,7 @@ def main(argv=None) -> dict:
     print(f"gas_predict    : logits {tuple(logits.shape)}, test acc "
           f"{pred_acc:.4f} from the histories")
     store = state.histories
-    f32_bytes = sum(t.numel() * 4 for t in store.tables)
+    f32_bytes = store.f32_bytes()
     print(f"history store  : {store.bytes():,} bytes "
           f"({store.history_dtype}, {f32_bytes / max(store.bytes(), 1):.2f}x"
           f" vs f32), hist_quant_err {metrics[-1]['hist_quant_err']:.3g}")

@@ -12,7 +12,10 @@ the path strings of the flattened `GASState`:
     state/histories/tables/{l}               [N+1, d] f32, int8 codes,
                                              or bf16 widened to f32
     state/histories/age                      [N+1] int32
-    state/histories/scales/{l}               [N+1] f32 (int8 stores only)
+    state/histories/scales/{l}               [N+1] f32 (int8 and vq stores)
+    state/histories/codebooks/{l}            [S, 256, 8] f32 (vq stores)
+    state/histories/cb_counts/{l}            [S, 256] f32 (vq stores)
+    state/histories/cb_sums/{l}              [S, 256, 8] f32 (vq stores)
     state/rng                                [2] uint32 key data
     step, and meta_json when the writer passed `meta`
 
@@ -20,8 +23,9 @@ the path strings of the flattened `GASState`:
 `HistoryStore` of the precision it holds (what serving needs);
 `load_gas_state` reads the whole training state, optimizer included;
 `save_gas_state` writes the port's state in the same layout, so the
-reference's `load_gas_state` reads it. An int8 store is told apart by its
-int8 tables and scale tables; a bf16 store only by the writer's meta
+reference's `load_gas_state` reads it. A vq store (uint8 code tables
+[N+1, d/8]) is told apart by its codebooks, an int8 store by its int8
+tables and scale tables; a bf16 store only by the writer's meta
 (`args.history_dtype`) or the caller's `history_dtype`, since npz cannot
 hold bf16 and both packages widen it to f32 (exactly) on disk.
 `params_from_numpy` maps a flattened param tree given as numpy arrays
@@ -75,20 +79,26 @@ def params_from_numpy(flat: Mapping[str, np.ndarray],
     return out
 
 
+_VQ_AUX = ("codebooks", "cb_counts", "cb_sums")
+
+
 def _store_dtype(flat: Mapping[str, np.ndarray],
                  history_dtype: Optional[str]) -> str:
     """The precision of the store in a flat checkpoint: the caller's, else
-    the writer's meta, else int8 where scale tables are present, else
-    f32; raises where the arrays contradict it."""
+    the writer's meta, else vq where codebooks are present, int8 where
+    scale tables are, else f32; raises where the arrays contradict it."""
     meta = json.loads(str(flat["meta_json"])) if "meta_json" in flat else {}
     scaled = any(k.startswith("state/histories/scales/") for k in flat)
+    vq = any(k.startswith("state/histories/codebooks/") for k in flat)
     hd = history_dtype or meta.get("args", {}).get("history_dtype") or (
-        "int8" if scaled else "f32")
+        "vq" if vq else "int8" if scaled else "f32")
     codec = get_codec(hd)
-    if codec.scaled != scaled:
-        raise ValueError(f"checkpoint {'has' if scaled else 'lacks'} scale "
-                         f"tables, which a {hd} store "
-                         f"{'lacks' if scaled else 'needs'}")
+    for what, has, needs in (("scale tables", scaled, codec.scaled),
+                             ("codebooks", vq, codec.vq)):
+        if has != needs:
+            raise ValueError(f"checkpoint {'has' if has else 'lacks'} "
+                             f"{what}, which a {hd} store "
+                             f"{'lacks' if has else 'needs'}")
     return hd
 
 
@@ -98,8 +108,9 @@ def load_gas_state_npz(path: str, device=None,
     """Read a `.npz` written by either package's `save_gas_state`. Returns
     (params, `HistoryStore`, step) on `device` (None means "cuda"). The
     store's precision is `history_dtype`, else the one the writer's meta
-    names, else int8 where the file has scale tables, else f32 (a bf16
-    store written without meta must be named here)."""
+    names, else vq where the file has codebooks, int8 where it has scale
+    tables, else f32 (a bf16 store written without meta must be named
+    here)."""
     dev = resolve_device(device)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
@@ -109,20 +120,30 @@ def load_gas_state_npz(path: str, device=None,
         {k: v for k, v in flat.items() if k.startswith("state/params/")},
         device=dev)
     n_tables = sum(1 for k in flat if k.startswith("state/histories/tables/"))
+    codec = get_codec(hd)
+
+    def leaf(key: str, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(flat[key], dtype)).to(dev)
+
     tables, scales = [], []
+    aux = {name: [] for name in _VQ_AUX}
     for ell in range(n_tables):
         t = torch.from_numpy(np.ascontiguousarray(
             flat[f"state/histories/tables/{ell}"]))
-        if storage == torch.int8 and t.dtype != torch.int8:
-            raise ValueError(f"an int8 store's table {ell} holds {t.dtype}")
+        if storage in (torch.int8, torch.uint8) and t.dtype != storage:
+            raise ValueError(f"a {hd} store's table {ell} holds {t.dtype}")
         tables.append(t.to(storage).to(dev))
-        if get_codec(hd).scaled:
-            scales.append(torch.from_numpy(np.ascontiguousarray(
-                flat[f"state/histories/scales/{ell}"], np.float32)).to(dev))
+        if codec.scaled:
+            scales.append(leaf(f"state/histories/scales/{ell}", np.float32))
+        if codec.vq:
+            for name in _VQ_AUX:
+                aux[name].append(leaf(f"state/histories/{name}/{ell}",
+                                      np.float32))
     age = torch.from_numpy(
         flat["state/histories/age"].astype(np.int32)).to(dev)
     store = HistoryStore(tables=tables, age=age, history_dtype=hd,
-                         scales=scales or None)
+                         scales=scales or None,
+                         **{k: v or None for k, v in aux.items()})
     return params, store, int(flat["step"])
 
 
@@ -146,7 +167,8 @@ def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
 def save_gas_state(path: str, state, step: int = 0,
                    meta: Optional[dict] = None) -> None:
     """Write a `core.runtime.GASState` (params, AdamW state, history
-    tables, int8 scale tables and clock, rng key data) as one flat npz in
+    tables, scale tables, vq codebooks and statistics, and clock, rng key
+    data) as one flat npz in
     the reference's layout, which `repro.train.checkpoint.load_gas_state`
     restores (bf16 tables widened to f32, as the reference writes
     them)."""
@@ -164,6 +186,9 @@ def save_gas_state(path: str, state, step: int = 0,
         arrays[f"state/histories/tables/{ell}"] = t.cpu().numpy()
     for ell, sc in enumerate(store.scales or []):
         arrays[f"state/histories/scales/{ell}"] = sc.cpu().numpy()
+    for name in _VQ_AUX:
+        for ell, a in enumerate(getattr(store, name) or []):
+            arrays[f"state/histories/{name}/{ell}"] = a.cpu().numpy()
     arrays["state/histories/age"] = state.histories.age.cpu().numpy()
     arrays["state/rng"] = np.asarray(state.rng, np.uint32)
     arrays["step"] = np.asarray(step)

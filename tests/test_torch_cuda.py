@@ -19,7 +19,12 @@ torch.exp in the last bits); a warm repeat of each kernel is bitwise
 identical (no atomics). Quantized training steps hold the tables as
 dequantized values within one quantization step s_i per row, with at
 least 99.9% of the codes equal: a pushed value a rounding away from a
-code's .5 boundary may land on the other side."""
+code's .5 boundary may land on the other side. The vq kernels: the
+decoding pull and the encoding push bitwise (codes, scales, decoded
+rows: one division, distances summed left to right, the first minimum,
+one multiply), the fused vq body at 1e-5, a refit on the card against
+the same refit on the CPU (codebooks at 1e-6, >= 99.9% of the codes
+equal), and vq training steps with >= 99.9% of the codes equal."""
 import numpy as np
 import pytest
 import torch
@@ -33,8 +38,11 @@ from repro_torch.kernels import edge_softmax as esk
 from repro_torch.kernels import pna_reduce as pnk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
 from repro_torch.kernels.fused import gather_plan, gather_spmm
-from repro_torch.kernels.gather import gather_rows, gather_rows_dq
-from repro_torch.kernels.scatter import scatter_rows, scatter_rows_q
+from repro_torch.core.history import vq_init_codebook
+from repro_torch.kernels.gather import (gather_rows, gather_rows_dq,
+                                        gather_rows_vq)
+from repro_torch.kernels.scatter import (scatter_rows, scatter_rows_q,
+                                         scatter_rows_vq)
 from repro_torch.train.optimizer import tree_leaves
 
 pytestmark = pytest.mark.cuda
@@ -265,10 +273,12 @@ def test_train_step_on_card_matches_cpu(dev, op):
 
 def _state_tensors(state):
     opt = state.opt_state
+    h = state.histories
+    aux = [t for name in ("scales", "codebooks", "cb_counts", "cb_sums")
+           for t in getattr(h, name) or []]
     return (tree_leaves(state.params) + tree_leaves(opt.m)
-            + tree_leaves(opt.v) + list(state.histories.tables)
-            + list(state.histories.scales or [])
-            + [state.histories.age, opt.step])
+            + tree_leaves(opt.v) + list(h.tables) + aux
+            + [h.age, opt.step])
 
 
 def _assert_tables_close(got, want):
@@ -463,3 +473,172 @@ def test_bcsr_spmm_on_transposed_blocks(dev):
     got = bcsr_spmm(gout.to(dev), vt.to(dev), ct.to(dev))
     torch.testing.assert_close(got.cpu(), ref.bcsr_spmm_ref(gout, vt, ct),
                                **TOL)
+
+
+def _vq_values(rng, m, d, cb):
+    """Rows for the encoding push: normal rows, an all-zero row, a row of
+    negative zeros with one value, rows of 1e15 and 1e-15, and rows whose
+    subvectors sit a few ulps from the midpoint of two entries (max 1.0)."""
+    v = rng.normal(size=(m, d)).astype(np.float32)
+    v[1] = 0.0
+    v[2] = -0.0
+    v[2, d // 2] = -3.0
+    v[3] *= 1e15
+    v[4] *= 1e-15
+    s_n = d // 8
+    for i in range(5, m, 3):
+        a, b = rng.integers(0, 256, (2, s_n))
+        mid = ((cb[np.arange(s_n), a] + cb[np.arange(s_n), b]) / 2.0
+               ).astype(np.float32)
+        mid = np.nextafter(mid, np.where(rng.random(mid.shape) < 0.5,
+                                         -np.inf, np.inf).astype(np.float32))
+        v[i] = mid.reshape(d)
+        v[i, -1] = 1.0
+    return v
+
+
+@pytest.mark.parametrize("d", [2048, 256, 64, 16])
+def test_vq_row_kernels_match_plain(dev, d):
+    """`scatter_rows_vq` and `gather_rows_vq` against their plain versions,
+    bitwise (at d = 2048 the push's staged rows fill the 48 KB of shared
+    memory a launch takes without an opt-in, less the kernel's own static
+    shared memory): table codes, scales and every pushed row's codes, with
+    duplicate indices (last writer wins, codes and scale alike), dropped
+    out-of-range rows, the sentinel row, zero rows and near-tie rows; the
+    decoded rows; a warm repeat bit-identical. The push's per-row errors
+    at 1e-5. The plain encode on the card is bitwise the CPU's."""
+    rng = np.random.default_rng(d)
+    n, m = 301, 220
+    cb = vq_init_codebook(d, device="cpu")
+    v = torch.from_numpy(_vq_values(rng, m, d, cb.numpy()))
+    idx = rng.integers(0, n - 1, m).astype(np.int32)
+    idx[10:30] = idx[30:50]                     # duplicates
+    idx[60:70] = n - 1                          # masked -> sentinel row
+    idx[70:75] = n + 5                          # out of range: dropped
+    idx = torch.from_numpy(idx)
+    q0 = torch.from_numpy(rng.integers(0, 256, (n, d // 8)).astype(np.uint8))
+    s0 = torch.from_numpy(rng.random(n).astype(np.float32))
+    want = ref.scatter_rows_vq_ref(q0.clone(), s0.clone(), idx, v, cb)
+    on_card = ref.scatter_rows_vq_ref(q0.clone().to(dev), s0.clone().to(dev),
+                                      idx.to(dev), v.to(dev), cb.to(dev))
+    for a, b in zip(on_card[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
+    errs = []
+    for _ in range(2):
+        got = scatter_rows_vq(q0.clone().to(dev), s0.clone().to(dev),
+                              idx.to(dev), v.to(dev), cb.to(dev))
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a.cpu(), b)
+        errs.append(got[3].cpu())
+    torch.testing.assert_close(errs[0], want[3], rtol=1e-5, atol=1e-7)
+    assert torch.equal(errs[0], errs[1])
+    gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
+    plain = ref.gather_rows_vq_ref(want[0], cb, want[1], gidx)
+    for _ in range(2):
+        out = gather_rows_vq(got[0], cb.to(dev), got[1], gidx.to(dev))
+        assert out.shape == (500, d) and torch.equal(out.cpu(), plain)
+
+
+@pytest.mark.parametrize("d", [256, 64])
+def test_vq_gather_spmm_matches_plain(dev, d):
+    """The vq body (`gather_spmm_vq`) against the plain version over a real
+    batch's blocks and gather plan, at 1e-5; at d = 256 its codebook is
+    256 KB, more than a CTA's shared memory (it is read through L2); a
+    warm repeat bit-identical."""
+    g = citation_graph(num_nodes=600, num_features=8, num_classes=3,
+                       seed=2)
+    from repro_torch.core import gas as G
+    from repro_torch.core.partition import metis_like_partition
+    part = metis_like_partition(g.indptr, g.indices, 3)
+    b = G.build_batches(g, part, build_blocks=True).to("cpu")[0]
+    rng = np.random.default_rng(d)
+    n_table = g.num_nodes + 1
+    x_in = torch.from_numpy(rng.normal(size=(b.max_b, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.normal(size=(n_table, d)).astype(np.float32))
+    cb = vq_init_codebook(d, device="cpu")
+    table, scales = ref.vq_encode_rows(rows, cb)
+    vals, cols = b.forward.vals, b.forward.cols
+    plan = gather_plan(cols, b.halo_nodes, b.halo_mask, b.max_b, n_table)
+    assert set(torch.unique(plan[0]).tolist()) == {0, 1, 2}
+    want = ref.gather_spmm_ref(x_in, table, vals, cols, *plan, scales, cb)
+    args = [t.to(dev) for t in (x_in, table, vals, cols, *plan)]
+    before = _build.launch_counts["gather_spmm_vq"]
+    got = gather_spmm(*args, scales=scales.to(dev), codebook=cb.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(gather_spmm(*args, scales=scales.to(dev),
+                                   codebook=cb.to(dev)), got)
+    assert _build.launch_counts["gather_spmm_vq"] == before + 2
+
+
+def test_vq_refit_on_card_matches_cpu(dev):
+    """A store after pushes on the card, copied to the CPU: the refit on
+    the card (through gather_rows_vq and scatter_rows_vq over every row)
+    against the same refit on the CPU: codebooks at 1e-6, entry 0 zero,
+    >= 99.9% of the codes equal, the statistics zeroed."""
+    from repro_torch.core.history import HistoryStore
+    rng = np.random.default_rng(7)
+    n, dims = 400, [64, 32]
+    store = HistoryStore.create(n + 1, dims, "vq", dev)
+    for _ in range(3):
+        for ell, d in enumerate(dims):
+            v = torch.from_numpy(rng.normal(size=(150, d)).astype(np.float32))
+            idx = torch.from_numpy(rng.integers(0, n, 150).astype(np.int32))
+            mask = torch.from_numpy(rng.random(150) > 0.1)
+            store.push(ell, idx.to(dev), v.to(dev), mask.to(dev))
+    cpu = store.to("cpu")
+    before = dict(_build.launch_counts)
+    store.refit_codebooks()
+    cpu.refit_codebooks()
+    for k in ("gather_rows_vq", "scatter_rows_vq"):
+        assert _build.launch_counts[k] == before[k] + len(dims)
+    for ell in range(len(dims)):
+        torch.testing.assert_close(store.codebooks[ell].cpu(),
+                                   cpu.codebooks[ell], rtol=0, atol=1e-6)
+        assert torch.all(store.codebooks[ell][:, 0] == 0)
+        same = (store.tables[ell].cpu() == cpu.tables[ell]).float().mean()
+        assert same >= 0.999, same
+        assert not store.cb_counts[ell].any() and \
+            not store.cb_sums[ell].any()
+
+
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
+def test_vq_train_step_on_card_matches_cpu(dev, op):
+    """Two steps over a vq store on both devices, each from the same state
+    (codebooks and statistics included): loss, gradients and
+    `hist_quant_err` at 1e-4, the scales at 1e-4, >= 99.9% of the codes
+    equal, and the vq path's kernels launched (GCN: gather_spmm_vq; GAT and
+    PNA: gather_rows_vq; all: scatter_rows_vq)."""
+    g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
+                       seed=1)
+    spec = GNNSpec(op=op, d_in=40, d_hidden=32, num_classes=4,
+                   num_layers=2, heads=4,
+                   log_deg_mean=1.8 if op == "pna" else 1.0)
+    cfg = R.GASConfig(num_parts=4, history_dtype="vq")
+    plans = {d: R.build_plan(g, spec, cfg, device=d) for d in ("cpu", dev)}
+    states = {d: R.init_state(p) for d, p in plans.items()}
+    before = dict(_build.launch_counts)
+    for b in (0, 1):
+        if b:
+            with torch.no_grad():
+                for x, y in zip(_state_tensors(states["cpu"]),
+                                _state_tensors(states[dev])):
+                    x.copy_(y)
+        out = {}
+        for d, p in plans.items():
+            grads, m = R.grads_and_metrics(p, states[d], p.batch(b))
+            out[d] = [m["loss"].cpu(), m["hist_quant_err"].cpu()] + \
+                [x.cpu() for x in grads]
+        for a, c in zip(out[dev], out["cpu"]):
+            torch.testing.assert_close(a, c, **TOL)
+        got, want = states[dev].histories, states["cpu"].histories
+        n = want.tables[0].shape[0] - 1
+        for ell in range(want.num_layers):
+            same = (got.tables[ell][:n].cpu() == want.tables[ell][:n]
+                    ).float().mean().item()
+            assert same >= 0.999, same
+            torch.testing.assert_close(got.scales[ell][:n].cpu(),
+                                       want.scales[ell][:n], **TOL)
+    ran = {k for k in _build.launch_counts
+           if _build.launch_counts[k] > before[k]}
+    read = "gather_spmm_vq" if op == "gcn" else "gather_rows_vq"
+    assert {"scatter_rows_vq", read} <= ran, ran

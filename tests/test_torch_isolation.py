@@ -89,9 +89,5 @@ def test_unported_options_raise():
                            num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_model.init_gnn(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_serve.ServeConfig(history_dtype="vq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HistoryStore.create(5, [4], history_dtype="vq", device="cpu")
     with pytest.raises(ValueError, match="history_dtype"):
         HistoryStore.create(5, [4], history_dtype="f16", device="cpu")

@@ -208,18 +208,6 @@ def test_gas_aggregate_matches_reference(d):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_quantized_gather_spmm_not_ported():
-    """The vq body (codebook-quantized tables) is not ported yet; int8
-    and bf16 tables are (tests/test_torch_quant.py)."""
-    z = torch.zeros((1, 1, 128), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fused.gather_spmm(torch.zeros(4, 8), torch.zeros(4, 1,
-                                                           dtype=torch.uint8),
-                            torch.zeros(1, 1, 128, 128), z[..., 0], z, z, z,
-                            scales=torch.ones(4),
-                            codebook=torch.zeros(1, 256, 8))
-
-
 def test_wrappers_launch_or_raise_off_cpu():
     """No quiet fallback: off the CPU a wrapper launches its kernel or
     raises (here on the meta device, which has no kernel), and the CPU

@@ -78,13 +78,16 @@ def _tricky_rows(seed, m, d):
 # ---------------------------------------------------------------------------
 
 def test_codec_registry_matches_reference():
-    """The same names, the same flags and storage widths, the reference's
-    ValueError text for an unknown name, and vq refused by name."""
+    """The same names, the same flags, storage types and table widths,
+    and the reference's ValueError text for an unknown name."""
     assert t_hist.HISTORY_DTYPES == r_hist.HISTORY_DTYPES
-    for name in ("f32", "bf16", "int8"):
+    for name in ("f32", "bf16", "int8", "vq"):
         t, r = t_hist.get_codec(name), r_hist.get_codec(name)
         assert (t.lossless, t.scaled, t.vq) == (r.lossless, r.scaled, r.vq)
         assert t.storage.itemsize == jnp.dtype(r.storage).itemsize
+        assert t.storage.is_floating_point == \
+            jnp.issubdtype(r.storage, jnp.floating)
+        assert t.table_width(64) == r.table_width(64)
     for bad in ("f16", "fp8", ""):
         with pytest.raises(ValueError) as want:
             r_hist.get_codec(bad)
@@ -94,11 +97,7 @@ def test_codec_registry_matches_reference():
         with pytest.raises(ValueError) as got:
             HistoryExecConfig(history_dtype=bad)
         assert str(got.value) == str(want.value)
-    for call in (lambda: t_hist.get_codec("vq"),
-                 lambda: HistoryExecConfig(history_dtype="vq"),
-                 lambda: t_hist.HistoryStore.create(5, [8], "vq", "cpu")):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            call()
+    HistoryExecConfig(history_dtype="vq")
 
 
 @pytest.mark.parametrize("seed,d", [(0, 8), (1, 20), (2, 128), (3, 257)])

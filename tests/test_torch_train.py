@@ -18,13 +18,15 @@ m / sqrt(v) is sign(g)). Two epochs' per-epoch mean losses compare at
 apart by such flips), and the exact accuracies at 2 test nodes.
 
 `python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
-[--history-dtype f32|bf16|int8] [--op gcn|gat|pna] [--perturb N ...]`
+[--history-dtype f32|bf16|int8|vq] [--op gcn|gat|pna] [--perturb N ...]`
 prints the reference's GAS test accuracy for chip_smoke.py's training
 configurations, from the port's initial params (moved by one ulp for
 each `--perturb N > 0`), on this host's partitions or on the ones in the
-file (see `reference_accuracy`), over a store of the given precision;
+file (see `reference_accuracy`), over a store of the given precision (a vq
+store from the port's initial codebooks);
 `--port-acc` runs the same on the port, on the CPU, and `--trajectory
 EPOCHS` prints both packages' per-epoch mean losses side by side."""
+import dataclasses
 import hashlib
 
 import jax
@@ -227,6 +229,24 @@ def _plans(op, backend="interpret", history_dtype="f32", **cfg):
     tstate = t_rt.init_state(tplan, params=t_ckpt.params_from_numpy(
         _flat(rstate.params), device="cpu"))
     return rplan, rstate, tplan, tstate
+
+
+@pytest.mark.parametrize("partitioner", ["metis", "random"])
+def test_plan_from_a_given_partition(partitioner):
+    """`partition(graph, config)` is the reference `build_plan`'s partition,
+    and `build_plan(part=)` builds the reference's batches from it; a
+    partition of another length raises."""
+    rg, tg = _graphs()
+    rspec, tspec = _specs("gcn")
+    rplan = r_rt.build_plan(rg, rspec, r_rt.GASConfig(
+        num_parts=4, partitioner=partitioner, backend="interpret"))
+    cfg = t_rt.GASConfig(num_parts=4, partitioner=partitioner)
+    part = t_rt.partition(tg, cfg)
+    np.testing.assert_array_equal(part, rplan.part)
+    tplan = t_rt.build_plan(tg, tspec, cfg, device="cpu", part=part)
+    _assert_stack_equal(rplan.batches, tplan.batches)
+    with pytest.raises(ValueError, match="part must have shape"):
+        t_rt.build_plan(tg, tspec, cfg, device="cpu", part=part[:-1])
 
 
 def _ref_grads(rplan, rstate, batch):
@@ -461,7 +481,8 @@ def reference_accuracy(op: str, epochs: int = 60, part=None,
     share graph, partition, initial weights and hyperparameters. `part`
     replaces the partition this host computes (e.g. one computed on
     another host, which may order equal degrees otherwise);
-    `history_dtype` is the store's precision. `perturb` > 0 moves every
+    `history_dtype` is the store's precision (a vq store starts from the
+    port's initial codebooks). `perturb` > 0 moves every
     initial weight by one ulp, up or down as `default_rng(perturb)` draws:
     a run that differs from the unperturbed one by rounding alone, whose
     accuracy shows how far such differences carry after `epochs` epochs.
@@ -483,11 +504,26 @@ def reference_accuracy(op: str, epochs: int = 60, part=None,
     params = jax.tree_util.tree_map(jnp.asarray, _nudged(tparams, perturb))
     state = r_rt.init_state(plan).replace(params=params,
                                           opt_state=r_opt.adamw_init(params))
+    state = _with_port_codebooks(state)
     for e in range(epochs):
         state, _ = r_rt.train_epoch(plan, state, e)
     digest = hashlib.sha256(np.ascontiguousarray(
         plan.part, np.int32).tobytes()).hexdigest()[:12]
     return digest, r_rt.evaluate_exact(plan, state)
+
+
+def _with_port_codebooks(rstate):
+    """A reference state whose vq store starts from the port's initial
+    codebooks (`vq_init_codebook(d)`, drawn from a `torch.Generator`), so
+    that both packages start from the same quantizer; other stores are
+    returned as they are."""
+    h = rstate.histories
+    if h.codebooks is None:
+        return rstate
+    from repro_torch.core.history import vq_init_codebook
+    cbs = tuple(jnp.asarray(vq_init_codebook(
+        cb.shape[0] * cb.shape[2], device="cpu").numpy()) for cb in h.codebooks)
+    return rstate.replace(histories=dataclasses.replace(h, codebooks=cbs))
 
 
 def _nudged(params, perturb: int):
@@ -566,8 +602,8 @@ def loss_trajectories(op: str, epochs: int, part=None,
     # `jnp.asarray` may alias a numpy buffer on the CPU
     rparams = jax.tree_util.tree_map(lambda t: jnp.array(t.numpy()),
                                      tstate.params)
-    rstate = r_rt.init_state(rplan).replace(
-        params=rparams, opt_state=r_opt.adamw_init(rparams))
+    rstate = _with_port_codebooks(r_rt.init_state(rplan).replace(
+        params=rparams, opt_state=r_opt.adamw_init(rparams)))
     out = []
     for e in range(epochs):
         tstate, tm = t_rt.train_epoch(tplan, tstate, e)
@@ -578,7 +614,7 @@ def loss_trajectories(op: str, epochs: int, part=None,
 
 if __name__ == "__main__":
     # python tests/test_torch_train.py --reference-acc|--port-acc
-    #     [PARTITIONS.npz] [--history-dtype f32|bf16|int8]
+    #     [PARTITIONS.npz] [--history-dtype f32|bf16|int8|vq]
     #     [--op gcn|gat|pna] [--perturb N ...]
     # python tests/test_torch_train.py --trajectory EPOCHS [PARTITIONS.npz]
     #     [--history-dtype ...] [--op ...]
