@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving, training and decode paths on one card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -48,6 +48,30 @@ with a non-zero exit at the first failure:
    vq codebooks and statistics unchanged by serving, and the counters of
    the store's kernels (these runs give the launches of the int8, bf16
    and vq rows timed in phase 2 at their shapes).
+3b. decode — first `flash_decode` against its plain version at qwen3's
+   attention shapes (8 KV heads, G = 2, Dh = 128): B = 8 over a
+   4,096-slot cache at pos 3,000, 0 and past the end (a rolling buffer),
+   B = 8 over decode_32k's 32,768 slots, and one f32 case, within 1e-5
+   in f32 and 2e-2 of the largest |output| in bf16 (a planted fault, one
+   warp's slots dropped from the plain version, must fail that limit),
+   the masked tail redrawn without moving the output a bit; the
+   4,096-slot pos-3,000 case and the 32,768-slot case timed beside the
+   plain version and SDPA.
+   Then transformer serving: qwen3-0.6b at its published widths in bf16
+   with seeded random weights (`init_params`), 8 MarkovTokens prompts
+   each; FULL prefills 2,048 tokens into a 4,096-slot cache, LONG
+   (window 4,096) 6,144 tokens rolled into its window; 64 greedy
+   `decode_step`s each (28 x 64 `flash_decode` launches, checked), every
+   step's logits against `forward` at the same position over the prompt
+   and the tokens fed, and every layer's cache after the steps against
+   `prefill`'s over the same tokens (the KV-cache check; a planted fault,
+   each new k / v written one slot early, must fail its cache number),
+   a step repeated from two
+   clones of the cache bit-identical, one step under torch.profiler
+   (flash_decode's share), prefill time, step p50/p99, tokens/s and peak
+   device memory; and 2 layers at the same widths in f32, prefill and 8
+   decode steps on the card against the same on the CPU (logits 1e-4,
+   caches 1e-5).
 4. training — (a) the GCN quickstart (2,500 nodes, 128 features, 7
    classes, 16 METIS parts, 2 layers, d_hidden=64), (b) GAT on the
    Cora shape (2,708 nodes, 1,433 features, 7 classes, 16 parts, 2
@@ -106,6 +130,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import gas as G  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.core import runtime as RT  # noqa: E402
@@ -114,18 +139,22 @@ from repro_torch.core.config import resolve_device  # noqa: E402
 from repro_torch.core.history import (  # noqa: E402
     HistoryStore, vq_init_codebook)
 from repro_torch.data.graphs import citation_graph  # noqa: E402
+from repro_torch.data.tokens import MarkovTokens  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import edge_softmax as esk  # noqa: E402
 from repro_torch.kernels import pna_reduce as pnk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
+from repro_torch.kernels.decode_attn import flash_decode  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
     gather_rows, gather_rows_dq, gather_rows_vq)
 from repro_torch.kernels.scatter import (  # noqa: E402
     scatter_rows, scatter_rows_q, scatter_rows_vq)
+from repro_torch.models import attention as ATT  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
-    clip_by_global_norm, tree_leaves)
+    clip_by_global_norm, tree_leaves, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # f32 outside the tensor cores — the kernels' bound_ms uses these; and the
@@ -283,6 +312,54 @@ ACC_SLACK = 0.01             # at most 1 pp below the reference
 # absolute. A skipped clip, a wrong bias correction or a flipped sign
 # moves them by orders more
 OPT_TOL = {"params": (1e-6, 1e-6), "m": (1e-4, 1e-12), "v": (1e-4, 1e-12)}
+
+# Transformer serving: qwen3-0.6b at its published widths in bf16 (its
+# dtype), seeded random weights, DECODE_B MarkovTokens prompts each, then
+# DECODE_STEPS greedy decode steps; (variant, prompt length, cache_len):
+# FULL prefills 2,048 tokens into 4,096 slots (decode reads a masked
+# tail), LONG (window 4,096) 6,144 tokens, rolled into its 4,096-slot
+# window (every decode step past the end of the buffer)
+DECODE_ARCH, DECODE_B, DECODE_STEPS, DECODE_SEED = "qwen3-0.6b", 8, 64, 0
+DECODE_RUNS = (("full", 2048, 4096), ("long", 6144, None))
+# each decode step's logits against forward's at the same position, both
+# in bf16: max abs err <= DECODE_TOL x forward's max |logit|. The two
+# paths round at other places (the decode's scores stay in f32, forward's
+# are bf16 products; other matmul shapes), and the residual stream alone
+# is rounded to bf16 56 times on the way (2^-9 relative each, ~1.5% as a
+# random walk); an H100 gave 1.7-1.8% of max |logit| (0.0547-0.0625 of
+# 3.3-3.4)
+DECODE_TOL = 0.05
+# the KV-cache check's second number: after the decode steps, every
+# layer's k and v against `prefill`'s over the prompt and the tokens fed,
+# max abs err <= DECODE_CACHE_TOL x that leaf's max |value|. The logits
+# check above averages a slot's fault over the thousands of slots each
+# head attends to; here a row in the wrong slot, or a roll off by one,
+# moves by its own size. The control plants that fault in
+# DECODE_CONTROL_STEPS steps of FULL and must fail this limit. An H100
+# gave 1.7% (FULL) and 1.4% (LONG) sound, 128% under the planted fault,
+# whose logits read 3.7% of max |logit|, inside DECODE_TOL
+DECODE_CACHE_TOL = 0.1
+DECODE_CONTROL_STEPS = 16
+# flash_decode's rows: qwen3's attention shapes (Kh = 8, G = 2, Dh = 128)
+# over the FULL cell's cache (B = 8, S = 4,096) and decode_32k's length
+# (configs/base.py) at 8 of its 128 sequences; (B, S, pos, dtype, timed)
+DECODE_KERNEL_CASES = ((8, 4096, 3000, torch.bfloat16, True),
+                       (8, 4096, 0, torch.bfloat16, False),
+                       (8, 4096, 5000, torch.bfloat16, False),
+                       (8, 32768, 40000, torch.bfloat16, True),
+                       (8, 4096, 3000, torch.float32, False))
+# flash_decode against its plain version: f32 at the Pallas test's 1e-5
+# (tests/test_kernels.py:148), rtol and atol; bf16 within
+# DECODE_KERNEL_BF16_REL of the largest |output|. A sound bf16 kernel
+# differs from the plain version by at most one flip of the output's
+# rounding (the two round p against other running maxima), <= 2^-7 of
+# the largest |output|. The Pallas test's absolute 2e-2 is the size of a
+# typical output over thousands of slots (std ~sqrt(e / n_valid): ~0.03
+# at 3,001 valid slots, ~0.009 at 32,768) and would pass a kernel that
+# lost one warp's slots; a control drops them from the plain version and
+# must fail this limit. An H100 gave 4.9e-4 and 2.4e-4 sound (limits
+# 3.2e-3 and 8.7e-4), 0.015-0.055 with a warp's slots dropped
+DECODE_KERNEL_F32_TOL, DECODE_KERNEL_BF16_REL = 1e-5, 2e-2
 
 
 def _phase(name: str, msg: str) -> None:
@@ -1680,6 +1757,358 @@ def serving_quant_phase(g, spec, device, hd):
     return launches
 
 
+def _decode_fault_controls(q, k, v, pos, want, limit) -> str:
+    """Two faults planted in the plain version, held to the bf16 limit:
+    the slots of one of the kernel's 8 warps dropped (warp 7: at qwen3's
+    group tile each warp walks runs of 4 slots, 32 apart), which the limit
+    must fail; and p left unrounded before p @ v (v in f32), printed
+    only."""
+    s = torch.arange(ref.flash_decode_valid(pos, k.shape[1]),
+                     device=k.device)
+    keep = s[(s // 4) % 8 != 7]
+    # pos = the kept count: every kept slot valid
+    drop = ref.flash_decode_ref(q, k[:, keep], v[:, keep], len(keep))
+    drop_err = float((drop.float() - want.float()).abs().max())
+    assert drop_err > limit, (
+        f"flash_decode's bf16 limit {limit:.3g} passes a plain version "
+        f"with one warp's slots dropped (err {drop_err:.3g})")
+    unr = ref.flash_decode_ref(q, k, v.float(), pos)
+    unr_err = float((unr.float() - want.float()).abs().max())
+    return (f"controls: one warp's slots dropped err {drop_err:.3g} "
+            f"(fails the limit), p unrounded err {unr_err:.3g} "
+            f"({'fails' if unr_err > limit else 'passes'} it)")
+
+
+def decode_kernel_rows(device, clock_hz):
+    """flash_decode against its plain version on seeded inputs at qwen3's
+    attention shapes (DECODE_KERNEL_CASES): f32 within 1e-5, bf16 within
+    2e-2 of the largest |output| (with two planted faults held to that
+    limit where 256 slots or more are valid), and where slots lie past
+    pos, the masked tail redrawn (k and v) leaving the output bitwise
+    unchanged; the timed cases beside the plain version and SDPA. Returns
+    the timed rows (launches filled in from the decode phase)."""
+    cfg = get_config(DECODE_ARCH, "full")
+    Kh, Dh = cfg.num_kv_heads, cfg.head_dim_
+    G = cfg.num_heads // Kh
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    rows = []
+    for B_, S_, pos, dt, timed in DECODE_KERNEL_CASES:
+        q = randn((B_, Kh, G, Dh), dt)
+        k, v = randn((B_, S_, Kh, Dh), dt), randn((B_, S_, Kh, Dh), dt)
+        out = flash_decode(q, k, v, pos)
+        want = ref.flash_decode_ref(q, k, v, pos)
+        err = float((out.float() - want.float()).abs().max())
+        n_valid = ref.flash_decode_valid(pos, S_)
+        line = (f"flash_decode B={B_} S={S_} pos={pos} "
+                f"{str(dt).split('.')[-1]}: err {err:.3g} ")
+        if dt == torch.float32:
+            torch.testing.assert_close(out.float(), want.float(),
+                                       rtol=DECODE_KERNEL_F32_TOL,
+                                       atol=DECODE_KERNEL_F32_TOL)
+            line += f"(tol {DECODE_KERNEL_F32_TOL})"
+        else:
+            top = float(want.float().abs().max())
+            limit = DECODE_KERNEL_BF16_REL * top
+            assert err <= limit, (
+                f"flash_decode bf16 err {err:.3g} above {limit:.3g} = "
+                f"{DECODE_KERNEL_BF16_REL} x max |output| {top:.3g}")
+            line += (f"(limit {limit:.3g} = {DECODE_KERNEL_BF16_REL} x max "
+                     f"|output| {top:.3g})")
+            if n_valid >= 256:
+                line += "; " + _decode_fault_controls(q, k, v, pos, want,
+                                                      limit)
+        if n_valid < S_:
+            k2, v2 = k.clone(), v.clone()
+            k2[:, n_valid:] = randn(k2[:, n_valid:].shape, dt)
+            v2[:, n_valid:] = randn(v2[:, n_valid:].shape, dt)
+            assert torch.equal(flash_decode(q, k2, v2, pos), out), \
+                "slots past pos moved flash_decode's output"
+            line += "; masked tail redrawn: output bitwise unchanged"
+            del k2, v2
+        if timed:
+            # the library yardstick: SDPA over the same cache with GQA and
+            # a boolean mask of the valid slots; its heads-first layouts
+            # are made here, outside the timed call
+            qs = q.reshape(B_, Kh * G, 1, Dh)
+            ks = k.permute(0, 2, 1, 3).contiguous()
+            vs = v.permute(0, 2, 1, 3).contiguous()
+            mask = (torch.arange(S_, device=device) < n_valid)[None, None,
+                                                                None]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+            lib_err = float((sdpa().reshape(q.shape).float()
+                             - want.float()).abs().max())
+            E = q.element_size()
+            # bytes: each valid k and v row once, q read and out written;
+            # operations: the two products' FMAs and one exp per slot
+            row = _row(
+                "flash_decode", "src/repro_torch/kernels/csrc/decode_attn.cu",
+                "src/repro/kernels/decode_attn.py:67 (body _kernel :26-63)",
+                err, _time_ms(lambda: flash_decode(q, k, v, pos)),
+                _time_ms(lambda: ref.flash_decode_ref(q, k, v, pos)),
+                _time_ms(sdpa),
+                2 * B_ * n_valid * Kh * Dh * E + 2 * q.numel() * E,
+                4.0 * B_ * Kh * G * n_valid * Dh, exps=B_ * Kh * G * n_valid,
+                clock_hz=clock_hz)
+            row["case"] = f"B={B_}, S={S_}, pos={pos}, bf16"
+            rows.append(row)
+            line += (f"; {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+                     f"SDPA {row['library_ms']:.4f} with err {lib_err:.3g}, "
+                     f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
+            del qs, ks, vs
+        _phase("kernels", line)
+        del q, k, v, out, want
+    return rows
+
+
+def _greedy_decode(params, cfg, cache, logits, steps):
+    """`steps` greedy decode steps from the prefill's last logits, each
+    timed on the host clock to its synchronize. Returns (logits [steps +
+    1, B, V], the prefill's first; the tokens fed [B, steps]; the steps'
+    ms; the cache)."""
+    out, toks, ms = [logits], [], []
+    for _ in range(steps):
+        tok = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+        t0 = time.perf_counter()
+        logits, cache = TF.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+        toks.append(tok)
+    return torch.stack(out), torch.cat(toks, dim=1), ms, cache
+
+
+def _decode_logits_err(params, cfg, prompts, fed, steps):
+    """The KV-cache check's first number: (max |decode logits - forward's
+    at the same positions|, forward's max |logit|, argmax agreement) over
+    the prefill's last logits and each step's; `forward` runs on the
+    prompts and the tokens fed."""
+    T, n = prompts.shape[1], fed.shape[1]
+    full, _ = TF.forward(params, cfg, {"tokens": torch.cat([prompts, fed],
+                                                           dim=1)})
+    at = full[:, T - 1:T + n].transpose(0, 1).float()
+    del full
+    err = float((steps.float() - at).abs().max())
+    agree = float((steps.argmax(-1) == at.argmax(-1)).float().mean())
+    return err, float(at.abs().max()), agree
+
+
+def _decode_cache_err(params, cfg, cache, prompts, fed, cache_len) -> float:
+    """The KV-cache check's second number: the largest |decode cache -
+    prefill's cache over the prompts and the tokens fed|, each leaf's (k
+    or v of every layer) as a share of that leaf's max |value| in
+    prefill's."""
+    _, want = TF.prefill(params, cfg, {"tokens": torch.cat([prompts, fed],
+                                                           dim=1)},
+                         cache_len)
+    assert want["pos"] == cache["pos"], (want["pos"], cache["pos"])
+    worst = 0.0
+    for a, b in zip(tree_leaves(cache["segs"]), tree_leaves(want["segs"])):
+        d = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(a, b))
+        worst = max(worst, d / float(b.abs().max()))
+    return worst
+
+
+def _slot_fault_control(params, cfg, prompts, cache_len):
+    """A planted fault: FULL's prefill, then DECODE_CONTROL_STEPS greedy
+    steps in which each new k / v lands one slot early (slot pos - 1,
+    slot pos left as prefill left it, zero past the prompt), as if
+    attention_decode computed its slot off by one. Returns the two
+    KV-cache numbers under it ((logits err, max |logit|), cache err)."""
+    logits, cache = TF.prefill(params, cfg, {"tokens": prompts}, cache_len)
+
+    def planted(q, k, v, pos, scale=None):
+        s, e = pos % k.shape[1], (pos - 1) % k.shape[1]
+        k[:, e], v[:, e] = k[:, s], v[:, s]
+        k[:, s], v[:, s] = 0, 0
+        return flash_decode(q, k, v, pos, scale)
+
+    ATT.flash_decode = planted
+    try:
+        steps, fed, _, cache = _greedy_decode(params, cfg, cache, logits,
+                                              DECODE_CONTROL_STEPS)
+    finally:
+        ATT.flash_decode = flash_decode
+    err, top, _ = _decode_logits_err(params, cfg, prompts, fed, steps)
+    return (err, top), _decode_cache_err(params, cfg, cache, prompts, fed,
+                                         cache_len)
+
+
+def _profiled_decode_step(params, cfg, cache, tok) -> str:
+    """One decode step under torch.profiler: flash_decode's share of the
+    step's device time and of its wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        TF.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    if dev_us == 0:
+        return "not measured (the profiler saw no device time)"
+    fd_us = sum(e.self_device_time_total for e in ev
+                if "flash_decode" in e.key)
+    return (f"flash_decode {fd_us / 1e3:.3f} ms of {dev_us / 1e3:.3f} ms "
+            f"device time ({100 * fd_us / dev_us:.1f}%), the step "
+            f"{wall_us / 1e3:.2f} ms wall under the profiler (device busy "
+            f"{100 * dev_us / wall_us:.1f}%)")
+
+
+def decode_phase(device, smi):
+    """Phase 3b. qwen3-0.6b serving at its published widths in bf16 with
+    seeded random weights: for each of DECODE_RUNS a prefill of DECODE_B
+    MarkovTokens prompts, then DECODE_STEPS greedy decode steps, each
+    step's logits held against `forward` over the prompt and the tokens
+    fed so far at its position and every layer's cache after the steps
+    against `prefill`'s over the same tokens (the KV-cache check; both run
+    attention_forward, never the kernel), with a planted slot fault on
+    FULL that the cache number must fail; a decode step repeated from two
+    clones of the cache bit-identical; one step profiled. Then 2 layers of
+    the same widths in f32: prefill and 8 decode steps on the card
+    against the same on the CPU. Returns the launch counts of the decode
+    loops."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg_full = get_config(DECODE_ARCH, "full")
+    # LONG differs from FULL in its window alone: one set of params
+    params = TF.init_params(cfg_full, seed=DECODE_SEED, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    source = MarkovTokens(cfg_full.vocab_size, seed=DECODE_SEED)
+    # warm-up: cuBLAS's handles and heuristics, the kernel library
+    wl, wc = TF.prefill(params, cfg_full, {"tokens": torch.zeros(
+        (DECODE_B, 16), dtype=torch.int32, device=device)}, cache_len=32)
+    TF.decode_step(params, cfg_full, wc, wl.argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    _phase("decode", f"{cfg_full.name} at its published widths "
+           f"({cfg_full.num_layers} layers, d_model {cfg_full.d_model}, "
+           f"{cfg_full.num_heads} heads over {cfg_full.num_kv_heads} KV "
+           f"heads of {cfg_full.head_dim_}, vocab {cfg_full.vocab_size}): "
+           f"{n_params:,} params in bf16, seed {DECODE_SEED}, ready in "
+           f"{time.perf_counter() - t0:.1f} s")
+    del wl, wc
+    launches = dict.fromkeys(_build.KERNELS, 0)
+    for variant, T, cache_len in DECODE_RUNS:
+        cfg = get_config(DECODE_ARCH, variant)
+        prompts = torch.from_numpy(source.sample(DECODE_B, T)[:, :T]).to(
+            device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TF.prefill(params, cfg, {"tokens": prompts},
+                                   cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        Sc = cache["segs"][0]["0"]["k"].shape[2]
+        _build.reset_launch_counts()
+        steps, fed, ms, cache = _greedy_decode(params, cfg, cache, logits,
+                                               DECODE_STEPS)
+        counts = dict(_build.launch_counts)
+        want = DECODE_STEPS * cfg.num_layers
+        assert counts["flash_decode"] == want, (counts["flash_decode"], want)
+        for name, n in counts.items():
+            launches[name] += n
+        assert steps.shape == (DECODE_STEPS + 1, DECODE_B,
+                               cfg.vocab_size), steps.shape
+        assert torch.isfinite(steps).all(), "non-finite decode logits"
+        # the KV-cache check: forward's logits at each step's position,
+        # then prefill's cache over the same tokens
+        err, scale, agree = _decode_logits_err(params, cfg, prompts, fed,
+                                               steps)
+        assert err <= DECODE_TOL * scale, (
+            f"{variant}: decode logits {err:.3g} from forward's, above "
+            f"{DECODE_TOL} x {scale:.3g}")
+        cerr = _decode_cache_err(params, cfg, cache, prompts, fed, cache_len)
+        assert cerr <= DECODE_CACHE_TOL, (
+            f"{variant}: the decode cache {cerr:.3g} of max |value| from "
+            f"prefill's, above {DECODE_CACHE_TOL}")
+        # a decode step from two clones of the cache: bit-identical
+        tok = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+        c1, c2 = ({"pos": cache["pos"],
+                   "segs": tree_map(torch.clone, cache["segs"])}
+                  for _ in range(2))
+        l1, c1 = TF.decode_step(params, cfg, c1, tok)
+        l2, c2 = TF.decode_step(params, cfg, c2, tok)
+        assert torch.equal(l1, l2) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(c1["segs"]),
+                                              tree_leaves(c2["segs"]))), \
+            f"{variant}: a repeated decode step differs"
+        del c1, c2, l1, l2
+        prof = _profiled_decode_step(params, cfg, cache, tok)
+        control = ""
+        if variant == "full":
+            (f_err, f_top), f_cerr = _slot_fault_control(params, cfg,
+                                                          prompts, cache_len)
+            assert f_cerr > DECODE_CACHE_TOL, (
+                f"the cache check passes a planted slot fault ({f_cerr:.3g})")
+            control = (f"; control, each new k / v one slot early for "
+                       f"{DECODE_CONTROL_STEPS} steps: logits err {f_err:.3g} "
+                       f"of max |logit| {f_top:.3g} ("
+                       + ("fails" if f_err > DECODE_TOL * f_top else "passes")
+                       + f" the logits check), cache err {f_cerr:.3g} (fails "
+                       f"the cache check)")
+        _phase("decode", f"{variant}: prefill {DECODE_B} x {T} tokens into "
+               f"{Sc} slots a layer in {prefill_ms:.1f} ms; {DECODE_STEPS} "
+               f"greedy steps (pos {T} to {T + DECODE_STEPS - 1}"
+               + (", all past the rolling buffer's end" if T >= Sc else "")
+               + f"): step p50 {np.percentile(ms, 50):.3f} ms, p99 "
+               f"{np.percentile(ms, 99):.3f} ms, "
+               f"{DECODE_B * DECODE_STEPS / (sum(ms) / 1e3):.1f} tokens/s; "
+               f"flash_decode launches {counts['flash_decode']}; logits vs "
+               f"forward's max abs err {err:.3g} (max |logit| {scale:.3g}, "
+               f"tol {DECODE_TOL} x that), argmax agreement "
+               f"{100 * agree:.2f}%; caches vs prefill's {cerr:.3g} of max "
+               f"|value| (tol {DECODE_CACHE_TOL}){control}; a repeated "
+               f"step bit-identical; one step profiled: {prof}")
+        del cache, steps, fed, logits, prompts
+    peak = torch.cuda.max_memory_allocated()
+    _phase("decode", f"peak device memory {peak / 2**30:.2f} GiB; "
+           f"nvidia-smi: {smi}")
+
+    # 2 layers of the same widths in f32, the card against the CPU on one
+    # set of weights and the same tokens (a cache of 300 slots: decode
+    # reads a masked tail, and 300 is no multiple of the kernel's chunks)
+    cfg2 = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    p2 = TF.init_params(cfg2, seed=DECODE_SEED + 1, device=device)
+    toks = torch.from_numpy(source.sample(2, 264)[:, :264])
+    res = {}
+    for d, p in ((device, p2), ("cpu", tree_map(lambda a: a.cpu(), p2))):
+        logits, cache = TF.prefill(p, cfg2, {"tokens": toks[:, :256].to(d)},
+                                   cache_len=300)
+        outs = [logits]
+        for s in range(8):
+            logits, cache = TF.decode_step(p, cfg2, cache,
+                                           toks[:, 256 + s:257 + s].to(d))
+            outs.append(logits)
+        res[d] = (torch.stack(outs).cpu(),
+                  [a.cpu() for a in tree_leaves(cache["segs"])])
+    torch.testing.assert_close(res[device][0], res["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(res[device][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    lerr = float((res[device][0] - res["cpu"][0]).abs().max())
+    cerr = max(float((a - b).abs().max())
+               for a, b in zip(res[device][1], res["cpu"][1]))
+    _phase("decode", f"2 layers at the full widths in f32, prefill 2 x 256 "
+           f"tokens into 300 slots and 8 decode steps: the card vs the CPU "
+           f"logits max abs err {lerr:.3g} (tol 1e-4), caches {cerr:.3g} "
+           f"(tol 1e-5)")
+    del params, p2, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
@@ -1750,6 +2179,10 @@ def _smoke(args, partitions, t_start) -> int:
             launches[f"{hd} serving"] = serving_quant_phase(g, spec, device,
                                                             hd)
             lap(f"{hd} serving")
+        rows += decode_kernel_rows(device, _clock_hz())
+        lap("decode kernels")
+        launches["decode"] = decode_phase(device, smi)
+        lap("decode serving")
         parts = partitions()
         lap("waiting for the partitions")
         plans = train_plans(device, parts)
@@ -1780,7 +2213,7 @@ def _smoke(args, partitions, t_start) -> int:
               "bf16 serving", "gather_rows_bf16": "gat bf16",
               "gather_spmm_vq": "vq serving", "scatter_rows_vq":
               "vq serving", "gather_rows_vq": "gat vq",
-              **{k: "pna f32" for k in _PNA}}
+              "flash_decode": "decode", **{k: "pna f32" for k in _PNA}}
     for r in rows:
         r["launches"] = launches[source.get(r["name"], "f32 serving")][
             r["name"]]

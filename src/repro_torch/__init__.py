@@ -2,13 +2,17 @@
 
 The JAX package `repro` is the reference; this package imports nothing of
 it and never imports `jax`. It mirrors the reference's layout
-(`data`, `core`, `gnn`, `kernels`, `train`, `launch`) and so far covers
-GAS training (the paper's Algorithm 1) of GCN, GAT and PNA, and serving
-a GCN over the history cache, over f32, bf16 and int8 history tables:
+(`data`, `core`, `gnn`, `kernels`, `train`, `launch`, `configs`,
+`models`) and so far covers GAS training (the paper's Algorithm 1) of
+GCN, GAT and PNA, and serving a GCN over the history cache, over f32,
+bf16, int8 and vq history tables; and serving the transformer substrate's
+dense configs (prefill, then KV-cache decode):
 
     GASConfig -> build_plan -> init_state -> train_step / train_epoch
         -> predict / evaluate_exact
     ServeConfig -> build_serve_plan -> init_serve_state -> serve_request
+    configs.base.get_config -> models.transformer.init_params -> prefill
+        -> decode_step
 
 Its kernels are written in CUDA for `sm_90a` (`kernels/csrc/*.cu`).
 Entry points take `device=None`, which means "cuda"; the CPU runs only

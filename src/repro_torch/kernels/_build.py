@@ -45,7 +45,8 @@ KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
            "gather_rows_dq", "scatter_rows_q", "gather_spmm_dq",
            "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16",
            "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col",
-           "gather_rows_vq", "scatter_rows_vq", "gather_spmm_vq")
+           "gather_rows_vq", "scatter_rows_vq", "gather_spmm_vq",
+           "flash_decode")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -82,6 +83,8 @@ _SIGNATURES = {
                                                 _P, _P],
     "repro_pna_reduce_bwd_col_f32": [_P] * 9 + [_I, _I, _I, _P, _P, _I, _I,
                                                 _P, _P],
+    "repro_flash_decode_f32": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "repro_flash_decode_bf16": [_P] * 5 + [_I] * 9 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the port's sixteen CUDA kernels.
+"""Plain PyTorch versions of the port's seventeen CUDA kernels.
 
 Each function computes what its kernel computes, on the same arguments, in
 plain tensor code: the kernel wrappers (`gather.py`, `scatter.py`,
-`bcsr_spmm.py`, `fused.py`, `edge_softmax.py`, `pna_reduce.py`) run them
+`bcsr_spmm.py`, `fused.py`, `edge_softmax.py`, `pna_reduce.py`,
+`decode_attn.py`) run them
 when handed CPU tensors, the tests hold them against the JAX package's
 Pallas kernels, and `chip_smoke.py` holds each kernel against them on
 the card. They repeat the kernels' arithmetic and are no yardstick of
@@ -583,3 +584,35 @@ def pna_reduce_coo(xd: torch.Tensor, xs: torch.Tensor, edges,
         ext = ext + pre.new_zeros((n1, Fd)).index_add(0, dst, share)
         out.append(torch.where(has, ext[:n_out], 0.0))
     return out[0], out[1], out[2], cnt[:n_out]
+
+
+def flash_decode_valid(pos: int, seq_len: int) -> int:
+    """The number of leading cache slots one decode step attends to: slots
+    past `pos` are masked unless `pos >= seq_len` (a rolling buffer whose
+    every slot holds a live position)."""
+    if pos < 0:
+        raise ValueError(f"flash_decode: pos must be >= 0, got {pos}")
+    return seq_len if pos >= seq_len else pos + 1
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: int, scale: Optional[float] = None
+                     ) -> torch.Tensor:
+    """GQA single-token attention over a KV cache, as the Pallas
+    `flash_decode` computes it: q [B, Kh, G, Dh], k / v [B, S, Kh, Dh]
+    (f32 or bf16), `pos` the decode position. Scores in f32 (exact
+    products of the inputs) times `scale` (default Dh^-0.5) after the
+    dot; slots past `pos` masked to -1e30 unless `pos >= S`; p =
+    exp(s - max) rounded to v's type before `p @ v`, the normalizer summed
+    from the unrounded p; out = acc / max(l, 1e-30) in q's type."""
+    S, Dh = k.shape[1], q.shape[-1]
+    scale = Dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    valid = torch.arange(S, device=q.device) < flash_decode_valid(pos, S)
+    s = torch.where(valid, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

@@ -30,6 +30,11 @@ tables and scale tables; a bf16 store only by the writer's meta
 hold bf16 and both packages widen it to f32 (exactly) on disk.
 `params_from_numpy` maps a flattened param tree given as numpy arrays
 into the params dict.
+
+`transformer_params_from_numpy` and `transformer_cache_from_numpy` carry
+the transformer's params tree (`repro.models.transformer.init_params`)
+and its decode cache `{"pos", "segs"}`, given as nested dicts and lists
+of numpy arrays, into the port's (`repro_torch.models.transformer`).
 """
 from __future__ import annotations
 
@@ -219,3 +224,40 @@ def load_gas_state(path: str, device=None,
                              if k.startswith("state/opt_state/v/")}, dev))
     return GASState(params=params, opt_state=opt, histories=store,
                     rng=np.asarray(flat["state/rng"], np.uint32)), step
+
+
+def _tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor of the same type; bf16 arrays (numpy's
+    `bfloat16` extension type, as `np.asarray` gives a jax bf16 array)
+    widen to f32 and round back, exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _tree_from_numpy(tree, device: torch.device):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return _tensor_from_numpy(tree, device)
+
+
+def transformer_params_from_numpy(tree: Mapping[str, Any], device=None
+                                  ) -> Dict[str, Any]:
+    """The reference transformer's params tree ({"embed", "segs": [{"0":
+    {...}}, ...], "final_norm", "lm_head"}, leaves as numpy arrays) ->
+    the port's, leaf for leaf in the same types, on `device` (None means
+    "cuda")."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def transformer_cache_from_numpy(cache: Mapping[str, Any], device=None
+                                 ) -> Dict[str, Any]:
+    """The reference's decode cache {"pos": int32 scalar, "segs": [...]}
+    -> the port's, with `pos` a host int."""
+    dev = resolve_device(device)
+    return {"pos": int(np.asarray(cache["pos"])),
+            "segs": _tree_from_numpy(cache["segs"], dev)}

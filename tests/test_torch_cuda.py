@@ -24,11 +24,18 @@ decoding pull and the encoding push bitwise (codes, scales, decoded
 rows: one division, distances summed left to right, the first minimum,
 one multiply), the fused vq body at 1e-5, a refit on the card against
 the same refit on the CPU (codebooks at 1e-6, >= 99.9% of the codes
-equal), and vq training steps with >= 99.9% of the codes equal."""
+equal), and vq training steps with >= 99.9% of the codes equal.
+`flash_decode` against its plain version at 1e-5 in f32 (the Pallas
+kernel's own tolerance) and in bf16 within 2e-2 of the largest
+|output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
+against the CPU's: logits at 1e-4, caches at 1e-5."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import runtime as R
 from repro_torch.core.config import resolve_device
 from repro_torch.data.graphs import citation_graph
@@ -37,13 +44,15 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import edge_softmax as esk
 from repro_torch.kernels import pna_reduce as pnk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
+from repro_torch.kernels.decode_attn import flash_decode
 from repro_torch.kernels.fused import gather_plan, gather_spmm
 from repro_torch.core.history import vq_init_codebook
 from repro_torch.kernels.gather import (gather_rows, gather_rows_dq,
                                         gather_rows_vq)
 from repro_torch.kernels.scatter import (scatter_rows, scatter_rows_q,
                                          scatter_rows_vq)
-from repro_torch.train.optimizer import tree_leaves
+from repro_torch.models import transformer as T
+from repro_torch.train.optimizer import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -642,3 +651,97 @@ def test_vq_train_step_on_card_matches_cpu(dev, op):
            if _build.launch_counts[k] > before[k]}
     read = "gather_spmm_vq" if op == "gcn" else "gather_rows_vq"
     assert {"scatter_rows_vq", read} <= ran, ran
+
+
+def _decode_inputs(seed, B, Kh, G, Dh, S, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dtype)
+               for shape in ((B, Kh, G, Dh), (B, S, Kh, Dh), (B, S, Kh, Dh)))
+    return q, k, v, rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Kh,G,Dh,S,pos", [
+    (2, 2, 2, 128, 4096, 3000), (8, 8, 2, 128, 4096, 5000),
+    (2, 4, 1, 64, 700, 0), (3, 2, 8, 32, 333, 200), (1, 2, 3, 64, 1000, 999),
+    (2, 1, 12, 128, 2049, 2048), (1, 2, 4, 32, 512, 10_000)])
+def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
+    """The kernel against `flash_decode_ref` on the card: f32 at 1e-5
+    (the Pallas kernel's tolerance in tests/test_kernels.py), bf16 within
+    2e-2 of the largest |output| (a sound kernel differs by at most one
+    flip of the output's bf16 rounding, <= 2^-7 of it; an absolute 2e-2
+    is the size of a typical output over thousands of slots and would
+    pass a kernel that lost a warp's slots): Dh 32 to 128, G 1 to 12 (3
+    and 12 fill their group tiles only in part), S not a multiple of 256,
+    pos 0, inside the cache and past it (a rolling buffer); a warm repeat
+    bitwise equal."""
+    q, k, v, _ = _decode_inputs(B + S + pos, B, Kh, G, Dh, S, dtype)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    before = _build.launch_counts["flash_decode"]
+    out = flash_decode(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_decode"] == before + 1
+    want = ref.flash_decode_ref(q, k, v, pos).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.float(), want, rtol=1e-5, atol=1e-5)
+    else:
+        err = float((out.float() - want).abs().max())
+        assert err <= 2e-2 * float(want.abs().max()), err
+    assert torch.equal(out, flash_decode(q, k, v, pos))
+    assert out.dtype == dtype and out.shape == q.shape
+
+
+def test_flash_decode_rejects_unbuilt_head_dim(dev):
+    """Only Dh 32, 64 and 128 are built: another raises before a launch."""
+    q, k, v, _ = _decode_inputs(0, 1, 2, 2, 256, 64, torch.bfloat16)
+    before = _build.launch_counts["flash_decode"]
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_decode(q.to(dev), k.to(dev), v.to(dev), 10)
+    assert _build.launch_counts["flash_decode"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 255, 256, 1000, 4094])
+def test_flash_decode_ignores_masked_tail(dev, dtype, pos):
+    """Slots past `pos` are never read: new values there (NaN included)
+    leave the output bitwise unchanged."""
+    B, Kh, G, Dh, S = 2, 8, 2, 128, 4096
+    q, k, v, rng = _decode_inputs(pos, B, Kh, G, Dh, S, dtype)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    out = flash_decode(q, k, v, pos)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, pos + 1:] = torch.from_numpy(rng.normal(
+        size=k2[:, pos + 1:].shape).astype(np.float32)).to(dev, dtype)
+    v2[:, pos + 1:] = float("nan")
+    assert torch.equal(out, flash_decode(q, k2, v2, pos))
+
+
+def test_decode_steps_on_card_match_cpu(dev):
+    """qwen3's SMOKE widths in f32, one set of weights on both devices:
+    prefill and 4 decode steps (the cache of 40 slots past the 24-token
+    prompt, so decode reads a masked tail), logits at 1e-4 and caches at
+    1e-5, and one flash_decode launch per layer and step on the card."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", "smoke"),
+                              dtype="float32")
+    params = T.init_params(cfg, seed=0, device=dev)
+    cparams = tree_map(lambda a: a.cpu(), params)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 28))
+    toks = torch.from_numpy(toks.astype(np.int32))
+    out = {}
+    before = _build.launch_counts["flash_decode"]
+    for d, p in ((dev, params), ("cpu", cparams)):
+        logits, cache = T.prefill(p, cfg, {"tokens": toks[:, :24].to(d)},
+                                  cache_len=40)
+        steps = [logits]
+        for s in range(4):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          toks[:, 24 + s:25 + s].to(d))
+            steps.append(logits)
+        out[d] = ([x.cpu() for x in steps],
+                  [x.cpu() for x in cache["segs"][0]["0"].values()])
+    assert _build.launch_counts["flash_decode"] == before + 4 * cfg.num_layers
+    for a, c in zip(out[dev][0], out["cpu"][0]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    for a, c in zip(out[dev][1], out["cpu"][1]):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)

@@ -12,10 +12,12 @@ import torch
 
 from repro_torch.core import runtime as t_rt
 from repro_torch.core import serve as t_serve
+from repro_torch.configs.base import get_config
 from repro_torch.core.history import HistoryStore
 from repro_torch.data.graphs import citation_graph
 from repro_torch.gnn import model as t_model
 from repro_torch.launch import serve_gas, train_gas
+from repro_torch.models import transformer as t_tf
 from repro_torch.train import checkpoint as t_ckpt
 from repro_torch.train.gas_trainer import FullBatchTrainer
 
@@ -41,13 +43,13 @@ def test_import_leaves_jax_and_reference_out():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()
-    assert int(n_mods) >= 25, n_mods       # every module was imported
+    assert int(n_mods) >= 45, n_mods       # every module was imported
     assert bad == "[]", bad
 
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 25
+    assert len(files) >= 46
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -78,6 +80,12 @@ def test_entry_points_default_to_cuda():
         lambda: FullBatchTrainer(g, spec),
         lambda: t_ckpt.load_gas_state("never-read.npz"),
         lambda: train_gas.main(["--smoke"]),
+        lambda: t_tf.init_params(get_config("qwen3-0.6b", "smoke")),
+        lambda: t_tf.init_cache(get_config("qwen3-0.6b", "smoke"), 1, 8),
+        lambda: t_ckpt.transformer_params_from_numpy(
+            {"embed": np.zeros((4, 2), np.float32)}),
+        lambda: t_ckpt.transformer_cache_from_numpy(
+            {"pos": np.int32(0), "segs": []}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
