@@ -28,11 +28,17 @@ with a non-zero exit at the first failure:
    the output layer's, 1 head of 7, on a line of their own), the GAT
    hidden layer's history pull from an int8 table (`gather_rows_dq`), a
    bf16 one and a vq one (`gather_rows_vq`), `bcsr_spmm` on the
-   transposed blocks of a quickstart
+   forward and the transposed blocks of a quickstart
    batch (the GCN backward's use of it), and PNA's three `pna_reduce`
    kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
    (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
    beside a composition of PyTorch calls over the blocks' nonzeros).
+   Each block contraction (`bcsr_spmm` on the refresh batch, on the same
+   blocks made fully dense, and on the two quickstart families;
+   `gather_spmm`'s four bodies) has a line with its time beside the
+   earlier dense block core's: PERF.md's time, or, with --parent-csrc,
+   the parent checkout's kernels run on the same inputs, with whether
+   their outputs are bitwise equal.
 3. serving — the PubMed-shaped graph (19,717 nodes, degree 4.5, 500
    features, 3 classes) and a 3-layer, 256-wide GCN with seeded random
    weights and a zero f32 history store; 16 requests x 128 queries at
@@ -104,6 +110,14 @@ also writes the three training partitions (the port's METIS-like
 partitioner on this host) for `tests/test_torch_train.py --reference-acc
 [--history-dtype ...]`.
 
+    mkdir -p build/parent-src
+    git archive PARENT src/repro_torch/kernels/csrc | tar -x -C build/parent-src
+    python3 chip_smoke.py --parent-csrc build/parent-src/src/repro_torch/kernels/csrc
+
+also builds the kernels of another checkout (its C entry points must
+have this build's signatures) and times its block contraction beside
+this build's in phase 2.
+
 Then it prints the kernels line (JSON), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Without
 a CUDA device, or outside a checkout, it exits non-zero and prints no
@@ -171,6 +185,20 @@ N_REQUESTS, QUERY_SIZE, SEED = 16, 128, 0
 # against the full-graph forward: the same f32 sums taken in another order
 RTOL, ATOL = 1e-4, 1e-4
 TIMED_REPS = 25
+# `--parent-csrc DIR`: the kernel library built from another checkout's
+# sources (the parent commit's), whose block contraction phase 2 runs
+# through the same wrappers on the same inputs beside this build's; None
+# without it, and then each contraction's time is printed beside
+# EARLIER_MS: the dense block core's times on the same shapes (NVIDIA H100
+# 80GB HBM3, 700.00 W), from PERF.md's kernel table and, for the
+# dense-block and training lines, from this script run with --parent-csrc
+PARENT_LIB = None
+EARLIER_MS = {"bcsr_spmm": 2.016, "gather_spmm": 1.877,
+              "gather_spmm_bf16": 1.965, "gather_spmm_dq": 2.031,
+              "gather_spmm_vq": 1.942,
+              "bcsr_spmm on dense blocks (refresh batch shape, D=500)": 2.0535,
+              "bcsr_spmm on forward training blocks (D=128)": 0.0678,
+              "bcsr_spmm on transposed training blocks (D=128)": 0.0373}
 
 # Phase 4. The training configurations and the reference's exact test
 # accuracy for each after 60 epochs on the "jnp" backend, per history
@@ -452,6 +480,33 @@ def _row(name, source, replaces, err, ms, plain_ms, library_ms, n_bytes,
     return row
 
 
+def _beside_earlier(label, fn, out, ms):
+    """One phase-2 line: a contraction's time beside the earlier block
+    core's. With --parent-csrc the parent's kernels run `fn` (the same
+    wrapper call; their launches are not counted) on the same inputs, and
+    their output is compared with `out`: equal values, equal bits."""
+    if PARENT_LIB is None:
+        earlier = EARLIER_MS.get(label)
+        _phase("kernels", f"{label}: {ms:.4f} ms (the dense block core: "
+               f"{'not measured' if earlier is None else f'{earlier} ms'}"
+               f", PERF.md)")
+        return
+    saved, counts = _build._lib, dict(_build.launch_counts)
+    _build._lib = PARENT_LIB
+    try:
+        old = fn()
+        old_ms = _time_ms(fn)
+    finally:
+        _build._lib = saved
+        _build.launch_counts.update(counts)
+    same = torch.equal(old, out)
+    bits = same and torch.equal(old.view(torch.int32), out.view(torch.int32))
+    _phase("kernels", f"{label}: {ms:.4f} ms, the parent's kernel "
+           f"{old_ms:.4f} ms ({old_ms / ms:.2f}x) on the same inputs; "
+           f"outputs equal {same}, bitwise {bits}, max diff "
+           f"{float((old - out).abs().max()):.3g}")
+
+
 def kernel_phase(g, spec, device):
     """Phase 2. Returns the kernel rows (launches filled in later)."""
     N = g.num_nodes
@@ -560,6 +615,23 @@ def kernel_phase(g, spec, device):
         _time_ms(lambda: torch.sparse.mm(a_csr, x_pad)),
         blk_bytes + n_x * x_all.shape[1] * 4 + R * 128 * x_all.shape[1] * 4,
         2.0 * nnz * x_all.shape[1]))
+    _beside_earlier("bcsr_spmm", lambda: bcsr_spmm(x_all, vals, cols), out,
+                    rows[-1]["ms"])
+    # the same blocks with no entry zero: what the sparse stream costs
+    # where it skips nothing (one L1 read per FMA on the CUDA cores). An
+    # output sums 9,728 terms: on a grid (block values k/8, x integers)
+    # every order of summation is exact, so the check holds the terms
+    dense = torch.randint(1, 9, vals.shape, generator=gen, device=device,
+                          dtype=torch.float32) / 8
+    x_grid = torch.round(x_all)
+    out = bcsr_spmm(x_grid, dense, cols)
+    torch.testing.assert_close(out, ref.bcsr_spmm_ref(x_grid, dense, cols),
+                               rtol=RTOL, atol=ATOL)
+    _beside_earlier(f"bcsr_spmm on dense blocks (refresh batch shape, "
+                    f"D={x_all.shape[1]})",
+                    lambda: bcsr_spmm(x_grid, dense, cols), out,
+                    _time_ms(lambda: bcsr_spmm(x_grid, dense, cols)))
+    del dense, x_grid
 
     # gather_spmm: the layer-1 aggregation, halo rows out of the table
     x_in = torch.randn((bucket, D_HIDDEN), generator=gen, device=device)
@@ -582,6 +654,8 @@ def kernel_phase(g, spec, device):
         blk_bytes + 3 * sel.numel() * 4 + (n_xrows + n_trows) * D_HIDDEN * 4
         + R * 128 * D_HIDDEN * 4,
         2.0 * nnz * D_HIDDEN))
+    _beside_earlier("gather_spmm", lambda: gather_spmm(
+        x_in, hist, vals, cols, sel, xrow, trow), out, rows[-1]["ms"])
     rows += _quantized_kernel_rows(
         hist, x_in, vals, cols, (sel, xrow, trow), vals_p, dup, push_idx,
         uniq_idx, uniq_vals, blk_bytes, nnz)
@@ -634,6 +708,9 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
             _time_ms(lambda: ref.gather_spmm_ref(x_in, table, vals, cols,
                                                  sel, xrow, trow, scales)),
             None, fixed + n_trows * row_bytes, flops))
+        _beside_earlier(name, lambda: gather_spmm(
+            x_in, table, vals, cols, sel, xrow, trow, scales), out,
+            rows[-1]["ms"])
 
     # scatter_rows_q: the push of the refresh batch into the int8 store,
     # codes and scales bitwise (duplicates and masked rows first), each
@@ -734,6 +811,9 @@ def _vq_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup, push_idx,
         None,
         blk_bytes + 3 * sel.numel() * 4 + n_xrows * D * 4 + R * 128 * D * 4
         + n_trows * (S + 4) + n_entries * 32, 2.0 * nnz * D + n_trows * D))
+    _beside_earlier("gather_spmm_vq", lambda: gather_spmm(
+        x_in, codes, vals, cols, sel, xrow, trow, scales, cb), out,
+        rows[-1]["ms"])
 
     # scatter_rows_vq: the push of the refresh batch into the vq store:
     # table codes, scales and every pushed row's codes bitwise (duplicates
@@ -1136,27 +1216,35 @@ def training_kernel_phase(plans, device, clock_hz):
     rows += _history_pull_rows(plans["gat"], device, gen)
     rows += _pna_kernel_rows(plans["pna"], device, gen)
 
-    # bcsr_spmm's backward use: the transposed blocks of a quickstart
-    # batch against the cotangent of the layer-0 aggregation (128 wide)
+    # bcsr_spmm on a quickstart batch's blocks (128 wide): the forward
+    # family against the layer-0 input, and the GCN backward's use of it,
+    # the transposed family against the aggregation's cotangent
     batch = plans["gcn"].batch(0)
-    vt, ct = batch.transposed.vals, batch.transposed.cols
     d = plans["gcn"].x.shape[1]
-    gout = torch.randn((batch.forward.cols.shape[0] * 128, d),
-                       generator=gen, device=device)
-    out = bcsr_spmm(gout, vt, ct)
-    want = ref.bcsr_spmm_ref(gout, vt, ct)
-    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
-    R_t = ct.shape[0]
-    n_x = sum(min(128, gout.shape[0] - c * 128)
-              for c in torch.unique(ct).tolist())
-    bound_ms, bound_by = _bound(
-        vt.numel() * 4 + ct.numel() * 4 + n_x * d * 4 + R_t * 128 * d * 4,
-        2.0 * int((vt != 0).sum()) * d)
-    _phase("kernels", f"bcsr_spmm on transposed blocks {list(vt.shape)} "
-           f"(the GCN backward, D={d}): err {float((out - want).abs().max()):.3g}, "
-           f"{_time_ms(lambda: bcsr_spmm(gout, vt, ct)):.4f} ms (plain "
-           f"{_time_ms(lambda: ref.bcsr_spmm_ref(gout, vt, ct)):.4f}, bound "
-           f"{bound_ms:.4f} by {bound_by})")
+    fwd = batch.forward
+    x_f = torch.randn(((int(fwd.cols.max()) + 1) * 128, d), generator=gen,
+                      device=device)
+    gout = torch.randn((fwd.cols.shape[0] * 128, d), generator=gen,
+                       device=device)
+    for what, x, v, c in (("forward", x_f, fwd.vals, fwd.cols),
+                          ("transposed", gout, batch.transposed.vals,
+                           batch.transposed.cols)):
+        out = bcsr_spmm(x, v, c)
+        want = ref.bcsr_spmm_ref(x, v, c)
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+        n_x = sum(min(128, x.shape[0] - i * 128)
+                  for i in torch.unique(c).tolist())
+        bound_ms, bound_by = _bound(
+            v.numel() * 4 + c.numel() * 4 + n_x * d * 4
+            + c.shape[0] * 128 * d * 4, 2.0 * int((v != 0).sum()) * d)
+        label = f"bcsr_spmm on {what} training blocks (D={d})"
+        ms = _time_ms(lambda: bcsr_spmm(x, v, c))
+        _phase("kernels", f"{label}: GCN quickstart batch 0, "
+               f"{list(v.shape)}, {int((v != 0).sum())} nonzeros; err "
+               f"{float((out - want).abs().max()):.3g}, {ms:.4f} ms (plain "
+               f"{_time_ms(lambda: ref.bcsr_spmm_ref(x, v, c)):.4f}, bound "
+               f"{bound_ms:.4f} by {bound_by})")
+        _beside_earlier(label, lambda: bcsr_spmm(x, v, c), out, ms)
     return rows
 
 
@@ -2113,6 +2201,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
                     help="also write the training partitions here")
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="also build the kernels in DIR (another "
+                         "checkout's kernels/csrc) and run its block "
+                         "contraction beside this build's in phase 2")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2137,6 +2229,7 @@ def main() -> int:
 
 
 def _smoke(args, partitions, t_start) -> int:
+    global PARENT_LIB
     smi = _smi()
     _phase("toolchain", f"python {sys.version.split()[0]}, torch "
            f"{torch.__version__}, numpy {np.__version__}, CUDA "
@@ -2150,6 +2243,12 @@ def _smoke(args, partitions, t_start) -> int:
     for line in log:
         if "Compiling entry" in line or "registers" in line:
             print("  " + line.strip())
+    if args.parent_csrc:
+        t0 = time.perf_counter()
+        PARENT_LIB = _build.load(_build.build(
+            Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
+        _phase("build", f"the kernels of {args.parent_csrc} in "
+               f"{time.perf_counter() - t0:.1f} s")
 
     device = resolve_device("cuda")
     spent = {}                   # wall seconds per phase, for the budget

@@ -96,13 +96,13 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _key() -> str:
+def _key(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -118,12 +118,13 @@ def _nvcc() -> str:
     return cand
 
 
-def build() -> Path:
-    """Compile the sources (in parallel) and link the library unless a
-    build with the same key exists. Returns the library's path; the
-    compiler's output (ptxas register and spill counts included) is kept
-    beside it in `build.log`."""
-    out_dir = BUILD_DIR / _key()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources in `csrc` (in parallel) and link the library
+    unless a build with the same key exists under `build_dir`. Returns the
+    library's path; the compiler's output (ptxas register and spill counts
+    included) is kept beside it in `build.log`. Another checkout's `csrc`
+    builds that checkout's kernels (`chip_smoke.py --parent-csrc`)."""
+    out_dir = build_dir / _key(csrc)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
@@ -131,7 +132,7 @@ def build() -> Path:
     tmp = out_dir / f"tmp-{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(csrc):
         obj = tmp / (src.stem + ".o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
@@ -159,19 +160,24 @@ def build() -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with its launchers' signatures set."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.repro_error_string.argtypes = [ctypes.c_int]
+    handle.repro_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.repro_error_string.argtypes = [ctypes.c_int]
-            handle.repro_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = load(build())
     return _lib
 
 

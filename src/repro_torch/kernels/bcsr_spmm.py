@@ -1,11 +1,18 @@
 """Block-CSR SpMM: `bcsr_spmm`, the layer-0 GAS aggregation.
 
 Replaces `src/repro/kernels/bcsr_spmm.py:42 bcsr_spmm`. On CUDA tensors it
-launches `csrc/bcsr_spmm.cu` (one CTA per row block and 64-column tile,
-the loop over the K column blocks inside the CTA, f32 sums in registers;
-bound by bytes, the blocks as stored, against 2*D f32 operations per
-nonzero entry: `csrc/block_spmm.cuh`); on CPU tensors it runs the plain
-version `ref.bcsr_spmm_ref`.
+launches `csrc/bcsr_spmm.cu` (a warp per output row streams that row of
+its K blocks once through a shared-memory ring, queues the nonzero
+entries, and multiplies only those, each against its staged row, into
+f32 sums in registers, in the plain version's order; one column tile up
+to D = 512; bound by bytes, the blocks as stored, against 2*D f32
+operations per nonzero entry: `csrc/block_spmm.cuh`); on CPU tensors it
+runs the plain version `ref.bcsr_spmm_ref`.
+
+The one place where the kernel departs from the plain version and the
+reference: they compute 0 * inf = NaN, while the kernel skips zero
+entries, so a non-finite row of x that only zero entries reach does not
+spread into the output (no GAS path feeds non-finite rows).
 """
 from __future__ import annotations
 
@@ -37,7 +44,10 @@ def bcsr_spmm(x: torch.Tensor, blk_vals: torch.Tensor,
               blk_cols: torch.Tensor) -> torch.Tensor:
     """out [R*128, D] f32 = A @ x with A given as BCSR blocks
     (blk_vals [R, K, 128, 128], blk_cols [R, K]). x [n_x, D] f32 needs no
-    padding: rows past n_x and columns past D are masked in the kernel."""
+    padding: rows past n_x and columns past D are masked in the kernel.
+    The kernel multiplies the nonzero entries only: a non-finite x row
+    that only zero entries reach stays out of the output (the plain
+    version gives NaN there)."""
     if all(t.device.type == "cpu" for t in (x, blk_vals, blk_cols)):
         return bcsr_spmm_ref(x, blk_vals, blk_cols)
     name = "bcsr_spmm"

@@ -3,10 +3,13 @@
 //
 // Replaces src/repro/kernels/bcsr_spmm.py:42 bcsr_spmm (Pallas, grid
 // (R, D/128, K) with K innermost accumulating into the VMEM output tile,
-// one 128x128 @ 128x128 MXU matmul per step). The contraction and its
-// bound are described in block_spmm.cuh; this file supplies the staged
-// rows: row b of column block k is x[cols[r, k]*128 + b], or zeros past
-// x's n_x rows (the reference pads x to whole blocks; the port does not).
+// one 128x128 @ 128x128 MXU matmul per step). The contraction (a warp
+// per output row streaming its block rows once and multiplying only the
+// nonzeros), its bound and its one departure from the reference (a
+// non-finite x row reached only by zero entries does not spread) are
+// described in block_spmm.cuh; this file supplies the staged rows: row b
+// of column block k is x[cols[r, k]*128 + b], or zeros past x's n_x rows
+// (the reference pads x to whole blocks; the port does not).
 #include "block_spmm.cuh"
 
 namespace {

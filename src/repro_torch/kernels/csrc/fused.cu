@@ -33,9 +33,13 @@
 // of pre-gathering the reference's [R, K, 128] rscl operand: the same
 // value, without a second plan-sized array in device memory. The `gx`
 // rounding barrier of the reference is the identity in f32 and has no
-// counterpart; neither has its DMA double-buffering (each CTA stages its
-// rows through shared memory, and the other resident CTAs hide the load
-// latency).
+// counterpart; neither has its DMA double-buffering: the shared core
+// streams the block rows with the next few in flight, queues their
+// nonzero entries and stages a row only for a queued entry, making its
+// handle once for the whole warp (sel, xrow and trow are read together,
+// the scale after them) and loading two entries' rows at a time. As
+// bcsr_spmm, it skips zero entries, so a non-finite row that only zero
+// entries reach does not spread (block_spmm.cuh).
 #include <cuda_bf16.h>
 
 #include <type_traits>
@@ -87,19 +91,19 @@ struct PlanRows {
   __device__ __forceinline__ Row row(int64_t r, int64_t k, int b) const {
     const int64_t p = (r * K + k) * repro::kBn + b;
     const int32_t s = __ldg(sel + p);
+    const int64_t xi = __ldg(xrow + p);
+    const int64_t ti = __ldg(trow + p);
     if (s == 0) {
-      const int64_t i = __ldg(xrow + p);
-      if (i >= 0 && i < n_in) {
-        if constexpr (kPlain) return x_in + i * d;
-        else return {x_in + i * d, nullptr, 1.f};
+      if (xi >= 0 && xi < n_in) {
+        if constexpr (kPlain) return x_in + xi * d;
+        else return {x_in + xi * d, nullptr, 1.f};
       }
     } else if (s == 1) {
-      const int64_t i = __ldg(trow + p);
-      if (i >= 0 && i < n_table) {
+      if (ti >= 0 && ti < n_table) {
         const int64_t width = kVq ? d / kVqSub : d;
-        if constexpr (kPlain) return table + i * width;
-        else return {nullptr, table + i * width,
-                     kScaled ? __ldg(scales + i) : 1.f};
+        if constexpr (kPlain) return table + ti * width;
+        else return {nullptr, table + ti * width,
+                     kScaled ? __ldg(scales + ti) : 1.f};
       }
     }
     if constexpr (kPlain) return nullptr;

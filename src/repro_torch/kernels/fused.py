@@ -20,10 +20,15 @@ entry per adjacency-block row) says where virtual column
     sel == 2 : masked halo / dummy / padding -> zeros
 
 On CUDA tensors `gather_spmm` launches `csrc/fused.cu` (the block
-contraction of `csrc/block_spmm.cuh` with plan-routed rows, dequantized
-as they are staged; bound by bytes, the blocks as stored, as
+contraction of `csrc/block_spmm.cuh`: a warp per output row streams its
+block rows once, queues the nonzero entries and multiplies only those,
+each against its plan-routed row, dequantized as it is read; sel == 2
+rows are never read; bound by bytes, the blocks as stored, as
 `bcsr_spmm`); on CPU tensors it runs the plain version
-`ref.gather_spmm_ref`.
+`ref.gather_spmm_ref`. As `bcsr_spmm`, the kernel
+skips zero entries, so a non-finite x_in or table row that only zero
+entries reach does not spread into the output, where the plain version
+computes 0 * inf = NaN: the one place where it departs from it.
 """
 from __future__ import annotations
 
@@ -80,7 +85,9 @@ def gather_spmm(x_in: torch.Tensor, table: torch.Tensor,
     xrow/trow must be pre-clipped to their source's rows (as `gather_plan`
     makes them). An int8 table launches the int8 body (`gather_spmm_dq`),
     a vq table the vq body (`gather_spmm_vq`), the others the f32 one
-    (`gather_spmm`)."""
+    (`gather_spmm`). The kernel multiplies the nonzero entries only: a
+    non-finite row that only zero entries reach stays out of the output
+    (the plain version gives NaN there)."""
     scaled = table.dtype in (torch.int8, torch.uint8)
     if scaled != (scales is not None) or \
             (table.dtype == torch.uint8) != (codebook is not None):

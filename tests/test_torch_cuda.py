@@ -25,6 +25,11 @@ rows: one division, distances summed left to right, the first minimum,
 one multiply), the fused vq body at 1e-5, a refit on the card against
 the same refit on the CPU (codebooks at 1e-6, >= 99.9% of the codes
 equal), and vq training steps with >= 99.9% of the codes equal.
+The block contractions (`bcsr_spmm`, `gather_spmm`'s four bodies) at
+1e-4 over sparse, dense and all-zero blocks, dense ones on a grid where
+every order of summation is exact, and their one departure from the
+plain version pinned: a non-finite row that only zero entries reach
+stays out of the output.
 `flash_decode` against its plain version at 1e-5 in f32 (the Pallas
 kernel's own tolerance) and in bf16 within 2e-2 of the largest
 |output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
@@ -482,6 +487,129 @@ def test_bcsr_spmm_on_transposed_blocks(dev):
     got = bcsr_spmm(gout.to(dev), vt.to(dev), ct.to(dev))
     torch.testing.assert_close(got.cpu(), ref.bcsr_spmm_ref(gout, vt, ct),
                                **TOL)
+
+
+def _sparse_blocks(seed, R, K, density, n_cb):
+    """Blocks [R, K, 128, 128] with each entry nonzero (uniform in (0, 1])
+    with probability `density`, and column ids over n_cb column blocks."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((R, K, 128, 128)) < density
+    vals = np.where(keep, 1.0 - rng.random((R, K, 128, 128)), 0.0)
+    cols = rng.integers(0, n_cb, (R, K))
+    return (torch.from_numpy(vals.astype(np.float32)),
+            torch.from_numpy(cols.astype(np.int32)), rng)
+
+
+# serving's refresh blocks hold ~0.05% nonzeros, training's ~0.6%
+DENSITIES = {"serving": 5e-4, "training": 6e-3, "dense": 1.0, "zero": 0.0}
+
+
+@pytest.mark.parametrize("K", [1, 76])
+@pytest.mark.parametrize("d", [1, 7, 64, 130, 256, 500, 513, 1433])
+@pytest.mark.parametrize("density", list(DENSITIES))
+def test_bcsr_spmm_matches_plain(dev, density, d, K):
+    """The block contraction against its plain version on the card, over
+    the density of serving's and training's blocks, fully dense and all
+    zero blocks; ragged D, more than one 512-column tile (513, 1433), x
+    rows that stop short of a whole block; a warm repeat bitwise."""
+    vals, cols, rng = _sparse_blocks(d * 100 + K, 2, K,
+                                     DENSITIES[density], 4)
+    n_x = 4 * 128 - 37               # column block 3 ragged
+    x = torch.from_numpy(rng.normal(size=(n_x, d)).astype(np.float32))
+    if density == "dense":
+        # 9,728 terms an output: on a grid (block values k/8, x integers)
+        # every order of summation is exact, so the check holds the terms
+        # and not the order of the sums (~1e-3 apart otherwise)
+        vals, x = torch.ceil(vals * 8) / 8, torch.round(x * 4)
+    args = [t.to(dev) for t in (x, vals, cols)]
+    before = _build.launch_counts["bcsr_spmm"]
+    got = bcsr_spmm(*args)
+    want = ref.bcsr_spmm_ref(*args)
+    assert got.shape == (2 * 128, d)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(bcsr_spmm(*args), got)
+    assert _build.launch_counts["bcsr_spmm"] == before + 2
+
+
+@pytest.mark.parametrize("d", [256, 72])
+@pytest.mark.parametrize("body", ["f32", "bf16", "int8", "vq"])
+def test_gather_spmm_bodies_on_sparse_blocks(dev, body, d):
+    """The four bodies of gather_spmm over serving-like sparse blocks whose
+    plan mixes in-batch rows (sel 0), table rows (sel 1) and zeros (sel 2),
+    against the plain version; a warm repeat bitwise."""
+    vals, cols, rng = _sparse_blocks(d, 3, 40, 2e-3, 8)
+    n_in, n_table = 300, 500
+    halo = torch.from_numpy(rng.integers(0, n_table, 8 * 128 - n_in)
+                            .astype(np.int32))
+    mask = torch.from_numpy(rng.random(halo.shape[0]) < 0.7)
+    plan = gather_plan(cols, halo, mask, n_in, n_table)
+    assert set(torch.unique(plan[0]).tolist()) == {0, 1, 2}
+    x_in = torch.from_numpy(rng.normal(size=(n_in, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.normal(size=(n_table, d)).astype(np.float32))
+    scales = cb = None
+    if body == "f32":
+        table = rows
+    elif body == "bf16":
+        table = rows.to(torch.bfloat16)
+    elif body == "int8":
+        table, scales = ref.quantize_rows(rows)
+    else:
+        cb = vq_init_codebook(d, device="cpu")
+        table, scales = ref.vq_encode_rows(rows, cb)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    args = [on(t) for t in (x_in, table, vals, cols, *plan)]
+    kw = dict(scales=on(scales), codebook=on(cb))
+    name = {"f32": "gather_spmm", "bf16": "gather_spmm_bf16",
+            "int8": "gather_spmm_dq", "vq": "gather_spmm_vq"}[body]
+    before = _build.launch_counts[name]
+    got = gather_spmm(*args, **kw)
+    torch.testing.assert_close(got, ref.gather_spmm_ref(*args, **kw), **TOL)
+    assert torch.equal(gather_spmm(*args, **kw), got)
+    assert _build.launch_counts[name] == before + 2
+
+
+@pytest.mark.parametrize("kernel", ["bcsr_spmm", "gather_spmm"])
+def test_contraction_skips_zero_entries_of_non_finite_rows(dev, kernel):
+    """The kernels' one departure from the plain version: a non-finite row
+    that only zero entries reach stays out of the output (the plain
+    version gives 0 * inf = NaN there), while one that a nonzero entry
+    reaches spreads as in the plain version."""
+    vals, cols, rng = _sparse_blocks(11, 2, 3, 0.05, 2)
+    cols = torch.tensor([[0, 1, 0], [1, 0, 1]], dtype=torch.int32)
+    d = 40
+    x = torch.from_numpy(rng.normal(size=(256, d)).astype(np.float32))
+    # rows 5 (inf) and 130 (NaN) are reached by zero entries only; row 77
+    # (inf) by one nonzero entry, of output row 3
+    for v in (vals[0, 0], vals[0, 2], vals[1, 1]):
+        v[:, 5] = 0.0
+        v[:, 77] = 0.0
+    for v in (vals[0, 1], vals[1, 0], vals[1, 2]):
+        v[:, 2] = 0.0
+    vals[0, 0, 3, 77] = 0.5
+    bad = x.clone()
+    bad[5], bad[130], bad[77] = float("inf"), float("nan"), float("inf")
+    finite = bad.clone()         # what every output row but 3 may see
+    finite[5], finite[130], finite[77] = 0.0, 0.0, 0.0
+    if kernel == "bcsr_spmm":
+        run = lambda x_: bcsr_spmm(x_.to(dev), vals.to(dev),  # noqa: E731
+                                   cols.to(dev))
+        plain = lambda x_: ref.bcsr_spmm_ref(x_, vals, cols)  # noqa: E731
+    else:
+        plan = gather_plan(cols, torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.bool), 256, 1)
+        table = torch.zeros((1, d))
+        run = lambda x_: gather_spmm(  # noqa: E731
+            x_.to(dev), table.to(dev), vals.to(dev), cols.to(dev),
+            *(p.to(dev) for p in plan))
+        plain = lambda x_: ref.gather_spmm_ref(  # noqa: E731
+            x_, table, vals, cols, *plan)
+    got = run(bad).cpu()
+    assert not torch.isfinite(plain(bad)).all()      # the plain version: NaN
+    assert torch.isinf(got[3]).any()                 # the nonzero's row
+    rest = torch.ones(256, dtype=torch.bool)
+    rest[3] = False
+    assert torch.isfinite(got[rest]).all()
+    torch.testing.assert_close(got[rest], plain(finite)[rest], **TOL)
 
 
 def _vq_values(rng, m, d, cb):
