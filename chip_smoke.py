@@ -61,8 +61,9 @@ with a non-zero exit at the first failure:
    in f32 and 2e-2 of the largest |output| in bf16 (a planted fault, one
    warp's slots dropped from the plain version, must fail that limit),
    the masked tail redrawn without moving the output a bit; the
-   4,096-slot pos-3,000 case and the 32,768-slot case timed beside the
-   plain version and SDPA.
+   4,096-slot cases at pos 3,000 and past the end (LONG's shape) and the
+   32,768-slot case timed beside the plain version and SDPA (and, with
+   --parent-csrc, the parent checkout's kernel on its own plan).
    Then transformer serving: qwen3-0.6b at its published widths in bf16
    with seeded random weights (`init_params`), 8 MarkovTokens prompts
    each; FULL prefills 2,048 tokens into a 4,096-slot cache, LONG
@@ -115,8 +116,9 @@ partitioner on this host) for `tests/test_torch_train.py --reference-acc
     python3 chip_smoke.py --parent-csrc build/parent-src/src/repro_torch/kernels/csrc
 
 also builds the kernels of another checkout (its C entry points must
-have this build's signatures) and times its block contraction beside
-this build's in phase 2.
+have this build's signatures) and times its block contraction,
+`scatter_rows` (f32 and bf16) and `flash_decode` beside this build's on
+the same inputs in phases 2 and 3b, their outputs compared.
 
 Then it prints the kernels line (JSON), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Without
@@ -164,7 +166,7 @@ from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
     gather_rows, gather_rows_dq, gather_rows_vq)
 from repro_torch.kernels.scatter import (  # noqa: E402
-    scatter_rows, scatter_rows_q, scatter_rows_vq)
+    SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_vq)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -373,7 +375,7 @@ DECODE_CONTROL_STEPS = 16
 # (configs/base.py) at 8 of its 128 sequences; (B, S, pos, dtype, timed)
 DECODE_KERNEL_CASES = ((8, 4096, 3000, torch.bfloat16, True),
                        (8, 4096, 0, torch.bfloat16, False),
-                       (8, 4096, 5000, torch.bfloat16, False),
+                       (8, 4096, 5000, torch.bfloat16, True),
                        (8, 32768, 40000, torch.bfloat16, True),
                        (8, 4096, 3000, torch.float32, False))
 # flash_decode against its plain version: f32 at the Pallas test's 1e-5
@@ -386,7 +388,7 @@ DECODE_KERNEL_CASES = ((8, 4096, 3000, torch.bfloat16, True),
 # at 3,001 valid slots, ~0.009 at 32,768) and would pass a kernel that
 # lost one warp's slots; a control drops them from the plain version and
 # must fail this limit. An H100 gave 4.9e-4 and 2.4e-4 sound (limits
-# 3.2e-3 and 8.7e-4), 0.015-0.055 with a warp's slots dropped
+# 3.2e-3 and 8.7e-4), 0.020-0.072 with a warp's slots dropped
 DECODE_KERNEL_F32_TOL, DECODE_KERNEL_BF16_REL = 1e-5, 2e-2
 
 
@@ -507,6 +509,113 @@ def _beside_earlier(label, fn, out, ms):
            f"{float((old - out).abs().max()):.3g}")
 
 
+def _parent_scatter_rows(table, idx, values):
+    """The parent checkout's `scatter_rows` (PARENT_LIB) on the same
+    operands: its launcher always takes the N-entry winner scratch of its
+    claim passes. In place; returns `table`; no launch is counted."""
+    m, (n, d) = idx.shape[0], table.shape
+    winner = torch.empty((n,), dtype=torch.int32, device=table.device)
+    sym = {torch.float32: "repro_scatter_rows_f32",
+           torch.bfloat16: "repro_scatter_rows_bf16"}[table.dtype]
+    _build.check(getattr(PARENT_LIB, sym)(
+        table.data_ptr(), idx.data_ptr(), values.data_ptr(),
+        winner.data_ptr(), m, n, d, _build.stream_ptr(table.device)),
+        "the parent's scatter_rows")
+    return table
+
+
+def _parent_flash_decode(q, k, v, pos):
+    """The parent checkout's `flash_decode` (PARENT_LIB) on its own plan,
+    the one its wrapper made for both types: group tiles of the least
+    power of two >= min(G, 8) members, chunks of 256 slots. No launch is
+    counted."""
+    b_, kh, g, dh = q.shape
+    n_valid = ref.flash_decode_valid(pos, k.shape[1])
+    gt = 1 << (min(g, 8) - 1).bit_length()
+    chunk = min(256, n_valid)
+    n_splits = -(-n_valid // chunk)
+    part = torch.empty((b_ * kh * -(-g // gt), n_splits, gt, dh + 2),
+                       dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    sym = {torch.float32: "repro_flash_decode_f32",
+           torch.bfloat16: "repro_flash_decode_bf16"}[q.dtype]
+    _build.check(getattr(PARENT_LIB, sym)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b_, k.shape[1], kh, g, dh, gt, n_valid, n_splits,
+        chunk, dh ** -0.5, _build.stream_ptr(q.device)),
+        "the parent's flash_decode")
+    return out
+
+
+def _beside_parent(label, ms, out, old_out, old_fn, limit=None):
+    """A redesigned kernel's line: its time beside the parent checkout's
+    kernel (`old_fn`, timed here on the same inputs, in the same call),
+    and their outputs held together: bitwise, or within `limit` where the
+    two designs sum in another order. Without --parent-csrc the parent
+    is not measured."""
+    if PARENT_LIB is None:
+        _phase("kernels", f"{label}: {ms:.4f} ms (the parent's kernel: "
+               f"not measured, no --parent-csrc)")
+        return
+    old_ms = _time_ms(old_fn)
+    diff = float((old_out.float() - out.float()).abs().max())
+    if limit is None:
+        assert torch.equal(old_out, out), f"{label}: differs from the parent"
+        held = "bitwise equal"
+    else:
+        assert diff <= limit, f"{label}: {diff:.3g} from the parent's"
+        held = f"max diff {diff:.3g} (limit {limit:.3g})"
+    _phase("kernels", f"{label}: {ms:.4f} ms, the parent's kernel "
+           f"{old_ms:.4f} ms ({old_ms / ms:.2f}x) on the same inputs; "
+           f"outputs {held}")
+
+
+def _device_kernels(fn):
+    """The device kernels one call of `fn` ran, from torch.profiler: a
+    list of (name, device microseconds), empty where it saw no device
+    activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _scatter_lines(label, table, idx, vals, ms):
+    """A push's device kernels from one profiled call (one: the
+    last-writer scan and the copy in a single launch) with their device
+    time beside that of the `index_copy_` yardstick on the same rows, and
+    the push's time beside the parent's kernel on the same push, the
+    tables bitwise."""
+    out = table.clone()
+    kernels = _device_kernels(lambda: scatter_rows(out, idx, vals))
+    if kernels:
+        assert len(kernels) == 1, f"{label}: one push ran {kernels}"
+        valid = idx < table.shape[0] - 1   # all but the sentinel row
+        lib_tab, lib_idx, lib_vals = (table.clone(), idx[valid].long(),
+                                      vals[valid])
+        lib = _device_kernels(lambda: lib_tab.index_copy_(0, lib_idx,
+                                                          lib_vals))
+        _phase("kernels", f"{label}: one push ran 1 device kernel "
+               f"({kernels[0][0].split('::')[-1].split('<')[0]}, "
+               f"{kernels[0][1]:.2f} us "
+               f"profiled; index_copy_ on the same rows "
+               f"{sum(us for _, us in lib):.2f} us in {len(lib)})")
+    else:
+        _phase("kernels", f"{label}: device kernels of one push not "
+               f"measured (the profiler saw no device activity)")
+    if PARENT_LIB is None:
+        _beside_parent(label, ms, out, None, None)
+        return
+    tgt = table.clone()
+    _beside_parent(label, ms, out,
+                   _parent_scatter_rows(table.clone(), idx, vals),
+                   lambda: _parent_scatter_rows(tgt, idx, vals))
+
+
 def kernel_phase(g, spec, device):
     """Phase 2. Returns the kernel rows (launches filled in later)."""
     N = g.num_nodes
@@ -564,8 +673,8 @@ def kernel_phase(g, spec, device):
     tgt = hist.clone()
     # bytes this run's data needs: the index, and one row read and one
     # written per distinct target (the padding rows all land on the
-    # sentinel row, one target); the kernel's winner scratch is its own
-    # cost, not the function's
+    # sentinel row, one target); the kernel's scan of the later indices
+    # is its own cost, not the function's
     n_tgt = int(torch.unique(push_idx).numel())
     rows.append(_row(
         "scatter_rows", "src/repro_torch/kernels/csrc/scatter.cu",
@@ -574,6 +683,22 @@ def kernel_phase(g, spec, device):
         _time_ms(lambda: ref.scatter_rows_ref(tgt, push_idx, vals_p)),
         _time_ms(lambda: tgt.index_copy_(0, uniq_idx, uniq_vals)),
         M * 4 + 2 * n_tgt * D_HIDDEN * 4, 0))
+    _scatter_lines("scatter_rows", hist, push_idx, vals_p, rows[-1]["ms"])
+    # a push past SCAN_MAX_ROWS takes the claim passes (three kernels):
+    # the refresh push twice over, the second copy of each row winning
+    big_idx = torch.cat([push_idx, push_idx])
+    big_vals = torch.cat([vals_p, -vals_p])
+    neg_uniq = -uniq_vals
+    assert big_idx.shape[0] > SCAN_MAX_ROWS
+    assert torch.equal(scatter_rows(hist.clone(), big_idx, big_vals),
+                       ref.scatter_rows_ref(hist.clone(), big_idx, big_vals)
+                       ), "scatter_rows differs (claim passes)"
+    _phase("kernels", f"scatter_rows past SCAN_MAX_ROWS (M = "
+           f"{big_idx.shape[0]}, the claim passes): "
+           f"{_time_ms(lambda: scatter_rows(tgt, big_idx, big_vals)):.4f} "
+           f"ms (index_copy_ of its winning rows "
+           f"{_time_ms(lambda: tgt.index_copy_(0, uniq_idx, neg_uniq)):.4f}"
+           f" ms); table bitwise the plain version's")
 
     # bcsr_spmm: the layer-0 aggregation over [x_b ; x_halo ; 0]
     xb = ops.pull_rows(kplan.x, batch.batch_nodes) * batch.batch_mask[:, None]
@@ -762,6 +887,7 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
         _time_ms(lambda: ref.scatter_rows_ref(tb, push_idx, vb)),
         _time_ms(lambda: tb.index_copy_(0, uniq_idx, ub)),
         M * 4 + 2 * n_tgt * D * 2, 0))
+    _scatter_lines("scatter_rows_bf16", b16, push_idx, vb, rows[-1]["ms"])
     return rows
 
 
@@ -1847,13 +1973,13 @@ def serving_quant_phase(g, spec, device, hd):
 
 def _decode_fault_controls(q, k, v, pos, want, limit) -> str:
     """Two faults planted in the plain version, held to the bf16 limit:
-    the slots of one of the kernel's 8 warps dropped (warp 7: at qwen3's
-    group tile each warp walks runs of 4 slots, 32 apart), which the limit
-    must fail; and p left unrounded before p @ v (v in f32), printed
-    only."""
+    the slots of one of the bf16 kernel's 4 warps dropped (warp 3: each
+    warp scores 16 slots of every 64-slot tile, and the chunks start on
+    tile boundaries), which the limit must fail; and p left unrounded
+    before p @ v (v in f32), printed only."""
     s = torch.arange(ref.flash_decode_valid(pos, k.shape[1]),
                      device=k.device)
-    keep = s[(s // 4) % 8 != 7]
+    keep = s[(s // 16) % 4 != 3]
     # pos = the kept count: every kept slot valid
     drop = ref.flash_decode_ref(q, k[:, keep], v[:, keep], len(keep))
     drop_err = float((drop.float() - want.float()).abs().max())
@@ -1952,6 +2078,12 @@ def decode_kernel_rows(device, clock_hz):
                      f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
             del qs, ks, vs
         _phase("kernels", line)
+        if timed:
+            _beside_parent(
+                f"flash_decode B={B_} S={S_} pos={pos}", row["ms"], out,
+                None if PARENT_LIB is None else _parent_flash_decode(
+                    q, k, v, pos),
+                lambda: _parent_flash_decode(q, k, v, pos), limit)
         del q, k, v, out, want
     return rows
 
@@ -2204,7 +2336,8 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also build the kernels in DIR (another "
                          "checkout's kernels/csrc) and run its block "
-                         "contraction beside this build's in phase 2")
+                         "contraction, scatter_rows and flash_decode "
+                         "beside this build's")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():

@@ -20,10 +20,25 @@
 // valid indices resolve to the LAST occurrence in row order. The TPU
 // grid gets that for free by running in order; CTAs here run in no
 // order, so the winner of each target row is resolved before any row is
-// written: pass 1 resets winner[t] = -1 for every target t named in idx,
-// pass 2 takes winner[t] = max position naming t (atomicMax), pass 3
-// writes row i only if winner[idx[i]] == i. The three passes run in
-// stream order; `winner` is caller-allocated scratch of N int32 whose
+// written, in one of two ways.
+//
+// scatter_rows (f32 and bf16 tables), pushes of at most kScanMax rows:
+// one kernel, no scratch, no atomics in global memory. A CTA takes 8 rows
+// (a warp each) and decides which are their targets' last writers by
+// reading every later index once and comparing it with its rows'
+// targets (scatter_rows_last_kernel below); only those rows are copied.
+// Nothing serialises on a target, so the ~1,100 padding rows of a serving
+// push that all land on the sentinel row cost nothing extra (all but the
+// last of a run are dropped before the scan), and the result is the same
+// in any order. The scan compares up to M^2 / 2 pairs (~8.4 M at the
+// serving push's M = 4,096); past kScanMax rows it costs more than the
+// claim passes, and the wrapper hands a winner scratch for them instead.
+//
+// The claim passes (scatter_rows past kScanMax rows, scatter_rows_q and
+// scatter_rows_vq): pass 1 resets winner[t] = -1 for every target t named
+// in idx, pass 2 takes winner[t] = max position naming t (atomicMax),
+// pass 3 writes row i only if winner[idx[i]] == i. The three passes run
+// in stream order; `winner` is caller-allocated scratch of N int32 whose
 // untouched entries are never read. In scatter_rows_q the winner writes
 // both the code row and the scale, so a target's codes and its scale
 // always come from the same pushed row.
@@ -32,10 +47,12 @@
 // bytes of table rows (E = 4 for f32, 2 for bf16; the push rounds f32 to
 // bf16 before the copy, in PyTorch); scatter_rows_q reads M*D*4 bytes and
 // writes M*D int8 bytes plus 4*M of scales and 4*M of errors (plus, for
-// both, the index vector three times and 8*M bytes of winner traffic).
-// Design: the copy pass is the gather's layout — one warp per row,
-// 16-byte lanes where the row's bytes and the buffers allow, ragged edge
-// masked in the loop bound.
+// the claim passes, the index vector three times and 8*M bytes of winner
+// traffic; the one-launch scan reads the later indices once per CTA, from
+// L2, its own cost).
+// Design: the copy is the gather's layout — one warp per row, 16-byte
+// lanes where the row's bytes and the buffers allow, ragged edge masked
+// in the loop bound.
 // The quantizing pass keeps the warp per row: a warp reduction of
 // fabsf takes the row max (a max is exact in any order, so s_i is bitwise
 // `row_scales`), then each element is divided with IEEE rounding
@@ -77,6 +94,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerCta = kThreads / 32;
+// the most rows scatter_rows decides by the one-launch scan (the
+// wrapper's SCAN_MAX_ROWS); its later-index loads a thread has in flight;
+// the vectors of a candidate's value row a lane loads before the scan
+constexpr int64_t kScanMax = 4096;
+constexpr int kScanLoads = 8;
+constexpr int kRowVecs = 2;
+constexpr int32_t kNone = INT32_MIN;  // no candidate's target
 
 __global__ void claim_reset(const int32_t* __restrict__ idx,
                             int32_t* __restrict__ winner, int64_t m,
@@ -124,27 +148,115 @@ scatter_rows_kernel(V* __restrict__ table, const int32_t* __restrict__ idx,
   for (int64_t c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
 }
 
+// One launch, a warp per row. Each warp reads its row's target and the
+// next row's: a row is a candidate unless its target is out of range or
+// the next row names the same one (then it is surely overwritten: the
+// padding runs of a push all land on the sentinel row). A candidate's
+// value row is requested at once, so its latency overlaps the scan, and a
+// CTA without a candidate stops at the first barrier. Otherwise the CTA's
+// 256 threads read every later index once (kScanLoads in flight each) and
+// compare it with the candidates' targets, one independent flag per row;
+// the flags are OR-reduced over the CTA, and a candidate that no later
+// row names writes its row.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_last_kernel(V* __restrict__ table,
+                         const int32_t* __restrict__ idx,
+                         const V* __restrict__ vals, int64_t m, int64_t n,
+                         int64_t dv) {
+  __shared__ int32_t tgt_s[kRowsPerCta];  // a candidate's target, else kNone
+  __shared__ uint32_t later_s;  // bit r: a later row names row r's target
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerCta;
+  const int64_t row = row0 + warp;
+  const int32_t t = row < m ? __ldg(idx + row) : -1;
+  const int32_t t_next = row + 1 < m ? __ldg(idx + row + 1) : -1;
+  const bool cand = t >= 0 && t < n && t != t_next;
+  const V* src = vals + row * dv;
+  V head[kRowVecs];
+#pragma unroll
+  for (int u = 0; u < kRowVecs; ++u)
+    if (cand && lane + u * 32 < dv) head[u] = __ldg(src + lane + u * 32);
+  if (lane == 0) tgt_s[warp] = cand ? t : kNone;
+  if (tid == 0) later_s = 0u;
+  if (!__syncthreads_or(lane == 0 && cand)) return;
+  int32_t tgt[kRowsPerCta];
+#pragma unroll
+  for (int r = 0; r < kRowsPerCta; ++r) tgt[r] = tgt_s[r];
+  // a later row of this CTA: a non-candidate's run of equal targets ends
+  // at a candidate here or at a row past the CTA, which the scan reads
+  uint32_t later = 0u;
+  if (tid < kRowsPerCta)
+    for (int r = tid + 1; r < kRowsPerCta; ++r)
+      if (tgt_s[r] == tgt_s[tid]) later |= 1u << tid;
+  bool hit[kRowsPerCta];
+#pragma unroll
+  for (int r = 0; r < kRowsPerCta; ++r) hit[r] = false;
+  for (int64_t j = row0 + kRowsPerCta + tid; j < m;
+       j += kScanLoads * kThreads) {
+    int32_t x[kScanLoads];  // -1 past m: no candidate's target
+#pragma unroll
+    for (int u = 0; u < kScanLoads; ++u)
+      x[u] = j + u * kThreads < m ? __ldg(idx + j + u * kThreads) : -1;
+#pragma unroll
+    for (int u = 0; u < kScanLoads; ++u)
+#pragma unroll
+      for (int r = 0; r < kRowsPerCta; ++r) hit[r] |= x[u] == tgt[r];
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerCta; ++r)
+    later |= static_cast<uint32_t>(hit[r]) << r;
+  later = __reduce_or_sync(0xffffffffu, later);
+  if (lane == 0 && later != 0u) atomicOr(&later_s, later);
+  __syncthreads();
+  if (!cand || ((later_s >> warp) & 1u)) return;
+  V* dst = table + static_cast<int64_t>(t) * dv;
+#pragma unroll
+  for (int u = 0; u < kRowVecs; ++u)
+    if (lane + u * 32 < dv) dst[lane + u * 32] = head[u];
+  for (int64_t c = lane + kRowVecs * 32; c < dv; c += 32)
+    dst[c] = __ldg(src + c);
+}
+
+// the copy after the claim passes, or the one-launch scan without them
+template <typename V>
+void launch_copy(V* table, const int32_t* idx, const V* vals,
+                 const int32_t* winner, int64_t m, int64_t n, int64_t dv,
+                 cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
+  if (winner != nullptr)
+    scatter_rows_kernel<V><<<grid, kThreads, 0, s>>>(table, idx, vals, winner,
+                                                     m, n, dv);
+  else
+    scatter_rows_last_kernel<V><<<grid, kThreads, 0, s>>>(table, idx, vals, m,
+                                                          n, dv);
+}
+
 template <typename E>
 int launch_scatter(void* table, const int32_t* idx, const void* vals,
                    int32_t* winner, int64_t m, int64_t n, int64_t d,
                    void* stream) {
   if (m == 0 || d == 0) return 0;
+  // no winner scratch: the one-launch scan, which takes at most kScanMax
+  if (winner == nullptr && m > kScanMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int rc = claim(idx, winner, m, n, s)) return rc;
-  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
+  if (winner != nullptr) {
+    if (int rc = claim(idx, winner, m, n, s)) return rc;
+  }
   constexpr int64_t kPerVec = sizeof(uint4) / sizeof(E);
   const bool vec = d % kPerVec == 0 &&
                    reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(vals) % 16 == 0;
-  if (vec) {
-    scatter_rows_kernel<uint4><<<grid, kThreads, 0, s>>>(
-        static_cast<uint4*>(table), idx, static_cast<const uint4*>(vals),
-        winner, m, n, d / kPerVec);
-  } else {
-    scatter_rows_kernel<E><<<grid, kThreads, 0, s>>>(
-        static_cast<E*>(table), idx, static_cast<const E*>(vals), winner, m,
-        n, d);
-  }
+  if (vec)
+    launch_copy(static_cast<uint4*>(table), idx,
+                static_cast<const uint4*>(vals), winner, m, n, d / kPerVec,
+                s);
+  else
+    launch_copy(static_cast<E*>(table), idx, static_cast<const E*>(vals),
+                winner, m, n, d, s);
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -7,9 +7,11 @@ scale) and `scatter.py:141 scatter_rows_vq` (vq code tables with a
 per-row f32 scale and a codebook). The reference aliases the table into the Pallas output, and
 with a donated buffer XLA performs the push in place; here the push
 writes into the table tensor itself. On CUDA tensors each launches its
-kernel in `csrc/scatter.cu` (a per-target winner pass so that duplicate
-indices resolve to the last writer, then a row copy, or for int8 a row
-max, divide, round and clip, and each pushed row's relative error;
+kernel in `csrc/scatter.cu` (duplicate indices resolve to the last
+writer: for `scatter_rows` of at most SCAN_MAX_ROWS rows, one kernel that
+scans the later indices and copies each target's last row; otherwise
+per-target winner passes, then a row copy, or for int8 a row max,
+divide, round and clip, and each pushed row's relative error;
 bound by bytes: M*D*E read plus M*D*E written for the copy, E = 4 or 2;
 M*D*4 read plus M*D + 8*M written for the quantizing push; the encoding
 push's nearest-entry search, 24 f32 operations per value and codebook
@@ -27,10 +29,16 @@ from .gather import check_codebook
 from .ref import scatter_rows_q_ref, scatter_rows_ref, scatter_rows_vq_ref
 
 __all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
-           "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref"]
+           "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref",
+           "SCAN_MAX_ROWS"]
 
 _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
              torch.bfloat16: ("repro_scatter_rows_bf16", "scatter_rows_bf16")}
+# the most rows `scatter_rows` resolves inside its one copy kernel (the
+# scan compares every later pair of rows, up to M^2 / 2; the serving
+# refresh push has 4,096); a larger push runs the claim passes over an
+# N-entry winner scratch first, three kernels (csrc/scatter.cu: kScanMax)
+SCAN_MAX_ROWS = 4096
 
 
 def _check_push(name: str, table: torch.Tensor, idx: torch.Tensor,
@@ -58,10 +66,13 @@ def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
     B.require_dtype(name, values, table.dtype, "values")
     _check_push(name, table, idx, values)
     n, d = table.shape
-    winner = torch.empty((n,), dtype=torch.int32, device=dev)
+    m = idx.shape[0]
+    winner = None if m <= SCAN_MAX_ROWS else torch.empty(
+        (n,), dtype=torch.int32, device=dev)
     B.check(getattr(B.lib(), symbol)(
         table.data_ptr(), idx.data_ptr(), values.data_ptr(),
-        winner.data_ptr(), idx.shape[0], n, d, B.stream_ptr(dev)), name)
+        None if winner is None else winner.data_ptr(), m, n, d,
+        B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return table
 

@@ -33,7 +33,9 @@ stays out of the output.
 `flash_decode` against its plain version at 1e-5 in f32 (the Pallas
 kernel's own tolerance) and in bf16 within 2e-2 of the largest
 |output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
-against the CPU's: logits at 1e-4, caches at 1e-5."""
+against the CPU's: logits at 1e-4, caches at 1e-5. `scatter_rows`
+bitwise over the whole table on both of its paths (the one-launch scan
+and the claim passes past SCAN_MAX_ROWS rows)."""
 import dataclasses
 
 import numpy as np
@@ -793,7 +795,10 @@ def _decode_inputs(seed, B, Kh, G, Dh, S, dtype):
 @pytest.mark.parametrize("B,Kh,G,Dh,S,pos", [
     (2, 2, 2, 128, 4096, 3000), (8, 8, 2, 128, 4096, 5000),
     (2, 4, 1, 64, 700, 0), (3, 2, 8, 32, 333, 200), (1, 2, 3, 64, 1000, 999),
-    (2, 1, 12, 128, 2049, 2048), (1, 2, 4, 32, 512, 10_000)])
+    (2, 1, 12, 128, 2049, 2048), (1, 2, 4, 32, 512, 10_000),
+    (2, 2, 2, 128, 4096, 64), (2, 2, 2, 128, 4096, 40),
+    (8, 8, 2, 128, 4096, 2048), (1, 1, 2, 128, 8192, 8000),
+    (2, 1, 3, 128, 3001, 3000), (1, 1, 20, 64, 300, 299)])
 def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     """The kernel against `flash_decode_ref` on the card: f32 at 1e-5
     (the Pallas kernel's tolerance in tests/test_kernels.py), bf16 within
@@ -801,9 +806,12 @@ def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     flip of the output's bf16 rounding, <= 2^-7 of it; an absolute 2e-2
     is the size of a typical output over thousands of slots and would
     pass a kernel that lost a warp's slots): Dh 32 to 128, G 1 to 12 (3
-    and 12 fill their group tiles only in part), S not a multiple of 256,
-    pos 0, inside the cache and past it (a rolling buffer); a warm repeat
-    bitwise equal."""
+    and 12 fill their group tiles only in part; 20 takes two bf16 tiles
+    of up to 16), S not a multiple of 256, pos 0, inside the cache and
+    past it (a rolling buffer); for the bf16 kernel's 64-slot tiles,
+    n_valid one past a tile (65), below one tile (41), 2,049 and 3,001,
+    and one (b, h) pair, so the plan cuts 8,001 slots into many splits;
+    a warm repeat bitwise equal."""
     q, k, v, _ = _decode_inputs(B + S + pos, B, Kh, G, Dh, S, dtype)
     q, k, v = q.to(dev), k.to(dev), v.to(dev)
     before = _build.launch_counts["flash_decode"]
@@ -820,6 +828,42 @@ def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     assert out.dtype == dtype and out.shape == q.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(1, 256), (37, 20), (37, 256), (4096, 256),
+                                 (4097, 256)])
+def test_scatter_rows_last_writer_matches_plain(dev, dtype, m, d):
+    """`scatter_rows` against its plain version, bitwise over the whole
+    table, the sentinel row included: duplicate valid indices (the last
+    writer wins), negative and >= N indices (dropped), about a quarter of
+    the rows on the last row as a serving push's padding (~1,100 of
+    4,096); M = 1, 37 (d = 20: the unvectorized copy) and 4,096 take the
+    one-launch scan, 4,097 (past SCAN_MAX_ROWS) the claim passes. One
+    launch counted per call; a repeat bitwise equal."""
+    from repro_torch.kernels.scatter import SCAN_MAX_ROWS
+    assert SCAN_MAX_ROWS == 4096     # 4,096 scans, 4,097 claims
+    rng = np.random.default_rng(m + d)
+    n = 5000
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                             ).to(dtype)
+    vals = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)
+                            ).to(dtype)
+    idx = rng.integers(0, n - 1, m)
+    idx[rng.random(m) < 0.27] = n - 1            # padding on the sentinel
+    dup = rng.random(m) < 0.1
+    idx[dup] = idx[rng.integers(0, m, m)][dup]   # duplicates of any row
+    bad = rng.random(m) < 0.05
+    idx[bad] = rng.choice([-7, -1, n, n + 3], int(bad.sum()))
+    idx = torch.from_numpy(idx.astype(np.int32))
+    want = ref.scatter_rows_ref(table.clone(), idx, vals)
+    name = "scatter_rows" if dtype == torch.float32 else "scatter_rows_bf16"
+    for _ in range(2):
+        before = _build.launch_counts[name]
+        got = scatter_rows(table.clone().to(dev), idx.to(dev), vals.to(dev))
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
 def test_flash_decode_rejects_unbuilt_head_dim(dev):
     """Only Dh 32, 64 and 128 are built: another raises before a launch."""
     q, k, v, _ = _decode_inputs(0, 1, 2, 2, 256, 64, torch.bfloat16)
@@ -830,7 +874,7 @@ def test_flash_decode_rejects_unbuilt_head_dim(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pos", [0, 255, 256, 1000, 4094])
+@pytest.mark.parametrize("pos", [0, 255, 256, 1000, 4094, 63, 64, 3000])
 def test_flash_decode_ignores_masked_tail(dev, dtype, pos):
     """Slots past `pos` are never read: new values there (NaN included)
     leave the output bitwise unchanged."""

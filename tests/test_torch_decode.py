@@ -17,7 +17,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.decode_attn import flash_decode as pallas_flash_decode
-from repro_torch.kernels.decode_attn import flash_decode, flash_decode_plan
+from repro_torch.kernels.decode_attn import (
+    CTAS_PER_SM, F32_CHUNK, MAX_GROUP_TILE, TILE, flash_decode,
+    flash_decode_plan)
 from repro_torch.kernels.ref import flash_decode_ref
 
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
@@ -76,15 +78,54 @@ def test_flash_decode_ref_ignores_masked_tail(pos, dtype, data):
 
 @pytest.mark.parametrize("B,Kh,G,n_valid", [
     (8, 8, 2, 3001), (8, 8, 2, 32768), (1, 1, 1, 1), (2, 4, 3, 255),
-    (1, 2, 12, 70000), (128, 8, 8, 32768)])
+    (1, 2, 12, 70000), (128, 8, 8, 32768), (8, 8, 2, 4096), (1, 1, 2, 65),
+    (1, 2, 20, 500), (100, 1, 2, 5000)])
 def test_flash_decode_plan_covers_valid_slots(B, Kh, G, n_valid):
-    """The kernel's grid: the group tile a power of two covering
-    min(G, 8) members, the chunks covering exactly the valid slots with
-    none empty (the launcher refuses any other cut)."""
-    gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid)
-    assert gt == 1 << (min(G, 8) - 1).bit_length()
+    """The bf16 kernel's grid on a card of 132 SMs: the chunks cover
+    exactly the valid slots with none empty (the launcher refuses any
+    other cut), each a whole number of TILE-slot tiles, the group in one
+    tile of up to MAX_GROUP_TILE members (tiles of it past that), and no
+    more CTAs than the card holds in one wave unless each (b, h, group
+    tile) already has a single chunk."""
+    gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid, 132)
+    assert gt == min(G, MAX_GROUP_TILE)
     assert (n_splits - 1) * chunk < n_valid <= n_splits * chunk
-    assert 1 <= n_splits <= 65535
+    assert chunk % TILE == 0 and 1 <= n_splits <= 65535
+    pairs = B * Kh * -(-G // gt)
+    assert n_splits == 1 or pairs * n_splits <= CTAS_PER_SM * 132
+    # the longest chunk as short as one wave allows: the tiles spread
+    # over as many splits as fit, at least one, at most one per tile
+    tiles = -(-n_valid // TILE)
+    fit = max(1, min(CTAS_PER_SM * 132 // pairs, tiles))
+    assert chunk == TILE * -(-tiles // fit)
+
+
+@pytest.mark.parametrize("pairs,n_sm,want", [
+    ((8, 8), 132, 2), ((8, 8), 66, 1), ((8, 8), 16, 1), ((2, 2), 132, 33),
+    ((1, 1), 132, 33), ((1, 1), 8, 7)])
+def test_flash_decode_plan_follows_the_sm_count(pairs, n_sm, want):
+    """The bf16 splits come from the SM count passed in: CTAS_PER_SM
+    CTAs on each SM over the (b, h) pairs, at least one per pair, at most
+    one per tile of the 2,049 valid slots (33 tiles; the 8 CTAs that 8 SMs
+    hold take chunks of 5 tiles, so 7 splits)."""
+    B_, Kh = pairs
+    gt, n_splits, chunk = flash_decode_plan(B_, Kh, 2, 2049, n_sm)
+    assert n_splits == want, (n_splits, chunk)
+    assert (n_splits - 1) * chunk < 2049 <= n_splits * chunk
+
+
+@pytest.mark.parametrize("B,Kh,G,n_valid", [
+    (8, 8, 2, 3001), (1, 1, 1, 1), (2, 4, 3, 255), (1, 2, 12, 70000)])
+def test_flash_decode_plan_f32_keeps_short_chunks(B, Kh, G, n_valid):
+    """The f32 kernel (tests and the CPU comparison) keeps its plan: group
+    tiles of a power of two covering min(G, 8) members, chunks of
+    F32_CHUNK slots whatever the SM count."""
+    for n_sm in (132, 8):
+        gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid, n_sm,
+                                                torch.float32)
+        assert gt == 1 << (min(G, 8) - 1).bit_length()
+        assert chunk == min(F32_CHUNK, n_valid)
+        assert (n_splits - 1) * chunk < n_valid <= n_splits * chunk
 
 
 def test_flash_decode_rejects_negative_pos():

@@ -101,6 +101,17 @@ def test_scatter_rows_drops_out_of_range_in_place():
     np.testing.assert_array_equal(t.numpy(), want)
 
 
+def test_scatter_rows_scan_limit_matches_the_launcher():
+    """`scatter_rows` of at most SCAN_MAX_ROWS rows runs the one-launch
+    scan (no winner scratch), a larger push the claim passes; the limit
+    is the launcher's own (`csrc/scatter.cu` refuses a scan past it), and
+    the serving refresh push (4,096 rows) is within it."""
+    assert t_scatter.SCAN_MAX_ROWS >= 4096
+    src = (_build.CSRC / "scatter.cu").read_text()
+    assert (f"constexpr int64_t kScanMax = {t_scatter.SCAN_MAX_ROWS};"
+            in src)
+
+
 @pytest.mark.parametrize("scratch", [True, False])
 @pytest.mark.parametrize("d", [20, 128])
 def test_push_rows_matches_reference(scratch, d):
