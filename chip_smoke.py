@@ -25,14 +25,16 @@ with a non-zero exit at the first failure:
    phase 3 (they need the training plans), GAT's
    three edge-softmax kernels the same way, on the unit blocks of a
    Cora-shaped training batch at the hidden layer's shapes (8 heads of 8;
-   the output layer's, 1 head of 7, on a line of their own), the GAT
+   the output layer's, 1 head of 7, on the same line), the GAT
    hidden layer's history pull from an int8 table (`gather_rows_dq`), a
    bf16 one and a vq one (`gather_rows_vq`), `bcsr_spmm` on the
    forward and the transposed blocks of a quickstart
    batch (the GCN backward's use of it), and PNA's three `pna_reduce`
    kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
    (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
-   beside a composition of PyTorch calls over the blocks' nonzeros).
+   beside a composition of PyTorch calls over the blocks' nonzeros; the
+   edge-softmax kernels beside such a composition too and, with
+   --parent-csrc, the parent checkout's forward and row pass).
    Each block contraction (`bcsr_spmm` on the refresh batch, on the same
    blocks made fully dense, and on the two quickstart families;
    `gather_spmm`'s four bodies) has a line with its time beside the
@@ -99,7 +101,9 @@ with a non-zero exit at the first failure:
    at the same precision on the same partition (keyed by its hash; for
    PNA the lowest of the reference's runs one ulp apart); the launch
    counters of the path's kernels; and one more epoch under
-   torch.profiler for the device's busy share. Two steps of a bf16 GAT
+   torch.profiler for the device's busy share (GAT over f32, with
+   --parent-csrc: also one on the parent's kernels, then one more on
+   this build's). Two steps of a bf16 GAT
    show the bf16 history pull (`gather_rows_bf16`) on its path, two
    steps of PNA over a vq store PNA's vq path, and a GCN vq run with
    `vq_refit_every=2` over 4 epochs the codebook refit on the card
@@ -117,8 +121,9 @@ partitioner on this host) for `tests/test_torch_train.py --reference-acc
 
 also builds the kernels of another checkout (its C entry points must
 have this build's signatures) and times its block contraction,
-`scatter_rows` (f32 and bf16) and `flash_decode` beside this build's on
-the same inputs in phases 2 and 3b, their outputs compared.
+`scatter_rows` (f32 and bf16), `flash_decode`, `edge_softmax_fwd` and
+`edge_softmax_bwd_row` beside this build's on the same inputs in phases
+2 and 3b, their outputs compared.
 
 Then it prints the kernels line (JSON), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Without
@@ -482,6 +487,18 @@ def _row(name, source, replaces, err, ms, plain_ms, library_ms, n_bytes,
     return row
 
 
+def _parent_call(fn):
+    """`fn`, a wrapper call, on the parent checkout's kernels (PARENT_LIB)
+    with the same arguments; their launches are not counted."""
+    saved, counts = _build._lib, dict(_build.launch_counts)
+    _build._lib = PARENT_LIB
+    try:
+        return fn()
+    finally:
+        _build._lib = saved
+        _build.launch_counts.update(counts)
+
+
 def _beside_earlier(label, fn, out, ms):
     """One phase-2 line: a contraction's time beside the earlier block
     core's. With --parent-csrc the parent's kernels run `fn` (the same
@@ -493,14 +510,8 @@ def _beside_earlier(label, fn, out, ms):
                f"{'not measured' if earlier is None else f'{earlier} ms'}"
                f", PERF.md)")
         return
-    saved, counts = _build._lib, dict(_build.launch_counts)
-    _build._lib = PARENT_LIB
-    try:
-        old = fn()
-        old_ms = _time_ms(fn)
-    finally:
-        _build._lib = saved
-        _build.launch_counts.update(counts)
+    old = _parent_call(fn)
+    old_ms = _time_ms(lambda: _parent_call(fn))
     same = torch.equal(old, out)
     bits = same and torch.equal(old.view(torch.int32), out.view(torch.int32))
     _phase("kernels", f"{label}: {ms:.4f} ms, the parent's kernel "
@@ -1109,35 +1120,77 @@ def train_plans(device, parts):
 def _edge_softmax_case(plan, H, Fd, device, gen, clock_hz):
     """The three edge-softmax kernels on batch 0's unit blocks with seeded
     operands of H heads of Fd features: checks against the plain
-    versions, times, bounds. Returns {name: kernel row}."""
+    versions, times, bounds, the time of a composition of PyTorch calls
+    over the blocks' nonzeros, and with --parent-csrc the parent's
+    forward and row pass on the same inputs (M bitwise, the rest within
+    RTOL / ATOL). Returns {name: kernel row}."""
     batch = plan.batch(0)
     uv, uc, uvt, uct = batch.ublocks
     n_out, M = batch.max_b, batch.max_b + batch.max_h + 1
-    R, K = uc.shape
-    R_t, K_t = uct.shape
     randn = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa
     ad, as_, wx, g = randn(n_out, H), randn(M, H), randn(M, H, Fd), \
         randn(n_out, H, Fd)
-    out, mm, ll = esk.edge_softmax_fwd(ad, as_, wx, uv, uc)
+    tol = dict(rtol=RTOL, atol=ATOL)
+    fwd = lambda: esk.edge_softmax_fwd(ad, as_, wx, uv, uc)  # noqa: E731
+    out, mm, ll = fwd()
     p_out, p_mm, p_ll = ref.edge_softmax_fwd_ref(ad, as_, wx, uv, uc)
     assert torch.equal(mm, p_mm), "edge_softmax_fwd: M differs"
-    torch.testing.assert_close(out, p_out, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(ll, p_ll, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(out, p_out, **tol)
+    torch.testing.assert_close(ll, p_ll, **tol)
     delta = (g * p_out).sum(-1)
-    dad = esk.edge_softmax_bwd_row(ad, as_, wx, g, p_mm, p_ll, delta, uv, uc)
-    p_dad = ref.edge_softmax_bwd_row_ref(ad, as_, wx, g, p_mm, p_ll, delta,
-                                         uv, uc)
-    torch.testing.assert_close(dad, p_dad, rtol=RTOL, atol=ATOL)
-    dwx, das = esk.edge_softmax_bwd_col(ad, as_, wx, g, p_mm, p_ll, delta,
-                                        uvt, uct)
-    p_dwx, p_das = ref.edge_softmax_bwd_col_ref(ad, as_, wx, g, p_mm, p_ll,
-                                                delta, uvt, uct)
-    torch.testing.assert_close(dwx, p_dwx, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(das, p_das, rtol=RTOL, atol=ATOL)
-    again = esk.edge_softmax_bwd_col(ad, as_, wx, g, p_mm, p_ll, delta, uvt,
-                                     uct)
-    assert torch.equal(again[0], dwx) and torch.equal(again[1], das), \
-        "edge_softmax_bwd_col: a warm repeat differs"
+    bwd = (ad, as_, wx, g, p_mm, p_ll, delta)
+    row = lambda: esk.edge_softmax_bwd_row(*bwd, uv, uc)  # noqa: E731
+    dad = row()
+    p_dad = ref.edge_softmax_bwd_row_ref(*bwd, uv, uc)
+    torch.testing.assert_close(dad, p_dad, **tol)
+    col = lambda: esk.edge_softmax_bwd_col(*bwd, uvt, uct)  # noqa: E731
+    dwx, das = col()
+    p_dwx, p_das = ref.edge_softmax_bwd_col_ref(*bwd, uvt, uct)
+    torch.testing.assert_close(dwx, p_dwx, **tol)
+    torch.testing.assert_close(das, p_das, **tol)
+    for a, b in zip(fwd() + (row(),) + col(), (out, mm, ll, dad, dwx, das)):
+        assert torch.equal(a, b), "edge softmax: a warm repeat differs"
+
+    # the yardsticks: the same functions over the blocks' nonzeros as a
+    # weighted COO (index_select, leaky_relu, scatter_reduce amax, exp,
+    # index_add); no single PyTorch call computes them
+    dst, src, mu = _block_coo(uv, uc)
+    mu = mu[:, None]
+
+    def scores():
+        z = ad.index_select(0, dst) + as_.index_select(0, src)
+        return z, torch.nn.functional.leaky_relu(z, 0.2)
+
+    def comp_fwd():
+        _, s = scores()
+        m = ad.new_full((n_out, H), ref.NEG).scatter_reduce_(
+            0, dst[:, None].expand(-1, H), s, "amax")
+        p = mu * torch.exp(s - m.index_select(0, dst))
+        l_ = ad.new_zeros((n_out, H)).index_add_(0, dst, p)
+        acc = wx.new_zeros((n_out, H, Fd)).index_add_(
+            0, dst, p[..., None] * wx.index_select(0, src))
+        return acc / l_.clamp(min=ref.TINY)[..., None], m, l_
+
+    def alphas():
+        z, s = scores()
+        p = mu * torch.exp(s - p_mm.index_select(0, dst))
+        alpha = p / p_ll.clamp(min=ref.TINY).index_select(0, dst)
+        gv = (g.index_select(0, dst) * wx.index_select(0, src)).sum(-1)
+        ap = alpha * torch.where(z > 0, 1.0, 0.2)
+        return alpha, ap * (gv - delta.index_select(0, dst))
+
+    def comp_row():
+        return ad.new_zeros((n_out, H)).index_add_(0, dst, alphas()[1])
+
+    def comp_col():
+        alpha, t = alphas()
+        return (wx.new_zeros((M, H, Fd)).index_add_(
+                    0, src, alpha[..., None] * g.index_select(0, dst)),
+                as_.new_zeros((M, H)).index_add_(0, src, t))
+
+    for a, b in zip(comp_fwd() + (comp_row(),) + comp_col(),
+                    (p_out, p_mm, p_ll, p_dad, p_dwx, p_das)):
+        torch.testing.assert_close(a, b, **tol)
     err = lambda a, b: float((a - b).abs().max())  # noqa: E731
     node = 4 * H                                   # one [*, H] row, f32
     blk, blk_t = uv.numel() * 4 + uc.numel() * 4, uvt.numel() * 4 + \
@@ -1145,42 +1198,55 @@ def _edge_softmax_case(plan, H, Fd, device, gen, clock_hz):
     # the operations this run's blocks need: one exponential per nonzero
     # entry and head, and per nonzero, head and feature one FMA (2 flops)
     # for the forward's alpha * wx and the row pass's g . wx, two for the
-    # column pass's alpha * g and g . wx; the forward's online rescale (one
-    # exponential per 32 columns, row and head) is the kernel's own cost,
-    # not the function's
+    # column pass's alpha * g and g . wx
     ent, ent_t = int((uv > 0).sum()) * H, int((uvt > 0).sum()) * H
+    lib = ("composition: index_select over the blocks' nonzeros, "
+           "leaky_relu, {}exp, index_add (no single PyTorch call computes "
+           "it)")
     cases = {
         "edge_softmax_fwd": (
-            max(err(out, p_out), err(ll, p_ll)),
-            lambda: esk.edge_softmax_fwd(ad, as_, wx, uv, uc),
-            lambda: ref.edge_softmax_fwd_ref(ad, as_, wx, uv, uc),
+            max(err(out, p_out), err(ll, p_ll)), fwd,
+            lambda: ref.edge_softmax_fwd_ref(ad, as_, wx, uv, uc), comp_fwd,
+            lib.format("scatter_reduce amax, "),
             blk + n_out * node + M * node * (1 + Fd) + n_out * node *
             (Fd + 2), 2.0 * ent * Fd, ent),
         "edge_softmax_bwd_row": (
-            err(dad, p_dad),
-            lambda: esk.edge_softmax_bwd_row(ad, as_, wx, g, p_mm, p_ll,
-                                             delta, uv, uc),
-            lambda: ref.edge_softmax_bwd_row_ref(ad, as_, wx, g, p_mm, p_ll,
-                                                 delta, uv, uc),
+            err(dad, p_dad), row,
+            lambda: ref.edge_softmax_bwd_row_ref(*bwd, uv, uc), comp_row,
+            lib.format(""),
             blk + n_out * node * (Fd + 5) + M * node * (1 + Fd),
             2.0 * ent * Fd, ent),
         "edge_softmax_bwd_col": (
-            max(err(dwx, p_dwx), err(das, p_das)),
-            lambda: esk.edge_softmax_bwd_col(ad, as_, wx, g, p_mm, p_ll,
-                                             delta, uvt, uct),
-            lambda: ref.edge_softmax_bwd_col_ref(ad, as_, wx, g, p_mm, p_ll,
-                                                 delta, uvt, uct),
+            max(err(dwx, p_dwx), err(das, p_das)), col,
+            lambda: ref.edge_softmax_bwd_col_ref(*bwd, uvt, uct), comp_col,
+            lib.format(""),
             blk_t + n_out * node * (Fd + 4) + M * node * (2 + 2 * Fd),
             4.0 * ent_t * Fd, ent_t),
     }
-    src = "src/repro_torch/kernels/csrc/edge_softmax.cu"
+    src_file = "src/repro_torch/kernels/csrc/edge_softmax.cu"
     line = {"edge_softmax_fwd": 92, "edge_softmax_bwd_row": 189,
             "edge_softmax_bwd_col": 276}
-    return {name: _row(name, src,
+    rows = {name: _row(name, src_file,
                        f"src/repro/kernels/edge_softmax.py:{line[name]}", e,
-                       _time_ms(fn), _time_ms(plain), None, n_bytes, flops,
-                       exps, clock_hz)
-            for name, (e, fn, plain, n_bytes, flops, exps) in cases.items()}
+                       _time_ms(fn), _time_ms(plain), _time_ms(comp),
+                       n_bytes, flops, exps, clock_hz, library=label)
+            for name, (e, fn, plain, comp, label, n_bytes, flops, exps)
+            in cases.items()}
+    if PARENT_LIB is not None:
+        # the parent's forward and row pass (the kernels this checkout
+        # redesigned) on the same inputs in the same call
+        o_out, o_mm, o_ll = _parent_call(fwd)
+        assert torch.equal(o_mm, mm), \
+            "edge_softmax_fwd: M differs from the parent's"
+        o_dad = _parent_call(row)
+        for name, pairs, fn in (
+                ("edge_softmax_fwd", ((o_out, out), (o_ll, ll)), fwd),
+                ("edge_softmax_bwd_row", ((o_dad, dad),), row)):
+            for a, b in pairs:
+                torch.testing.assert_close(a, b, **tol)
+            rows[name]["parent_ms"] = _time_ms(lambda: _parent_call(fn))
+            rows[name]["parent_diff"] = max(err(a, b) for a, b in pairs)
+    return rows
 
 
 def _block_coo(vals, cols):
@@ -1329,12 +1395,25 @@ def training_kernel_phase(plans, device, clock_hz):
     rows = []
     for name, row in hidden.items():
         o = output[name]
-        _phase("kernels", f"{name} (H=8, F=8): err {row['max_abs_err']:.3g}"
-               f", {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
-               f"{row['bound_ms']:.4f} by {row['bound_by']}); output layer "
-               f"(H=1, F=7): err {o['max_abs_err']:.3g}, {o['ms']:.4f} ms "
-               f"(plain {o['plain_ms']:.4f}, bound {o['bound_ms']:.4f} by "
-               f"{o['bound_by']})")
+
+        def layer(r):
+            return (f"err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
+                    f"{r['plain_ms']:.4f}, comp. {r['library_ms']:.4f}, "
+                    f"bound {r['bound_ms']:.5f} by {r['bound_by']})")
+
+        _phase("kernels", f"{name} (H=8, F=8): {layer(row)}; output layer "
+               f"(H=1, F=7): {layer(o)}")
+        if "parent_ms" in row:
+            held = ("M bitwise equal, out and L max diff"
+                    if name == "edge_softmax_fwd" else "dad max diff")
+            _phase("kernels", "; ".join(
+                f"{name} ({shape}): {r['ms']:.4f} ms, the parent's kernel "
+                f"{r['parent_ms']:.4f} ms ({r['parent_ms'] / r['ms']:.2f}x)"
+                f" on the same inputs; {held} {r['parent_diff']:.3g}"
+                for shape, r in (("H=8, F=8", row), ("H=1, F=7", o))))
+        elif name != "edge_softmax_bwd_col":
+            _phase("kernels", f"{name}: the parent's kernel not measured "
+                   f"(no --parent-csrc)")
         # the row times the hidden layer's call; its error covers both
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"],
                                                   o["max_abs_err"])
@@ -1658,6 +1737,16 @@ def training_phase(op, hd, plan, device):
            f"{ref_acc:.4f} at {hd}, {ref_note}), val {acc['val_acc']:.4f}; "
            f"launches " + str({k: v for k, v in launches.items() if v}))
     _phase("training", f"{tag}: one more epoch under torch.profiler: {busy}")
+    if PARENT_LIB is not None and op == "gat" and hd == "f32":
+        # the same epoch on the parent's kernels (the edge softmax it
+        # redesigned), then once more on this build's, in the same call
+        for which, run in (("the parent's kernels",
+                            lambda: _parent_call(
+                                lambda: _profiled_epoch(plan, state))),
+                           ("this build's kernels again",
+                            lambda: _profiled_epoch(plan, state))):
+            _phase("training", f"{tag}: one more epoch under "
+                   f"torch.profiler on {which}: {run()}")
     return launches
 
 
@@ -2336,8 +2425,9 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also build the kernels in DIR (another "
                          "checkout's kernels/csrc) and run its block "
-                         "contraction, scatter_rows and flash_decode "
-                         "beside this build's")
+                         "contraction, scatter_rows, flash_decode and "
+                         "edge-softmax forward and row pass beside this "
+                         "build's")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():

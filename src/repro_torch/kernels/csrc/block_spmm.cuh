@@ -38,11 +38,17 @@
 //   shared memory (cp.async, the next kDepth - 1 in flight, holding no
 //   registers: the accumulators and the drain's loads need them), with an
 //   L2 evict-first policy: the blocks pass through L2 once and would
-//   otherwise evict the staged rows the nonzeros read. Four ballots find
-//   a block row's nonzeros; each lane appends its own to the warp's queue
-//   in shared memory after the lower lanes', so the queue holds (value,
-//   k, b) in (k, b) ascending order. A block row with no nonzero costs
-//   its 512 B and a few instructions (empty blocks, padding row blocks).
+//   otherwise evict the staged rows the nonzeros read (without it the
+//   contractions took 1.08-1.23x as long on the H100). The policy is a
+//   template switch: csrc/edge_softmax.cu streams inside a loop over
+//   tiles, and there nvcc 12.9's sm_90a code with the policy raised an
+//   illegal instruction on the H100, made inside the loop or ahead of it;
+//   its blocks are a few hundred KB, so it streams with the default
+//   policy. Four ballots find a block row's nonzeros; each lane appends
+//   its own to the warp's queue in shared memory after the lower lanes',
+//   so the queue holds (value, k, b) in (k, b) ascending order. A block
+//   row with no nonzero costs its 512 B and a few instructions (empty
+//   blocks, padding row blocks).
 // - The nonzeros. When the queue would overflow, and after the stream,
 //   the warp drains it in order, kBatch entries at a time: it makes their
 //   staged rows' handles (RowSrc::row: column id or plan entry, then
@@ -53,6 +59,9 @@
 //   that chain. Deferred and batched, the chains overlap one another and
 //   no longer hold the stream. A staged row of zeros (past x's rows, sel == 2) is
 //   never read.
+// - The stream (ring, ballots, queue) is `stream_block_row`, which
+//   csrc/edge_softmax.cu's forward and row pass share; the drain is each
+//   kernel's own.
 // - No tensor cores: at these densities wgmma would multiply the zeros
 //   again, and the reference contracts in f32. Fully dense blocks run at
 //   the CUDA cores' rate, a queue drain per block row and one L1 read
@@ -94,6 +103,86 @@ struct Entry {
   int32_t kb;
 };
 
+// Stream row a of block row r of vals [R, K, 128, 128] for one warp.
+// For k = 0..K-1 the warp reads vals[r, k, a, :] through its ring (`ring`
+// at the lane's float4 of slot 0, kDepth slots kWarp apart) and queues the
+// block row's nonzeros as (value, k * 128 + b) in (k, b) order; drain(n)
+// takes the n queued entries in queue order whenever the next block row's
+// would overflow the queue, and once after the stream (n may be 0 there).
+// kEvictFirst reads the block rows with an L2 evict-first policy.
+// The queue is warp-synchronised around each drain.
+template <bool kEvictFirst, class Drain>
+__device__ __forceinline__ void stream_block_row(const float* __restrict__ vals,
+                                                 int64_t r, int a, int64_t K,
+                                                 float4* ring, Entry* queue,
+                                                 Drain&& drain) {
+  const int lane = threadIdx.x;
+  const unsigned below = (1u << lane) - 1u;  // the lanes below this one
+  auto flush = [&](int n) {
+    __syncwarp();  // every lane's entries are in the queue
+    drain(n);
+    __syncwarp();  // the queue may be refilled
+  };
+
+  // queue block row (r, k, a)'s nonzeros; v is this lane's 4 values
+  int n = 0;  // queued entries (warp-uniform)
+  auto enqueue = [&](int64_t k, const float4 v) {
+    const unsigned m0 = __ballot_sync(kAll, v.x != 0.f);
+    const unsigned m1 = __ballot_sync(kAll, v.y != 0.f);
+    const unsigned m2 = __ballot_sync(kAll, v.z != 0.f);
+    const unsigned m3 = __ballot_sync(kAll, v.w != 0.f);
+    const int total = __popc(m0) + __popc(m1) + __popc(m2) + __popc(m3);
+    if (total == 0) return;
+    if (n + total > kQueue) {
+      flush(n);
+      n = 0;
+    }
+    int at = n + __popc(m0 & below) + __popc(m1 & below) +
+             __popc(m2 & below) + __popc(m3 & below);
+    const int kb = static_cast<int>(k) * kBn + 4 * lane;
+    if (v.x != 0.f) queue[at++] = {v.x, kb};
+    if (v.y != 0.f) queue[at++] = {v.y, kb + 1};
+    if (v.z != 0.f) queue[at++] = {v.z, kb + 2};
+    if (v.w != 0.f) queue[at++] = {v.w, kb + 3};
+    n += total;
+  };
+
+  // this lane's 16 bytes of row a of block (r, k) into ring slot k % kDepth
+  // (one commit group per k, empty past K)
+  const float4* blk =
+      reinterpret_cast<const float4*>(vals + (r * K * kBn + a) * kBn) + lane;
+  uint64_t evict_first = 0;
+  if constexpr (kEvictFirst)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(evict_first));
+  auto issue = [&](int64_t k) {
+    if (k < K) {
+      const unsigned dst = static_cast<unsigned>(
+          __cvta_generic_to_shared(ring + (k % kDepth) * kWarp));
+      const float4* src = blk + k * (kBn * kBn / 4);
+      if constexpr (kEvictFirst)
+        asm volatile(
+            "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+            ::"r"(dst), "l"(src), "l"(evict_first));
+      else
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     ::"r"(dst), "l"(src));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+#pragma unroll
+  for (int p = 0; p < kDepth - 1; ++p) issue(p);
+  for (int64_t k = 0; k < K; ++k) {
+    // groups 0..k are complete: slot k holds this lane's 16 bytes
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 2));
+    const float4 v = ring[(k % kDepth) * kWarp];
+    issue(k + kDepth - 1);  // into the slot read one step ago
+    enqueue(k, v);
+  }
+  flush(n);
+}
+
 template <int J, class RowSrc>
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
 block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
@@ -113,9 +202,7 @@ block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
                  : left > (J - 1) * kWarp
                      ? J
                      : static_cast<int>((left + kWarp - 1) / kWarp);
-  float4* ring = &ring_s[threadIdx.y][0][lane];
-  Entry* queue = queue_s[threadIdx.y];
-  const unsigned below = (1u << lane) - 1u;  // the lanes below this one
+  const Entry* queue = queue_s[threadIdx.y];
 
   float acc[J];
 #pragma unroll
@@ -123,7 +210,6 @@ block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
 
   // multiply the n queued entries, in queue order
   auto drain = [&](int n) {
-    __syncwarp();  // every lane's entries are in the queue
     for (int i = 0; i < n; i += kBatch) {
       float w[kBatch];
       typename RowSrc::Row h[kBatch];
@@ -152,60 +238,9 @@ block_spmm_kernel(const float* __restrict__ vals, int64_t K, int64_t d,
         }
       }
     }
-    __syncwarp();  // the queue may be refilled
   };
-
-  // queue block row (r, k, a)'s nonzeros; v is this lane's 4 values
-  int n = 0;  // queued entries (warp-uniform)
-  auto enqueue = [&](int64_t k, const float4 v) {
-    const unsigned m0 = __ballot_sync(kAll, v.x != 0.f);
-    const unsigned m1 = __ballot_sync(kAll, v.y != 0.f);
-    const unsigned m2 = __ballot_sync(kAll, v.z != 0.f);
-    const unsigned m3 = __ballot_sync(kAll, v.w != 0.f);
-    const int total = __popc(m0) + __popc(m1) + __popc(m2) + __popc(m3);
-    if (total == 0) return;
-    if (n + total > kQueue) {
-      drain(n);
-      n = 0;
-    }
-    int at = n + __popc(m0 & below) + __popc(m1 & below) +
-             __popc(m2 & below) + __popc(m3 & below);
-    const int kb = static_cast<int>(k) * kBn + 4 * lane;
-    if (v.x != 0.f) queue[at++] = {v.x, kb};
-    if (v.y != 0.f) queue[at++] = {v.y, kb + 1};
-    if (v.z != 0.f) queue[at++] = {v.z, kb + 2};
-    if (v.w != 0.f) queue[at++] = {v.w, kb + 3};
-    n += total;
-  };
-
-  // this lane's 16 bytes of row a of block (r, k) into ring slot k % kDepth
-  // (one commit group per k, empty past K)
-  const float4* blk =
-      reinterpret_cast<const float4*>(vals + (r * K * kBn + a) * kBn) + lane;
-  uint64_t evict_first;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(evict_first));
-  auto issue = [&](int64_t k) {
-    if (k < K) {
-      const unsigned dst = static_cast<unsigned>(
-          __cvta_generic_to_shared(ring + (k % kDepth) * kWarp));
-      asm volatile(
-          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
-          ::"r"(dst), "l"(blk + k * (kBn * kBn / 4)), "l"(evict_first));
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-#pragma unroll
-  for (int p = 0; p < kDepth - 1; ++p) issue(p);
-  for (int64_t k = 0; k < K; ++k) {
-    // groups 0..k are complete: slot k holds this lane's 16 bytes
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 2));
-    const float4 v = ring[(k % kDepth) * kWarp];
-    issue(k + kDepth - 1);  // into the slot read one step ago
-    enqueue(k, v);
-  }
-  drain(n);
+  stream_block_row<true>(vals, r, a, K, &ring_s[threadIdx.y][0][lane],
+                         queue_s[threadIdx.y], drain);
 
 #pragma unroll
   for (int j = 0; j < J; ++j)

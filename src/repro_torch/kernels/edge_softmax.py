@@ -3,13 +3,14 @@
 
 Replaces `src/repro/kernels/edge_softmax.py:92 edge_softmax_fwd`, `:189
 edge_softmax_bwd_row` and `:276 edge_softmax_bwd_col`. On CUDA tensors
-each launches its kernel in `csrc/edge_softmax.cu` (one CTA per 128-row
-block for all heads, the loop over K inside the CTA, the multiplicity
-block staged in shared memory once for all heads; the design and the
-bound are in the source's head); on CPU tensors each runs its plain
-version in `ref.py`. The operands keep the op's node-major layouts
-(`ad` [n_dst, H], `as_` [n_src, H], `wx` [n_src, H, F]) with no padding of
-rows or features: the kernels mask the ragged edges.
+each launches its kernel in `csrc/edge_softmax.cu` (the forward and the
+row pass: a warp per destination row that streams its block rows once
+and queues their nonzeros; the column pass: one CTA per 128-row block of
+the transposed blocks for all heads; the designs and the bound are in
+the source's head); on CPU tensors each runs its plain version in
+`ref.py`. The operands keep the op's node-major layouts (`ad` [n_dst,
+H], `as_` [n_src, H], `wx` [n_src, H, F]) with no padding of rows or
+features: the kernels mask the ragged edges.
 """
 from __future__ import annotations
 

@@ -76,21 +76,67 @@ def _blocks(seed, n_out, M, ne, empty_from=None):
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, empty_from or n_out, ne).astype(np.int32)
     src = rng.integers(0, M - 40, ne).astype(np.int32)
-    dst[:ne // 10], src[:ne // 10] = dst[ne // 10:ne // 5], \
-        src[ne // 10:ne // 5]                         # duplicate edges
+    k = ne // 10
+    dst[:k], src[:k] = dst[k:2 * k], src[k:2 * k]   # duplicate edges
     ones = np.ones(ne, np.float32)
     uv, uc, _, _ = ops.build_bcsr_rect(dst, src, ones, n_out, M)
     uvt, uct, _, _ = ops.build_bcsr_rect(src, dst, ones, M, n_out)
     return [torch.from_numpy(a) for a in (uv, uc, uvt, uct)], rng
 
 
+_ES_KERNELS = ("edge_softmax_fwd", "edge_softmax_bwd_row",
+               "edge_softmax_bwd_col")
+
+
+def _edge_softmax_all(dev, H, F, uv, uc, uvt, uct, ad, as_, wx, g):
+    """The three kernels on the card against their plain versions: M
+    bitwise, the rest at TOL; then a warm repeat of each bitwise, and
+    exactly one launch per call. Returns the kernels' outputs."""
+    ad_d, as_d, wx_d, g_d = (torch.from_numpy(a).to(dev)
+                             for a in (ad, as_, wx, g))
+    uv_d, uc_d, uvt_d, uct_d = (t.to(dev) for t in (uv, uc, uvt, uct))
+    before = dict(_build.launch_counts)
+    out, mm, ll = esk.edge_softmax_fwd(ad_d, as_d, wx_d, uv_d, uc_d)
+    p_out, p_mm, p_ll = ref.edge_softmax_fwd_ref(ad_d, as_d, wx_d, uv_d,
+                                                 uc_d)
+    assert torch.equal(mm, p_mm)
+    torch.testing.assert_close(out, p_out, **TOL)
+    torch.testing.assert_close(ll, p_ll, **TOL)
+    delta = (g_d * p_out).sum(-1)
+    bwd = (ad_d, as_d, wx_d, g_d, p_mm, p_ll, delta)
+    dad = esk.edge_softmax_bwd_row(*bwd, uv_d, uc_d)
+    torch.testing.assert_close(dad, ref.edge_softmax_bwd_row_ref(
+        *bwd, uv_d, uc_d), **TOL)
+    dwx, das = esk.edge_softmax_bwd_col(*bwd, uvt_d, uct_d)
+    p_dwx, p_das = ref.edge_softmax_bwd_col_ref(*bwd, uvt_d, uct_d)
+    torch.testing.assert_close(dwx, p_dwx, **TOL)
+    torch.testing.assert_close(das, p_das, **TOL)
+    torch.cuda.synchronize()
+    for k in _ES_KERNELS:
+        assert _build.launch_counts[k] == before[k] + 1, k
+    # a warm repeat of each is bitwise the same
+    for a, b in zip(esk.edge_softmax_fwd(ad_d, as_d, wx_d, uv_d, uc_d),
+                    (out, mm, ll)):
+        assert torch.equal(a, b)
+    assert torch.equal(esk.edge_softmax_bwd_row(*bwd, uv_d, uc_d), dad)
+    again = esk.edge_softmax_bwd_col(*bwd, uvt_d, uct_d)
+    assert torch.equal(again[0], dwx) and torch.equal(again[1], das)
+    return out, mm, ll, dad, dwx, das
+
+
 @pytest.mark.parametrize("H,F,n_out,M", [(8, 8, 194, 474), (1, 7, 194, 474),
-                                         (2, 20, 300, 700), (12, 3, 130, 260)])
+                                         (2, 20, 300, 700), (12, 3, 130, 260),
+                                         (8, 16, 194, 474), (2, 40, 203, 474),
+                                         (1, 130, 141, 300)])
 def test_edge_softmax_kernels_match_plain(dev, H, F, n_out, M):
     """The three kernels at GAT's layer shapes on the Cora-shaped batches
     (8 heads of 8, one head of 7), F past one register tile, H past one
-    CTA's 8 heads; the last 40 sources are reached by no edge and carry
-    poisoned values."""
+    CTA's 8 heads; H*F past one 64-pair lane tile (8 x 16: two tiles
+    split between heads; 2 x 40: head 1 straddles the tiles; 1 x 130: one
+    head over three); n_out not a multiple of 8 throughout, so a CTA of
+    the warp-per-row kernels holds live and dead warps. The last 5
+    destinations have no edges (out, dad 0); the last 40 sources are
+    reached by no edge and carry poisoned values."""
     (uv, uc, uvt, uct), rng = _blocks(H + F, n_out, M, 6 * n_out,
                                       empty_from=n_out - 5)
     wx = rng.normal(size=(M, H, F)).astype(np.float32)
@@ -99,35 +145,77 @@ def test_edge_softmax_kernels_match_plain(dev, H, F, n_out, M):
     as_[M - 40:] = 50.0
     ad = rng.normal(size=(n_out, H)).astype(np.float32)
     g = rng.normal(size=(n_out, H, F)).astype(np.float32)
-    cpu = [torch.from_numpy(a) for a in (ad, as_, wx, g)]
-    ad_d, as_d, wx_d, g_d = (t.to(dev) for t in cpu)
-    uv_d, uc_d, uvt_d, uct_d = (t.to(dev) for t in (uv, uc, uvt, uct))
-
-    out, mm, ll = esk.edge_softmax_fwd(ad_d, as_d, wx_d, uv_d, uc_d)
-    p_out, p_mm, p_ll = ref.edge_softmax_fwd_ref(ad_d, as_d, wx_d, uv_d,
-                                                 uc_d)
-    assert torch.equal(mm, p_mm)
-    torch.testing.assert_close(out, p_out, **TOL)
-    torch.testing.assert_close(ll, p_ll, **TOL)
-    assert torch.all(out[n_out - 5:] == 0)
-    delta = (g_d * p_out).sum(-1)
-    dad = esk.edge_softmax_bwd_row(ad_d, as_d, wx_d, g_d, p_mm, p_ll, delta,
-                                   uv_d, uc_d)
-    torch.testing.assert_close(dad, ref.edge_softmax_bwd_row_ref(
-        ad_d, as_d, wx_d, g_d, p_mm, p_ll, delta, uv_d, uc_d), **TOL)
-    dwx, das = esk.edge_softmax_bwd_col(ad_d, as_d, wx_d, g_d, p_mm, p_ll,
-                                        delta, uvt_d, uct_d)
-    p_dwx, p_das = ref.edge_softmax_bwd_col_ref(ad_d, as_d, wx_d, g_d, p_mm,
-                                                p_ll, delta, uvt_d, uct_d)
-    torch.testing.assert_close(dwx, p_dwx, **TOL)
-    torch.testing.assert_close(das, p_das, **TOL)
+    out, mm, ll, dad, dwx, das = _edge_softmax_all(dev, H, F, uv, uc, uvt,
+                                                   uct, ad, as_, wx, g)
+    assert torch.all(out[n_out - 5:] == 0) and torch.all(dad[n_out - 5:] == 0)
+    assert torch.all(mm[n_out - 5:] == ref.NEG)
+    assert torch.all(ll[n_out - 5:] == 0)
     assert torch.all(dwx[M - 40:] == 0) and torch.all(das[M - 40:] == 0)
-    # a warm repeat is bitwise the same
-    again = esk.edge_softmax_bwd_col(ad_d, as_d, wx_d, g_d, p_mm, p_ll,
-                                     delta, uvt_d, uct_d)
-    assert torch.equal(again[0], dwx) and torch.equal(again[1], das)
-    assert torch.equal(esk.edge_softmax_fwd(ad_d, as_d, wx_d, uv_d,
-                                            uc_d)[0], out)
+
+
+@pytest.mark.parametrize("H,F,M", [(8, 8, 1300), (1, 7, 1300),
+                                   (2, 40, 4500)])
+def test_edge_softmax_hub_row_overflows_the_queue(dev, H, F, M):
+    """A hub destination whose edges overflow the warp's 128-entry queue,
+    spread over every source block (K = 11 and K = 36), with duplicate
+    edges; its sources'
+    scores rise along the row, so a later queue batch raises the running
+    max and the overflow branch rescales. M bitwise, out, L, dad and the
+    column pass at 1e-4, repeats bitwise."""
+    n_out = 150
+    rng = np.random.default_rng(M + H)
+    hub = 77
+    hub_src = np.sort(rng.choice(M, size=600, replace=False))
+    hub_src = np.concatenate([hub_src, hub_src[::7]])     # duplicates
+    other_dst = rng.integers(0, n_out, 4 * n_out)
+    other_src = rng.integers(0, M, 4 * n_out)
+    dst = np.concatenate([np.full(hub_src.size, hub), other_dst])
+    src = np.concatenate([hub_src, other_src])
+    ones = np.ones(dst.size, np.float32)
+    uv, uc, _, _ = ops.build_bcsr_rect(dst.astype(np.int32),
+                                       src.astype(np.int32), ones, n_out, M)
+    uvt, uct, _, _ = ops.build_bcsr_rect(src.astype(np.int32),
+                                         dst.astype(np.int32), ones, M, n_out)
+    assert uc.shape[1] == -(-M // 128)
+    assert int((uv[hub // 128, :, hub % 128] > 0).sum()) > 128
+    assert float(uv.max()) >= 2
+    as_ = (rng.normal(size=(M, H)) +
+           np.arange(M)[:, None] * (8.0 / M)).astype(np.float32)
+    wx = rng.normal(size=(M, H, F)).astype(np.float32)
+    ad = rng.normal(size=(n_out, H)).astype(np.float32)
+    g = rng.normal(size=(n_out, H, F)).astype(np.float32)
+    _edge_softmax_all(dev, H, F, *(torch.from_numpy(a)
+                                   for a in (uv, uc, uvt, uct)),
+                      ad, as_, wx, g)
+
+
+@pytest.mark.parametrize("H", [1, 3, 70])
+def test_edge_softmax_zero_features(dev, H):
+    """Heads of F = 0 features (the plain versions cannot reshape an empty
+    feature axis, so they run at F = 1 on zero features, which gives the
+    same M, L, dad and das): out and dwx are empty, M bitwise, L at 1e-4,
+    dad and das written as 0 (delta = sum_f g * out = 0), one launch per
+    call. Each head takes one lane pair; 70 heads take two tiles."""
+    (uv, uc, uvt, uct), rng = _blocks(H, 130, 260, 600)
+    uv, uc, uvt, uct = (t.to(dev) for t in (uv, uc, uvt, uct))
+    ad = torch.from_numpy(rng.normal(size=(130, H)).astype(np.float32))
+    as_ = torch.from_numpy(rng.normal(size=(260, H)).astype(np.float32))
+    ad, as_ = ad.to(dev), as_.to(dev)
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    before = dict(_build.launch_counts)
+    out, mm, ll = esk.edge_softmax_fwd(ad, as_, z(260, H, 0), uv, uc)
+    _, p_mm, p_ll = ref.edge_softmax_fwd_ref(ad, as_, z(260, H, 1), uv, uc)
+    assert out.shape == (130, H, 0)
+    assert torch.equal(mm, p_mm)
+    torch.testing.assert_close(ll, p_ll, **TOL)
+    bwd = (ad, as_, z(260, H, 0), z(130, H, 0), mm, ll, z(130, H))
+    dad = esk.edge_softmax_bwd_row(*bwd, uv, uc)
+    dwx, das = esk.edge_softmax_bwd_col(*bwd, uvt, uct)
+    assert dwx.shape == (260, H, 0)
+    assert torch.all(dad == 0) and torch.all(das == 0)
+    torch.cuda.synchronize()
+    for k in _ES_KERNELS:
+        assert _build.launch_counts[k] == before[k] + 1, k
 
 
 @pytest.mark.parametrize("F,n_out,M,ties", [(48, 300, 474, True),
