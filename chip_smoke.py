@@ -21,20 +21,25 @@ with a non-zero exit at the first failure:
    body of `gather_spmm` and `scatter_rows_q` over an int8 store, the
    bf16 instantiations of `gather_spmm` and `scatter_rows`, and the vq
    body of `gather_spmm` and `scatter_rows_vq` over a vq store (S = 32
-   codes a row, a 256 KB codebook; codes and scales bitwise). After
+   codes a row, a 256 KB codebook; codes and scales bitwise; the push's
+   bound by operations beside the floor of the same operations issued one
+   unfused instruction each, and its device kernels from one profiled
+   push). After
    phase 3 (they need the training plans), GAT's
    three edge-softmax kernels the same way, on the unit blocks of a
    Cora-shaped training batch at the hidden layer's shapes (8 heads of 8;
    the output layer's, 1 head of 7, on the same line), the GAT
    hidden layer's history pull from an int8 table (`gather_rows_dq`), a
-   bf16 one and a vq one (`gather_rows_vq`), `bcsr_spmm` on the
+   bf16 one and a vq one (`gather_rows_vq`) and its push into the vq
+   one (`scatter_rows_vq` at the training shape, 8 codes a row),
+   `bcsr_spmm` on the
    forward and the transposed blocks of a quickstart
    batch (the GCN backward's use of it), and PNA's three `pna_reduce`
    kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
    (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
    beside a composition of PyTorch calls over the blocks' nonzeros; the
    edge-softmax kernels beside such a composition too and, with
-   --parent-csrc, the parent checkout's forward and row pass).
+   --parent-csrc, the parent checkout's three kernels).
    Each block contraction (`bcsr_spmm` on the refresh batch, on the same
    blocks made fully dense, and on the two quickstart families;
    `gather_spmm`'s four bodies) has a line with its time beside the
@@ -120,10 +125,20 @@ partitioner on this host) for `tests/test_torch_train.py --reference-acc
     python3 chip_smoke.py --parent-csrc build/parent-src/src/repro_torch/kernels/csrc
 
 also builds the kernels of another checkout (its C entry points must
-have this build's signatures) and times its block contraction,
-`scatter_rows` (f32 and bf16), `flash_decode`, `edge_softmax_fwd` and
-`edge_softmax_bwd_row` beside this build's on the same inputs in phases
-2 and 3b, their outputs compared.
+have this build's signatures, but for `scatter_rows`, `flash_decode` and
+`scatter_rows_vq`, which are called with the parent's own) and times its
+block contraction, `scatter_rows` (f32 and bf16), `scatter_rows_vq` (at
+both push shapes; and on rows holding inf and NaN, bitwise),
+`flash_decode` and the three edge-softmax kernels beside this build's on
+the same inputs in phases 2 and 3b, their outputs compared.
+
+    python3 chip_smoke.py --vq-ablation
+
+also builds the kernels once per build switch of `scatter_rows_vq`'s
+search (`csrc/scatter.cu`, each mechanism off) and, after phase 2, times
+each vq push of the main path (and three pushes between the training and
+the refit push) at every lane split and on every such build, each output
+bitwise the plain version's (`[vq-ablation]` lines).
 
 Then it prints the kernels line (JSON), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Without
@@ -135,6 +150,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -163,6 +179,7 @@ from repro_torch.data.graphs import citation_graph  # noqa: E402
 from repro_torch.data.tokens import MarkovTokens  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import scatter as scatter_mod  # noqa: E402
 from repro_torch.kernels import edge_softmax as esk  # noqa: E402
 from repro_torch.kernels import pna_reduce as pnk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
@@ -200,6 +217,22 @@ TIMED_REPS = 25
 # 80GB HBM3, 700.00 W), from PERF.md's kernel table and, for the
 # dense-block and training lines, from this script run with --parent-csrc
 PARENT_LIB = None
+# `--vq-ablation`: the encoding push's search with each of its mechanisms
+# turned off, one library per csrc/scatter.cu build switch
+# ({label: (defines, library)}), timed at the main path's pushes into a vq
+# store (and three between the training and refit pushes, where the
+# plan's split changes) beside every lane split of this build, VQ_ROUNDS
+# rounds each
+VQ_ABLATION = {"one chain": ("REPRO_VQ_CHAINS=1",),
+               "whole-slice staging": ("REPRO_VQ_HALVES=0",),
+               "no bank padding": ("REPRO_VQ_PAD=0",)}
+VQ_ABLATION_LIBS = {}
+VQ_PUSHES = (("GCN training push", 179, 64), ("GAT training push", 194, 64),
+             ("PNA training push", 287, 64), ("1,024 rows", 1024, 64),
+             ("1,536 rows", 1536, 64), ("2,048 rows", 2048, 64),
+             ("GCN refit push", 2501, 64),
+             ("serving refresh push", 4096, 256))
+VQ_ROUNDS = 5
 EARLIER_MS = {"bcsr_spmm": 2.016, "gather_spmm": 1.877,
               "gather_spmm_bf16": 1.965, "gather_spmm_dq": 2.031,
               "gather_spmm_vq": 1.942,
@@ -535,6 +568,147 @@ def _parent_scatter_rows(table, idx, values):
     return table
 
 
+def _parent_scatter_rows_vq(table, scales, idx, values, codebook):
+    """The parent checkout's `scatter_rows_vq` (PARENT_LIB) on the same
+    operands: its launcher takes no lane plan and always the N-entry
+    winner scratch of its claim passes (three kernels). In place; returns
+    (table, scales, codes, err); no launch is counted."""
+    (n, s_n), m = table.shape, idx.shape[0]
+    dev = table.device
+    winner = torch.empty((n,), dtype=torch.int32, device=dev)
+    codes = torch.empty((m, s_n), dtype=torch.uint8, device=dev)
+    err = torch.empty((m,), dtype=torch.float32, device=dev)
+    fn = PARENT_LIB["repro_scatter_rows_vq"]   # its own argtypes
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(
+        table.data_ptr(), scales.data_ptr(), codes.data_ptr(),
+        err.data_ptr(), idx.data_ptr(), values.data_ptr(),
+        codebook.data_ptr(), winner.data_ptr(), m, n, s_n,
+        codebook.shape[1], _build.stream_ptr(dev)),
+        "the parent's scatter_rows_vq")
+    return table, scales, codes, err
+
+
+def _vq_push_row(label, replaces, idx, values, codebook, table, scales,
+                 clock_hz):
+    """`scatter_rows_vq` of one push (`idx`, `values` [M, S*8]) into a vq
+    store, as a kernel row: checked against its plain version (table,
+    scales and codes bitwise, errors to rounding), timed beside the plain
+    version and a composition of PyTorch calls, its device kernels counted
+    from one profiled push, its bound (operations: 24 per row, subvector
+    and entry at 67 TFLOP/s) printed beside the floor of the same work
+    issued one unfused instruction each (128 lanes per SM and clock), and
+    with --parent-csrc beside the parent's kernel on the same push
+    (bitwise). Returns the row."""
+    N = table.shape[0] - 1
+    M, D = values.shape
+    S = D // 8
+    a = scatter_rows_vq(table.clone(), scales.clone(), idx, values, codebook)
+    b = ref.scatter_rows_vq_ref(table.clone(), scales.clone(), idx, values,
+                                codebook)
+    assert torch.equal(a[0][:N], b[0][:N]) and \
+        torch.equal(a[1][:N], b[1][:N]) and torch.equal(a[2], b[2]), \
+        f"{label}: scatter_rows_vq differs from its plain version"
+    torch.testing.assert_close(a[3], b[3], rtol=1e-5, atol=1e-7)
+    n_tgt = int(torch.unique(idx).numel())
+    tq, ts = table.clone(), scales.clone()
+    valid = idx < N
+    uniq = idx[valid].long()
+    sub = torch.arange(S, device=codebook.device)
+
+    def composition():
+        amax = values.abs().amax(1)
+        sc = torch.where(amax > 0, amax, torch.ones_like(amax))
+        u = (values / sc[:, None]).view(M, S, 8).transpose(0, 1)
+        q = torch.cdist(u, codebook).argmin(-1).t()
+        tq.index_copy_(0, uniq, q[valid].to(torch.uint8))
+        ts.index_copy_(0, uniq, sc[valid])
+        back = codebook[sub, q].reshape(M, D) * sc[:, None]
+        return ref.relative_row_error(values, back)
+
+    # bytes: the index, the values, each target's codes and scale, every
+    # pushed row's codes and error, the whole codebook once (each row is
+    # held against every entry); operations: per pushed row, subvector and
+    # entry 8 subtracts, 8 multiplies, 7 adds and a comparison (24), and
+    # the row's max and division
+    ops_n = 24.0 * M * S * 256
+    row = _row(
+        "scatter_rows_vq", "src/repro_torch/kernels/csrc/scatter.cu",
+        replaces, float((a[3] - b[3]).abs().max()),
+        _time_ms(lambda: scatter_rows_vq(tq, ts, idx, values, codebook)),
+        _time_ms(lambda: ref.scatter_rows_vq_ref(tq, ts, idx, values,
+                                                 codebook)),
+        _time_ms(composition),
+        M * 4 + M * D * 4 + n_tgt * (S + 4) + M * (S + 4)
+        + codebook.numel() * 4, ops_n + 2.0 * M * D,
+        library="composition: row max, divide, cdist (matmul form), "
+                "argmin, two index_copy_, the row errors (plain)")
+    row["codes_scales_err"] = 0.0
+    row["case"] = f"{label}, M={M}, S={S}"
+    # the same operations issued one instruction each, none fused
+    floor_ms = ops_n / (128 * N_SMS * clock_hz) * 1e3
+    out, out_s = tq.clone(), ts.clone()
+    kernels = _device_kernels(lambda: scatter_rows_vq(out, out_s, idx,
+                                                      values, codebook))
+    if kernels:
+        want = 1 if M <= SCAN_MAX_ROWS else 3
+        assert len(kernels) == want, f"{label}: one push ran {kernels}"
+        ran = (f"one push ran {len(kernels)} device kernel(s) ("
+               + ", ".join(f"{k.split('::')[-1].split('<')[0]} {us:.2f} us"
+                           for k, us in kernels) + " profiled)")
+    else:   # late in a long run the profiler sees no device event at all
+        ran = ("its device kernels not measured (the profiler saw no "
+               "device event; the card tests count them)")
+    _phase("kernels", f"{label} (M = {M}, S = {S}): err {row['max_abs_err']:.3g}"
+           f" (codes, scales 0), {row['ms']:.4f} ms (plain "
+           f"{row['plain_ms']:.4f}, comp. {row['library_ms']:.4f}); bound "
+           f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({ops_n / 1e6:.0f}"
+           f" M operations at 67 TFLOP/s), unfused-instruction floor "
+           f"{floor_ms:.5f} ms (one instruction each, 128 lanes x {N_SMS} "
+           f"SMs x {clock_hz / 1e9:.2f} GHz); {ran}")
+    if PARENT_LIB is None:
+        _beside_parent(f"{label} scatter_rows_vq", row["ms"], None, None,
+                       None)
+        return row
+    old = _parent_scatter_rows_vq(table.clone(), scales.clone(), idx,
+                                  values, codebook)
+    for x, y, what in zip(old[:3], a[:3], ("table", "scales", "codes")):
+        assert torch.equal(x, y), f"{label}: {what} differ from the parent's"
+    torch.testing.assert_close(old[3], a[3], rtol=1e-5, atol=1e-7)
+    ot, os_ = table.clone(), scales.clone()
+    old_ms = _time_ms(lambda: _parent_scatter_rows_vq(ot, os_, idx, values,
+                                                      codebook))
+    _phase("kernels", f"{label} scatter_rows_vq: {row['ms']:.4f} ms, the "
+           f"parent's kernel {old_ms:.4f} ms ({old_ms / row['ms']:.2f}x) "
+           f"on the same inputs; table, scales and codes bitwise equal, err "
+           f"max diff {float((old[3] - a[3]).abs().max()):.3g}")
+    row["parent_ms"] = old_ms
+    return row
+
+
+def _vq_non_finite_beside_parent(idx, values, codebook, table, scales):
+    """With --parent-csrc: a push whose rows hold inf, -inf and NaN,
+    through this build's `scatter_rows_vq` and the parent's, table,
+    scales and codes bitwise equal, the errors NaN on the same rows."""
+    v = values.clone()
+    v[3, 5], v[4, -1], v[5, 9], v[6] = float("inf"), float("-inf"), \
+        float("nan"), float("nan")
+    v[7, 0], v[7, 1] = float("nan"), float("inf")
+    a = scatter_rows_vq(table.clone(), scales.clone(), idx, v, codebook)
+    b = _parent_scatter_rows_vq(table.clone(), scales.clone(), idx, v,
+                                codebook)
+    for x, y, what in zip(b[:3], a[:3], ("table", "scales", "codes")):
+        assert torch.equal(x, y), \
+            f"scatter_rows_vq on non-finite rows: {what} differ from the " \
+            f"parent's"
+    assert torch.equal(torch.isnan(a[3]), torch.isnan(b[3]))
+    _phase("kernels", "scatter_rows_vq on rows holding inf, -inf and NaN: "
+           "table, scales and codes bitwise the parent kernel's, errors NaN "
+           f"on the same {int(torch.isnan(a[3]).sum())} rows")
+
+
 def _parent_flash_decode(q, k, v, pos):
     """The parent checkout's `flash_decode` (PARENT_LIB) on its own plan,
     the one its wrapper made for both types: group tiles of the least
@@ -579,6 +753,70 @@ def _beside_parent(label, ms, out, old_out, old_fn, limit=None):
     _phase("kernels", f"{label}: {ms:.4f} ms, the parent's kernel "
            f"{old_ms:.4f} ms ({old_ms / ms:.2f}x) on the same inputs; "
            f"outputs {held}")
+
+
+def _vq_ablation(device):
+    """--vq-ablation: `scatter_rows_vq` at each push of VQ_PUSHES (seeded
+    rows, unique targets, the store's codebook) with every lane split of
+    this build forced in place of its plan's, and at the plan's split with
+    each VQ_ABLATION library in place of this build's; every output
+    bitwise the plain version's. Each time is the median over VQ_ROUNDS
+    rounds (each a `_time_ms`, the configurations interleaved), printed
+    with the rounds' range. No launch is counted."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    plan_fn, saved_lib = scatter_mod.scatter_rows_vq_plan, _build._lib
+    counts = dict(_build.launch_counts)
+
+    def run(cfg, args):
+        lanes, lib = cfg
+        _build._lib = saved_lib if lib is None else lib
+        scatter_mod.scatter_rows_vq_plan = (
+            lambda m, s_n, n_sm: (lanes,) + plan_fn(m, s_n, n_sm)[1:])
+        try:
+            return scatter_rows_vq(*args)
+        finally:
+            _build._lib = saved_lib
+            scatter_mod.scatter_rows_vq_plan = plan_fn
+
+    for label, M, D in VQ_PUSHES:
+        S_n = D // 8
+        vals = torch.randn((M, D), generator=gen, device=device)
+        cb = vq_init_codebook(D, device=device)
+        idx = torch.randperm(M, generator=gen, device=device).to(torch.int32)
+        table = torch.zeros((M + 1, S_n), dtype=torch.uint8, device=device)
+        scales = torch.zeros((M + 1,), dtype=torch.float32, device=device)
+        want = ref.scatter_rows_vq_ref(table.clone(), scales.clone(), idx,
+                                       vals, cb)
+        planned = plan_fn(M, S_n, N_SMS)[0]
+        cfgs = {f"lanes {L}": (L, None) for L in scatter_mod.VQ_LANES}
+        cfgs.update({name: (planned, lib)
+                     for name, (_, lib) in VQ_ABLATION_LIBS.items()})
+        for name, cfg in cfgs.items():
+            got = run(cfg, (table.clone(), scales.clone(), idx, vals, cb))
+            for a, b, what in zip(got[:3], want[:3],
+                                  ("table", "scales", "codes")):
+                assert torch.equal(a, b), \
+                    f"--vq-ablation {label}, {name}: {what} differ from " \
+                    f"the plain version's"
+            torch.testing.assert_close(got[3], want[3], rtol=1e-5,
+                                       atol=1e-7)
+        times = {name: [] for name in cfgs}
+        tq, ts = table.clone(), scales.clone()
+        for _ in range(VQ_ROUNDS):
+            for name, cfg in cfgs.items():
+                times[name].append(_time_ms(
+                    lambda: run(cfg, (tq, ts, idx, vals, cb))))
+
+        def fmt(name):
+            t = times[name]
+            return (f"{name} {statistics.median(t):.4f} [{min(t):.4f}-"
+                    f"{max(t):.4f}]")
+
+        _phase("vq-ablation", f"{label} (M = {M}, S = {S_n}; the plan: "
+               f"{planned} lane(s)), ms, median [range] of {VQ_ROUNDS} "
+               f"rounds: " + ", ".join(fmt(n) for n in cfgs)
+               + "; every output bitwise the plain version's")
+    _build.launch_counts.update(counts)
 
 
 def _device_kernels(fn):
@@ -796,7 +1034,7 @@ def kernel_phase(g, spec, device):
         hist, x_in, vals, cols, (sel, xrow, trow), vals_p, dup, push_idx,
         uniq_idx, uniq_vals, blk_bytes, nnz)
     rows += _vq_kernel_rows(hist, x_in, vals, cols, (sel, xrow, trow),
-                            vals_p, dup, push_idx, uniq_idx, blk_bytes, nnz)
+                            vals_p, dup, push_idx, blk_bytes, nnz)
     for r in rows:
         _phase("kernels", f"{r['name']}: err {r['max_abs_err']:.3g}, "
                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -903,7 +1141,7 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
 
 
 def _vq_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup, push_idx,
-                    uniq_idx, blk_bytes, nnz):
+                    blk_bytes, nnz):
     """Phase 2 over a vq store of the refresh batch's table (d = 256,
     S = 32 subvectors, codebook [32, 256, 8], 256 KB: the rows of the vq
     serving path): the vq body of gather_spmm and the encoding push, each
@@ -952,61 +1190,31 @@ def _vq_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup, push_idx,
         x_in, codes, vals, cols, sel, xrow, trow, scales, cb), out,
         rows[-1]["ms"])
 
-    # scatter_rows_vq: the push of the refresh batch into the vq store:
-    # table codes, scales and every pushed row's codes bitwise (duplicates
-    # and masked rows first), each row's relative error to rounding
-    err_e = 0.0
-    for idx in (dup, push_idx):
-        a = scatter_rows_vq(codes.clone(), scales.clone(), idx, vals_p, cb)
-        b = ref.scatter_rows_vq_ref(codes.clone(), scales.clone(), idx,
-                                    vals_p, cb)
-        assert torch.equal(a[0][:N], b[0][:N]) and \
-            torch.equal(a[1][:N], b[1][:N]) and torch.equal(a[2], b[2]), \
-            "scatter_rows_vq differs from its plain version"
-        torch.testing.assert_close(a[3], b[3], rtol=1e-5, atol=1e-7)
-        err_e = max(err_e, float((a[3] - b[3]).abs().max()))
-    M = push_idx.shape[0]
-    n_tgt = int(torch.unique(push_idx).numel())
-    tq, ts = codes.clone(), scales.clone()
-    valid = push_idx < N                     # the rows uniq_idx names
-    sub = torch.arange(S, device=cb.device)
-
-    def composition():
-        amax = vals_p.abs().amax(1)
-        sc = torch.where(amax > 0, amax, torch.ones_like(amax))
-        u = (vals_p / sc[:, None]).view(M, S, 8).transpose(0, 1)
-        q = torch.cdist(u, cb).argmin(-1).t()
-        tq.index_copy_(0, uniq_idx, q[valid].to(torch.uint8))
-        ts.index_copy_(0, uniq_idx, sc[valid])
-        back = cb[sub, q].reshape(M, D) * sc[:, None]
-        return ref.relative_row_error(vals_p, back)
-
-    # bytes: the index, the values, each target's codes and scale, every
-    # pushed row's codes and error, the whole codebook once (each row is
-    # held against every entry); operations: per
-    # pushed row, subvector and entry 8 subtracts, 8 multiplies, 7 adds
-    # and a comparison (24), and the row's max and division
-    q_row = _row(
-        "scatter_rows_vq", "src/repro_torch/kernels/csrc/scatter.cu",
-        "src/repro/kernels/scatter.py:141", err_e,
-        _time_ms(lambda: scatter_rows_vq(tq, ts, push_idx, vals_p, cb)),
-        _time_ms(lambda: ref.scatter_rows_vq_ref(tq, ts, push_idx, vals_p,
-                                                 cb)),
-        _time_ms(composition),
-        M * 4 + M * D * 4 + n_tgt * (S + 4) + M * (S + 4) + cb.numel() * 4,
-        24.0 * M * S * 256 + 2.0 * M * D,
-        library="composition: row max, divide, cdist (matmul form), "
-                "argmin, two index_copy_, the row errors (plain)")
-    q_row["codes_scales_err"] = 0.0
-    rows.append(q_row)
+    # scatter_rows_vq: the push of the refresh batch into the vq store
+    # (duplicates and masked rows first, then the push itself)
+    a = scatter_rows_vq(codes.clone(), scales.clone(), dup, vals_p, cb)
+    b = ref.scatter_rows_vq_ref(codes.clone(), scales.clone(), dup, vals_p,
+                                cb)
+    assert torch.equal(a[0][:N], b[0][:N]) and \
+        torch.equal(a[1][:N], b[1][:N]) and torch.equal(a[2], b[2]), \
+        "scatter_rows_vq differs from its plain version"
+    torch.testing.assert_close(a[3], b[3], rtol=1e-5, atol=1e-7)
+    rows.append(_vq_push_row(
+        "serving refresh push", "src/repro/kernels/scatter.py:141",
+        push_idx, vals_p, cb, codes, scales, _clock_hz()))
+    if PARENT_LIB is not None:
+        _vq_non_finite_beside_parent(push_idx[:64], vals_p[:64].clone(), cb,
+                                     codes, scales)
     return rows
 
 
-def _history_pull_rows(plan, device, gen):
+def _history_pull_rows(plan, device, gen, clock_hz):
     """Phase 2: the GAT hidden layer's history pull (batch 0's halo rows,
     d = 64) from an int8 table (`gather_rows_dq`), a bf16 one
     (`gather_rows_bf16`) and a vq one (`gather_rows_vq`, S = 8, codebook
-    [8, 256, 8]), bitwise against the plain versions."""
+    [8, 256, 8]), bitwise against the plain versions; and the same
+    layer's push into the vq table (`scatter_rows_vq`: batch 0's rows,
+    masked ones on the sentinel row), its second kernel row."""
     batch = plan.batch(0)
     n1 = plan.graph.num_nodes + 1
     idx = torch.clamp(batch.halo_nodes, 0, n1 - 1).to(torch.int32)
@@ -1065,7 +1273,14 @@ def _history_pull_rows(plan, device, gen):
                f"{r['name']}: err 0, {r['ms']:.4f} ms (plain "
                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
                f"{r['bound_ms']:.5f} by {r['bound_by']})" for r in rows))
-    return rows
+    push_idx = ops._push_index(batch.batch_nodes, batch.batch_mask, n1,
+                               scratch_last_row=True)
+    push = torch.randn((push_idx.shape[0], D), generator=gen, device=device)
+    row = _vq_push_row("GAT hidden-layer training push",
+                       "src/repro/kernels/scatter.py:141", push_idx, push,
+                       cb, vq, vs, clock_hz)
+    row["run"] = "gat vq"        # its launches: the GAT vq training run
+    return rows + [row]
 
 
 def _train_graph(op):
@@ -1121,9 +1336,9 @@ def _edge_softmax_case(plan, H, Fd, device, gen, clock_hz):
     """The three edge-softmax kernels on batch 0's unit blocks with seeded
     operands of H heads of Fd features: checks against the plain
     versions, times, bounds, the time of a composition of PyTorch calls
-    over the blocks' nonzeros, and with --parent-csrc the parent's
-    forward and row pass on the same inputs (M bitwise, the rest within
-    RTOL / ATOL). Returns {name: kernel row}."""
+    over the blocks' nonzeros, and with --parent-csrc the parent's three
+    kernels on the same inputs (M bitwise, the rest within RTOL / ATOL).
+    Returns {name: kernel row}."""
     batch = plan.batch(0)
     uv, uc, uvt, uct = batch.ublocks
     n_out, M = batch.max_b, batch.max_b + batch.max_h + 1
@@ -1233,15 +1448,16 @@ def _edge_softmax_case(plan, H, Fd, device, gen, clock_hz):
             for name, (e, fn, plain, comp, label, n_bytes, flops, exps)
             in cases.items()}
     if PARENT_LIB is not None:
-        # the parent's forward and row pass (the kernels this checkout
-        # redesigned) on the same inputs in the same call
+        # the parent's three kernels on the same inputs in the same call
         o_out, o_mm, o_ll = _parent_call(fwd)
         assert torch.equal(o_mm, mm), \
             "edge_softmax_fwd: M differs from the parent's"
         o_dad = _parent_call(row)
+        o_dwx, o_das = _parent_call(col)
         for name, pairs, fn in (
                 ("edge_softmax_fwd", ((o_out, out), (o_ll, ll)), fwd),
-                ("edge_softmax_bwd_row", ((o_dad, dad),), row)):
+                ("edge_softmax_bwd_row", ((o_dad, dad),), row),
+                ("edge_softmax_bwd_col", ((o_dwx, dwx), (o_das, das)), col)):
             for a, b in pairs:
                 torch.testing.assert_close(a, b, **tol)
             rows[name]["parent_ms"] = _time_ms(lambda: _parent_call(fn))
@@ -1404,21 +1620,22 @@ def training_kernel_phase(plans, device, clock_hz):
         _phase("kernels", f"{name} (H=8, F=8): {layer(row)}; output layer "
                f"(H=1, F=7): {layer(o)}")
         if "parent_ms" in row:
-            held = ("M bitwise equal, out and L max diff"
-                    if name == "edge_softmax_fwd" else "dad max diff")
+            held = {"edge_softmax_fwd": "M bitwise equal, out and L max diff",
+                    "edge_softmax_bwd_row": "dad max diff",
+                    "edge_softmax_bwd_col": "dwx and das max diff"}[name]
             _phase("kernels", "; ".join(
                 f"{name} ({shape}): {r['ms']:.4f} ms, the parent's kernel "
                 f"{r['parent_ms']:.4f} ms ({r['parent_ms'] / r['ms']:.2f}x)"
                 f" on the same inputs; {held} {r['parent_diff']:.3g}"
                 for shape, r in (("H=8, F=8", row), ("H=1, F=7", o))))
-        elif name != "edge_softmax_bwd_col":
+        else:
             _phase("kernels", f"{name}: the parent's kernel not measured "
                    f"(no --parent-csrc)")
         # the row times the hidden layer's call; its error covers both
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"],
                                                   o["max_abs_err"])
         rows.append(row)
-    rows += _history_pull_rows(plans["gat"], device, gen)
+    rows += _history_pull_rows(plans["gat"], device, gen, clock_hz)
     rows += _pna_kernel_rows(plans["pna"], device, gen)
 
     # bcsr_spmm on a quickstart batch's blocks (128 wide): the forward
@@ -2425,9 +2642,14 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also build the kernels in DIR (another "
                          "checkout's kernels/csrc) and run its block "
-                         "contraction, scatter_rows, flash_decode and "
-                         "edge-softmax forward and row pass beside this "
-                         "build's")
+                         "contraction, scatter_rows, scatter_rows_vq, "
+                         "flash_decode and edge-softmax kernels beside "
+                         "this build's")
+    ap.add_argument("--vq-ablation", action="store_true",
+                    help="also build the kernels once per build switch of "
+                         "scatter_rows_vq's search (each mechanism off) and "
+                         "time the main path's vq pushes on every build and "
+                         "at every lane split")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2471,6 +2693,17 @@ def _smoke(args, partitions, t_start) -> int:
         PARENT_LIB = _build.load(_build.build(
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
         _phase("build", f"the kernels of {args.parent_csrc} in "
+               f"{time.perf_counter() - t0:.1f} s")
+    if args.vq_ablation:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(VQ_ABLATION)) as ex:
+            built = {name: ex.submit(_build.build, _build.CSRC,
+                                     ROOT / "build" / "vq-ablation", flags)
+                     for name, flags in VQ_ABLATION.items()}
+            for name, fut in built.items():
+                VQ_ABLATION_LIBS[name] = (VQ_ABLATION[name],
+                                          _build.load(fut.result()))
+        _phase("build", f"{len(VQ_ABLATION)} vq-ablation builds in "
                f"{time.perf_counter() - t0:.1f} s")
 
     device = resolve_device("cuda")
@@ -2516,6 +2749,9 @@ def _smoke(args, partitions, t_start) -> int:
                      **{op: p.part for op, p in plans.items()})
         rows += training_kernel_phase(plans, device, _clock_hz())
         lap("training kernels")
+        if args.vq_ablation:
+            _vq_ablation(device)
+            lap("vq ablation")
     for op, hd in TRAIN_RUNS:
         launches[f"{op} {hd}"] = training_phase(op, hd, plans[op], device)
         lap(f"{op} {hd}")
@@ -2537,8 +2773,8 @@ def _smoke(args, partitions, t_start) -> int:
               "vq serving", "gather_rows_vq": "gat vq",
               "flash_decode": "decode", **{k: "pna f32" for k in _PNA}}
     for r in rows:
-        r["launches"] = launches[source.get(r["name"], "f32 serving")][
-            r["name"]]
+        run = r.pop("run", None) or source.get(r["name"], "f32 serving")
+        r["launches"] = launches[run][r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "repro_gather_rows_bf16": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_dq": [_P, _P, _P, _P, _I, _I, _P],
     "repro_gather_rows_vq": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_scatter_rows_vq": [_P] * 8 + [_I] * 4 + [_P],
+    "repro_scatter_rows_vq": [_P] * 8 + [_I] * 6 + [_P],
     "repro_gather_spmm_vq": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                              _I, _P, _P],
     "repro_scatter_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -100,8 +100,8 @@ def _sources(csrc: Path) -> List[Path]:
     return sorted(csrc.glob("*.cu"))
 
 
-def _key(csrc: Path) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _key(csrc: Path, flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -118,13 +118,17 @@ def _nvcc() -> str:
     return cand
 
 
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          defines: Tuple[str, ...] = ()) -> Path:
     """Compile the sources in `csrc` (in parallel) and link the library
     unless a build with the same key exists under `build_dir`. Returns the
     library's path; the compiler's output (ptxas register and spill counts
     included) is kept beside it in `build.log`. Another checkout's `csrc`
-    builds that checkout's kernels (`chip_smoke.py --parent-csrc`)."""
-    out_dir = build_dir / _key(csrc)
+    builds that checkout's kernels (`chip_smoke.py --parent-csrc`);
+    `defines` ("NAME=VALUE") set a source's build switches
+    (`chip_smoke.py --vq-ablation`)."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    out_dir = build_dir / _key(csrc, flags)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
@@ -136,7 +140,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
         obj = tmp / (src.stem + ".o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
     for src, proc in procs:

@@ -60,7 +60,7 @@
 //   no longer hold the stream. A staged row of zeros (past x's rows, sel == 2) is
 //   never read.
 // - The stream (ring, ballots, queue) is `stream_block_row`, which
-//   csrc/edge_softmax.cu's forward and row pass share; the drain is each
+//   csrc/edge_softmax.cu's three passes share; the drain is each
 //   kernel's own.
 // - No tensor cores: at these densities wgmma would multiply the zeros
 //   again, and the reference contracts in f32. Fully dense blocks run at

@@ -31,15 +31,18 @@
 // per entry and head in the forward and the row pass, 2F in the column
 // pass) at 67 TFLOP/s; one exponential per nonzero entry and head at 16
 // results per clock per SM (132 SMs, the clock from nvidia-smi). A GAT
-// batch's multiplicity blocks are sparse (645-1,037 edges in 131,072
-// stored values at the Cora shape, [2, 4, 128, 128]), so the block bytes
-// bound all three passes at both layers' widths: ~0.2 us, below one
-// launch. What bounds a call in practice is the chain of dependent
-// latencies one row's warp walks (block rows, then column ids, then the
-// edges' source rows), which the design keeps short and overlapped.
+// batch's multiplicity blocks are sparse (572-1,037 edges in 131,072
+// stored values at the Cora shape, [2, 4, 128, 128] and transposed [4, 2,
+// 128, 128]), so the block bytes bound all three passes at both layers'
+// widths: ~0.2 us, below one launch. What bounds a call in practice is the
+// chain of dependent latencies one row's warp walks (block rows, then
+// column ids, then the edges' far rows), which the design keeps short and
+// overlapped.
 //
-// Design of the forward and the row pass: a warp per destination row
-// (csrc/pna_reduce.cu's shape) on block_spmm.cuh's stream.
+// Design of all three passes: a warp per row of their blocks
+// (csrc/pna_reduce.cu's shape) on block_spmm.cuh's stream; the forward and
+// the row pass own destination rows of the forward blocks, the column pass
+// source rows of the transposed ones.
 // - A CTA holds kRowsPerCta = 8 warps for 8 consecutive rows of one
 //   row block (25 CTAs for a Cora-shaped batch's 194 rows, where a CTA per
 //   128-row block row would run 2). Lane l holds the flattened (head,
@@ -71,27 +74,36 @@
 //   f runs in f order through shared memory (F need not be a power of
 //   two); a head whose features straddle two tiles carries its partial
 //   sum to the next, so dad[h] has one owner, written once.
-// - Each drain walks its queued entries in order, kEdges at a time: their
-//   source rows, col(k) * 128 + b, take the block's column id through the
-//   read-only cache (as block_spmm.cuh and pna_reduce.cu do, at any K),
-//   and the source rows' values (as_, wx) of the kEdges edges are loaded
-//   at once, so their latencies overlap. Masked entries are never queued,
-//   so values on sources that no edge reaches never leak whatever their
-//   size; each duplicate edge counts with its multiplicity.
+// - Each drain walks its queued entries in order, kEdges at a time
+//   (`for_edges`): their far rows, col(k) * 128 + b (sources in the
+//   forward and the row pass, destinations in the column pass), take the
+//   block's column id through the read-only cache (as block_spmm.cuh and
+//   pna_reduce.cu do, at any K), and the far rows' operands of the kEdges
+//   edges (as_ and wx; or ad, M, L, delta and g) are loaded at once, so
+//   their latencies overlap. Masked entries are never queued, so values on
+//   rows that no edge reaches never leak whatever their size; each
+//   duplicate edge counts with its multiplicity.
 // - No tensor cores: at 0.5-0.8% density mma would multiply the zeros
 //   again, and the reference computes in f32.
+// - The column pass is the row pass over the transposed blocks vals_t
+//   [R_t, K_t, 128, 128], whose rows are sources: a warp owns source row
+//   j = c * 128 + a (~60 CTAs for a Cora-shaped batch's ~480 sources,
+//   where a CTA per 128-row block row ran 4), its lanes hold the same 64-pair
+//   tiles, and the stream queues the row's edges j -> i. Per queued edge,
+//   destination i = cols_t[c, k] * 128 + b, the drain loads ad, M, L and
+//   delta [i, h] per lane's head and g[i, q] per pair, recomputes alpha
+//   and alpha' as the row pass does, and accumulates dwx[j, q] += alpha
+//   g[i, q], gacc[q] += alpha' g[i, q] and sad[h] += alpha' delta[i, h]
+//   in registers. At the end of a tile das[j, h] = sum_f wx[j, h, f]
+//   gacc[h, f] - sad[h] (the plain version's sum regrouped) is folded in
+//   f order through shared memory with a straddling head carried across
+//   tiles, as the row pass folds dad, so every output has one owner and
+//   is written once. A hub source row with more edges than the queue
+//   drains in batches with nothing to rescale (the pass only sums); at F
+//   = 0 das = -sad.
 // Shared memory per CTA: the ring 16,384 B and the queues 8,192 B
-// (forward, 24,576 B), plus 4,128 B of per-head sums and carries (row
-// pass, 28,704 B), all static.
-//
-// Design of the column pass: over the transposed blocks, one CTA per source
-// block row (blockDim = 128 rows x up to 8 heads, one thread per (row,
-// head)), looping over K itself with its state in registers; each K step's
-// block is staged in shared memory in 32-column chunks once for all heads,
-// with the chunk's logit halves and an 8-feature tile of values beside it.
-// Features past 8 run as a loop in the thread, so the pass folds -delta *
-// sum alpha' in once per K step (on the first tile). Every row of dwx and
-// das has exactly one owner thread.
+// (forward, 24,576 B), plus 4,128 B of per-head sums and carries (row and
+// column passes, 28,704 B), all static.
 //
 // Exactness, all three passes: z is one IEEE add and leaky_relu's product
 // is unfused (__fmul_rn), so the scores round as the plain version's and
@@ -115,9 +127,6 @@ using repro::stream_block_row;
 constexpr int kPairs = 2;                // (head, feature) pairs per lane
 constexpr int kTile = kWarp * kPairs;    // pairs per warp and tile
 constexpr int kEdges = 4;                // queued edges loaded together
-constexpr int kCb = 32;          // block columns staged per chunk (col)
-constexpr int kFt = 8;           // features per register tile (col)
-constexpr int kMaxHeads = 8;     // heads per CTA (col, blockDim.y)
 constexpr float kNeg = -1e30f;   // the reference's NEG
 constexpr float kTiny = 1e-30f;  // the reference's TINY
 
@@ -136,7 +145,7 @@ __device__ __forceinline__ float lrelu(float z, float slope) {
   return z > 0.f ? z : __fmul_rn(slope, z);
 }
 
-// The warp's destination row (row a of row block r) and its lane's
+// The warp's row (row a of block row r of its blocks) and its lane's
 // pairs of tile t: q = h * fp + f = 64t + 32p + lane, live below H * fp;
 // `feat` where f < F too (the pair has a feature: false at F = 0).
 struct Lane {
@@ -161,24 +170,36 @@ __device__ __forceinline__ Lane lane_of(const Dims& d, int64_t row, int t) {
   return w;
 }
 
-// body(mu, av, xv) over a drain's queued entries [0, n), kEdges at a time
+// The far ends of a drain's edges: rows [0, n) (zeros past n) with kN
+// operands [n, H] read at the lane's pairs' heads and, unless `pair` is
+// null, one [n, H, F] read at its pairs. The forward and the row pass
+// reach source rows (as_; wx), the column pass destination rows (ad, M, L,
+// delta; g).
+template <int kN>
+struct Far {
+  const float* head[kN];
+  const float* pair;
+  int64_t n;
+};
+
+// body(mu, hv, xv) over a drain's queued entries [0, n), kEdges at a time
 // in queue order: mu is the multiplicity (0 past n and where masked: the
 // plain version's mask is mult > 0, so a masked entry reads nothing), and
-// the lane's pairs' halves as_[j, h] and, with `wx`, values wx[j, q] on
-// the kEdges source rows j = col(k) * 128 + b are loaded together (zeros
-// past n_src). cols_r is the row block's column ids.
+// hv[e][c][p] = far.head[c][j, h] and xv[e][p] = far.pair[j, q] for the
+// lane's pairs are loaded together on the kEdges far rows j = col(k) * 128
+// + b (zeros past far.n). cols_r is the row block's column ids.
 using Edges = const float (&)[kEdges];          // body's mu
-using Rows = const float (&)[kEdges][kPairs];   // body's av and xv
+using Rows = const float (&)[kEdges][kPairs];   // body's xv
+template <int kN>
+using Heads = const float (&)[kEdges][kN][kPairs];  // body's hv
 
-template <class Body>
+template <int kN, class Body>
 __device__ __forceinline__ void for_edges(const Entry* queue, int n,
                                           const int32_t* cols_r,
                                           const Lane& w, const Dims& d,
-                                          const float* __restrict__ as_,
-                                          const float* __restrict__ wx,
-                                          Body&& body) {
+                                          const Far<kN>& far, Body&& body) {
   for (int i = 0; i < n; i += kEdges) {
-    float mu[kEdges], av[kEdges][kPairs], xv[kEdges][kPairs];
+    float mu[kEdges], hv[kEdges][kN][kPairs], xv[kEdges][kPairs];
     int32_t j[kEdges];
 #pragma unroll
     for (int e = 0; e < kEdges; ++e) {
@@ -191,14 +212,53 @@ __device__ __forceinline__ void for_edges(const Entry* queue, int n,
     for (int e = 0; e < kEdges; ++e) {
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
-        const bool ok = mu[e] > 0.f && w.live[p] && j[e] < d.n_src;
-        av[e][p] = ok ? __ldg(as_ + j[e] * d.H + w.h[p]) : 0.f;
-        xv[e][p] = ok && w.feat[p] && wx != nullptr
-                       ? __ldg(wx + j[e] * d.H * d.F + w.q[p]) : 0.f;
+        const bool ok = mu[e] > 0.f && w.live[p] && j[e] < far.n;
+#pragma unroll
+        for (int c = 0; c < kN; ++c)
+          hv[e][c][p] = ok ? __ldg(far.head[c] + j[e] * d.H + w.h[p]) : 0.f;
+        xv[e][p] = ok && w.feat[p] && far.pair != nullptr
+                       ? __ldg(far.pair + j[e] * d.H * d.F + w.q[p]) : 0.f;
       }
     }
-    body(mu, av, xv);
+    body(mu, hv, xv);
   }
+}
+
+// The per-head outputs of tile t of a warp's pairs (dad in the row pass,
+// das in the column pass): for each head h whose pairs end in this tile,
+// finish(h, s, c) with s = sum_f prod[h, f] summed in f order and c the
+// head's per-head sum (`per_head`, the same at each of its pairs, read at
+// its first pair in the tile). A head that began in the tile before takes
+// its sum so far from `carry`; a head that goes on past the tile leaves
+// its sum there. `sum_s` is two kTile rows of the warp's shared memory.
+template <class Finish>
+__device__ __forceinline__ void fold_heads(const float (&prod)[kPairs],
+                                           const float (&per_head)[kPairs],
+                                           int t, int HF, int F,
+                                           float (*sum_s)[kTile],
+                                           float* carry, Finish&& finish) {
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    sum_s[0][p * kWarp + threadIdx.x] = prod[p];
+    sum_s[1][p * kWarp + threadIdx.x] = per_head[p];
+  }
+  // the previous tile's straddling head, read before this tile writes it
+  const float before = t > 0 ? *carry : 0.f;
+  __syncwarp();
+  const int q0 = t * kTile;
+  const int q1 = q0 + kTile < HF ? q0 + kTile : HF;
+  for (int h = q0 / F + threadIdx.x; h * F < q1; h += kWarp) {
+    const int lo = h * F > q0 ? h * F : q0;
+    const int end = h * F + F;
+    const int hi = end < q1 ? end : q1;
+    float s = h * F < q0 ? before : 0.f;
+    for (int q = lo; q < hi; ++q) s += sum_s[0][q - q0];
+    if (end <= q1)
+      finish(h, s, sum_s[1][lo - q0]);
+    else
+      *carry = s;  // the tile's last head goes on
+  }
+  __syncwarp();  // the sums are read before the next tile writes them
 }
 
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
@@ -214,6 +274,8 @@ es_fwd_kernel(const float* __restrict__ ad, const float* __restrict__ as_,
   if (row >= d.n_dst) return;  // the whole warp; no CTA barrier follows
   const Entry* queue = queue_s[threadIdx.y];
   const int32_t* cols_r = cols + row / kBn * d.K;
+  const Far<1> scores{{as_}, nullptr, d.n_src};  // pass 1 reads no wx
+  const Far<1> sources{{as_}, wx, d.n_src};
 
   for (int t = 0; t * kTile < d.H * d.fp(); ++t) {
     const Lane w = lane_of(d, row, t);
@@ -231,17 +293,17 @@ es_fwd_kernel(const float* __restrict__ ad, const float* __restrict__ as_,
       float top[kPairs];
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) top[p] = m[p];
-      auto max_of = [&](Edges mu, Rows av, Rows) {
+      auto max_of = [&](Edges mu, Heads<1> av, Rows) {
 #pragma unroll
         for (int e = 0; e < kEdges; ++e) {
           if (mu[e] > 0.f) {
 #pragma unroll
             for (int p = 0; p < kPairs; ++p)
-              top[p] = fmaxf(top[p], lrelu(adv[p] + av[e][p], d.slope));
+              top[p] = fmaxf(top[p], lrelu(adv[p] + av[e][0][p], d.slope));
           }
         }
       };
-      for_edges(queue, n, cols_r, w, d, as_, nullptr, max_of);
+      for_edges(queue, n, cols_r, w, d, scores, max_of);
       // the overflow branch: edges drained before were weighed against a
       // smaller max (on the first drain l and acc are 0 and stay 0)
 #pragma unroll
@@ -254,13 +316,13 @@ es_fwd_kernel(const float* __restrict__ ad, const float* __restrict__ as_,
         }
       }
       // pass 2: p = mult * exp(s - M) once per edge and pair
-      auto add = [&](Edges mu, Rows av, Rows xv) {
+      auto add = [&](Edges mu, Heads<1> av, Rows xv) {
 #pragma unroll
         for (int e = 0; e < kEdges; ++e) {
           if (mu[e] > 0.f) {
 #pragma unroll
             for (int p = 0; p < kPairs; ++p) {
-              const float s = lrelu(adv[p] + av[e][p], d.slope);
+              const float s = lrelu(adv[p] + av[e][0][p], d.slope);
               const float pe = mu[e] * expf(s - m[p]);
               l[p] += pe;
               acc[p] = fmaf(pe, xv[e][p], acc[p]);
@@ -268,7 +330,7 @@ es_fwd_kernel(const float* __restrict__ ad, const float* __restrict__ as_,
           }
         }
       };
-      for_edges(queue, n, cols_r, w, d, as_, wx, add);
+      for_edges(queue, n, cols_r, w, d, sources, add);
     };
     stream_block_row<false>(vals, w.r, w.a, d.K,
                             &ring_s[threadIdx.y][0][threadIdx.x],
@@ -307,8 +369,7 @@ es_bwd_row_kernel(const float* __restrict__ ad,
   const int HF = static_cast<int>(d.H) * F;
   const Entry* queue = queue_s[threadIdx.y];
   const int32_t* cols_r = cols + row / kBn * d.K;
-  float* gacc = sum_s[threadIdx.y][0];
-  float* sap_h = sum_s[threadIdx.y][1];
+  const Far<1> sources{{as_}, wx, d.n_src};
 
   for (int t = 0; t * kTile < HF; ++t) {
     const Lane w = lane_of(d, row, t);
@@ -326,13 +387,13 @@ es_bwd_row_kernel(const float* __restrict__ ad,
     }
 
     auto drain = [&](int n) {
-      auto add = [&](Edges mu, Rows av, Rows xv) {
+      auto add = [&](Edges mu, Heads<1> av, Rows xv) {
 #pragma unroll
         for (int e = 0; e < kEdges; ++e) {
           if (mu[e] > 0.f) {
 #pragma unroll
             for (int p = 0; p < kPairs; ++p) {
-              const float z = adv[p] + av[e][p];
+              const float z = adv[p] + av[e][0][p];
               const float pe = mu[e] * expf(lrelu(z, d.slope) - mv[p]);
               const float ap = (pe / den[p]) * (z > 0.f ? 1.f : d.slope);
               acc[p] = fmaf(ap, xv[e][p], acc[p]);
@@ -341,85 +402,25 @@ es_bwd_row_kernel(const float* __restrict__ ad,
           }
         }
       };
-      for_edges(queue, n, cols_r, w, d, as_, wx, add);
+      for_edges(queue, n, cols_r, w, d, sources, add);
     };
     stream_block_row<false>(vals, w.r, w.a, d.K,
                             &ring_s[threadIdx.y][0][threadIdx.x],
                             queue_s[threadIdx.y], drain);
 
-    // dad[h] = sum_f g[h, f] acc[h, f] - delta[h] sap[h], the head's pairs
-    // summed in f order, across tiles through the carry
+    // dad[h] = sum_f g[h, f] acc[h, f] - delta[h] sap[h]
+    float gacc[kPairs];
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      gacc[p * kWarp + threadIdx.x] = gv[p] * acc[p];
-      sap_h[p * kWarp + threadIdx.x] = sap[p];
-    }
-    // the previous tile's straddling head, read before this tile writes it
-    const float carry = t > 0 ? carry_s[threadIdx.y] : 0.f;
-    __syncwarp();
-    const int q0 = t * kTile;
-    const int q1 = q0 + kTile < HF ? q0 + kTile : HF;
-    for (int h = q0 / F + threadIdx.x; h * F < q1; h += kWarp) {
-      const int lo = h * F > q0 ? h * F : q0;
-      const int end = h * F + F;
-      const int hi = end < q1 ? end : q1;
-      float s = h * F < q0 ? carry : 0.f;
-      for (int q = lo; q < hi; ++q) s += gacc[q - q0];
-      if (end <= q1)
-        dad[row * d.H + h] =
-            s - __ldg(delta + row * d.H + h) * sap_h[lo - q0];
-      else
-        carry_s[threadIdx.y] = s;  // the tile's last head goes on
-    }
-    __syncwarp();  // the sums are read before the next tile writes them
+    for (int p = 0; p < kPairs; ++p) gacc[p] = gv[p] * acc[p];
+    fold_heads(gacc, sap, t, HF, F, sum_s[threadIdx.y], &carry_s[threadIdx.y],
+               [&](int h, float s, float sap_h) {
+                 dad[row * d.H + h] =
+                     s - __ldg(delta + row * d.H + h) * sap_h;
+               });
   }
 }
 
-// The column pass's staged chunk.
-struct Smem {
-  float mult[kCb][kBn + 1];            // mult[b][a] = block[a][b0 + b]
-  float key[kCb][kMaxHeads];           // the destinations' logit halves
-  float val[kCb][kMaxHeads][kFt];      // a feature tile of g
-  float stat[3][kCb][kMaxHeads];       // M, L, delta
-};
-
-// Stage columns [b0, b0 + kCb) of one 128x128 block, transposed so that a
-// warp's threads (consecutive rows) read consecutive banks.
-__device__ __forceinline__ void stage_mult(Smem& sm, const float* blk,
-                                           int b0, int tid, int nthreads) {
-  for (int i = tid; i < kBn * kCb; i += nthreads) {
-    const int a = i / kCb;
-    const int b = i % kCb;
-    sm.mult[b][a] = __ldg(blk + a * kBn + b0 + b);
-  }
-}
-
-// Stage the chunk's rows of a [rows, H] half and a feature tile of a
-// [rows, H, F] operand (zeros past `rows`, past H and past F).
-__device__ __forceinline__ void stage_rows(
-    Smem& sm, const float* key, const float* val, int64_t base,
-    int64_t rows, const Dims& d, int64_t h0, int hpb, int64_t f0, int tid,
-    int nthreads) {
-  for (int i = tid; i < kCb * hpb; i += nthreads) {
-    const int b = i / hpb;
-    const int hh = i % hpb;
-    const int64_t j = base + b;
-    const int64_t h = h0 + hh;
-    const bool ok = j < rows && h < d.H;
-    sm.key[b][hh] = ok ? __ldg(key + j * d.H + h) : 0.f;
-  }
-  for (int i = tid; i < kCb * hpb * kFt; i += nthreads) {
-    const int b = i / (hpb * kFt);
-    const int hh = (i / kFt) % hpb;
-    const int f = i % kFt;
-    const int64_t j = base + b;
-    const int64_t h = h0 + hh;
-    const bool ok = j < rows && h < d.H && f0 + f < d.F;
-    sm.val[b][hh][f] = ok ? __ldg(val + (j * d.H + h) * d.F + f0 + f) : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kBn * kMaxHeads)
+__global__ void __launch_bounds__(kWarp * kRowsPerCta)
 es_bwd_col_kernel(const float* __restrict__ ad,
                   const float* __restrict__ as_,
                   const float* __restrict__ wx, const float* __restrict__ g,
@@ -429,90 +430,72 @@ es_bwd_col_kernel(const float* __restrict__ ad,
                   const float* __restrict__ vals_t,
                   const int32_t* __restrict__ cols_t, const Dims d,
                   float* __restrict__ dwx, float* __restrict__ das) {
-  __shared__ Smem sm;
-  const int j = threadIdx.x;
-  const int hh = threadIdx.y;
-  const int hpb = blockDim.y;
-  const int tid = hh * kBn + j;
-  const int nthreads = kBn * hpb;
-  const int64_t c = blockIdx.x;                 // source block
-  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * hpb;
-  const int64_t h = h0 + hh;
-  const int64_t row = c * kBn + j;              // source row
-  const bool live = row < d.n_src && h < d.H;
-  const int64_t o = row * d.H + h;
-  const float asv = live ? __ldg(as_ + o) : 0.f;
+  __shared__ __align__(16) float4 ring_s[kRowsPerCta][kDepth][kWarp];
+  __shared__ Entry queue_s[kRowsPerCta][kQueue];
+  __shared__ float sum_s[kRowsPerCta][2][kTile];  // wx * gacc, sad
+  __shared__ float carry_s[kRowsPerCta];          // a straddling head's
+  const int64_t row =   // the warp's source row j
+      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.y;
+  if (row >= d.n_src) return;  // the whole warp; no CTA barrier follows
+  const int F = d.fp();  // the pairs' stride per head
+  const int HF = static_cast<int>(d.H) * F;
+  const Entry* queue = queue_s[threadIdx.y];
+  const int32_t* cols_r = cols_t + row / kBn * d.K;
+  const Far<4> dests{{ad, mmax, lsum, delta}, g, d.n_dst};
 
-  float acc_s = 0.f;
-  for (int64_t f0 = 0; f0 < d.F; f0 += kFt) {
-    float wt[kFt];
-    float dw[kFt];
+  for (int t = 0; t * kTile < HF; ++t) {
+    const Lane w = lane_of(d, row, t);
+    float asv[kPairs], wv[kPairs], dw[kPairs], gacc[kPairs], sad[kPairs];
 #pragma unroll
-    for (int f = 0; f < kFt; ++f) {
-      wt[f] = (live && f0 + f < d.F) ? __ldg(wx + o * d.F + f0 + f) : 0.f;
-      dw[f] = 0.f;
+    for (int p = 0; p < kPairs; ++p) {
+      asv[p] = w.live[p] ? __ldg(as_ + row * d.H + w.h[p]) : 0.f;
+      wv[p] = w.feat[p] ? __ldg(wx + row * d.H * d.F + w.q[p]) : 0.f;
+      dw[p] = 0.f;
+      gacc[p] = 0.f;
+      sad[p] = 0.f;
     }
-    for (int64_t k = 0; k < d.K; ++k) {
-      const int64_t col = __ldg(cols_t + c * d.K + k);   // dest block
-      const float* blk = vals_t + (c * d.K + k) * kBn * kBn;
-      float sad = 0.f;
-      for (int a0 = 0; a0 < kBn; a0 += kCb) {
-        __syncthreads();
-        stage_mult(sm, blk, a0, tid, nthreads);
-        const int64_t base = col * kBn + a0;
-        stage_rows(sm, ad, g, base, d.n_dst, d, h0, hpb, f0, tid,
-                   nthreads);
-        for (int i = tid; i < kCb * hpb; i += nthreads) {
-          const int aa = i / hpb;
-          const int q = i % hpb;
-          const int64_t dst = base + aa;
-          const bool ok = dst < d.n_dst && h0 + q < d.H;
-          const int64_t od = dst * d.H + h0 + q;
-          sm.stat[0][aa][q] = ok ? __ldg(mmax + od) : 0.f;
-          sm.stat[1][aa][q] = ok ? __ldg(lsum + od) : 0.f;
-          sm.stat[2][aa][q] = ok ? __ldg(delta + od) : 0.f;
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int aa = 0; aa < kCb; ++aa) {
-          const float mu = sm.mult[aa][j];
-          if (mu > 0.f) {
-            const float z = asv + sm.key[aa][hh];
-            const float p = mu * expf(lrelu(z, d.slope) - sm.stat[0][aa][hh]);
-            const float alpha = p / fmaxf(sm.stat[1][aa][hh], kTiny);
-            const float ap = alpha * (z > 0.f ? 1.f : d.slope);
-            float gv = 0.f;
+
+    // hv[e]: the destination's ad, M, L and delta; xv[e]: its g
+    auto drain = [&](int n) {
+      auto add = [&](Edges mu, Heads<4> hv, Rows xv) {
 #pragma unroll
-            for (int f = 0; f < kFt; ++f) {
-              dw[f] = fmaf(alpha, sm.val[aa][hh][f], dw[f]);
-              gv = fmaf(wt[f], sm.val[aa][hh][f], gv);
+        for (int e = 0; e < kEdges; ++e) {
+          if (mu[e] > 0.f) {
+#pragma unroll
+            for (int p = 0; p < kPairs; ++p) {
+              const float z = hv[e][0][p] + asv[p];
+              const float pe =
+                  mu[e] * expf(lrelu(z, d.slope) - hv[e][1][p]);
+              const float alpha = pe / fmaxf(hv[e][2][p], kTiny);
+              const float ap = alpha * (z > 0.f ? 1.f : d.slope);
+              dw[p] = fmaf(alpha, xv[e][p], dw[p]);
+              gacc[p] = fmaf(ap, xv[e][p], gacc[p]);
+              sad[p] = fmaf(ap, hv[e][3][p], sad[p]);
             }
-            acc_s = fmaf(ap, gv, acc_s);
-            sad = fmaf(ap, sm.stat[2][aa][hh], sad);
           }
         }
-      }
-      if (f0 == 0) acc_s -= sad;  // the delta term, once per K step
-    }
-    if (live) {
+      };
+      for_edges(queue, n, cols_r, w, d, dests, add);
+    };
+    stream_block_row<false>(vals_t, w.r, w.a, d.K,
+                            &ring_s[threadIdx.y][0][threadIdx.x],
+                            queue_s[threadIdx.y], drain);
+
 #pragma unroll
-      for (int f = 0; f < kFt; ++f)
-        if (f0 + f < d.F) dwx[o * d.F + f0 + f] = dw[f];
+    for (int p = 0; p < kPairs; ++p) {
+      if (w.feat[p]) dwx[row * d.H * d.F + w.q[p]] = dw[p];
+      gacc[p] *= wv[p];
     }
+    // das[h] = sum_f wx[h, f] gacc[h, f] - sad[h]
+    fold_heads(gacc, sad, t, HF, F, sum_s[threadIdx.y], &carry_s[threadIdx.y],
+               [&](int h, float s, float sad_h) {
+                 das[row * d.H + h] = s - sad_h;
+               });
   }
-  if (live) das[o] = acc_s;
 }
 
-dim3 block_dims(int64_t H) {
-  return dim3(kBn, static_cast<unsigned>(H < kMaxHeads ? H : kMaxHeads));
-}
-
-unsigned head_groups(int64_t H) {
-  return static_cast<unsigned>((H + kMaxHeads - 1) / kMaxHeads);
-}
-
-unsigned row_grid(int64_t n_dst) {
-  return static_cast<unsigned>((n_dst + kRowsPerCta - 1) / kRowsPerCta);
+unsigned row_grid(int64_t rows) {
+  return static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta);
 }
 
 const dim3 kRowBlock(kWarp, kRowsPerCta);
@@ -560,10 +543,12 @@ REPRO_API int repro_edge_softmax_bwd_col_f32(
     int64_t n_src, int64_t H, int64_t F, const float* vals_t,
     const int32_t* cols_t, int64_t R_t, int64_t K_t, float slope,
     float* dwx, float* das, void* stream) {
-  if (R_t == 0 || H == 0) return 0;
+  if (R_t == 0 || H == 0 || n_src == 0) return 0;
+  if (K_t * kBn > INT32_MAX || n_dst > INT32_MAX - kBn ||
+      H * (F > 0 ? F : 1) > INT32_MAX - kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_dst, n_src, H, F, R_t, K_t, slope};
-  const dim3 grid(static_cast<unsigned>(R_t), head_groups(H));
-  es_bwd_col_kernel<<<grid, block_dims(H), 0,
+  es_bwd_col_kernel<<<row_grid(n_src), kRowBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       ad, as_, wx, g, mmax, lsum, delta, vals_t, cols_t, d, dwx, das);
   REPRO_CHECK_LAUNCH();

@@ -22,26 +22,27 @@
 // order, so the winner of each target row is resolved before any row is
 // written, in one of two ways.
 //
-// scatter_rows (f32 and bf16 tables), pushes of at most kScanMax rows:
-// one kernel, no scratch, no atomics in global memory. A CTA takes 8 rows
-// (a warp each) and decides which are their targets' last writers by
-// reading every later index once and comparing it with its rows'
-// targets (scatter_rows_last_kernel below); only those rows are copied.
-// Nothing serialises on a target, so the ~1,100 padding rows of a serving
-// push that all land on the sentinel row cost nothing extra (all but the
-// last of a run are dropped before the scan), and the result is the same
-// in any order. The scan compares up to M^2 / 2 pairs (~8.4 M at the
-// serving push's M = 4,096); past kScanMax rows it costs more than the
-// claim passes, and the wrapper hands a winner scratch for them instead.
+// scatter_rows (f32 and bf16 tables) and scatter_rows_vq, pushes of at
+// most kScanMax rows: one kernel, no scratch, no atomics in global
+// memory. A CTA takes a few consecutive rows (scatter_rows 8, a warp
+// each) and decides which are their targets' last writers by reading
+// every later index once and comparing it with its rows' targets
+// (last_writers below); only those rows write. Nothing serialises on a
+// target, so the ~1,100 padding rows of a serving push that all land on
+// the sentinel row cost nothing extra (all but the last of a run are
+// dropped before the scan), and the result is the same in any order. The
+// scan compares up to M^2 / 2 pairs (~8.4 M at the serving push's M =
+// 4,096); past kScanMax rows it costs more than the claim passes, and the
+// wrapper hands a winner scratch for them instead.
 //
-// The claim passes (scatter_rows past kScanMax rows, scatter_rows_q and
-// scatter_rows_vq): pass 1 resets winner[t] = -1 for every target t named
+// The claim passes (scatter_rows and scatter_rows_vq past kScanMax rows,
+// scatter_rows_q): pass 1 resets winner[t] = -1 for every target t named
 // in idx, pass 2 takes winner[t] = max position naming t (atomicMax),
 // pass 3 writes row i only if winner[idx[i]] == i. The three passes run
 // in stream order; `winner` is caller-allocated scratch of N int32 whose
-// untouched entries are never read. In scatter_rows_q the winner writes
-// both the code row and the scale, so a target's codes and its scale
-// always come from the same pushed row.
+// untouched entries are never read. In scatter_rows_q and
+// scatter_rows_vq the winner writes both the code row and the scale, so a
+// target's codes and its scale always come from the same pushed row.
 //
 // Bound: bytes. scatter_rows reads M*D*E bytes of values and writes M*D*E
 // bytes of table rows (E = 4 for f32, 2 for bf16; the push rounds f32 to
@@ -66,28 +67,65 @@
 //
 // scatter_rows_vq: bound by operations at the serving refresh shape. Per
 // pushed row and subvector every one of the 256 entries costs 8 rounded
-// subtracts, 8 multiplies and 7 adds (24 f32 operations counted), so a
-// row of d = 256 needs 32 * 256 * 24 = 196,608 operations against 1 KB of
-// values. Design: a CTA of 256 threads takes a group of up to 8 pushed
-// rows (fewer for wide rows: their normalized values sit in dynamic
-// shared memory, at most 48 KB); thread c is codebook entry c. The CTA
-// reduces each row's max (a max is exact in any order, so s_i is bitwise
-// `vq_row_scales`), stores u = v / s_i (__fdiv_rn, the reference
-// divides), then per subvector each thread loads its entry's 8 values
-// once (two float4 reads, adjacent threads on adjacent entries, from L2)
-// and scores all the group's rows against it: the distance is summed
-// left to right with __fsub_rn, __fmul_rn and __fadd_rn, so that the
-// build's FMA contraction cannot fuse a square into the sum, exactly as
-// XLA and the plain version sum it. The argmin reduces (distance, index)
-// pairs, a smaller index winning a tie, across the warp with shuffles and
-// across the 8 warps in shared memory, so the first minimum wins, as in
-// jnp.argmin. One thread per row then writes the code of every pushed row
-// (codes_out, for the codebook statistics) and, if the row is its
-// target's last writer (the claim passes above), the table's code and the
-// scale; it also decodes the code (one __fmul_rn, as the pull) and sums
-// the squared error and the squared values for the row's relative error.
-// The codebook is read from L2 once per group and subvector; the tensor
-// cores are not used (the distances are summed in this order on purpose).
+// subtracts, 8 multiplies and 7 adds (24 f32 operations counted, as
+// chip_smoke.py's bound does: 805 M at M = 4,096, S = 32, 0.012 ms at the
+// 67 TFLOP/s that counts an FMA as two). None of them may fuse: the
+// distance must round as the plain version's, summed left to right with
+// __fsub_rn, __fmul_rn and __fadd_rn. Issued one instruction each they
+// need 805 M lane-instructions, >= 0.024 ms at 128 lanes per SM and clock
+// (132 SMs, 1.98 GHz): the floor this design works against.
+// Design: one launch, the search as a sequential scan per (row, subvector)
+// with no shuffle and no barrier inside it.
+// - A CTA takes 32 / L consecutive pushed rows and all S subvectors, with
+//   `warps` warps (min(S, 16), from the wrapper's plan); warp w takes
+//   subvectors w, w + warps, ... one at a time. Lane l of a warp holds
+//   (row l / L, split l % L) of its subvector: L = 1 at the serving push
+//   (32 rows a warp, 128 CTAs of 16 warps on 132 SMs) and the refit push,
+//   L = 8 where the push is too small to fill the card (a training push:
+//   194 x 8 pairs, 49 CTAs); the split is the plan's, chosen on the host
+//   from M, S and the SM count (kernels/scatter.py: scatter_rows_vq_plan;
+//   2 and 4 lanes lost to 1 or 8 at every push of the main path).
+// - The CTA first takes each row's s_i = max|v_i| (16 lanes a row, every
+//   row's loads in flight together; fabsf and fmaxf: a max is exact in
+//   any order, so s_i is bitwise `vq_row_scales` on finite rows) and, on
+//   the one-launch path, its rows' last writers (last_writers above, its
+//   first later indices loaded with the row maxes); past kScanMax rows
+//   the wrapper hands a winner scratch and the claim passes run first.
+// - Each warp stages its subvector's codebook slice (8 KB) in its own
+//   shared memory with cp.async, in two halves (the first half of each
+//   lane's range, then the second); each half is restaged with the next
+//   subvector's as soon as every lane has passed it, so the 128 KB a CTA
+//   reads from L2 per round arrive while the search runs (4% at the
+//   refresh push). Each lane holds its subvector's u = v / s_i
+//   (__fdiv_rn, the reference divides) in registers and walks its
+//   entries in increasing index, the even and the odd ones in two
+//   independent chains (23% at the refresh push): lanes of one split read
+//   the same entry at once (a broadcast), and the splits' ranges are each
+//   followed by 16 bytes of padding so that their reads fall in distinct
+//   banks (36% at a training push). Each chain keeps its running minimum with a strict <, so its
+//   result is the first minimum of its entries; the chains and then the
+//   L lanes of a pair (one (distance, index) shuffle per step) merge on
+//   the smaller distance, a tie going to the smaller index, so the first
+//   minimum wins over all 256 entries, as in jnp.argmin and
+//   `vq_encode_rows`.
+// - The split-0 lane of each pair writes the code of every pushed row
+//   (codes_out, for the codebook statistics) and, for its target's last
+//   writer, the table's code; it decodes the code (the entry read from
+//   L2, its slice being restaged; one __fmul_rn, as the pull) and sums the
+//   squared error and the squared values of its subvectors. After the
+//   search (one CTA barrier) a thread per row sums those over the warps,
+//   writes the relative error and, for the last writer, the scale, so a
+//   target's codes and scale come from the same pushed row and every
+//   output has one owner. The errors' sums run in another order than the
+//   plain version's, so they agree to rounding.
+// - A non-finite value: fmaxf skips a NaN (the plain version's amax does
+//   not, and its scale is then 1), so a row holding a NaN takes the max of
+//   its other values, as the three-launch kernel before this design did;
+//   a subvector whose u holds a NaN scores NaN against every entry, never
+//   below the running minimum, and takes code 0 (so does the plain
+//   version's argmin).
+// The tensor cores are not used (the distances are summed in this order
+// on purpose).
 #include "common.cuh"
 
 namespace {
@@ -148,16 +186,80 @@ scatter_rows_kernel(V* __restrict__ table, const int32_t* __restrict__ idx,
   for (int64_t c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
 }
 
+// The scan of the later indices behind both one-launch pushes
+// (scatter_rows_last_kernel and scatter_rows_vq_kernel): which of a CTA's
+// rows [row0, row0 + kR) (kR <= 32) are their targets' last writers. A
+// row is a candidate unless its target is out of range or the next row
+// names the same one (then it is surely overwritten: the padding runs of
+// a push all land on the sentinel row). Every thread of the CTA reads its
+// share of the later indices, kScanLoads in flight, and compares each
+// with the rows' targets, one independent flag per row; the flags are
+// OR-reduced over the CTA. The result is the same in any order.
+//
+// scan_first: the thread's first kScanLoads later indices (-1 past m: no
+// candidate's target), loaded by the caller early so that their latency
+// overlaps its other loads.
+template <int kR>
+__device__ __forceinline__ void scan_first(const int32_t* __restrict__ idx,
+                                           int64_t m, int64_t row0,
+                                           int32_t (&x)[kScanLoads]) {
+  const int64_t j = row0 + kR + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kScanLoads; ++u)
+    x[u] = j + u * blockDim.x < m ? __ldg(idx + j + u * blockDim.x) : -1;
+}
+
+// last_writers: by every thread once tgt_s (each row's target where it is
+// a candidate, kNone elsewhere) is written, *later_s = 0 and the CTA
+// synchronised; one CTA barrier inside. Returns, to every thread, bit r
+// set for each candidate that no later row names.
+template <int kR>
+__device__ __forceinline__ uint32_t last_writers(
+    const int32_t* __restrict__ idx, int64_t m, int64_t row0,
+    const int32_t* tgt_s, uint32_t* later_s, int32_t (&x)[kScanLoads]) {
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  int32_t tgt[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) tgt[r] = tgt_s[r];
+  // a later row of this CTA: a non-candidate's run of equal targets ends
+  // at a candidate here or at a row past the CTA, which the scan reads
+  uint32_t later = 0u;
+  if (tid < kR)
+    for (int r = tid + 1; r < kR; ++r)
+      if (tgt_s[r] == tgt_s[tid]) later |= 1u << tid;
+  bool hit[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) hit[r] = false;
+  for (int64_t j = row0 + kR + tid; j < m; j += kScanLoads * nthreads) {
+    if (j > row0 + kR + tid) {  // past the caller's first batch
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u)
+        x[u] = j + u * nthreads < m ? __ldg(idx + j + u * nthreads) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kScanLoads; ++u)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) hit[r] |= x[u] == tgt[r];
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    later |= static_cast<uint32_t>(hit[r]) << r;
+  later = __reduce_or_sync(0xffffffffu, later);
+  if (tid % 32 == 0 && later != 0u) atomicOr(later_s, later);
+  __syncthreads();
+  uint32_t cand = 0u;
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    cand |= static_cast<uint32_t>(tgt[r] != kNone) << r;
+  return cand & ~*later_s;
+}
+
 // One launch, a warp per row. Each warp reads its row's target and the
-// next row's: a row is a candidate unless its target is out of range or
-// the next row names the same one (then it is surely overwritten: the
-// padding runs of a push all land on the sentinel row). A candidate's
-// value row is requested at once, so its latency overlaps the scan, and a
-// CTA without a candidate stops at the first barrier. Otherwise the CTA's
-// 256 threads read every later index once (kScanLoads in flight each) and
-// compare it with the candidates' targets, one independent flag per row;
-// the flags are OR-reduced over the CTA, and a candidate that no later
-// row names writes its row.
+// next row's (a candidate or not, last_writers above); a candidate's value
+// row is requested at once, so its latency overlaps the scan, and a CTA
+// without a candidate stops at the first barrier. Otherwise the scan
+// decides the last writers, and each writes its row.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows_last_kernel(V* __restrict__ table,
@@ -165,7 +267,7 @@ scatter_rows_last_kernel(V* __restrict__ table,
                          const V* __restrict__ vals, int64_t m, int64_t n,
                          int64_t dv) {
   __shared__ int32_t tgt_s[kRowsPerCta];  // a candidate's target, else kNone
-  __shared__ uint32_t later_s;  // bit r: a later row names row r's target
+  __shared__ uint32_t later_s;  // last_writers' flags
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -181,37 +283,12 @@ scatter_rows_last_kernel(V* __restrict__ table,
     if (cand && lane + u * 32 < dv) head[u] = __ldg(src + lane + u * 32);
   if (lane == 0) tgt_s[warp] = cand ? t : kNone;
   if (tid == 0) later_s = 0u;
+  int32_t x[kScanLoads];
+  scan_first<kRowsPerCta>(idx, m, row0, x);
   if (!__syncthreads_or(lane == 0 && cand)) return;
-  int32_t tgt[kRowsPerCta];
-#pragma unroll
-  for (int r = 0; r < kRowsPerCta; ++r) tgt[r] = tgt_s[r];
-  // a later row of this CTA: a non-candidate's run of equal targets ends
-  // at a candidate here or at a row past the CTA, which the scan reads
-  uint32_t later = 0u;
-  if (tid < kRowsPerCta)
-    for (int r = tid + 1; r < kRowsPerCta; ++r)
-      if (tgt_s[r] == tgt_s[tid]) later |= 1u << tid;
-  bool hit[kRowsPerCta];
-#pragma unroll
-  for (int r = 0; r < kRowsPerCta; ++r) hit[r] = false;
-  for (int64_t j = row0 + kRowsPerCta + tid; j < m;
-       j += kScanLoads * kThreads) {
-    int32_t x[kScanLoads];  // -1 past m: no candidate's target
-#pragma unroll
-    for (int u = 0; u < kScanLoads; ++u)
-      x[u] = j + u * kThreads < m ? __ldg(idx + j + u * kThreads) : -1;
-#pragma unroll
-    for (int u = 0; u < kScanLoads; ++u)
-#pragma unroll
-      for (int r = 0; r < kRowsPerCta; ++r) hit[r] |= x[u] == tgt[r];
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerCta; ++r)
-    later |= static_cast<uint32_t>(hit[r]) << r;
-  later = __reduce_or_sync(0xffffffffu, later);
-  if (lane == 0 && later != 0u) atomicOr(&later_s, later);
-  __syncthreads();
-  if (!cand || ((later_s >> warp) & 1u)) return;
+  const uint32_t last =
+      last_writers<kRowsPerCta>(idx, m, row0, tgt_s, &later_s, x);
+  if (!((last >> warp) & 1u)) return;
   V* dst = table + static_cast<int64_t>(t) * dv;
 #pragma unroll
   for (int u = 0; u < kRowVecs; ++u)
@@ -308,20 +385,124 @@ scatter_rows_q_kernel(int8_t* __restrict__ q, float* __restrict__ scales,
   }
 }
 
-constexpr int kCodes = 256;    // codebook entries: one per thread
-constexpr int kSub = 8;        // subvector width
-constexpr int kVqRows = 8;     // pushed rows per CTA (at most)
-constexpr int kVqSmem = 48 * 1024;
+constexpr int kCodes = 256;      // codebook entries per subvector
+constexpr int kSub = 8;          // subvector width
+constexpr int kVqMaxWarps = 16;  // warps per CTA: subvectors in flight
 
-__device__ __forceinline__ void argmin_pair(float& d, int& i, float od,
-                                            int oi) {
-  if (od < d || (od == d && oi < i)) {
-    d = od;
-    i = oi;
+// The search's mechanisms, each on by default; `chip_smoke.py
+// --vq-ablation` builds the library once with each turned off and times
+// the pushes of the main path on every build (PERF.md): the independent
+// chains a lane keeps its minimum in (1: one chain), the slice restaged
+// in halves as each is passed (0: the whole slice after the scan), a
+// float4 of padding after each lane's range (0: none).
+#ifndef REPRO_VQ_CHAINS
+#define REPRO_VQ_CHAINS 2
+#endif
+#ifndef REPRO_VQ_HALVES
+#define REPRO_VQ_HALVES 1
+#endif
+#ifndef REPRO_VQ_PAD
+#define REPRO_VQ_PAD 1
+#endif
+constexpr int kChains = REPRO_VQ_CHAINS;
+constexpr int kPad = REPRO_VQ_PAD;
+
+// float4s a warp's staged slice takes: two per entry, and kPad of padding
+// after each of the L lanes' ranges
+template <int L>
+constexpr int kSliceVecs = 2 * kCodes + L * kPad;
+
+// 16 bytes of shared memory at a shared-window address
+__device__ __forceinline__ float4 lds16(unsigned addr) {
+  return *static_cast<const float4*>(__cvta_shared_to_generic(addr));
+}
+
+// Half h of a warp's codebook slice of one subvector into shared memory
+// at `slice` (a shared-window address): of each of the L lanes' ranges of
+// kPer entries, the first (h = 0) or the second (h = 1) kPer / 2, entry c
+// at float4 2c + kPad * (c / kPer); one cp.async group of this lane (empty past the
+// last subvector, so that every round commits the same groups).
+template <int kPer>
+__device__ __forceinline__ void stage_half(unsigned slice,
+                                           const float* codebook,
+                                           int64_t sub, int64_t s_n,
+                                           int lane, int h) {
+  if (sub < s_n) {
+    const float4* src =
+        reinterpret_cast<const float4*>(codebook + sub * kCodes * kSub);
+    for (int v = lane; v < kCodes; v += 32) {  // 2 float4 of 128 entries
+      const int i = v / 2;
+      const int c = i / (kPer / 2) * kPer + h * (kPer / 2) + i % (kPer / 2);
+      const unsigned dst = slice + 16u * (2 * c + v % 2 + c / kPer * kPad);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   ::"r"(dst), "l"(src + 2 * c + v % 2));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The 8 values of one subvector of a pushed row (16-byte aligned).
+__device__ __forceinline__ void load_sub(float (&v)[kSub], const float* src) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// The squared distance of u to one codebook entry (two float4), summed
+// left to right, every operation rounded on its own (no FMA), as the plain
+// version sums it.
+__device__ __forceinline__ float distance(const float (&u)[kSub], float4 lo,
+                                          float4 hi) {
+  const float e[kSub] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  float diff = __fsub_rn(u[0], e[0]);
+  float dist = __fmul_rn(diff, diff);
+#pragma unroll
+  for (int j = 1; j < kSub; ++j) {
+    diff = __fsub_rn(u[j], e[j]);
+    dist = __fadd_rn(dist, __fmul_rn(diff, diff));
+  }
+  return dist;
+}
+
+// (best, at) takes (dist, c) where dist is smaller, or equal and c is
+// smaller: the first minimum of the entries seen, in any order of merging
+__device__ __forceinline__ void keep_first_min(float& best, int& at,
+                                               float dist, int c) {
+  if (dist < best || (dist == best && c < at)) {
+    best = dist;
+    at = c;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The lane's entries [kFrom, kTo) of its range (at `mine`), in increasing
+// order, entry c in chain c % kChains, the chains independent, each
+// keeping its first minimum with a strict <.
+template <int kFrom, int kTo>
+__device__ __forceinline__ void scan_entries(unsigned mine,
+                                             const float (&u)[kSub],
+                                             float (&best)[kChains],
+                                             int (&at)[kChains]) {
+#pragma unroll (8 / kChains)
+  for (int c = kFrom; c < kTo; c += kChains) {
+    float dist[kChains];
+#pragma unroll
+    for (int h = 0; h < kChains; ++h) {
+      const unsigned e = mine + 32u * (c + h);
+      dist[h] = distance(u, lds16(e), lds16(e + 16u));
+    }
+#pragma unroll
+    for (int h = 0; h < kChains; ++h) {
+      if (dist[h] < best[h]) {
+        best[h] = dist[h];
+        at[h] = c + h;
+      }
+    }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kVqMaxWarps * 32)
 scatter_rows_vq_kernel(uint8_t* __restrict__ table, float* __restrict__ scales,
                        uint8_t* __restrict__ codes_out,
                        float* __restrict__ err,
@@ -329,99 +510,182 @@ scatter_rows_vq_kernel(uint8_t* __restrict__ table, float* __restrict__ scales,
                        const float* __restrict__ vals,
                        const float* __restrict__ codebook,
                        const int32_t* __restrict__ winner, int64_t m,
-                       int64_t n, int64_t s_n, int rows) {
-  extern __shared__ float u_s[];             // [rows][d]
-  __shared__ float red_d[kVqRows][kThreads / 32];
-  __shared__ int red_i[kVqRows][kThreads / 32];
-  __shared__ float scale_s[kVqRows];
-  __shared__ int64_t tgt_s[kVqRows];
+                       int64_t n, int64_t s_n) {
+  constexpr int kR = 32 / L;        // pushed rows per CTA
+  constexpr int kPer = kCodes / L;  // entries a lane scans
+  extern __shared__ float4 cb_s[];  // [warps][kSliceVecs<L>]
+  __shared__ float scale_s[kR];
+  __shared__ int32_t tgt_s[kR];     // a candidate's target, else kNone
+  __shared__ uint32_t later_s;      // last_writers' flags
+  __shared__ float num_s[kVqMaxWarps][kR], den_s[kVqMaxWarps][kR];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
+  const int warps = blockDim.x / 32;
   const int64_t d = s_n * kSub;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
-  const int nr = m - row0 < rows ? static_cast<int>(m - row0) : rows;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kR;
+  const int nr = m - row0 < kR ? static_cast<int>(m - row0) : kR;
+  const int r = lane / L;   // the lane's row and split
+  const int k = lane % L;
+  const bool live = r < nr;
+  const int64_t row = row0 + (live ? r : 0);
+  const float* src = vals + row * d;
+  // the warp's slice, a shared-window address
+  const unsigned slice = static_cast<unsigned>(__cvta_generic_to_shared(
+      cb_s + warp * kSliceVecs<L>));
 
-  // the rows' max |v| (a block reduction per row)
-  for (int r = 0; r < nr; ++r) {
-    const float* src = vals + (row0 + r) * d;
+  // every global load of the prologue in flight together: the rows'
+  // targets, the scan's first later indices, the lane's first subvector
+  // and the rows' max |v|; the codebook slice after them
+  if (tid < kR) {
+    const int64_t i = row0 + tid;
+    const int32_t t = i < m ? __ldg(idx + i) : -1;
+    bool own = t >= 0 && t < n;
+    if (winner != nullptr)  // the claim's winners
+      own = own && winner[t] == static_cast<int32_t>(i);
+    else                    // the scan's candidates
+      own = own && (i + 1 >= m || __ldg(idx + i + 1) != t);
+    tgt_s[tid] = own ? t : kNone;
+  }
+  if (tid == 0) later_s = 0u;
+  int32_t x[kScanLoads];
+  if (winner == nullptr) scan_first<kR>(idx, m, row0, x);
+  float v[kSub];
+  if (warp < s_n) load_sub(v, src + warp * kSub);
+  // s_i: 16 lanes a row, as many rows at once as the CTA has lanes / 16
+  for (int q0 = 0; q0 < nr; q0 += blockDim.x / 16) {
+    const int q = q0 + tid / 16;
+    const float4* xq = reinterpret_cast<const float4*>(vals + (row0 + q) * d);
     float amax = 0.f;
-    for (int64_t j = tid; j < d; j += kThreads)
-      amax = fmaxf(amax, fabsf(__ldg(src + j)));
+#pragma unroll 4
+    for (int64_t c = tid % 16; q < nr && c < d / 4; c += 16) {
+      const float4 t = __ldg(xq + c);
+      amax = fmaxf(fmaxf(amax, fmaxf(fabsf(t.x), fabsf(t.y))),
+                   fmaxf(fabsf(t.z), fabsf(t.w)));
+    }
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
+    for (int off = 8; off > 0; off /= 2)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) red_d[r][warp] = amax;
+    if (q < nr && tid % 16 == 0) scale_s[q] = amax > 0.f ? amax : 1.f;
   }
+  stage_half<kPer>(slice, codebook, warp, s_n, lane, 0);
+  stage_half<kPer>(slice, codebook, warp, s_n, lane, 1);
   __syncthreads();
-  if (tid < nr) {
-    float amax = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) amax = fmaxf(amax, red_d[tid][w]);
-    scale_s[tid] = amax > 0.f ? amax : 1.f;
-    const int64_t row = row0 + tid;
-    const int32_t t = idx[row];
-    tgt_s[tid] = (t >= 0 && t < n && winner[t] == static_cast<int32_t>(row))
-                     ? t : -1;
+  uint32_t last = 0u;  // bit q: row q writes its target
+  if (winner == nullptr) {
+    last = last_writers<kR>(idx, m, row0, tgt_s, &later_s, x);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kR; ++q)
+      last |= static_cast<uint32_t>(tgt_s[q] != kNone) << q;
   }
-  __syncthreads();
-  for (int r = 0; r < nr; ++r) {
-    const float* src = vals + (row0 + r) * d;
-    for (int64_t j = tid; j < d; j += kThreads)
-      u_s[r * d + j] = __fdiv_rn(__ldg(src + j), scale_s[r]);
-  }
-  __syncthreads();
 
-  float num = 0.f, den = 0.f;                // thread r < nr: row r's sums
-  for (int64_t sub = 0; sub < s_n; ++sub) {
-    const float4* e4 = reinterpret_cast<const float4*>(
-        codebook + (sub * kCodes + tid) * kSub);
-    const float4 lo = __ldg(e4), hi = __ldg(e4 + 1);
-    const float e[kSub] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    for (int r = 0; r < nr; ++r) {
-      const float* u = u_s + r * d + sub * kSub;
-      float diff = __fsub_rn(u[0], e[0]);
-      float acc = __fmul_rn(diff, diff);
+  const float s_i = scale_s[live ? r : 0];
+  // this split's entries [k * kPer, (k + 1) * kPer), after k paddings
+  const unsigned mine = slice + 16u * (2 * k * kPer + k * kPad);
+  float num = 0.f, den = 0.f;  // the split-0 lane's sums over its subvectors
+  for (int64_t sub = warp; sub < s_n; sub += warps) {
+    float u[kSub];
 #pragma unroll
-      for (int j = 1; j < kSub; ++j) {
-        diff = __fsub_rn(u[j], e[j]);
-        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-      }
-      int best = tid;
+    for (int j = 0; j < kSub; ++j) u[j] = __fdiv_rn(v[j], s_i);
+    // the first minimum of this split's entries. Each half of the slice is
+    // restaged with the next subvector's as soon as every lane has passed
+    // it, so the next round finds its first half staged; the groups in
+    // flight are always this round's newest half and the one after it.
+    float best[kChains];
+    int at[kChains];
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        argmin_pair(acc, best, __shfl_xor_sync(0xffffffffu, acc, off),
-                    __shfl_xor_sync(0xffffffffu, best, off));
-      if (lane == 0) {
-        red_d[r][warp] = acc;
-        red_i[r][warp] = best;
-      }
+    for (int h = 0; h < kChains; ++h) {
+      best[h] = __int_as_float(0x7f800000);  // +inf: NaN never wins
+      at[h] = h;
     }
-    __syncthreads();
-    if (tid < nr) {
-      float bd = red_d[tid][0];
-      int bi = red_i[tid][0];
-      for (int w = 1; w < kThreads / 32; ++w)
-        argmin_pair(bd, bi, red_d[tid][w], red_i[tid][w]);
-      const int64_t row = row0 + tid;
-      const uint8_t code = static_cast<uint8_t>(bi);
-      codes_out[row * s_n + sub] = code;
-      if (tgt_s[tid] >= 0) table[tgt_s[tid] * s_n + sub] = code;
-      const float* ent = codebook + (sub * kCodes + bi) * kSub;
-      const float* src = vals + row * d + sub * kSub;
+#if REPRO_VQ_HALVES
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();  // the first half is staged
+    scan_entries<0, kPer / 2>(mine, u, best, at);
+    __syncwarp();  // every lane has passed the first half
+    stage_half<kPer>(slice, codebook, sub + warps, s_n, lane, 0);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();  // the second half is staged
+    scan_entries<kPer / 2, kPer>(mine, u, best, at);
+    __syncwarp();  // every lane has passed the second half
+    stage_half<kPer>(slice, codebook, sub + warps, s_n, lane, 1);
+#else
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncwarp();  // the slice is staged
+    scan_entries<0, kPer>(mine, u, best, at);
+    __syncwarp();  // every lane has passed it
+    stage_half<kPer>(slice, codebook, sub + warps, s_n, lane, 0);
+    stage_half<kPer>(slice, codebook, sub + warps, s_n, lane, 1);
+#endif
+#pragma unroll
+    for (int h = 1; h < kChains; ++h)
+      keep_first_min(best[0], at[0], best[h], at[h]);
+    int code = k * kPer + at[0];
+    // the pair's L lanes: the smaller distance, a tie to the smaller index
+#pragma unroll
+    for (int off = 1; off < L; off *= 2)
+      keep_first_min(best[0], code,
+                     __shfl_xor_sync(0xffffffffu, best[0], off),
+                     __shfl_xor_sync(0xffffffffu, code, off));
+    // the entry, from the codebook in L2 (its slice is being restaged)
+    const float4* ent = reinterpret_cast<const float4*>(
+        codebook + (sub * kCodes + code) * kSub);
+    const float4 lo = __ldg(ent), hi = __ldg(ent + 1);
+    float w[kSub];  // this subvector's values, the next one's in flight
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) w[j] = v[j];
+    if (sub + warps < s_n) load_sub(v, src + (sub + warps) * kSub);
+    if (live && k == 0) {
+      codes_out[row * s_n + sub] = static_cast<uint8_t>(code);
+      if ((last >> r) & 1u)
+        table[static_cast<int64_t>(tgt_s[r]) * s_n + sub] =
+            static_cast<uint8_t>(code);
+      const float e[kSub] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        const float v = __ldg(src + j);
-        const float diff = __fsub_rn(v, __fmul_rn(__ldg(ent + j), scale_s[tid]));
+        const float diff = __fsub_rn(w[j], __fmul_rn(e[j], s_i));
         num = __fadd_rn(num, __fmul_rn(diff, diff));
-        den = __fadd_rn(den, __fmul_rn(v, v));
+        den = __fadd_rn(den, __fmul_rn(w[j], w[j]));
       }
     }
-    __syncthreads();  // red_* are reused by the next subvector
   }
+  if (live && k == 0) {
+    num_s[warp][r] = num;
+    den_s[warp][r] = den;
+  }
+  __syncthreads();
   if (tid < nr) {
-    if (tgt_s[tid] >= 0) scales[tgt_s[tid]] = scale_s[tid];
+    float nu = 0.f, de = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      nu = __fadd_rn(nu, num_s[w][tid]);
+      de = __fadd_rn(de, den_s[w][tid]);
+    }
+    if ((last >> tid) & 1u) scales[tgt_s[tid]] = scale_s[tid];
     err[row0 + tid] =
-        __fdiv_rn(__fsqrt_rn(num), __fadd_rn(__fsqrt_rn(den), 1e-12f));
+        __fdiv_rn(__fsqrt_rn(nu), __fadd_rn(__fsqrt_rn(de), 1e-12f));
   }
+}
+
+// One launch of the encoding push, L lanes per (row, subvector) pair.
+template <int L>
+int launch_vq(uint8_t* table, float* scales, uint8_t* codes_out, float* err,
+              const int32_t* idx, const float* vals, const float* codebook,
+              const int32_t* winner, int64_t m, int64_t n, int64_t s_n,
+              int warps, cudaStream_t s) {
+  constexpr int64_t kSlice = kSliceVecs<L> * sizeof(float4);
+  // the most dynamic shared memory a launch takes (past the 48 KB a launch
+  // may take without this opt-in), set once per instantiation
+  static cudaError_t opted = cudaFuncSetAttribute(
+      scatter_rows_vq_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kVqMaxWarps * kSlice));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  constexpr int kR = 32 / L;
+  const dim3 grid(static_cast<unsigned>((m + kR - 1) / kR));
+  scatter_rows_vq_kernel<L><<<grid, warps * 32, warps * kSlice, s>>>(
+      table, scales, codes_out, err, idx, vals, codebook, winner, m, n, s_n);
+  REPRO_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
@@ -459,32 +723,28 @@ REPRO_API int repro_scatter_rows_vq(uint8_t* table, float* scales,
                                     const int32_t* idx, const float* vals,
                                     const float* codebook, int32_t* winner,
                                     int64_t m, int64_t n, int64_t s_n,
-                                    int64_t n_codes, void* stream) {
+                                    int64_t n_codes, int64_t lanes,
+                                    int64_t warps, void* stream) {
   if (m == 0 || s_n == 0) return 0;
-  // one thread per entry, float4 reads of the entries: the wrapper hands a
-  // [S, 256, 8] codebook, 16-byte aligned
-  if (n_codes != kCodes) return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(codebook) % 16 != 0)
+  // a [S, 256, 8] codebook, staged 16 bytes at a time
+  if (n_codes != kCodes || warps < 1 || warps > kVqMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(codebook) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(vals) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  // static and dynamic shared memory together stay within the 48 KB a
-  // launch may take without an opt-in
-  static int64_t static_smem = -1;
-  if (static_smem < 0) {
-    cudaFuncAttributes attr;
-    if (cudaError_t e = cudaFuncGetAttributes(&attr, scatter_rows_vq_kernel))
-      return static_cast<int>(e);
-    static_smem = static_cast<int64_t>(attr.sharedSizeBytes);
-  }
-  const int64_t row_bytes = s_n * kSub * static_cast<int64_t>(sizeof(float));
-  const int64_t fit = (kVqSmem - static_smem) / row_bytes;
-  const int rows = fit < kVqRows ? static_cast<int>(fit) : kVqRows;
-  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // no winner scratch: the one-launch scan, which takes at most kScanMax
+  if (winner == nullptr && m > kScanMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int rc = claim(idx, winner, m, n, s)) return rc;
-  const dim3 grid(static_cast<unsigned>((m + rows - 1) / rows));
-  scatter_rows_vq_kernel<<<grid, kThreads, rows * row_bytes, s>>>(
-      table, scales, codes_out, err, idx, vals, codebook, winner, m, n, s_n,
-      rows);
-  REPRO_CHECK_LAUNCH();
-  return 0;
+  if (winner != nullptr) {
+    if (int rc = claim(idx, winner, m, n, s)) return rc;
+  }
+  const int w = static_cast<int>(warps);
+  switch (lanes) {
+    case 1: return launch_vq<1>(table, scales, codes_out, err, idx, vals,
+                                codebook, winner, m, n, s_n, w, s);
+    case 8: return launch_vq<8>(table, scales, codes_out, err, idx, vals,
+                                codebook, winner, m, n, s_n, w, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

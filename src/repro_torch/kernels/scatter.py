@@ -8,15 +8,17 @@ per-row f32 scale and a codebook). The reference aliases the table into the Pall
 with a donated buffer XLA performs the push in place; here the push
 writes into the table tensor itself. On CUDA tensors each launches its
 kernel in `csrc/scatter.cu` (duplicate indices resolve to the last
-writer: for `scatter_rows` of at most SCAN_MAX_ROWS rows, one kernel that
-scans the later indices and copies each target's last row; otherwise
-per-target winner passes, then a row copy, or for int8 a row max,
-divide, round and clip, and each pushed row's relative error;
-bound by bytes: M*D*E read plus M*D*E written for the copy, E = 4 or 2;
-M*D*4 read plus M*D + 8*M written for the quantizing push; the encoding
-push's nearest-entry search, 24 f32 operations per value and codebook
-entry, bounds it by operations); on CPU tensors it runs the plain version
-in `ref.py`.
+writer: for `scatter_rows` and `scatter_rows_vq` of at most SCAN_MAX_ROWS
+rows, one kernel that scans the later indices, so only each target's
+last row writes it; otherwise per-target winner passes first. Then a row
+copy; for int8 a row max, divide, round and clip, and each pushed row's
+relative error; for vq a row max, divide and a first-minimum scan of the
+codebook per (row, subvector), split over 8 lanes where the push is
+small (`scatter_rows_vq_plan`). Bound by bytes: M*D*E read plus M*D*E
+written for the copy, E = 4 or 2; M*D*4 read plus M*D + 8*M written for
+the quantizing push; the encoding push's nearest-entry search, 24 f32
+operations per value and codebook entry, bounds it by operations). On
+CPU tensors it runs the plain version in `ref.py`.
 """
 from __future__ import annotations
 
@@ -25,20 +27,54 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build as B
+from .decode_attn import _sm_count
 from .gather import check_codebook
 from .ref import scatter_rows_q_ref, scatter_rows_ref, scatter_rows_vq_ref
 
 __all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
            "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref",
-           "SCAN_MAX_ROWS"]
+           "scatter_rows_vq_plan", "SCAN_MAX_ROWS"]
 
 _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
              torch.bfloat16: ("repro_scatter_rows_bf16", "scatter_rows_bf16")}
 # the most rows `scatter_rows` resolves inside its one copy kernel (the
 # scan compares every later pair of rows, up to M^2 / 2; the serving
 # refresh push has 4,096); a larger push runs the claim passes over an
-# N-entry winner scratch first, three kernels (csrc/scatter.cu: kScanMax)
+# N-entry winner scratch first, three kernels (csrc/scatter.cu: kScanMax);
+# `scatter_rows_vq` takes the same limit
 SCAN_MAX_ROWS = 4096
+# the encoding push's launch (csrc/scatter.cu): codebook entries per
+# subvector (kCodes), the most warps a CTA takes, one subvector each at a
+# time (kVqMaxWarps), the lanes a (row, subvector) pair may be split over,
+# and the most lanes per SM a split push may take (VQ_SPLIT_FILL)
+VQ_CODES, VQ_MAX_WARPS, VQ_LANES, VQ_SPLIT_FILL = 256, 16, (1, 8), 512
+
+
+def scatter_rows_vq_plan(m: int, s_n: int, n_sm: int):
+    """(lanes, warps, ctas) of the encoding push's one launch on a card of
+    `n_sm` SMs. `warps` per CTA, warp w taking subvectors w, w + warps,
+    ...; `lanes` per (pushed row, subvector) pair, lane k scanning the
+    entries [k * 256 / lanes, (k + 1) * 256 / lanes) in increasing order:
+    8 where the split push takes at most VQ_SPLIT_FILL lanes per SM, else
+    1 (on an H100, 8 lanes beat 1 up to 1,024 rows of 8 subvectors and
+    lose from 2,501; 2 and 4 lanes lost to one of them at every push of
+    the main path: PERF.md, `chip_smoke.py --vq-ablation`); `ctas`, each
+    32 / lanes consecutive rows (the launcher's grid). The serving refresh
+    push (4,096 x 32 on 132 SMs) takes 1 lane and 128 CTAs of 16 warps,
+    one per SM; a training push (194 x 8) 8 lanes and 49 CTAs; the GCN
+    refit push (2,501 x 8) 1 lane."""
+    warps = max(1, min(s_n, VQ_MAX_WARPS))
+    split = VQ_LANES[-1]
+    lanes = split if m * split * warps <= n_sm * VQ_SPLIT_FILL else 1
+    return lanes, warps, -(-m * lanes // 32)
+
+
+def _winner(m: int, n: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """The claim passes' N-entry winner scratch for a push of more than
+    SCAN_MAX_ROWS rows; None (the one-launch scan) for a smaller one."""
+    if m <= SCAN_MAX_ROWS:
+        return None
+    return torch.empty((n,), dtype=torch.int32, device=dev)
 
 
 def _check_push(name: str, table: torch.Tensor, idx: torch.Tensor,
@@ -67,8 +103,7 @@ def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
     _check_push(name, table, idx, values)
     n, d = table.shape
     m = idx.shape[0]
-    winner = None if m <= SCAN_MAX_ROWS else torch.empty(
-        (n,), dtype=torch.int32, device=dev)
+    winner = _winner(m, n, dev)
     B.check(getattr(B.lib(), symbol)(
         table.data_ptr(), idx.data_ptr(), values.data_ptr(),
         None if winner is None else winner.data_ptr(), m, n, d,
@@ -131,13 +166,17 @@ def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
     if scales.shape != (n,):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
     m = idx.shape[0]
-    winner = torch.empty((n,), dtype=torch.int32, device=dev)
+    if values.data_ptr() % 16:   # the kernel reads 16 bytes at a time
+        values = values.clone()
+    winner = _winner(m, n, dev)
     codes = torch.empty((m, s_n), dtype=torch.uint8, device=dev)
     err = torch.empty((m,), dtype=torch.float32, device=dev)
+    lanes, warps, _ = scatter_rows_vq_plan(m, s_n, _sm_count(dev))
     B.check(B.lib().repro_scatter_rows_vq(
         table.data_ptr(), scales.data_ptr(), codes.data_ptr(),
         err.data_ptr(), idx.data_ptr(), values.data_ptr(),
-        codebook.data_ptr(), winner.data_ptr(), m, n, s_n,
-        codebook.shape[1], B.stream_ptr(dev)), name)
+        codebook.data_ptr(), None if winner is None else winner.data_ptr(),
+        m, n, s_n, codebook.shape[1], lanes, warps, B.stream_ptr(dev)),
+        name)
     B.launch_counts[name] += 1
     return table, scales, codes, err

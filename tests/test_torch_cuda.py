@@ -51,13 +51,14 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import edge_softmax as esk
 from repro_torch.kernels import pna_reduce as pnk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
-from repro_torch.kernels.decode_attn import flash_decode
+from repro_torch.kernels.decode_attn import _sm_count, flash_decode
 from repro_torch.kernels.fused import gather_plan, gather_spmm
 from repro_torch.core.history import vq_init_codebook
 from repro_torch.kernels.gather import (gather_rows, gather_rows_dq,
                                         gather_rows_vq)
-from repro_torch.kernels.scatter import (scatter_rows, scatter_rows_q,
-                                         scatter_rows_vq)
+from repro_torch.kernels.scatter import (SCAN_MAX_ROWS, scatter_rows,
+                                         scatter_rows_q, scatter_rows_vq,
+                                         scatter_rows_vq_plan)
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
@@ -127,16 +128,20 @@ def _edge_softmax_all(dev, H, F, uv, uc, uvt, uct, ad, as_, wx, g):
 @pytest.mark.parametrize("H,F,n_out,M", [(8, 8, 194, 474), (1, 7, 194, 474),
                                          (2, 20, 300, 700), (12, 3, 130, 260),
                                          (8, 16, 194, 474), (2, 40, 203, 474),
-                                         (1, 130, 141, 300)])
+                                         (1, 130, 141, 300), (3, 30, 141, 300),
+                                         (8, 8, 194, 129)])
 def test_edge_softmax_kernels_match_plain(dev, H, F, n_out, M):
     """The three kernels at GAT's layer shapes on the Cora-shaped batches
     (8 heads of 8, one head of 7), F past one register tile, H past one
     CTA's 8 heads; H*F past one 64-pair lane tile (8 x 16: two tiles
-    split between heads; 2 x 40: head 1 straddles the tiles; 1 x 130: one
-    head over three); n_out not a multiple of 8 throughout, so a CTA of
-    the warp-per-row kernels holds live and dead warps. The last 5
-    destinations have no edges (out, dad 0); the last 40 sources are
-    reached by no edge and carry poisoned values."""
+    split between heads; 2 x 40 and 3 x 30: a head straddles the tiles;
+    1 x 130: one head over three), in the forward and the row pass over
+    destination rows and in the column pass over source rows; n_out and
+    M not multiples of 8 throughout (M = 129: one source past a block
+    row), so a CTA of the warp-per-row kernels holds live and dead warps.
+    The last 5 destinations have no edges (out, dad 0); the last 40
+    sources are reached by no edge and carry poisoned values (dwx, das
+    0)."""
     (uv, uc, uvt, uct), rng = _blocks(H + F, n_out, M, 6 * n_out,
                                       empty_from=n_out - 5)
     wx = rng.normal(size=(M, H, F)).astype(np.float32)
@@ -153,35 +158,46 @@ def test_edge_softmax_kernels_match_plain(dev, H, F, n_out, M):
     assert torch.all(dwx[M - 40:] == 0) and torch.all(das[M - 40:] == 0)
 
 
+@pytest.mark.parametrize("hub_side", ["dst", "src"])
 @pytest.mark.parametrize("H,F,M", [(8, 8, 1300), (1, 7, 1300),
                                    (2, 40, 4500)])
-def test_edge_softmax_hub_row_overflows_the_queue(dev, H, F, M):
-    """A hub destination whose edges overflow the warp's 128-entry queue,
-    spread over every source block (K = 11 and K = 36), with duplicate
-    edges; its sources'
-    scores rise along the row, so a later queue batch raises the running
-    max and the overflow branch rescales. M bitwise, out, L, dad and the
-    column pass at 1e-4, repeats bitwise."""
-    n_out = 150
+def test_edge_softmax_hub_row_overflows_the_queue(dev, H, F, M, hub_side):
+    """A hub row whose edges overflow the warp's 128-entry queue, spread
+    over every block of the other side (K = 11 and K = 36), with
+    duplicate edges. A hub destination ("dst": 150 destinations, M
+    sources) overflows the forward's and the row pass's queue; its
+    sources' scores rise along the row, so a later queue batch raises the
+    running max and the overflow branch rescales. A hub source ("src": M
+    destinations, 150 sources) overflows the column pass's queue over the
+    transposed blocks (K_t = 11 and 36), which drains in batches. M
+    bitwise, out, L, dad and the column pass at 1e-4, repeats bitwise."""
+    few = 150
     rng = np.random.default_rng(M + H)
     hub = 77
-    hub_src = np.sort(rng.choice(M, size=600, replace=False))
-    hub_src = np.concatenate([hub_src, hub_src[::7]])     # duplicates
-    other_dst = rng.integers(0, n_out, 4 * n_out)
-    other_src = rng.integers(0, M, 4 * n_out)
-    dst = np.concatenate([np.full(hub_src.size, hub), other_dst])
-    src = np.concatenate([hub_src, other_src])
+    hub_nbr = np.sort(rng.choice(M, size=600, replace=False))
+    hub_nbr = np.concatenate([hub_nbr, hub_nbr[::7]])     # duplicates
+    other_few = rng.integers(0, few, 4 * few)
+    other_many = rng.integers(0, M, 4 * few)
+    few_side = np.concatenate([np.full(hub_nbr.size, hub), other_few])
+    many_side = np.concatenate([hub_nbr, other_many])
+    if hub_side == "dst":
+        n_out, n_src, dst, src = few, M, few_side, many_side
+    else:
+        n_out, n_src, dst, src = M, few, many_side, few_side
     ones = np.ones(dst.size, np.float32)
     uv, uc, _, _ = ops.build_bcsr_rect(dst.astype(np.int32),
-                                       src.astype(np.int32), ones, n_out, M)
+                                       src.astype(np.int32), ones, n_out,
+                                       n_src)
     uvt, uct, _, _ = ops.build_bcsr_rect(src.astype(np.int32),
-                                         dst.astype(np.int32), ones, M, n_out)
-    assert uc.shape[1] == -(-M // 128)
-    assert int((uv[hub // 128, :, hub % 128] > 0).sum()) > 128
-    assert float(uv.max()) >= 2
-    as_ = (rng.normal(size=(M, H)) +
-           np.arange(M)[:, None] * (8.0 / M)).astype(np.float32)
-    wx = rng.normal(size=(M, H, F)).astype(np.float32)
+                                         dst.astype(np.int32), ones, n_src,
+                                         n_out)
+    hub_blocks, hub_row = (uv, uc) if hub_side == "dst" else (uvt, uct)
+    assert hub_row.shape[1] == -(-M // 128)
+    assert int((hub_blocks[hub // 128, :, hub % 128] > 0).sum()) > 128
+    assert float(hub_blocks.max()) >= 2
+    as_ = (rng.normal(size=(n_src, H)) +
+           np.arange(n_src)[:, None] * (8.0 / n_src)).astype(np.float32)
+    wx = rng.normal(size=(n_src, H, F)).astype(np.float32)
     ad = rng.normal(size=(n_out, H)).astype(np.float32)
     g = rng.normal(size=(n_out, H, F)).astype(np.float32)
     _edge_softmax_all(dev, H, F, *(torch.from_numpy(a)
@@ -194,7 +210,8 @@ def test_edge_softmax_zero_features(dev, H):
     """Heads of F = 0 features (the plain versions cannot reshape an empty
     feature axis, so they run at F = 1 on zero features, which gives the
     same M, L, dad and das): out and dwx are empty, M bitwise, L at 1e-4,
-    dad and das written as 0 (delta = sum_f g * out = 0), one launch per
+    and with a nonzero delta dad = -delta sum_j alpha' and das = -sum_i
+    alpha' delta_i at 1e-4 (their g . wx terms vanish), one launch per
     call. Each head takes one lane pair; 70 heads take two tiles."""
     (uv, uc, uvt, uct), rng = _blocks(H, 130, 260, 600)
     uv, uc, uvt, uct = (t.to(dev) for t in (uv, uc, uvt, uct))
@@ -208,11 +225,18 @@ def test_edge_softmax_zero_features(dev, H):
     assert out.shape == (130, H, 0)
     assert torch.equal(mm, p_mm)
     torch.testing.assert_close(ll, p_ll, **TOL)
-    bwd = (ad, as_, z(260, H, 0), z(130, H, 0), mm, ll, z(130, H))
+    delta = torch.from_numpy(rng.normal(size=(130, H)).astype(np.float32))
+    delta = delta.to(dev)
+    bwd = (ad, as_, z(260, H, 0), z(130, H, 0), mm, ll, delta)
     dad = esk.edge_softmax_bwd_row(*bwd, uv, uc)
     dwx, das = esk.edge_softmax_bwd_col(*bwd, uvt, uct)
     assert dwx.shape == (260, H, 0)
-    assert torch.all(dad == 0) and torch.all(das == 0)
+    plain = (ad, as_, z(260, H, 1), z(130, H, 1), mm, ll, delta)
+    p_dad = ref.edge_softmax_bwd_row_ref(*plain, uv, uc)
+    p_dwx, p_das = ref.edge_softmax_bwd_col_ref(*plain, uvt, uct)
+    assert torch.all(p_dwx == 0) and bool((p_das != 0).any())
+    torch.testing.assert_close(dad, p_dad, **TOL)
+    torch.testing.assert_close(das, p_das, **TOL)
     torch.cuda.synchronize()
     for k in _ES_KERNELS:
         assert _build.launch_counts[k] == before[k] + 1, k
@@ -724,46 +748,153 @@ def _vq_values(rng, m, d, cb):
     return v
 
 
-@pytest.mark.parametrize("d", [2048, 256, 64, 16])
-def test_vq_row_kernels_match_plain(dev, d):
+def _device_kernels(fn):
+    """The names of the device kernels one call of `fn` ran
+    (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# entries of the test codebook made exact copies of lower ones (tie ->
+# first): in one lane's range and across the ranges of a split pair
+_VQ_TIES = ((1, 255), (100, 128), (33, 40))
+# the lane split each push below takes on a card of 132 SMs (an H100 SXM)
+# through the public plan: 8 lanes for 1 row, 194 (the training push) and
+# 1,024 rows of 8 subvectors (the most the plan splits), 1 for 2,501 rows
+# (the GCN refit push) and 4,097 (the claim passes)
+_VQ_LANES_132 = {(256, 1): 8, (64, 194): 8, (64, 1024): 8, (64, 2501): 1,
+                 (256, 4097): 1}
+
+
+@pytest.mark.parametrize("d,m", [
+    pytest.param(2048, 220, id="2048"), pytest.param(256, 220, id="256"),
+    pytest.param(64, 220, id="64"), pytest.param(16, 220, id="16"),
+    (256, 1), (64, 194), (64, 1024), (64, 2501), (256, 4097)])
+def test_vq_row_kernels_match_plain(dev, d, m):
     """`scatter_rows_vq` and `gather_rows_vq` against their plain versions,
-    bitwise (at d = 2048 the push's staged rows fill the 48 KB of shared
-    memory a launch takes without an opt-in, less the kernel's own static
-    shared memory): table codes, scales and every pushed row's codes, with
-    duplicate indices (last writer wins, codes and scale alike), dropped
-    out-of-range rows, the sentinel row, zero rows and near-tie rows; the
-    decoded rows; a warm repeat bit-identical. The push's per-row errors
-    at 1e-5. The plain encode on the card is bitwise the CPU's."""
-    rng = np.random.default_rng(d)
-    n, m = 301, 220
+    bitwise (d = 2048: 256 subvectors, 16 a warp): table codes, scales and
+    every pushed row's codes, with duplicate indices (last writer wins,
+    codes and scale alike), dropped out-of-range rows, the sentinel row,
+    zero rows and near-tie rows; the decoded rows; a warm repeat
+    bit-identical. The push's per-row errors at 1e-5. The plain encode on
+    the card is bitwise the CPU's. The four widths at 220 rows keep their
+    data (seed d, the codebook as made). The further pushes reach every
+    lane split of the plan on an H100 (_VQ_LANES_132) and add exact ties:
+    three entries of the codebook are copies of lower ones, and rows made
+    of a lower entry must take the lower index (the first minimum, within
+    one lane's range and across the ranges of a split pair). Every push of
+    at most SCAN_MAX_ROWS rows runs one device kernel, 4,097 rows the
+    claim passes first (three): the launch counter and torch.profiler,
+    which must see the card."""
+    ties = m != 220
+    rng = np.random.default_rng(d + m if ties else d)
+    n = 301
+    s_n = d // 8
     cb = vq_init_codebook(d, device="cpu")
-    v = torch.from_numpy(_vq_values(rng, m, d, cb.numpy()))
+    lanes = scatter_rows_vq_plan(m, s_n, _sm_count(torch.device(dev)))[0]
+    if ties:
+        for lo, hi in _VQ_TIES:
+            cb[:, hi] = cb[:, lo]
+        if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+            assert lanes == _VQ_LANES_132[(d, m)]
+    v = _vq_values(rng, max(m, 5), d, cb.numpy())[:m]
+    tie_rows = {}               # row -> the lower entry of each subvector
+    for i in range(6, m if ties else 0, 9):  # each subvector a lower tied
+        lo = np.array(_VQ_TIES)[rng.integers(0, len(_VQ_TIES), s_n), 0]
+        v[i] = cb.numpy()[np.arange(s_n), lo].reshape(d)   # entry exactly
+        v[i, -1] = 1.0          # s_i = 1 (entries lie in [-1, 1)), u = v
+        tie_rows[i] = lo
+    v = torch.from_numpy(v)
     idx = rng.integers(0, n - 1, m).astype(np.int32)
-    idx[10:30] = idx[30:50]                     # duplicates
-    idx[60:70] = n - 1                          # masked -> sentinel row
-    idx[70:75] = n + 5                          # out of range: dropped
+    if m >= 75:
+        idx[10:30] = idx[30:50]                 # duplicates
+        idx[60:70] = n - 1                      # masked -> sentinel row
+        idx[70:75] = n + 5                      # out of range: dropped
     idx = torch.from_numpy(idx)
-    q0 = torch.from_numpy(rng.integers(0, 256, (n, d // 8)).astype(np.uint8))
+    q0 = torch.from_numpy(rng.integers(0, 256, (n, s_n)).astype(np.uint8))
     s0 = torch.from_numpy(rng.random(n).astype(np.float32))
     want = ref.scatter_rows_vq_ref(q0.clone(), s0.clone(), idx, v, cb)
+    for i, lo in tie_rows.items():  # the last subvector holds the 1.0
+        assert want[2][i, :-1].tolist() == lo[:-1].tolist(), i
     on_card = ref.scatter_rows_vq_ref(q0.clone().to(dev), s0.clone().to(dev),
                                       idx.to(dev), v.to(dev), cb.to(dev))
     for a, b in zip(on_card[:3], want[:3]):
         assert torch.equal(a.cpu(), b)
+    args = (idx.to(dev), v.to(dev), cb.to(dev))
     errs = []
     for _ in range(2):
-        got = scatter_rows_vq(q0.clone().to(dev), s0.clone().to(dev),
-                              idx.to(dev), v.to(dev), cb.to(dev))
+        before = _build.launch_counts["scatter_rows_vq"]
+        got = scatter_rows_vq(q0.clone().to(dev), s0.clone().to(dev), *args)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["scatter_rows_vq"] == before + 1
         for a, b in zip(got[:3], want[:3]):
             assert torch.equal(a.cpu(), b)
         errs.append(got[3].cpu())
     torch.testing.assert_close(errs[0], want[3], rtol=1e-5, atol=1e-7)
     assert torch.equal(errs[0], errs[1])
+    q1, s1 = q0.clone().to(dev), s0.clone().to(dev)
+    kernels = _device_kernels(lambda: scatter_rows_vq(q1, s1, *args))
+    assert len(kernels) == (1 if m <= SCAN_MAX_ROWS else 3), (lanes, kernels)
     gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
     plain = ref.gather_rows_vq_ref(want[0], cb, want[1], gidx)
     for _ in range(2):
         out = gather_rows_vq(got[0], cb.to(dev), got[1], gidx.to(dev))
         assert out.shape == (500, d) and torch.equal(out.cpu(), plain)
+
+
+def test_vq_push_non_finite_rows(dev):
+    """Rows holding inf, -inf or NaN, beside finite ones, at the serving
+    width (d = 256) and the training push's (d = 64, split lanes). An inf
+    row's codes and scale are bitwise the plain version's (s = inf, so u
+    is 0 or NaN: code 0 everywhere). A NaN row departs from it as documented in
+    csrc/scatter.cu, as the kernel before this design did: the scale is
+    the max of the row's other |values| (fmaxf skips a NaN; the plain
+    amax gives NaN and then 1), the codes are the plain search's on u = v
+    / that scale (a subvector holding the NaN takes code 0 in both). Every
+    non-finite row's error is NaN in both."""
+    for d, m in ((256, 64), (64, 194)):
+        rng = np.random.default_rng(d)
+        cb = vq_init_codebook(d, device="cpu")
+        v = rng.normal(size=(m, d)).astype(np.float32)
+        v[3, 5] = np.inf
+        v[4, d - 1] = -np.inf
+        v[5, 9] = np.nan
+        v[6, :] = np.nan
+        v[7, 0], v[7, 1] = np.nan, np.inf
+        nan_rows = [5, 6, 7]
+        v = torch.from_numpy(v)
+        idx = torch.from_numpy(rng.permutation(m).astype(np.int32))
+        n = m + 1
+        q0 = torch.zeros((n, d // 8), dtype=torch.uint8)
+        s0 = torch.zeros((n,), dtype=torch.float32)
+        want = ref.scatter_rows_vq_ref(q0.clone(), s0.clone(), idx, v, cb)
+        amax = torch.where(torch.isnan(v), 0.0, v.abs()).amax(1)
+        scale = torch.where(amax > 0, amax, torch.ones_like(amax))
+        codes = ref.vq_nearest((v / scale[:, None]).view(m, d // 8, 8), cb)
+        assert torch.equal(codes[:5], want[2][:5])   # finite and inf rows
+        got = [t.cpu() for t in scatter_rows_vq(
+            q0.clone().to(dev), s0.clone().to(dev), idx.to(dev), v.to(dev),
+            cb.to(dev))]
+        assert torch.equal(got[2], codes)
+        tgt = idx.long()
+        assert torch.equal(got[0][tgt], codes)
+        assert torch.equal(got[1][tgt], scale)
+        keep = torch.ones(m, dtype=torch.bool)
+        keep[nan_rows] = False
+        assert torch.equal(got[2][keep], want[2][keep])
+        assert torch.equal(got[1][tgt[keep]], want[1][tgt[keep]])
+        finite = torch.isfinite(v).all(1)
+        assert finite.sum() == m - 5
+        assert torch.isnan(got[3][~finite]).all()
+        assert torch.isnan(want[3][~finite]).all()
+        torch.testing.assert_close(got[3][finite], want[3][finite],
+                                   rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("d", [256, 64])
@@ -927,7 +1058,6 @@ def test_scatter_rows_last_writer_matches_plain(dev, dtype, m, d):
     4,096); M = 1, 37 (d = 20: the unvectorized copy) and 4,096 take the
     one-launch scan, 4,097 (past SCAN_MAX_ROWS) the claim passes. One
     launch counted per call; a repeat bitwise equal."""
-    from repro_torch.kernels.scatter import SCAN_MAX_ROWS
     assert SCAN_MAX_ROWS == 4096     # 4,096 scans, 4,097 claims
     rng = np.random.default_rng(m + d)
     n = 5000

@@ -102,14 +102,66 @@ def test_scatter_rows_drops_out_of_range_in_place():
 
 
 def test_scatter_rows_scan_limit_matches_the_launcher():
-    """`scatter_rows` of at most SCAN_MAX_ROWS rows runs the one-launch
-    scan (no winner scratch), a larger push the claim passes; the limit
-    is the launcher's own (`csrc/scatter.cu` refuses a scan past it), and
-    the serving refresh push (4,096 rows) is within it."""
+    """`scatter_rows` and `scatter_rows_vq` of at most SCAN_MAX_ROWS rows
+    run the one-launch scan (no winner scratch), a larger push the claim
+    passes; the limit is the launchers' own (`csrc/scatter.cu` refuses a
+    scan past it in both), and the serving refresh push (4,096 rows) is
+    within it."""
     assert t_scatter.SCAN_MAX_ROWS >= 4096
     src = (_build.CSRC / "scatter.cu").read_text()
     assert (f"constexpr int64_t kScanMax = {t_scatter.SCAN_MAX_ROWS};"
             in src)
+    assert src.count("if (winner == nullptr && m > kScanMax)") == 2
+    n = 7
+    for m in (1, 4096, t_scatter.SCAN_MAX_ROWS):
+        assert t_scatter._winner(m, n, torch.device("cpu")) is None
+    scratch = t_scatter._winner(t_scatter.SCAN_MAX_ROWS + 1, n,
+                                torch.device("cpu"))
+    assert scratch.shape == (n,) and scratch.dtype == torch.int32
+
+
+def test_scatter_rows_vq_plan_matches_the_launcher():
+    """The plan's limits are the kernel's: 256 entries a subvector, at
+    most 16 warps a CTA, the lane splits it is built for."""
+    src = (_build.CSRC / "scatter.cu").read_text()
+    assert f"constexpr int kCodes = {t_scatter.VQ_CODES};" in src
+    assert f"constexpr int kVqMaxWarps = {t_scatter.VQ_MAX_WARPS};" in src
+    for lanes in t_scatter.VQ_LANES:
+        assert f"case {lanes}: return launch_vq<{lanes}>" in src
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("m,s_n", [(4096, 32), (194, 8), (179, 8), (1, 32),
+                                   (4097, 32), (220, 256), (1024, 8),
+                                   (2501, 8)])
+def test_scatter_rows_vq_plan_covers_every_entry(m, s_n, n_sm):
+    """The encoding push's plan (lanes per (row, subvector) pair, warps
+    per CTA, CTAs): the lanes' entry ranges cover the 256 entries once
+    and in increasing order, the warps every subvector once, the CTAs
+    every row once. On 132 SMs the serving refresh push (4,096 x 32)
+    takes one lane per pair and one wave of CTAs, one per SM; the
+    training pushes (179-194 rows x 8) and 1,024 rows x 8 (the most the
+    plan splits) 8 lanes per pair, the GCN refit push (2,501 x 8) one
+    lane, all but 1,024 rows within one CTA per SM. With one SM only a
+    single row is split."""
+    lanes, warps, ctas = t_scatter.scatter_rows_vq_plan(m, s_n, n_sm)
+    assert lanes in t_scatter.VQ_LANES and 32 % lanes == 0
+    per = t_scatter.VQ_CODES // lanes
+    entries = [c for k in range(lanes) for c in range(k * per, (k + 1) * per)]
+    assert entries == list(range(t_scatter.VQ_CODES))
+    assert 1 <= warps <= min(s_n, t_scatter.VQ_MAX_WARPS)
+    subs = sorted(s for w in range(warps) for s in range(w, s_n, warps))
+    assert subs == list(range(s_n))
+    rows = 32 // lanes
+    assert (ctas - 1) * rows < m <= ctas * rows
+    want_132 = {(4096, 32): 1, (194, 8): 8, (179, 8): 8, (1024, 8): 8,
+                (2501, 8): 1}
+    if n_sm == 132 and (m, s_n) in want_132:
+        assert lanes == want_132[(m, s_n)]
+        if m != 1024:
+            assert ctas <= n_sm
+    if n_sm == 1:
+        assert lanes == (8 if m == 1 else 1)
 
 
 @pytest.mark.parametrize("scratch", [True, False])
