@@ -39,7 +39,13 @@ with a non-zero exit at the first failure:
    (min, max, count and tie counts bitwise, sums and gradients at 1e-5,
    beside a composition of PyTorch calls over the blocks' nonzeros; the
    edge-softmax kernels beside such a composition too and, with
-   --parent-csrc, the parent checkout's three kernels).
+   --parent-csrc, the parent checkout's three kernels), then the launch
+   floor (an empty kernel of the same library on 1 CTA and on the PNA
+   backward passes' grids, timed as the rows are), and PNA's two
+   backward kernels on the seeded operands and on the operands a
+   training step on batch 0 gives them at layers 0 and 1 (within 1e-5
+   of the plain versions; with --parent-csrc beside the parent
+   checkout's kernels, outputs bitwise equal).
    Each block contraction (`bcsr_spmm` on the refresh batch, on the same
    blocks made fully dense, and on the two quickstart families;
    `gather_spmm`'s four bodies) has a line with its time beside the
@@ -106,7 +112,7 @@ with a non-zero exit at the first failure:
    at the same precision on the same partition (keyed by its hash; for
    PNA the lowest of the reference's runs one ulp apart); the launch
    counters of the path's kernels; and one more epoch under
-   torch.profiler for the device's busy share (GAT over f32, with
+   torch.profiler for the device's busy share (PNA over f32, with
    --parent-csrc: also one on the parent's kernels, then one more on
    this build's). Two steps of a bf16 GAT
    show the bf16 history pull (`gather_rows_bf16`) on its path, two
@@ -125,12 +131,21 @@ partitioner on this host) for `tests/test_torch_train.py --reference-acc
     python3 chip_smoke.py --parent-csrc build/parent-src/src/repro_torch/kernels/csrc
 
 also builds the kernels of another checkout (its C entry points must
-have this build's signatures, but for `scatter_rows`, `flash_decode` and
-`scatter_rows_vq`, which are called with the parent's own) and times its
+have this build's signatures, but for `scatter_rows` and `flash_decode`,
+which are called with the parent's own) and times its
 block contraction, `scatter_rows` (f32 and bf16), `scatter_rows_vq` (at
 both push shapes; and on rows holding inf and NaN, bitwise),
-`flash_decode` and the three edge-softmax kernels beside this build's on
-the same inputs in phases 2 and 3b, their outputs compared.
+`flash_decode`, the three edge-softmax kernels and PNA's two backward
+kernels beside this build's on the same inputs in phases 2 and 3b,
+their outputs compared.
+
+    python3 chip_smoke.py --pna-edges 2,8
+
+also builds the kernels once per number of queued edges that PNA's
+backward drains load together (`csrc/pna_reduce.cu`'s REPRO_PNA_EDGES;
+4 in this build) and times both backward kernels on each beside this
+build's on the same operands, outputs bitwise this build's
+(`[pna-edges]` lines).
 
     python3 chip_smoke.py --vq-ablation
 
@@ -233,6 +248,13 @@ VQ_PUSHES = (("GCN training push", 179, 64), ("GAT training push", 194, 64),
              ("GCN refit push", 2501, 64),
              ("serving refresh push", 4096, 256))
 VQ_ROUNDS = 5
+# `--pna-edges N,...`: libraries built with each N queued edges loaded
+# together by PNA's backward drains (csrc/pna_reduce.cu's REPRO_PNA_EDGES),
+# {N: library}; both backward kernels are timed on each beside this build's
+PNA_EDGE_LIBS = {}
+# the training run whose profiled epoch also runs on the parent's kernels
+# with --parent-csrc (the kernels this version redesigned are on its path)
+PARENT_EPOCH_RUN = ("pna", "f32")
 EARLIER_MS = {"bcsr_spmm": 2.016, "gather_spmm": 1.877,
               "gather_spmm_bf16": 1.965, "gather_spmm_dq": 2.031,
               "gather_spmm_vq": 1.942,
@@ -520,16 +542,35 @@ def _row(name, source, replaces, err, ms, plain_ms, library_ms, n_bytes,
     return row
 
 
-def _parent_call(fn):
-    """`fn`, a wrapper call, on the parent checkout's kernels (PARENT_LIB)
-    with the same arguments; their launches are not counted."""
+def _call_on(lib, fn):
+    """`fn`, a wrapper call, on the kernels of another library `lib` with
+    the same arguments; their launches are not counted."""
     saved, counts = _build._lib, dict(_build.launch_counts)
-    _build._lib = PARENT_LIB
+    _build._lib = lib
     try:
         return fn()
     finally:
         _build._lib = saved
         _build.launch_counts.update(counts)
+
+
+def _parent_call(fn):
+    """`fn`, a wrapper call, on the parent checkout's kernels (PARENT_LIB)
+    with the same arguments; their launches are not counted."""
+    return _call_on(PARENT_LIB, fn)
+
+
+def _launch_floor(device, ctas):
+    """{n: ms} for an empty kernel of this build's library on n CTAs of
+    256 threads (a PNA row grid's CTA), for each n in `ctas`, timed by
+    `_time_ms` as the kernel rows are: the time no launch goes under."""
+    fn = _build.lib().repro_empty_kernel
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = _build.stream_ptr(device)
+    return {n: _time_ms(lambda: _build.check(fn(n, 256, stream),
+                                             "the empty kernel"))
+            for n in ctas}
 
 
 def _beside_earlier(label, fn, out, ms):
@@ -570,25 +611,11 @@ def _parent_scatter_rows(table, idx, values):
 
 def _parent_scatter_rows_vq(table, scales, idx, values, codebook):
     """The parent checkout's `scatter_rows_vq` (PARENT_LIB) on the same
-    operands: its launcher takes no lane plan and always the N-entry
-    winner scratch of its claim passes (three kernels). In place; returns
-    (table, scales, codes, err); no launch is counted."""
-    (n, s_n), m = table.shape, idx.shape[0]
-    dev = table.device
-    winner = torch.empty((n,), dtype=torch.int32, device=dev)
-    codes = torch.empty((m, s_n), dtype=torch.uint8, device=dev)
-    err = torch.empty((m,), dtype=torch.float32, device=dev)
-    fn = PARENT_LIB["repro_scatter_rows_vq"]   # its own argtypes
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _build.check(fn(
-        table.data_ptr(), scales.data_ptr(), codes.data_ptr(),
-        err.data_ptr(), idx.data_ptr(), values.data_ptr(),
-        codebook.data_ptr(), winner.data_ptr(), m, n, s_n,
-        codebook.shape[1], _build.stream_ptr(dev)),
-        "the parent's scatter_rows_vq")
-    return table, scales, codes, err
+    operands, through this build's wrapper (its launcher has this build's
+    signature since the one-launch push). In place; returns (table,
+    scales, codes, err); no launch is counted."""
+    return _parent_call(lambda: scatter_rows_vq(table, scales, idx, values,
+                                                codebook))
 
 
 def _vq_push_row(label, replaces, idx, values, codebook, table, scales,
@@ -1595,7 +1622,83 @@ def _pna_kernel_rows(plan, device, gen):
                      f"{r['plain_ms']:.4f}, comp. {r['library_ms']:.4f}, "
                      f"bound {r['bound_ms']:.5f} by {r['bound_by']})"
                      for r in rows))
+    floor = _launch_floor(device, (1, -(-n_out // 8), -(-M // 8)))
+    _phase("kernels", "launch floor: an empty kernel from this build's "
+           "library, timed as the rows are: " + ", ".join(
+               f"{n} CTA(s) of 256 threads {ms:.4f} ms"
+               for n, ms in floor.items()) + f" ({-(-n_out // 8)} and "
+           f"{-(-M // 8)} CTAs: the PNA backward row and column passes' "
+           "grids)")
+    _pna_backward_lines(plan, [("seeded operands", xd, xs, stats)] + [
+        (f"layer {ell}'s operands", *ops_) for ell, ops_ in
+        enumerate(_pna_layer_operands(plan))])
     return rows
+
+
+def _pna_layer_operands(plan):
+    """[(xd, xs, stats)] of `pna_reduce_bwd_row` (and of `_bwd_col`, which
+    takes the same with the transposed blocks) at layers 0 and 1 of one
+    training step on batch 0, from fresh params and a zero f32 store: the
+    operands the main path gives them, taken from `ops`' autograd
+    Function as it calls the row kernel. No launch is counted."""
+    calls, real = [], ops.pna_reduce_bwd_row
+
+    def spy(xd, xs, *rest):
+        calls.append((xd, xs, tuple(rest[:7])))
+        return real(xd, xs, *rest)
+
+    plan = with_history_dtype(plan, "f32")
+    counts = dict(_build.launch_counts)
+    ops.pna_reduce_bwd_row = spy
+    try:
+        with torch.enable_grad():
+            RT.grads_and_metrics(plan, RT.init_state(plan), plan.batch(0))
+    finally:
+        ops.pna_reduce_bwd_row = real
+        _build.launch_counts.update(counts)
+    assert len(calls) == plan.spec.num_layers, len(calls)
+    return calls[::-1]                  # the backward runs the last first
+
+
+def _pna_backward_lines(plan, cases):
+    """PNA's two backward kernels on batch 0's blocks for each (label, xd,
+    xs, stats) of `cases`: within 1e-5 of the plain versions; with
+    --parent-csrc beside the parent checkout's kernels on the same inputs,
+    outputs bitwise equal; with --pna-edges on each such build, outputs
+    bitwise this build's. No launch is counted."""
+    uv, uc, uvt, uct = plan.batch(0).ublocks
+    tol = dict(rtol=1e-5, atol=1e-5)
+    counts = dict(_build.launch_counts)
+    for label, xd, xs, stats in cases:
+        edges = []
+        for name, fn, plain in (
+                ("pna_reduce_bwd_row",
+                 lambda: pnk.pna_reduce_bwd_row(xd, xs, *stats, uv, uc),
+                 lambda: ref.pna_reduce_bwd_row_ref(xd, xs, *stats, uv,
+                                                    uc)),
+                ("pna_reduce_bwd_col",
+                 lambda: pnk.pna_reduce_bwd_col(xd, xs, *stats, uvt, uct),
+                 lambda: ref.pna_reduce_bwd_col_ref(xd, xs, *stats, uvt,
+                                                    uct))):
+            out = fn()
+            torch.testing.assert_close(out, plain(), **tol)
+            ms = _time_ms(fn)
+            old = None if PARENT_LIB is None else _parent_call(fn)
+            _beside_parent(f"PNA batch 0 {name}, {label}", ms, out, old,
+                           lambda: _parent_call(fn))
+            if PNA_EDGE_LIBS:
+                for n, lib in PNA_EDGE_LIBS.items():
+                    assert torch.equal(_call_on(lib, fn), out), \
+                        f"{name}, {label}: {n} edges a batch differ"
+                edges.append(f"{name}: " + ", ".join(
+                    f"{n} {_time_ms(lambda: _call_on(lib, fn)):.4f} ms"
+                    for n, lib in PNA_EDGE_LIBS.items()) +
+                    f", this build {ms:.4f} ms")
+        if edges:
+            _phase("pna-edges", f"PNA batch 0, {label}, queued edges "
+                   f"loaded together: " + "; ".join(edges) +
+                   "; every output bitwise this build's")
+    _build.launch_counts.update(counts)
 
 
 def training_kernel_phase(plans, device, clock_hz):
@@ -1954,8 +2057,8 @@ def training_phase(op, hd, plan, device):
            f"{ref_acc:.4f} at {hd}, {ref_note}), val {acc['val_acc']:.4f}; "
            f"launches " + str({k: v for k, v in launches.items() if v}))
     _phase("training", f"{tag}: one more epoch under torch.profiler: {busy}")
-    if PARENT_LIB is not None and op == "gat" and hd == "f32":
-        # the same epoch on the parent's kernels (the edge softmax it
+    if PARENT_LIB is not None and (op, hd) == PARENT_EPOCH_RUN:
+        # the same epoch on the parent's kernels (the ones this version
         # redesigned), then once more on this build's, in the same call
         for which, run in (("the parent's kernels",
                             lambda: _parent_call(
@@ -2643,8 +2746,12 @@ def main() -> int:
                     help="also build the kernels in DIR (another "
                          "checkout's kernels/csrc) and run its block "
                          "contraction, scatter_rows, scatter_rows_vq, "
-                         "flash_decode and edge-softmax kernels beside "
-                         "this build's")
+                         "flash_decode, edge-softmax and PNA backward "
+                         "kernels beside this build's")
+    ap.add_argument("--pna-edges", metavar="N,...",
+                    help="also build the kernels with each N queued edges "
+                         "loaded together by PNA's backward drains and "
+                         "time both backward kernels on each")
     ap.add_argument("--vq-ablation", action="store_true",
                     help="also build the kernels once per build switch of "
                          "scatter_rows_vq's search (each mechanism off) and "
@@ -2694,6 +2801,18 @@ def _smoke(args, partitions, t_start) -> int:
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
         _phase("build", f"the kernels of {args.parent_csrc} in "
                f"{time.perf_counter() - t0:.1f} s")
+    if args.pna_edges:
+        t0 = time.perf_counter()
+        sizes = [int(n) for n in args.pna_edges.split(",")]
+        with concurrent.futures.ThreadPoolExecutor(len(sizes)) as ex:
+            built = {n: ex.submit(_build.build, _build.CSRC,
+                                  ROOT / "build" / "pna-edges",
+                                  (f"REPRO_PNA_EDGES={n}",))
+                     for n in sizes}
+            for n, fut in built.items():
+                PNA_EDGE_LIBS[n] = _build.load(fut.result())
+        _phase("build", f"{len(sizes)} builds with other PNA edge batches "
+               f"in {time.perf_counter() - t0:.1f} s")
     if args.vq_ablation:
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(VQ_ABLATION)) as ex:

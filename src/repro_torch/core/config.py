@@ -45,8 +45,11 @@ def resolve_device(device: Union[None, str, torch.device] = None
 class HistoryExecConfig:
     """`history_dtype` — history-table storage precision, a name of the
     codec registry (`core.history.get_codec`): "f32", "bf16", "int8" or
-    "vq" (None means "f32"). Serving validates it against the bound
-    store.
+    "vq". In training, None resolves as the reference's: to
+    $REPRO_HISTORY_DTYPE where it is set, else "f32"
+    (`core.history.resolve_history_dtype`, which `build_plan` and the
+    store's `create` call). Serving validates a name against the bound
+    store and reads None as "the bound store's".
 
     `staleness_slo` — max acceptable history age (steps since a row was
     last pushed) of any row an execution may read. Serving overrides the

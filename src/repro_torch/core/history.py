@@ -32,6 +32,7 @@ the statistics in place. Host-memory tables are not ported yet.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -46,7 +47,8 @@ from repro_torch.kernels.ref import (dequantize_rows, quantize_rows,
 from repro_torch.kernels.scatter import scatter_rows_vq
 from .config import resolve_device
 
-__all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec", "row_scales",
+__all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
+           "resolve_history_dtype", "row_scales",
            "quantize_rows", "dequantize_rows", "quantization_error",
            "VQ_SUBDIM", "VQ_CODES", "VQ_SEED", "vq_table_width",
            "vq_init_codebook", "vq_row_scales", "vq_encode_rows",
@@ -123,6 +125,18 @@ def get_codec(history_dtype: str) -> HistoryCodec:
             f"history_dtype must be one of {HISTORY_DTYPES}, "
             f"got {history_dtype}")
     return codec
+
+
+def resolve_history_dtype(history_dtype: Optional[str] = None) -> str:
+    """The argument, else $REPRO_HISTORY_DTYPE, else "f32", the
+    reference's order (`repro.core.history.resolve_history_dtype`); the
+    name it takes is checked with `get_codec`."""
+    for cand in (history_dtype,
+                 os.environ.get("REPRO_HISTORY_DTYPE") or None):
+        if cand is not None:
+            get_codec(cand)
+            return cand
+    return "f32"
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +241,10 @@ class HistoryStore:
         """Zero tables (zero codes at scale 1.0 for int8 and vq, as the
         reference's `create`; a vq store also gets `vq_init_codebook(d)`
         per layer and zero statistics) and ages. `num_nodes` must include
-        the sentinel row (pass N + 1). `history_dtype=None` means "f32";
+        the sentinel row (pass N + 1). `history_dtype` resolves as
+        `resolve_history_dtype` (argument, $REPRO_HISTORY_DTYPE, "f32");
         `device=None` means "cuda"."""
-        hd = history_dtype or "f32"
+        hd = resolve_history_dtype(history_dtype)
         codec = get_codec(hd)
         widths = [codec.table_width(d) for d in dims]
         dev = resolve_device(device)

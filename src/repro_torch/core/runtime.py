@@ -24,7 +24,8 @@ untouched.
 Entry points run on the card (`device=None` means "cuda") unless the
 caller asks for the CPU, where every kernel runs its plain version.
 The store's precision is `GASConfig.history_dtype` (f32, bf16, int8 or
-vq; the epoch metrics carry `hist_quant_err`, the error its pushes
+vq; None reads $REPRO_HISTORY_DTYPE, else f32, as in the reference; the
+epoch metrics carry `hist_quant_err`, the error its pushes
 incur). A vq store's codebooks are refit at the start of an epoch on the
 reference's cadence (`vq_refit_every`) or drift (`vq_refit_drift`) gate.
 Not ported yet: `prefetch_depth > 0` and `history_storage="host"`
@@ -45,7 +46,7 @@ from repro_torch.train.optimizer import (AdamWState, adamw_init,
 from . import gas as G
 from .batch import GASBatch
 from .config import HistoryExecConfig, resolve_device
-from .history import HistoryStore
+from .history import HistoryStore, resolve_history_dtype
 from .partition import metis_like_partition, random_partition
 
 
@@ -170,6 +171,7 @@ def build_plan(graph: Graph, spec, config: GASConfig,
     from repro_torch.gnn.model import UNIT_BLOCK_OPS, _check_op
 
     _check_op(spec)
+    resolve_history_dtype(config.history_dtype)  # a bad name fails here
     dev = resolve_device(device)
     N = graph.num_nodes
     if part is None:
@@ -218,8 +220,8 @@ def _regroup(plan: GASPlan) -> None:
 def init_state(plan: GASPlan, params=None) -> GASState:
     """Fresh params (the port's `init_gnn(spec, seed)` unless `params` is
     given, e.g. the reference's carried across), a zero AdamW state, a
-    zero history store of `config.history_dtype` and the initial rng key
-    data."""
+    zero history store of `config.history_dtype` (None: the precision
+    $REPRO_HISTORY_DTYPE names, else f32) and the initial rng key data."""
     from repro_torch.gnn.model import init_gnn
 
     cfg = plan.config

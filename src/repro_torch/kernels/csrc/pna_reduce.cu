@@ -29,23 +29,50 @@
 // axes and keep the running (s, mn, mx, cnt, cmin, cmax) in VMEM scratch,
 // reducing a whole [128, 128-lane] message tile per step. A GAS batch's
 // blocks are sparse (1,449 edges in 344,064 stored values at the table-5
-// shape), so here one warp owns one row of the block structure and walks
-// its K blocks itself: each lane reads 4 consecutive multiplicities of the
-// row (one coalesced 512-byte read per block, the next block's issued
-// before the current one is walked), a ballot finds the columns with an
-// edge, and for each edge the warp reads the other side's row at its
-// features (lane l holds features l and l + 32 of a 64-feature tile; one
-// coalesced read) and updates the running stats in registers. The
-// multiplicity is uniform across the warp, so no lane diverges on the
-// mask, and masked entries are skipped, never multiplied. Every output has
-// one owner lane: no atomics, so a repeat is bit-identical. The column
-// pass walks the transposed blocks (rows are sources) and reads the
-// destination-side stats and cotangents through the transposed column
-// ids, dividing a min/max cotangent by its tie count only where a message
-// ties. (A thread per row of a 128-row block row, the Pallas tile's
-// shape, spends a warp's divergent pass on every edge of any of its 32
-// rows: such designs took 0.09-0.29 ms a pass at the table-5 shape on an
-// H100, slower than a composition of PyTorch calls.)
+// shape), so here one warp owns one row of the block structure (a
+// destination row in the forward and the row pass, a source row of the
+// transposed blocks in the column pass) and lane l holds features l and
+// l + 32 of a 64-feature tile (one coalesced read per operand row); every
+// output has one owner lane, so there are no atomics and a repeat is
+// bit-identical. A row's warp waits on latencies, not on bytes (each
+// pass runs at ~15-20x its byte bound): one warp's walk of a table-5 row
+// is a chain of dependent memory reads and dependent instructions behind
+// a launch (chip_smoke.py prints the launch floor beside the passes), so
+// the backward walk is laid out to keep both chains short.
+// - The forward (`for_each_edge`, kept as it was in this version): each
+//   lane reads 4 consecutive multiplicities of the row, one block row at
+//   a time with the next one in flight; a ballot finds the columns with
+//   an edge, and for each edge the warp reads the source row and updates
+//   the running stats in registers, one edge's load after the other's.
+// - The two backward passes (`queue_edges`, then `for_queued`). The warp
+//   first issues its own row's operands (the eight destination-side rows
+//   in the row pass, xs in the column pass) and the row block's column
+//   ids (lane k holds cols[r, k] for k < 32; past 32 through the
+//   read-only cache), then reads kChunk = 8 block rows at once (K = 7
+//   forward and 3 transposed at the table-5 shape: every block row in
+//   flight together; past 8 chunk by chunk) and queues all of their edges
+//   with no chain from one block row to the next: 4 ballots a block row,
+//   each lane's place from the counts below it, and each edge's far row
+//   j = cols[r, k] * 128 + b computed by the lane that holds it, into the
+//   warp's 128-entry queue in shared memory, in (k, b) order. The drain
+//   takes kEdges = 4 queued edges at a time and loads every operand of
+//   every one of them before any is used (xs[j] in the row pass; all
+//   eight destination-side rows xd, gs, mn, mx, gmn, cmin, gmx, cmax of
+//   destination j in the column pass, so no load waits on a tie
+//   compare), the next batch's before this one is folded (two register
+//   buffers). Offsets are 32-bit. The fold selects where it can, and a
+//   tie's share divides only where the tie count is above 1 (dividing by
+//   1 gives the cotangent exactly): each __fdiv_rn carries a branch to a
+//   slow path that the scheduler cannot move work across, and computed
+//   for every edge, feature and extreme they made the column pass slower
+//   than the walk it replaced. A row with at most 4 edges waits on about
+//   three memory latencies: its block rows, its edges' operands, its
+//   store. A chunk whose edges would overflow the queue (a hub row) is
+//   queued block row by block row, draining in order between.
+// (A thread per row of a 128-row block row, the Pallas tile's shape,
+// spends a warp's divergent pass on every edge of any of its 32 rows:
+// such designs took 0.09-0.29 ms a pass at the table-5 shape on an H100,
+// slower than a composition of PyTorch calls.)
 //
 // Exactness. msg is one IEEE add and a max, so mn and mx are bitwise the
 // plain version's and the Pallas kernel's. The tie counts stream edge by
@@ -53,8 +80,14 @@
 // equal one adds it; the final count is the multiplicity sum of the edges
 // equal to the final extreme, as the reference's per-block update gives,
 // in exact small-integer f32 sums. The backward passes recompute msg with
-// the same add and compare it with the saved mn / mx for equality. No
-// fast math: the divisions round as the reference's.
+// the same add and compare it with the saved mn / mx for equality. Each
+// backward output is one chain over its edges in (k ascending, b
+// ascending) order from +0, __fadd_rn(acc, __fmul_rn(mu, g)), g the
+// cotangent with each tie's share __fdiv_rn(gmn, max(cmin, 1)) added where
+// the message ties (g itself where the count is at most 1, the same
+// bits); an entry is an edge where its multiplicity is > 0. So the
+// batched walk gives the one-edge-at-a-time walk's bits. No fast math:
+// the divisions round as the reference's.
 //
 // Bound on the H100 (the larger of two): the blocks as stored, all
 // R*K*128*128 f32 values read once, plus every other operand read or
@@ -62,9 +95,14 @@
 // per edge and feature) at 67 TFLOP/s. The block bytes bound all three
 // passes. The kernels read each block once per 64-feature tile (once at
 // F = 48), and the other side's rows once per edge (from L2 after the
-// first); a warp's K reads and per-edge reads are a chain of dependent
-// latencies, which is what bounds these small shapes.
+// first).
 #include "common.cuh"
+
+// Queued edges whose operands a backward drain loads together (a build
+// switch, so chip_smoke.py can time the neighbouring sizes).
+#ifndef REPRO_PNA_EDGES
+#define REPRO_PNA_EDGES 4
+#endif
 
 namespace {
 
@@ -74,6 +112,10 @@ constexpr int kFw = 2;                  // features per lane
 constexpr int kTileF = kWarp * kFw;     // features per warp and tile
 constexpr int kRowsPerCta = 8;          // one warp per row
 constexpr unsigned kAll = 0xffffffffu;
+constexpr int kChunk = 8;               // block rows a warp reads at once
+constexpr int kQueue = 128;             // queued edges a backward warp
+constexpr int kEdges = REPRO_PNA_EDGES;
+static_assert(kEdges >= 1 && kEdges <= kQueue, "a drain batch");
 constexpr float kBig = 1e30f;           // the reference's BIG
 
 struct Dims {
@@ -117,9 +159,10 @@ __device__ __forceinline__ void load(float (&v)[kFw], const float* src,
     v[p] = (i < rows && w.ok(p, F)) ? __ldg(src + w.at(i, p, F)) : 0.f;
 }
 
-// Walk the edges of the warp's row: fn(j, mu) for each column of each of
-// its K blocks with multiplicity mu > 0, j the global row on the column
-// side. Warp-uniform: every lane calls fn with the same (j, mu).
+// The forward's walk over the edges of the warp's row: fn(j, mu) for each
+// column of each of its K blocks with multiplicity mu > 0, j the global
+// row on the column side. Warp-uniform: every lane calls fn with the same
+// (j, mu).
 template <typename Fn>
 __device__ __forceinline__ void for_each_edge(const float* vals,
                                               const int32_t* cols,
@@ -159,6 +202,168 @@ dim3 grid_for(int64_t n_rows, int64_t F) {
 }
 
 const dim3 kBlock(kWarp, kRowsPerCta);
+
+// A queued edge of a backward pass: its multiplicity (> 0) and its far row
+// j = cols[r, k] * 128 + b.
+struct Edge {
+  float mu;
+  int32_t j;
+};
+
+// Queue the edges of the warp's row of the blocks `vals` [R, K, 128, 128]
+// in (k, b) order and call drain(n) on the n queued ones whenever the next
+// block row's would overflow the queue, and once at the end (n may be 0
+// there). The warp reads kChunk block rows at once (lane l 16 bytes of
+// each, one coalesced 512-byte read a block row) and their column ids
+// (lane k holds cols_r[k] for k < 32; past 32 through the read-only
+// cache), then queues all of their edges with no chain from one block row
+// to the next: 4 ballots a block row, each lane's place from the counts
+// below it, its edges' far rows computed by the lane that holds them. A
+// chunk whose edges overflow the queue is queued block row by block row,
+// draining between (its block rows are read again, from L2). An entry is
+// an edge where its multiplicity is > 0.
+template <class Drain>
+__device__ __forceinline__ void queue_edges(const float* __restrict__ vals,
+                                            const int32_t* __restrict__ cols_r,
+                                            int32_t colv, const Row& w,
+                                            int64_t K, Edge* queue,
+                                            Drain&& drain) {
+  const int lane = threadIdx.x;
+  const unsigned below = (1u << lane) - 1u;
+  const float4* blk = reinterpret_cast<const float4*>(
+                          vals + (w.r * K * kBn + w.la) * kBn) + lane;
+  auto flush = [&](int n) {
+    __syncwarp();  // every lane's entries are in the queue
+    drain(n);
+    __syncwarp();  // the queue may be refilled
+  };
+  // a block row's edges (tot) and those of the lanes below this one (pre)
+  auto count = [&](const float4& v, int& tot, int& pre) {
+    const unsigned m0 = __ballot_sync(kAll, v.x > 0.f);
+    const unsigned m1 = __ballot_sync(kAll, v.y > 0.f);
+    const unsigned m2 = __ballot_sync(kAll, v.z > 0.f);
+    const unsigned m3 = __ballot_sync(kAll, v.w > 0.f);
+    tot = __popc(m0) + __popc(m1) + __popc(m2) + __popc(m3);
+    pre = __popc(m0 & below) + __popc(m1 & below) + __popc(m2 & below) +
+          __popc(m3 & below);
+  };
+  // the lane's edges of a block row from queue position `at`
+  auto put = [&](const float4& v, int32_t jb, int at) {
+    if (v.x > 0.f) queue[at++] = Edge{v.x, jb};
+    if (v.y > 0.f) queue[at++] = Edge{v.y, jb + 1};
+    if (v.z > 0.f) queue[at++] = Edge{v.z, jb + 2};
+    if (v.w > 0.f) queue[at] = Edge{v.w, jb + 3};
+  };
+  // the lane's first far row in block row k
+  auto far_row = [&](int64_t k) {
+    const int32_t c = k < kWarp ? __shfl_sync(kAll, colv, static_cast<int>(k))
+                                : (k < K ? __ldg(cols_r + k) : 0);
+    return c * kBn + 4 * lane;
+  };
+  int n = 0;  // queued entries (warp-uniform)
+  for (int64_t k0 = 0; k0 < K; k0 += kChunk) {
+    float4 v[kChunk];
+    int32_t jb[kChunk];
+    int tot[kChunk], pre[kChunk];
+    const int m = K - k0 < kChunk ? static_cast<int>(K - k0) : kChunk;
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (q == m) break;
+      v[q] = __ldg(blk + (k0 + q) * (kBn * kBn / 4));
+      jb[q] = far_row(k0 + q);
+    }
+    int all = 0;
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (q == m) break;
+      count(v[q], tot[q], pre[q]);
+      all += tot[q];
+    }
+    if (n + all <= kQueue) {
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        if (q == m) break;
+        put(v[q], jb[q], n + pre[q]);
+        n += tot[q];
+      }
+      continue;
+    }
+    // a hub row: its block rows one at a time (read again), draining
+    // whenever the next one's edges would not fit
+    for (int64_t k = k0; k < K && k < k0 + kChunk; ++k) {
+      const float4 vk = __ldg(blk + k * (kBn * kBn / 4));
+      int t, b;
+      count(vk, t, b);
+      if (n + t > kQueue) {
+        flush(n);
+        n = 0;
+      }
+      put(vk, far_row(k), n + b);
+      n += t;
+    }
+  }
+  flush(n);
+}
+
+// The backward passes' far side: kN operands [n, F] read at each queued
+// edge's far row (zeros past n and past F).
+template <int kN>
+struct Far {
+  const float* op[kN];
+  int32_t n;
+};
+
+// fold(mu, v) over the queued edges [0, n) in queue order, kEdges at a
+// time: all kN operands of all of a batch's edges at the lane's features
+// are loaded before any is used, and the next batch's before this one is
+// folded (two register buffers), so a row's loads overlap one another and
+// its folds; v[c][p] is operand c at feature p of the edge's far row.
+// Offsets are 32-bit (the launchers check n * F). Warp-uniform, as the
+// queue is.
+template <int kN, class Fold>
+__device__ __forceinline__ void for_queued(const Edge* queue, int n,
+                                           const Row& w, const Dims& d,
+                                           const Far<kN>& far, Fold&& fold) {
+  const int F = static_cast<int>(d.F);
+  int fo[kFw];  // the lane's features, or -1 past F
+#pragma unroll
+  for (int p = 0; p < kFw; ++p)
+    fo[p] = w.ok(p, d.F) ? static_cast<int>(w.f[p]) : -1;
+  struct Batch {
+    float mu[kEdges];
+    float v[kEdges][kN][kFw];
+  };
+  // issue the loads of the batch at queue position i (zeros past n)
+  auto load_batch = [&](Batch& b, int i) {
+#pragma unroll
+    for (int e = 0; e < kEdges; ++e) {
+      const Edge ed = i + e < n ? queue[i + e] : Edge{0.f, far.n};
+      b.mu[e] = ed.mu;
+      const bool in = ed.j < far.n;
+#pragma unroll
+      for (int o = 0; o < kN; ++o)
+#pragma unroll
+        for (int p = 0; p < kFw; ++p)
+          b.v[e][o][p] = in && fo[p] >= 0
+                             ? __ldg(far.op[o] + ed.j * F + fo[p]) : 0.f;
+    }
+  };
+  auto fold_batch = [&](const Batch& b, int i) {
+#pragma unroll
+    for (int e = 0; e < kEdges; ++e)
+      if (i + e < n) fold(b.mu[e], b.v[e]);
+  };
+  if (n == 0) return;
+  Batch a, b;
+  load_batch(a, 0);
+  for (int i = 0; i < n; i += 2 * kEdges) {
+    if (i + kEdges < n) load_batch(b, i + kEdges);
+    fold_batch(a, i);
+    if (i + kEdges >= n) break;
+    if (i + 2 * kEdges < n) load_batch(a, i + 2 * kEdges);
+    fold_batch(b, i + kEdges);
+  }
+}
 
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
 pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
@@ -216,9 +421,19 @@ pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
   if (blockIdx.y == 0 && threadIdx.x == 0) cnt_out[w.row] = cnt;
 }
 
-// A min/max cotangent's share per tie.
+// A min/max cotangent's share per tie: __fdiv_rn(g, fmaxf(c, 1)). A count
+// of at most 1 (or NaN) divides by 1, which gives g exactly, so only a
+// count above 1 runs the division: a tie of several edges, or one edge of
+// multiplicity above 1.
 __device__ __forceinline__ float share(float g, float c) {
-  return __fdiv_rn(g, fmaxf(c, 1.f));
+  return c > 1.f ? __fdiv_rn(g, c) : g;
+}
+
+// The lane's column id of block k = lane of the warp's row block (0 past
+// K), for `for_queued`.
+__device__ __forceinline__ int32_t lane_col(const int32_t* cols_r,
+                                            const Dims& d) {
+  return threadIdx.x < d.K ? __ldg(cols_r + threadIdx.x) : 0;
 }
 
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
@@ -231,36 +446,48 @@ pna_bwd_row_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
                    const float* __restrict__ vals,
                    const int32_t* __restrict__ cols, const Dims d,
                    float* __restrict__ dxd) {
+  __shared__ Edge queue_s[kRowsPerCta][kQueue];
   const Row w = warp_row(d);
-  if (!w.live) return;
-  float xdv[kFw], gsv[kFw], mnv[kFw], mxv[kFw], gn[kFw], cn[kFw], gx[kFw],
-      cx[kFw], acc[kFw];
+  if (!w.live) return;                  // the whole warp: one row
+  const int32_t* cols_r = cols + w.r * d.K;
+  const int32_t colv = lane_col(cols_r, d);
+  float xdv[kFw], gsv[kFw], mnv[kFw], mxv[kFw], gnv[kFw], cnv[kFw],
+      gxv[kFw], cxv[kFw], acc[kFw];
   load(xdv, xd, w.row, d.n_rows, w, d.F);
   load(gsv, gs, w.row, d.n_rows, w, d.F);
   load(mnv, mn, w.row, d.n_rows, w, d.F);
   load(mxv, mx, w.row, d.n_rows, w, d.F);
-  load(gn, gmn, w.row, d.n_rows, w, d.F);
-  load(cn, cmin, w.row, d.n_rows, w, d.F);
-  load(gx, gmx, w.row, d.n_rows, w, d.F);
-  load(cx, cmax, w.row, d.n_rows, w, d.F);
+  load(gnv, gmn, w.row, d.n_rows, w, d.F);
+  load(cnv, cmin, w.row, d.n_rows, w, d.F);
+  load(gxv, gmx, w.row, d.n_rows, w, d.F);
+  load(cxv, cmax, w.row, d.n_rows, w, d.F);
 #pragma unroll
-  for (int p = 0; p < kFw; ++p) {
-    gn[p] = share(gn[p], cn[p]);
-    gx[p] = share(gx[p], cx[p]);
-    acc[p] = 0.f;
-  }
-  for_each_edge(vals, cols, d, w, [&](int64_t j, float mu) {
-    float x[kFw];
-    load(x, xs, j, d.n_cols, w, d.F);
+  for (int p = 0; p < kFw; ++p) acc[p] = 0.f;
+  const Far<1> far{{xs}, static_cast<int32_t>(d.n_cols)};
+  Edge* queue = queue_s[threadIdx.y];
+  queue_edges(vals, cols_r, colv, w, d.K, queue, [&](int n) {
+    // the shares, once the row's operands have long arrived; an edge
+    // adds one only where its message z > 0 equals the extreme, so an
+    // extreme of at most 0 (or NaN) never uses its share, and skips the
+    // division
+    float gn[kFw], gx[kFw];
 #pragma unroll
     for (int p = 0; p < kFw; ++p) {
-      const float z = __fadd_rn(xdv[p], x[p]);
-      if (!(z > 0.f)) continue;         // relu'(z) = [z > 0]; msg = z
-      float g = gsv[p];
-      if (z == mnv[p]) g = __fadd_rn(g, gn[p]);
-      if (z == mxv[p]) g = __fadd_rn(g, gx[p]);
-      acc[p] = __fadd_rn(acc[p], __fmul_rn(mu, g));
+      gn[p] = mnv[p] > 0.f ? share(gnv[p], cnv[p]) : 0.f;
+      gx[p] = mxv[p] > 0.f ? share(gxv[p], cxv[p]) : 0.f;
     }
+    for_queued(queue, n, w, d, far,
+               [&](float mu, const float (&v)[1][kFw]) {
+#pragma unroll
+      for (int p = 0; p < kFw; ++p) {
+        // relu'(z) = [z > 0], msg = z; selects, so no lane branches
+        const float z = __fadd_rn(xdv[p], v[0][p]);
+        float g = gsv[p];
+        g = z == mnv[p] ? __fadd_rn(g, gn[p]) : g;
+        g = z == mxv[p] ? __fadd_rn(g, gx[p]) : g;
+        acc[p] = z > 0.f ? __fadd_rn(acc[p], __fmul_rn(mu, g)) : acc[p];
+      }
+    });
   });
 #pragma unroll
   for (int p = 0; p < kFw; ++p)
@@ -268,8 +495,9 @@ pna_bwd_row_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
 }
 
 // Over the transposed blocks: rows are sources, columns destinations, and
-// every destination-side operand is read through the transposed column
-// ids.
+// every destination-side operand is read at the queued edges' far rows.
+enum { kXd, kGs, kMn, kMx, kGmn, kCmin, kGmx, kCmax, kDstOps };
+
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
 pna_bwd_col_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
                    const float* __restrict__ gs, const float* __restrict__ gmn,
@@ -280,32 +508,41 @@ pna_bwd_col_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
                    const float* __restrict__ vals_t,
                    const int32_t* __restrict__ cols_t, const Dims d,
                    float* __restrict__ dxs) {
+  __shared__ Edge queue_s[kRowsPerCta][kQueue];
   const Row w = warp_row(d);
   if (!w.live) return;
+  const int32_t* cols_r = cols_t + w.r * d.K;
+  const int32_t colv = lane_col(cols_r, d);
   float xsv[kFw], acc[kFw];
   load(xsv, xs, w.row, d.n_rows, w, d.F);
 #pragma unroll
   for (int p = 0; p < kFw; ++p) acc[p] = 0.f;
-  for_each_edge(vals_t, cols_t, d, w, [&](int64_t i, float mu) {
-    float x[kFw], g[kFw], lo[kFw], hi[kFw];
-    load(x, xd, i, d.n_cols, w, d.F);
-    load(g, gs, i, d.n_cols, w, d.F);
-    load(lo, mn, i, d.n_cols, w, d.F);
-    load(hi, mx, i, d.n_cols, w, d.F);
+  const Far<kDstOps> far{{xd, gs, mn, mx, gmn, cmin, gmx, cmax},
+                         static_cast<int32_t>(d.n_cols)};
+  Edge* queue = queue_s[threadIdx.y];
+  queue_edges(vals_t, cols_r, colv, w, d.K, queue, [&](int n) {
+    for_queued(queue, n, w, d, far,
+               [&](float mu, const float (&v)[kDstOps][kFw]) {
 #pragma unroll
-    for (int p = 0; p < kFw; ++p) {
-      const float z = __fadd_rn(xsv[p], x[p]);
-      if (!(z > 0.f)) continue;
-      float t = g[p];
-      const int64_t o = w.at(i, p, d.F);
-      if (z == lo[p]) t = __fadd_rn(t, share(__ldg(gmn + o), __ldg(cmin + o)));
-      if (z == hi[p]) t = __fadd_rn(t, share(__ldg(gmx + o), __ldg(cmax + o)));
-      acc[p] = __fadd_rn(acc[p], __fmul_rn(mu, t));
-    }
+      for (int p = 0; p < kFw; ++p) {
+        const float z = __fadd_rn(xsv[p], v[kXd][p]);
+        float t = v[kGs][p];
+        if (z == v[kMn][p]) t = __fadd_rn(t, share(v[kGmn][p], v[kCmin][p]));
+        if (z == v[kMx][p]) t = __fadd_rn(t, share(v[kGmx][p], v[kCmax][p]));
+        acc[p] = z > 0.f ? __fadd_rn(acc[p], __fmul_rn(mu, t)) : acc[p];
+      }
+    });
   });
 #pragma unroll
   for (int p = 0; p < kFw; ++p)
     if (w.ok(p, d.F)) dxs[w.at(w.row, p, d.F)] = acc[p];
+}
+
+// The backward launchers' limits: a queued far row and its 32-bit offset
+// j * F + f (j below n_cols + 128, padding columns included).
+bool bwd_fits(int64_t n_cols, int64_t F, int64_t K) {
+  return K * kBn <= INT32_MAX &&
+         (n_cols + kBn) * (F > 0 ? F : 1) <= INT32_MAX;
 }
 
 }  // namespace
@@ -331,6 +568,7 @@ REPRO_API int repro_pna_reduce_bwd_row_f32(
     const float* vals, const int32_t* cols, int64_t R, int64_t K,
     float* dxd, void* stream) {
   if (R == 0 || n_dst == 0 || F == 0) return 0;
+  if (!bwd_fits(n_src, F, K)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_dst, n_src, F, R, K};
   pna_bwd_row_kernel<<<grid_for(n_dst, F), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -346,6 +584,8 @@ REPRO_API int repro_pna_reduce_bwd_col_f32(
     const float* vals_t, const int32_t* cols_t, int64_t R_t, int64_t K_t,
     float* dxs, void* stream) {
   if (R_t == 0 || n_src == 0 || F == 0) return 0;
+  if (!bwd_fits(n_dst, F, K_t))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_src, n_dst, F, R_t, K_t};
   pna_bwd_col_kernel<<<grid_for(n_src, F), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(

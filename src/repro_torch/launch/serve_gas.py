@@ -175,10 +175,11 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--history-dtype", default="f32",
+    ap.add_argument("--history-dtype", default=None,
                     choices=("f32", "bf16", "int8", "vq"),
-                    help="precision of a fresh store (a checkpoint's store "
-                         "keeps its own)")
+                    help="precision of a fresh store (default: "
+                         "$REPRO_HISTORY_DTYPE, else f32; a checkpoint's "
+                         "store keeps its own)")
     ap.add_argument("--checkpoint", default=None,
                     help="serve a state written by either package's "
                          "save_gas_state")

@@ -48,9 +48,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--classes", type=int, default=7)
     ap.add_argument("--parts", type=int, default=16)
     ap.add_argument("--epochs", type=int, default=60)
-    ap.add_argument("--history-dtype", default="f32",
+    ap.add_argument("--history-dtype", default=None,
                     choices=("f32", "bf16", "int8", "vq"),
-                    help="history-table storage precision")
+                    help="history-table storage precision (default: "
+                         "$REPRO_HISTORY_DTYPE, else f32)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true")

@@ -40,7 +40,8 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro_torch.configs.base import get_config
 from repro_torch.core import runtime as R
@@ -242,20 +243,67 @@ def test_edge_softmax_zero_features(dev, H):
         assert _build.launch_counts[k] == before[k] + 1, k
 
 
-@pytest.mark.parametrize("F,n_out,M,ties", [(48, 300, 474, True),
-                                             (16, 194, 474, False),
-                                             (130, 260, 520, True),
-                                             (5, 130, 260, True)])
-def test_pna_kernels_match_plain(dev, F, n_out, M, ties):
+def _hub_blocks(seed, n_out, M, side, n_hub, k_span):
+    """`_blocks`' random edges (6 per destination, the last 5
+    destinations without edges, the last 40 sources reached by none) and
+    one hub row: destination 77 ("dst") or source 77 ("src") with n_hub
+    neighbours spread evenly over the first k_span column blocks of its
+    row, every fifth of them twice (multiplicity 2)."""
+    rng = np.random.default_rng(seed)
+    ne = 6 * n_out
+    dst = rng.integers(0, n_out - 5, ne).astype(np.int32)
+    src = rng.integers(0, M - 40, ne).astype(np.int32)
+    step = k_span * 128 // n_hub
+    nbr = np.arange(n_hub) * step + rng.integers(0, step, n_hub)
+    nbr = np.concatenate([nbr, nbr[::5]]).astype(np.int32)
+    hub = np.full(nbr.size, 77, np.int32)
+    if side == "dst":
+        assert nbr.max() < M - 40
+        dst, src = np.concatenate([dst, hub]), np.concatenate([src, nbr])
+    else:
+        assert nbr.max() < n_out - 5
+        dst, src = np.concatenate([dst, nbr]), np.concatenate([src, hub])
+    ones = np.ones(dst.size, np.float32)
+    uv, uc, _, _ = ops.build_bcsr_rect(dst, src, ones, n_out, M)
+    uvt, uct, _, _ = ops.build_bcsr_rect(src, dst, ones, M, n_out)
+    return [torch.from_numpy(a) for a in (uv, uc, uvt, uct)], rng
+
+
+@pytest.mark.parametrize("F,n_out,M,ties,hub", [
+    pytest.param(48, 300, 474, True, None, id="48-300-474-True"),
+    pytest.param(16, 194, 474, False, None, id="16-194-474-False"),
+    pytest.param(130, 260, 520, True, None, id="130-260-520-True"),
+    pytest.param(5, 130, 260, True, None, id="5-130-260-True"),
+    # a hub destination: 40 sources (48 edges) over K = 11 column blocks
+    pytest.param(48, 300, 11 * 128 + 40, True, ("dst", 40, 11),
+                 id="hub_dst-40-K11"),
+    # a hub source of the transposed blocks: 40 destinations over K_t = 11
+    pytest.param(48, 11 * 128 + 5, 474, True, ("src", 40, 11),
+                 id="hub_src-40-K11"),
+    # K = 24, three chunks of the 8 block rows a backward warp reads at
+    # once, and a hub destination of 150 sources (180 edges) past the
+    # 128-entry queue
+    pytest.param(48, 300, 24 * 128 + 40, True, ("dst", 150, 24),
+                 id="hub_dst-150-K24"),
+])
+def test_pna_kernels_match_plain(dev, F, n_out, M, ties, hub):
     """The three PNA kernels against their plain versions on the card: the
     table-5 width (48, two feature tiles), one tile, F past four tiles and
     ragged in every one, a width below one thread's 8; duplicate edges,
     the last 5 destinations without edges, inputs on a 0.5 grid for ties
     at the min and max, and the last 40 sources reached by no edge
     carrying poisoned values. min, max, count and tie counts bitwise, the
-    sums and both gradients at 1e-5, and a warm repeat bit-identical."""
-    (uv, uc, uvt, uct), rng = _blocks(F + n_out, n_out, M, 6 * n_out,
-                                      empty_from=n_out - 5)
+    sums and both gradients at 1e-5, and a warm repeat bit-identical. The
+    hub cases give one row more edges than a backward drain loads at once
+    and a K past the block rows a backward warp reads at once
+    (`_hub_blocks`)."""
+    if hub is None:
+        (uv, uc, uvt, uct), rng = _blocks(F + n_out, n_out, M, 6 * n_out,
+                                          empty_from=n_out - 5)
+    else:
+        (uv, uc, uvt, uct), rng = _hub_blocks(F + n_out, n_out, M, *hub)
+        side, n_hub, k_span = hub
+        assert (uc if side == "dst" else uct).shape[1] >= k_span
     xd = rng.normal(size=(n_out, F)).astype(np.float32)
     xs = rng.normal(size=(M, F)).astype(np.float32)
     if ties:

@@ -12,7 +12,8 @@ near a rounding boundary may land one bf16 step apart)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

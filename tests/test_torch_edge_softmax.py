@@ -17,7 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro.kernels import edge_softmax as r_esk
 from repro.kernels import ops as r_ops

@@ -7,7 +7,8 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro.core import delta as r_delta
 from repro.core import gas as r_gas

@@ -8,7 +8,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro_torch.core import runtime as t_rt
 from repro_torch.core import serve as t_serve

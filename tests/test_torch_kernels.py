@@ -12,7 +12,8 @@ kernel against these plain versions."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro.kernels import bcsr_spmm as r_bcsr
 from repro.kernels import fused as r_fused

@@ -33,7 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro.core import gas as r_gas
 from repro.core import partition as r_part

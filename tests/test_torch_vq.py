@@ -33,7 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch",
+                            reason="the PyTorch port's tests need torch")
 
 from repro.core import history as r_hist
 from repro.core import runtime as r_rt
