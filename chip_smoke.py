@@ -17,7 +17,9 @@ with a non-zero exit at the first failure:
    SLO=0 refresh batch, d = 256), timed with CUDA events (warm-up, then
    the median of 25 launches) beside the plain version, one PyTorch
    library call (or a composition of a few, marked so) where one computes
-   the same function, and the card's bound: the f32 kernels, the int8
+   the same function, and the card's bound (`gather_rows` also beside
+   `index_select` in alternating rounds, with the timings' spread and
+   whether the gap is resolved): the f32 kernels, the int8
    body of `gather_spmm` and `scatter_rows_q` over an int8 store, the
    bf16 instantiations of `gather_spmm` and `scatter_rows`, and the vq
    body of `gather_spmm` and `scatter_rows_vq` over a vq store (S = 32
@@ -31,8 +33,9 @@ with a non-zero exit at the first failure:
    the output layer's, 1 head of 7, on the same line), the GAT
    hidden layer's history pull from an int8 table (`gather_rows_dq`), a
    bf16 one and a vq one (`gather_rows_vq`) and its push into the vq
-   one (`scatter_rows_vq` at the training shape, 8 codes a row),
-   `bcsr_spmm` on the
+   one (`scatter_rows_vq` at the training shape, 8 codes a row) and
+   the int8 one (`scatter_rows_q`, its device kernels profiled as at the
+   refresh push), `bcsr_spmm` on the
    forward and the transposed blocks of a quickstart
    batch (the GCN backward's use of it), and PNA's three `pna_reduce`
    kernels on batch 0's unit blocks of the table-5 PNA plan at F = 48
@@ -41,11 +44,12 @@ with a non-zero exit at the first failure:
    edge-softmax kernels beside such a composition too and, with
    --parent-csrc, the parent checkout's three kernels), then the launch
    floor (an empty kernel of the same library on 1 CTA and on the PNA
-   backward passes' grids, timed as the rows are), and PNA's two
-   backward kernels on the seeded operands and on the operands a
-   training step on batch 0 gives them at layers 0 and 1 (within 1e-5
-   of the plain versions; with --parent-csrc beside the parent
-   checkout's kernels, outputs bitwise equal).
+   backward passes' grids, timed as the rows are), and PNA's three
+   kernels on the seeded operands and on the operands a training step
+   on batch 0 gives them at layers 0 and 1 (the forward's stats bitwise
+   and the sums and gradients within 1e-5 of the plain versions; with
+   --parent-csrc beside the parent checkout's kernels, every output
+   bitwise equal).
    Each block contraction (`bcsr_spmm` on the refresh batch, on the same
    blocks made fully dense, and on the two quickstart families;
    `gather_spmm`'s four bodies) has a line with its time beside the
@@ -132,20 +136,20 @@ partitioner on this host) for `tests/test_torch_train.py --reference-acc
 
 also builds the kernels of another checkout (its C entry points must
 have this build's signatures, but for `scatter_rows` and `flash_decode`,
-which are called with the parent's own) and times its
-block contraction, `scatter_rows` (f32 and bf16), `scatter_rows_vq` (at
-both push shapes; and on rows holding inf and NaN, bitwise),
-`flash_decode`, the three edge-softmax kernels and PNA's two backward
-kernels beside this build's on the same inputs in phases 2 and 3b,
-their outputs compared.
+which are called with the parent's own; `scatter_rows_q` is always
+handed a winner scratch) and times its block contraction,
+`scatter_rows` (f32 and bf16), `scatter_rows_q` and `scatter_rows_vq`
+(at both push shapes; and on rows holding inf and NaN, bitwise),
+`flash_decode`, the three edge-softmax kernels and PNA's three kernels
+beside this build's on the same inputs in phases 2 and 3b, their
+outputs compared.
 
     python3 chip_smoke.py --pna-edges 2,8
 
 also builds the kernels once per number of queued edges that PNA's
-backward drains load together (`csrc/pna_reduce.cu`'s REPRO_PNA_EDGES;
-4 in this build) and times both backward kernels on each beside this
-build's on the same operands, outputs bitwise this build's
-(`[pna-edges]` lines).
+drains load together (`csrc/pna_reduce.cu`'s REPRO_PNA_EDGES; 4 in this
+build) and times its three kernels on each beside this build's on the
+same operands, outputs bitwise this build's (`[pna-edges]` lines).
 
     python3 chip_smoke.py --vq-ablation
 
@@ -249,8 +253,8 @@ VQ_PUSHES = (("GCN training push", 179, 64), ("GAT training push", 194, 64),
              ("serving refresh push", 4096, 256))
 VQ_ROUNDS = 5
 # `--pna-edges N,...`: libraries built with each N queued edges loaded
-# together by PNA's backward drains (csrc/pna_reduce.cu's REPRO_PNA_EDGES),
-# {N: library}; both backward kernels are timed on each beside this build's
+# together by PNA's drains (csrc/pna_reduce.cu's REPRO_PNA_EDGES),
+# {N: library}; PNA's three kernels are timed on each beside this build's
 PNA_EDGE_LIBS = {}
 # the training run whose profiled epoch also runs on the parent's kernels
 # with --parent-csrc (the kernels this version redesigned are on its path)
@@ -491,10 +495,15 @@ def _smi() -> str:
 
 
 def _time_ms(fn) -> float:
-    """Median over TIMED_REPS calls of CUDA-event time, after warm-up.
-    Each call is queued behind a ~1 ms device sleep, so the host has
-    issued all of its launches before the start event fires and the
-    interval holds device time only, not the host's launch gaps."""
+    """Median over TIMED_REPS calls of CUDA-event time (`_times_ms`)."""
+    return statistics.median(_times_ms(fn))
+
+
+def _times_ms(fn) -> list:
+    """TIMED_REPS calls' CUDA-event times, after warm-up. Each call is
+    queued behind a ~1 ms device sleep, so the host has issued all of its
+    launches before the start event fires and the interval holds device
+    time only, not the host's launch gaps."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -508,7 +517,7 @@ def _time_ms(fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def _clock_hz() -> float:
@@ -594,6 +603,30 @@ def _beside_earlier(label, fn, out, ms):
            f"{float((old - out).abs().max()):.3g}")
 
 
+def _beside_library_spread(label, fn, lib_name, lib_fn):
+    """A kernel's time beside one PyTorch call's on the same inputs, with
+    the spread: TIMED_REPS timings of each in the order kernel, library,
+    library, kernel, pooled per side; the gap counts as resolved where
+    the two sides' interquartile ranges do not overlap."""
+    times = {"kernel": [], lib_name: []}
+    for side in ("kernel", lib_name, lib_name, "kernel"):
+        times[side] += _times_ms(fn if side == "kernel" else lib_fn)
+
+    def spread(t):
+        q = statistics.quantiles(t, n=4)
+        return (f"median {statistics.median(t):.4f} ms [quartiles "
+                f"{q[0]:.4f}-{q[2]:.4f}, range {min(t):.4f}-{max(t):.4f}]")
+
+    qk = statistics.quantiles(times["kernel"], n=4)
+    ql = statistics.quantiles(times[lib_name], n=4)
+    verdict = ("the kernel resolvably slower" if qk[0] > ql[2] else
+               "the kernel resolvably faster" if qk[2] < ql[0] else
+               "not resolved (the quartile ranges overlap)")
+    _phase("kernels", f"{label}: {len(times['kernel'])} timings a side in "
+           f"two rounds of {TIMED_REPS}, the kernel {spread(times['kernel'])}"
+           f", {lib_name} {spread(times[lib_name])}; {verdict}")
+
+
 def _parent_scatter_rows(table, idx, values):
     """The parent checkout's `scatter_rows` (PARENT_LIB) on the same
     operands: its launcher always takes the N-entry winner scratch of its
@@ -607,6 +640,121 @@ def _parent_scatter_rows(table, idx, values):
         winner.data_ptr(), m, n, d, _build.stream_ptr(table.device)),
         "the parent's scatter_rows")
     return table
+
+
+def _push_kernels(label, M, fn):
+    """The device kernels of one push (`fn`), from torch.profiler, as a
+    phrase: one up to SCAN_MAX_ROWS rows (the one-launch scan), three past
+    it (the claim passes); "not measured" where the profiler saw none."""
+    kernels = _device_kernels(fn)
+    if not kernels:
+        return ("its device kernels not measured (the profiler saw no "
+                "device event; the card tests count them)")
+    want = 1 if M <= SCAN_MAX_ROWS else 3
+    assert len(kernels) == want, f"{label}: one push ran {kernels}"
+    return (f"one push ran {len(kernels)} device kernel(s) ("
+            + ", ".join(f"{k.split('::')[-1].split('<')[0]} {us:.2f} us"
+                        for k, us in kernels) + " profiled)")
+
+
+def _parent_scatter_rows_q(table, scales, idx, values):
+    """The parent checkout's `scatter_rows_q` (PARENT_LIB) on the same
+    operands: its launcher always takes the claim passes' N-entry winner
+    scratch. In place; returns (table, scales, err); no launch is
+    counted."""
+    m, (n, d) = idx.shape[0], table.shape
+    winner = torch.empty((n,), dtype=torch.int32, device=table.device)
+    err = torch.empty((m,), dtype=torch.float32, device=table.device)
+    _build.check(PARENT_LIB.repro_scatter_rows_q(
+        table.data_ptr(), scales.data_ptr(), err.data_ptr(), idx.data_ptr(),
+        values.data_ptr(), winner.data_ptr(), m, n, d,
+        _build.stream_ptr(table.device)), "the parent's scatter_rows_q")
+    return table, scales, err
+
+
+def _q_push_row(label, idx, values, table, scales):
+    """`scatter_rows_q` of one push (`idx`, `values` [M, D]) into an int8
+    store, as a kernel row: codes and scales bitwise its plain version's
+    over the whole table (the sentinel row too), errors to rounding;
+    timed beside the plain version and a composition of PyTorch calls,
+    its device kernels counted from one profiled push, and with
+    --parent-csrc beside the parent's kernel on the same push (codes and
+    scales bitwise, errors within 1e-5). Returns the row."""
+    N = table.shape[0] - 1
+    M, D = values.shape
+    a = scatter_rows_q(table.clone(), scales.clone(), idx, values)
+    b = ref.scatter_rows_q_ref(table.clone(), scales.clone(), idx, values)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+        f"{label}: scatter_rows_q differs from its plain version"
+    torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-7)
+    n_tgt = int(torch.unique(idx).numel())
+    tq, ts = table.clone(), scales.clone()
+    valid = idx < N                          # all but the sentinel row
+    uniq = idx[valid].long()
+
+    def composition():
+        q, sc = ref.quantize_rows(values)
+        tq.index_copy_(0, uniq, q[valid])
+        ts.index_copy_(0, uniq, sc[valid])
+        return ref.relative_row_error(values, ref.dequantize_rows(q, sc))
+
+    row = _row(
+        "scatter_rows_q", "src/repro_torch/kernels/csrc/scatter.cu",
+        "src/repro/kernels/scatter.py:85", float((a[2] - b[2]).abs().max()),
+        _time_ms(lambda: scatter_rows_q(tq, ts, idx, values)),
+        _time_ms(lambda: ref.scatter_rows_q_ref(tq, ts, idx, values)),
+        _time_ms(composition),
+        M * 4 + M * D * 4 + n_tgt * (D + 4) + M * 4, 0,
+        library="composition: quantize_rows, two index_copy_, the row "
+                "errors (plain)")
+    # the codes and scales alone: the table the push writes
+    row["codes_scales_err"] = 0.0
+    row["case"] = f"{label}, M={M}, D={D}"
+    out, out_s = table.clone(), scales.clone()
+    ran = _push_kernels(label, M, lambda: scatter_rows_q(out, out_s, idx,
+                                                         values))
+    _phase("kernels", f"{label} scatter_rows_q (M = {M}, D = {D}): err "
+           f"{row['max_abs_err']:.3g} (codes, scales 0), {row['ms']:.4f} ms "
+           f"(plain {row['plain_ms']:.4f}, comp. {row['library_ms']:.4f}, "
+           f"bound {row['bound_ms']:.5f} by {row['bound_by']}); {ran}")
+    if PARENT_LIB is None:
+        _beside_parent(f"{label} scatter_rows_q", row["ms"], None, None,
+                       None)
+        return row
+    old = _parent_scatter_rows_q(table.clone(), scales.clone(), idx, values)
+    for x, y, what in zip(old[:2], a[:2], ("codes", "scales")):
+        assert torch.equal(x, y), f"{label}: {what} differ from the parent's"
+    torch.testing.assert_close(old[2], a[2], rtol=1e-5, atol=1e-7)
+    ot, os_ = table.clone(), scales.clone()
+    old_ms = _time_ms(lambda: _parent_scatter_rows_q(ot, os_, idx, values))
+    _phase("kernels", f"{label} scatter_rows_q: {row['ms']:.4f} ms, the "
+           f"parent's kernel {old_ms:.4f} ms ({old_ms / row['ms']:.2f}x) "
+           f"on the same inputs; codes and scales bitwise equal, err max "
+           f"diff {float((old[2] - a[2]).abs().max()):.3g}")
+    row["parent_ms"] = old_ms
+    return row
+
+
+def _q_non_finite_beside_parent(idx, values, table, scales):
+    """With --parent-csrc: a push whose rows hold inf, -inf and NaN,
+    through this build's `scatter_rows_q` and the parent's: codes and
+    scales bitwise equal, the errors NaN on the same rows and within 1e-5
+    elsewhere."""
+    v = values.clone()
+    v[3, 5], v[4, -1], v[5, 9], v[6] = float("inf"), float("-inf"), \
+        float("nan"), float("nan")
+    v[7, 0], v[7, 1] = float("nan"), float("inf")
+    a = scatter_rows_q(table.clone(), scales.clone(), idx, v)
+    b = _parent_scatter_rows_q(table.clone(), scales.clone(), idx, v)
+    for x, y, what in zip(b[:2], a[:2], ("codes", "scales")):
+        assert torch.equal(x, y), \
+            f"scatter_rows_q on non-finite rows: {what} differ from the " \
+            f"parent's"
+    torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-7,
+                               equal_nan=True)
+    _phase("kernels", "scatter_rows_q on rows holding inf, -inf and NaN: "
+           "codes and scales bitwise the parent kernel's, errors NaN on "
+           f"the same {int(torch.isnan(a[2]).sum())} rows")
 
 
 def _parent_scatter_rows_vq(table, scales, idx, values, codebook):
@@ -677,17 +825,8 @@ def _vq_push_row(label, replaces, idx, values, codebook, table, scales,
     # the same operations issued one instruction each, none fused
     floor_ms = ops_n / (128 * N_SMS * clock_hz) * 1e3
     out, out_s = tq.clone(), ts.clone()
-    kernels = _device_kernels(lambda: scatter_rows_vq(out, out_s, idx,
-                                                      values, codebook))
-    if kernels:
-        want = 1 if M <= SCAN_MAX_ROWS else 3
-        assert len(kernels) == want, f"{label}: one push ran {kernels}"
-        ran = (f"one push ran {len(kernels)} device kernel(s) ("
-               + ", ".join(f"{k.split('::')[-1].split('<')[0]} {us:.2f} us"
-                           for k, us in kernels) + " profiled)")
-    else:   # late in a long run the profiler sees no device event at all
-        ran = ("its device kernels not measured (the profiler saw no "
-               "device event; the card tests count them)")
+    ran = _push_kernels(label, M, lambda: scatter_rows_vq(out, out_s, idx,
+                                                          values, codebook))
     _phase("kernels", f"{label} (M = {M}, S = {S}): err {row['max_abs_err']:.3g}"
            f" (codes, scales 0), {row['ms']:.4f} ms (plain "
            f"{row['plain_ms']:.4f}, comp. {row['library_ms']:.4f}); bound "
@@ -849,15 +988,19 @@ def _vq_ablation(device):
 def _device_kernels(fn):
     """The device kernels one call of `fn` ran, from torch.profiler: a
     list of (name, device microseconds), empty where it saw no device
-    activity."""
+    activity. A marker kernel (`torch.cuda._sleep`'s `spin_kernel`) runs
+    first in the window and is left out: late in a long run the profiler
+    drops the first device event of a window."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
 
 
 def _scatter_lines(label, table, idx, vals, ms):
@@ -926,6 +1069,9 @@ def kernel_phase(g, spec, device):
         _time_ms(lambda: ref.gather_rows_ref(table, idx)),
         _time_ms(lambda: torch.index_select(table, 0, idx)),
         M * 4 + n_src * D * 4 + M * D * 4, 0))
+    _beside_library_spread(f"gather_rows (f32, M = {M}, d = {D})",
+                           lambda: gather_rows(table, idx), "index_select",
+                           lambda: torch.index_select(table, 0, idx))
 
     # scatter_rows: the push into a [N+1, 256] table — first a check with
     # duplicate valid indices and masked rows, then timings on the real
@@ -1116,40 +1262,20 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
     # scatter_rows_q: the push of the refresh batch into the int8 store,
     # codes and scales bitwise (duplicates and masked rows first), each
     # pushed row's relative error to rounding (sums in another order)
-    err_e = 0.0
-    for idx in (dup, push_idx):
-        a = scatter_rows_q(q8.clone(), s8.clone(), idx, vals_p)
-        b = ref.scatter_rows_q_ref(q8.clone(), s8.clone(), idx, vals_p)
-        assert torch.equal(a[0][:N], b[0][:N]) and \
-            torch.equal(a[1][:N], b[1][:N]), "scatter_rows_q differs"
-        torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-7)
-        err_e = max(err_e, float((a[2] - b[2]).abs().max()))
-    M = push_idx.shape[0]
-    n_tgt = int(torch.unique(push_idx).numel())
-    tq, ts = q8.clone(), s8.clone()
-    valid = push_idx < N                     # the rows uniq_idx names
-
-    def composition():
-        q, sc = ref.quantize_rows(vals_p)
-        tq.index_copy_(0, uniq_idx, q[valid])
-        ts.index_copy_(0, uniq_idx, sc[valid])
-        return ref.relative_row_error(vals_p, ref.dequantize_rows(q, sc))
-
-    q_row = _row(
-        "scatter_rows_q", "src/repro_torch/kernels/csrc/scatter.cu",
-        "src/repro/kernels/scatter.py:85", err_e,
-        _time_ms(lambda: scatter_rows_q(tq, ts, push_idx, vals_p)),
-        _time_ms(lambda: ref.scatter_rows_q_ref(tq, ts, push_idx, vals_p)),
-        _time_ms(composition),
-        M * 4 + M * D * 4 + n_tgt * (D + 4) + M * 4, 0,
-        library="composition: quantize_rows, two index_copy_, the row "
-                "errors (plain)")
-    # the codes and scales alone: the table the push writes
-    q_row["codes_scales_err"] = 0.0
-    rows.append(q_row)
+    a = scatter_rows_q(q8.clone(), s8.clone(), dup, vals_p)
+    b = ref.scatter_rows_q_ref(q8.clone(), s8.clone(), dup, vals_p)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+        "scatter_rows_q differs (duplicates)"
+    torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-7)
+    rows.append(_q_push_row("serving refresh push", push_idx, vals_p, q8,
+                            s8))
+    if PARENT_LIB is not None:
+        _q_non_finite_beside_parent(push_idx[:64], vals_p[:64], q8, s8)
 
     # scatter_rows on a bf16 table: the values are rounded to bf16 first,
     # as the push does, so the kernel moves 2-byte rows
+    M = push_idx.shape[0]
+    n_tgt = int(torch.unique(push_idx).numel())
     vb = vals_p.to(torch.bfloat16)
     for idx in (dup, push_idx):
         a = scatter_rows(b16.clone(), idx, vb)
@@ -1241,7 +1367,8 @@ def _history_pull_rows(plan, device, gen, clock_hz):
     (`gather_rows_bf16`) and a vq one (`gather_rows_vq`, S = 8, codebook
     [8, 256, 8]), bitwise against the plain versions; and the same
     layer's push into the vq table (`scatter_rows_vq`: batch 0's rows,
-    masked ones on the sentinel row), its second kernel row."""
+    masked ones on the sentinel row), its second kernel row, and the same
+    push into the int8 table (`scatter_rows_q`), its second row."""
     batch = plan.batch(0)
     n1 = plan.graph.num_nodes + 1
     idx = torch.clamp(batch.halo_nodes, 0, n1 - 1).to(torch.int32)
@@ -1307,7 +1434,10 @@ def _history_pull_rows(plan, device, gen, clock_hz):
                        "src/repro/kernels/scatter.py:141", push_idx, push,
                        cb, vq, vs, clock_hz)
     row["run"] = "gat vq"        # its launches: the GAT vq training run
-    return rows + [row]
+    row_q = _q_push_row("GAT hidden-layer training push", push_idx, push,
+                        q8, s8)
+    row_q["run"] = "gat int8"    # its launches: the GAT int8 training run
+    return rows + [row, row_q]
 
 
 def _train_graph(op):
@@ -1629,7 +1759,7 @@ def _pna_kernel_rows(plan, device, gen):
                for n, ms in floor.items()) + f" ({-(-n_out // 8)} and "
            f"{-(-M // 8)} CTAs: the PNA backward row and column passes' "
            "grids)")
-    _pna_backward_lines(plan, [("seeded operands", xd, xs, stats)] + [
+    _pna_pass_lines(plan, [("seeded operands", xd, xs, stats)] + [
         (f"layer {ell}'s operands", *ops_) for ell, ops_ in
         enumerate(_pna_layer_operands(plan))])
     return rows
@@ -1640,7 +1770,9 @@ def _pna_layer_operands(plan):
     takes the same with the transposed blocks) at layers 0 and 1 of one
     training step on batch 0, from fresh params and a zero f32 store: the
     operands the main path gives them, taken from `ops`' autograd
-    Function as it calls the row kernel. No launch is counted."""
+    Function as it calls the row kernel. xd and xs are the forward's
+    operands too (the Function saves them for the backward). No launch is
+    counted."""
     calls, real = [], ops.pna_reduce_bwd_row
 
     def spy(xd, xs, *rest):
@@ -1660,18 +1792,34 @@ def _pna_layer_operands(plan):
     return calls[::-1]                  # the backward runs the last first
 
 
-def _pna_backward_lines(plan, cases):
-    """PNA's two backward kernels on batch 0's blocks for each (label, xd,
-    xs, stats) of `cases`: within 1e-5 of the plain versions; with
-    --parent-csrc beside the parent checkout's kernels on the same inputs,
-    outputs bitwise equal; with --pna-edges on each such build, outputs
-    bitwise this build's. No launch is counted."""
+def _pna_bits(out):
+    """A PNA kernel's output (a tensor, or the forward's six) as one int32
+    tensor of its bits, for bitwise comparisons."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.cat([t.reshape(-1) for t in outs]).view(torch.int32)
+
+
+def _pna_pass_lines(plan, cases):
+    """PNA's three kernels on batch 0's blocks for each (label, xd, xs,
+    stats) of `cases`: the forward's min, max, count and tie counts
+    bitwise its plain version's and its sums within 1e-5, the backward
+    passes within 1e-5 of theirs; with --parent-csrc beside the parent
+    checkout's kernels on the same inputs, every output bitwise equal;
+    with --pna-edges on each such build, every output bitwise this
+    build's. No launch is counted."""
     uv, uc, uvt, uct = plan.batch(0).ublocks
     tol = dict(rtol=1e-5, atol=1e-5)
     counts = dict(_build.launch_counts)
     for label, xd, xs, stats in cases:
+        got = pnk.pna_reduce_fwd(xd, xs, uv, uc)
+        want = ref.pna_reduce_fwd_ref(xd, xs, uv, uc)
+        torch.testing.assert_close(got[0], want[0], **tol)
+        assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])), \
+            f"pna_reduce_fwd, {label}: a stat differs from the plain version"
         edges = []
         for name, fn, plain in (
+                ("pna_reduce_fwd",
+                 lambda: pnk.pna_reduce_fwd(xd, xs, uv, uc), None),
                 ("pna_reduce_bwd_row",
                  lambda: pnk.pna_reduce_bwd_row(xd, xs, *stats, uv, uc),
                  lambda: ref.pna_reduce_bwd_row_ref(xd, xs, *stats, uv,
@@ -1681,14 +1829,16 @@ def _pna_backward_lines(plan, cases):
                  lambda: ref.pna_reduce_bwd_col_ref(xd, xs, *stats, uvt,
                                                     uct))):
             out = fn()
-            torch.testing.assert_close(out, plain(), **tol)
+            if plain is not None:
+                torch.testing.assert_close(out, plain(), **tol)
+            out = _pna_bits(out)
             ms = _time_ms(fn)
-            old = None if PARENT_LIB is None else _parent_call(fn)
+            old = None if PARENT_LIB is None else _pna_bits(_parent_call(fn))
             _beside_parent(f"PNA batch 0 {name}, {label}", ms, out, old,
                            lambda: _parent_call(fn))
             if PNA_EDGE_LIBS:
                 for n, lib in PNA_EDGE_LIBS.items():
-                    assert torch.equal(_call_on(lib, fn), out), \
+                    assert torch.equal(_pna_bits(_call_on(lib, fn)), out), \
                         f"{name}, {label}: {n} edges a batch differ"
                 edges.append(f"{name}: " + ", ".join(
                     f"{n} {_time_ms(lambda: _call_on(lib, fn)):.4f} ms"
@@ -2745,13 +2895,13 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also build the kernels in DIR (another "
                          "checkout's kernels/csrc) and run its block "
-                         "contraction, scatter_rows, scatter_rows_vq, "
-                         "flash_decode, edge-softmax and PNA backward "
-                         "kernels beside this build's")
+                         "contraction, scatter_rows, scatter_rows_q, "
+                         "scatter_rows_vq, flash_decode, edge-softmax and "
+                         "PNA kernels beside this build's")
     ap.add_argument("--pna-edges", metavar="N,...",
                     help="also build the kernels with each N queued edges "
-                         "loaded together by PNA's backward drains and "
-                         "time both backward kernels on each")
+                         "loaded together by PNA's drains and time its "
+                         "three kernels on each")
     ap.add_argument("--vq-ablation", action="store_true",
                     help="also build the kernels once per build switch of "
                          "scatter_rows_vq's search (each mechanism off) and "

@@ -38,37 +38,36 @@
 // pass runs at ~15-20x its byte bound): one warp's walk of a table-5 row
 // is a chain of dependent memory reads and dependent instructions behind
 // a launch (chip_smoke.py prints the launch floor beside the passes), so
-// the backward walk is laid out to keep both chains short.
-// - The forward (`for_each_edge`, kept as it was in this version): each
-//   lane reads 4 consecutive multiplicities of the row, one block row at
-//   a time with the next one in flight; a ballot finds the columns with
-//   an edge, and for each edge the warp reads the source row and updates
-//   the running stats in registers, one edge's load after the other's.
-// - The two backward passes (`queue_edges`, then `for_queued`). The warp
-//   first issues its own row's operands (the eight destination-side rows
-//   in the row pass, xs in the column pass) and the row block's column
-//   ids (lane k holds cols[r, k] for k < 32; past 32 through the
-//   read-only cache), then reads kChunk = 8 block rows at once (K = 7
-//   forward and 3 transposed at the table-5 shape: every block row in
-//   flight together; past 8 chunk by chunk) and queues all of their edges
-//   with no chain from one block row to the next: 4 ballots a block row,
-//   each lane's place from the counts below it, and each edge's far row
-//   j = cols[r, k] * 128 + b computed by the lane that holds it, into the
-//   warp's 128-entry queue in shared memory, in (k, b) order. The drain
-//   takes kEdges = 4 queued edges at a time and loads every operand of
-//   every one of them before any is used (xs[j] in the row pass; all
-//   eight destination-side rows xd, gs, mn, mx, gmn, cmin, gmx, cmax of
+// the walk is laid out to keep both chains short.
+// - Every pass walks its row the same way (`queue_edges`, then
+//   `for_queued`). The warp first issues its own row's operands (xd in
+//   the forward, the eight destination-side rows in the row pass, xs in
+//   the column pass) and the row block's column ids (lane k holds
+//   cols[r, k] for k < 32; past 32 through the read-only cache), then
+//   reads kChunk = 8 block rows at once (K = 7 forward and 3 transposed
+//   at the table-5 shape: every block row in flight together; past 8
+//   chunk by chunk) and queues all of their edges with no chain from one
+//   block row to the next: 4 ballots a block row, each lane's place from
+//   the counts below it, and each edge's far row j = cols[r, k] * 128 + b
+//   computed by the lane that holds it, into the warp's 128-entry queue
+//   in shared memory, in (k, b) order. The drain takes kEdges = 4 queued
+//   edges at a time and loads every operand of every one of them before
+//   any is used (xs[j] in the forward and the row pass; all eight
+//   destination-side rows xd, gs, mn, mx, gmn, cmin, gmx, cmax of
 //   destination j in the column pass, so no load waits on a tie
 //   compare), the next batch's before this one is folded (two register
-//   buffers). Offsets are 32-bit. The fold selects where it can, and a
-//   tie's share divides only where the tie count is above 1 (dividing by
-//   1 gives the cotangent exactly): each __fdiv_rn carries a branch to a
-//   slow path that the scheduler cannot move work across, and computed
-//   for every edge, feature and extreme they made the column pass slower
-//   than the walk it replaced. A row with at most 4 edges waits on about
-//   three memory latencies: its block rows, its edges' operands, its
-//   store. A chunk whose edges would overflow the queue (a hub row) is
-//   queued block row by block row, draining in order between.
+//   buffers). Offsets are 32-bit. The folds select where they can: the
+//   forward keeps s, mn, mx, cnt and the tie counts in registers, and a
+//   tie count's reset or add is a select, not a branch. A tie's share
+//   divides only where the tie count is above 1 (dividing by 1 gives the
+//   cotangent exactly): each __fdiv_rn carries a branch to a slow path
+//   that the scheduler cannot move work across, and computed for every
+//   edge, feature and extreme they made the column pass slower than the
+//   walk it replaced. A row with at most 4 edges waits on about three
+//   memory latencies: its block rows, its edges' operands, its store. A
+//   chunk whose edges would overflow the queue (a hub row) is queued
+//   block row by block row, draining in order between; the forward's
+//   running stats carry across the drains.
 // (A thread per row of a 128-row block row, the Pallas tile's shape,
 // spends a warp's divergent pass on every edge of any of its 32 rows:
 // such designs took 0.09-0.29 ms a pass at the table-5 shape on an H100,
@@ -79,14 +78,16 @@
 // edge: a strictly better value resets the count to its multiplicity, an
 // equal one adds it; the final count is the multiplicity sum of the edges
 // equal to the final extreme, as the reference's per-block update gives,
-// in exact small-integer f32 sums. The backward passes recompute msg with
+// in exact small-integer f32 sums; s and cnt are one chain each over the
+// edges in (k ascending, b ascending) order from +0. The queue keeps that
+// order, so the forward's six outputs are those of a walk that takes one
+// edge after the other. The backward passes recompute msg with
 // the same add and compare it with the saved mn / mx for equality. Each
 // backward output is one chain over its edges in (k ascending, b
 // ascending) order from +0, __fadd_rn(acc, __fmul_rn(mu, g)), g the
 // cotangent with each tie's share __fdiv_rn(gmn, max(cmin, 1)) added where
 // the message ties (g itself where the count is at most 1, the same
-// bits); an entry is an edge where its multiplicity is > 0. So the
-// batched walk gives the one-edge-at-a-time walk's bits. No fast math:
+// bits); an entry is an edge where its multiplicity is > 0. No fast math:
 // the divisions round as the reference's.
 //
 // Bound on the H100 (the larger of two): the blocks as stored, all
@@ -98,8 +99,8 @@
 // first).
 #include "common.cuh"
 
-// Queued edges whose operands a backward drain loads together (a build
-// switch, so chip_smoke.py can time the neighbouring sizes).
+// Queued edges whose operands a drain loads together (a build switch, so
+// chip_smoke.py can time the neighbouring sizes).
 #ifndef REPRO_PNA_EDGES
 #define REPRO_PNA_EDGES 4
 #endif
@@ -113,7 +114,7 @@ constexpr int kTileF = kWarp * kFw;     // features per warp and tile
 constexpr int kRowsPerCta = 8;          // one warp per row
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChunk = 8;               // block rows a warp reads at once
-constexpr int kQueue = 128;             // queued edges a backward warp
+constexpr int kQueue = 128;             // queued edges a warp
 constexpr int kEdges = REPRO_PNA_EDGES;
 static_assert(kEdges >= 1 && kEdges <= kQueue, "a drain batch");
 constexpr float kBig = 1e30f;           // the reference's BIG
@@ -159,42 +160,6 @@ __device__ __forceinline__ void load(float (&v)[kFw], const float* src,
     v[p] = (i < rows && w.ok(p, F)) ? __ldg(src + w.at(i, p, F)) : 0.f;
 }
 
-// The forward's walk over the edges of the warp's row: fn(j, mu) for each
-// column of each of its K blocks with multiplicity mu > 0, j the global
-// row on the column side. Warp-uniform: every lane calls fn with the same
-// (j, mu).
-template <typename Fn>
-__device__ __forceinline__ void for_each_edge(const float* vals,
-                                              const int32_t* cols,
-                                              const Dims& d, const Row& w,
-                                              Fn fn) {
-  auto block_row = [&](int64_t k) {
-    return __ldg(reinterpret_cast<const float4*>(
-                     vals + ((w.r * d.K + k) * kBn + w.la) * kBn) +
-                 threadIdx.x);
-  };
-  float4 next = d.K > 0 ? block_row(0) : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int64_t k = 0; k < d.K; ++k) {
-    const float4 m = next;
-    if (k + 1 < d.K) next = block_row(k + 1);
-    const int64_t base = static_cast<int64_t>(__ldg(cols + w.r * d.K + k)) *
-                         kBn;
-    unsigned mask = __ballot_sync(
-        kAll, m.x > 0.f || m.y > 0.f || m.z > 0.f || m.w > 0.f);
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float mv[4] = {__shfl_sync(kAll, m.x, src),
-                           __shfl_sync(kAll, m.y, src),
-                           __shfl_sync(kAll, m.z, src),
-                           __shfl_sync(kAll, m.w, src)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (mv[e] > 0.f) fn(base + 4 * src + e, mv[e]);
-    }
-  }
-}
-
 dim3 grid_for(int64_t n_rows, int64_t F) {
   const int64_t tiles = F > 0 ? (F + kTileF - 1) / kTileF : 1;
   return dim3(static_cast<unsigned>((n_rows + kRowsPerCta - 1) / kRowsPerCta),
@@ -203,8 +168,15 @@ dim3 grid_for(int64_t n_rows, int64_t F) {
 
 const dim3 kBlock(kWarp, kRowsPerCta);
 
-// A queued edge of a backward pass: its multiplicity (> 0) and its far row
-// j = cols[r, k] * 128 + b.
+// The lane's column id of block k = lane of the warp's row block (0 past
+// K): `queue_edges`' colv, issued before the block rows are read.
+__device__ __forceinline__ int32_t lane_col(const int32_t* cols_r,
+                                            const Dims& d) {
+  return threadIdx.x < d.K ? __ldg(cols_r + threadIdx.x) : 0;
+}
+
+// A queued edge: its multiplicity (> 0) and its far row j = cols[r, k] *
+// 128 + b.
 struct Edge {
   float mu;
   int32_t j;
@@ -305,8 +277,8 @@ __device__ __forceinline__ void queue_edges(const float* __restrict__ vals,
   flush(n);
 }
 
-// The backward passes' far side: kN operands [n, F] read at each queued
-// edge's far row (zeros past n and past F).
+// A pass's far side: kN operands [n, F] read at each queued edge's far
+// row (zeros past n and past F).
 template <int kN>
 struct Far {
   const float* op[kN];
@@ -365,6 +337,10 @@ __device__ __forceinline__ void for_queued(const Edge* queue, int n,
   }
 }
 
+// The forward: the running stats of the warp's row in registers, folded
+// edge by edge in queue order. A strictly smaller (larger) message resets
+// its tie count to the edge's multiplicity, an equal one adds it; selects,
+// so no lane branches.
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
 pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
                const float* __restrict__ vals,
@@ -372,8 +348,11 @@ pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
                float* __restrict__ s_out, float* __restrict__ mn_out,
                float* __restrict__ mx_out, float* __restrict__ cnt_out,
                float* __restrict__ cmin_out, float* __restrict__ cmax_out) {
+  __shared__ Edge queue_s[kRowsPerCta][kQueue];
   const Row w = warp_row(d);
   if (!w.live) return;                  // the whole warp: one row
+  const int32_t* cols_r = cols + w.r * d.K;
+  const int32_t colv = lane_col(cols_r, d);
   float xdv[kFw], s[kFw], mn[kFw], mx[kFw], cmin[kFw], cmax[kFw];
   load(xdv, xd, w.row, d.n_rows, w, d.F);
 #pragma unroll
@@ -385,27 +364,24 @@ pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
     cmax[p] = 0.f;
   }
   float cnt = 0.f;
-  for_each_edge(vals, cols, d, w, [&](int64_t j, float mu) {
-    float x[kFw];
-    load(x, xs, j, d.n_cols, w, d.F);
-    cnt += mu;
+  const Far<1> far{{xs}, static_cast<int32_t>(d.n_cols)};
+  Edge* queue = queue_s[threadIdx.y];
+  queue_edges(vals, cols_r, colv, w, d.K, queue, [&](int n) {
+    for_queued(queue, n, w, d, far,
+               [&](float mu, const float (&v)[1][kFw]) {
+      cnt = __fadd_rn(cnt, mu);
 #pragma unroll
-    for (int p = 0; p < kFw; ++p) {
-      const float m = fmaxf(__fadd_rn(xdv[p], x[p]), 0.f);
-      s[p] = __fadd_rn(s[p], __fmul_rn(mu, m));
-      if (m < mn[p]) {
-        mn[p] = m;
-        cmin[p] = mu;
-      } else if (m == mn[p]) {
-        cmin[p] += mu;
+      for (int p = 0; p < kFw; ++p) {
+        const float m = fmaxf(__fadd_rn(xdv[p], v[0][p]), 0.f);
+        s[p] = __fadd_rn(s[p], __fmul_rn(mu, m));
+        const bool lo = m < mn[p], lo_eq = m == mn[p];
+        cmin[p] = lo ? mu : (lo_eq ? __fadd_rn(cmin[p], mu) : cmin[p]);
+        mn[p] = lo ? m : mn[p];
+        const bool hi = m > mx[p], hi_eq = m == mx[p];
+        cmax[p] = hi ? mu : (hi_eq ? __fadd_rn(cmax[p], mu) : cmax[p]);
+        mx[p] = hi ? m : mx[p];
       }
-      if (m > mx[p]) {
-        mx[p] = m;
-        cmax[p] = mu;
-      } else if (m == mx[p]) {
-        cmax[p] += mu;
-      }
-    }
+    });
   });
   const bool has = cnt > 0.f;
 #pragma unroll
@@ -427,13 +403,6 @@ pna_fwd_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
 // multiplicity above 1.
 __device__ __forceinline__ float share(float g, float c) {
   return c > 1.f ? __fdiv_rn(g, c) : g;
-}
-
-// The lane's column id of block k = lane of the warp's row block (0 past
-// K), for `for_queued`.
-__device__ __forceinline__ int32_t lane_col(const int32_t* cols_r,
-                                            const Dims& d) {
-  return threadIdx.x < d.K ? __ldg(cols_r + threadIdx.x) : 0;
 }
 
 __global__ void __launch_bounds__(kWarp * kRowsPerCta)
@@ -538,9 +507,9 @@ pna_bwd_col_kernel(const float* __restrict__ xd, const float* __restrict__ xs,
     if (w.ok(p, d.F)) dxs[w.at(w.row, p, d.F)] = acc[p];
 }
 
-// The backward launchers' limits: a queued far row and its 32-bit offset
-// j * F + f (j below n_cols + 128, padding columns included).
-bool bwd_fits(int64_t n_cols, int64_t F, int64_t K) {
+// The launchers' limits: a queued far row and its 32-bit offset j * F + f
+// (j below n_cols + 128, padding columns included).
+bool fits(int64_t n_cols, int64_t F, int64_t K) {
   return K * kBn <= INT32_MAX &&
          (n_cols + kBn) * (F > 0 ? F : 1) <= INT32_MAX;
 }
@@ -553,6 +522,7 @@ REPRO_API int repro_pna_reduce_fwd_f32(
     float* s, float* mn, float* mx, float* cnt, float* cmin, float* cmax,
     void* stream) {
   if (R == 0 || n_dst == 0) return 0;
+  if (!fits(n_src, F, K)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_dst, n_src, F, R, K};
   pna_fwd_kernel<<<grid_for(n_dst, F), kBlock, 0,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -568,7 +538,7 @@ REPRO_API int repro_pna_reduce_bwd_row_f32(
     const float* vals, const int32_t* cols, int64_t R, int64_t K,
     float* dxd, void* stream) {
   if (R == 0 || n_dst == 0 || F == 0) return 0;
-  if (!bwd_fits(n_src, F, K)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fits(n_src, F, K)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_dst, n_src, F, R, K};
   pna_bwd_row_kernel<<<grid_for(n_dst, F), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -584,7 +554,7 @@ REPRO_API int repro_pna_reduce_bwd_col_f32(
     const float* vals_t, const int32_t* cols_t, int64_t R_t, int64_t K_t,
     float* dxs, void* stream) {
   if (R_t == 0 || n_src == 0 || F == 0) return 0;
-  if (!bwd_fits(n_dst, F, K_t))
+  if (!fits(n_dst, F, K_t))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{n_src, n_dst, F, R_t, K_t};
   pna_bwd_col_kernel<<<grid_for(n_src, F), kBlock, 0,

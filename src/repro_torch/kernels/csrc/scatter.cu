@@ -22,11 +22,12 @@
 // order, so the winner of each target row is resolved before any row is
 // written, in one of two ways.
 //
-// scatter_rows (f32 and bf16 tables) and scatter_rows_vq, pushes of at
-// most kScanMax rows: one kernel, no scratch, no atomics in global
-// memory. A CTA takes a few consecutive rows (scatter_rows 8, a warp
-// each) and decides which are their targets' last writers by reading
-// every later index once and comparing it with its rows' targets
+// scatter_rows (f32 and bf16 tables), scatter_rows_q and
+// scatter_rows_vq, pushes of at most kScanMax rows: one kernel, no
+// scratch, no atomics in global memory. A CTA takes a few consecutive
+// rows (scatter_rows and scatter_rows_q 8, a warp each) and decides which
+// are their targets' last writers by reading every later index once and
+// comparing it with its rows' targets
 // (last_writers below); only those rows write. Nothing serialises on a
 // target, so the ~1,100 padding rows of a serving push that all land on
 // the sentinel row cost nothing extra (all but the last of a run are
@@ -35,14 +36,15 @@
 // 4,096); past kScanMax rows it costs more than the claim passes, and the
 // wrapper hands a winner scratch for them instead.
 //
-// The claim passes (scatter_rows and scatter_rows_vq past kScanMax rows,
-// scatter_rows_q): pass 1 resets winner[t] = -1 for every target t named
-// in idx, pass 2 takes winner[t] = max position naming t (atomicMax),
+// The claim passes (all three pushes past kScanMax rows): pass 1 resets
+// winner[t] = -1 for every target t named in idx, pass 2 takes winner[t]
+// = max position naming t (atomicMax),
 // pass 3 writes row i only if winner[idx[i]] == i. The three passes run
 // in stream order; `winner` is caller-allocated scratch of N int32 whose
 // untouched entries are never read. In scatter_rows_q and
-// scatter_rows_vq the winner writes both the code row and the scale, so a
-// target's codes and its scale always come from the same pushed row.
+// scatter_rows_vq, on either path, the last writer writes both the code
+// row and the scale, so a target's codes and its scale always come from
+// the same pushed row.
 //
 // Bound: bytes. scatter_rows reads M*D*E bytes of values and writes M*D*E
 // bytes of table rows (E = 4 for f32, 2 for bf16; the push rounds f32 to
@@ -54,7 +56,7 @@
 // Design: the copy is the gather's layout — one warp per row, 16-byte
 // lanes where the row's bytes and the buffers allow, ragged edge masked
 // in the loop bound.
-// The quantizing pass keeps the warp per row: a warp reduction of
+// The quantizing push keeps the warp per row: a warp reduction of
 // fabsf takes the row max (a max is exact in any order, so s_i is bitwise
 // `row_scales`), then each element is divided with IEEE rounding
 // (__fdiv_rn: the reference divides, and the build uses no fast math) and
@@ -64,6 +66,9 @@
 // and sums the squares of the differences and of the values in the
 // warp, so the error costs no second read of the row; its sums are taken
 // in another order than the plain version's, so it agrees to rounding.
+// Both paths of scatter_rows_q run that pass (quantize_row) once per
+// row; only the decision of which rows write differs, so the one-launch
+// path's codes, scales and errors are the claim passes' bit for bit.
 //
 // scatter_rows_vq: bound by operations at the serving refresh shape. Per
 // pushed row and subvector every one of the 256 entries costs 8 rounded
@@ -343,23 +348,21 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
   return static_cast<int8_t>(min(max(r, -127), 127));
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_q_kernel(int8_t* __restrict__ q, float* __restrict__ scales,
-                      float* __restrict__ err,
-                      const int32_t* __restrict__ idx,
-                      const float* __restrict__ vals,
-                      const int32_t* __restrict__ winner, int64_t m,
-                      int64_t n, int64_t d) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
-  if (row >= m) return;
-  const int32_t t = idx[row];
-  // every row is quantized for its error; only the winner is written
-  const bool write = t >= 0 && t < n && winner[t] == static_cast<int32_t>(row);
+// One warp's quantizing push of pushed row `row` (target t): the row max,
+// the scale, every code and the row's relative error, read from the row
+// twice (the second pass from L1); the codes and the scale are written to
+// table row t only where `write`.
+__device__ __forceinline__ void quantize_row(int8_t* __restrict__ q,
+                                             float* __restrict__ scales,
+                                             float* __restrict__ err,
+                                             const float* __restrict__ vals,
+                                             int64_t row, int32_t t,
+                                             bool write, int64_t d) {
   const int lane = threadIdx.x % 32;
   const float* src = vals + row * d;
   float amax = 0.f;
-  for (int64_t c = lane; c < d; c += 32) amax = fmaxf(amax, fabsf(__ldg(src + c)));
+  for (int64_t c = lane; c < d; c += 32)
+    amax = fmaxf(amax, fabsf(__ldg(src + c)));
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
@@ -383,6 +386,57 @@ scatter_rows_q_kernel(int8_t* __restrict__ q, float* __restrict__ scales,
     if (write) scales[t] = s;
     err[row] = __fdiv_rn(__fsqrt_rn(num), __fadd_rn(__fsqrt_rn(den), 1e-12f));
   }
+}
+
+// After the claim passes: every row is quantized for its error; only the
+// winner writes.
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_q_kernel(int8_t* __restrict__ q, float* __restrict__ scales,
+                      float* __restrict__ err,
+                      const int32_t* __restrict__ idx,
+                      const float* __restrict__ vals,
+                      const int32_t* __restrict__ winner, int64_t m,
+                      int64_t n, int64_t d) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+  if (row >= m) return;
+  const int32_t t = idx[row];
+  quantize_row(q, scales, err, vals, row, t,
+               t >= 0 && t < n && winner[t] == static_cast<int32_t>(row), d);
+}
+
+// One launch, a warp per row. Each warp reads its row's target and the
+// next row's (a candidate or not, last_writers above); a CTA without a
+// candidate skips the scan (the condition is the CTA's, so every thread
+// reaches the scan's barrier or none does). Then every row is quantized
+// for its error, and only the last writers write their codes and scale.
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_q_last_kernel(int8_t* __restrict__ q,
+                           float* __restrict__ scales,
+                           float* __restrict__ err,
+                           const int32_t* __restrict__ idx,
+                           const float* __restrict__ vals, int64_t m,
+                           int64_t n, int64_t d) {
+  __shared__ int32_t tgt_s[kRowsPerCta];  // a candidate's target, else kNone
+  __shared__ uint32_t later_s;  // last_writers' flags
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerCta;
+  const int64_t row = row0 + warp;
+  const int32_t t = row < m ? __ldg(idx + row) : -1;
+  const int32_t t_next = row + 1 < m ? __ldg(idx + row + 1) : -1;
+  const bool cand = t >= 0 && t < n && t != t_next;
+  if (lane == 0) tgt_s[warp] = cand ? t : kNone;
+  if (tid == 0) later_s = 0u;
+  int32_t x[kScanLoads];
+  scan_first<kRowsPerCta>(idx, m, row0, x);
+  const bool write =
+      __syncthreads_or(lane == 0 && cand) &&
+      ((last_writers<kRowsPerCta>(idx, m, row0, tgt_s, &later_s, x) >>
+        warp) & 1u);
+  if (row >= m) return;
+  quantize_row(q, scales, err, vals, row, t, write, d);
 }
 
 constexpr int kCodes = 256;      // codebook entries per subvector
@@ -709,11 +763,19 @@ REPRO_API int repro_scatter_rows_q(int8_t* q, float* scales, float* err,
                                    int32_t* winner, int64_t m, int64_t n,
                                    int64_t d, void* stream) {
   if (m == 0 || d == 0) return 0;
+  // no winner scratch: the one-launch scan, which takes at most kScanMax
+  if (winner == nullptr && m > kScanMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int rc = claim(idx, winner, m, n, s)) return rc;
   const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
-  scatter_rows_q_kernel<<<grid, kThreads, 0, s>>>(q, scales, err, idx,
-                                                  vals, winner, m, n, d);
+  if (winner != nullptr) {
+    if (int rc = claim(idx, winner, m, n, s)) return rc;
+    scatter_rows_q_kernel<<<grid, kThreads, 0, s>>>(q, scales, err, idx,
+                                                    vals, winner, m, n, d);
+  } else {
+    scatter_rows_q_last_kernel<<<grid, kThreads, 0, s>>>(q, scales, err, idx,
+                                                         vals, m, n, d);
+  }
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -8,10 +8,9 @@ per-row f32 scale and a codebook). The reference aliases the table into the Pall
 with a donated buffer XLA performs the push in place; here the push
 writes into the table tensor itself. On CUDA tensors each launches its
 kernel in `csrc/scatter.cu` (duplicate indices resolve to the last
-writer: for `scatter_rows` and `scatter_rows_vq` of at most SCAN_MAX_ROWS
-rows, one kernel that scans the later indices, so only each target's
-last row writes it; otherwise per-target winner passes first. Then a row
-copy; for int8 a row max, divide, round and clip, and each pushed row's
+writer: for a push of at most SCAN_MAX_ROWS rows, one kernel that scans
+the later indices, so only each target's last row writes it; otherwise
+per-target winner passes first. Then a row copy; for int8 a row max, divide, round and clip, and each pushed row's
 relative error; for vq a row max, divide and a first-minimum scan of the
 codebook per (row, subvector), split over 8 lanes where the push is
 small (`scatter_rows_vq_plan`). Bound by bytes: M*D*E read plus M*D*E
@@ -41,7 +40,7 @@ _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
 # scan compares every later pair of rows, up to M^2 / 2; the serving
 # refresh push has 4,096); a larger push runs the claim passes over an
 # N-entry winner scratch first, three kernels (csrc/scatter.cu: kScanMax);
-# `scatter_rows_vq` takes the same limit
+# `scatter_rows_q` and `scatter_rows_vq` take the same limit
 SCAN_MAX_ROWS = 4096
 # the encoding push's launch (csrc/scatter.cu): codebook entries per
 # subvector (kCodes), the most warps a CTA takes, one subvector each at a
@@ -132,12 +131,13 @@ def scatter_rows_q(table: torch.Tensor, scales: torch.Tensor,
     n, d = table.shape
     if scales.shape != (n,):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
-    winner = torch.empty((n,), dtype=torch.int32, device=dev)
-    err = torch.empty((idx.shape[0],), dtype=torch.float32, device=dev)
+    m = idx.shape[0]
+    winner = _winner(m, n, dev)
+    err = torch.empty((m,), dtype=torch.float32, device=dev)
     B.check(B.lib().repro_scatter_rows_q(
         table.data_ptr(), scales.data_ptr(), err.data_ptr(), idx.data_ptr(),
-        values.data_ptr(), winner.data_ptr(), idx.shape[0], n, d,
-        B.stream_ptr(dev)), name)
+        values.data_ptr(), None if winner is None else winner.data_ptr(), m,
+        n, d, B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return table, scales, err
 

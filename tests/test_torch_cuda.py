@@ -33,9 +33,10 @@ stays out of the output.
 `flash_decode` against its plain version at 1e-5 in f32 (the Pallas
 kernel's own tolerance) and in bf16 within 2e-2 of the largest
 |output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
-against the CPU's: logits at 1e-4, caches at 1e-5. `scatter_rows`
-bitwise over the whole table on both of its paths (the one-launch scan
-and the claim passes past SCAN_MAX_ROWS rows)."""
+against the CPU's: logits at 1e-4, caches at 1e-5. `scatter_rows`, and
+`scatter_rows_q`'s codes and scales, bitwise over the whole table on
+both of their paths (the one-launch scan and the claim passes past
+SCAN_MAX_ROWS rows)."""
 import dataclasses
 
 import numpy as np
@@ -798,15 +799,19 @@ def _vq_values(rng, m, d, cb):
 
 def _device_kernels(fn):
     """The names of the device kernels one call of `fn` ran
-    (torch.profiler)."""
+    (torch.profiler). A marker kernel (`torch.cuda._sleep`'s
+    `spin_kernel`) runs first in the window and is left out: late in a
+    long run the profiler drops the first device event of a window."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
 
 
 # entries of the test codebook made exact copies of lower ones (tie ->
@@ -1128,6 +1133,60 @@ def test_scatter_rows_last_writer_matches_plain(dev, dtype, m, d):
         torch.cuda.synchronize()
         assert _build.launch_counts[name] == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,d", [(1, 256), (37, 20), (194, 64),
+                                 (4096, 256), (4097, 256)])
+def test_scatter_rows_q_last_writer_matches_plain(dev, m, d):
+    """`scatter_rows_q` against its plain version: codes and scales
+    bitwise over the whole table, the sentinel row included, with
+    duplicate valid indices (the last writer wins, codes and scale
+    alike), negative and >= N indices (dropped) and about a quarter of
+    the rows on the last row as a serving push's padding; every pushed
+    row's error at 1e-5. Beside `_quant_values`' rows, a row of
+    denormals (a denormal scale) and a row of exact ties at the scale
+    2^-3. M = 1, 37 (d = 20), 194 (GAT's training
+    push) and 4,096 take the one-launch scan, 4,097 the claim passes:
+    one launch counted per call, one device kernel up to SCAN_MAX_ROWS
+    and three past it (torch.profiler, which must see the card); a
+    repeat bitwise equal."""
+    assert SCAN_MAX_ROWS == 4096     # 4,096 scans, 4,097 claims
+    rng = np.random.default_rng(m + d)
+    n = 5000
+    q0 = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8))
+    s0 = torch.from_numpy(rng.random(n).astype(np.float32))
+    v = _quant_values(rng, max(m, 8), d)
+    v[6] = rng.normal(size=d).astype(np.float32) * np.float32(1e-40)
+    v[7] = (rng.integers(-127, 127, d) + 0.5).astype(np.float32) / 8
+    v[7, 0] = 127.0 / 8                          # s = 2^-3: v / s exact
+    vals = torch.from_numpy(v[:m])
+    idx = rng.integers(0, n - 1, m)
+    idx[rng.random(m) < 0.27] = n - 1            # padding on the sentinel
+    dup = rng.random(m) < 0.1
+    idx[dup] = idx[rng.integers(0, m, m)][dup]   # duplicates of any row
+    bad = rng.random(m) < 0.05
+    idx[bad] = rng.choice([-7, -1, n, n + 3], int(bad.sum()))
+    idx = torch.from_numpy(idx.astype(np.int32))
+    want_q, want_s, want_e = ref.scatter_rows_q_ref(q0.clone(), s0.clone(),
+                                                    idx, vals)
+    args = (idx.to(dev), vals.to(dev))
+    errs = []
+    for _ in range(2):
+        before = _build.launch_counts["scatter_rows_q"]
+        got_q, got_s, got_e = scatter_rows_q(q0.clone().to(dev),
+                                             s0.clone().to(dev), *args)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["scatter_rows_q"] == before + 1
+        assert torch.equal(got_q.cpu(), want_q)
+        assert torch.equal(got_s.cpu(), want_s)
+        errs.append(got_e.cpu())
+    torch.testing.assert_close(errs[0], want_e, rtol=1e-5, atol=1e-7,
+                               equal_nan=True)
+    assert torch.equal(errs[0].isnan(), errs[1].isnan())
+    assert torch.equal(errs[0].nan_to_num(), errs[1].nan_to_num())
+    q1, s1 = q0.clone().to(dev), s0.clone().to(dev)
+    kernels = _device_kernels(lambda: scatter_rows_q(q1, s1, *args))
+    assert len(kernels) == (1 if m <= SCAN_MAX_ROWS else 3), kernels
 
 
 def test_flash_decode_rejects_unbuilt_head_dim(dev):

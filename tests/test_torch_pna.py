@@ -250,16 +250,18 @@ def _flat(params):
     return flat
 
 
-def _pna_case(history_dtype, num_layers=3, backend="interpret"):
+def _pna_case(history_dtype, num_layers=3, backend="interpret", **cfg):
     kw = dict(num_nodes=300, num_features=12, num_classes=3, seed=0)
     spec_kw = dict(op="pna", d_in=12, d_hidden=16, num_classes=3,
                    num_layers=num_layers, log_deg_mean=LOG_DEG_MEAN)
     rplan = r_rt.build_plan(r_citation(**kw), r_model.GNNSpec(**spec_kw),
                             r_rt.GASConfig(num_parts=4, backend=backend,
-                                           history_dtype=history_dtype))
+                                           history_dtype=history_dtype,
+                                           **cfg))
     tplan = t_rt.build_plan(t_citation(**kw), t_model.GNNSpec(**spec_kw),
                             t_rt.GASConfig(num_parts=4,
-                                           history_dtype=history_dtype),
+                                           history_dtype=history_dtype,
+                                           **cfg),
                             device="cpu")
     rstate = r_rt.init_state(rplan)
     tstate = t_rt.init_state(tplan, params=t_ckpt.params_from_numpy(
@@ -309,6 +311,29 @@ def test_pna_forward_matches_reference(history_dtype):
     want = r_model.full_forward(rstate.params, rplan.spec, rplan.x,
                                 rplan.eval_edges, rplan.eval_w, g.num_nodes)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("fuse_halo", [True, False])
+def test_pna_forward_without_history_matches_reference(fuse_halo):
+    """`GASConfig(use_history=False)`: every layer materializes its halo
+    from the layer's own inputs, no table is read, whatever `fuse_halo`
+    says. Two PNA layers over two batches, from the reference's params
+    carried across, each package run with its plan's `use_history` and
+    `fuse_halo`: logits at 1e-5."""
+    rplan, rstate, tplan, tstate = _pna_case(
+        "f32", num_layers=2, use_history=False, fuse_halo=fuse_halo)
+    rs, ts = rstate.histories, tstate.histories
+    with torch.no_grad():
+        for b in range(2):
+            rl, rs, _, _ = r_model.gas_batch_forward(
+                rstate.params, rplan.spec, rplan.x, rplan.batch(b), rs,
+                use_history=rplan.config.use_history, backend="interpret",
+                fuse_halo=rplan.config.fuse_halo)
+            tl, ts, _ = t_model.gas_batch_forward(
+                tstate.params, tplan.spec, tplan.x, tplan.batch(b), ts,
+                use_history=tplan.config.use_history,
+                fuse_halo=tplan.config.fuse_halo)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(rl), **TOL)
 
 
 def test_pna_epoch_matches_reference():
