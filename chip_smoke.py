@@ -49,7 +49,12 @@ with a non-zero exit at the first failure:
    on batch 0 gives them at layers 0 and 1 (the forward's stats bitwise
    and the sums and gradients within 1e-5 of the plain versions; with
    --parent-csrc beside the parent checkout's kernels, every output
-   bitwise equal).
+   bitwise equal). Then the kernels at the operator zoo's operands: the
+   f32 `gather_spmm` of APPNP's fused layers (6-wide tables) and of
+   GIN's over the unit-weight blocks (D = 48), `bcsr_spmm` on GIN's unit
+   blocks (layer 0) and transposed unit blocks (its backward), and
+   `scatter_rows` of APPNP's 6-wide push, each beside its plain version
+   (and cuSPARSE's CSR product or `index_copy_`) and its bound.
    Each block contraction (`bcsr_spmm` on the refresh batch, on the same
    blocks made fully dense, and on the two quickstart families;
    `gather_spmm`'s four bodies) has a line with its time beside the
@@ -122,13 +127,27 @@ with a non-zero exit at the first failure:
    show the bf16 history pull (`gather_rows_bf16`) on its path, two
    steps of PNA over a vq store PNA's vq path, and a GCN vq run with
    `vq_refit_every=2` over 4 epochs the codebook refit on the card
-   against the same refit on the CPU.
+   against the same refit on the CPU. Then the rest of the operator zoo
+   at the repo's published widths, the same checks each (its own depth,
+   part count, clusters per batch and epochs): (d) table 5's
+   `gas-gcnii16` (PNA's graph and partition, d_hidden=48, 16 layers,
+   alpha 0.1, 60 epochs) over f32 and over int8 histories, (e) table 2's
+   `gin-4L-cluster` (the 900-node CLUSTER SBM, 4 layers, d_hidden=48, 24
+   parts, 8 clusters per batch regrouped each epoch, 80 epochs; the
+   fused route over the unit-weight blocks), (f) the deep-GNN example's
+   GIN with the Eq. 3 regularizer (the 6,000-node SBM, d_hidden=64,
+   reg_delta = reg_weight = 0.05, 40 parts, 10 clusters per batch, 40
+   epochs; every layer materialized; its two steps take the card's noise
+   on the CPU too, and its accuracy is held below the lowest of six
+   reference runs under six rng keys) and (g) table 1's `appnp-5L`
+   (1,200 nodes, 5 layers, alpha 0.1, 8 parts, 60 epochs; 6-wide
+   history tables).
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
-also writes the three training partitions (the port's METIS-like
-partitioner on this host) for `tests/test_torch_train.py --reference-acc
-[--history-dtype ...]`.
+also writes the training partitions (the port's METIS-like partitioner
+on this host; GCNII's is PNA's) for `tests/test_torch_train.py
+--reference-acc [--history-dtype ...] [--op ...]`.
 
     mkdir -p build/parent-src
     git archive PARENT src/repro_torch/kernels/csrc | tar -x -C build/parent-src
@@ -194,7 +213,8 @@ from repro_torch.core import serve as S  # noqa: E402
 from repro_torch.core.config import resolve_device  # noqa: E402
 from repro_torch.core.history import (  # noqa: E402
     HistoryStore, vq_init_codebook)
-from repro_torch.data.graphs import citation_graph  # noqa: E402
+from repro_torch.data.graphs import (  # noqa: E402
+    citation_graph, sbm_cluster_graph)
 from repro_torch.data.tokens import MarkovTokens  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -290,7 +310,14 @@ EARLIER_MS = {"bcsr_spmm": 2.016, "gather_spmm": 1.877,
 # lowest of them. GAT over a vq store is chaotic too (its six runs span
 # 0.9667-0.9824 on the card's partition and 0.9672-0.9824 on the CPU's;
 # GCN's over vq agree to all digits at perturb 0, 1 and 2), so its
-# entries hold six runs as PNA's do.
+# entries hold six runs as PNA's do. The zoo's (`--op gcnii`,
+# `gin`, `gin+reg`, `appnp`): the SBM and APPNP partitions are the same
+# on both hosts, GCNII's is PNA's. Table 2's GIN is chaotic too (six
+# runs one ulp apart span 0.8444-0.9167), GCNII spans 0.3 pp (int8 0.1
+# pp) on the card's partition (0.9631 in one run on the CPU's), APPNP
+# gives 0.9613 in all six; the regularized GIN's entry holds six rng keys
+# (`--rng-key 1 ... 6`): in four of them the reference stays near chance
+# (0.0975-0.1050 of 10 classes) after 40 epochs, one reaches 0.4758.
 TRAIN_EPOCHS, TRAIN_PARTS, TRAIN_HIDDEN = 60, 16, 64
 # each configuration's spec beside its graph: GCN and GAT at TRAIN_HIDDEN;
 # PNA is table 5's `gas-pna` (benchmarks/table5_baselines.py: its graph,
@@ -344,11 +371,69 @@ TRAIN_CONFIGS = {
                                               0.8582317233085632,
                                               0.8615853786468506,
                                               0.8844512104988098)}}),
+    # table 5's `gas-gcnii16` (benchmarks/table5_baselines.py:51): PNA's
+    # graph and partition, 16 layers, alpha 0.1
+    "gcnii": dict(graph=dict(num_nodes=4000, num_features=64, num_classes=6,
+                             homophily=0.7, feature_noise=2.5, seed=80),
+                  spec=dict(d_hidden=48, num_layers=16, alpha=0.1),
+                  partition_of="pna",
+                  ref_test_acc={
+                      "f32": {"2f9649d2dcc0": 0.9631097316741943,
+                              "b441af5c2589": (0.8335365653038025,
+                                               0.8332316875457764,
+                                               0.8338414430618286,
+                                               0.8307926654815674,
+                                               0.8335365653038025,
+                                               0.8335365653038025)},
+                      "int8": {"2f9649d2dcc0": 0.9631097316741943,
+                               "b441af5c2589": (0.8557927012443542,
+                                                0.8560975790023804,
+                                                0.8557927012443542,
+                                                0.855182945728302,
+                                                0.8557927012443542,
+                                                0.8560975790023804)}}),
+    # table 2's `gin-4L-cluster` (benchmarks/table2_ablation.py:52-71):
+    # the CLUSTER SBM, 24 parts, 8 clusters per batch, 80 epochs
+    "gin": dict(kind="sbm", graph=dict(num_nodes=900, num_communities=6,
+                                       seed=22),
+                spec=dict(d_hidden=48, num_layers=4),
+                config=dict(num_parts=24, clusters_per_batch=8, epochs=80),
+                ref_test_acc={"f32": {"bd103d0d8f27": (0.9166666865348816,
+                                                       0.8777777552604675,
+                                                       0.894444465637207,
+                                                       0.8833333253860474,
+                                                       0.8444444537162781,
+                                                       0.8888888955116272)}}),
+    # the deep-GNN example's GIN with the Eq. 3 regularizer
+    # (examples/deep_gnn_large_graph.py:46-54): 40 parts, 10 clusters per
+    # batch, 40 epochs. Its noise is not the reference's, so an entry
+    # holds the reference's runs under six rng keys (1-6; 1 is
+    # `init_state`'s seed + 1) from the same initial weights
+    "gin+reg": dict(op="gin", kind="sbm",
+                    graph=dict(num_nodes=6000, num_communities=10, seed=2),
+                    spec=dict(d_hidden=64, num_layers=4, reg_delta=0.05,
+                              reg_weight=0.05),
+                    config=dict(num_parts=40, clusters_per_batch=10,
+                                epochs=40),
+                    ref_test_acc={"f32": {"d5434838cd8b": (
+                        0.09749999642372131, 0.47583332657814026,
+                        0.10499999672174454, 0.09749999642372131,
+                        0.09749999642372131, 0.1991666704416275)}}),
+    # table 1's `appnp-5L` (benchmarks/table1_full_vs_gas.py:16-36), seed
+    # 0's graph: 8 parts, 5 layers, 6-wide history tables
+    "appnp": dict(graph=dict(num_nodes=1200, num_features=64, num_classes=6,
+                             homophily=0.72, feature_noise=2.2, seed=10),
+                  spec=dict(num_layers=5, alpha=0.1),
+                  config=dict(num_parts=8),
+                  ref_test_acc={"f32": {"0339ee90b37c": 0.9612832069396973}}),
 }
-# the training runs of phase 4, in order: (op, history precision)
+# the training runs of phase 4, in order: (configuration, history
+# precision)
 TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
               ("gcn", "int8"), ("gat", "int8"), ("pna", "int8"),
-              ("gcn", "bf16"), ("gcn", "vq"), ("gat", "vq"))
+              ("gcn", "bf16"), ("gcn", "vq"), ("gat", "vq"),
+              ("gcnii", "f32"), ("gcnii", "int8"), ("gin", "f32"),
+              ("gin+reg", "f32"), ("appnp", "f32"))
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
 # serving over a quantized store, SLO=0 on the card against the CPU: the
 # logits' rtol (atol ATOL). An int8 push matched the CPU's codes in full
@@ -390,6 +475,18 @@ TRAIN_KERNELS = {
     ("gat", "vq"): _ES + ("gather_rows_vq", "gather_rows", "scatter_rows_vq"),
     ("pna", "vq"): _PNA + ("gather_rows_vq", "gather_rows",
                            "scatter_rows_vq"),
+    # the zoo's fused layers aggregate through gather_spmm (GIN over the
+    # unit-weight blocks); with the regularizer every layer is
+    # materialized: the history pull is gather_rows
+    ("gcnii", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
+                       "scatter_rows"),
+    ("gcnii", "int8"): ("bcsr_spmm", "gather_spmm_dq", "gather_rows",
+                        "scatter_rows_q"),
+    ("gin", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
+                     "scatter_rows"),
+    ("gin+reg", "f32"): ("bcsr_spmm", "gather_rows", "scatter_rows"),
+    ("appnp", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
+                       "scatter_rows"),
 }
 # a code the card and the CPU chose apart must be a near-tie: the two
 # entries' distances to the card's pushed subvector (summed left to right
@@ -1131,13 +1228,7 @@ def kernel_phase(g, spec, device):
     torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
     err = float((out - want).abs().max())
     # the library yardstick: cuSPARSE CSR x dense over the blocks' nonzeros
-    nz = vals.nonzero(as_tuple=True)
-    ridx = nz[0] * 128 + nz[2]
-    cidx = cols[nz[0], nz[1]].long() * 128 + nz[3]
-    n_cols = -(-x_all.shape[0] // 128) * 128
-    a_csr = torch.sparse_coo_tensor(
-        torch.stack([ridx, cidx]), vals[nz], (R * 128, n_cols)
-    ).coalesce().to_sparse_csr()
+    a_csr, n_cols = _csr_of_blocks(vals, cols, x_all.shape[0])
     x_pad = torch.cat([x_all, x_all.new_zeros(n_cols - x_all.shape[0],
                                               x_all.shape[1])], 0)
     torch.testing.assert_close(torch.sparse.mm(a_csr, x_pad), want,
@@ -1440,40 +1531,53 @@ def _history_pull_rows(plan, device, gen, clock_hz):
     return rows + [row, row_q]
 
 
-def _train_graph(op):
-    cfg = TRAIN_CONFIGS[op]
-    g = citation_graph(**cfg["graph"])
-    spec_kw = {"d_hidden": TRAIN_HIDDEN, **cfg.get("spec", {})}
-    spec = model.GNNSpec(op=op, d_in=g.x.shape[1], num_classes=g.num_classes,
-                         num_layers=2, heads=8, **spec_kw)
+def _train_graph(name):
+    """The graph and spec of training configuration `name`."""
+    cfg = TRAIN_CONFIGS[name]
+    make = sbm_cluster_graph if cfg.get("kind") == "sbm" else citation_graph
+    g = make(**cfg["graph"])
+    spec_kw = {"d_hidden": TRAIN_HIDDEN, "num_layers": 2,
+               **cfg.get("spec", {})}
+    spec = model.GNNSpec(op=cfg.get("op", name), d_in=g.x.shape[1],
+                         num_classes=g.num_classes, heads=8, **spec_kw)
     return g, spec
 
 
-def _train_config():
-    return RT.GASConfig(num_parts=TRAIN_PARTS, epochs=TRAIN_EPOCHS, lr=0.01)
+def _train_config(name):
+    """Configuration `name`'s GASConfig: TRAIN_PARTS parts and
+    TRAIN_EPOCHS epochs at lr 0.01 unless it says otherwise."""
+    kw = {"num_parts": TRAIN_PARTS, "epochs": TRAIN_EPOCHS, "lr": 0.01,
+          **TRAIN_CONFIGS[name].get("config", {})}
+    return RT.GASConfig(**kw)
 
 
-def _partition(op):
-    """The partition of `op`'s training graph and the seconds it took: host
-    work, run in a process of its own while the card runs the first
-    phases."""
+# the configurations whose partitions the worker processes compute (one
+# that names `partition_of` shares another's graph, part count and seed)
+PARTITIONED = tuple(n for n, c in TRAIN_CONFIGS.items()
+                    if "partition_of" not in c)
+
+
+def _partition(name):
+    """The partition of configuration `name`'s training graph and the
+    seconds it took: host work, run in a process of its own while the
+    card runs the first phases."""
     t0 = time.perf_counter()
-    g, _ = _train_graph(op)
-    return RT.partition(g, _train_config()), time.perf_counter() - t0
+    g, _ = _train_graph(name)
+    return RT.partition(g, _train_config(name)), time.perf_counter() - t0
 
 
 def train_plans(device, parts):
     """The training plans (stacked batches on the card) over the
-    partitions `parts` ({op: `_partition(op)`})."""
+    partitions `parts` ({name: `_partition(name)`})."""
     plans = {}
     for op in TRAIN_CONFIGS:
         t0 = time.perf_counter()
-        part, part_s = parts[op]
+        part, part_s = parts[TRAIN_CONFIGS[op].get("partition_of", op)]
         g, spec = _train_graph(op)
-        plans[op] = RT.build_plan(g, spec, _train_config(), device=device,
+        plans[op] = RT.build_plan(g, spec, _train_config(op), device=device,
                                   part=part)
         b = plans[op].batches
-        unit = op in model.UNIT_BLOCK_OPS
+        unit = spec.op in model.UNIT_BLOCK_OPS
         fam = b.unit if unit else b.forward
         fam_t = b.unit_transposed if unit else b.transposed
         # the partition's digest keys the reference accuracy
@@ -1485,7 +1589,7 @@ def train_plans(device, parts):
                f"{time.perf_counter() - t0:.1f} s (the partition in "
                f"{part_s:.1f} s in a worker process); partition "
                f"{_digest(plans[op].part)}, "
-               f"{_degree_orders(g, TRAIN_PARTS)}")
+               f"{_degree_orders(g, plans[op].config.num_parts)}")
     return plans
 
 
@@ -1890,6 +1994,7 @@ def training_kernel_phase(plans, device, clock_hz):
         rows.append(row)
     rows += _history_pull_rows(plans["gat"], device, gen, clock_hz)
     rows += _pna_kernel_rows(plans["pna"], device, gen)
+    rows += _zoo_kernel_rows(plans, device, gen)
 
     # bcsr_spmm on a quickstart batch's blocks (128 wide): the forward
     # family against the layer-0 input, and the GCN backward's use of it,
@@ -1920,6 +2025,143 @@ def training_kernel_phase(plans, device, clock_hz):
                f"{_time_ms(lambda: ref.bcsr_spmm_ref(x, v, c)):.4f}, bound "
                f"{bound_ms:.4f} by {bound_by})")
         _beside_earlier(label, lambda: bcsr_spmm(x, v, c), out, ms)
+    return rows
+
+
+def _csr_of_blocks(vals, cols, n_x):
+    """The blocks' nonzeros as a CSR matrix over n_x padded to whole
+    blocks (cuSPARSE's operand: the library yardstick of a contraction),
+    and its nonzero count."""
+    nz = vals.nonzero(as_tuple=True)
+    ridx = nz[0] * 128 + nz[2]
+    cidx = cols[nz[0], nz[1]].long() * 128 + nz[3]
+    n_cols = max(-(-n_x // 128), int(cols.max()) + 1) * 128
+    a = torch.sparse_coo_tensor(torch.stack([ridx, cidx]), vals[nz],
+                                (cols.shape[0] * 128, n_cols))
+    return a.coalesce().to_sparse_csr(), n_cols
+
+
+def _contraction_row(name, case, run, x, vals, cols, plan=None,
+                     table=None):
+    """One row of a block contraction at a training path's operands:
+    `bcsr_spmm(x, vals, cols)`, or with `plan` and `table` the f32
+    `gather_spmm` (x the in-batch rows); checked against the plain
+    version, timed beside it and, for `bcsr_spmm`, beside cuSPARSE's CSR
+    product. Bytes: the blocks as stored, each source row the blocks
+    reach once (the gather plan's three index arrays too), the output
+    once; operations: one FMA per nonzero entry and column."""
+    D = x.shape[1]
+    blk_bytes = vals.numel() * 4 + cols.numel() * 4
+    nnz = int((vals != 0).sum())
+    if plan is None:
+        fn = lambda: bcsr_spmm(x, vals, cols)  # noqa: E731
+        plain = lambda: ref.bcsr_spmm_ref(x, vals, cols)  # noqa: E731
+        a_csr, n_cols = _csr_of_blocks(vals, cols, x.shape[0])
+        x_pad = torch.cat([x, x.new_zeros(n_cols - x.shape[0], D)], 0)
+        library = lambda: torch.sparse.mm(a_csr, x_pad)  # noqa: E731
+        n_src = sum(min(128, x.shape[0] - c * 128)
+                    for c in torch.unique(cols).tolist()
+                    if c * 128 < x.shape[0])
+        extra = 0
+    else:
+        sel, xrow, trow = plan
+        fn = lambda: gather_spmm(x, table, vals, cols, *plan)  # noqa: E731
+        plain = lambda: ref.gather_spmm_ref(  # noqa: E731
+            x, table, vals, cols, *plan)
+        library = None
+        n_src = (int(torch.unique(xrow[sel == 0]).numel())
+                 + int(torch.unique(trow[sel == 1]).numel()))
+        extra = 3 * sel.numel() * 4
+    out, want = fn(), plain()
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    if library is not None:
+        torch.testing.assert_close(library(), want, rtol=RTOL, atol=ATOL)
+    row = _row(name, f"src/repro_torch/kernels/csrc/"
+               f"{'bcsr_spmm' if plan is None else 'fused'}.cu",
+               "src/repro/kernels/bcsr_spmm.py:42" if plan is None else
+               "src/repro/kernels/fused.py:203 (f32 body _make_kernel :172)",
+               float((out - want).abs().max()), _time_ms(fn),
+               _time_ms(plain), None if library is None else
+               _time_ms(library),
+               blk_bytes + extra + n_src * D * 4
+               + cols.shape[0] * 128 * D * 4, 2.0 * nnz * D)
+    row.update(case=case, run=run)
+    _phase("kernels", f"{name}, {case}: blocks {list(vals.shape)}, {nnz} "
+           f"nonzeros; err {row['max_abs_err']:.3g}, {row['ms']:.4f} ms "
+           f"(plain {row['plain_ms']:.4f}, library {row['library_ms']}, "
+           f"bound {row['bound_ms']:.5f} by {row['bound_by']})")
+    return row
+
+
+def _zoo_kernel_rows(plans, device, gen):
+    """Phase 2, the kernels at the operator zoo's new operands: the f32
+    `gather_spmm` of APPNP's fused layers at D = 6 (its class-score
+    tables) over the forward blocks, and of GIN's at D = 48 over the
+    unit-weight blocks; `bcsr_spmm` on GIN's unit blocks at layer 0 (the
+    features) and on the transposed unit blocks (its backward); and
+    `scatter_rows` of APPNP's 6-wide push. Each row's launches come from
+    that configuration's training run."""
+    rows = []
+    cases = (("appnp", "forward", "APPNP layer >= 1, D = 6"),
+             ("gin", "unit", "GIN layer >= 1, unit blocks, D = 48"))
+    for name, fam_name, case in cases:
+        plan = plans[name]
+        batch = plan.batch(0)
+        fam = getattr(batch, fam_name)
+        n_table = plan.graph.num_nodes + 1
+        D = plan.spec.hist_dims()[0]
+        x_in = torch.randn((batch.max_b, D), generator=gen, device=device)
+        table = torch.randn((n_table, D), generator=gen, device=device)
+        gplan = gather_plan(fam.cols, batch.halo_nodes, batch.halo_mask,
+                            batch.max_b, n_table)
+        rows.append(_contraction_row("gather_spmm", case, f"{name} f32",
+                                     x_in, fam.vals, fam.cols, gplan,
+                                     table))
+    batch = plans["gin"].batch(0)
+    xb = ops.pull_rows(plans["gin"].x, batch.batch_nodes)
+    xh = ops.pull_rows(plans["gin"].x, batch.halo_nodes)
+    x_all = torch.cat([xb * batch.batch_mask[:, None],
+                       xh * batch.halo_mask[:, None],
+                       torch.zeros_like(xb[:1])], 0)
+    rows.append(_contraction_row(
+        "bcsr_spmm", f"GIN layer 0, unit blocks, D = {x_all.shape[1]}",
+        "gin f32", x_all, batch.unit.vals, batch.unit.cols))
+    gout = torch.randn((batch.unit.cols.shape[0] * 128, 48), generator=gen,
+                       device=device)
+    rows.append(_contraction_row(
+        "bcsr_spmm", "GIN backward, transposed unit blocks, D = 48",
+        "gin f32", gout, batch.unit_transposed.vals,
+        batch.unit_transposed.cols))
+    # APPNP's push of batch 0 into a 6-wide table (masked rows on the
+    # sentinel row)
+    plan = plans["appnp"]
+    batch = plan.batch(0)
+    N = plan.graph.num_nodes
+    hist = torch.randn((N + 1, 6), generator=gen, device=device)
+    vals_p = torch.randn((batch.max_b, 6), generator=gen, device=device)
+    push_idx = torch.where(batch.batch_mask, batch.batch_nodes,
+                           torch.full_like(batch.batch_nodes, N)
+                           ).to(torch.int32)
+    a = scatter_rows(hist.clone(), push_idx, vals_p)
+    assert torch.equal(a, ref.scatter_rows_ref(hist.clone(), push_idx,
+                                               vals_p)), "scatter_rows D=6"
+    valid = batch.batch_mask
+    uniq_idx, uniq_vals = push_idx[valid].long(), vals_p[valid]
+    tgt = hist.clone()
+    n_tgt = int(torch.unique(push_idx).numel())
+    M = push_idx.shape[0]
+    row = _row("scatter_rows", "src/repro_torch/kernels/csrc/scatter.cu",
+               "src/repro/kernels/scatter.py:39", 0.0,
+               _time_ms(lambda: scatter_rows(tgt, push_idx, vals_p)),
+               _time_ms(lambda: ref.scatter_rows_ref(tgt, push_idx, vals_p)),
+               _time_ms(lambda: tgt.index_copy_(0, uniq_idx, uniq_vals)),
+               M * 4 + 2 * n_tgt * 6 * 4, 0)
+    row.update(case="APPNP push, M = %d, D = 6" % M, run="appnp f32")
+    _phase("kernels", f"scatter_rows, {row['case']}: err 0 (bitwise), "
+           f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, index_copy_ "
+           f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} by "
+           f"{row['bound_by']})")
+    rows.append(row)
     return rows
 
 
@@ -2048,13 +2290,51 @@ def _vq_codes_close(store, cstore, pushes):
     return min(shares), flips, gap
 
 
+@contextlib.contextmanager
+def _noise_carried_to_cpu(on=True):
+    """The Eq. 3 regularizer's draws on the card (from the state's
+    generator) recorded, and the CPU's draws replaced by them in the same
+    order, so that both devices perturb by the same noise (nothing when
+    `on` is False). Yields the list of draws not yet replayed."""
+    if not on:
+        yield []
+        return
+    real = model.reg_noise
+    drawn = []
+
+    def reg_noise(gen, shape, device):
+        if device.type == "cuda":
+            drawn.append(real(gen, shape, device))
+            return drawn[-1]
+        out = drawn.pop(0)
+        assert tuple(out.shape) == tuple(shape), (out.shape, shape)
+        return out.to(device)
+
+    model.reg_noise = reg_noise
+    try:
+        yield drawn
+    finally:
+        model.reg_noise = real
+
+
 def _compare_steps(plan, cplan):
     """Two steps on the card against the same steps on the CPU, each from
     the same state (the card's is copied over before the second). The
     update runs on both devices from the card's gradients: fed their own,
     an element whose gradient sits at rounding level, where the two
     devices may round to opposite signs, moves by lr one way and not the
-    other in AdamW's first steps. Returns the line's text."""
+    other in AdamW's first steps. With the Eq. 3 regularizer on, the
+    CPU's steps take the card's noise (`_noise_carried_to_cpu`). Returns
+    the line's text."""
+    with _noise_carried_to_cpu(plan.spec.reg_weight > 0) as drawn:
+        line = _compare_steps_from(plan, cplan, drawn)
+    if plan.spec.reg_weight > 0:
+        line += ("; the regularizer's noise drawn on the card and carried "
+                 "to the CPU")
+    return line
+
+
+def _compare_steps_from(plan, cplan, drawn):
     state, cstate = RT.init_state(plan), RT.init_state(cplan)
     hd = state.histories.history_dtype
     quant = hd != "f32"
@@ -2065,7 +2345,9 @@ def _compare_steps(plan, cplan):
         with _recorded_pushes(state.histories, hd == "vq") as pushes:
             grads, m = RT.grads_and_metrics(plan, state, plan.batch(b))
         cgrads, cm = RT.grads_and_metrics(cplan, cstate, cplan.batch(b))
-        pairs = [(m["loss"], cm["loss"])] + list(zip(grads, cgrads))
+        assert not drawn, f"{len(drawn)} draws of the card not replayed"
+        pairs = [(m["loss"], cm["loss"]), (m["reg"], cm["reg"])] + list(
+            zip(grads, cgrads))
         if hd == "vq":
             pairs.append((m["hist_quant_err"], cm["hist_quant_err"]))
             tabs.append(_vq_codes_close(state.histories, cstate.histories,
@@ -2128,22 +2410,30 @@ def with_history_dtype(plan, history_dtype):
 
 
 def training_phase(op, hd, plan, device):
-    """Phase 4 for one op at one store precision. Returns the launch
-    counts of its 60 epochs."""
+    """Phase 4 for configuration `op` at one store precision. Returns the
+    launch counts of its epochs."""
     cfg = TRAIN_CONFIGS[op]
     tag = f"{op} {hd}"
     plan = with_history_dtype(plan, hd)
+    spec, n_epochs = plan.spec, plan.config.epochs
     # (i) two steps on the card against the same steps on the CPU
     _phase("training", f"{tag}: " + _compare_steps(plan, _plan_on_cpu(plan)))
 
-    # (ii) 60 epochs from fresh params, each step timed to its sync
+    # (ii) the configuration's epochs from fresh params, each step timed
+    # to its sync; with several clusters per batch they are regrouped
+    # before every epoch but the first, as `RT.train_epoch` does (host
+    # work, timed apart)
     state = RT.init_state(plan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    steps, epochs, losses, qerrs = [], [], [], []
+    steps, epochs, losses, qerrs, regroups = [], [], [], [], []
     nb = plan.batches.num_batches
-    for e in range(TRAIN_EPOCHS):
+    for e in range(n_epochs):
+        if plan.config.clusters_per_batch > 1 and e > 0:
+            t0 = time.perf_counter()
+            RT._regroup(plan)
+            regroups.append(time.perf_counter() - t0)
         order = np.random.default_rng(plan.config.seed * 1000 + e
                                       ).permutation(nb)
         t_ep = time.perf_counter()
@@ -2179,27 +2469,42 @@ def training_phase(op, hd, plan, device):
     ref_note = "same partition" if digest in refs else \
         f"partition {digest} not in the table: crosses partitions"
     if len(runs) > 1:
-        ref_note += (f"; the lowest of {len(runs)} runs one ulp of the "
-                     f"initial weights apart, {runs.min():.4f}-"
-                     f"{runs.max():.4f}")
+        apart = ("under six rng keys (the regularizer's noise)"
+                 if spec.reg_weight else
+                 "one ulp of the initial weights apart")
+        ref_note += (f"; the lowest of {len(runs)} runs {apart}, "
+                     f"{runs.min():.4f}-{runs.max():.4f}")
     assert acc["test_acc"] >= ref_acc - ACC_SLACK, (tag, acc, ref_acc)
-    # (iv) the path's kernels, and the backward's launches: per GCN step
-    # one bcsr_spmm forward (layer 0) and one backward (layer 1's fused
-    # aggregation), per GAT (PNA) step each edge-softmax (pna_reduce)
-    # kernel once per layer
+    # (iv) the path's kernels, and the backward's launches per step: a
+    # fused op runs bcsr_spmm once forward at layer 0 and once backward
+    # per fused layer (and once more where layer 0's input carries a
+    # gradient: GCNII's and APPNP's `_pre`), its fused aggregation once
+    # per layer >= 1; with the regularizer every layer runs forward twice
+    # and layers >= 1 backward twice (layer 0's input, the features, has
+    # no gradient); GAT (PNA) runs each edge-softmax (pna_reduce) kernel
+    # once per layer
     kernels = TRAIN_KERNELS[(op, hd)]
     missing = [k for k in kernels if launches[k] == 0]
     assert not missing, f"{tag}: kernels never launched: {missing}"
-    n = len(steps)
-    if op == "gcn":
-        assert launches["bcsr_spmm"] == 2 * n == 2 * launches[kernels[1]]
+    n, L = len(steps), spec.num_layers
+    if spec.reg_weight:
+        assert launches["bcsr_spmm"] == (4 * L - 2) * n, launches
+    elif spec.op in model.FUSED_OPS:
+        layer0_grad = spec.op in ("gcnii", "appnp")
+        assert launches["bcsr_spmm"] == (L + layer0_grad) * n, launches
+        assert launches[kernels[1]] == (L - 1) * n, launches
     else:
-        assert all(launches[k] == 2 * n for k in kernels[:3])
+        assert all(launches[k] == L * n for k in kernels[:3]), launches
     busy = _profiled_epoch(plan, state)
-    _phase("training", f"{tag}: {TRAIN_EPOCHS} epochs x {nb} steps: step "
+    regroup = (f" (and a regroup of the clusters before each: median "
+               f"{1e3 * np.median(regroups):.1f} ms on the host)"
+               if regroups else "")
+    _phase("training", f"{tag}: {n_epochs} epochs x {nb} steps of "
+           f"{L} layers: step "
            f"p50 {np.percentile(steps, 50):.3f} ms, p99 "
            f"{np.percentile(steps, 99):.3f} ms; epoch median "
-           f"{np.median(epochs):.1f} ms (first {epochs[0]:.1f} ms); peak "
+           f"{np.median(epochs):.1f} ms (first {epochs[0]:.1f} ms)"
+           f"{regroup}; peak "
            f"device memory {peak / 2**20:.1f} MiB; history store "
            f"{store.bytes():,} bytes ({f32_bytes / store.bytes():.2f}x vs "
            f"f32), last-epoch hist_quant_err {qerr:.4g}; last-epoch loss "
@@ -2916,9 +3221,9 @@ def main() -> int:
     # the training partitions (host work, 25-39 s) in worker processes
     # while the card builds its kernels and serves
     with concurrent.futures.ProcessPoolExecutor(
-            len(TRAIN_CONFIGS),
+            len(PARTITIONED),
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        futures = {op: pool.submit(_partition, op) for op in TRAIN_CONFIGS}
+        futures = {op: pool.submit(_partition, op) for op in PARTITIONED}
 
         def partitions():
             """{op: (partition, seconds)} once all are done; the workers

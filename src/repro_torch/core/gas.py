@@ -4,8 +4,9 @@ The port of `repro.core.gas`: the GCN-normalized global COO, the weighted
 in-edge CSR, `build_batches` (the stacked padded batches of one
 partition, with the weighted or the unit-weight BCSR families),
 `group_partition` / `padding_bounds` (several clusters per batch),
-`subgraph_batch` (one padded batch over an arbitrary node set, serving's)
-and the per-layer helpers `staleness_diags` / `materialize_x_all`. The
+`subgraph_batch` (one padded batch over an arbitrary node set, serving's),
+the per-layer helpers `staleness_diags` / `materialize_x_all`, and
+`gas_forward`, the executor over layer callbacks. The
 host code is a copy of the reference's numpy code, so its arrays are
 bitwise the reference's (tests/test_torch_host.py,
 tests/test_torch_train.py). `patch_batches` (evolving graphs) is not
@@ -13,7 +14,7 @@ ported yet (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -301,17 +302,23 @@ def staleness_diags(age: torch.Tensor, halo_nodes: torch.Tensor,
 
 
 def materialize_x_all(ell: int, x_cur: torch.Tensor, xh: torch.Tensor,
-                      store, batch: GASBatch,
-                      use_history: bool = True) -> torch.Tensor:
+                      store, batch: GASBatch, use_history: bool = True,
+                      halo_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Unfused layer input `x_all = [x_cur ; halo_rows ; dummy-zero row]`:
     layer 0 uses the exact halo rows `xh`; layers >= 1 pull the previous
     layer's history rows through the store (dequantized for int8, decoded
-    for vq, upcast for bf16; zeros when history is off)."""
+    for vq, upcast for bf16; zeros when history is off). `halo_scale`
+    [max_h], when given, damps the pulled rows (staleness compensation,
+    `GASConfig.halo_age_decay`); layer 0's halo rows are exact and never
+    scaled."""
     if ell == 0:
         halo_rows = xh
     elif use_history:
         halo_rows = store.pull(ell - 1, batch.halo_nodes)
         halo_rows = halo_rows.to(x_cur.dtype) * batch.halo_mask[:, None]
+        if halo_scale is not None:
+            halo_rows = halo_rows * halo_scale[:, None]
     else:
         halo_rows = torch.zeros((batch.halo_nodes.shape[0],
                                  x_cur.shape[-1]), dtype=x_cur.dtype,
@@ -319,3 +326,51 @@ def materialize_x_all(ell: int, x_cur: torch.Tensor, xh: torch.Tensor,
     dummy = torch.zeros((1, x_cur.shape[-1]), dtype=x_cur.dtype,
                         device=x_cur.device)
     return torch.cat([x_cur, halo_rows, dummy], dim=0)
+
+
+def gas_forward(layer_apply: Callable[[int, torch.Tensor, GASBatch],
+                                      torch.Tensor],
+                num_layers: int, x_global: torch.Tensor, batch: GASBatch,
+                store, use_history: bool = True,
+                fused_layer_apply: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+    """Runs `num_layers` layers of any operator on one padded batch
+    (`core/gas.py:572-646` of the reference): `layer_apply(ell, x_all,
+    batch)` returns the new in-batch rows [max_b, d] from a materialized
+    x_all. `fused_layer_apply(ell, x_cur, (table, scales, codebook,
+    halo_nodes, halo_mask), batch)`, when given, replaces it for layers
+    >= 1 with history on: the callee aggregates through
+    `ops.gas_aggregate`, which reads the halo rows straight out of the
+    table. Each hidden layer's rows are pushed into `store` in place,
+    detached, and the clock ticks. Returns (the last layer's rows, the
+    store, diagnostics: the halo rows' mean/max age and
+    `hist_quant_err`)."""
+    bmask, hmask = batch.batch_mask, batch.halo_mask
+    xb = ops.pull_rows(x_global, batch.batch_nodes) * bmask[:, None]
+    xh = ops.pull_rows(x_global, batch.halo_nodes) * hmask[:, None]
+    diags = staleness_diags(store.age, batch.halo_nodes, hmask)
+    fuse = fused_layer_apply is not None and use_history
+    qerr = None
+    x_cur = xb
+    for ell in range(num_layers):
+        if ell > 0 and fuse:
+            x_next = fused_layer_apply(
+                ell, x_cur, (store.tables[ell - 1],
+                             store.layer_scales(ell - 1),
+                             store.layer_codebook(ell - 1),
+                             batch.halo_nodes, hmask), batch)
+        else:
+            x_all = materialize_x_all(ell, x_cur, xh, store, batch,
+                                      use_history)
+            x_next = layer_apply(ell, x_all, batch)
+        if ell < num_layers - 1:
+            err = store.push_measured(ell, batch.batch_nodes,
+                                      x_next.detach(), bmask)
+            if err is not None:
+                qerr = err if qerr is None else qerr + err
+        x_cur = x_next
+    diags["hist_quant_err"] = (
+        torch.zeros((), dtype=torch.float32, device=xb.device)
+        if qerr is None else qerr / max(num_layers - 1, 1))
+    store.tick(batch.batch_nodes, bmask)
+    return x_cur, store, diags

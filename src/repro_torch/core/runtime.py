@@ -28,8 +28,11 @@ vq; None reads $REPRO_HISTORY_DTYPE, else f32, as in the reference; the
 epoch metrics carry `hist_quant_err`, the error its pushes
 incur). A vq store's codebooks are refit at the start of an epoch on the
 reference's cadence (`vq_refit_every`) or drift (`vq_refit_drift`) gate.
-Not ported yet: `prefetch_depth > 0` and `history_storage="host"`
-(ROADMAP Queue A item 4) and `halo_age_decay > 0` (Queue A item 2).
+The step's loss is `ce + spec.reg_weight * reg`, the Eq. 3 regularizer's
+noise drawn from the state's generator; `halo_age_decay` damps stale
+halo rows in training and in `predict`. Not ported yet:
+`prefetch_depth > 0` and `history_storage="host"` (ROADMAP Queue A
+item 4).
 """
 from __future__ import annotations
 
@@ -90,24 +93,26 @@ class GASConfig(HistoryExecConfig):
         if self.history_storage not in (None, "device", "host"):
             raise ValueError(f"history_storage must be device or host, got "
                              f"{self.history_storage!r}")
-        if self.halo_age_decay:
-            raise NotImplementedError(
-                "halo_age_decay (staleness compensation) is not ported yet "
-                "(ROADMAP Queue A item 2)")
 
 
 @dataclass
 class GASState:
     """Everything that changes during training: the params tree, the AdamW
-    state, the history store and `rng`, the uint32 key data the reference
-    keeps beside them. The port draws no random numbers in a step (no
-    dropout, no regularizer), so `rng` stays the initial key data
-    `[0, seed + 1]` of the reference's `jax.random.key(seed + 1)`; it is
-    carried so that a checkpoint has every key the reference reads."""
+    state, the history store, `rng`, the uint32 key data the reference
+    keeps beside them, and `gen`, the generator the Eq. 3 regularizer
+    draws its noise from. `rng` stays the initial key data `[0, seed +
+    1]` of the reference's `jax.random.key(seed + 1)`, carried so that a
+    checkpoint has every key the reference reads; `gen` is a
+    `torch.Generator` on the plan's device seeded with its second word
+    (`noise_generator`). Its bits are not `jax.random.normal`'s, and a
+    checkpoint does not hold its position: a restored state draws from
+    the seed again. None (a state built by hand) makes the step seed one
+    when the regularizer first needs it."""
     params: Any
     opt_state: AdamWState
     histories: HistoryStore
     rng: np.ndarray
+    gen: Optional[torch.Generator] = None
 
     def replace(self, **kw) -> "GASState":
         return replace(self, **kw)
@@ -217,11 +222,18 @@ def _regroup(plan: GASPlan) -> None:
     plan.batch_stack = plan.batches.to(plan.device)
 
 
+def noise_generator(rng: np.ndarray, device) -> torch.Generator:
+    """The regularizer's generator on `device`, seeded with the second
+    word of the reference's key data `rng` (seed + 1)."""
+    return torch.Generator(device=device).manual_seed(int(rng[-1]))
+
+
 def init_state(plan: GASPlan, params=None) -> GASState:
     """Fresh params (the port's `init_gnn(spec, seed)` unless `params` is
     given, e.g. the reference's carried across), a zero AdamW state, a
     zero history store of `config.history_dtype` (None: the precision
-    $REPRO_HISTORY_DTYPE names, else f32) and the initial rng key data."""
+    $REPRO_HISTORY_DTYPE names, else f32), the initial rng key data and
+    the regularizer's generator seeded from it."""
     from repro_torch.gnn.model import init_gnn
 
     cfg = plan.config
@@ -231,9 +243,10 @@ def init_state(plan: GASPlan, params=None) -> GASState:
                                 plan.spec.hist_dims(),
                                 history_dtype=cfg.history_dtype,
                                 device=plan.device)
+    rng = np.array([0, cfg.seed + 1], np.uint32)
     return GASState(params=params, opt_state=adamw_init(params),
-                    histories=store,
-                    rng=np.array([0, cfg.seed + 1], np.uint32))
+                    histories=store, rng=rng,
+                    gen=noise_generator(rng, plan.device))
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -257,19 +270,24 @@ def grads_and_metrics(plan: GASPlan, state: GASState, batch: GASBatch
                       ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """The step's forward and backward without the update: the gradients
     (a list in `tree_leaves(params)` order, unclipped) and the metrics.
-    The history pushes of the forward land in `state.histories`."""
+    The loss is `ce + spec.reg_weight * reg`, the reference's. The
+    history pushes of the forward land in `state.histories`."""
     from repro_torch.gnn.model import gas_batch_forward
 
-    cfg = plan.config
+    cfg, spec = plan.config, plan.spec
+    if state.gen is None:
+        state.gen = noise_generator(state.rng, plan.device)
     params, leaves = grad_leaves(state.params)
     logits, _, diags = gas_batch_forward(
-        params, plan.spec, plan.x, batch, state.histories,
-        use_history=cfg.use_history, fuse_halo=cfg.fuse_halo)
+        params, spec, plan.x, batch, state.histories,
+        use_history=cfg.use_history, fuse_halo=cfg.fuse_halo,
+        gen=state.gen, halo_age_decay=cfg.halo_age_decay)
+    reg = diags.pop("reg")
     ce, acc = _loss(plan, logits, batch)
-    grads = list(torch.autograd.grad(ce, leaves))
-    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
-    metrics = {"loss": ce.detach(), "ce": ce.detach(), "acc": acc,
-               "reg": zero, **diags}
+    loss = ce + spec.reg_weight * reg
+    grads = list(torch.autograd.grad(loss, leaves))
+    metrics = {"loss": loss.detach(), "ce": ce.detach(), "acc": acc,
+               "reg": reg.detach(), **diags}
     return grads, metrics
 
 
@@ -357,7 +375,8 @@ def predict(plan: GASPlan, state: GASState) -> torch.Tensor:
         batch = plan.batch(b)
         logits, store, _ = gas_batch_forward(
             state.params, plan.spec, plan.x, batch, store,
-            use_history=cfg.use_history, fuse_halo=cfg.fuse_halo)
+            use_history=cfg.use_history, fuse_halo=cfg.fuse_halo,
+            halo_age_decay=cfg.halo_age_decay)
         safe = torch.where(batch.batch_mask, batch.batch_nodes.long(),
                            torch.full_like(batch.batch_nodes.long(), N))
         # each node lives in exactly one cluster: order-independent

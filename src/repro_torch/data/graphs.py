@@ -13,6 +13,7 @@ Two families matched to the paper's benchmarks:
     node per community that reveals its label, so solving the task REQUIRES
     multi-hop message passing (this is the expressiveness testbed).
 
+`wl_counterexample` builds Proposition 3's pair of 4-node graphs.
 Graphs are undirected, stored as numpy CSR; GNN code consumes COO.
 """
 from __future__ import annotations
@@ -155,3 +156,29 @@ def sbm_cluster_graph(num_nodes: int = 1200, num_communities: int = 6,
     sm = ~(tm | vm)
     return Graph(indptr, indices, x, y, tm, vm, sm, k)
 
+
+def wl_counterexample() -> Tuple[Graph, Graph]:
+    """Proposition 3's construction. 4-cycle 0-1-2-3 with colors
+    x0 = x2 = A, x1 = C1, x3 = C2: nodes 0 and 2 both see the neighbor
+    multiset {C1, C2}, so one WL round assigns them the SAME color. A
+    1-neighbor sampled variant (with degree rescaling) where node 0 keeps
+    C1 and node 2 keeps C2 gives them DIFFERENT aggregates — a
+    non-equivalent coloring."""
+    n = 4
+    edges = np.array([[i, (i + 1) % n] for i in range(n)])
+    edges = _symmetrize(edges)
+    indptr, indices = _to_csr(n, edges)
+    x = np.zeros((n, 3), np.float32)
+    x[0, 0] = x[2, 0] = 1.0        # color A
+    x[1, 1] = 1.0                  # color C1
+    x[3, 2] = 1.0                  # color C2
+    y = np.zeros(n, np.int32)
+    m = np.ones(n, bool)
+    g = Graph(indptr, indices, x, y, m, m, m, 2)
+
+    # sampled adjacency: node 0 keeps neighbor 1, node 2 keeps neighbor
+    # 3, odd nodes keep their first neighbor
+    keep = np.array([[0, 1], [2, 3], [1, 0], [3, 0]])
+    ip2, id2 = _to_csr(n, keep)
+    g2 = Graph(ip2, id2, x, y, m, m, m, 2)
+    return g, g2

@@ -1,17 +1,20 @@
-"""Message-passing operators over padded GAS subgraphs — GCN, GAT and PNA.
+"""Message-passing operators over padded GAS subgraphs — the reference's
+six: GCN, GIN, GAT, GCNII, APPNP and PNA.
 
-The port of the GCN, GAT and PNA parts of `repro.gnn.layers`, with the
-reference's calling convention:
+The port of `repro.gnn.layers`, with the reference's calling convention:
 
     apply(params, x_all, edges, edge_w, n_out, blocks=None) -> [n_out, d_out]
 
 where `x_all` holds the in-batch rows 0..n_out-1, then the halo rows and
 one all-zero dummy row. Aggregation goes through `kernels.ops`: the BCSR
 kernel when the batch's `blocks` are given, the plain COO sum otherwise.
-The post-aggregation transform is `gcn_combine`, shared with the fused
-halo path (`gnn.model._fused_prop`). Its product stays in `torch.matmul`,
-as the reference leaves it to XLA outside every Pallas kernel; on CUDA it
-runs in full f32 (`core.config.resolve_device` turns TF32 off).
+Each fixed-weight operator's post-aggregation transform (`gcn_combine`,
+`gin_combine`, `gcnii_combine`, `appnp_combine`) is shared with the
+fused halo path (`gnn.model._fused_prop`). GIN sums its neighbors with
+unit weights: over the COO it strips the edge weights to 0/1, on blocks
+it reads the unit-weight family. Products stay in `torch.matmul`, as
+the reference leaves them to XLA outside every Pallas kernel; on CUDA
+they run in full f32 (`core.config.resolve_device` turns TF32 off).
 
 GAT splits into the per-node `gat_transform` (head-split values and the
 two additive logit halves), the edge softmax (`ops.edge_softmax_aggregate`:
@@ -22,9 +25,7 @@ concatenated).
 PNA splits the same way: `pna_transform` (the two per-node halves of
 its edge MLP), the multi-aggregator reduction (`ops.pna_reduce`: the
 CUDA kernels over the unit-weight blocks, or the segment reduction over
-the COO) and `pna_combine` (degree scalers and the readout MLP). The
-other operators of the reference's zoo (GIN, GCNII, APPNP) are not
-ported yet (ROADMAP Queue A item 2).
+the COO) and `pna_combine` (degree scalers and the readout MLP).
 """
 from __future__ import annotations
 
@@ -60,6 +61,43 @@ def gcn(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
         n_out: int, *, blocks=None) -> torch.Tensor:
     agg = ops.gcn_aggregate(x_all, edges, edge_w, n_out, blocks)
     return gcn_combine(params, agg)
+
+
+# ---------------------------------------------------------------------------
+# GIN (Xu et al. 2019): sum aggregation + MLP
+# ---------------------------------------------------------------------------
+
+def init_gin(gen: torch.Generator, d_in: int, d_out: int,
+             d_hidden: int = 0) -> Params:
+    """Glorot `w1` [d_in, h] and `w2` [h, d_out] (h = d_hidden or d_out),
+    zero biases and a 0-d `eps` (the reference's shapes and
+    distributions, drawn on the CPU from `gen`)."""
+    d_hidden = d_hidden or d_out
+    return {"w1": _glorot(gen, (d_in, d_hidden)),
+            "b1": torch.zeros((d_hidden,), dtype=torch.float32),
+            "w2": _glorot(gen, (d_hidden, d_out)),
+            "b2": torch.zeros((d_out,), dtype=torch.float32),
+            "eps": torch.zeros((), dtype=torch.float32)}
+
+
+def gin_mlp(params: Params, h: torch.Tensor) -> torch.Tensor:
+    h = torch.relu(h @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
+def gin_combine(params: Params, x_in: torch.Tensor,
+                agg: torch.Tensor) -> torch.Tensor:
+    return gin_mlp(params, (1.0 + params["eps"]) * x_in + agg)
+
+
+def gin(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
+        n_out: int, *, blocks=None) -> torch.Tensor:
+    """`blocks` are the unit-weight family (`batch.ublocks`): GIN's
+    unweighted neighbor sum is the same SpMM over them; over the COO the
+    valid edges' weights become 1."""
+    uw = (edge_w > 0).to(edge_w.dtype)
+    agg = ops.gcn_aggregate(x_all, edges, uw, n_out, blocks)
+    return gin_combine(params, x_all[:n_out], agg)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +161,44 @@ def gat(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
     att = ops.edge_softmax_aggregate(wx, a_d, a_s, edges, edge_w, n_out,
                                      ublocks)
     return gat_combine(att)
+
+
+# ---------------------------------------------------------------------------
+# GCNII (Chen et al. 2020): initial residual + identity map
+# ---------------------------------------------------------------------------
+
+def init_gcnii(gen: torch.Generator, d: int) -> Params:
+    return {"w": _glorot(gen, (d, d))}
+
+
+def gcnii_combine(params: Params, agg: torch.Tensor, x0_b: torch.Tensor,
+                  alpha: float, beta: float) -> torch.Tensor:
+    """`alpha` and `beta` are Python floats, as in the reference."""
+    sup = (1.0 - alpha) * agg + alpha * x0_b
+    return (1.0 - beta) * sup + beta * (sup @ params["w"])
+
+
+def gcnii(params: Params, x_all: torch.Tensor, edges, edge_w: torch.Tensor,
+          n_out: int, x0: torch.Tensor, alpha: float, beta: float, *,
+          blocks=None) -> torch.Tensor:
+    agg = ops.gcn_aggregate(x_all, edges, edge_w, n_out, blocks)
+    return gcnii_combine(params, agg, x0[:n_out], alpha, beta)
+
+
+# ---------------------------------------------------------------------------
+# APPNP (Klicpera et al. 2019): fixed propagation of MLP predictions
+# ---------------------------------------------------------------------------
+
+def appnp_combine(agg: torch.Tensor, h0_b: torch.Tensor,
+                  alpha: float) -> torch.Tensor:
+    return (1.0 - alpha) * agg + alpha * h0_b
+
+
+def appnp_prop(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
+               n_out: int, h0: torch.Tensor, alpha: float, *,
+               blocks=None) -> torch.Tensor:
+    agg = ops.gcn_aggregate(x_all, edges, edge_w, n_out, blocks)
+    return appnp_combine(agg, h0[:n_out], alpha)
 
 
 # ---------------------------------------------------------------------------

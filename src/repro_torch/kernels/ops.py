@@ -12,7 +12,8 @@ here pads or copies an operand.
 
 The reference's custom VJPs are `torch.autograd.Function`s here, whose
 backwards are kernels too: `spmm` / `gcn_aggregate` and `gas_aggregate`
-run `bcsr_spmm` on the transposed blocks, `edge_softmax_aggregate` runs
+run `bcsr_spmm` on the transposed blocks (`gas_aggregate`'s float table
+takes its gradient from the same product), `edge_softmax_aggregate` runs
 GAT's row and column backward kernels, and `pna_reduce` PNA's. The
 adjacency blocks are constants (zero cotangent), as in the reference.
 None of them saves a history table for the backward: the forward pushes
@@ -143,13 +144,14 @@ def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
 
 class _GasAggregate(torch.autograd.Function):
     """out = A @ [x_in ; dequant(table)[halo] * mask ; 0] without the
-    bracket; dx_in = (A^T @ g)[:n_in] on the transposed blocks
-    (`ops.py:246-300` of the reference). The table, its scales and a vq
-    codebook get no gradient: a quantized table's cotangents (the
-    codebook's included) are the reference's hard zeros, and a float
-    table's is live only in the unported GCNII/APPNP.
-    Only a row count is kept for the backward, never the table, which
-    later pushes overwrite in place."""
+    bracket; its cotangent is one `bcsr_spmm` on the transposed blocks,
+    split by row range (`ops.py:246-300` of the reference): rows < n_in
+    are dx_in, the next max_h rows, times the halo mask, are index-added
+    into a zero table at the halo ids (masked slots dropped), which is a
+    float table's gradient. A quantized table, its scales and a vq
+    codebook get none (the reference's hard zeros). Only the halo ids,
+    the mask and the shapes are kept for the backward, never the table,
+    which later pushes overwrite in place."""
 
     @staticmethod
     def forward(ctx, x_in, table, scales, codebook, halo_nodes, halo_mask,
@@ -158,7 +160,11 @@ class _GasAggregate(torch.autograd.Function):
         sel, xrow, trow = gather_plan(blk_cols, halo_nodes, halo_mask,
                                       x_in.shape[0], table.shape[0], bn)
         ctx.n_in = x_in.shape[0]
+        ctx.table_shape = tuple(table.shape)
+        ctx.table_dtype = table.dtype
         ctx.blocks_t = (blk_vals_t, blk_cols_t)
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(halo_nodes, halo_mask)
         return gather_spmm(x_in, table, blk_vals, blk_cols, sel, xrow, trow,
                            scales, codebook)
 
@@ -171,7 +177,19 @@ class _GasAggregate(torch.autograd.Function):
                 "the batch with them (core.gas.build_batches(build_blocks="
                 "True))")
         dx_all = bcsr_spmm(g.contiguous(), vals_t, cols_t)
-        return (dx_all[:ctx.n_in],) + (None,) * 9
+        dtable = None
+        if ctx.needs_input_grad[1]:
+            halo_nodes, halo_mask = ctx.saved_tensors
+            n_in, max_h = ctx.n_in, halo_nodes.shape[0]
+            dh = dx_all[n_in:n_in + max_h] * halo_mask[:, None]
+            dtable = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
+                                 device=dx_all.device)
+            # a masked slot adds its zero row to row 0 (no host sync to
+            # drop it)
+            idx = torch.where(halo_mask, halo_nodes.long().clamp(
+                0, ctx.table_shape[0] - 1), 0)
+            dtable.index_add_(0, idx, dh.to(ctx.table_dtype))
+        return (dx_all[:ctx.n_in], dtable) + (None,) * 8
 
 
 def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
@@ -186,16 +204,10 @@ def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
     `scales` [N] f32, or vq codes with `scales` and `codebook` [S, 256, 8],
     dequantized or decoded as they are staged) and zeros elsewhere.
     `blocks` is (blk_vals, blk_cols[, blk_vals_t, blk_cols_t]).
-    Differentiable w.r.t. x_in (the backward is `bcsr_spmm` on the
-    transposed pair); a quantized table and its codebook get no gradient
-    (the reference's hard zeros), and a float table's gradient is live
-    only in GCNII/APPNP, which are not ported (ROADMAP Queue A item 2), so
-    a table that requires grad raises."""
-    if table.requires_grad:
-        raise NotImplementedError(
-            "gas_aggregate does not differentiate the table: its gradient "
-            "is live only for GCNII/APPNP layer-0 halo transforms, which are "
-            "not ported yet (ROADMAP Queue A item 2)")
+    Differentiable w.r.t. x_in and a float (f32 or bf16) table, both by
+    `bcsr_spmm` on the transposed pair; a quantized table and its
+    codebook get no gradient (the reference's hard zeros; integer tensors
+    cannot require one)."""
     t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
     return _GasAggregate.apply(x_in, table, scales, codebook, halo_nodes,
                                halo_mask, blocks[0], blocks[1], *t)[:n_out]

@@ -1,17 +1,20 @@
 """Train a GNN with GAS and its full-batch baseline: the port's quickstart.
 
 The counterpart of `examples/quickstart.py`: the synthetic citation graph
-(homophily 0.75, feature noise 2.0, seed 0), a 2-layer model with
+(homophily 0.75, feature noise 2.0, seed 0), a model with
 `d_hidden=64` (GAT: 8 heads of 8, one output head; PNA: table 5's
 `gas-pna` spec, `d_hidden=48` and `log_deg_mean=1.8`, as
-`benchmarks/table5_baselines.py` runs it), histories stored at
+`benchmarks/table5_baselines.py` runs it) at table 1's depths
+(`benchmarks/table1_full_vs_gas.py`: 2, APPNP 5, GCNII 8, and GIN's 4
+of table 2; alpha 0.1), histories stored at
 `--history-dtype` (f32, bf16, int8 or vq), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
 training, then both test accuracies from the exact full-graph forward
 and the GAS one from `predict` beside them, with the history store's
 bytes, its compression against f32 and the last epoch's
 `hist_quant_err`.
 
-    python -m repro_torch.launch.train_gas [--op gcn|gat|pna] [--nodes N]
+    python -m repro_torch.launch.train_gas
+        [--op gcn|gin|gat|gcnii|appnp|pna] [--nodes N]
         [--features F] [--classes C] [--parts P] [--epochs E]
         [--history-dtype f32|bf16|int8|vq] [--device cuda|cpu] [--smoke]
 
@@ -31,8 +34,12 @@ import torch
 from repro_torch.core import runtime as R
 from repro_torch.core.config import resolve_device
 from repro_torch.data.graphs import citation_graph
-from repro_torch.gnn.model import GNNSpec
+from repro_torch.gnn.model import OPS, GNNSpec
 from repro_torch.train.gas_trainer import FullBatchTrainer, TrainConfig
+
+
+# each op's default depth: table 1's (table 2's for GIN)
+DEPTH = {"gcn": 2, "gat": 2, "pna": 2, "gin": 4, "appnp": 5, "gcnii": 8}
 
 
 def _sync(device: torch.device) -> None:
@@ -42,7 +49,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--op", choices=("gcn", "gat", "pna"), default="gcn")
+    ap.add_argument("--op", choices=OPS, default="gcn")
     ap.add_argument("--nodes", type=int, default=2500)
     ap.add_argument("--features", type=int, default=128)
     ap.add_argument("--classes", type=int, default=7)
@@ -67,8 +74,9 @@ def main(argv=None) -> dict:
           f"{graph.num_classes} classes; device {device}")
     spec = GNNSpec(op=args.op, d_in=args.features,
                    d_hidden=48 if args.op == "pna" else 64,
-                   num_classes=args.classes, num_layers=2, heads=8,
-                   log_deg_mean=1.8 if args.op == "pna" else 1.0)
+                   num_classes=args.classes,
+                   num_layers=DEPTH[args.op], heads=8,
+                   alpha=0.1, log_deg_mean=1.8 if args.op == "pna" else 1.0)
 
     t0 = time.perf_counter()
     full = FullBatchTrainer(graph, spec, TrainConfig(epochs=args.epochs),

@@ -5,8 +5,12 @@ the path strings of the flattened `GASState`:
 
     state/params/layers/{i}/{w,b}            (GCN)
     state/params/layers/{i}/{w,a_src,a_dst}  (GAT)
+    state/params/layers/{i}/{w1,b1,w2,b2,eps}  (GIN; eps is 0-d)
+    state/params/layers/{i}/w                (GCNII)
     state/params/layers/{i}/{w1,b1,w2,b2}    (PNA)
-    state/params/head/{w,b}                  (PNA's readout)
+    state/params/w_in/{w,b}                  (GCNII's input projection)
+    state/params/mlp/{w1,b1,w2,b2}           (APPNP's MLP; no layers)
+    state/params/head/{w,b}                  (GIN's, GCNII's, PNA's readout)
     state/opt_state/step                     () int32
     state/opt_state/{m,v}/layers/{i}/...     the AdamW moments
     state/histories/tables/{l}               [N+1, d] f32, int8 codes,
@@ -49,8 +53,11 @@ import torch
 from repro_torch.core.config import resolve_device
 from repro_torch.core.history import HistoryStore, get_codec
 
+_LEAF = r"(w|b|a_src|a_dst|w1|b1|w2|b2|eps)"
 _PARAM_KEY = re.compile(
-    r"(?:^|/)(?:layers/(\d+)/(w|b|a_src|a_dst|w1|b1|w2|b2)|head/(w|b))$")
+    rf"(?:^|/)(?:layers/(\d+)/{_LEAF}|(head|w_in|mlp)/{_LEAF})$")
+# the dicts beside the layer list, each op's
+_SIDE_DICTS = ("head", "w_in", "mlp")
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray],
@@ -58,29 +65,31 @@ def params_from_numpy(flat: Mapping[str, np.ndarray],
     """{"layers/0/w": array, "layers/0/b": array, ...} (keys as the
     reference flattens its param tree; a prefix ending in "params/" or
     "state/opt_state/m/" etc. is accepted) -> {"layers": [{"w": tensor,
-    "b": tensor}, ...]} on `device` (None means "cuda"), with a "head"
-    dict where the keys hold one. GCN layers hold w and b, GAT layers w,
-    a_src and a_dst, PNA layers w1, b1, w2 and b2 beside a head/{w,b}."""
+    "b": tensor}, ...]} on `device` (None means "cuda"), with a "head",
+    "w_in" or "mlp" dict where the keys hold one. GCN layers hold w and
+    b, GAT layers w, a_src and a_dst, GIN layers w1, b1, w2, b2 and a 0-d
+    eps, GCNII layers w beside w_in/{w,b}, PNA layers w1, b1, w2 and b2;
+    GIN, GCNII and PNA have a head/{w,b}, and APPNP has no layers but an
+    mlp/{w1,b1,w2,b2}."""
     dev = resolve_device(device)
     layers: Dict[int, Dict[str, torch.Tensor]] = {}
-    head: Dict[str, torch.Tensor] = {}
+    side: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, arr in flat.items():
         m = _PARAM_KEY.search(key)
         if m is None:
             raise KeyError(f"unsupported param key {key!r} (the port "
-                           "holds GCN, GAT and PNA params: layers/{i}/ w "
-                           "and b, or w, a_src and a_dst, or w1, b1, w2 and "
-                           "b2; head/ w and b)")
+                           "holds layers/{i}/ w, b, a_src, a_dst, w1, b1, "
+                           "w2, b2 and eps, and head/, w_in/ and mlp/ "
+                           "dicts of those)")
         t = torch.from_numpy(np.array(arr, np.float32)).to(dev)
         if m.group(3) is not None:
-            head[m.group(3)] = t
+            side.setdefault(m.group(3), {})[m.group(4)] = t
         else:
             layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
     if sorted(layers) != list(range(len(layers))):
         raise KeyError(f"layer indices {sorted(layers)} are not 0..L-1")
     out: Dict[str, Any] = {"layers": [layers[i] for i in range(len(layers))]}
-    if head:
-        out["head"] = head
+    out.update(side)
     return out
 
 
@@ -164,8 +173,9 @@ def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
     flat = {f"{prefix}layers/{i}/{k}": v.detach().cpu().numpy()
             for i, layer in enumerate(params["layers"])
             for k, v in layer.items()}
-    flat.update({f"{prefix}head/{k}": v.detach().cpu().numpy()
-                 for k, v in params.get("head", {}).items()})
+    flat.update({f"{prefix}{name}/{k}": v.detach().cpu().numpy()
+                 for name in _SIDE_DICTS
+                 for k, v in params.get(name, {}).items()})
     return flat
 
 
@@ -207,7 +217,7 @@ def load_gas_state(path: str, device=None,
     """Read a whole training state written by either package's
     `save_gas_state`: returns (`core.runtime.GASState`, step) on `device`
     (None means "cuda"); `history_dtype` as in `load_gas_state_npz`."""
-    from repro_torch.core.runtime import GASState
+    from repro_torch.core.runtime import GASState, noise_generator
     from .optimizer import AdamWState
 
     dev = resolve_device(device)
@@ -222,8 +232,9 @@ def load_gas_state(path: str, device=None,
                              if k.startswith("state/opt_state/m/")}, dev),
         v=params_from_numpy({k: v for k, v in flat.items()
                              if k.startswith("state/opt_state/v/")}, dev))
-    return GASState(params=params, opt_state=opt, histories=store,
-                    rng=np.asarray(flat["state/rng"], np.uint32)), step
+    rng = np.asarray(flat["state/rng"], np.uint32)
+    return GASState(params=params, opt_state=opt, histories=store, rng=rng,
+                    gen=noise_generator(rng, dev)), step
 
 
 def _tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:

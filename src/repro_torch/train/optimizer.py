@@ -97,10 +97,14 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Scale the gradient list so its global L2 norm is at most
     `max_norm`; returns (clipped, norm). The squares are summed leaf by
-    leaf in order, as the reference's Python `sum` does."""
-    gn = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    leaf in order, as the reference's Python `sum` does, in float64, and
+    the norm is rounded to float32 once: the card and the CPU, which sum
+    a leaf in other orders, then agree on the norm to the last bit (in
+    float32 they differ by ulps, and the clipped gradients and the AdamW
+    moments with them)."""
+    gn = torch.zeros((), dtype=torch.float64, device=grads[0].device)
     for g in grads:
-        gn = gn + torch.sum(torch.square(g.to(torch.float32)))
-    gn = torch.sqrt(gn)
+        gn = gn + torch.sum(torch.square(g.to(torch.float64)))
+    gn = torch.sqrt(gn).to(torch.float32)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return [g * scale.to(g.dtype) for g in grads], gn

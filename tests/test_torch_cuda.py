@@ -33,7 +33,11 @@ stays out of the output.
 `flash_decode` against its plain version at 1e-5 in f32 (the Pallas
 kernel's own tolerance) and in bf16 within 2e-2 of the largest
 |output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
-against the CPU's: logits at 1e-4, caches at 1e-5. `scatter_rows`, and
+against the CPU's: logits at 1e-4, caches at 1e-5. The operator zoo's
+training steps (GIN, GCNII, APPNP, and GIN with the Eq. 3 regularizer
+and the staleness decay), the f32 `gather_spmm` at d = 6 and 48 over
+forward and unit-weight training blocks, the row kernels at d = 6, and
+`gas_aggregate`'s float-table gradient against the CPU's. `scatter_rows`, and
 `scatter_rows_q`'s codes and scales, bitwise over the whole table on
 both of their paths (the one-launch scan and the claim passes past
 SCAN_MAX_ROWS rows)."""
@@ -402,8 +406,9 @@ def test_autograd_functions_launch_their_kernels(dev):
         torch.testing.assert_close(y, x, **TOL)
 
 
-@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
-def test_train_step_on_card_matches_cpu(dev, op):
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna", "gin", "gcnii",
+                                "appnp", "gin+reg+decay"])
+def test_train_step_on_card_matches_cpu(dev, op, monkeypatch):
     """Two steps on both devices, each from the same state (the CPU state
     takes the card's before the second): loss, gradients and history
     tables at 1e-4. The update then runs on both devices from the card's
@@ -411,13 +416,26 @@ def test_train_step_on_card_matches_cpu(dev, op):
     level moves by lr one way and not the other in AdamW's first steps):
     params at lr * 1e-4 absolute, the moments at 1e-4 relative, as the
     clip's global norm sums the squares in another order on each
-    device."""
+    device. GIN, GCNII and APPNP run 3 layers (APPNP's tables are 4
+    wide); the last case turns on the Eq. 3 regularizer, whose noise
+    both states draw alike (one CPU generator each, seeded the same,
+    moved to the device), and `halo_age_decay`."""
+    import repro_torch.gnn.model as M
     g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
                        seed=1)
-    spec = GNNSpec(op=op, d_in=40, d_hidden=32, num_classes=4,
-                   num_layers=2, heads=4,
-                   log_deg_mean=1.8 if op == "pna" else 1.0)
-    cfg = R.GASConfig(num_parts=4)
+    base = op.split("+")[0]
+    extra = dict(reg_delta=0.05, reg_weight=0.05) if "reg" in op else {}
+    spec = GNNSpec(op=base, d_in=40, d_hidden=32, num_classes=4,
+                   num_layers=2 if base in ("gcn", "gat", "pna") else 3,
+                   heads=4, log_deg_mean=1.8 if op == "pna" else 1.0,
+                   **extra)
+    cfg = R.GASConfig(num_parts=4,
+                      halo_age_decay=0.3 if "decay" in op else 0.0)
+    gens = {}    # one CPU generator per state's generator
+    monkeypatch.setattr(M, "reg_noise", lambda gen, shape, device: torch.randn(
+        shape, generator=gens.setdefault(id(gen),
+                                         torch.Generator().manual_seed(7))
+    ).to(device))
     plans = {d: R.build_plan(g, spec, cfg, device=d) for d in ("cpu", dev)}
     states = {d: R.init_state(p) for d, p in plans.items()}
     for b in (0, 1):
@@ -492,7 +510,7 @@ def _quant_values(rng, m, d):
     return v
 
 
-@pytest.mark.parametrize("d", [256, 64, 20, 130])
+@pytest.mark.parametrize("d", [256, 64, 20, 130, 6])
 def test_int8_row_kernels_match_plain(dev, d):
     """`gather_rows_dq` and `scatter_rows_q` against their plain versions,
     bitwise: duplicate indices (last writer wins, for codes and scales
@@ -731,6 +749,90 @@ def test_gather_spmm_bodies_on_sparse_blocks(dev, body, d):
     assert _build.launch_counts[name] == before + 2
 
 
+@pytest.mark.parametrize("d", [6, 48])
+@pytest.mark.parametrize("family", ["forward", "unit"])
+def test_f32_gather_spmm_on_training_blocks(dev, family, d):
+    """The f32 body of `gather_spmm` at the operands of the zoo's fused
+    layers: d = 6 (APPNP's class-score tables, a row shorter than one
+    16-byte piece) and d = 48 (GIN and GCNII), over a training batch's
+    forward blocks and its unit-weight blocks (GIN's), then `bcsr_spmm`
+    on the transposed family (the backward); against the plain versions
+    at 1e-4, a warm repeat bitwise, one launch each."""
+    from repro_torch.core import gas as G
+    from repro_torch.core.partition import metis_like_partition
+    g = citation_graph(num_nodes=600, num_features=8, num_classes=3,
+                       seed=4)
+    part = metis_like_partition(g.indptr, g.indices, 3)
+    b = G.build_batches(g, part, build_blocks=True,
+                        unit_weights=family == "unit").to("cpu")[0]
+    fam = b.unit if family == "unit" else b.forward
+    fam_t = b.unit_transposed if family == "unit" else b.transposed
+    rng = np.random.default_rng(d)
+    n_table = g.num_nodes + 1
+    x_in = torch.from_numpy(rng.normal(size=(b.max_b, d)).astype(np.float32))
+    table = torch.from_numpy(rng.normal(size=(n_table, d)).astype(np.float32))
+    plan = gather_plan(fam.cols, b.halo_nodes, b.halo_mask, b.max_b, n_table)
+    assert set(torch.unique(plan[0]).tolist()) == {0, 1, 2}
+    want = ref.gather_spmm_ref(x_in, table, fam.vals, fam.cols, *plan)
+    args = [t.to(dev) for t in (x_in, table, fam.vals, fam.cols, *plan)]
+    before = dict(_build.launch_counts)
+    got = gather_spmm(*args)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    assert torch.equal(gather_spmm(*args), got)
+    gcot = torch.from_numpy(rng.normal(size=tuple(want.shape)).astype(
+        np.float32))
+    dx = bcsr_spmm(gcot.to(dev), fam_t.vals.to(dev), fam_t.cols.to(dev))
+    torch.testing.assert_close(dx.cpu(), ref.bcsr_spmm_ref(
+        gcot, fam_t.vals, fam_t.cols), **TOL)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_spmm"] == before["gather_spmm"] + 2
+    assert _build.launch_counts["bcsr_spmm"] == before["bcsr_spmm"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gas_aggregate_table_gradient_on_card(dev, dtype):
+    """`ops.gas_aggregate` differentiated w.r.t. x_in and a float table on
+    the card against the same on the CPU (a real batch's blocks at
+    APPNP's d = 6): dx_in at 1e-4, the table's gradient (the transposed
+    product's halo rows index-added at the halo ids) at 1e-4 in f32 and
+    within one bf16 step in bf16; one `bcsr_spmm` launch for the
+    backward."""
+    from repro_torch.core import gas as G
+    from repro_torch.core.partition import metis_like_partition
+    g = citation_graph(num_nodes=600, num_features=8, num_classes=3,
+                       seed=5)
+    part = metis_like_partition(g.indptr, g.indices, 3)
+    b = G.build_batches(g, part, build_blocks=True).to("cpu")[1]
+    rng = np.random.default_rng(11)
+    d, n_table = 6, g.num_nodes + 1
+    x_in = torch.from_numpy(rng.normal(size=(b.max_b, d)).astype(np.float32))
+    table = torch.from_numpy(rng.normal(size=(n_table, d)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(b.max_b, d)).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev):
+        on = lambda t: t.to(where)  # noqa: E731
+        xi = on(x_in).requires_grad_(True)
+        tb = on(table).to(dtype).requires_grad_(True)
+        blocks = tuple(on(t) for t in b.blocks)
+        res = ops.gas_aggregate(xi, tb, on(b.halo_nodes), on(b.halo_mask),
+                                b.max_b, blocks)
+        before = _build.launch_counts["bcsr_spmm"]
+        grads = torch.autograd.grad((res.float() * on(cot)).sum(), (xi, tb))
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert _build.launch_counts["bcsr_spmm"] == before + 1
+        out[str(where)] = [t.detach().float().cpu() for t in (res,) + grads]
+    (o_c, dx_c, dt_c), (o_k, dx_k, dt_k) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(o_k, o_c, **(TOL if dtype == torch.float32
+                                            else dict(rtol=1e-3, atol=1e-3)))
+    torch.testing.assert_close(dx_k, dx_c, **TOL)
+    assert dt_c.abs().sum() > 0
+    if dtype == torch.float32:
+        torch.testing.assert_close(dt_k, dt_c, **TOL)
+    else:
+        torch.testing.assert_close(dt_k, dt_c, rtol=2.0 ** -7, atol=1e-4)
+
+
 @pytest.mark.parametrize("kernel", ["bcsr_spmm", "gather_spmm"])
 def test_contraction_skips_zero_entries_of_non_finite_rows(dev, kernel):
     """The kernels' one departure from the plain version: a non-finite row
@@ -797,21 +899,27 @@ def _vq_values(rng, m, d, cb):
     return v
 
 
-def _device_kernels(fn):
+def _device_kernels(fn, windows=3):
     """The names of the device kernels one call of `fn` ran
     (torch.profiler). A marker kernel (`torch.cuda._sleep`'s
     `spin_kernel`) runs first in the window and is left out: late in a
-    long run the profiler drops the first device event of a window."""
+    long run the profiler drops the first device event of a window. A
+    window in which it saw no device event at all, the marker included,
+    observed nothing (it can go blind late in a long run) and is taken
+    again, up to `windows` windows; `fn` must be safe to repeat."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda._sleep(1000)
-        fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "spin_kernel" not in e.name]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return [n for n in names if "spin_kernel" not in n]
 
 
 # entries of the test codebook made exact copies of lower ones (tie ->
@@ -1102,7 +1210,7 @@ def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d", [(1, 256), (37, 20), (37, 256), (4096, 256),
-                                 (4097, 256)])
+                                 (4097, 256), (37, 6), (150, 6)])
 def test_scatter_rows_last_writer_matches_plain(dev, dtype, m, d):
     """`scatter_rows` against its plain version, bitwise over the whole
     table, the sentinel row included: duplicate valid indices (the last

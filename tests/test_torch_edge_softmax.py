@@ -226,7 +226,8 @@ def test_gcn_aggregate_grad_matches_jax():
 def test_gas_aggregate_grad_matches_jax_and_keeps_no_table():
     """The fused aggregation's x_in gradient, and the in-place push rule:
     overwriting the table between forward and backward must not make
-    autograd raise, since the Function saves no table."""
+    autograd raise, since the Function saves no table; then a float
+    table's gradient."""
     blocks, halo, hmask, rng = _gcn_problem(seed=5)
     n_out, d, n_table = 260, 20, 501
     x_in = rng.normal(size=(n_out, d)).astype(np.float32)
@@ -247,6 +248,17 @@ def test_gas_aggregate_grad_matches_jax_and_keeps_no_table():
                     torch.ones(5, d), torch.ones(5, dtype=torch.bool))
     (t_dx,) = torch.autograd.grad((out * T(cot)).sum(), (tx,))
     np.testing.assert_allclose(t_dx.numpy(), np.asarray(r_dx), **BWD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ops.gas_aggregate(tx, tt.requires_grad_(True), T(halo), T(hmask),
-                            n_out, tuple(T(a) for a in blocks))
+    # a float table that requires grad gets the reference's table
+    # gradient (`_gather_spmm_bwd`'s index-add at the halo ids), and the
+    # Function still saves no table
+    r_dt = jax.grad(lambda t: jnp.sum(r_ops.gas_aggregate(
+        J(x_in), t, J(halo), J(hmask), n_out, tuple(map(J, blocks)),
+        backend="interpret") * cot))(J(table))
+    tg = T(table.copy()).requires_grad_(True)
+    out = t_ops.gas_aggregate(tx, tg, T(halo), T(hmask), n_out,
+                              tuple(T(a) for a in blocks))
+    with torch.no_grad():
+        t_ops.push_rows(tg, T(np.arange(5, dtype=np.int32)),
+                        torch.zeros(5, d), torch.ones(5, dtype=torch.bool))
+    (t_dt,) = torch.autograd.grad((out * T(cot)).sum(), (tg,))
+    np.testing.assert_allclose(t_dt.numpy(), np.asarray(r_dt), **BWD)

@@ -94,9 +94,13 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
+    # every operator trains; serving carries GCN-weighted blocks only
     spec = t_model.GNNSpec(op="gin", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
+    t_model.init_gnn(spec, device="cpu")
+    g = citation_graph(num_nodes=50, num_features=4, num_classes=2, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.init_gnn(spec, device="cpu")
+        t_serve.build_serve_plan(g, spec, t_serve.ServeConfig(),
+                                 device="cpu")
     with pytest.raises(ValueError, match="history_dtype"):
         HistoryStore.create(5, [4], history_dtype="f16", device="cpu")

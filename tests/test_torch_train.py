@@ -18,12 +18,14 @@ m / sqrt(v) is sign(g)). Two epochs' per-epoch mean losses compare at
 apart by such flips), and the exact accuracies at 2 test nodes.
 
 `python tests/test_torch_train.py --reference-acc [PARTITIONS.npz]
-[--history-dtype f32|bf16|int8|vq] [--op gcn|gat|pna] [--perturb N ...]`
-prints the reference's GAS test accuracy for chip_smoke.py's training
-configurations, from the port's initial params (moved by one ulp for
-each `--perturb N > 0`), on this host's partitions or on the ones in the
-file (see `reference_accuracy`), over a store of the given precision (a vq
-store from the port's initial codebooks);
+[--history-dtype f32|bf16|int8|vq] [--op CONFIG] [--perturb N ...]
+[--rng-key N ...]` prints the reference's GAS test accuracy for
+chip_smoke.py's training configurations (`CONFIGS`), from the port's
+initial params (moved by one ulp for each `--perturb N > 0`, and with
+the state's rng key replaced for each `--rng-key N`), on this host's
+partitions or on the ones in the file (see `reference_accuracy`), over a
+store of the given precision (a vq store from the port's initial
+codebooks);
 `--port-acc` runs the same on the port, on the CPU, and `--trajectory
 EPOCHS` prints both packages' per-epoch mean losses side by side."""
 import dataclasses
@@ -40,6 +42,7 @@ from repro.core import gas as r_gas
 from repro.core import partition as r_part
 from repro.core import runtime as r_rt
 from repro.data.graphs import citation_graph as r_citation
+from repro.data.graphs import sbm_cluster_graph as r_sbm
 from repro.gnn import model as r_model
 from repro.train import checkpoint as r_ckpt
 from repro.train import optimizer as r_opt
@@ -48,6 +51,7 @@ from repro_torch.core import gas as t_gas
 from repro_torch.core import partition as t_part
 from repro_torch.core import runtime as t_rt
 from repro_torch.data.graphs import citation_graph as t_citation
+from repro_torch.data.graphs import sbm_cluster_graph as t_sbm
 from repro_torch.gnn import model as t_model
 from repro_torch.train import checkpoint as t_ckpt
 from repro_torch.train import optimizer as t_opt
@@ -62,13 +66,15 @@ def _graphs(seed=0, n=N, f=F, c=C, **kw):
     return r_citation(**kw), t_citation(**kw)
 
 
-def _flat(params):
-    flat = {f"layers/{i}/{k}": np.asarray(v)
-            for i, layer in enumerate(params["layers"])
-            for k, v in layer.items()}
-    flat.update({f"head/{k}": np.asarray(v)
-                 for k, v in params.get("head", {}).items()})
-    return flat
+def _flat(params, prefix=""):
+    """A params tree as flat "layers/0/w"-style keys of numpy arrays."""
+    if isinstance(params, dict):
+        return {k2: v2 for k, v in params.items()
+                for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
+    if isinstance(params, list):
+        return {k2: v2 for i, v in enumerate(params)
+                for k2, v2 in _flat(v, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: np.asarray(params)}
 
 
 # ---------------------------------------------------------------------------
@@ -430,16 +436,12 @@ def test_unported_training_options_raise():
         t_rt.GASConfig(num_parts=2, prefetch_depth=1)
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         t_rt.GASConfig(num_parts=2, history_storage="host")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_rt.GASConfig(num_parts=2, halo_age_decay=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.GNNSpec(op="gat", d_in=4, d_hidden=8, num_classes=2,
-                        num_layers=2, reg_weight=0.1, reg_delta=0.1)
-    # fields that only the unported operators read
-    for kw in (dict(alpha=0.2), dict(lam=1.0)):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            t_model.GNNSpec(op="gcn", d_in=4, d_hidden=8, num_classes=2,
-                            num_layers=2, **kw)
+    # the staleness decay, the regularizer, alpha, lam and dropout take
+    # any value the reference takes
+    t_rt.GASConfig(num_parts=2, halo_age_decay=0.5)
+    t_model.GNNSpec(op="gat", d_in=4, d_hidden=8, num_classes=2,
+                    num_layers=2, reg_weight=0.1, reg_delta=0.1, alpha=0.2,
+                    lam=1.0, dropout=0.5)
     with pytest.raises(TypeError):
         t_rt.GASConfig(num_parts=2, fused_epoch=True)
     # serving carries GCN-weighted blocks only
@@ -455,49 +457,81 @@ def test_unported_training_options_raise():
 # ---------------------------------------------------------------------------
 
 def _reference_config(op: str):
-    """chip_smoke.py's graph and spec keywords for `op` (GCN: the
+    """chip_smoke.py's training configuration `op`: (the graph, the spec
+    keywords, the `GASConfig` keywords) for both packages (GCN: the
     quickstart; GAT: the Cora shape; PNA: table 5's `gas-pna` graph and
-    spec, `benchmarks/table5_baselines.py`)."""
-    if op == "gcn":
-        kw = dict(num_nodes=2500, num_features=128, num_classes=7,
-                  homophily=0.75, feature_noise=2.0, seed=0)
-    elif op == "gat":
-        kw = dict(num_nodes=2708, num_features=1433, num_classes=7, seed=0)
+    spec, `benchmarks/table5_baselines.py`; GCNII: its `gas-gcnii16` on
+    the same graph; GIN: table 2's `gin-4L-cluster`,
+    `benchmarks/table2_ablation.py`; GIN+reg: the deep-GNN example's GIN,
+    `examples/deep_gnn_large_graph.py`; APPNP: table 1's `appnp-5L`,
+    `benchmarks/table1_full_vs_gas.py`). The graph is a pair: the
+    reference's and the port's."""
+    cfg = dict(num_parts=16, epochs=60, lr=0.01)
+    spec = dict(op=op, d_hidden=64, num_layers=2, heads=8)
+    if op in ("gin", "gin+reg"):
+        kw = (dict(num_nodes=900, num_communities=6, seed=22) if op == "gin"
+              else dict(num_nodes=6000, num_communities=10, seed=2))
+        graphs = (r_sbm(**kw), t_sbm(**kw))
+        spec.update(op="gin", num_layers=4,
+                    d_hidden=48 if op == "gin" else 64)
+        if op == "gin":
+            cfg.update(num_parts=24, clusters_per_batch=8, epochs=80)
+        else:
+            spec.update(reg_delta=0.05, reg_weight=0.05)
+            cfg.update(num_parts=40, clusters_per_batch=10, epochs=40)
     else:
-        kw = dict(num_nodes=4000, num_features=64, num_classes=6,
-                  homophily=0.7, feature_noise=2.5, seed=80)
-    spec_kw = dict(op=op, d_in=kw["num_features"],
-                   d_hidden=48 if op == "pna" else 64,
-                   num_classes=kw["num_classes"], num_layers=2, heads=8,
-                   log_deg_mean=1.8 if op == "pna" else 1.0)
-    return kw, spec_kw
+        if op == "gcn":
+            kw = dict(num_nodes=2500, num_features=128, num_classes=7,
+                      homophily=0.75, feature_noise=2.0, seed=0)
+        elif op == "gat":
+            kw = dict(num_nodes=2708, num_features=1433, num_classes=7,
+                      seed=0)
+        elif op == "appnp":
+            kw = dict(num_nodes=1200, num_features=64, num_classes=6,
+                      homophily=0.72, feature_noise=2.2, seed=10)
+            spec.update(num_layers=5, alpha=0.1)
+            cfg.update(num_parts=8)
+        else:
+            kw = dict(num_nodes=4000, num_features=64, num_classes=6,
+                      homophily=0.7, feature_noise=2.5, seed=80)
+            spec.update(d_hidden=48)
+            if op == "pna":
+                spec.update(log_deg_mean=1.8)
+            else:
+                spec.update(num_layers=16, alpha=0.1)
+        graphs = (r_citation(**kw), t_citation(**kw))
+    spec.update(d_in=graphs[0].x.shape[1],
+                num_classes=graphs[0].num_classes)
+    return graphs, spec, cfg
 
 
-def reference_accuracy(op: str, epochs: int = 60, part=None,
-                       history_dtype: str = "f32", perturb: int = 0):
-    """The reference's exact accuracies after `epochs` GAS epochs on the
-    "jnp" backend for chip_smoke.py's configuration of `op`
-    (`_reference_config`), starting from the port's
-    `init_gnn(spec, seed=0)` params carried across, so that both runs
-    share graph, partition, initial weights and hyperparameters. `part`
-    replaces the partition this host computes (e.g. one computed on
-    another host, which may order equal degrees otherwise);
-    `history_dtype` is the store's precision (a vq store starts from the
-    port's initial codebooks). `perturb` > 0 moves every
+def reference_accuracy(op: str, epochs=None, part=None,
+                       history_dtype: str = "f32", perturb: int = 0,
+                       rng_key=None):
+    """The reference's exact accuracies after its epochs (60 unless the
+    configuration says otherwise, or `epochs`) on the "jnp" backend for
+    chip_smoke.py's configuration `op` (`_reference_config`), starting
+    from the port's `init_gnn(spec, seed=0)` params carried across, so
+    that both runs share graph, partition, initial weights and
+    hyperparameters. `part` replaces the partition this host computes
+    (e.g. one computed on another host, which may order equal degrees
+    otherwise); `history_dtype` is the store's precision (a vq store
+    starts from the port's initial codebooks). `perturb` > 0 moves every
     initial weight by one ulp, up or down as `default_rng(perturb)` draws:
     a run that differs from the unperturbed one by rounding alone, whose
-    accuracy shows how far such differences carry after `epochs` epochs.
-    Returns (the partition's digest as chip_smoke.py prints it,
-    accuracies)."""
-    kw, spec_kw = _reference_config(op)
-    g = r_citation(**kw)
+    accuracy shows how far such differences carry after the epochs.
+    `rng_key` replaces the state's key (`jax.random.key(rng_key)`; the
+    default is `init_state`'s seed + 1), which draws the Eq. 3
+    regularizer's noise. Returns (the partition's digest as chip_smoke.py
+    prints it, accuracies)."""
+    (g, _), spec_kw, cfg = _reference_config(op)
+    cfg.update(history_dtype=history_dtype, epochs=epochs or cfg["epochs"])
     real = r_rt.metis_like_partition
     if part is not None:
         r_rt.metis_like_partition = lambda *a, **k: np.asarray(part, np.int32)
     try:
         plan = r_rt.build_plan(g, r_model.GNNSpec(**spec_kw), r_rt.GASConfig(
-            num_parts=16, partitioner="metis", backend="jnp",
-            history_dtype=history_dtype, epochs=epochs, lr=0.01))
+            partitioner="metis", backend="jnp", **cfg))
     finally:
         r_rt.metis_like_partition = real
     tparams = t_model.init_gnn(t_model.GNNSpec(**spec_kw), seed=0,
@@ -505,8 +539,10 @@ def reference_accuracy(op: str, epochs: int = 60, part=None,
     params = jax.tree_util.tree_map(jnp.asarray, _nudged(tparams, perturb))
     state = r_rt.init_state(plan).replace(params=params,
                                           opt_state=r_opt.adamw_init(params))
+    if rng_key is not None:
+        state = state.replace(rng=jax.random.key(rng_key))
     state = _with_port_codebooks(state)
-    for e in range(epochs):
+    for e in range(cfg["epochs"]):
         state, _ = r_rt.train_epoch(plan, state, e)
     digest = hashlib.sha256(np.ascontiguousarray(
         plan.part, np.int32).tobytes()).hexdigest()[:12]
@@ -533,34 +569,37 @@ def _nudged(params, perturb: int):
     rng = np.random.default_rng(perturb)
 
     def nudge(a):
+        a = a.numpy().copy()
         if perturb:
             a = np.nextafter(a, np.where(rng.random(a.shape) < 0.5, -np.inf,
                                          np.inf).astype(np.float32))
         return a
 
-    out = {"layers": [{k: nudge(l[k].numpy().copy()) for k in sorted(l)}
-                      for l in params["layers"]]}
-    if "head" in params:
-        out["head"] = {k: nudge(params["head"][k].numpy().copy())
-                       for k in sorted(params["head"])}
-    return out
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [tree(v) for v in t]
+        return nudge(t)
+
+    return tree(params)
 
 
-def port_accuracy(op: str, epochs: int = 60, part=None,
-                  history_dtype: str = "f32", perturb: int = 0):
+def port_accuracy(op: str, epochs=None, part=None,
+                  history_dtype: str = "f32", perturb: int = 0,
+                  rng_key=None):
     """`reference_accuracy`'s run on the port, on the CPU: the same graph,
     partition, initial weights (one-ulp perturbations included) and
-    hyperparameters. Returns (the partition's digest, accuracies)."""
-    kw, spec_kw = _reference_config(op)
+    hyperparameters (`rng_key` seeds the port's own noise generator).
+    Returns (the partition's digest, accuracies)."""
+    (_, g), spec_kw, cfg = _reference_config(op)
+    cfg.update(history_dtype=history_dtype, epochs=epochs or cfg["epochs"])
     real = t_rt.metis_like_partition
     if part is not None:
         t_rt.metis_like_partition = lambda *a, **k: np.asarray(part, np.int32)
     try:
-        plan = t_rt.build_plan(t_citation(**kw), t_model.GNNSpec(**spec_kw),
-                               t_rt.GASConfig(num_parts=16,
-                                              partitioner="metis",
-                                              history_dtype=history_dtype,
-                                              epochs=epochs, lr=0.01),
+        plan = t_rt.build_plan(g, t_model.GNNSpec(**spec_kw),
+                               t_rt.GASConfig(partitioner="metis", **cfg),
                                device="cpu")
     finally:
         t_rt.metis_like_partition = real
@@ -569,7 +608,10 @@ def port_accuracy(op: str, epochs: int = 60, part=None,
     flat = _flat(_nudged(params, perturb))
     state = t_rt.init_state(plan, params=t_ckpt.params_from_numpy(flat,
                                                                   "cpu"))
-    for e in range(epochs):
+    if rng_key is not None:
+        state.gen = t_rt.noise_generator(np.array([0, rng_key], np.uint32),
+                                         "cpu")
+    for e in range(cfg["epochs"]):
         state, _ = t_rt.train_epoch(plan, state, e)
     digest = hashlib.sha256(np.ascontiguousarray(
         plan.part, np.int32).tobytes()).hexdigest()[:12]
@@ -583,18 +625,17 @@ def loss_trajectories(op: str, epochs: int, part=None,
     from the port's `init_gnn(spec, seed=0)` params on one partition
     (`part`, else this host's): where two trajectories that agree step by
     step part ways, and how fast. Returns [(port, reference), ...]."""
-    kw, spec_kw = _reference_config(op)
-    rg = r_citation(**kw)
+    (rg, tg), spec_kw, cfg = _reference_config(op)
+    cfg.update(partitioner="metis", history_dtype=history_dtype,
+               epochs=epochs)
     r_real, t_real = r_rt.metis_like_partition, t_rt.metis_like_partition
     if part is not None:
         fixed = lambda *a, **k: np.asarray(part, np.int32)  # noqa: E731
         r_rt.metis_like_partition = t_rt.metis_like_partition = fixed
     try:
-        cfg = dict(num_parts=16, partitioner="metis",
-                   history_dtype=history_dtype, epochs=epochs, lr=0.01)
         rplan = r_rt.build_plan(rg, r_model.GNNSpec(**spec_kw),
                                 r_rt.GASConfig(backend="jnp", **cfg))
-        tplan = t_rt.build_plan(t_citation(**kw), t_model.GNNSpec(**spec_kw),
+        tplan = t_rt.build_plan(tg, t_model.GNNSpec(**spec_kw),
                                 t_rt.GASConfig(**cfg), device="cpu")
     finally:
         r_rt.metis_like_partition, t_rt.metis_like_partition = r_real, t_real
@@ -613,10 +654,13 @@ def loss_trajectories(op: str, epochs: int, part=None,
     return out
 
 
+# chip_smoke.py's training configurations
+CONFIGS = ("gcn", "gat", "pna", "gcnii", "gin", "gin+reg", "appnp")
+
 if __name__ == "__main__":
     # python tests/test_torch_train.py --reference-acc|--port-acc
     #     [PARTITIONS.npz] [--history-dtype f32|bf16|int8|vq]
-    #     [--op gcn|gat|pna] [--perturb N ...]
+    #     [--op CONFIG] [--perturb N ...] [--rng-key N ...]
     # python tests/test_torch_train.py --trajectory EPOCHS [PARTITIONS.npz]
     #     [--history-dtype ...] [--op ...]
     import argparse
@@ -630,25 +674,37 @@ if __name__ == "__main__":
                            "mean losses side by side instead")
     ap.add_argument("partitions", nargs="?")
     ap.add_argument("--history-dtype", default="f32")
-    ap.add_argument("--op", choices=("gcn", "gat", "pna"), action="append")
+    ap.add_argument("--op", choices=CONFIGS, action="append",
+                    help="a configuration (GCNII takes PNA's partition)")
     ap.add_argument("--perturb", type=int, action="append",
                     help="one-ulp perturbations of the initial weights (the "
                          "seed of each; 0 = none)")
+    ap.add_argument("--rng-key", type=int, action="append",
+                    help="the state's rng key (the Eq. 3 noise), one run "
+                         "each")
     args = ap.parse_args()
     parts = np.load(args.partitions) if args.partitions else None
+
+    def part_of(op):
+        if parts is None:
+            return None
+        return parts["pna" if op == "gcnii" else op]
+
     for op in args.op or ("gcn", "gat", "pna"):
         if args.trajectory:
             for e, (t, r) in enumerate(loss_trajectories(
-                    op, args.trajectory, None if parts is None else parts[op],
-                    args.history_dtype)):
+                    op, args.trajectory, part_of(op), args.history_dtype)):
                 print(op, args.history_dtype, f"epoch {e}: port {t!r}, "
                       f"reference {r!r}", flush=True)
             continue
         run = port_accuracy if args.port_acc else reference_accuracy
-        for pt in args.perturb or (0,):
-            print(op, args.history_dtype, f"perturb {pt}", *run(
-                op, part=None if parts is None else parts[op],
-                history_dtype=args.history_dtype, perturb=pt), flush=True)
+        for key in args.rng_key or (None,):
+            for pt in args.perturb or (0,):
+                print(op, args.history_dtype, f"perturb {pt}",
+                      f"rng key {key}", *run(
+                          op, part=part_of(op),
+                          history_dtype=args.history_dtype, perturb=pt,
+                          rng_key=key), flush=True)
 
 
 @pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
