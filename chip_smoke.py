@@ -141,7 +141,22 @@ with a non-zero exit at the first failure:
    on the CPU too, and its accuracy is held below the lowest of six
    reference runs under six rng keys) and (g) table 1's `appnp-5L`
    (1,200 nodes, 5 layers, alpha 0.1, 8 parts, 60 epochs; 6-wide
-   history tables).
+   history tables). Every run's per-epoch `hist_quant_err` is held to
+   its precision's analytic bound (0 for f32, 2^-8 for bf16, sqrt(d)/254
+   for int8, below 1 for vq), and `scatter_rows_vq` pushes (ragged, a
+   fifth of the rows exactly zero) to the codebook distortion of each
+   row (`[bounds]`).
+5. table 5 — `benchmarks/table5_baselines.py:run(quick=False)`'s rows at
+   its full sizes through the port's trainers, on PNA's graph and
+   partition: `graphsage` (`GraphSAGETrainer`: d_hidden 48, 2 layers,
+   fanout 10, batch 256, 15 epochs; the host sampler, then each step on
+   the card), `sgc` (`SGCTrainer`: k = 2, 240 epochs, lr 0.05),
+   `cluster-gcn` (`GASTrainer(use_history=False)`) and `gas-gcn`
+   (`GASTrainer`, GCN 48 wide), 60 epochs each, through their `fit`;
+   `gas-gcnii16` and `gas-pna` are phase 4's runs. For each row the
+   train time, step p50 and test accuracy, held at most 1 pp below the
+   reference's (the GAS rows' by partition digest, GraphSAGE's and
+   SGC's below the lowest of six seeds), and the GAS rows' launches.
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
@@ -212,7 +227,7 @@ from repro_torch.core import runtime as RT  # noqa: E402
 from repro_torch.core import serve as S  # noqa: E402
 from repro_torch.core.config import resolve_device  # noqa: E402
 from repro_torch.core.history import (  # noqa: E402
-    HistoryStore, vq_init_codebook)
+    VQ_SUBDIM, HistoryStore, vq_init_codebook)
 from repro_torch.data.graphs import (  # noqa: E402
     citation_graph, sbm_cluster_graph)
 from repro_torch.data.tokens import MarkovTokens  # noqa: E402
@@ -488,6 +503,67 @@ TRAIN_KERNELS = {
     ("appnp", "f32"): ("bcsr_spmm", "gather_spmm", "gather_rows",
                        "scatter_rows"),
 }
+# every training run's per-epoch mean `hist_quant_err` (the mean relative
+# L2 error of the pushed rows) under its precision's analytic bound, as
+# tests/test_error_bounds.py and tests/test_torch_error_bounds.py hold
+# them: exactly 0 for f32; 2^-8 for bf16's mantissa rounding; sqrt(d) /
+# 254 for int8's per-row absmax scaling (d the widest history table); for
+# vq strictly below 1 (its centroid 0 is pinned to zero)
+def qerr_bound(hd: str, d: int) -> float:
+    return {"f32": 0.0, "bf16": 2.0 ** -8, "int8": d ** 0.5 / 254,
+            "vq": 1.0}[hd]
+
+
+# scatter_rows_vq on ragged pushes with exact-zero rows (a fifth of the
+# rows zero, 70% of them valid), each row's round-trip error held to its
+# codebook distortion (and to its norm): (S codes a row, M rows, seed,
+# log10 of the values' scale); tests/test_error_bounds.py's grid, then
+# GAT's training push (M = 194, S = 8) and the serving refresh push's
+# shape (M = 4,096, S = 32)
+VQ_BOUND_PUSHES = ((1, 1, 0, -3.0), (2, 7, 2, 3.0), (3, 5, 3, -1.5),
+                   (5, 12, 5, 0.5), (8, 194, 10, 0.0), (32, 4096, 11, 1.0))
+# Table 5 (benchmarks/table5_baselines.py:run(quick=False)) at its full
+# sizes, on table 5's graph (PNA's, TRAIN_CONFIGS) and its 16-part
+# METIS-like partition (PNA's, from the worker processes); each row
+# through the port's trainer entry points, 60 GAS epochs at lr 0.01:
+# (row, trainer, its kwargs); `gas-gcnii16` and `gas-pna` are phase 4's
+# ("gcnii", "f32") and ("pna", "f32") runs
+TABLE5_ROWS = (
+    ("graphsage", "sage", dict(d_hidden=48, num_layers=2, fanout=10,
+                               batch_size=256, epochs=15, lr=0.01)),
+    ("sgc", "sgc", dict(k=2, epochs=240, lr=0.05)),
+    ("cluster-gcn", "gas", dict(use_history=False)),
+    ("gas-gcn", "gas", dict(use_history=True)))
+TABLE5_FROM_PHASE4 = (("gas-gcnii16", ("gcnii", "f32")),
+                      ("gas-pna", ("pna", "f32")))
+TABLE5_HIDDEN = 48
+# the reference's test accuracy of each row. `gas-gcn` and `cluster-gcn`:
+# after 60 epochs on the "jnp" backend from the port's initial params
+# carried across, keyed by partition digest as TRAIN_CONFIGS is (`python
+# tests/test_torch_train.py --reference-acc [PARTITIONS.npz] --op gas-gcn
+# --op cluster-gcn --perturb 0 --perturb 1 --perturb 2`, a CPU, jax 0.9.0:
+# the one-ulp perturbations agree with the unperturbed runs to all
+# digits). `graphsage` and `sgc` draw their weights from torch's
+# generator, not jax's, so each holds the reference's runs under
+# `TrainConfig(seed=0..5)` (`python tests/test_torch_trainers.py
+# --table5-baselines`), and the port is held 1 pp below their lowest
+TABLE5_REF = {
+    "gas-gcn": {"2f9649d2dcc0": 0.9475609660148621,
+                "b441af5c2589": 0.944817066192627},
+    "cluster-gcn": {"2f9649d2dcc0": 0.9375,
+                    "b441af5c2589": 0.9445121884346008},
+    "graphsage": (0.944817066192627, 0.9466463327407837, 0.9445121884346008,
+                  0.9466463327407837, 0.9493902325630188,
+                  0.9454268217086792),
+    "sgc": (0.9420731663703918, 0.9393292665481567, 0.9445121884346008,
+            0.9426829218864441, 0.9408536553382874, 0.9439024329185486),
+}
+# the kernels each GAS row must launch: without histories there is no
+# fused aggregation, but the pulls and pushes still run
+TABLE5_KERNELS = {"gas-gcn": ("bcsr_spmm", "gather_spmm", "gather_rows",
+                              "scatter_rows"),
+                  "cluster-gcn": ("bcsr_spmm", "gather_rows",
+                                  "scatter_rows")}
 # a code the card and the CPU chose apart must be a near-tie: the two
 # entries' distances to the card's pushed subvector (summed left to right
 # in f32, as the encode sums them) within this of each other
@@ -2411,7 +2487,8 @@ def with_history_dtype(plan, history_dtype):
 
 def training_phase(op, hd, plan, device):
     """Phase 4 for configuration `op` at one store precision. Returns the
-    launch counts of its epochs."""
+    launch counts of its epochs and a summary for table 5's rows: the
+    epochs' summed time, step p50, test accuracy and the reference's."""
     cfg = TRAIN_CONFIGS[op]
     tag = f"{op} {hd}"
     plan = with_history_dtype(plan, hd)
@@ -2448,11 +2525,18 @@ def training_phase(op, hd, plan, device):
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     loss = torch.stack(losses[-nb:]).mean().item()
-    qerr = torch.stack(qerrs[-nb:]).mean().item()
+    epoch_qerr = torch.stack(qerrs).view(n_epochs, nb).mean(1).tolist()
+    qerr = epoch_qerr[-1]
     assert np.isfinite(loss), loss
     store = state.histories
     f32_bytes = store.f32_bytes()
     assert (qerr == 0.0) == (hd == "f32"), qerr
+    # every epoch's hist_quant_err under the precision's analytic bound
+    q_bound = qerr_bound(hd, max(spec.hist_dims()))
+    q_max = max(epoch_qerr)
+    assert all(np.isfinite(epoch_qerr)), epoch_qerr
+    assert (q_max < q_bound if hd == "vq" else q_max <= q_bound), \
+        (tag, q_max, q_bound)
     # (iii) exact evaluation against the reference's accuracy at the same
     # precision on the same partition (the lowest of its runs where the
     # entry holds several); a partition the table does not hold is held to
@@ -2507,7 +2591,8 @@ def training_phase(op, hd, plan, device):
            f"{regroup}; peak "
            f"device memory {peak / 2**20:.1f} MiB; history store "
            f"{store.bytes():,} bytes ({f32_bytes / store.bytes():.2f}x vs "
-           f"f32), last-epoch hist_quant_err {qerr:.4g}; last-epoch loss "
+           f"f32), last-epoch hist_quant_err {qerr:.4g} (every epoch's at "
+           f"most {q_max:.4g}, bound {q_bound:.4g}); last-epoch loss "
            f"{loss:.3g}; test acc {acc['test_acc']:.4f} (reference "
            f"{ref_acc:.4f} at {hd}, {ref_note}), val {acc['val_acc']:.4f}; "
            f"launches " + str({k: v for k, v in launches.items() if v}))
@@ -2522,7 +2607,10 @@ def training_phase(op, hd, plan, device):
                             lambda: _profiled_epoch(plan, state))):
             _phase("training", f"{tag}: one more epoch under "
                    f"torch.profiler on {which}: {run()}")
-    return launches
+    return launches, {"train_ms": sum(epochs),
+                      "step_p50": float(np.percentile(steps, 50)),
+                      "acc": acc["test_acc"], "ref": ref_acc,
+                      "ref_note": ref_note}
 
 
 def two_steps(plan, hd, kernels):
@@ -2605,6 +2693,158 @@ def vq_refit_phase(plan):
            + ", ".join(f"{x:.4g}" for x in losses) + f"; test acc "
            f"{acc['test_acc']:.4f}; launches "
            + str({k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def vq_bound_phase(device):
+    """`scatter_rows_vq` through the store's push on ragged pushes with
+    exact-zero rows (VQ_BOUND_PUSHES): each valid row's round trip (the
+    push's codes and scale, read back by `gather_rows_vq`) within its
+    codebook distortion sqrt(sum_s min_c ||u_s - c||^2) * scale (the
+    distances in float64 on the host) and within its norm, masked rows
+    read back zero. Fails the run on any miss."""
+    _build.reset_launch_counts()
+    worst = []
+    for S, M, seed, scale_log in VQ_BOUND_PUSHES:
+        d = S * VQ_SUBDIM
+        rng = np.random.default_rng(seed)
+        vals = (rng.normal(size=(M, d)) * 10.0 ** scale_log).astype(
+            np.float32)
+        vals[rng.random(M) < 0.2] = 0.0
+        mask = rng.random(M) < 0.7
+        N = M + 5
+        idx = rng.choice(N - 1, M, replace=False).astype(np.int32)
+        store = HistoryStore.create(N, [d], history_dtype="vq",
+                                    device=device)
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        store.push(0, t(idx), t(vals), t(mask))
+        got = store.pull(0, t(idx)).cpu().numpy().astype(np.float64)
+        cb = store.layer_codebook(0).cpu().numpy().astype(np.float64)
+        v = vals.astype(np.float64)
+        amax = np.abs(v).max(axis=1)
+        scale = np.where(amax > 0, amax, 1.0)
+        u = (v / scale[:, None]).reshape(M, S, 1, VQ_SUBDIM)
+        dist = scale * np.sqrt(((u - cb[None]) ** 2).sum(-1).min(-1).sum(-1))
+        err = np.linalg.norm(got - v, axis=1)
+        norm = np.linalg.norm(v, axis=1)
+        assert (err[mask] <= dist[mask] * (1 + 1e-4) + 1e-5).all(), \
+            (S, M, float(err[mask].max()), float(dist[mask].max()))
+        assert (err[mask] <= norm[mask] * (1 + 1e-4) + 1e-6).all(), (S, M)
+        assert (got[~mask] == 0).all(), (S, M)
+        ratio = err[mask] / np.maximum(dist[mask], 1e-30)
+        worst.append(f"S={S} M={M}: {int(mask.sum())} valid rows, "
+                     f"{int((amax[mask] == 0).sum())} zero, max err / "
+                     f"distortion {ratio.max() if ratio.size else 0:.6f}")
+    pushes = _build.launch_counts["scatter_rows_vq"]
+    assert pushes >= len(VQ_BOUND_PUSHES), pushes
+    _phase("bounds", f"scatter_rows_vq ({pushes} launches) within the "
+           f"codebook distortion and each row's norm on "
+           f"{len(VQ_BOUND_PUSHES)} ragged pushes: " + "; ".join(worst))
+
+
+@contextlib.contextmanager
+def _timed_calls(obj, name, times):
+    """Each call of `obj.name` (a module function, or an instance's
+    method) timed to a sync of the card into `times` (ms) while the
+    context is open."""
+    fn = getattr(obj, name)
+    own = name in vars(obj)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+    try:
+        yield times
+    finally:
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
+
+
+def table5_phase(device, part, summaries):
+    """Table 5 at its full sizes through the port's trainers on the card:
+    GraphSAGE (its host sampler, then each step on the card), SGC, and
+    CLUSTER-GCN and GAS-GCN through `GASTrainer` on table 5's partition
+    (`part`), each trained by its `fit`, with every step timed to a sync;
+    then the two deep rows from phase 4's runs (`summaries`). Each row's
+    test accuracy is held at most ACC_SLACK below the reference's
+    (TABLE5_REF); the GAS rows must launch their kernels. Returns the GAS
+    rows' launch counts."""
+    from repro_torch.train.baselines import GraphSAGETrainer, SGCTrainer
+    from repro_torch.train.gas_trainer import GASTrainer, TrainConfig
+
+    g = citation_graph(**TRAIN_CONFIGS["pna"]["graph"])
+    digest = _digest(part)
+    launches = {}
+    for name, kind, kw in TABLE5_ROWS:
+        kw = dict(kw)
+        steps, samples = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        if kind == "gas":
+            spec = model.GNNSpec(op="gcn", d_in=g.x.shape[1],
+                                 d_hidden=TABLE5_HIDDEN,
+                                 num_classes=g.num_classes, num_layers=2)
+            tr = GASTrainer(g, spec, num_parts=TRAIN_PARTS,
+                            partitioner="metis", device=device, part=part,
+                            tcfg=TrainConfig(epochs=TRAIN_EPOCHS, lr=0.01,
+                                             seed=0), **kw)
+            with _timed_calls(RT, "train_step", steps):
+                tr.fit()
+        else:
+            tcfg = TrainConfig(epochs=kw.pop("epochs"), lr=kw.pop("lr"),
+                               seed=0)
+            if kind == "sage":
+                tr = GraphSAGETrainer(g, tcfg=tcfg, device=device, **kw)
+                with _timed_calls(tr, "_sample_batch", samples), \
+                        _timed_calls(tr, "train_step", steps):
+                    tr.fit()
+            else:
+                tr = SGCTrainer(g, tcfg=tcfg, device=device, **kw)
+                with _timed_calls(tr, "train_step", steps):
+                    tr.fit()
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t0) * 1e3
+        acc = tr.evaluate()["test_acc"]
+        refs = TABLE5_REF[name]
+        if isinstance(refs, dict):
+            ref = refs.get(digest, next(iter(refs.values())))
+            note = ("same partition" if digest in refs else
+                    f"partition {digest} not in the table: crosses "
+                    "partitions")
+        else:
+            ref = min(refs)
+            note = (f"the lowest of the reference's {len(refs)} runs under "
+                    f"seeds 0-{len(refs) - 1}, {min(refs):.4f}-"
+                    f"{max(refs):.4f}")
+        assert acc >= ref - ACC_SLACK, (name, acc, ref)
+        extra = ""
+        if kind == "gas":
+            launches[f"table5 {name}"] = got = dict(_build.launch_counts)
+            missing = [k for k in TABLE5_KERNELS[name] if got[k] == 0]
+            assert not missing, f"table5 {name}: never launched: {missing}"
+            extra = "; launches " + str({k: v for k, v in got.items() if v})
+        if samples:
+            extra += (f"; host sampling median {np.median(samples):.1f} ms "
+                      f"a batch")
+        _phase("table5", f"{name}: train {train_ms:.1f} ms (construction "
+               f"and fit, {len(steps)} steps), step p50 "
+               f"{np.percentile(steps, 50):.3f} ms; test acc {acc:.4f} "
+               f"(reference {ref:.4f}, {note}){extra}")
+    for name, run in TABLE5_FROM_PHASE4:
+        r = summaries[run]
+        _phase("table5", f"{name}: phase 4's {' '.join(run)} run "
+               f"({TRAIN_EPOCHS} epochs through the runtime): train "
+               f"{r['train_ms']:.1f} ms (the epochs), step p50 "
+               f"{r['step_p50']:.3f} ms; test acc {r['acc']:.4f} "
+               f"(reference {r['ref']:.4f}, {r['ref_note']})")
     return launches
 
 
@@ -3326,8 +3566,10 @@ def _smoke(args, partitions, t_start) -> int:
         if args.vq_ablation:
             _vq_ablation(device)
             lap("vq ablation")
+    summaries = {}
     for op, hd in TRAIN_RUNS:
-        launches[f"{op} {hd}"] = training_phase(op, hd, plans[op], device)
+        launches[f"{op} {hd}"], summaries[(op, hd)] = training_phase(
+            op, hd, plans[op], device)
         lap(f"{op} {hd}")
     launches["gat bf16"] = two_steps(plans["gat"], "bf16", (
         "gather_rows_bf16", "scatter_rows_bf16"))
@@ -3335,6 +3577,10 @@ def _smoke(args, partitions, t_start) -> int:
                                    TRAIN_KERNELS[("pna", "vq")])
     launches["gcn vq refit"] = vq_refit_phase(plans["gcn"])
     lap("two-step lines and the refit")
+    vq_bound_phase(device)
+    lap("vq distortion bound")
+    launches.update(table5_phase(device, parts["pna"][0], summaries))
+    lap("table 5")
     _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":

@@ -2,15 +2,17 @@
 Inter-Connectivity Between Batches").
 
 The port of `repro.core.partition`'s `metis_like_partition`,
-`random_partition` and `edge_cut`: the same numpy and Python, line for
-line, so a partition is bitwise the reference's and every batch built
-from it is too (tests/test_torch_train.py). `metis_like_partition` is a
-multilevel partitioner with the METIS objective (min edge-cut, balanced
-parts): greedy heavy-edge-matching coarsening, BFS region-growing at the
-coarsest level, then boundary Kernighan-Lin/FM refinement during
-uncoarsening. The refinement walks nodes one by one in Python, which
-takes minutes at PubMed's size (ROADMAP, open findings). The incremental
-repair of evolving graphs is not ported yet (ROADMAP Queue A item 7).
+`random_partition`, `edge_cut` and `inter_intra_ratio` (paper Table 6):
+the same numpy and Python, line for line, so a partition is bitwise the
+reference's and every batch built from it is too
+(tests/test_torch_train.py, tests/test_torch_trainers.py).
+`metis_like_partition` is a multilevel partitioner with the METIS
+objective (min edge-cut, balanced parts): greedy heavy-edge-matching
+coarsening, BFS region-growing at the coarsest level, then boundary
+Kernighan-Lin/FM refinement during uncoarsening. The refinement walks
+nodes one by one in Python, which takes minutes at PubMed's size
+(ROADMAP, open findings). The incremental repair of evolving graphs is
+not ported yet (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -198,3 +200,11 @@ def edge_cut(indptr, indices, part) -> int:
     dst = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
     return int(np.sum(part[dst] != part[indices]) // 2)
 
+
+def inter_intra_ratio(indptr, indices, part) -> float:
+    """Edges between parts over edges inside parts (each undirected edge
+    counted in both directions), paper Table 6."""
+    dst = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+    inter = np.sum(part[dst] != part[indices])
+    intra = np.sum(part[dst] == part[indices])
+    return float(inter) / max(float(intra), 1.0)

@@ -35,6 +35,11 @@ hold bf16 and both packages widen it to f32 (exactly) on disk.
 `params_from_numpy` maps a flattened param tree given as numpy arrays
 into the params dict.
 
+`save_checkpoint` / `load_checkpoint` are the reference's generic pair:
+any tree of dicts, lists and NamedTuples (params, an `AdamWState`) as
+`params/<path>`, `opt/<path>` and `step`, read back by structural match
+against a template; files cross-read with the reference's bitwise.
+
 `transformer_params_from_numpy` and `transformer_cache_from_numpy` carry
 the transformer's params tree (`repro.models.transformer.init_params`)
 and its decode cache `{"pos", "segs"}`, given as nested dicts and lists
@@ -54,10 +59,9 @@ from repro_torch.core.config import resolve_device
 from repro_torch.core.history import HistoryStore, get_codec
 
 _LEAF = r"(w|b|a_src|a_dst|w1|b1|w2|b2|eps)"
+# a layer's leaf, or a leaf of a dict beside the layer list (each op's)
 _PARAM_KEY = re.compile(
     rf"(?:^|/)(?:layers/(\d+)/{_LEAF}|(head|w_in|mlp)/{_LEAF})$")
-# the dicts beside the layer list, each op's
-_SIDE_DICTS = ("head", "w_in", "mlp")
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray],
@@ -169,14 +173,75 @@ def load_gas_meta(path: str) -> Optional[dict]:
         return json.loads(str(data["meta_json"]))
 
 
-def _flat_params(prefix: str, params) -> Dict[str, np.ndarray]:
-    flat = {f"{prefix}layers/{i}/{k}": v.detach().cpu().numpy()
-            for i, layer in enumerate(params["layers"])
-            for k, v in layer.items()}
-    flat.update({f"{prefix}{name}/{k}": v.detach().cpu().numpy()
-                 for name in _SIDE_DICTS
-                 for k, v in params.get(name, {}).items()})
-    return flat
+def _flatten(prefix: str, tree) -> Dict[str, np.ndarray]:
+    """The leaves of a tree of dicts, lists and NamedTuples (an
+    `AdamWState`) as {prefix + path: array}, the path the reference's
+    `_flatten` writes (dict keys, list indices and field names joined by
+    "/"); bf16 leaves widen to f32, as the reference writes them (npz
+    cannot hold bf16)."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        t = torch.as_tensor(tree).detach()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return {prefix.rstrip("/"): t.cpu().numpy()}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(_flatten(f"{prefix}{k}/", v))
+    return out
+
+
+def _restore_tree(template, flat: Mapping[str, np.ndarray], prefix: str):
+    """A tree shaped like `template` with each leaf read from
+    `flat[prefix + path]`, on the template leaf's device in its dtype (a
+    bf16 leaf narrows back from the f32 on disk, exactly)."""
+    if isinstance(template, Mapping):
+        return {k: _restore_tree(v, flat, f"{prefix}{k}/")
+                for k, v in template.items()}
+    if hasattr(template, "_fields"):
+        return type(template)(*(_restore_tree(v, flat, f"{prefix}{k}/")
+                                for k, v in zip(template._fields, template)))
+    if isinstance(template, (list, tuple)):
+        return [_restore_tree(v, flat, f"{prefix}{i}/")
+                for i, v in enumerate(template)]
+    key = prefix.rstrip("/")
+    arr = flat[key]
+    if arr.shape != tuple(template.shape):
+        raise ValueError(f"{key}: shape {arr.shape} on disk, "
+                         f"{tuple(template.shape)} in the template")
+    return _tensor_from_numpy(arr, template.device).to(template.dtype)
+
+
+def save_checkpoint(path: str, params, opt_state=None, step: int = 0
+                    ) -> None:
+    """Write a params tree (and an optimizer state) as one flat npz in the
+    reference's layout: `params/<path>`, `opt/<path>` and `step`, which
+    `repro.train.checkpoint.load_checkpoint` reads."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = _flatten("params/", params)
+    if opt_state is not None:
+        arrays.update(_flatten("opt/", opt_state))
+    arrays["step"] = np.asarray(step)
+    np.savez(path, **arrays)
+
+
+def load_checkpoint(path: str, params_template, opt_template=None
+                    ) -> Tuple[Any, Optional[Any], int]:
+    """Read a file either package's `save_checkpoint` wrote, by structural
+    match against `params_template` (and `opt_template`): returns
+    (params, opt_state or None, step), each leaf on its template leaf's
+    device in its dtype."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    params = _restore_tree(params_template, flat, "params/")
+    opt = _restore_tree(opt_template, flat, "opt/") \
+        if opt_template is not None else None
+    return params, opt, int(flat["step"])
 
 
 def save_gas_state(path: str, state, step: int = 0,
@@ -188,12 +253,8 @@ def save_gas_state(path: str, state, step: int = 0,
     restores (bf16 tables widened to f32, as the reference writes
     them)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    opt = state.opt_state
-    arrays = _flat_params("state/params/", state.params)
-    arrays["state/opt_state/step"] = np.asarray(
-        opt.step.cpu().numpy(), np.int32)
-    arrays.update(_flat_params("state/opt_state/m/", opt.m))
-    arrays.update(_flat_params("state/opt_state/v/", opt.v))
+    arrays = _flatten("state/params/", state.params)
+    arrays.update(_flatten("state/opt_state/", state.opt_state))
     store = state.histories
     for ell, t in enumerate(store.tables):
         if t.dtype == torch.bfloat16:   # npz cannot hold bf16

@@ -1,16 +1,19 @@
-"""AdamW and global-norm clipping, written out as the reference writes them.
+"""AdamW, SGD, global-norm clipping and the cosine schedule, written out
+as the reference writes them.
 
-The port of `repro.train.optimizer`'s `adamw_init`, `adamw_update` and
-`clip_by_global_norm` over the port's param trees (dicts and lists of
-tensors). Plain tensor code, not `torch.optim.AdamW`, which orders its
-rounding differently: each update is the reference's expression, step by
-step, in float32. The reference returns new params and moments (XLA
-reuses the donated buffers); here `adamw_update` overwrites the params
-and both moments in place and returns them.
+The port of `repro.train.optimizer`'s `adamw_init`, `adamw_update`,
+`clip_by_global_norm`, `cosine_schedule` and `sgd_update` over the
+port's param trees (dicts and lists of tensors). Plain tensor code, not
+`torch.optim.AdamW`, which orders its rounding differently: each update
+is the reference's expression, step by step, in float32. The reference
+returns new params and moments (XLA reuses the donated buffers); here
+`adamw_update` overwrites the params and both moments in place and
+returns them.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Tuple
+import math
+from typing import Any, Callable, List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -87,7 +90,8 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float,
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         mhat = m / bc1
         vhat = v / bc2
-        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p
+        delta = mhat / (torch.sqrt(vhat) + eps) + \
+            weight_decay * p.to(torch.float32)
         p.sub_(lr * delta)
     return params, AdamWState(step=step, m=state.m, v=state.v)
 
@@ -108,3 +112,38 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
     gn = torch.sqrt(gn).to(torch.float32)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return [g * scale.to(g.dtype) for g in grads], gn
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
+    """lr(step): linear warm-up to `base_lr` over `warmup` steps, then a
+    half cosine down to 0 at `total`. `step` is an int or a 0-d tensor;
+    the result is a 0-d float32 tensor on the step's device, computed in
+    float32 as the reference computes it after `step.astype(f32)` (its
+    Python constants rounded to f32 first, as JAX's weak types are)."""
+    def lr(step: Union[int, torch.Tensor]) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                     device=step.device)
+        warm = f32(base_lr) * step / f32(max(warmup, 1))
+        frac = torch.clamp((step - f32(warmup)) / f32(max(total - warmup, 1)),
+                           0.0, 1.0)
+        cos = f32(base_lr * 0.5) * (f32(1.0) + torch.cos(f32(math.pi) * frac))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def _map2(fn, a, b):
+    """`fn` over the leaves of two trees of one structure."""
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+@torch.no_grad()
+def sgd_update(grads, params, lr: float):
+    """A new params tree, p - lr * g for each leaf, computed in float32 and
+    cast back to the param's dtype. `grads` is shaped like `params`."""
+    return _map2(lambda p, g: (p.to(torch.float32) - lr * g.to(torch.float32)
+                               ).to(p.dtype), params, grads)

@@ -40,7 +40,10 @@ forward and unit-weight training blocks, the row kernels at d = 6, and
 `gas_aggregate`'s float-table gradient against the CPU's. `scatter_rows`, and
 `scatter_rows_q`'s codes and scales, bitwise over the whole table on
 both of their paths (the one-launch scan and the claim passes past
-SCAN_MAX_ROWS rows)."""
+SCAN_MAX_ROWS rows). The trainer shell and table 5's baselines:
+`GASTrainer`'s two epochs against the CPU's (losses at 1e-4), and one
+GraphSAGE step on one sampled batch and one SGC step against the CPU's
+as the training steps are held."""
 import dataclasses
 
 import numpy as np
@@ -1350,3 +1353,69 @@ def test_decode_steps_on_card_match_cpu(dev):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
     for a, c in zip(out[dev][1], out["cpu"][1]):
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+def test_gas_trainer_on_card_matches_cpu(dev):
+    """`GASTrainer` for two epochs on the card and on the CPU from the same
+    initial params and partition: the epoch losses at 1e-4 and the exact
+    accuracies within two test nodes; the card's run launches the GCN
+    path's four kernels."""
+    from repro_torch.train.gas_trainer import GASTrainer, TrainConfig
+    g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
+                       seed=1)
+    spec = GNNSpec(op="gcn", d_in=40, d_hidden=32, num_classes=4,
+                   num_layers=3)
+    trs = {d: GASTrainer(g, spec, num_parts=4, device=d,
+                         tcfg=TrainConfig(epochs=2)) for d in ("cpu", dev)}
+    assert trs[dev].device == dev
+    losses = {}
+    for d, tr in trs.items():
+        _build.reset_launch_counts()
+        losses[d] = [m["loss"] for m in tr.fit()]
+    launches = dict(_build.launch_counts)
+    np.testing.assert_allclose(losses[dev], losses["cpu"], **TOL)
+    for k in ("bcsr_spmm", "gather_spmm", "gather_rows", "scatter_rows"):
+        assert launches[k] > 0, (k, launches)
+    accs = {d: tr.evaluate() for d, tr in trs.items()}
+    n_test = int(g.test_mask.sum())
+    for k, v in accs["cpu"].items():
+        assert abs(accs[dev][k] - v) <= 2.0 / n_test, (k, accs)
+
+
+@pytest.mark.parametrize("kind", ["graphsage", "sgc"])
+def test_baseline_step_on_card_matches_cpu(dev, kind):
+    """One GraphSAGE step on the same sampled batch (one SGC step on the
+    same propagated features) on both devices from the same initial
+    params: the loss and the gradients at 1e-4 (SGC's features too); the
+    update then runs on both devices from the card's gradients, params at
+    lr * 1e-4 absolute and the moments at 1e-4, as
+    test_train_step_on_card_matches_cpu holds them."""
+    from repro_torch.train.baselines import GraphSAGETrainer, SGCTrainer
+    g = citation_graph(num_nodes=600, num_features=40, num_classes=4,
+                       seed=1)
+    if kind == "graphsage":
+        trs = {d: GraphSAGETrainer(g, d_hidden=16, fanout=5, batch_size=64,
+                                   device=d) for d in ("cpu", dev)}
+        seeds = trs["cpu"].train_nodes[:64]
+        layers, base = trs["cpu"]._sample_batch(seeds)
+        out = {d: tr.grads_and_metrics(*tr.device_batch(seeds, layers,
+                                                        base))
+               for d, tr in trs.items()}
+    else:
+        trs = {d: SGCTrainer(g, k=2, device=d) for d in ("cpu", dev)}
+        torch.testing.assert_close(trs[dev].features.cpu(),
+                                   trs["cpu"].features, **TOL)
+        out = {d: tr.grads_and_metrics() for d, tr in trs.items()}
+    (gc, mc), (gg, mg) = out["cpu"], out[dev]
+    np.testing.assert_allclose(mg["loss"], mc["loss"], **TOL)
+    for x, y in zip(gg, gc):
+        torch.testing.assert_close(x.cpu(), y, **TOL)
+    trs[dev].apply_update(gg)
+    trs["cpu"].apply_update([x.cpu() for x in gg])
+    c, k = trs["cpu"], trs[dev]
+    for xs, ys, tol in (
+            (k.params, c.params, dict(rtol=1e-6, atol=1e-6)),
+            (k.opt_state.m, c.opt_state.m, dict(rtol=1e-4, atol=1e-12)),
+            (k.opt_state.v, c.opt_state.v, dict(rtol=1e-4, atol=1e-12))):
+        for x, y in zip(tree_leaves(xs), tree_leaves(ys)):
+            torch.testing.assert_close(x.cpu(), y, **tol)

@@ -20,7 +20,8 @@ from repro_torch.gnn import model as t_model
 from repro_torch.launch import serve_gas, train_gas
 from repro_torch.models import transformer as t_tf
 from repro_torch.train import checkpoint as t_ckpt
-from repro_torch.train.gas_trainer import FullBatchTrainer
+from repro_torch.train.baselines import GraphSAGETrainer, SGCTrainer
+from repro_torch.train.gas_trainer import FullBatchTrainer, GASTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -79,6 +80,9 @@ def test_entry_points_default_to_cuda():
         lambda: serve_gas.main(["--smoke"]),
         lambda: t_rt.build_plan(g, spec, t_rt.GASConfig(num_parts=2)),
         lambda: FullBatchTrainer(g, spec),
+        lambda: GASTrainer(g, spec, num_parts=2),
+        lambda: GraphSAGETrainer(g, d_hidden=8),
+        lambda: SGCTrainer(g),
         lambda: t_ckpt.load_gas_state("never-read.npz"),
         lambda: train_gas.main(["--smoke"]),
         lambda: t_tf.init_params(get_config("qwen3-0.6b", "smoke")),

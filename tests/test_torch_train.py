@@ -456,6 +456,11 @@ def test_unported_training_options_raise():
 # The reference accuracy chip_smoke.py holds the port to
 # ---------------------------------------------------------------------------
 
+# table 5's GAS GCN rows (benchmarks/table5_baselines.py:39-53), with and
+# without histories
+TABLE5_GCN = ("gas-gcn", "cluster-gcn")
+
+
 def _reference_config(op: str):
     """chip_smoke.py's training configuration `op`: (the graph, the spec
     keywords, the `GASConfig` keywords) for both packages (GCN: the
@@ -464,8 +469,9 @@ def _reference_config(op: str):
     the same graph; GIN: table 2's `gin-4L-cluster`,
     `benchmarks/table2_ablation.py`; GIN+reg: the deep-GNN example's GIN,
     `examples/deep_gnn_large_graph.py`; APPNP: table 1's `appnp-5L`,
-    `benchmarks/table1_full_vs_gas.py`). The graph is a pair: the
-    reference's and the port's."""
+    `benchmarks/table1_full_vs_gas.py`; table 5's `gas-gcn` and
+    `cluster-gcn`, the latter without histories, on PNA's graph). The
+    graph is a pair: the reference's and the port's."""
     cfg = dict(num_parts=16, epochs=60, lr=0.01)
     spec = dict(op=op, d_hidden=64, num_layers=2, heads=8)
     if op in ("gin", "gin+reg"):
@@ -497,6 +503,9 @@ def _reference_config(op: str):
             spec.update(d_hidden=48)
             if op == "pna":
                 spec.update(log_deg_mean=1.8)
+            elif op in TABLE5_GCN:
+                spec.update(op="gcn")
+                cfg.update(use_history=op == "gas-gcn")
             else:
                 spec.update(num_layers=16, alpha=0.1)
         graphs = (r_citation(**kw), t_citation(**kw))
@@ -654,8 +663,10 @@ def loss_trajectories(op: str, epochs: int, part=None,
     return out
 
 
-# chip_smoke.py's training configurations
-CONFIGS = ("gcn", "gat", "pna", "gcnii", "gin", "gin+reg", "appnp")
+# chip_smoke.py's training configurations (table 5's two GCN rows run
+# through `GASTrainer` in its table-5 phase)
+CONFIGS = ("gcn", "gat", "pna", "gcnii", "gin", "gin+reg", "appnp") + \
+    TABLE5_GCN
 
 if __name__ == "__main__":
     # python tests/test_torch_train.py --reference-acc|--port-acc
@@ -675,7 +686,8 @@ if __name__ == "__main__":
     ap.add_argument("partitions", nargs="?")
     ap.add_argument("--history-dtype", default="f32")
     ap.add_argument("--op", choices=CONFIGS, action="append",
-                    help="a configuration (GCNII takes PNA's partition)")
+                    help="a configuration (GCNII and table 5's GCN rows "
+                         "take PNA's partition)")
     ap.add_argument("--perturb", type=int, action="append",
                     help="one-ulp perturbations of the initial weights (the "
                          "seed of each; 0 = none)")
@@ -688,7 +700,7 @@ if __name__ == "__main__":
     def part_of(op):
         if parts is None:
             return None
-        return parts["pna" if op == "gcnii" else op]
+        return parts["pna" if op in ("gcnii",) + TABLE5_GCN else op]
 
     for op in args.op or ("gcn", "gat", "pna"):
         if args.trajectory:
