@@ -157,6 +157,22 @@ with a non-zero exit at the first failure:
    train time, step p50 and test accuracy, held at most 1 pp below the
    reference's (the GAS rows' by partition digest, GraphSAGE's and
    SGC's below the lowest of six seeds), and the GAS rows' launches.
+6. host-store — history tables in pinned host memory and the pipelined
+   epoch (`history_storage`, `prefetch_depth`): the GCN quickstart over
+   f32 and int8, GAT over vq (a refit at epoch 2, over a host table
+   too) and the deep-GNN example's GCNII-32L (10,000 nodes, f32; its
+   31 tables are 79.4 MB), each 3 epochs under device/0, host/0, host/1
+   and device/1 in turn. For each: bitwise equal to device/0 (params,
+   moments, tables, scales, codes, codebooks, clock, epoch metrics),
+   the store's device and host bytes, the run's peak device memory,
+   step p50/p99, the launches of `gather_rows_raw` and the pushes, and
+   every host table pinned. Then one depth-1 host epoch of GAT under
+   torch.profiler in a child process: the device's busy share and how
+   much of the side stream's prefetch time overlaps main-stream kernels.
+   In phase 2 `gather_rows_raw` has its rows: every element width
+   bitwise its plain version from a pinned and a device table, and its
+   time at GAT's halo from each, beside the host link's bandwidth
+   (one large pinned copy).
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
@@ -203,11 +219,13 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import hashlib
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -240,7 +258,7 @@ from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
 from repro_torch.kernels.decode_attn import flash_decode  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
-    gather_rows, gather_rows_dq, gather_rows_vq)
+    gather_rows, gather_rows_dq, gather_rows_raw, gather_rows_vq)
 from repro_torch.kernels.scatter import (  # noqa: E402
     SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_vq)
 from repro_torch.models import attention as ATT  # noqa: E402
@@ -434,6 +452,17 @@ TRAIN_CONFIGS = {
                         0.09749999642372131, 0.47583332657814026,
                         0.10499999672174454, 0.09749999642372131,
                         0.09749999642372131, 0.1991666704416275)}}),
+    # the deep-GNN example's GCNII-32L (examples/deep_gnn_large_graph.py:
+    # 22-36: d_hidden 64, 32 layers, alpha 0.1, nodes // 800 parts, 2
+    # clusters a batch, lr 0.01) at 10,000 of its 20,000 nodes: the
+    # pure-Python partition takes ~3x as long at 20,000. Only the
+    # host-store phase runs it, HOST_EPOCHS epochs a variant
+    "gcnii32": dict(op="gcnii",
+                    graph=dict(num_nodes=10000, avg_degree=8,
+                               num_features=128, num_classes=10,
+                               homophily=0.7, feature_noise=2.0, seed=1),
+                    spec=dict(d_hidden=64, num_layers=32, alpha=0.1),
+                    config=dict(num_parts=12, clusters_per_batch=2)),
     # table 1's `appnp-5L` (benchmarks/table1_full_vs_gas.py:16-36), seed
     # 0's graph: 8 parts, 5 layers, 6-wide history tables
     "appnp": dict(graph=dict(num_nodes=1200, num_features=64, num_classes=6,
@@ -442,6 +471,15 @@ TRAIN_CONFIGS = {
                   config=dict(num_parts=8),
                   ref_test_acc={"f32": {"0339ee90b37c": 0.9612832069396973}}),
 }
+# Phase 6, host-store: each run (label, configuration, precision, config
+# changes) goes through HOST_VARIANTS in turn, in one process so that
+# they share the host's run-to-run spread, HOST_EPOCHS epochs each;
+# every variant must be bitwise the first (device storage, depth 0)
+HOST_EPOCHS = 3
+HOST_RUNS = (("gcn f32", "gcn", "f32", {}), ("gcn int8", "gcn", "int8", {}),
+             ("gat vq", "gat", "vq", {"vq_refit_every": 2}),
+             ("gcnii-32L f32", "gcnii32", "f32", {}))
+HOST_VARIANTS = (("device", 0), ("host", 0), ("host", 1), ("device", 1))
 # the training runs of phase 4, in order: (configuration, history
 # precision)
 TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
@@ -2069,6 +2107,7 @@ def training_kernel_phase(plans, device, clock_hz):
                                                   o["max_abs_err"])
         rows.append(row)
     rows += _history_pull_rows(plans["gat"], device, gen, clock_hz)
+    rows += _raw_gather_rows(plans["gat"], device, gen)
     rows += _pna_kernel_rows(plans["pna"], device, gen)
     rows += _zoo_kernel_rows(plans, device, gen)
 
@@ -2880,6 +2919,255 @@ def _profiled_epoch(plan, state) -> str:
                 f"{e.count}" for e in top))
 
 
+
+def _raw_gather_rows(plan, device, gen):
+    """Phase 2: `gather_rows_raw` at the GAT hidden layer's halo (batch
+    0's halo ids, d = 64 f32, the sentinel's padding clipped in the
+    kernel), bitwise its plain version for every element width a store
+    holds (f32 and bf16 rows, int8 codes, vq's uint8 codes, the f32
+    scales as 1-wide rows), each from a pinned host table and from a
+    device table. Timed from both beside the plain version and the
+    library: from the pinned table a contiguous non_blocking copy of the
+    same bytes to the card, its bound the pulled rows over the host
+    link's bandwidth measured here (one 64 MiB pinned copy_); from the
+    device table `index_select`, its bound by HBM bytes. Returns the two
+    rows (their launches from phase 6's GAT vq runs)."""
+    batch = plan.batch(0)
+    n1 = plan.graph.num_nodes + 1
+    idx = batch.halo_nodes
+    idx_cpu = idx.cpu()
+    D = TRAIN_HIDDEN
+    hist = torch.randn((n1, D), generator=gen, device=device)
+    q8, s8 = ref.quantize_rows(hist)
+    codes = ref.vq_encode_rows(hist, vq_init_codebook(D, device=device))[0]
+    for what, t in (("f32", hist), ("bf16", hist.to(torch.bfloat16)),
+                    ("int8 codes", q8), ("vq codes", codes),
+                    ("scales", s8)):
+        want = ref.gather_rows_raw_ref(t.cpu(), idx_cpu)
+        for where, src in (("pinned", t.cpu().pin_memory()), ("device", t)):
+            got = gather_rows_raw(src, idx)
+            assert torch.equal(got.cpu(), want), \
+                f"gather_rows_raw ({what}, {where} table) differs"
+    big = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
+    big_d = torch.empty_like(big, device=device)
+    link_ms = _time_ms(lambda: big_d.copy_(big, non_blocking=True))
+    link = big.numel() / (link_ms * 1e-3)
+    M, R = idx.shape[0], D * 4
+    n_src = int(torch.unique(idx.clamp(0, n1 - 1)).numel())
+    host = hist.cpu().pin_memory()
+    flat = torch.empty(M * R, dtype=torch.uint8, pin_memory=True)
+    flat_d = torch.empty_like(flat, device=device)
+
+    def plain_from_host():
+        # the plain version runs on the CPU; its rows then go to the card
+        t0 = time.perf_counter()
+        ref.gather_rows_raw_ref(host, idx_cpu).to(device)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_from_host()
+    pinned = _row("gather_rows_raw", "src/repro_torch/kernels/csrc/gather.cu",
+                  "src/repro/core/history.py:596-600 (jnp.take in "
+                  "prefetch; no pallas_call)", 0.0,
+                  _time_ms(lambda: gather_rows_raw(host, idx)),
+                  statistics.median(plain_from_host()
+                                    for _ in range(TIMED_REPS)),
+                  _time_ms(lambda: flat_d.copy_(flat, non_blocking=True)),
+                  M * 4 + M * R, 0,
+                  library="a contiguous non_blocking copy of the same "
+                          "bytes from pinned memory")
+    pinned["case"] = "pinned host table, GAT hidden-layer halo"
+    link_bound = n_src * R / link * 1e3
+    if link_bound > pinned["bound_ms"]:
+        pinned["bound_ms"], pinned["bound_by"] = link_bound, "bytes"
+    pinned["run"] = "host-store gat vq host/1"
+    device_row = _row(
+        "gather_rows_raw", "src/repro_torch/kernels/csrc/gather.cu",
+        "src/repro/core/history.py:596-600 (jnp.take in prefetch; no "
+        "pallas_call)", 0.0, _time_ms(lambda: gather_rows_raw(hist, idx)),
+        _time_ms(lambda: ref.gather_rows_raw_ref(hist, idx)),
+        _time_ms(lambda: torch.index_select(hist, 0, idx)),
+        M * 4 + n_src * R + M * R, 0)
+    device_row["case"] = "device table, GAT hidden-layer halo"
+    device_row["run"] = "host-store gat vq device/1"
+    _phase("kernels", f"gather_rows_raw, GAT hidden-layer halo ({M} rows of "
+           f"{R} B, {n_src} distinct): every width (f32, bf16, int8 and vq "
+           f"codes, 1-wide scales) bitwise its plain version from pinned "
+           f"and device tables; the host link {link / 1e9:.2f} GB/s (a "
+           f"64 MiB pinned copy_, {link_ms:.4f} ms); " + "; ".join(
+               f"{r['case'].split(',')[0]}: {r['ms']:.4f} ms (plain "
+               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+               f"{r['bound_ms']:.5f} by {r['bound_by']})"
+               for r in (pinned, device_row)))
+    return [pinned, device_row]
+
+
+def _state_leaves(state):
+    """Every tensor of a training state that a run changes, on the CPU:
+    params, AdamW step and moments, tables, scales, codebooks, k-means
+    statistics and the clock."""
+    h = state.histories.sync()
+    out = tree_leaves(state.params) + [state.opt_state.step]
+    for tree in (state.opt_state.m, state.opt_state.v):
+        out += tree_leaves(tree)
+    out += h.tables + [h.age]
+    for name in ("scales", "codebooks", "cb_counts", "cb_sums"):
+        out += getattr(h, name) or []
+    return [t.detach().cpu().clone() for t in out]
+
+
+def host_store_phase(plans, device, gat_part):
+    """Phase 6 (HOST_RUNS under HOST_VARIANTS): every variant bitwise
+    device/0's, every host table pinned, or the phase fails. Returns
+    {"host-store LABEL STORAGE/DEPTH": launch counts}."""
+    launches = {}
+    for label, name, hd, extra in HOST_RUNS:
+        base = plans[name]
+        rng0 = copy.deepcopy(base._np_rng)
+        ref_run, ref_peak = None, None
+        for storage, depth in HOST_VARIANTS:
+            tag = f"{storage}/{depth}"
+            plan = dataclasses.replace(
+                base, config=dataclasses.replace(
+                    base.config, history_dtype=hd, history_storage=storage,
+                    prefetch_depth=depth, epochs=HOST_EPOCHS, **extra),
+                history_storage=storage, _np_rng=copy.deepcopy(rng0),
+                _last_qerr=None, _side=None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            _build.reset_launch_counts()
+            state = RT.init_state(plan)
+            where = state.histories.placement_bytes()
+            steps = []
+            with _timed_calls(RT, "train_step", steps), \
+                    _timed_calls(RT, "prefetch_step", steps):
+                metrics = [RT.train_epoch(plan, state, e)[1]
+                           for e in range(HOST_EPOCHS)]
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            counts = dict(_build.launch_counts)
+            launches[f"host-store {label} {tag}"] = counts
+            h = state.histories
+            host_tables = h.tables + (h.scales or [])
+            if storage == "host":
+                assert all(t.device.type == "cpu" and t.is_pinned()
+                           for t in host_tables), \
+                    f"{label} {tag}: a host table is not pinned"
+            leaves = _state_leaves(state)
+            table_bytes = sum(t.numel() * t.element_size()
+                              for t in host_tables)
+            host_tables_rows = h.tables[0].shape[0]
+            n_steps, n_layers = len(steps), plan.spec.num_layers
+            del state, h, host_tables
+            if ref_run is None:
+                ref_run, ref_peak, same = (leaves, metrics), peak, \
+                    "the reference run"
+            else:
+                assert metrics == ref_run[1], \
+                    f"{label} {tag}: epoch metrics differ from device/0"
+                assert len(leaves) == len(ref_run[0]) and all(
+                    torch.equal(a, b) for a, b in zip(leaves, ref_run[0])), \
+                    f"{label} {tag}: state differs from device/0"
+                same = "bitwise device/0 (params, moments, tables, scales, " \
+                       "codebooks, clock, epoch metrics)"
+            # the tables leave the card. A step holds one set of
+            # mini-tables (every layer's max_h halo rows) at depth 0, two
+            # at depth 1; GCNII-32L's peak is its regroup's upload of the
+            # next epoch's blocks beside the last (two ~0.5 GiB stacks),
+            # where no mini-table is live, so the peak falls by the tables
+            mini = plan.batches.max_h * table_bytes // max(
+                host_tables_rows, 1)
+            if name == "gcnii32" and storage == "host":
+                assert abs((ref_peak - peak) - table_bytes) < \
+                    0.1 * table_bytes, (label, tag, ref_peak, peak,
+                                        table_bytes)
+            pushes = {k: v for k, v in counts.items()
+                      if k.startswith("scatter_rows") and v}
+            _phase("host-store", f"{label} {tag}: {HOST_EPOCHS} epochs x "
+                   f"{n_steps // HOST_EPOCHS} steps of {n_layers} layers, "
+                   f"{same}; store {where['device']:,} B on the device, "
+                   f"{where['host']:,} B on the host (tables {table_bytes:,}"
+                   f" B, a step's set of mini-tables {mini:,} B); peak "
+                   f"device memory +{peak / 2**20:.2f} MiB over the run, "
+                   f"{(ref_peak - peak) / 2**20:.2f} MiB below device/0's "
+                   f"(the tables {table_bytes / 2**20:.2f} MiB); step p50 {np.percentile(steps, 50):.3f} ms, "
+                   f"p99 {np.percentile(steps, 99):.3f} ms; launches "
+                   f"gather_rows_raw {counts['gather_rows_raw']}, pushes "
+                   f"{pushes}; host tables pinned: "
+                   + ("yes" if storage == "host" else "none (device)"))
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        line = pool.submit(_profiled_host_epoch, gat_part).result()
+    _phase("host-store", f"gat vq host/1, one epoch under torch.profiler in "
+           f"a child process: {line}")
+    return launches
+
+
+def _intervals_union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _profiled_host_epoch(part):
+    """Phase 6's profile, in a child process of its own: the GAT vq plan
+    over a pinned host store at depth 1, one epoch to warm up, then one
+    under torch.profiler. From its trace: the device's busy share (the
+    union of the kernels' and copies' intervals over the window's wall
+    time), the side stream's kernels (the prefetches, `gather_rows_raw`)
+    and how much of their time overlaps main-stream kernels."""
+    device = resolve_device("cuda")
+    g, spec = _train_graph("gat")
+    cfg = dataclasses.replace(_train_config("gat"), history_dtype="vq",
+                              vq_refit_every=2, history_storage="host",
+                              prefetch_depth=1)
+    plan = RT.build_plan(g, spec, cfg, device=device, part=part)
+    state = RT.init_state(plan)
+    RT.train_epoch(plan, state, 0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        RT.train_epoch(plan, state, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    path = ROOT / "build" / f"host_epoch_trace_{os.getpid()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return "not measured (the profiler saw no device event)"
+    side = {e["args"].get("stream") for e in dev
+            if "gather_rows_raw" in e.get("name", "")}
+    iv = lambda es: [(e["ts"], e["ts"] + e["dur"]) for e in es]  # noqa
+    on_side = [e for e in dev if e["args"].get("stream") in side]
+    main = _intervals_union(iv(e for e in dev
+                               if e["args"].get("stream") not in side))
+    busy = sum(b - a for a, b in _intervals_union(iv(dev)))
+    side_us = sum(e["dur"] for e in on_side)
+    over = sum(max(0.0, min(b, mb) - max(a, ma))
+               for a, b in iv(on_side) for ma, mb in main)
+    others = sorted({e["name"][:40] for e in on_side
+                     if "gather_rows_raw" not in e["name"]})
+    return (f"device busy {busy / 1e3:.3f} of {wall_us / 1e3:.1f} ms "
+            f"({100 * busy / wall_us:.1f}%) over "
+            f"{plan.batches.num_batches} steps; {len(on_side)} kernels on "
+            f"the side stream(s) {sorted(side)} ({side_us:.1f} us; other "
+            f"than gather_rows_raw: {others or 'none'}), {over:.1f} us of "
+            f"them ({100 * over / max(side_us, 1e-9):.1f}%) overlapping "
+            f"main-stream kernels; {len(dev) - len(on_side)} device events "
+            f"on the main stream")
+
+
 def serving_phase(g, spec, device, kplan):
     """Phase 3. Returns the launch counts of the 32 requests."""
     N = g.num_nodes
@@ -3581,6 +3869,8 @@ def _smoke(args, partitions, t_start) -> int:
     lap("vq distortion bound")
     launches.update(table5_phase(device, parts["pna"][0], summaries))
     lap("table 5")
+    launches.update(host_store_phase(plans, device, parts["gat"][0]))
+    lap("host-store")
     _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":

@@ -14,6 +14,7 @@ ported yet (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -301,6 +302,23 @@ def staleness_diags(age: torch.Tensor, halo_nodes: torch.Tensor,
             "halo_age_max": (hage * valid).max()}
 
 
+def history_view(store, batch: GASBatch, pulled=None,
+                 use_history: bool = True) -> Tuple[Any, GASBatch]:
+    """(the store to read history from, the batch to read it with). With
+    `pulled` (`store.prefetch(batch.halo_nodes)`, perhaps patched since),
+    or for a host store, which is read only that way (its prefetch taken
+    here), the reads go to `store.with_pulled(pulled)`, whose row i holds
+    halo node i: the batch's halo ids become arange(max_h), bit for bit
+    the same reads. Otherwise (store, batch) as they are."""
+    if use_history and pulled is None and store.storage == "host":
+        pulled = store.prefetch(batch.halo_nodes)
+    if not use_history or pulled is None:
+        return store, batch
+    hmask = batch.halo_mask
+    return store.with_pulled(pulled), replace(batch, halo_nodes=torch.arange(
+        hmask.shape[0], dtype=torch.int32, device=hmask.device))
+
+
 def materialize_x_all(ell: int, x_cur: torch.Tensor, xh: torch.Tensor,
                       store, batch: GASBatch, use_history: bool = True,
                       halo_scale: Optional[torch.Tensor] = None
@@ -349,18 +367,19 @@ def gas_forward(layer_apply: Callable[[int, torch.Tensor, GASBatch],
     xb = ops.pull_rows(x_global, batch.batch_nodes) * bmask[:, None]
     xh = ops.pull_rows(x_global, batch.halo_nodes) * hmask[:, None]
     diags = staleness_diags(store.age, batch.halo_nodes, hmask)
+    view, vbatch = history_view(store, batch, use_history=use_history)
     fuse = fused_layer_apply is not None and use_history
     qerr = None
     x_cur = xb
     for ell in range(num_layers):
         if ell > 0 and fuse:
             x_next = fused_layer_apply(
-                ell, x_cur, (store.tables[ell - 1],
-                             store.layer_scales(ell - 1),
-                             store.layer_codebook(ell - 1),
-                             batch.halo_nodes, hmask), batch)
+                ell, x_cur, (view.tables[ell - 1],
+                             view.layer_scales(ell - 1),
+                             view.layer_codebook(ell - 1),
+                             vbatch.halo_nodes, hmask), batch)
         else:
-            x_all = materialize_x_all(ell, x_cur, xh, store, batch,
+            x_all = materialize_x_all(ell, x_cur, xh, view, vbatch,
                                       use_history)
             x_next = layer_apply(ell, x_all, batch)
         if ell < num_layers - 1:

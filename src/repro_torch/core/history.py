@@ -28,7 +28,21 @@ and XLA performs its push in place only when the jitted step donates the
 tables. Here the store is mutable: `push` scatters into the table (and
 scale) tensors themselves and `tick` updates `age` in place, and both
 return the store for chaining; a refit replaces the codebooks and zeroes
-the statistics in place. Host-memory tables are not ported yet.
+the statistics in place.
+
+Placement (`storage`, `repro.core.history:165-215`): "device" keeps
+everything on the store's device; "host" keeps the tables and the int8
+/ vq scale tables in pinned host memory (the paper's large-graph setup:
+table capacity then scales with host RAM, and only pulled rows reach the
+card), while the clock, the vq codebooks and their statistics stay on
+the card. The pushes write a host table through its unified address, and
+every read of one goes through `prefetch`: `gather_rows_raw` copies the
+halo's raw rows (and scales) into device mini-tables, and `with_pulled`
+makes a read view of them, so no contraction kernel ever reads a host
+table. On the CPU (`device="cpu"`) a host store is a CPU store and the
+same code runs, as the reference's moves are no-ops on a host-less
+runtime. `prefetch`, `with_pulled` and `patch_pulled` also carry the
+epoch pipeline (`GASConfig.prefetch_depth`) over either placement.
 """
 from __future__ import annotations
 
@@ -39,16 +53,17 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.gather import gather_rows_vq
+from repro_torch.kernels.gather import gather_rows_raw
 from repro_torch.kernels.ref import (dequantize_rows, quantize_rows,
                                      relative_row_error, row_scales,
                                      vq_decode_rows, vq_encode_rows,
                                      vq_row_scales)
-from repro_torch.kernels.scatter import scatter_rows_vq
+from repro_torch.kernels.scatter import SCAN_MAX_ROWS, scatter_rows_vq
 from .config import resolve_device
 
 __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
-           "resolve_history_dtype", "row_scales",
+           "resolve_history_dtype", "HISTORY_STORAGES",
+           "resolve_history_storage", "REFIT_CHUNK_ROWS", "row_scales",
            "quantize_rows", "dequantize_rows", "quantization_error",
            "VQ_SUBDIM", "VQ_CODES", "VQ_SEED", "vq_table_width",
            "vq_init_codebook", "vq_row_scales", "vq_encode_rows",
@@ -62,6 +77,12 @@ __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
 VQ_SUBDIM = 8
 VQ_CODES = 256
 VQ_SEED = 0
+
+HISTORY_STORAGES = ("device", "host")
+# the most rows a host store's refit decodes and re-encodes at a time: a
+# push of at most SCAN_MAX_ROWS rows needs no N-entry winner scratch on
+# the card, and no [N, d] f32 copy of a table is made
+REFIT_CHUNK_ROWS = SCAN_MAX_ROWS
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +158,22 @@ def resolve_history_dtype(history_dtype: Optional[str] = None) -> str:
             get_codec(cand)
             return cand
     return "f32"
+
+
+def resolve_history_storage(storage: Optional[str] = None) -> str:
+    """The argument, else $REPRO_HISTORY_STORAGE, else "device", the
+    reference's order (`repro.core.history.resolve_history_storage`); a
+    name outside HISTORY_STORAGES raises the reference's ValueError, word
+    for word."""
+    for cand in (storage,
+                 os.environ.get("REPRO_HISTORY_STORAGE") or None):
+        if cand is not None:
+            if cand not in HISTORY_STORAGES:
+                raise ValueError(
+                    f"storage must be one of {HISTORY_STORAGES}, "
+                    f"got {cand}")
+            return cand
+    return "device"
 
 
 # ---------------------------------------------------------------------------
@@ -233,22 +270,31 @@ class HistoryStore:
     codebooks: Optional[List[torch.Tensor]] = None  # vq: [S, 256, 8] f32
     cb_counts: Optional[List[torch.Tensor]] = None  # vq: [S, 256] f32
     cb_sums: Optional[List[torch.Tensor]] = None    # vq: [S, 256, 8] f32
+    storage: str = "device"                         # "device" | "host"
 
     @classmethod
     def create(cls, num_nodes: int, dims: List[int],
                history_dtype: Optional[str] = None,
-               device=None) -> "HistoryStore":
+               device=None, storage: Optional[str] = None
+               ) -> "HistoryStore":
         """Zero tables (zero codes at scale 1.0 for int8 and vq, as the
         reference's `create`; a vq store also gets `vq_init_codebook(d)`
         per layer and zero statistics) and ages. `num_nodes` must include
         the sentinel row (pass N + 1). `history_dtype` resolves as
-        `resolve_history_dtype` (argument, $REPRO_HISTORY_DTYPE, "f32");
-        `device=None` means "cuda"."""
+        `resolve_history_dtype` (argument, $REPRO_HISTORY_DTYPE, "f32"),
+        `storage` as `resolve_history_storage` (argument,
+        $REPRO_HISTORY_STORAGE, "device"); `device=None` means "cuda". A
+        host store on the card allocates its tables and scale tables in
+        pinned host memory, and only the clock, codebooks and statistics
+        on the card."""
         hd = resolve_history_dtype(history_dtype)
+        st = resolve_history_storage(storage)
         codec = get_codec(hd)
         widths = [codec.table_width(d) for d in dims]
         dev = resolve_device(device)
-        scales = ([torch.ones((num_nodes,), dtype=torch.float32, device=dev)
+        where = (dict(device="cpu", pin_memory=True)
+                 if st == "host" and dev.type == "cuda" else dict(device=dev))
+        scales = ([torch.ones((num_nodes,), dtype=torch.float32, **where)
                    for _ in dims] if codec.scaled else None)
         codebooks = counts = sums = None
         if codec.vq:
@@ -257,15 +303,52 @@ class HistoryStore:
                                   device=dev) for cb in codebooks]
             sums = [torch.zeros_like(cb) for cb in codebooks]
         return cls(tables=[torch.zeros((num_nodes, w), dtype=codec.storage,
-                                       device=dev) for w in widths],
+                                       **where) for w in widths],
                    age=torch.zeros((num_nodes,), dtype=torch.int32,
                                    device=dev),
                    history_dtype=hd, scales=scales, codebooks=codebooks,
-                   cb_counts=counts, cb_sums=sums)
+                   cb_counts=counts, cb_sums=sums, storage=st)
 
     @property
     def device(self) -> torch.device:
         return self.age.device
+
+    @property
+    def pinned(self) -> bool:
+        """True for a host store on the card: its tables and scale tables
+        are pinned host tensors that the kernels reach by unified
+        address."""
+        return self.storage == "host" and self.device.type == "cuda"
+
+    def _placed(self, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+        """`t` where this store keeps its tables (pinned host memory for a
+        host store on the card, plain CPU memory for one on the CPU, else
+        the store's device): `t` itself where it is there already, unless
+        `copy`."""
+        if self.pinned:
+            if t.device.type == "cpu" and t.is_pinned() and not copy:
+                return t
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+        where = "cpu" if self.storage == "host" else self.device
+        return t.to(where, copy=copy)
+
+    def place(self) -> "HistoryStore":
+        """In place: the tables and scale tables moved to where `storage`
+        keeps them; idempotent, and the re-placement after a checkpoint
+        restore, as the reference's `place`. Returns the store."""
+        resolve_history_storage(self.storage)
+        self.tables = [self._placed(t) for t in self.tables]
+        if self.scales is not None:
+            self.scales = [self._placed(t) for t in self.scales]
+        return self
+
+    def sync(self) -> "HistoryStore":
+        """Wait for the card's queued writes into a pinned table (the
+        pushes) before the host reads it; a no-op for other stores."""
+        if self.pinned:
+            torch.cuda.synchronize(self.device)
+        return self
 
     @property
     def num_layers(self) -> int:
@@ -286,10 +369,82 @@ class HistoryStore:
         (upcast where they are consumed), as the reference's pull. At the
         layer's own width: the reference's `pad_out=True` pull, which
         keeps its kernels' 128-lane padding, has no counterpart because
-        the port's kernels mask ragged widths."""
+        the port's kernels mask ragged widths. A host store's rows are
+        first copied raw into device mini-tables (`prefetch`), then read
+        from them."""
+        if self.storage == "host":
+            (rows, scl), = self.prefetch(idx, layers=(ell,))
+            mini = torch.arange(rows.shape[0], dtype=torch.int32,
+                                device=rows.device)
+            return ops.pull_rows(rows, mini, scales=scl,
+                                 codebook=self.layer_codebook(ell))
         return ops.pull_rows(self.tables[ell], idx,
                              scales=self.layer_scales(ell),
                              codebook=self.layer_codebook(ell))
+
+    # -- the epoch pipeline's reads (`repro.core.history:581-616, 702-743`)
+
+    def prefetch(self, idx: torch.Tensor,
+                 layers: Optional[Tuple[int, ...]] = None) -> tuple:
+        """Every layer's rows `idx` (clipped to the table) in raw storage
+        precision, with their scales for int8 and vq: one `(rows,
+        scales|None)` pair a layer, on the store's device, through
+        `gather_rows_raw` (which reads a pinned host table across the
+        link). No dequantization happens here: the rows are the table's
+        bits, so a read view of them (`with_pulled`) gives what a pull of
+        the full table gives, bit for bit. `layers` picks some layers
+        only."""
+        idx = idx.to(device=self.device, dtype=torch.int32)
+        out = []
+        for ell in range(self.num_layers) if layers is None else layers:
+            scl = self.layer_scales(ell)
+            out.append((gather_rows_raw(self.tables[ell], idx),
+                        None if scl is None else gather_rows_raw(scl, idx)))
+        return tuple(out)
+
+    def with_pulled(self, pulled) -> "HistoryStore":
+        """A read view whose layer tables are the prefetched rows (`pulled`
+        from `prefetch`): its row i holds what row halo_nodes[i] of the full
+        store held, so reading the view at arange(max_h) gives a pull of
+        the halo bit for bit, through the same dequantizing or decoding
+        kernel. The view shares the clock (staleness reads index it with
+        the real halo ids), the codebooks and the statistics, and lies on
+        the device. Push into the store, never into the view."""
+        return HistoryStore(
+            tables=[p[0] for p in pulled], age=self.age,
+            history_dtype=self.history_dtype,
+            scales=None if self.scales is None else [p[1] for p in pulled],
+            codebooks=self.codebooks, cb_counts=self.cb_counts,
+            cb_sums=self.cb_sums, storage="device")
+
+    def patch_pulled(self, pulled, halo_nodes: torch.Tensor,
+                     halo_mask: torch.Tensor, batch_nodes: torch.Tensor,
+                     batch_mask: torch.Tensor, pushed):
+        """The pipeline's write-after-read repair, in place: `pulled` was
+        prefetched for a later batch before the batch that just ran pushed
+        its rows, so every halo slot whose node that batch pushed holds the
+        old bits. Each such slot is rewritten from the pushed rows
+        (`pushed`, one [max_b, d] tensor a layer) by the store's own push
+        kernel on the mini-table (`push_rows`, `push_rows_q`,
+        `push_rows_vq`), which writes exactly the bits, codes and scales
+        that the push wrote into the full table; masked halo slots are
+        left as they are. The batch's nodes are found by a sorted search
+        over its max_b rows (no [N+1] position array). Returns
+        `pulled`."""
+        hit, row = _halo_hits(halo_nodes, halo_mask, batch_nodes,
+                              batch_mask)
+        slots = torch.arange(halo_nodes.shape[0], dtype=torch.int32,
+                             device=hit.device)
+        for ell, (rows, scl) in enumerate(pulled):
+            vals = pushed[ell][row]
+            if self.codebooks is not None:
+                ops.push_rows_vq(rows, scl, slots, vals, hit,
+                                 self.codebooks[ell])
+            elif scl is not None:
+                ops.push_rows_q(rows, scl, slots, vals, hit)
+            else:
+                ops.push_rows(rows, slots, vals, hit)
+        return pulled
 
     def push(self, ell: int, idx: torch.Tensor, values: torch.Tensor,
              mask: torch.Tensor) -> "HistoryStore":
@@ -344,9 +499,12 @@ class HistoryStore:
         stored row (the sentinel's too) decoded under the old codebook and
         re-encoded under the new one, as the reference's refit, and the
         statistics zeroed. The decode and the encode are the pull's and
-        the push's kernels (`gather_rows_vq`, `scatter_rows_vq`) over all
-        rows; a transient f32 copy of each table is made. A no-op for
-        other stores."""
+        the push's kernels (`pull`, `scatter_rows_vq`): a device store
+        takes all rows at once (a transient f32 copy of each table), a
+        host store REFIT_CHUNK_ROWS rows at a time, so that no O(N) f32
+        table or winner scratch lands on the card. Each row is re-encoded
+        on its own, so the chunks give the one pass's codes bit for bit.
+        A no-op for other stores."""
         if self.codebooks is None:
             return self
         for ell in range(self.num_layers):
@@ -354,10 +512,12 @@ class HistoryStore:
             cb = vq_refit_codebook(cb_old, self.cb_counts[ell],
                                    self.cb_sums[ell])
             table, scales = self.tables[ell], self.scales[ell]
-            idx = torch.arange(table.shape[0], dtype=torch.int32,
-                               device=table.device)
-            rows = gather_rows_vq(table, cb_old, scales, idx)
-            scatter_rows_vq(table, scales, idx, rows, cb)
+            n = table.shape[0]
+            chunk = REFIT_CHUNK_ROWS if self.storage == "host" else n
+            for a in range(0, n, chunk):
+                idx = torch.arange(a, min(a + chunk, n), dtype=torch.int32,
+                                   device=self.device)
+                scatter_rows_vq(table, scales, idx, self.pull(ell, idx), cb)
             self.codebooks[ell] = cb
             self.cb_counts[ell].zero_()
             self.cb_sums[ell].zero_()
@@ -382,31 +542,51 @@ class HistoryStore:
 
     def clone(self) -> "HistoryStore":
         """A copy with its own tables, scales, codebooks, statistics and
-        clock. The reference's stores are immutable, so its `predict`
+        clock, placed as this store (a host store's tables in new pinned
+        buffers). The reference's stores are immutable, so its `predict`
         scans over a copy for free; the port's pushes are in place, so
         `runtime.predict` runs on a clone."""
         return self.to(self.device)
 
     def to(self, device) -> "HistoryStore":
         """A copy on `device` (tables, scales, codebooks, statistics and
-        clock)."""
+        clock) with this store's `storage`: a host store's tables land in
+        pinned host memory when `device` is a card, in CPU memory
+        otherwise."""
+        self.sync()       # the host copies a pinned table on the host
+
         def move(ts):
             return None if ts is None else [t.to(device, copy=True)
                                              for t in ts]
 
-        return HistoryStore(
-            tables=move(self.tables), age=self.age.to(device, copy=True),
-            history_dtype=self.history_dtype, scales=move(self.scales),
-            codebooks=move(self.codebooks), cb_counts=move(self.cb_counts),
-            cb_sums=move(self.cb_sums))
+        out = HistoryStore(
+            tables=[], age=self.age.to(device, copy=True),
+            history_dtype=self.history_dtype, codebooks=move(self.codebooks),
+            cb_counts=move(self.cb_counts), cb_sums=move(self.cb_sums),
+            storage=self.storage)
+        out.tables = [out._placed(t, copy=True) for t in self.tables]
+        if self.scales is not None:
+            out.scales = [out._placed(t, copy=True) for t in self.scales]
+        return out
 
     def bytes(self) -> int:
         """Table bytes, the scale tables, codebooks and their statistics
         included (the reference's `bytes_per_table` summed)."""
-        parts = [self.tables, self.scales, self.codebooks, self.cb_counts,
-                 self.cb_sums]
-        return sum(t.numel() * t.element_size()
-                   for ts in parts if ts is not None for t in ts)
+        return sum(_nbytes(ts) for ts in (
+            self.tables, self.scales, self.codebooks, self.cb_counts,
+            self.cb_sums))
+
+    def placement_bytes(self) -> dict:
+        """{"device": bytes on the store's device, "host": bytes in host
+        memory}, the clock included: a host store keeps its tables and
+        scale tables on the host and the clock, codebooks and statistics
+        on the device; a device store keeps everything on the device."""
+        tables = _nbytes(self.tables) + _nbytes(self.scales)
+        rest = sum(_nbytes(ts) for ts in (
+            [self.age], self.codebooks, self.cb_counts, self.cb_sums))
+        if self.storage == "host":
+            return {"device": rest, "host": tables}
+        return {"device": rest + tables, "host": 0}
 
     def f32_bytes(self) -> int:
         """The bytes the same tables take at f32 (rows times the layers'
@@ -416,3 +596,22 @@ class HistoryStore:
                   for t, cb in zip(self.tables, self.codebooks or
                                    [None] * self.num_layers)]
         return sum(t.shape[0] * w * 4 for t, w in zip(self.tables, widths))
+
+
+def _nbytes(ts) -> int:
+    return 0 if ts is None else sum(t.numel() * t.element_size() for t in ts)
+
+
+def _halo_hits(halo_nodes: torch.Tensor, halo_mask: torch.Tensor,
+               batch_nodes: torch.Tensor, batch_mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hit [max_h] bool, row [max_h] int64): hit[j] where valid halo slot
+    j names a node that a valid row of the batch holds, row[j] that row
+    (any row where not hit). The batch's valid nodes are distinct; its
+    masked rows take -1, which no node id equals."""
+    b = torch.where(batch_mask, batch_nodes.long(),
+                    torch.full_like(batch_nodes, -1, dtype=torch.long))
+    sb, perm = torch.sort(b)
+    h = halo_nodes.long()
+    k = torch.searchsorted(sb, h).clamp_(max=sb.shape[0] - 1)
+    return (sb[k] == h) & halo_mask, perm[k]

@@ -30,14 +30,21 @@ incur). A vq store's codebooks are refit at the start of an epoch on the
 reference's cadence (`vq_refit_every`) or drift (`vq_refit_drift`) gate.
 The step's loss is `ce + spec.reg_weight * reg`, the Eq. 3 regularizer's
 noise drawn from the state's generator; `halo_age_decay` damps stale
-halo rows in training and in `predict`. Not ported yet:
-`prefetch_depth > 0` and `history_storage="host"` (ROADMAP Queue A
-item 4).
+halo rows in training and in `predict`.
+
+The async history pipeline (`repro.core.runtime:321-475`):
+`history_storage="host"` (None reads $REPRO_HISTORY_STORAGE, else
+"device") keeps the tables in pinned host memory and reads them only
+through prefetched device mini-tables (`core.history`), and
+`prefetch_depth = k > 0` pipelines the epoch: a prologue prefetches the
+first k batches' halos, and each step then prefetches batch i + k's
+(`prefetch_step`, whose docstring states the stream schedule). Every
+placement and depth is bitwise the device store's synchronous epoch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +56,8 @@ from repro_torch.train.optimizer import (AdamWState, adamw_init,
 from . import gas as G
 from .batch import GASBatch
 from .config import HistoryExecConfig, resolve_device
-from .history import HistoryStore, resolve_history_dtype
+from .history import (HistoryStore, resolve_history_dtype,
+                      resolve_history_storage)
 from .partition import metis_like_partition, random_partition
 
 
@@ -61,9 +69,13 @@ class GASConfig(HistoryExecConfig):
     "vq", `vq_refit_every = k > 0` refits the codebooks from the pushes'
     statistics at the start of every k-th epoch, and `vq_refit_drift > 0`
     also whenever the previous epoch's mean `hist_quant_err` exceeded it
-    (0 turns either off). The reference's `backend` has no counterpart
-    (the tensors' device picks the kernel or its plain version), nor has
-    `fused_epoch`: an epoch is always the eager per-step loop."""
+    (0 turns either off). `history_storage` ("device", "host", or None
+    for $REPRO_HISTORY_STORAGE, else "device") places the tables;
+    `prefetch_depth` pipelines the epoch's halo reads (0 is synchronous;
+    deeper than the batches allow is clamped, `_resolved_depth`). The
+    reference's `backend` has no counterpart (the tensors' device picks
+    the kernel or its plain version), nor has `fused_epoch`: an epoch is
+    always the eager per-step loop."""
     num_parts: int
     partitioner: str = "metis"          # "metis" | "random"
     clusters_per_batch: int = 1
@@ -85,11 +97,6 @@ class GASConfig(HistoryExecConfig):
         if self.partitioner not in ("metis", "random"):
             raise ValueError(f"partitioner must be metis or random, got "
                              f"{self.partitioner!r}")
-        if self.prefetch_depth > 0 or self.history_storage == "host":
-            raise NotImplementedError(
-                "prefetch_depth > 0 and history_storage='host' (the async "
-                "history pipeline) are not ported yet (ROADMAP Queue A "
-                "item 4)")
         if self.history_storage not in (None, "device", "host"):
             raise ValueError(f"history_storage must be device or host, got "
                              f"{self.history_storage!r}")
@@ -136,12 +143,15 @@ class GASPlan:
     eval_edges: Tuple[torch.Tensor, torch.Tensor]
     eval_w: torch.Tensor
     unit_blocks: bool
+    history_storage: str = "device"
     _pad_to: Optional[Tuple[int, int, int]] = None
     _pad_k: int = 1
     _pad_k_t: int = 1
     _np_rng: Any = None
     # the last epoch's mean hist_quant_err, which vq_refit_drift reads
     _last_qerr: Optional[float] = None
+    # the pipelined epoch's prefetch stream on the card (`_prefetch_entry`)
+    _side: Any = None
 
     def batch(self, b) -> GASBatch:
         """One device batch off the stack (views, no copy)."""
@@ -192,6 +202,7 @@ def build_plan(graph: Graph, spec, config: GASConfig,
         train_mask=t(np.concatenate([graph.train_mask, [False]])),
         eval_edges=(t(dst), t(src)), eval_w=t(w),
         unit_blocks=spec.op in UNIT_BLOCK_OPS,
+        history_storage=resolve_history_storage(config.history_storage),
         _np_rng=np.random.default_rng(config.seed + 17))
     if config.clusters_per_batch > 1:
         # k random clusters per batch, regrouped each epoch: pad to the
@@ -232,8 +243,9 @@ def init_state(plan: GASPlan, params=None) -> GASState:
     """Fresh params (the port's `init_gnn(spec, seed)` unless `params` is
     given, e.g. the reference's carried across), a zero AdamW state, a
     zero history store of `config.history_dtype` (None: the precision
-    $REPRO_HISTORY_DTYPE names, else f32), the initial rng key data and
-    the regularizer's generator seeded from it."""
+    $REPRO_HISTORY_DTYPE names, else f32) placed as the plan's
+    `history_storage`, the initial rng key data and the regularizer's
+    generator seeded from it."""
     from repro_torch.gnn.model import init_gnn
 
     cfg = plan.config
@@ -242,7 +254,8 @@ def init_state(plan: GASPlan, params=None) -> GASState:
     store = HistoryStore.create(plan.graph.num_nodes + 1,
                                 plan.spec.hist_dims(),
                                 history_dtype=cfg.history_dtype,
-                                device=plan.device)
+                                device=plan.device,
+                                storage=plan.history_storage)
     rng = np.array([0, cfg.seed + 1], np.uint32)
     return GASState(params=params, opt_state=adamw_init(params),
                     histories=store, rng=rng,
@@ -266,22 +279,30 @@ def _loss(plan: GASPlan, logits: torch.Tensor, batch: GASBatch):
                                                               m)
 
 
-def grads_and_metrics(plan: GASPlan, state: GASState, batch: GASBatch
-                      ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+def grads_and_metrics(plan: GASPlan, state: GASState, batch: GASBatch,
+                      pulled: Optional[tuple] = None,
+                      after_forward: Optional[Callable] = None):
     """The step's forward and backward without the update: the gradients
     (a list in `tree_leaves(params)` order, unclipped) and the metrics.
     The loss is `ce + spec.reg_weight * reg`, the reference's. The
-    history pushes of the forward land in `state.histories`."""
+    history pushes of the forward land in `state.histories`. The extended
+    step of the pipeline (the reference's `_make_step_fn_ex`): `pulled`
+    feeds the forward's history reads from prefetched mini-tables, and
+    `after_forward(pushed)`, given the hidden layers' pushed rows, runs
+    once the pushes are queued and before the backward."""
     from repro_torch.gnn.model import gas_batch_forward
 
     cfg, spec = plan.config, plan.spec
     if state.gen is None:
         state.gen = noise_generator(state.rng, plan.device)
     params, leaves = grad_leaves(state.params)
-    logits, _, diags = gas_batch_forward(
+    logits, _, diags, pushed = gas_batch_forward(
         params, spec, plan.x, batch, state.histories,
         use_history=cfg.use_history, fuse_halo=cfg.fuse_halo,
-        gen=state.gen, halo_age_decay=cfg.halo_age_decay)
+        gen=state.gen, halo_age_decay=cfg.halo_age_decay, pulled=pulled,
+        return_pushed=True)
+    if after_forward is not None:
+        after_forward(pushed)
     reg = diags.pop("reg")
     ce, acc = _loss(plan, logits, batch)
     loss = ce + spec.reg_weight * reg
@@ -315,6 +336,95 @@ def train_step(plan: GASPlan, state: GASState, batch: GASBatch
     return apply_update(plan, state, grads), metrics
 
 
+@dataclass
+class PrefetchEntry:
+    """One halo prefetch in flight: the mini-tables (`HistoryStore.
+    prefetch`), the target batch's halo ids and mask (the patches read
+    them) and, on the card, the event that ends its reads on the side
+    stream."""
+    pulled: tuple
+    halo_nodes: torch.Tensor
+    halo_mask: torch.Tensor
+    done: Any = None
+
+
+def _prefetch_entry(plan: GASPlan, store: HistoryStore,
+                    batch: GASBatch) -> PrefetchEntry:
+    """Start the prefetch of `batch`'s halo rows. On the card its gathers
+    run on the plan's side stream, behind an event recorded on the main
+    stream now, so they read the tables as every push queued so far left
+    them; the mini-tables are allocated on the side stream and marked
+    used by the main one (`record_stream`), which patches and reads them.
+    On the CPU the gathers run in place."""
+    if plan.device.type != "cuda":
+        return PrefetchEntry(store.prefetch(batch.halo_nodes),
+                             batch.halo_nodes, batch.halo_mask)
+    main = torch.cuda.current_stream(plan.device)
+    if plan._side is None:
+        plan._side = torch.cuda.Stream(device=plan.device)
+    side = plan._side
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        batch.halo_nodes.record_stream(side)
+        pulled = store.prefetch(batch.halo_nodes)
+        done = torch.cuda.Event()
+        done.record(side)
+    for rows, scl in pulled:
+        for t in (rows,) if scl is None else (rows, scl):
+            t.record_stream(main)
+    return PrefetchEntry(pulled, batch.halo_nodes, batch.halo_mask, done)
+
+
+def prefetch_step(plan: GASPlan, state: GASState, batch: GASBatch,
+                  future_batch: Optional[GASBatch], queue: tuple
+                  ) -> Tuple[GASState, Dict[str, torch.Tensor], tuple]:
+    """One step of the pipelined epoch (the step the reference's
+    `make_prefetch_step_fn` builds). `queue` holds the prefetches in
+    flight, its head this batch's. The schedule, which keeps every read
+    of a table off the rows the main stream is writing:
+
+      1. the main stream waits for every prefetch in `queue`, so their
+         reads end before this step's first push;
+      2. the forward reads the halo from the head's mini-tables and
+         pushes into the store;
+      3. after the pushes, the other entries (read before them) are
+         patched with this step's pushed rows (`patch_pulled`, on the main
+         stream), then `future_batch`'s prefetch starts on the side stream
+         behind an event at the last push, so it reads the tables the
+         synchronous schedule's pull would and overlaps this step's
+         backward and update;
+      4. the backward and the update.
+
+    A masked halo slot reads the sentinel row, which every push writes
+    and no patch restores; the schedule never lets a prefetch read it
+    while a push writes it. Returns (state, metrics, queue[1:] + the new
+    entry, if `future_batch` is given)."""
+    if plan.device.type == "cuda":
+        main = torch.cuda.current_stream(plan.device)
+        for e in queue:
+            main.wait_event(e.done)
+    head, rest = queue[0], list(queue[1:])
+
+    def after_forward(pushed):
+        for e in rest:
+            state.histories.patch_pulled(e.pulled, e.halo_nodes, e.halo_mask,
+                                         batch.batch_nodes, batch.batch_mask,
+                                         pushed)
+        if future_batch is not None:
+            rest.append(_prefetch_entry(plan, state.histories, future_batch))
+
+    grads, metrics = grads_and_metrics(plan, state, batch, pulled=head.pulled,
+                                       after_forward=after_forward)
+    return apply_update(plan, state, grads), metrics, tuple(rest)
+
+
+def _resolved_depth(plan: GASPlan) -> int:
+    """`prefetch_depth` clamped to [0, num_batches): each prefetch in
+    flight is a distinct later batch's (the reference's clamp)."""
+    nb = plan.batches.num_batches
+    return max(0, min(plan.config.prefetch_depth, nb - 1))
+
+
 def train_epoch(plan: GASPlan, state: GASState, epoch: int
                 ) -> Tuple[GASState, Dict[str, float]]:
     """One epoch over every cluster batch in the reference's shuffled
@@ -323,7 +433,10 @@ def train_epoch(plan: GASPlan, state: GASState, epoch: int
     1 on). A vq store's codebooks are refit first when the cadence
     (`vq_refit_every`) or the drift gate (`vq_refit_drift`, against the
     previous epoch's mean `hist_quant_err`) says so, as the reference's
-    epoch does. Returns the per-step metrics' means."""
+    epoch does. With `prefetch_depth` k > 0 (clamped, `_resolved_depth`)
+    the first k batches' halos are prefetched first and each step then
+    runs `prefetch_step`, which prefetches batch i + k's; bitwise the
+    synchronous epoch. Returns the per-step metrics' means."""
     cfg = plan.config
     cadence_due = (cfg.vq_refit_every > 0 and epoch > 0
                    and epoch % cfg.vq_refit_every == 0)
@@ -337,8 +450,18 @@ def train_epoch(plan: GASPlan, state: GASState, epoch: int
     order = np.random.default_rng(cfg.seed * 1000 + epoch).permutation(
         plan.batches.num_batches)
     agg = []
-    for b in order:
-        state, metrics = train_step(plan, state, plan.batch(int(b)))
+    depth, nb = _resolved_depth(plan), len(order)
+    queue = tuple(_prefetch_entry(plan, state.histories,
+                                  plan.batch(int(order[j])))
+                  for j in range(depth))
+    for i, b in enumerate(order):
+        if depth == 0:
+            state, metrics = train_step(plan, state, plan.batch(int(b)))
+        else:
+            future = (plan.batch(int(order[i + depth])) if i + depth < nb
+                      else None)
+            state, metrics, queue = prefetch_step(
+                plan, state, plan.batch(int(b)), future, queue)
         agg.append(metrics)
     stacked = {k: torch.stack([m[k].to(torch.float32) for m in agg]).cpu()
                for k in agg[0]}
@@ -364,7 +487,9 @@ def fit(plan: GASPlan, state: GASState, epochs: Optional[int] = None,
 def predict(plan: GASPlan, state: GASState) -> torch.Tensor:
     """History-based inference (the paper's constant-memory advantage):
     every batch in stack order against a clone of the store, so the
-    state's tables and clock are left as they were. Returns [N, C]."""
+    state's tables and clock are left as they were (a host store's clone
+    is pinned host memory too, and is read through prefetched
+    mini-tables). Returns [N, C]."""
     from repro_torch.gnn.model import gas_batch_forward
 
     cfg = plan.config

@@ -31,6 +31,13 @@ the layers. `halo_age_decay > 0` damps every pulled halo row by
 1 / (1 + decay * age), from the clock before the step. `dropout` is a
 field the reference never reads, and neither does the port.
 
+With `pulled` (the halo's rows prefetched from the store,
+`HistoryStore.prefetch`) every history read of the three routes goes to
+the device mini-tables of `store.with_pulled(pulled)` at arange(max_h),
+which is bit for bit a read of the full tables at the halo's ids; a host
+store (`history_storage="host"`) is always read that way, its prefetch
+taken here when the caller gave none.
+
 Each hidden layer's in-batch rows are pushed into the store in place,
 detached. The reference traces this under `jax.value_and_grad` and XLA
 applies the pushes to the donated tables; here autograd records the
@@ -48,7 +55,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.batch import GASBatch
 from repro_torch.core.config import resolve_device
-from repro_torch.core.gas import materialize_x_all, staleness_diags
+from repro_torch.core.gas import (history_view, materialize_x_all,
+                                  staleness_diags)
 from repro_torch.core.history import HistoryStore
 from repro_torch.kernels import ops
 from . import layers as L
@@ -283,9 +291,9 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                       use_history: bool = True, fuse_halo: bool = True,
                       vq_stats: bool = True,
                       gen: Optional[torch.Generator] = None,
-                      halo_age_decay: float = 0.0
-                      ) -> Tuple[torch.Tensor, HistoryStore,
-                                 Dict[str, torch.Tensor]]:
+                      halo_age_decay: float = 0.0,
+                      pulled: Optional[tuple] = None,
+                      return_pushed: bool = False) -> tuple:
     """Returns (logits [max_b, C], the store, diagnostics). The store is
     updated in place: each hidden layer's in-batch rows are pushed and the
     clock is ticked. `batch` must be a single batch on the store's device
@@ -302,7 +310,17 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     active regularizer take every layer onto the materialized route, as
     in the reference. `vq_stats=False` keeps a vq store's k-means
     statistics as they are (serving; the reference restores them after
-    its serving step)."""
+    its serving step).
+
+    `pulled` (from `store.prefetch(batch.halo_nodes)`, perhaps taken
+    before earlier pushes and then patched, `HistoryStore.patch_pulled`)
+    feeds every history read from device mini-tables, bit for bit what
+    the full tables would give; the pushes and the clock still go to
+    `store`. A host store with no `pulled` prefetches here, so no kernel
+    but `gather_rows_raw` and the pushes touches its tables. With
+    `return_pushed` a fourth element follows: the tuple of the hidden
+    layers' pushed rows, what `patch_pulled` takes (the reference's
+    `return_pushed=True`)."""
     _check_op(spec)
     unit = spec.op in UNIT_BLOCK_OPS
     if (batch.ublocks if unit else batch.blocks) is None:
@@ -329,6 +347,7 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     hh = _pre(params, spec, xh)
 
     diags = staleness_diags(store.age, batch.halo_nodes, hmask)
+    view, vbatch = history_view(store, batch, pulled, use_history)
     halo_scale = None
     if halo_age_decay and use_history:
         # one trust weight per halo slot from the clock before the step
@@ -338,15 +357,16 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
         halo_scale = torch.reciprocal(1.0 + halo_age_decay * hage)
     reg = torch.zeros((), dtype=torch.float32, device=hb.device)
     qerr = None                # the sum of the lossy pushes' errors
+    pushed = []
     x_cur = hb
     for ell in range(spec.num_layers):
         if ell > 0 and fuse:
-            x_next = _fused_prop(params, spec, ell, x_cur, store, batch, hb)
+            x_next = _fused_prop(params, spec, ell, x_cur, view, vbatch, hb)
         elif ell > 0 and halo_split:
-            x_next = _halo_prop(params, spec, ell, x_cur, store, batch,
+            x_next = _halo_prop(params, spec, ell, x_cur, view, vbatch,
                                 edges, batch.edge_w)
         else:
-            x_all = materialize_x_all(ell, x_cur, hh, store, batch,
+            x_all = materialize_x_all(ell, x_cur, hh, view, vbatch,
                                       use_history, halo_scale=halo_scale)
             x_next = _prop(params, spec, ell, x_all, edges, batch.edge_w,
                            max_b, batch, hb)
@@ -359,8 +379,9 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                 reg = reg + _eq3_term(x_next, x_pert, bmask,
                                       spec.num_layers)
         if ell < spec.num_layers - 1:
-            err = store.push_measured(ell, batch.batch_nodes,
-                                      x_next.detach(), bmask, vq_stats)
+            pushed.append(x_next.detach())
+            err = store.push_measured(ell, batch.batch_nodes, pushed[-1],
+                                      bmask, vq_stats)
             if err is not None:
                 qerr = err if qerr is None else qerr + err
         x_cur = x_next
@@ -370,7 +391,8 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
         if qerr is None else qerr / max(spec.num_layers - 1, 1))
     diags["reg"] = reg
     store.tick(batch.batch_nodes, bmask)
-    return _post(params, spec, x_cur), store, diags
+    out = (_post(params, spec, x_cur), store, diags)
+    return out + (tuple(pushed),) if return_pushed else out
 
 
 def full_forward(params, spec: GNNSpec, x: torch.Tensor,

@@ -46,13 +46,15 @@ KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
            "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16",
            "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col",
            "gather_rows_vq", "scatter_rows_vq", "gather_spmm_vq",
-           "flash_decode")
+           "flash_decode", "gather_rows_raw")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
+    "repro_gather_rows_raw": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_host_device_ptr": [_P, ctypes.POINTER(ctypes.c_void_p)],
     "repro_gather_rows_f32": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_bf16": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_dq": [_P, _P, _P, _P, _I, _I, _P],
@@ -165,10 +167,14 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
 
 
 def load(path: Path) -> ctypes.CDLL:
-    """A built kernel library with its launchers' signatures set."""
+    """A built kernel library with its launchers' signatures set. An entry
+    point the library lacks is left out (another checkout's library,
+    `chip_smoke.py --parent-csrc`, may predate it); calling it raises."""
     handle = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
+        fn = getattr(handle, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     handle.repro_error_string.argtypes = [ctypes.c_int]
@@ -196,15 +202,25 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 pinned: Tuple[torch.Tensor, ...] = ()) -> torch.device:
     """The checks every wrapper makes before a launch: all tensors on one
-    CUDA device (the current one) and contiguous."""
+    CUDA device (the current one) and contiguous. A tensor in `pinned` (a
+    history table or scale table, in the wrappers that read or write one
+    through its unified address: `gather_rows_raw` and the three pushes)
+    may instead be a pinned CPU tensor; a CPU tensor that is not pinned
+    raises, and so does any other mix of devices."""
     dev = tensors[0].device
-    for t in tensors:
+    for t in tensors + tuple(p for p in pinned if p.device.type != "cpu"):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    for t in tensors + tuple(pinned):
         if not t.is_contiguous():
             raise ValueError(f"{name}: every operand must be contiguous")
+    for p in pinned:
+        if p.device.type == "cpu" and not p.is_pinned():
+            raise ValueError(f"{name}: a CPU table must be in pinned host "
+                             "memory (a history_storage='host' store's)")
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.index != torch.cuda.current_device():
@@ -212,6 +228,20 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         raise ValueError(f"{name}: tensors on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return dev
+
+
+def device_ptr(t: torch.Tensor) -> int:
+    """The address a kernel reads or writes `t` through: its data pointer
+    on the card, or, for a pinned CPU tensor, the unified address that
+    maps its host buffer (`repro_host_device_ptr`)."""
+    if t.device.type != "cpu":
+        return t.data_ptr()
+    out = ctypes.c_void_p()
+    rc = lib().repro_host_device_ptr(t.data_ptr(), ctypes.byref(out))
+    if rc != 0:
+        raise ValueError(f"no device address for a CPU tensor: "
+                         f"{lib().repro_error_string(rc).decode()}")
+    return out.value
 
 
 def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype,

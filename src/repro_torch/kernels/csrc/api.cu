@@ -20,3 +20,21 @@ REPRO_API int repro_empty_kernel(int64_t blocks, int64_t threads,
   REPRO_CHECK_LAUNCH();
   return 0;
 }
+
+// The address through which kernels on the current device reach `host`, a
+// pointer into pinned host memory (a `history_storage="host"` table's
+// buffer, read by gather_rows_raw and written by the pushes through the
+// unified address space); cudaErrorInvalidValue for memory that is not
+// pinned host memory (pageable, or on a device).
+REPRO_API int repro_host_device_ptr(const void* host, void** dev) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not sticky: keep it from a later launch's check
+    return static_cast<int>(err);
+  }
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *dev = attr.devicePointer;
+  return 0;
+}

@@ -39,6 +39,29 @@
 // shared memory is staged, whatever S. The output is exactly S*8 wide
 // (the reference pads it to 128 lanes and its callers slice). Each
 // element is one IEEE multiply (__fmul_rn), bitwise `vq_decode_rows`.
+//
+// gather_rows_raw: out[i, :] = table[clip(idx[i], 0, N-1), :], the raw
+// storage bits of a row of any width (f32, bf16, int8 codes, vq's uint8
+// codes, and the [N] f32 scale tables as 1-wide rows). It replaces no
+// Pallas kernel: the reference's `HistoryStore.prefetch`
+// (src/repro/core/history.py:596-600) gathers the raw rows and scales
+// with `jnp.take(..., mode="clip")`, which XLA lowers itself, and streams
+// them device-ward with `jax.device_put`. The port needs a kernel of its
+// own there because a history table may live in pinned host memory
+// (`history_storage="host"`), which no PyTorch gather reads with a CUDA
+// index: the table pointer is the pinned buffer's unified address, so
+// each load crosses the host link, and only the pulled rows ever reach
+// the card. Every pull of a host store and every prefetch of the epoch
+// pipeline (any store) goes through it. Bound: bytes, M*R read (R the
+// row's bytes; over the host link for a pinned table, over HBM for a
+// device one) plus M*R written and 4*M of index; no arithmetic. Design:
+// the output is cut into 16-byte units where the row's bytes and both
+// buffers allow (else 8, 4, 2 or 1), one thread per unit, so that a
+// narrow row (a 4-byte scale) does not idle a warp and a wide one is read
+// by neighbouring threads at neighbouring addresses; every unit is an
+// independent load, so a warp keeps many link reads in flight. The table
+// is read with plain loads (no read-only cache path for host memory), the
+// index through __ldg and clipped in the kernel.
 #include "common.cuh"
 
 namespace {
@@ -140,7 +163,59 @@ gather_rows_vq_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// one thread per V-sized unit of the output; `per_row` units a row
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_raw_kernel(const V* table, const int32_t* __restrict__ idx,
+                       V* __restrict__ out, int64_t total, int64_t per_row,
+                       int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       u < total; u += stride) {
+    const int64_t row = u / per_row;
+    int64_t t = __ldg(idx + row);
+    t = t < 0 ? 0 : (t >= n ? n - 1 : t);
+    out[u] = table[t * per_row + (u - row * per_row)];
+  }
+}
+
+template <typename V>
+int launch_raw(const void* table, const int32_t* idx, void* out, int64_t m,
+               int64_t n, int64_t row_bytes, cudaStream_t s) {
+  const int64_t per_row = row_bytes / static_cast<int64_t>(sizeof(V));
+  const int64_t total = m * per_row;
+  // enough CTAs to cover the output once, at most 16 a SM's worth of 132
+  const int64_t ctas = (total + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(ctas < 132 * 16 ? ctas : 132 * 16));
+  gather_rows_raw_kernel<V><<<grid, kThreads, 0, s>>>(
+      static_cast<const V*>(table), idx, static_cast<V*>(out), total,
+      per_row, n);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace
+
+REPRO_API int repro_gather_rows_raw(const void* table, const int32_t* idx,
+                                    void* out, int64_t m, int64_t n,
+                                    int64_t row_bytes, void* stream) {
+  if (m == 0 || row_bytes == 0) return 0;
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the widest unit that divides the row and both buffers' alignment
+  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
+                          reinterpret_cast<uintptr_t>(out) |
+                          static_cast<uintptr_t>(row_bytes);
+  if (align % 16 == 0) return launch_raw<uint4>(table, idx, out, m, n,
+                                                row_bytes, s);
+  if (align % 8 == 0) return launch_raw<uint2>(table, idx, out, m, n,
+                                               row_bytes, s);
+  if (align % 4 == 0) return launch_raw<uint32_t>(table, idx, out, m, n,
+                                                  row_bytes, s);
+  if (align % 2 == 0) return launch_raw<uint16_t>(table, idx, out, m, n,
+                                                  row_bytes, s);
+  return launch_raw<uint8_t>(table, idx, out, m, n, row_bytes, s);
+}
 
 REPRO_API int repro_gather_rows_f32(const float* table, const int32_t* idx,
                                     float* out, int64_t m, int64_t d,

@@ -1,5 +1,6 @@
 """History pull (row gather): `gather_rows`, the dequantizing
-`gather_rows_dq` and the decoding `gather_rows_vq`.
+`gather_rows_dq`, the decoding `gather_rows_vq`, and `gather_rows_raw`,
+the raw storage rows a prefetch moves into a device mini-table.
 
 Replaces `src/repro/kernels/gather.py:37 gather_rows` (f32 and bf16
 tables), `gather.py:107 gather_rows_dq` (int8 tables with a per-row f32
@@ -11,17 +12,26 @@ E = 4 or 2; M*D int8 bytes and 8*M of index and scale read plus M*D*4
 written for the dequant; M*S code bytes, 8*M and the codebook read plus
 M*S*8*4 written for the decode); on CPU tensors it runs the plain version
 in `ref.py`.
+
+`gather_rows_raw` replaces no Pallas kernel: the reference's
+`HistoryStore.prefetch` (`src/repro/core/history.py:596-600`) takes its
+raw rows and scales with `jnp.take`. Its kernel (`csrc/gather.cu`) reads
+a device table or a pinned host one (`history_storage="host"`) through
+its unified address, so that only the pulled rows cross the host link;
+bound by bytes, M*R read (over the link for a host table) plus M*R
+written, R the row's bytes.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build as B
-from .ref import gather_rows_dq_ref, gather_rows_ref, gather_rows_vq_ref
+from .ref import (gather_rows_dq_ref, gather_rows_raw_ref, gather_rows_ref,
+                  gather_rows_vq_ref)
 
 __all__ = ["gather_rows", "gather_rows_ref", "gather_rows_dq",
            "gather_rows_dq_ref", "gather_rows_vq", "gather_rows_vq_ref",
-           "check_codebook"]
+           "gather_rows_raw", "gather_rows_raw_ref", "check_codebook"]
 
 _ROW_COPY = {torch.float32: ("repro_gather_rows_f32", "gather_rows"),
              torch.bfloat16: ("repro_gather_rows_bf16", "gather_rows_bf16")}
@@ -110,6 +120,35 @@ def gather_rows_vq(table: torch.Tensor, codebook: torch.Tensor,
     B.check(B.lib().repro_gather_rows_vq(
         table.data_ptr(), codebook.data_ptr(), scales.data_ptr(),
         idx.data_ptr(), out.data_ptr(), m, s_n, codebook.shape[1],
+        B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return out
+
+
+def gather_rows_raw(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out [M, ...] = table[clip(idx, 0, N-1)] on the card: the raw
+    storage bits of the rows (f32, bf16, int8 or uint8 codes; a 1-d [N]
+    scale table gives [M]), bitwise, from a device table or from a pinned
+    host one; `idx` int32 [M] on the card, clipped in the kernel. All-CPU
+    operands run the plain version."""
+    if table.device.type == "cpu" and idx.device.type == "cpu":
+        return gather_rows_raw_ref(table, idx)
+    name = "gather_rows_raw"
+    dev = B.require_cuda(name, idx, pinned=(table,))
+    B.require_dtype(name, idx, torch.int32, "idx")
+    if table.dim() not in (1, 2) or idx.dim() != 1:
+        raise ValueError(f"{name}: table [N] or [N, D] and idx [M], got "
+                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
+    m, n = idx.shape[0], table.shape[0]
+    if n == 0 and m > 0:
+        raise ValueError(f"{name}: an empty table has no row to clip to")
+    out = torch.empty((m,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    row_bytes = table[0].numel() * table.element_size()
+    B.check(B.lib().repro_gather_rows_raw(
+        B.device_ptr(table), idx.data_ptr(), out.data_ptr(), m, n, row_bytes,
         B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
     return out

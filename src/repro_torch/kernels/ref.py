@@ -137,6 +137,14 @@ def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
 
+def gather_rows_raw_ref(table: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[clip(idx[i], 0, N-1)], the raw storage bits of a
+    row of any type (a 1-d table's rows are single elements): the plain
+    version of `gather_rows_raw`, the epoch pipeline's prefetch."""
+    return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
 def gather_rows_dq_ref(table: torch.Tensor, scales: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """The dequantizing pull: out[i] = float(q[idx[i]]) * scales[idx[i]]

@@ -17,7 +17,11 @@ small (`scatter_rows_vq_plan`). Bound by bytes: M*D*E read plus M*D*E
 written for the copy, E = 4 or 2; M*D*4 read plus M*D + 8*M written for
 the quantizing push; the encoding push's nearest-entry search, 24 f32
 operations per value and codebook entry, bounds it by operations). On
-CPU tensors it runs the plain version in `ref.py`.
+CPU tensors it runs the plain version in `ref.py`. The table and its
+scale table may also be pinned host tensors (`history_storage="host"`):
+the kernels write their rows through the buffers' unified addresses,
+and their only atomics target the device winner scratch and shared
+memory, never the table.
 """
 from __future__ import annotations
 
@@ -97,14 +101,14 @@ def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
         raise TypeError(f"scatter_rows: table must be float32 or bfloat16, "
                         f"got {table.dtype}")
     symbol, name = _ROW_COPY[table.dtype]
-    dev = B.require_cuda(name, table, idx, values)
+    dev = B.require_cuda(name, idx, values, pinned=(table,))
     B.require_dtype(name, values, table.dtype, "values")
     _check_push(name, table, idx, values)
     n, d = table.shape
     m = idx.shape[0]
     winner = _winner(m, n, dev)
     B.check(getattr(B.lib(), symbol)(
-        table.data_ptr(), idx.data_ptr(), values.data_ptr(),
+        B.device_ptr(table), idx.data_ptr(), values.data_ptr(),
         None if winner is None else winner.data_ptr(), m, n, d,
         B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
@@ -123,7 +127,7 @@ def scatter_rows_q(table: torch.Tensor, scales: torch.Tensor,
     if all(t.device.type == "cpu" for t in (table, scales, idx, values)):
         return scatter_rows_q_ref(table, scales, idx, values)
     name = "scatter_rows_q"
-    dev = B.require_cuda(name, table, scales, idx, values)
+    dev = B.require_cuda(name, idx, values, pinned=(table, scales))
     B.require_dtype(name, table, torch.int8, "table")
     B.require_dtype(name, scales, torch.float32, "scales")
     B.require_dtype(name, values, torch.float32, "values")
@@ -135,7 +139,8 @@ def scatter_rows_q(table: torch.Tensor, scales: torch.Tensor,
     winner = _winner(m, n, dev)
     err = torch.empty((m,), dtype=torch.float32, device=dev)
     B.check(B.lib().repro_scatter_rows_q(
-        table.data_ptr(), scales.data_ptr(), err.data_ptr(), idx.data_ptr(),
+        B.device_ptr(table), B.device_ptr(scales), err.data_ptr(),
+        idx.data_ptr(),
         values.data_ptr(), None if winner is None else winner.data_ptr(), m,
         n, d, B.stream_ptr(dev)), name)
     B.launch_counts[name] += 1
@@ -156,7 +161,8 @@ def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
     if all(t.device.type == "cpu" for t in operands):
         return scatter_rows_vq_ref(table, scales, idx, values, codebook)
     name = "scatter_rows_vq"
-    dev = B.require_cuda(name, *operands)
+    dev = B.require_cuda(name, idx, values, codebook,
+                         pinned=(table, scales))
     B.require_dtype(name, table, torch.uint8, "table")
     B.require_dtype(name, scales, torch.float32, "scales")
     B.require_dtype(name, values, torch.float32, "values")
@@ -173,7 +179,7 @@ def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
     err = torch.empty((m,), dtype=torch.float32, device=dev)
     lanes, warps, _ = scatter_rows_vq_plan(m, s_n, _sm_count(dev))
     B.check(B.lib().repro_scatter_rows_vq(
-        table.data_ptr(), scales.data_ptr(), codes.data_ptr(),
+        B.device_ptr(table), B.device_ptr(scales), codes.data_ptr(),
         err.data_ptr(), idx.data_ptr(), values.data_ptr(),
         codebook.data_ptr(), None if winner is None else winner.data_ptr(),
         m, n, s_n, codebook.shape[1], lanes, warps, B.stream_ptr(dev)),

@@ -7,16 +7,20 @@ The counterpart of `examples/quickstart.py`: the synthetic citation graph
 `benchmarks/table5_baselines.py` runs it) at table 1's depths
 (`benchmarks/table1_full_vs_gas.py`: 2, APPNP 5, GCNII 8, and GIN's 4
 of table 2; alpha 0.1), histories stored at
-`--history-dtype` (f32, bf16, int8 or vq), a METIS-like partition, `--epochs` epochs of full-batch training and of GAS
-training, then both test accuracies from the exact full-graph forward
-and the GAS one from `predict` beside them, with the history store's
-bytes, its compression against f32 and the last epoch's
-`hist_quant_err`.
+`--history-dtype` (f32, bf16, int8 or vq) and placed by
+`--history-storage` (device, or host: pinned host memory), a METIS-like
+partition, `--epochs` epochs of full-batch training and of GAS
+training (the epoch pipelined `--prefetch-depth` batches deep), then
+both test accuracies from the exact full-graph forward and the GAS one
+from `predict` beside them, with the history store's bytes (on the
+device and on the host), its compression against f32 and the last
+epoch's `hist_quant_err`.
 
     python -m repro_torch.launch.train_gas
         [--op gcn|gin|gat|gcnii|appnp|pna] [--nodes N]
         [--features F] [--classes C] [--parts P] [--epochs E]
-        [--history-dtype f32|bf16|int8|vq] [--device cuda|cpu] [--smoke]
+        [--history-dtype f32|bf16|int8|vq] [--history-storage device|host]
+        [--prefetch-depth K] [--device cuda|cpu] [--smoke]
 
 `--device` defaults to cuda and raises without a card; `--device cpu`
 runs every kernel's plain version. `--smoke` shrinks the run (400
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.core import runtime as R
 from repro_torch.core.config import resolve_device
+from repro_torch.core.history import HISTORY_STORAGES
 from repro_torch.data.graphs import citation_graph
 from repro_torch.gnn.model import OPS, GNNSpec
 from repro_torch.train.gas_trainer import FullBatchTrainer, TrainConfig
@@ -59,6 +64,15 @@ def main(argv=None) -> dict:
                     choices=("f32", "bf16", "int8", "vq"),
                     help="history-table storage precision (default: "
                          "$REPRO_HISTORY_DTYPE, else f32)")
+    ap.add_argument("--history-storage", default=None,
+                    choices=HISTORY_STORAGES,
+                    help="history-table placement (default: "
+                         "$REPRO_HISTORY_STORAGE, else device); host keeps "
+                         "the tables in pinned host memory and moves only "
+                         "the pulled rows to the device")
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="software-pipeline depth: prefetch batch i+depth's "
+                         "halo rows during batch i (0 = synchronous)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true")
@@ -90,7 +104,9 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     config = R.GASConfig(num_parts=args.parts, partitioner="metis",
                          epochs=args.epochs, lr=0.01,
-                         history_dtype=args.history_dtype)
+                         history_dtype=args.history_dtype,
+                         history_storage=args.history_storage,
+                         prefetch_depth=args.prefetch_depth)
     plan = R.build_plan(graph, spec, config, device=device)
     t_plan = time.perf_counter() - t0
     state = R.init_state(plan)
@@ -112,9 +128,13 @@ def main(argv=None) -> dict:
           f"{pred_acc:.4f} from the histories")
     store = state.histories
     f32_bytes = store.f32_bytes()
+    where = store.placement_bytes()
     print(f"history store  : {store.bytes():,} bytes "
           f"({store.history_dtype}, {f32_bytes / max(store.bytes(), 1):.2f}x"
-          f" vs f32), hist_quant_err {metrics[-1]['hist_quant_err']:.3g}")
+          f" vs f32), hist_quant_err {metrics[-1]['hist_quant_err']:.3g}; "
+          f"{store.storage} storage, {where['device']:,} bytes on the "
+          f"device and {where['host']:,} on the host (the clock "
+          f"included), prefetch depth {R._resolved_depth(plan)}")
     if args.smoke:
         losses = [m["loss"] for m in metrics] + [h["loss"] for h in hist]
         assert np.isfinite(losses).all(), losses

@@ -31,7 +31,10 @@ reference's `load_gas_state` reads it. A vq store (uint8 code tables
 [N+1, d/8]) is told apart by its codebooks, an int8 store by its int8
 tables and scale tables; a bf16 store only by the writer's meta
 (`args.history_dtype`) or the caller's `history_dtype`, since npz cannot
-hold bf16 and both packages widen it to f32 (exactly) on disk.
+hold bf16 and both packages widen it to f32 (exactly) on disk. The file
+does not say where the tables lived: the reader's `history_storage`
+places them (argument, $REPRO_HISTORY_STORAGE, "device"), and a host
+store restored on the card is pinned again, its bits unchanged.
 `params_from_numpy` maps a flattened param tree given as numpy arrays
 into the params dict.
 
@@ -56,7 +59,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import resolve_device
-from repro_torch.core.history import HistoryStore, get_codec
+from repro_torch.core.history import (HistoryStore, get_codec,
+                                      resolve_history_storage)
 
 _LEAF = r"(w|b|a_src|a_dst|w1|b1|w2|b2|eps)"
 # a layer's leaf, or a leaf of a dict beside the layer list (each op's)
@@ -121,15 +125,18 @@ def _store_dtype(flat: Mapping[str, np.ndarray],
 
 
 def load_gas_state_npz(path: str, device=None,
-                       history_dtype: Optional[str] = None
+                       history_dtype: Optional[str] = None,
+                       history_storage: Optional[str] = None
                        ) -> Tuple[Dict[str, Any], HistoryStore, int]:
     """Read a `.npz` written by either package's `save_gas_state`. Returns
     (params, `HistoryStore`, step) on `device` (None means "cuda"). The
     store's precision is `history_dtype`, else the one the writer's meta
     names, else vq where the file has codebooks, int8 where it has scale
     tables, else f32 (a bf16 store written without meta must be named
-    here)."""
+    here). The store is placed as `history_storage` resolves
+    (`HistoryStore.place`)."""
     dev = resolve_device(device)
+    st = resolve_history_storage(history_storage)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     hd = _store_dtype(flat, history_dtype)
@@ -150,9 +157,10 @@ def load_gas_state_npz(path: str, device=None,
             flat[f"state/histories/tables/{ell}"]))
         if storage in (torch.int8, torch.uint8) and t.dtype != storage:
             raise ValueError(f"a {hd} store's table {ell} holds {t.dtype}")
-        tables.append(t.to(storage).to(dev))
+        tables.append(t.to(storage))
         if codec.scaled:
-            scales.append(leaf(f"state/histories/scales/{ell}", np.float32))
+            scales.append(torch.from_numpy(np.ascontiguousarray(
+                flat[f"state/histories/scales/{ell}"], np.float32)))
         if codec.vq:
             for name in _VQ_AUX:
                 aux[name].append(leaf(f"state/histories/{name}/{ell}",
@@ -160,9 +168,9 @@ def load_gas_state_npz(path: str, device=None,
     age = torch.from_numpy(
         flat["state/histories/age"].astype(np.int32)).to(dev)
     store = HistoryStore(tables=tables, age=age, history_dtype=hd,
-                         scales=scales or None,
+                         scales=scales or None, storage=st,
                          **{k: v or None for k, v in aux.items()})
-    return params, store, int(flat["step"])
+    return params, store.place(), int(flat["step"])
 
 
 def load_gas_meta(path: str) -> Optional[dict]:
@@ -255,7 +263,7 @@ def save_gas_state(path: str, state, step: int = 0,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = _flatten("state/params/", state.params)
     arrays.update(_flatten("state/opt_state/", state.opt_state))
-    store = state.histories
+    store = state.histories.sync()      # a pinned table is read on the host
     for ell, t in enumerate(store.tables):
         if t.dtype == torch.bfloat16:   # npz cannot hold bf16
             t = t.to(torch.float32)
@@ -274,16 +282,19 @@ def save_gas_state(path: str, state, step: int = 0,
 
 
 def load_gas_state(path: str, device=None,
-                   history_dtype: Optional[str] = None):
+                   history_dtype: Optional[str] = None,
+                   history_storage: Optional[str] = None):
     """Read a whole training state written by either package's
     `save_gas_state`: returns (`core.runtime.GASState`, step) on `device`
-    (None means "cuda"); `history_dtype` as in `load_gas_state_npz`."""
+    (None means "cuda"); `history_dtype` and `history_storage` as in
+    `load_gas_state_npz`."""
     from repro_torch.core.runtime import GASState, noise_generator
     from .optimizer import AdamWState
 
     dev = resolve_device(device)
-    params, store, step = load_gas_state_npz(path, device=dev,
-                                             history_dtype=history_dtype)
+    params, store, step = load_gas_state_npz(
+        path, device=dev, history_dtype=history_dtype,
+        history_storage=history_storage)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     opt = AdamWState(

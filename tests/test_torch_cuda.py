@@ -1419,3 +1419,143 @@ def test_baseline_step_on_card_matches_cpu(dev, kind):
             (k.opt_state.v, c.opt_state.v, dict(rtol=1e-4, atol=1e-12))):
         for x, y in zip(tree_leaves(xs), tree_leaves(ys)):
             torch.testing.assert_close(x.cpu(), y, **tol)
+
+
+# ---------------------------------------------------------------------------
+# The async history pipeline: gather_rows_raw, pinned host stores, the
+# pipelined epoch on the side stream
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("where", ["pinned", "device"])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (300, 64)), (torch.bfloat16, (300, 33)),
+    (torch.int8, (300, 37)), (torch.uint8, (300, 8)),
+    (torch.float32, (300,)), (torch.float32, (300, 5))])
+def test_gather_rows_raw_matches_plain(dev, where, dtype, shape):
+    """Every element width, 16-byte rows and ragged ones (66, 37, 20
+    bytes), 1-wide scale tables; a pinned host table read through its
+    unified address and a device table; indices past both ends clipped:
+    bitwise the plain version, one launch."""
+    from repro_torch.kernels.gather import gather_rows_raw
+    g = torch.Generator().manual_seed(0)
+    if dtype.is_floating_point:
+        host = torch.randn(shape, generator=g).to(dtype)
+    else:
+        lo = -128 if dtype == torch.int8 else 0
+        host = torch.randint(lo, lo + 256, shape, generator=g, dtype=dtype)
+    idx = torch.randint(-20, shape[0] + 20, (274,), generator=g,
+                        dtype=torch.int32)
+    table = host.pin_memory() if where == "pinned" else host.to(dev)
+    n0 = _build.launch_counts["gather_rows_raw"]
+    got = gather_rows_raw(table, idx.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_rows_raw"] == n0 + 1
+    assert got.device == dev and got.dtype == dtype
+    assert torch.equal(got.cpu(), ref.gather_rows_raw_ref(host, idx))
+
+
+@pytest.mark.parametrize("hd", ["int8", "vq"])
+def test_host_store_is_pinned_and_small_on_card(dev, hd):
+    """A host store's tables and scale tables are pinned CPU tensors, and
+    creating it allocates on the card only its clock and (vq) codebooks
+    and statistics; pushes write the pinned tables as a device store's
+    pushes write its own."""
+    from repro_torch.core.history import HistoryStore
+    n1, dims = 20_001, [64, 64]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    h = HistoryStore.create(n1, dims, history_dtype=hd, device=dev,
+                            storage="host")
+    grew = torch.cuda.memory_allocated(dev) - before
+    dev_bytes = h.placement_bytes()["device"]
+    n_dev = 1 + 3 * len(dims) * (hd == "vq")
+    assert dev_bytes <= grew <= dev_bytes + 512 * n_dev   # block rounding
+    assert h.placement_bytes()["host"] > dev_bytes or hd == "vq"
+    for t in h.tables + h.scales:
+        assert t.device.type == "cpu" and t.is_pinned()
+    d = HistoryStore.create(n1, dims, history_dtype=hd, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.randperm(n1 - 1, device=dev, generator=g)[:500].to(
+        torch.int32)
+    vals = torch.randn(500, 64, device=dev, generator=g)
+    mask = torch.rand(500, device=dev, generator=g) < 0.9
+    for s in (h, d):
+        s.push(0, idx, vals, mask)
+    h.sync()
+    assert torch.equal(h.tables[0], d.tables[0].cpu())
+    assert torch.equal(h.scales[0], d.scales[0].cpu())
+    assert torch.equal(h.pull(0, idx), d.pull(0, idx))
+
+
+def _card_run(dev, op, hd, depth, storage, epochs=2, **cfg):
+    g = citation_graph(num_nodes=600, num_features=32, num_classes=4,
+                       seed=2)
+    spec = GNNSpec(op=op, d_in=32, d_hidden=64, num_classes=4,
+                   num_layers=3, heads=8)
+    plan = R.build_plan(g, spec, R.GASConfig(
+        num_parts=5, history_dtype=hd, history_storage=storage,
+        prefetch_depth=depth, seed=1, **cfg), device=dev)
+    state = R.init_state(plan)
+    metrics = [R.train_epoch(plan, state, e)[1] for e in range(epochs)]
+    state.histories.sync()
+    return state, metrics
+
+
+@pytest.mark.parametrize("op,hd", [("gcn", "f32"), ("gcn", "int8"),
+                                   ("gat", "vq")])
+def test_host_pipeline_on_card_bitwise(dev, op, hd):
+    """Two epochs at host/1 and at device/2 against device/0 on the card
+    (a vq refit between them): params, moments, tables, scales, clock
+    and epoch metrics bitwise, the host tables pinned, and the pipelined
+    runs' prefetches on the side stream."""
+    kw = dict(vq_refit_every=1)
+    base, mb = _card_run(dev, op, hd, 0, "device", **kw)
+    n0 = _build.launch_counts["gather_rows_raw"]
+    for depth, storage in ((1, "host"), (2, "device")):
+        state, m = _card_run(dev, op, hd, depth, storage, **kw)
+        assert m == mb
+        a, b = base.histories, state.histories
+        for x, y in zip(tree_leaves(base.params) + tree_leaves(
+                base.opt_state.m) + tree_leaves(base.opt_state.v) +
+                a.tables + (a.scales or []) + [a.age] + (a.codebooks or []),
+                tree_leaves(state.params) + tree_leaves(state.opt_state.m)
+                + tree_leaves(state.opt_state.v) + b.tables + (b.scales or [])
+                + [b.age] + (b.codebooks or [])):
+            assert torch.equal(x.cpu(), y.cpu())
+        if storage == "host":
+            assert all(t.is_pinned() for t in b.tables + (b.scales or []))
+    assert _build.launch_counts["gather_rows_raw"] > n0
+
+
+def test_mixed_devices_raise(dev):
+    """A pinned table stands only in the raw gather's and the pushes'
+    table slots: every other kernel given one raises, as does a pageable
+    CPU table, and a pinned tensor in any other slot."""
+    from repro_torch.kernels.gather import gather_rows_raw
+    t = torch.randn(50, 16).pin_memory()
+    q = torch.zeros(50, 16, dtype=torch.int8).pin_memory()
+    s = torch.ones(50).pin_memory()
+    idx = torch.arange(10, dtype=torch.int32, device=dev)
+    vals = torch.randn(10, 16, device=dev)
+    with pytest.raises(ValueError):
+        gather_rows(t, idx)
+    with pytest.raises(ValueError):
+        gather_rows_dq(q, s, idx)
+    with pytest.raises(ValueError):
+        gather_rows_raw(torch.randn(50, 16), idx)          # pageable
+    with pytest.raises(ValueError):
+        scatter_rows(t.to(dev), idx, vals.cpu().pin_memory())
+    with pytest.raises(ValueError):
+        scatter_rows_q(q, s, idx, vals.cpu())              # CPU values
+    with pytest.raises(ValueError):
+        scatter_rows_q(q, s, idx.cpu(), vals)              # CPU index
+    vals_b, cols = _blocks(0, 128, 150, 400)[0][:2]
+    sel, xrow, trow = gather_plan(cols.to(dev), idx, torch.ones(
+        10, dtype=torch.bool, device=dev), 128, 50, 128)
+    with pytest.raises(ValueError):
+        gather_spmm(torch.randn(128, 16, device=dev), t, vals_b.to(dev),
+                    cols.to(dev), sel, xrow, trow)
+    # the pushes do take a pinned table: nothing raised above was a push
+    scatter_rows(t, idx, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(t[:10], vals.cpu())

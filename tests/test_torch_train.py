@@ -432,10 +432,16 @@ def test_gas_state_checkpoint_roundtrips_through_reference(tmp_path):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        t_rt.GASConfig(num_parts=2, prefetch_depth=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        t_rt.GASConfig(num_parts=2, history_storage="host")
+    # the async pipeline's knobs build (tests/test_torch_async.py trains
+    # them); a placement outside ("device", "host") raises
+    for cfg in (t_rt.GASConfig(num_parts=2, prefetch_depth=1),
+                t_rt.GASConfig(num_parts=2, history_storage="host")):
+        rg, tg = _graphs()
+        plan = t_rt.build_plan(tg, _specs("gcn")[1], cfg, device="cpu")
+        assert t_rt.init_state(plan).histories.storage == \
+            (cfg.history_storage or "device")
+    with pytest.raises(ValueError, match="history_storage must be"):
+        t_rt.GASConfig(num_parts=2, history_storage="pcie")
     # the staleness decay, the regularizer, alpha, lam and dropout take
     # any value the reference takes
     t_rt.GASConfig(num_parts=2, halo_age_decay=0.5)
