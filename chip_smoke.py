@@ -76,6 +76,34 @@ with a non-zero exit at the first failure:
    vq codebooks and statistics unchanged by serving, and the counters of
    the store's kernels (these runs give the launches of the int8, bf16
    and vq rows timed in phase 2 at their shapes).
+3c. operator serving — on the same graph, 3 layers, seeded weights and
+   zero stores: GAT at phase 4's widths (8 heads of 64), PNA at table
+   5's `gas-pna` (48 wide, log_deg_mean 1.8) and GIN at 256. Over f32
+   stores the 16 x 128 queries at SLO=0 against the full-graph forward
+   on the card (1e-4), then at SLO=None, halo_age_max <= slo, a warm
+   repeat bit-identical, p50/p99 and the host batch build; over int8
+   stores (GAT, PNA) 4 requests of 32 queries against the port's CPU
+   `serve_request` (SERVE_Q_TOL; the stores within one quantization step
+   per row). The launch counters of each run's forward kernels
+   (`edge_softmax_fwd`, `pna_reduce_fwd`, GIN's `bcsr_spmm` and
+   `gather_spmm` over the unit-weight blocks, `gather_rows_dq` and
+   `scatter_rows_q` over int8) must rise and no backward kernel may
+   launch.
+3d. split serving — GCN at the same shape through `core.serve_service`:
+   a `ServeFrontend` over an `InProcTransport` to a `HistoryBackend` on
+   the card, over an f32 store on the card and an int8 store in pinned
+   host memory, 16 x 128 queries at SLO=0, every answer (and the
+   backend's store after them) bitwise the in-process `serve_request`
+   from the same state, split latency beside in-process; then GCN served
+   in process from a pinned host store, bitwise the device store; then
+   the launcher's two processes (`serve_gas --role backend --port 0
+   --port-file F`, started before phase 3c, then `--role frontend
+   --smoke`), each under a timeout, the frontend's smoke OK. In phase 2
+   `scatter_rows_raw` (the backend's push of a frontend's encoded rows)
+   has its rows: every width bitwise its plain version into pinned and
+   device tables at the frontend's 128-row query push, timed into both
+   beside the plain version, `index_copy_` or a pinned copy, and the
+   bound.
 3b. decode — first `flash_decode` against its plain version at qwen3's
    attention shapes (8 KV heads, G = 2, Dh = 128): B = 8 over a
    4,096-slot cache at pos 3,000, 0 and past the end (a rolling buffer),
@@ -243,6 +271,7 @@ from repro_torch.core import gas as G  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.core import runtime as RT  # noqa: E402
 from repro_torch.core import serve as S  # noqa: E402
+from repro_torch.core import serve_service as SS  # noqa: E402
 from repro_torch.core.config import resolve_device  # noqa: E402
 from repro_torch.core.history import (  # noqa: E402
     VQ_SUBDIM, HistoryStore, vq_init_codebook)
@@ -260,7 +289,8 @@ from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
     gather_rows, gather_rows_dq, gather_rows_raw, gather_rows_vq)
 from repro_torch.kernels.scatter import (  # noqa: E402
-    SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_vq)
+    SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_raw,
+    scatter_rows_vq)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -488,6 +518,30 @@ TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
               ("gcnii", "f32"), ("gcnii", "int8"), ("gin", "f32"),
               ("gin+reg", "f32"), ("appnp", "f32"))
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
+# phase 3c: the operators served at their published widths (GAT at phase
+# 4's, 8 heads of 64; PNA at table 5's gas-pna, 48 wide; GIN at phase 3's
+# 256), each one's forward kernels (GIN's bcsr_spmm and gather_spmm over
+# the unit-weight blocks); no backward kernel may launch; over int8 (GAT
+# and PNA) OP_SERVE_Q_REQUESTS requests against the CPU's serve_request
+OP_SERVE = {"gat": dict(d_hidden=64, heads=8),
+            "pna": dict(d_hidden=48, log_deg_mean=1.8),
+            "gin": dict(d_hidden=D_HIDDEN)}
+OP_SERVE_KERNELS = {"gat": ("edge_softmax_fwd", "gather_rows",
+                            "scatter_rows"),
+                    "pna": ("pna_reduce_fwd", "gather_rows", "scatter_rows"),
+                    "gin": ("bcsr_spmm", "gather_spmm", "gather_rows",
+                            "scatter_rows")}
+BACKWARD_KERNELS = ("edge_softmax_bwd_row", "edge_softmax_bwd_col",
+                    "pna_reduce_bwd_row", "pna_reduce_bwd_col")
+OP_SERVE_Q = ("gat", "pna")
+# the CPU's plain versions serve a 128-query request at this shape in
+# ~17 s (GAT) and ~80 s (PNA) on 4 cores, a 32-query one in ~1.3 and ~3.7 s
+OP_SERVE_Q_REQUESTS, OP_SERVE_Q_SIZE = 4, 32
+# phase 3d's two processes: the launcher's smoke (a 200-node graph, 2
+# epochs of GCN training in the backend, SLO=0 held to the full forward at
+# its SMOKE_TOL in the frontend), each process under this many seconds
+SPLIT_LAUNCHER_ARGS = ("--smoke", "--slo", "0")
+SPLIT_LAUNCHER_TIMEOUT = 300
 # serving over a quantized store, SLO=0 on the card against the CPU: the
 # logits' rtol (atol ATOL). An int8 push matched the CPU's codes in full
 # at this shape; a bf16 push rounds each entry to 8 significant bits, and
@@ -1413,6 +1467,7 @@ def kernel_phase(g, spec, device):
         uniq_idx, uniq_vals, blk_bytes, nnz)
     rows += _vq_kernel_rows(hist, x_in, vals, cols, (sel, xrow, trow),
                             vals_p, dup, push_idx, blk_bytes, nnz)
+    rows += _raw_scatter_rows(kplan, q0, hist, gen)
     for r in rows:
         _phase("kernels", f"{r['name']}: err {r['max_abs_err']:.3g}, "
                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -3002,6 +3057,103 @@ def _raw_gather_rows(plan, device, gen):
     return [pinned, device_row]
 
 
+def _raw_scatter_rows(kplan, q0, hist, gen):
+    """Phase 2: `scatter_rows_raw` at the split frontend's query push (the
+    128 rows of a query batch, d = 256), bitwise its plain version for
+    every width a store holds (f32 and bf16 rows, int8 and vq codes, the
+    f32 scales as 1-wide rows) into a pinned host table and a device one,
+    with repeated indices and dropped rows. Timed into both beside the
+    plain version and the library: into the device table `index_copy_`,
+    its bound by HBM bytes; into the pinned table a contiguous
+    non_blocking copy of the same bytes from the card, its bound the
+    pushed rows over the card-to-host link's bandwidth measured here (one
+    64 MiB copy_). Returns the two rows (their launches from phase 3d's
+    split runs: f32 into a device store, int8 into a host one)."""
+    device = hist.device
+    n1 = hist.shape[0]
+    batch = S.build_request_batch(kplan, np.sort(q0), QUERY_SIZE)
+    idx = torch.where(batch.batch_mask, batch.batch_nodes,
+                      torch.full_like(batch.batch_nodes, n1)
+                      ).to(torch.int32)
+    M, D = idx.shape[0], hist.shape[1]
+    pay = torch.randn((M, D), generator=gen, device=device)
+    q8, s8 = ref.quantize_rows(pay)
+    codes = ref.vq_encode_rows(pay, vq_init_codebook(D, device=device))[0]
+    dup = idx.clone()
+    dup[1::9] = dup[0:-1:9]                  # repeats of earlier rows
+    dup[4::13] = n1                          # dropped rows
+    for what, t, rows in (
+            ("f32", hist, pay), ("bf16", hist.to(torch.bfloat16),
+                                 pay.to(torch.bfloat16)),
+            ("int8 codes", ref.quantize_rows(hist)[0], q8),
+            ("vq codes", torch.zeros((n1, D // VQ_SUBDIM), dtype=torch.uint8,
+                                     device=device), codes),
+            ("scales", torch.ones(n1, device=device), s8)):
+        want = ref.scatter_rows_raw_ref(t.cpu(), dup.cpu(), rows.cpu())
+        for where, dst in (("pinned", t.cpu().pin_memory()),
+                           ("device", t.clone())):
+            scatter_rows_raw(dst, dup, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(dst.cpu(), want), \
+                f"scatter_rows_raw ({what}, {where} table) differs"
+    big = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
+    big_d = torch.empty_like(big, device=device)
+    link_ms = _time_ms(lambda: big.copy_(big_d, non_blocking=True))
+    link = big.numel() / (link_ms * 1e-3)
+    R = D * 4
+    n_tgt = int(torch.unique(idx).numel())
+    host = hist.cpu().pin_memory()
+    idx_cpu = idx.cpu()
+    flat = torch.empty(M * R, dtype=torch.uint8, pin_memory=True)
+    flat_d = torch.empty_like(flat, device=device)
+
+    def plain_into_host():
+        # the plain version runs on the CPU, after the rows reach the host
+        t0 = time.perf_counter()
+        ref.scatter_rows_raw_ref(host, idx_cpu, pay.cpu())
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_into_host()
+    replaces = ("src/repro/core/serve_service.py:255-298 (.at[].set in "
+                "HistoryBackend._op_push; no pallas_call)")
+    source = "src/repro_torch/kernels/csrc/scatter.cu"
+    pinned = _row("scatter_rows_raw", source, replaces, 0.0,
+                  _time_ms(lambda: scatter_rows_raw(host, idx, pay)),
+                  statistics.median(plain_into_host()
+                                    for _ in range(TIMED_REPS)),
+                  _time_ms(lambda: flat.copy_(flat_d, non_blocking=True)),
+                  M * 4 + M * R + n_tgt * R, 0,
+                  library="a contiguous non_blocking copy of the same "
+                          "bytes into pinned memory")
+    pinned["case"] = "pinned host table, split frontend's query push"
+    link_bound = n_tgt * R / link * 1e3
+    if link_bound > pinned["bound_ms"]:
+        pinned["bound_ms"], pinned["bound_by"] = link_bound, "bytes"
+    pinned["run"] = "split serving gcn int8"
+    valid = batch.batch_mask
+    uniq_idx, uniq_vals = idx[valid].long(), pay[valid]
+    tgt = hist.clone()
+    device_row = _row(
+        "scatter_rows_raw", source, replaces, 0.0,
+        _time_ms(lambda: scatter_rows_raw(tgt, idx, pay)),
+        _time_ms(lambda: ref.scatter_rows_raw_ref(tgt, idx, pay)),
+        _time_ms(lambda: tgt.index_copy_(0, uniq_idx, uniq_vals)),
+        M * 4 + M * R + n_tgt * R, 0)
+    device_row["case"] = "device table, split frontend's query push"
+    device_row["run"] = "split serving gcn f32"
+    _phase("kernels", f"scatter_rows_raw, the split frontend's query push "
+           f"({M} rows of {R} B, {n_tgt} distinct targets): every width "
+           f"(f32, bf16, int8 and vq codes, 1-wide scales) bitwise its plain "
+           f"version into pinned and device tables, repeats and dropped "
+           f"rows included; the card-to-host link {link / 1e9:.2f} GB/s (a "
+           f"64 MiB pinned copy_, {link_ms:.4f} ms); " + "; ".join(
+               f"{r['case'].split(',')[0]}: {r['ms']:.4f} ms (plain "
+               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+               f"{r['bound_ms']:.5f} by {r['bound_by']})"
+               for r in (pinned, device_row)))
+    return [pinned, device_row]
+
+
 def _state_leaves(state):
     """Every tensor of a training state that a run changes, on the CPU:
     params, AdamW step and moments, tables, scales, codebooks, k-means
@@ -3168,6 +3320,32 @@ def _profiled_host_epoch(part):
             f"on the main stream")
 
 
+def _serve_stream(plan, state, queries, slo):
+    """`serve_request` over `queries` in turn: (latencies ms, logits, the
+    next state, host batch-build ms, the refreshed rows of each request).
+    Every answer finite and of the right shape, its served halo rows no
+    older than `slo`."""
+    lat, logits, host_ms, refreshed = [], [], 0.0, []
+    for q in queries:
+        t0 = time.perf_counter()
+        lg, state, d = S.serve_request(plan, state, q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        assert lg.shape == (len(q), N_CLASSES), lg.shape
+        assert np.isfinite(lg).all(), "non-finite logits"
+        if slo is not None:
+            assert d["halo_age_max"] <= slo, (d, slo)
+        assert d["host_build_ms"] > 0, d
+        logits.append(lg)
+        host_ms += d["host_build_ms"]
+        refreshed.append(int(d["refreshed"]))
+    return lat, logits, state, host_ms, refreshed
+
+
+def _p50_p99(lat) -> str:
+    return (f"p50 {np.percentile(lat, 50):.3f} ms, p99 "
+            f"{np.percentile(lat, 99):.3f} ms")
+
+
 def serving_phase(g, spec, device, kplan):
     """Phase 3. Returns the launch counts of the 32 requests."""
     N = g.num_nodes
@@ -3195,19 +3373,8 @@ def serving_phase(g, spec, device, kplan):
         # host_ms: host time spent cutting request batches and tiling
         # their blocks (numpy), from the request diagnostics; the rest of
         # a request is the upload, the device work and the orchestration
-        lat, logits, refreshed, host_ms = [], [], [], 0.0
-        for q in queries:
-            t0 = time.perf_counter()
-            lg, state, d = S.serve_request(plan, state, q)
-            lat.append((time.perf_counter() - t0) * 1e3)
-            assert lg.shape == (QUERY_SIZE, N_CLASSES), lg.shape
-            assert np.isfinite(lg).all(), "non-finite logits"
-            if slo is not None:
-                assert d["halo_age_max"] <= slo, (d, slo)
-            assert d["host_build_ms"] > 0, d
-            logits.append(lg)
-            refreshed.append(int(d["refreshed"]))
-            host_ms += d["host_build_ms"]
+        lat, logits, state, host_ms, refreshed = _serve_stream(
+            plan, state, queries, slo)
         results[slo] = (lat, logits, refreshed, host_ms)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
@@ -3216,10 +3383,9 @@ def serving_phase(g, spec, device, kplan):
 
     for slo, (lat, _, refreshed, host_ms) in results.items():
         _phase("serving", f"slo={slo}: {N_REQUESTS} x {QUERY_SIZE} queries, "
-               f"p50 {np.percentile(lat, 50):.3f} ms, "
-               f"p99 {np.percentile(lat, 99):.3f} ms, total {sum(lat):.1f} "
-               f"ms of which host batch build {host_ms:.1f} ms; refreshed "
-               f"rows {refreshed} (total {sum(refreshed)})")
+               f"{_p50_p99(lat)}, total {sum(lat):.1f} ms of which host "
+               f"batch build {host_ms:.1f} ms; refreshed rows {refreshed} "
+               f"(total {sum(refreshed)})")
 
     # SLO=0 against the plain full-graph forward on the card
     dst, src, w = G.gcn_edge_weights(g)
@@ -3721,6 +3887,264 @@ def decode_phase(device, smi):
     return launches
 
 
+def _op_spec(op):
+    return model.GNNSpec(op=op, d_in=N_FEATURES, num_classes=N_CLASSES,
+                         num_layers=N_LAYERS, **OP_SERVE[op])
+
+
+def operator_serving_phase(g, device):
+    """Phase 3c: GAT, PNA and GIN served at their published widths on the
+    PubMed-shaped graph (3 layers, seeded weights, zero stores). Over f32
+    stores 16 x 128 queries at SLO=0 against `full_forward` on the card,
+    then the same at SLO=None against the SLO=0 answers, a warm repeat
+    bit-identical; over int8 stores (GAT, PNA) OP_SERVE_Q_REQUESTS
+    requests of OP_SERVE_Q_SIZE queries at SLO=0 against the port's CPU
+    `serve_request`. Each run's
+    kernels must launch and no backward kernel may. Returns the launch
+    counts of each run."""
+    N = g.num_nodes
+    rng = np.random.default_rng(SEED + 1)
+    queries = [rng.choice(N, size=QUERY_SIZE, replace=False)
+               for _ in range(N_REQUESTS)]
+    dst, src, w = G.gcn_edge_weights(g)
+    coo = (torch.from_numpy(dst).to(device), torch.from_numpy(src).to(device))
+    ew = torch.from_numpy(w).to(device)
+    launches = {}
+    for op in OP_SERVE:
+        spec = _op_spec(op)
+        params = model.init_gnn(spec, seed=SEED, device=device)
+
+        def fresh_state(plan, hd="f32", p=params):
+            store = HistoryStore.create(N + 1, spec.hist_dims(), hd,
+                                        plan.device)
+            return S.init_serve_state(plan, S.ServeState(p, store))
+
+        plan0 = S.build_serve_plan(g, spec, S.ServeConfig(staleness_slo=0),
+                                   device=device)
+        plan_none = dataclasses.replace(
+            plan0, config=S.ServeConfig(staleness_slo=None))
+        # warm-up on a throwaway store (the op's first launches)
+        S.serve_request(plan0, fresh_state(plan0), queries[0])
+        state = fresh_state(plan0)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        runs = {}
+        for slo, plan in ((0, plan0), (None, plan_none)):
+            lat, logits, state, host_ms, refreshed = _serve_stream(
+                plan, state, queries, slo)
+            runs[slo] = (lat, logits, host_ms, refreshed)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        launches[f"{op} f32 serving"] = counts
+        missing = [k for k in OP_SERVE_KERNELS[op] if counts[k] == 0]
+        assert not missing, f"{op} serving never launched {missing}"
+        backward = {k: counts[k] for k in BACKWARD_KERNELS if counts[k]}
+        assert not backward, f"{op} serving launched backward kernels " \
+                             f"{backward}"
+        exact = model.full_forward(params, spec, plan0.x, coo, ew,
+                                   N).cpu().numpy()
+        err0 = max(float(np.abs(lg - exact[q]).max())
+                   for q, lg in zip(queries, runs[0][1]))
+        for q, lg in zip(queries, runs[0][1]):
+            np.testing.assert_allclose(lg, exact[q], rtol=RTOL, atol=ATOL)
+        err_none = max(float(np.abs(a - b).max())
+                       for a, b in zip(runs[None][1], runs[0][1]))
+        for a, b in zip(runs[None][1], runs[0][1]):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+        rep1 = S.serve_request(plan_none, state, queries[0])[0]
+        rep2 = S.serve_request(plan_none, state, queries[0])[0]
+        assert np.array_equal(rep1, rep2), f"{op} warm-cache repeat differs"
+        for slo, (lat, _, host_ms, refreshed) in runs.items():
+            _phase("serving", f"{op} f32 slo={slo}: {N_REQUESTS} x "
+                   f"{QUERY_SIZE} queries, {_p50_p99(lat)}, total "
+                   f"{sum(lat):.1f} ms of which host batch build "
+                   f"{host_ms:.1f} ms; refreshed rows {sum(refreshed)}")
+        _phase("serving", f"{op} f32 ({spec.d_hidden} wide"
+               + (f", {spec.heads} heads" if op == "gat" else "")
+               + f"): SLO=0 vs full forward max abs err {err0:.3g}; "
+               f"SLO=None vs SLO=0 {err_none:.3g}; repeat bit-identical; "
+               f"no backward kernel; launches "
+               + str({k: v for k, v in counts.items() if v}))
+        del state, runs, exact
+        if op not in OP_SERVE_Q:
+            continue
+        # int8: the card against the port's CPU serve_request, same store
+        # and queries
+        cfg = S.ServeConfig(staleness_slo=0, history_dtype="int8")
+        plan8 = S.build_serve_plan(g, spec, cfg, device=device)
+        cplan = S.build_serve_plan(g, spec, cfg, device="cpu")
+        state = fresh_state(plan8, "int8")
+        cstate = fresh_state(cplan, "int8", model.to_device(params, "cpu"))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        lat, errs, cpu_s = [], [], 0.0
+        for q in queries[:OP_SERVE_Q_REQUESTS]:
+            q = q[:OP_SERVE_Q_SIZE]
+            t0 = time.perf_counter()
+            lg, state, d = S.serve_request(plan8, state, q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert d["halo_age_max"] == 0 and d["hist_quant_err"] > 0, d
+            t0 = time.perf_counter()
+            clg, cstate, _ = S.serve_request(cplan, cstate, q)
+            cpu_s += time.perf_counter() - t0
+            np.testing.assert_allclose(lg, clg, rtol=SERVE_Q_TOL["int8"],
+                                       atol=ATOL)
+            errs.append(float(np.abs(lg - clg).max()))
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        launches[f"{op} int8 serving"] = counts
+        want = OP_SERVE_KERNELS[op] + ("gather_rows_dq", "scatter_rows_q")
+        missing = [k for k in want if k not in ("scatter_rows",)
+                   and counts[k] == 0]
+        assert not missing, f"{op} int8 serving never launched {missing}"
+        assert not any(counts[k] for k in BACKWARD_KERNELS), counts
+        tabs = _quantized_tables_close(state.histories, cstate.histories,
+                                       1 + 127 * RTOL)
+        _phase("serving", f"{op} int8 slo=0: {len(lat)} x {OP_SERVE_Q_SIZE} "
+               f"queries, {_p50_p99(lat)}; vs the CPU's serve_request on "
+               f"the same store and queries max abs err {max(errs):.3g} "
+               f"(the CPU took {cpu_s:.1f} s); the stores within "
+               f"{tabs[0]:.3g} quantization steps, {100 * tabs[1]:.3f}% of "
+               f"the entries equal; launches "
+               + str({k: v for k, v in counts.items() if v}))
+        del state, cstate, cplan
+    return launches
+
+
+def _start_backend_process():
+    """The launcher's `--role backend --smoke` in a child process on the
+    card (it trains, then listens on an ephemeral port): (the process, the
+    port file). Started before phase 3c so that its start-up overlaps."""
+    port_file = ROOT / "build" / f"serve-port-{os.getpid()}"
+    port_file.parent.mkdir(parents=True, exist_ok=True)
+    port_file.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_gas",
+         *SPLIT_LAUNCHER_ARGS, "--role", "backend", "--port", "0",
+         "--port-file", str(port_file)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, port_file
+
+
+def _stop(proc) -> str:
+    """End a child process (SIGTERM, then SIGKILL) and return its output."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.stdout.read() if proc.stdout else ""
+
+
+def split_serving_phase(g, spec, device, backend_proc, port_file):
+    """Phase 3d: GCN at PubMed shape through the split, f32 (the backend's
+    store on the card) and int8 (the backend's store in pinned host
+    memory): a `ServeFrontend` over `InProcTransport` to a `HistoryBackend`
+    on the card, 16 x 128 queries at SLO=0, every answer bitwise the
+    in-process `serve_request` from the same state, and the tables after
+    it; then GCN served in process from a host store, bitwise the device
+    store; then the launcher's two processes (the backend started before
+    phase 3c), the frontend's smoke under a timeout. Returns the launch
+    counts of each split run."""
+    N = g.num_nodes
+    rng = np.random.default_rng(SEED + 2)
+    queries = [rng.choice(N, size=QUERY_SIZE, replace=False)
+               for _ in range(N_REQUESTS)]
+    params = model.init_gnn(spec, seed=SEED, device=device)
+    cfg = S.ServeConfig(staleness_slo=0)
+    launches = {}
+    inproc_f32 = None
+    for hd, storage in (("f32", "device"), ("int8", "host")):
+        def fresh(plan, where="device"):
+            store = HistoryStore.create(N + 1, spec.hist_dims(), hd, device,
+                                        storage=where)
+            return S.init_serve_state(plan, S.ServeState(params, store))
+
+        plan_in = S.build_serve_plan(g, spec, cfg, device=device)
+        state_in = fresh(plan_in)
+        plan_be = S.build_serve_plan(g, spec, cfg, device=device)
+        backend = SS.HistoryBackend(plan_be, fresh(plan_be, storage))
+        front = SS.ServeFrontend(g, spec, cfg, SS.InProcTransport(backend),
+                                 device=device)
+        # one warm-up request each (the same one: the states stay alike)
+        _, state_in, _ = S.serve_request(plan_in, state_in, queries[0])
+        front.serve_request(queries[0])
+        lat_in, want, state_in, _, _ = _serve_stream(plan_in, state_in,
+                                                     queries, 0)
+        if hd == "f32":
+            inproc_f32 = want
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        lat, retries = [], 0.0
+        for q, w in zip(queries, want):
+            t0 = time.perf_counter()
+            got, d = front.serve_request(q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert np.array_equal(got, w), \
+                f"split serving {hd} differs from in-process serving"
+            retries += d["num_retries"]
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        launches[f"split serving gcn {hd}"] = counts
+        assert counts["scatter_rows_raw"] and counts["gather_rows_raw"], \
+            counts
+        a, b = state_in.histories, backend.state.histories.sync()
+        for x, y in zip(a.tables + (a.scales or []) + [a.age],
+                        b.tables + (b.scales or []) + [b.age]):
+            assert torch.equal(x[:N].cpu(), y[:N].cpu()), \
+                f"split serving {hd}: the backend's store differs"
+        if storage == "host":
+            assert all(t.is_pinned() for t in b.tables + (b.scales or []))
+        _phase("serving", f"split gcn {hd} (backend store on the "
+               f"{'card' if storage == 'device' else 'host, pinned'}): "
+               f"{N_REQUESTS} x {QUERY_SIZE} queries at SLO=0 bitwise the "
+               f"in-process serve_request, the store too; split "
+               f"{_p50_p99(lat)} beside in-process {_p50_p99(lat_in)}; "
+               f"retries {retries:.0f}; launches "
+               + str({k: v for k, v in counts.items() if v}))
+        del backend, front, state_in
+    # in process from a host store: bitwise the device store's answers
+    plan_h = S.build_serve_plan(g, spec, cfg, device=device)
+    store = HistoryStore.create(N + 1, spec.hist_dims(), "f32", device,
+                                storage="host")
+    state_h = S.init_serve_state(plan_h, S.ServeState(params, store))
+    _, state_h, _ = S.serve_request(plan_h, state_h, queries[0])
+    lat_h, got, state_h, _, _ = _serve_stream(plan_h, state_h, queries, 0)
+    assert all(np.array_equal(a, b) for a, b in zip(got, inproc_f32)), \
+        "serving from a host store differs from the device store"
+    _phase("serving", f"gcn f32 in process from a host store (pinned): "
+           f"bitwise the device store's {N_REQUESTS} answers; "
+           f"{_p50_p99(lat_h)}")
+    del state_h
+    # the launcher's two processes
+    deadline = time.time() + SPLIT_LAUNCHER_TIMEOUT
+    while not (port_file.exists() and port_file.read_text().strip()):
+        if backend_proc.poll() is not None or time.time() > deadline:
+            raise AssertionError("the backend process never listened:\n"
+                                 + _stop(backend_proc))
+        time.sleep(0.2)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_gas",
+         *SPLIT_LAUNCHER_ARGS, "--role", "frontend", "--port",
+         port_file.read_text().strip()], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=SPLIT_LAUNCHER_TIMEOUT)
+    front_s = time.perf_counter() - t0
+    back_out = _stop(backend_proc)
+    port_file.unlink(missing_ok=True)
+    assert out.returncode == 0 and "smoke OK" in out.stdout, \
+        out.stdout + out.stderr + back_out
+    served = [ln for ln in out.stdout.splitlines() if ln.startswith("served")]
+    _phase("serving", f"two processes ({' '.join(SPLIT_LAUNCHER_ARGS)}): "
+           f"the frontend's smoke OK in {front_s:.1f} s; "
+           + "; ".join(served))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
@@ -3829,6 +4253,7 @@ def _smoke(args, partitions, t_start) -> int:
                f"{N_FEATURES} features in {time.perf_counter() - t0:.1f} s")
         rows, kplan = kernel_phase(g, spec, device)
         lap("serving kernels")
+        backend_proc, port_file = _start_backend_process()
         launches = {"f32 serving": serving_phase(g, spec, device, kplan)}
         del kplan
         lap("f32 serving")
@@ -3836,6 +4261,14 @@ def _smoke(args, partitions, t_start) -> int:
             launches[f"{hd} serving"] = serving_quant_phase(g, spec, device,
                                                             hd)
             lap(f"{hd} serving")
+        try:
+            launches.update(operator_serving_phase(g, device))
+            lap("operator serving")
+            launches.update(split_serving_phase(g, spec, device,
+                                                backend_proc, port_file))
+            lap("split serving")
+        finally:
+            _stop(backend_proc)
         rows += decode_kernel_rows(device, _clock_hz())
         lap("decode kernels")
         launches["decode"] = decode_phase(device, smi)

@@ -22,7 +22,8 @@ blocks at column 0):
                            [max_b, max_b+max_h+1]
   * ``transposed``       — its transpose, which the backward reads
   * ``unit``             — unit-weight (edge-multiplicity) values for the
-                           ops that never read the normalized weights (GAT)
+                           ops that never read the normalized weights
+                           (GIN, GAT, PNA)
   * ``unit_transposed``  — its transpose
 """
 from __future__ import annotations
@@ -92,13 +93,16 @@ class GASBatch:
 
     @property
     def ublocks(self) -> Optional[Tuple]:
-        """Unit-weight (multiplicity) 4-tuple for the GAT kernels. Unit
-        blocks are only ever built alongside their transpose
-        (`core.gas.build_batches`), so this is always a 4-tuple."""
+        """Unit-weight (multiplicity) blocks for the GIN, GAT and PNA
+        kernels: (uvals, cols[, uvals_t, cols_t]); the transposed pair is
+        what the backward reads, and a forward-only serve batch
+        (`core.gas.subgraph_batch(transposed=False)`) carries none."""
         if self.unit is None:
             return None
-        return (self.unit.vals, self.unit.cols,
-                self.unit_transposed.vals, self.unit_transposed.cols)
+        out = (self.unit.vals, self.unit.cols)
+        if self.unit_transposed is not None:
+            out += (self.unit_transposed.vals, self.unit_transposed.cols)
+        return out
 
     def __getitem__(self, b) -> "GASBatch":
         """Slice one batch (or a range) off the leading axis of every array

@@ -188,7 +188,8 @@ def _emit_part_blocks(ed_row: np.ndarray, es_row: np.ndarray,
     """BCSR forward (+ transposed, unless `transposed=False`) blocks for
     one batch's padded local COO. Valid slots are `ew > 0` —
     GCN-normalized weights are strictly positive, padding is 0. With
-    `unit_weights` (GAT) the values are the edge multiplicities."""
+    `unit_weights` (GIN, GAT, PNA) the values are the edge
+    multiplicities."""
     valid = ew_row > 0
     d_b, s_b, w_b = ed_row[valid], es_row[valid], ew_row[valid]
     wv = np.ones_like(w_b) if unit_weights else w_b
@@ -228,7 +229,8 @@ def subgraph_batch(indptr: np.ndarray, src: np.ndarray, w: np.ndarray,
                    bn: int = 128,
                    pad_k: Optional[int] = None,
                    pad_k_t: Optional[int] = None,
-                   transposed: bool = True) -> GASBatch:
+                   transposed: bool = True,
+                   unit_weights: bool = False) -> GASBatch:
     """One host `GASBatch` over an arbitrary node set, cut from a weighted
     in-edge CSR (`weighted_in_csr`), with the reference's index
     conventions and per-destination edge order. Pads default to the next
@@ -236,8 +238,11 @@ def subgraph_batch(indptr: np.ndarray, src: np.ndarray, w: np.ndarray,
     `build_blocks=True` also tiles the local [max_b, max_b+max_h+1]
     adjacency into the forward and transposed BCSR families;
     `pad_k`/`pad_k_t` are monotone floors on their block counts.
-    `transposed=False` leaves the transposed family (the operand of a
-    backward pass) out, as forward-only serving does."""
+    `unit_weights=True` builds the unit-weight (edge-multiplicity)
+    families instead (`unit`, `unit_transposed`), for the ops that never
+    read the normalized weights (GIN, GAT, PNA), as the reference's
+    `subgraph_batch` does. `transposed=False` leaves the transposed family
+    (the operand of a backward pass) out, as forward-only serving does."""
     N = int(num_nodes)
     nodes = np.asarray(nodes, np.int64)
     nb = len(nodes)
@@ -279,16 +284,17 @@ def subgraph_batch(indptr: np.ndarray, src: np.ndarray, w: np.ndarray,
     ew = np.zeros(max_e, np.float32)
     ew[:total] = e_w
 
-    fwd = tr = None
+    fam = fam_t = None
     if build_blocks:
-        e = _emit_part_blocks(ed, es, ew, max_b, max_h, bn,
+        e = _emit_part_blocks(ed, es, ew, max_b, max_h, bn, unit_weights,
                               transposed=transposed)
-        fwd = _pad_blocks(e["v"], e["c"], pad_k, bn)
+        fam = _pad_blocks(e["v"], e["c"], pad_k, bn)
         if transposed:
-            tr = _pad_blocks(e["vt"], e["ct"], pad_k_t, bn)
-    return GASBatch(bnode, bmask, hn, hm, ed, es, ew, forward=fwd,
-                    transposed=tr, max_b=max_b, max_h=max_h, max_e=max_e,
-                    bn=bn)
+            fam_t = _pad_blocks(e["vt"], e["ct"], pad_k_t, bn)
+    kw = (dict(unit=fam, unit_transposed=fam_t) if unit_weights
+          else dict(forward=fam, transposed=fam_t))
+    return GASBatch(bnode, bmask, hn, hm, ed, es, ew, max_b=max_b,
+                    max_h=max_h, max_e=max_e, bn=bn, **kw)
 
 
 def staleness_diags(age: torch.Tensor, halo_nodes: torch.Tensor,

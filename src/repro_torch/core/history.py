@@ -58,7 +58,8 @@ from repro_torch.kernels.ref import (dequantize_rows, quantize_rows,
                                      relative_row_error, row_scales,
                                      vq_decode_rows, vq_encode_rows,
                                      vq_row_scales)
-from repro_torch.kernels.scatter import SCAN_MAX_ROWS, scatter_rows_vq
+from repro_torch.kernels.scatter import (SCAN_MAX_ROWS, scatter_rows_q,
+                                         scatter_rows_raw, scatter_rows_vq)
 from .config import resolve_device
 
 __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
@@ -98,13 +99,18 @@ class HistoryCodec:
     rides beside each layer table. `vq`: a per-layer codebook (and its
     refit statistics) rides along, and the layer table holds uint8 codes
     of width d / VQ_SUBDIM. `roundtrip(values, codebook)` is the f32
-    reconstruction a push-then-pull returns."""
+    reconstruction a push-then-pull returns. `encode(values, codebook)`
+    -> (table rows, scales), for the scaled codecs, is what a push writes
+    for each row (None for f32 and bf16, whose push writes the rows cast
+    to `storage`): the store's own push kernel run into a scratch table at
+    arange(M), so the codes and scales are bitwise those of a push."""
     name: str
     storage: torch.dtype
     lossless: bool
     scaled: bool
     vq: bool
     roundtrip: Callable = field(default=lambda v, cb: v)
+    encode: Optional[Callable] = None
 
     def table_width(self, d: int) -> int:
         return vq_table_width(d) if self.vq else d
@@ -123,15 +129,37 @@ def _roundtrip_vq(v: torch.Tensor, cb) -> torch.Tensor:
     return vq_decode_rows(codes, cb, scales)
 
 
+def _scratch(v: torch.Tensor, width: int, dtype: torch.dtype):
+    """(a zero [M, width] table, a [M] scale table of ones, arange(M)
+    int32) on `v`'s device: the scratch an encode pushes into."""
+    m = v.shape[0]
+    return (torch.zeros((m, width), dtype=dtype, device=v.device),
+            torch.ones((m,), dtype=torch.float32, device=v.device),
+            torch.arange(m, dtype=torch.int32, device=v.device))
+
+
+def _encode_int8(v: torch.Tensor, cb) -> Tuple[torch.Tensor, torch.Tensor]:
+    rows, scales, idx = _scratch(v, v.shape[1], torch.int8)
+    scatter_rows_q(rows, scales, idx, v.to(torch.float32).contiguous())
+    return rows, scales
+
+
+def _encode_vq(v: torch.Tensor, cb) -> Tuple[torch.Tensor, torch.Tensor]:
+    rows, scales, idx = _scratch(v, cb.shape[0], torch.uint8)
+    scatter_rows_vq(rows, scales, idx, v.to(torch.float32).contiguous(), cb)
+    return rows, scales
+
+
 _CODECS = {
     "f32": HistoryCodec("f32", torch.float32, lossless=True, scaled=False,
                         vq=False),
     "bf16": HistoryCodec("bf16", torch.bfloat16, lossless=False,
                          scaled=False, vq=False, roundtrip=_roundtrip_bf16),
     "int8": HistoryCodec("int8", torch.int8, lossless=False, scaled=True,
-                         vq=False, roundtrip=_roundtrip_int8),
+                         vq=False, roundtrip=_roundtrip_int8,
+                         encode=_encode_int8),
     "vq": HistoryCodec("vq", torch.uint8, lossless=False, scaled=True,
-                       vq=True, roundtrip=_roundtrip_vq),
+                       vq=True, roundtrip=_roundtrip_vq, encode=_encode_vq),
 }
 
 HISTORY_DTYPES = tuple(_CODECS)
@@ -484,6 +512,37 @@ class HistoryStore:
         if get_codec(self.history_dtype).lossless:
             return None
         return self.quant_error(values, mask, ell)
+
+    def push_raw(self, idx: torch.Tensor, mask: torch.Tensor,
+                 rows, scales=None) -> "HistoryStore":
+        """In place: every layer's rows `rows[ell]` [M, w], already in
+        storage precision (f32 or bf16 rows, int8 or vq codes: what
+        `HistoryCodec.encode` or a cast to `storage` made), written raw,
+        never re-quantized, at `idx` where `mask`, with `scales[ell]` [M]
+        beside them for int8 and vq; masked and out-of-range rows are
+        dropped, and a repeated index takes its last row. The serving
+        backend lands a frontend's push through it (`scatter_rows_raw`,
+        which writes a pinned host table through its unified address, on
+        the current stream). The clock is not touched. Returns the
+        store."""
+        n = self.age.shape[0]
+        idx = idx.to(device=self.device)
+        mask = mask.to(device=self.device, dtype=torch.bool)
+        safe = torch.where(mask, idx.long(), n).to(torch.int32)
+        if len(rows) != self.num_layers or (scales is None) != (
+                self.scales is None) or (scales is not None and len(
+                    scales) != self.num_layers):
+            raise ValueError(
+                f"push_raw: {len(rows)} row sets and "
+                f"{'no' if scales is None else len(scales)} scale sets for "
+                f"a {self.history_dtype} store of {self.num_layers} layers")
+        for ell in range(self.num_layers):
+            scatter_rows_raw(self.tables[ell], safe,
+                             rows[ell].to(self.device).contiguous())
+            if self.scales is not None:
+                scatter_rows_raw(self.scales[ell], safe,
+                                 scales[ell].to(self.device).contiguous())
+        return self
 
     def quant_error(self, values: torch.Tensor, mask: torch.Tensor,
                     ell: int = 0) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """GAS serving: history tables as a low-latency node-embedding cache.
 
-The port of `repro.core.serve` for the GCN operator, over f32, bf16, int8
-and vq history stores (a quantized store is bound as it is, and every
-refresh push quantizes on the way in; a vq store's codebooks and k-means
-statistics are left exactly as they were: serving pushes encode against
-the bound codebook and gather no statistics). A batched inference request for a query set Q is answered by ONE padded
-batch over Q whose halo rows come straight out of the history tables.
+The port of `repro.core.serve` for all six operators (GCN, GIN, GAT,
+GCNII, APPNP, PNA) over f32, bf16, int8 and vq history stores (a
+quantized store is bound as it is, and every refresh push quantizes on
+the way in; a vq store's codebooks and k-means statistics are left
+exactly as they were: serving pushes encode against the bound codebook
+and gather no statistics). A batched inference request for a query set Q
+is answered by ONE padded batch over Q whose halo rows come straight out
+of the history tables.
 
 Staleness SLO (the reference's contract, unchanged). Every table row
 carries an `age` (serve steps since it was last re-pushed). A request
@@ -17,17 +19,23 @@ reads); `s = 0` serves exactly — `init_serve_state` advances every age
 once, the refresh closure covers every stale node reachable from Q
 through stale-only in-paths within L-1 hops, and ages are reset only for
 rows the bound proves fresh (see the reference module's docstring).
+`apply_feature_update` rewrites node features in a live plan and stamps
+every row within L-1 hops of them `INVALID_AGE`, so the next request
+under any finite SLO re-pushes them.
 
 Request-size bucketing: query sets pad up to the next size in
 `ServeConfig.buckets`, refresh batches up a doubling ladder of the same
 buckets to N, with halo/edge pads per bucket from worst-case degree sums.
-Every request batch is tiled into forward BCSR blocks
-(`gas.subgraph_batch(build_blocks=True, transposed=False)`: serving runs
-no backward, so the transposed family the reference also tiles is not
-built), and the step aggregates through the kernels — `bcsr_spmm` at
-layer 0, `gather_spmm` above it — pulls features with `gather_rows` and
-pushes with `scatter_rows`. Block counts K grow lazily per bucket
-(`ServePlan._pad_k`), as in the reference.
+Every request batch is tiled into forward BCSR blocks of the op's family
+(`gas.subgraph_batch(build_blocks=True, transposed=False)`: the
+GCN-weighted blocks for GCN, GCNII and APPNP, the unit-weight ones for
+GIN, GAT and PNA; serving runs no backward, so the transposed family the
+reference also tiles is not built), and the step runs the op's forward
+kernels: `bcsr_spmm` at layer 0 (GAT's edge softmax and PNA's reduction
+at every layer), `gather_spmm` above it for the fused ops, `gather_rows`
+for the features and the halo-split ops' history pulls, and the store's
+push. Block counts K grow lazily per bucket (`ServePlan._pad_k`, one
+family a plan), as in the reference.
 
 Surface:
 
@@ -38,26 +46,33 @@ The reference threads an immutable `ServeState`; here the bound
 returned by `serve_request` shares its store with the one passed in
 (thread the returned state; the old one sees the same tables).
 `version` is bumped by every writing step, as in the reference.
-Not ported yet (ROADMAP Queue A): `apply_feature_update`, the deprecated
-`bind_state`/`serve` shims and `serve_service`.
+`make_serve_step_fn` exposes the step itself, and the deprecated
+`bind_state` / `serve` shims warn and delegate. The split into one
+history-owning backend and stateless frontends is `core.serve_service`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.data.graphs import Graph
-from repro_torch.gnn.model import gas_batch_forward
+from repro_torch.gnn.model import (UNIT_BLOCK_OPS, _check_op,
+                                   gas_batch_forward)
 from . import delta
 from . import gas as G
 from .batch import GASBatch
 from .config import HistoryExecConfig, resolve_device
 from .history import HistoryStore
+
+# age stamped on rows invalidated by a feature update: large enough that
+# every finite staleness SLO treats them as stale until re-pushed
+INVALID_AGE = 1 << 20
 
 
 @dataclass(frozen=True, kw_only=True)
@@ -86,7 +101,9 @@ class ServeState:
 class ServePlan:
     """Everything built once per served graph: the weighted in-edge CSR
     (global-COO per-destination order preserved), the features on the
-    device, per-bucket padding bounds and the bucket ladders."""
+    device, per-bucket padding bounds, the bucket ladders, and which block
+    family the op reads (`unit_weights`: the unit-weight blocks of GIN,
+    GAT and PNA)."""
     graph: Graph
     spec: Any                              # gnn.model.GNNSpec
     config: ServeConfig
@@ -98,20 +115,20 @@ class ServePlan:
     query_buckets: Tuple[int, ...]
     refresh_buckets: Tuple[int, ...]
     pads: Dict[int, Tuple[int, int]]       # bucket -> (max_h, max_e)
+    unit_weights: bool = False
     bn: int = 128
-    # bucket -> K, the forward family's lazy monotone block-count floor
+    # bucket -> K, the lazy monotone block-count floor of the plan's one
+    # forward family (the weighted or the unit-weight one)
     _pad_k: Dict[int, int] = field(default_factory=dict)
 
 
 def build_serve_plan(graph: Graph, spec, config: ServeConfig,
                      device=None) -> ServePlan:
-    """CSR + padding bounds + bucket ladders, and the features uploaded to
-    `device` (None means "cuda")."""
-    if spec.op != "gcn":
-        raise NotImplementedError(
-            f"serving a {spec.op!r} model is not ported yet: serve batches "
-            "carry the GCN-weighted forward blocks only (ROADMAP Queue A "
-            "item 6)")
+    """CSR + padding bounds + bucket ladders, the op's block family (the
+    unit-weight one for GIN, GAT and PNA, the weighted one for GCN, GCNII
+    and APPNP, as the reference's `UNIT_BLOCK_OPS`), and the features
+    uploaded to `device` (None means "cuda")."""
+    _check_op(spec)
     dev = resolve_device(device)
     N = graph.num_nodes
     indptr, src_s, w_s = G.weighted_in_csr(graph)
@@ -142,7 +159,8 @@ def build_serve_plan(graph: Graph, spec, config: ServeConfig,
     x = torch.from_numpy(np.ascontiguousarray(graph.x, np.float32)).to(dev)
     return ServePlan(graph=graph, spec=spec, config=config, device=dev, x=x,
                      indptr=indptr, src=src_s, w=w_s, query_buckets=qb,
-                     refresh_buckets=rb, pads=pads)
+                     refresh_buckets=rb, pads=pads,
+                     unit_weights=spec.op in UNIT_BLOCK_OPS)
 
 
 def init_serve_state(plan: ServePlan, state) -> ServeState:
@@ -164,6 +182,52 @@ def init_serve_state(plan: ServePlan, state) -> ServeState:
             f"{store.history_dtype!r}")
     store.age += 1
     return ServeState(params=state.params, histories=store, version=0)
+
+
+def _rewrite_features(plan: ServePlan, nodes, values) -> np.ndarray:
+    """Checked (the reference's checks and messages), the plan's features
+    rewritten in place (`plan.graph.x` and `plan.x`): rows `nodes` take
+    `values`. Returns the ids as int64."""
+    N = plan.graph.num_nodes
+    nodes, values = delta.check_feature_update(nodes, values)
+    new_x = np.array(plan.graph.x, np.float32)
+    if values.shape[1:] != new_x.shape[1:]:
+        raise ValueError(
+            f"feature width {values.shape[1:]} != {new_x.shape[1:]}")
+    if len(nodes) and (nodes.min() < 0 or nodes.max() >= N):
+        raise ValueError(f"update ids must be in [0, {N})")
+    new_x[nodes] = values
+    plan.graph = dataclasses.replace(plan.graph, x=new_x)
+    plan.x = torch.from_numpy(new_x).to(plan.device)
+    return nodes
+
+
+def apply_feature_update(plan: ServePlan, state, nodes: np.ndarray,
+                         values: np.ndarray):
+    """Rewrite node features in a live serving plan and invalidate every
+    history row the change can reach. The plan's features are rewritten
+    (`plan.x` and `plan.graph`; the structure is untouched), and every node
+    within L-1 hops of an updated node (`delta.hop_closure` over the
+    plan's own CSR) gets its age stamped `INVALID_AGE`, in place: the
+    deepest table row depends on features L-1 hops away, so everything in
+    that closure may now disagree with a fresh recompute, and nothing
+    outside it can. At SLO=0 the next request serves the new features
+    exactly; `slo=None` plans keep serving the cached rows. The ids must be
+    unique and in [0, N), one value row of the features' width each (the
+    reference's checks and messages).
+
+    Accepts a `ServeState` (its version bumped: an invalidation is a write
+    generation) or anything with `histories` (the deprecated flow), and
+    returns the updated state of the same type. The plan is updated in
+    place."""
+    nodes = _rewrite_features(plan, nodes, values)
+    closure = delta.hop_closure(plan.indptr, plan.src, nodes,
+                                plan.spec.num_layers - 1)
+    age = state.histories.age
+    age[torch.from_numpy(closure).to(age.device)] = INVALID_AGE
+    if isinstance(state, ServeState):
+        state = state.replace(version=state.version + 1)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -224,47 +288,73 @@ def _host_request_batch(plan: ServePlan, nodes: np.ndarray,
                              plan.graph.num_nodes, nodes, max_b=bucket,
                              max_h=max_h, max_e=max_e, build_blocks=True,
                              bn=plan.bn, pad_k=plan._pad_k.get(bucket, 1),
-                             transposed=False)
-    plan._pad_k[bucket] = int(batch.forward.cols.shape[1])
+                             transposed=False,
+                             unit_weights=plan.unit_weights)
+    fam = batch.unit if plan.unit_weights else batch.forward
+    plan._pad_k[bucket] = int(fam.cols.shape[1])
     return batch
 
 
 def build_request_batch(plan: ServePlan, nodes: np.ndarray,
                         bucket: int) -> GASBatch:
     """One `GASBatch` over an arbitrary node set, padded to the bucket's
-    (max_b, max_h, max_e) and tiled into forward BCSR blocks (K padded to
-    the bucket's floor, which this call grows), on the plan's device. The
-    reference's batch also carries the transposed family, which only a
-    backward pass reads; serving does not build it."""
+    (max_b, max_h, max_e) and tiled into the forward BCSR blocks of the
+    plan's family (K padded to the bucket's floor, which this call grows),
+    on the plan's device. The reference's batch also carries the
+    transposed family, which only a backward pass reads; serving does not
+    build it."""
     return _host_request_batch(plan, nodes, bucket).to(plan.device)
+
+
+def make_serve_step_fn(plan: ServePlan) -> Callable:
+    """The serve step `(params, store, batch, reset_idx, reset_mask, x) ->
+    (logits, store, diags)` as a function, the reference's un-jitted
+    step: the GAS forward (halo rows read out of the history tables),
+    in-place pushes of the freshly computed rows, and the age resets in
+    `reset_idx`/`reset_mask` ([max_b], padding masked). Serving does not
+    advance the staleness clock: the pre-step ages are kept and only the
+    reset rows clear. Nor does it touch a vq store's codebooks or
+    statistics (the reference restores both after its step)."""
+    spec = plan.spec
+
+    def step(params, store, batch, reset_idx, reset_mask, x):
+        age0 = store.age.clone()
+        logits, store, diags = gas_batch_forward(params, spec, x, batch,
+                                                 store, vq_stats=False)
+        store.age.copy_(age0)
+        store.reset_age(reset_idx, reset_mask)
+        return logits, store, diags
+
+    return step
 
 
 def serve_step(plan: ServePlan, state: ServeState, batch: GASBatch,
                reset_idx: torch.Tensor, reset_mask: torch.Tensor
                ) -> Tuple[torch.Tensor, ServeState, Dict[str, torch.Tensor]]:
-    """One serving step on a padded request batch: the GAS forward (halo
-    rows read out of the history tables), in-place pushes of the freshly
-    computed rows, and the age resets in `reset_idx`/`reset_mask`
-    ([max_b], padding masked). Serving does not advance the staleness
-    clock: the pre-step ages are kept and only the reset rows clear. Nor
-    does it touch a vq store's codebooks or statistics (the reference
-    restores both after its step). Returns (logits [max_b, C], the next
-    state, diagnostics)."""
-    store = state.histories
-    age0 = store.age.clone()
-    logits, store, diags = gas_batch_forward(state.params, plan.spec, plan.x,
-                                             batch, store, vq_stats=False)
-    store.age.copy_(age0)
-    store.reset_age(reset_idx, reset_mask)
+    """One serving step on a padded request batch (`make_serve_step_fn`)
+    over the state's params and store. A step writes tables, so the
+    version is bumped. Returns (logits [max_b, C], the next state,
+    diagnostics)."""
+    logits, _, diags = make_serve_step_fn(plan)(
+        state.params, state.histories, batch, reset_idx, reset_mask, plan.x)
     return logits, state.replace(version=state.version + 1), diags
 
 
-def _reset_arrays(rows: np.ndarray, bucket: int, device
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def reset_rows_np(rows: np.ndarray, bucket: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(idx int32 [bucket], mask bool [bucket]): the age resets of a step
+    over `rows`, padded; what the reference's `_reset_arrays` builds and
+    the serving wire protocol carries."""
     idx = np.zeros(bucket, np.int32)
     mask = np.zeros(bucket, bool)
     idx[:len(rows)] = rows
     mask[:len(rows)] = True
+    return idx, mask
+
+
+def _reset_arrays(rows: np.ndarray, bucket: int, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    idx, mask = reset_rows_np(rows, bucket)
     return torch.from_numpy(idx).to(device), torch.from_numpy(mask).to(device)
 
 
@@ -350,3 +440,32 @@ def serve_request(plan: ServePlan, state: ServeState, query_nodes
         "host_build_ms": host_s * 1e3,
     }
     return out[inv], state, diags
+
+
+# ---------------------------------------------------------------------------
+# One-release deprecation shims (the reference's PR-6 surface)
+# ---------------------------------------------------------------------------
+
+def bind_state(plan: ServePlan, state) -> ServeState:
+    """Deprecated: use `init_serve_state(plan, state)`. Warns (the
+    reference's text) and delegates."""
+    warnings.warn(
+        "serve.bind_state is deprecated; use "
+        "serve.init_serve_state(plan, state)",
+        DeprecationWarning, stacklevel=2)
+    return init_serve_state(plan, state)
+
+
+def serve(plan: ServePlan, state, query_nodes
+          ) -> Tuple[np.ndarray, ServeState, Dict[str, float]]:
+    """Deprecated: use `serve_request(plan, state, query_nodes)`. Warns
+    (the reference's text) and delegates; a state that is not a
+    `ServeState` (anything with `params` and `histories`) is wrapped into
+    one at version 0, its ages untouched."""
+    warnings.warn(
+        "serve.serve is deprecated; use "
+        "serve.serve_request(plan, state, query_nodes)",
+        DeprecationWarning, stacklevel=2)
+    if not isinstance(state, ServeState):
+        state = ServeState(params=state.params, histories=state.histories)
+    return serve_request(plan, state, query_nodes)

@@ -66,8 +66,10 @@ OPS = ("gcn", "gin", "gat", "gcnii", "appnp", "pna")
 FUSED_OPS = ("gcn", "gin", "gcnii", "appnp")
 # data-dependent aggregations: the halo-split route for layers >= 1
 HALO_SPLIT_OPS = ("gat", "pna")
-# ops that read the unit-weight (multiplicity) blocks
+# ops that read the unit-weight (multiplicity) blocks; every op reads one
+# block family (the weighted one unless it is in UNIT_BLOCK_OPS)
 UNIT_BLOCK_OPS = ("gin", "gat", "pna")
+BLOCK_OPS = ("gcn", "gin", "gcnii", "appnp", "gat", "pna")
 # ops with a readout head after the propagation layers, each of which
 # ends in a ReLU, the last one included
 HEAD_OPS = ("gin", "gcnii", "pna")
@@ -293,7 +295,8 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                       gen: Optional[torch.Generator] = None,
                       halo_age_decay: float = 0.0,
                       pulled: Optional[tuple] = None,
-                      return_pushed: bool = False) -> tuple:
+                      return_pushed: bool = False,
+                      apply_pushes: bool = True) -> tuple:
     """Returns (logits [max_b, C], the store, diagnostics). The store is
     updated in place: each hidden layer's in-batch rows are pushed and the
     clock is ticked. `batch` must be a single batch on the store's device
@@ -320,7 +323,13 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     but `gather_rows_raw` and the pushes touches its tables. With
     `return_pushed` a fourth element follows: the tuple of the hidden
     layers' pushed rows, what `patch_pulled` takes (the reference's
-    `return_pushed=True`)."""
+    `return_pushed=True`).
+
+    `apply_pushes=False` (the reference's flag) computes the forward, the
+    pushed rows and `hist_quant_err` (`store.quant_error` of the rows)
+    without writing anything: no table is pushed and the clock does not
+    tick. A serving frontend runs it against its pulled mini-tables and
+    ships the rows to the store's owner (`core.serve_service`)."""
     _check_op(spec)
     unit = spec.op in UNIT_BLOCK_OPS
     if (batch.ublocks if unit else batch.blocks) is None:
@@ -380,8 +389,9 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                                       spec.num_layers)
         if ell < spec.num_layers - 1:
             pushed.append(x_next.detach())
-            err = store.push_measured(ell, batch.batch_nodes, pushed[-1],
-                                      bmask, vq_stats)
+            err = (store.push_measured(ell, batch.batch_nodes, pushed[-1],
+                                       bmask, vq_stats) if apply_pushes
+                   else store.quant_error(pushed[-1], bmask, ell))
             if err is not None:
                 qerr = err if qerr is None else qerr + err
         x_cur = x_next
@@ -390,7 +400,8 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
         torch.zeros((), dtype=torch.float32, device=hb.device)
         if qerr is None else qerr / max(spec.num_layers - 1, 1))
     diags["reg"] = reg
-    store.tick(batch.batch_nodes, bmask)
+    if apply_pushes:
+        store.tick(batch.batch_nodes, bmask)
     out = (_post(params, spec, x_cur), store, diags)
     return out + (tuple(pushed),) if return_pushed else out
 

@@ -46,7 +46,7 @@ KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm",
            "gather_rows_bf16", "scatter_rows_bf16", "gather_spmm_bf16",
            "pna_reduce_fwd", "pna_reduce_bwd_row", "pna_reduce_bwd_col",
            "gather_rows_vq", "scatter_rows_vq", "gather_spmm_vq",
-           "flash_decode", "gather_rows_raw")
+           "flash_decode", "gather_rows_raw", "scatter_rows_raw")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -54,6 +54,7 @@ _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_gather_rows_raw": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_scatter_rows_raw": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_host_device_ptr": [_P, ctypes.POINTER(ctypes.c_void_p)],
     "repro_gather_rows_f32": [_P, _P, _P, _I, _I, _P],
     "repro_gather_rows_bf16": [_P, _P, _P, _I, _I, _P],

@@ -758,6 +758,62 @@ REPRO_API int repro_scatter_rows_bf16(uint16_t* table, const int32_t* idx,
   return launch_scatter<uint16_t>(table, idx, vals, winner, m, n, d, stream);
 }
 
+// scatter_rows_raw: table[idx[i], :] = rows[i, :] bit for bit, the rows
+// already in storage precision (f32 or bf16 rows, int8 or vq codes, and
+// the [N] f32 scale tables as 4-byte rows), indices outside [0, N)
+// dropped, the last writer winning. It replaces no Pallas kernel: the
+// reference's serving backend lands a frontend's encoded push with
+// `.at[].set` (src/repro/core/serve_service.py:255-298). The port needs
+// it because a history table may live in pinned host memory
+// (`history_storage="host"`), which no PyTorch scatter writes with a CUDA
+// index, and a host-side index_put_ would race the refresh step's kernel
+// writes still queued on the stream; through the buffer's unified
+// address the rows are written in stream order, with no host sync. It is
+// the mirror of gather_rows_raw (csrc/gather.cu). Bound: bytes, M*R read
+// and M*R written (R the row's bytes; over the host link for a pinned
+// table) plus 4*M of index. Design: scatter_rows' copy (the one-launch
+// scan of the later indices up to kScanMax rows, the claim passes past
+// it; a warp per row), on the widest unit, 16, 8, 4, 2 or 1 bytes, that
+// divides the row's bytes and both buffers' addresses.
+REPRO_API int repro_scatter_rows_raw(void* table, const int32_t* idx,
+                                     const void* vals, int32_t* winner,
+                                     int64_t m, int64_t n, int64_t row_bytes,
+                                     void* stream) {
+  if (m == 0 || row_bytes == 0) return 0;
+  // no winner scratch: the one-launch scan, which takes at most kScanMax
+  if (winner == nullptr && m > kScanMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (winner != nullptr) {
+    if (int rc = claim(idx, winner, m, n, s)) return rc;
+  }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
+                          reinterpret_cast<uintptr_t>(vals) |
+                          static_cast<uintptr_t>(row_bytes);
+  if (align % 16 == 0)
+    launch_copy(static_cast<uint4*>(table), idx,
+                static_cast<const uint4*>(vals), winner, m, n, row_bytes / 16,
+                s);
+  else if (align % 8 == 0)
+    launch_copy(static_cast<uint2*>(table), idx,
+                static_cast<const uint2*>(vals), winner, m, n, row_bytes / 8,
+                s);
+  else if (align % 4 == 0)
+    launch_copy(static_cast<uint32_t*>(table), idx,
+                static_cast<const uint32_t*>(vals), winner, m, n,
+                row_bytes / 4, s);
+  else if (align % 2 == 0)
+    launch_copy(static_cast<uint16_t*>(table), idx,
+                static_cast<const uint16_t*>(vals), winner, m, n,
+                row_bytes / 2, s);
+  else
+    launch_copy(static_cast<uint8_t*>(table), idx,
+                static_cast<const uint8_t*>(vals), winner, m, n, row_bytes,
+                s);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
 REPRO_API int repro_scatter_rows_q(int8_t* q, float* scales, float* err,
                                    const int32_t* idx, const float* vals,
                                    int32_t* winner, int64_t m, int64_t n,

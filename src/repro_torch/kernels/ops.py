@@ -213,6 +213,26 @@ def gas_aggregate(x_in: torch.Tensor, table: torch.Tensor,
                                halo_mask, blocks[0], blocks[1], *t)[:n_out]
 
 
+def _unit_blocks(name: str, ublocks) -> tuple:
+    """(uvals, cols, uvals_t, cols_t) from a unit-weight family given with
+    its transposed pair or, for a forward-only serve batch, without it
+    (then the last two are None and a backward raises)."""
+    if len(ublocks) not in (2, 4):
+        raise ValueError(f"{name} needs the unit-weight blocks (ublk_vals, "
+                         "blk_cols[, ublk_vals_t, blk_cols_t]): "
+                         "build_batches(unit_weights=True)")
+    return tuple(ublocks) + (None, None) * (len(ublocks) == 2)
+
+
+def _need_transposed(name: str, vals_t) -> None:
+    if vals_t is None:
+        raise ValueError(
+            f"{name} backward needs the transposed unit blocks: build the "
+            "batch with them (core.gas.build_batches(build_blocks=True, "
+            "unit_weights=True)); the forward-only serving batches carry "
+            "none")
+
+
 class _EdgeSoftmax(torch.autograd.Function):
     """GAT's aggregation over the unit-weight blocks (`ops.py:385-422` of
     the reference): the forward kernel, then for the backward delta =
@@ -231,6 +251,7 @@ class _EdgeSoftmax(torch.autograd.Function):
     def backward(ctx, g):
         ad, as_, wx, out, mmax, lsum = ctx.saved_tensors
         uv, uc, uvt, uct = ctx.blocks
+        _need_transposed("edge_softmax_aggregate", uvt)
         g = g.contiguous()
         delta = (g * out).sum(-1)
         dad = edge_softmax_bwd_row(ad, as_, wx, g, mmax, lsum, delta, uv, uc,
@@ -249,18 +270,15 @@ def edge_softmax_aggregate(wx: torch.Tensor, ad: torch.Tensor,
 
     wx [M, H, F] per-head values, ad/as_ [M, H] per-node logit halves
     (destinations are rows 0..n_out-1). With `ublocks = (ublk_vals,
-    blk_cols, ublk_vals_t, blk_cols_t)` it runs the edge-softmax kernels,
-    forward and backward (an autograd.Function); with ublocks=None the
+    blk_cols[, ublk_vals_t, blk_cols_t])` it runs the edge-softmax
+    kernels, forward and, on the transposed pair, backward (an
+    autograd.Function); with ublocks=None the
     per-edge segment softmax over the COO in plain tensor code
     (`ref.edge_softmax_coo`). Returns [n_out, H, F]; no operand is padded
     to whole blocks or 128 lanes."""
     if ublocks is None:
         return edge_softmax_coo(wx, ad, as_, edges, edge_w, n_out, neg_slope)
-    if len(ublocks) != 4:
-        raise ValueError("edge_softmax_aggregate needs the unit-weight "
-                         "4-tuple (ublk_vals, blk_cols, ublk_vals_t, "
-                         "blk_cols_t): build_batches(unit_weights=True)")
-    uv, uc, uvt, uct = ublocks
+    uv, uc, uvt, uct = _unit_blocks("edge_softmax_aggregate", ublocks)
     return _EdgeSoftmax.apply(wx.contiguous(), ad[:n_out].contiguous(),
                               as_.contiguous(), uv, uc, uvt, uct, neg_slope)
 
@@ -284,6 +302,7 @@ class _PNAReduce(torch.autograd.Function):
     def backward(ctx, gs, gmn, gmx, _gcnt):
         xd, xs, mn, mx, cmin, cmax = ctx.saved_tensors
         uv, uc, uvt, uct = ctx.blocks
+        _need_transposed("pna_reduce", uvt)
         gs, gmn, gmx = (torch.zeros_like(mn) if g is None else g.contiguous()
                         for g in (gs, gmn, gmx))
         stats = (gs, gmn, gmx, mn, mx, cmin, cmax)
@@ -301,19 +320,16 @@ def pna_reduce(xd: torch.Tensor, xs: torch.Tensor, edges,
 
     xd/xs [M, F] are the destination and source halves of PNA's edge MLP
     (destinations are rows 0..n_out-1). With `ublocks = (ublk_vals,
-    blk_cols, ublk_vals_t, blk_cols_t)` it runs the three `pna_reduce`
-    kernels, forward and backward (an autograd.Function: the min/max
+    blk_cols[, ublk_vals_t, blk_cols_t])` it runs the three `pna_reduce`
+    kernels, forward and, on the transposed pair, backward (an
+    autograd.Function: the min/max
     cotangents split evenly across multiplicity-weighted ties, as
     `jax.ops.segment_min/max` split them); with ublocks=None the segment
     reduction over the COO in plain tensor code (`ref.pna_reduce_coo`).
     No operand is padded to whole blocks or 128 lanes."""
     if ublocks is None:
         return pna_reduce_coo(xd, xs, edges, edge_w, n_out)
-    if len(ublocks) != 4:
-        raise ValueError("pna_reduce needs the unit-weight 4-tuple "
-                         "(ublk_vals, blk_cols, ublk_vals_t, blk_cols_t): "
-                         "build_batches(unit_weights=True)")
-    uv, uc, uvt, uct = ublocks
+    uv, uc, uvt, uct = _unit_blocks("pna_reduce", ublocks)
     return _PNAReduce.apply(xd[:n_out].contiguous(), xs.contiguous(), uv, uc,
                             uvt, uct)
 

@@ -192,6 +192,23 @@ def scatter_rows_ref(table: torch.Tensor, idx: torch.Tensor,
     return table
 
 
+def scatter_rows_raw_ref(table: torch.Tensor, idx: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+    """In place: table[idx[i]] = rows[i], the raw storage bits of rows of
+    any type (a 1-d table's rows are single elements), never converted:
+    `rows` has the table's type. Rows whose index lies outside [0, N) are
+    dropped; duplicates resolve to the last occurrence. The plain version
+    of `scatter_rows_raw`, the serving backend's push of encoded rows.
+    Returns `table`."""
+    if rows.dtype != table.dtype:
+        raise TypeError(f"scatter_rows_raw: rows are {rows.dtype}, the "
+                        f"table {table.dtype}")
+    idx = idx.long()
+    win = _last_writer(idx, table.shape[0])
+    table[idx[win]] = rows[win]
+    return table
+
+
 def scatter_rows_q_ref(table: torch.Tensor, scales: torch.Tensor,
                        idx: torch.Tensor, values: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

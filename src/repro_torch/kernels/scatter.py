@@ -1,5 +1,6 @@
 """History push (row scatter), in place: `scatter_rows`, the
-quantizing `scatter_rows_q` and the encoding `scatter_rows_vq`.
+quantizing `scatter_rows_q`, the encoding `scatter_rows_vq`, and
+`scatter_rows_raw`, the push of rows already in storage precision.
 
 Replaces `src/repro/kernels/scatter.py:39 scatter_rows` (f32 and bf16
 tables), `scatter.py:85 scatter_rows_q` (int8 tables with a per-row f32
@@ -22,6 +23,19 @@ scale table may also be pinned host tensors (`history_storage="host"`):
 the kernels write their rows through the buffers' unified addresses,
 and their only atomics target the device winner scratch and shared
 memory, never the table.
+
+`scatter_rows_raw` replaces no Pallas kernel: the reference's serving
+backend lands a frontend's encoded rows with `.at[].set`
+(`src/repro/core/serve_service.py:255-298`). It is the mirror of
+`gather_rows_raw`: rows of any element width (f32 or bf16 rows, int8 or
+vq codes, a [N] scale table's single elements) copied bit for bit into a
+device table or a pinned host one (through its unified address, on the
+current stream, so after the refresh kernels queued before it and with no
+host sync), last writer winning, with `scatter_rows`' one-launch scan
+(or its claim passes past SCAN_MAX_ROWS) and copy in 16-, 8-, 4-, 2- or
+1-byte units, the widest the row and both buffers allow (csrc/scatter.cu).
+Bound by bytes: M*R read plus M*R written, R the row's bytes, and 4*M of
+index; over the host link for a pinned table.
 """
 from __future__ import annotations
 
@@ -32,10 +46,12 @@ import torch
 from . import _build as B
 from .decode_attn import _sm_count
 from .gather import check_codebook
-from .ref import scatter_rows_q_ref, scatter_rows_ref, scatter_rows_vq_ref
+from .ref import (scatter_rows_q_ref, scatter_rows_raw_ref,
+                  scatter_rows_ref, scatter_rows_vq_ref)
 
 __all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
            "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref",
+           "scatter_rows_raw", "scatter_rows_raw_ref",
            "scatter_rows_vq_plan", "SCAN_MAX_ROWS"]
 
 _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
@@ -186,3 +202,38 @@ def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
         name)
     B.launch_counts[name] += 1
     return table, scales, codes, err
+
+
+def scatter_rows_raw(table: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """In place: table[idx[i]] = rows[i] for idx[i] in [0, N), bit for bit
+    (f32, bf16, int8 or uint8 rows [N, D], or a 1-d [N] table of single
+    elements such as a scale table); other rows are dropped; duplicates
+    resolve to the last occurrence. `rows` has the table's type and shape
+    past the first axis; `table` is on the card or a pinned host tensor,
+    `idx` int32 [M] and `rows` on the card. All-CPU operands run the plain
+    version. Returns `table`."""
+    if all(t.device.type == "cpu" for t in (table, idx, rows)):
+        return scatter_rows_raw_ref(table, idx, rows)
+    name = "scatter_rows_raw"
+    dev = B.require_cuda(name, idx, rows, pinned=(table,))
+    B.require_dtype(name, idx, torch.int32, "idx")
+    B.require_dtype(name, rows, table.dtype, "rows")
+    if table.dim() not in (1, 2) or idx.dim() != 1 or \
+            rows.shape != idx.shape + table.shape[1:]:
+        raise ValueError(f"{name}: table [N] or [N, D], idx [M] and rows "
+                         f"[M, ...] like the table, got {tuple(table.shape)}"
+                         f", {tuple(idx.shape)} and {tuple(rows.shape)}")
+    m, n = idx.shape[0], table.shape[0]
+    if m >= 2 ** 31:
+        raise ValueError(f"{name}: {m} rows exceed the int32 winner pass")
+    row_bytes = rows[0].numel() * rows.element_size() if m else 0
+    if m == 0 or row_bytes == 0:
+        return table
+    winner = _winner(m, n, dev)
+    B.check(B.lib().repro_scatter_rows_raw(
+        B.device_ptr(table), idx.data_ptr(), rows.data_ptr(),
+        None if winner is None else winner.data_ptr(), m, n, row_bytes,
+        B.stream_ptr(dev)), name)
+    B.launch_counts[name] += 1
+    return table

@@ -1559,3 +1559,135 @@ def test_mixed_devices_raise(dev):
     scatter_rows(t, idx, vals)
     torch.cuda.synchronize()
     assert torch.equal(t[:10], vals.cpu())
+
+
+# ---------------------------------------------------------------------------
+# Serving's split: scatter_rows_raw, the frontend on the card, a host-store
+# backend
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("where", ["pinned", "device"])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (300, 64)), (torch.bfloat16, (300, 33)),
+    (torch.int8, (300, 37)), (torch.uint8, (300, 8)),
+    (torch.float32, (300,)), (torch.float32, (300, 5))])
+@pytest.mark.parametrize("m", [128, SCAN_MAX_ROWS + 3])
+def test_scatter_rows_raw_matches_plain(dev, where, dtype, shape, m):
+    """Every element width, 16-byte rows and ragged ones (66, 37, 20
+    bytes), 1-wide scale tables; a pinned host table written through its
+    unified address and a device table; indices past both ends (dropped)
+    and repeated ones (the last writer wins), on the one-launch scan and
+    past SCAN_MAX_ROWS on the claim passes: the whole table bitwise the
+    plain version's, one counted launch, and after queued kernel writes to
+    the same table (stream order, no host sync)."""
+    from repro_torch.kernels.scatter import scatter_rows_raw
+    g = torch.Generator().manual_seed(m)
+
+    def draw(s):
+        if dtype.is_floating_point:
+            return torch.randn(s, generator=g).to(dtype)
+        lo = -128 if dtype == torch.int8 else 0
+        return torch.randint(lo, lo + 256, s, generator=g, dtype=dtype)
+
+    host = draw(shape)
+    rows = draw((m,) + shape[1:])
+    idx = torch.randint(-20, shape[0] + 20, (m,), generator=g,
+                        dtype=torch.int32)
+    idx[m // 2:m // 2 + 30] = idx[:30]               # repeats
+    table = host.pin_memory() if where == "pinned" else host.to(dev)
+    # a queued kernel write into the table first: the raw push lands after
+    first = draw((7,) + shape[1:])
+    scatter_rows_raw(table, torch.arange(7, dtype=torch.int32, device=dev),
+                     first.to(dev))
+    want = ref.scatter_rows_raw_ref(
+        ref.scatter_rows_raw_ref(host.clone(), torch.arange(
+            7, dtype=torch.int32), first), idx, rows)
+    n0 = _build.launch_counts["scatter_rows_raw"]
+    scatter_rows_raw(table, idx.to(dev), rows.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["scatter_rows_raw"] == n0 + 1
+    assert torch.equal(table.cpu(), want)
+    with pytest.raises(TypeError):
+        scatter_rows_raw(table, idx.to(dev), rows.to(dev).float()
+                         if dtype != torch.float32 else rows.to(dev).half())
+
+
+def _split_on(dev, op, hd, storage="device"):
+    from repro_torch.core import serve as S
+    from repro_torch.core import serve_service as SS
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.gnn.model import init_gnn
+    g = citation_graph(num_nodes=600, num_features=32, num_classes=4,
+                       seed=2)
+    spec = GNNSpec(op=op, d_in=32, d_hidden=64, num_classes=4,
+                   num_layers=3, heads=8)
+    params = init_gnn(spec, seed=1, device=dev)
+    cfg = S.ServeConfig(staleness_slo=0, buckets=(32, 128))
+
+    def state(plan, where):
+        store = HistoryStore.create(601, spec.hist_dims(), hd, dev,
+                                    storage=where)
+        return S.init_serve_state(plan, S.ServeState(params, store))
+
+    pr = S.build_serve_plan(g, spec, cfg, device=dev)
+    pb = S.build_serve_plan(g, spec, cfg, device=dev)
+    be = SS.HistoryBackend(pb, state(pb, storage))
+    fe = SS.ServeFrontend(g, spec, cfg, SS.InProcTransport(be), device=dev)
+    return pr, state(pr, "device"), be, fe
+
+
+@pytest.mark.parametrize("op,hd", [("gcn", "f32"), ("gcn", "int8"),
+                                   ("gat", "vq"), ("pna", "bf16")])
+def test_split_frontend_bitwise_inprocess_on_card(dev, op, hd):
+    """At SLO=0 a frontend on the card, over an InProcTransport to a
+    backend on the card, answers bitwise what the in-process
+    `serve_request` answers from the same state (the same kernels on the
+    same bits), and leaves the backend's tables, scales and clock bitwise
+    the in-process store's; the backend's push ran `scatter_rows_raw`."""
+    from repro_torch.core import serve as S
+    pr, sr, be, fe = _split_on(dev, op, hd)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        n0 = _build.launch_counts["scatter_rows_raw"]
+        for _ in range(3):
+            q = rng.choice(600, 100, replace=False)
+            want, sr, _ = S.serve_request(pr, sr, q)
+            got, d = fe.serve_request(q)
+            np.testing.assert_array_equal(got, want)
+            assert d["num_retries"] == 0.0
+    assert _build.launch_counts["scatter_rows_raw"] > n0
+    a, b = sr.histories, be.state.histories
+    for x, y in zip(a.tables + (a.scales or []) + [a.age],
+                    b.tables + (b.scales or []) + [b.age]):
+        assert torch.equal(x[:600], y[:600])
+
+
+@pytest.mark.parametrize("hd", ["f32", "int8"])
+def test_host_store_backend_pushes_into_pinned_tables(dev, hd):
+    """A backend over a `history_storage="host"` store: its pulls read the
+    pinned tables through `gather_rows_raw`, the frontend's pushes land in
+    them through `scatter_rows_raw` (the tables stay pinned), and the
+    answers and tables are bitwise those of in-process serving from a
+    device store."""
+    from repro_torch.core import serve as S
+    pr, sr, be, fe = _split_on(dev, "gcn", hd, storage="host")
+    b = be.state.histories
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in b.tables + (b.scales or []))
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        n_raw = (_build.launch_counts["gather_rows_raw"],
+                 _build.launch_counts["scatter_rows_raw"])
+        for _ in range(2):
+            q = rng.choice(600, 64, replace=False)
+            want, sr, _ = S.serve_request(pr, sr, q)
+            got, _ = fe.serve_request(q)
+            np.testing.assert_array_equal(got, want)
+    assert _build.launch_counts["gather_rows_raw"] > n_raw[0]
+    assert _build.launch_counts["scatter_rows_raw"] > n_raw[1]
+    b.sync()
+    a = sr.histories
+    for x, y in zip(a.tables + (a.scales or []) + [a.age],
+                    b.tables + (b.scales or []) + [b.age]):
+        assert torch.equal(x[:600].cpu(), y[:600].cpu())
+    assert all(t.is_pinned() for t in b.tables + (b.scales or []))

@@ -98,13 +98,20 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    # every operator trains; serving carries GCN-weighted blocks only
+    # every operator trains and serves: GIN's serve plan reads the
+    # unit-weight blocks; what is still unported raises naming its item
     spec = t_model.GNNSpec(op="gin", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
-    t_model.init_gnn(spec, device="cpu")
+    params = t_model.init_gnn(spec, device="cpu")
     g = citation_graph(num_nodes=50, num_features=4, num_classes=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_serve.build_serve_plan(g, spec, t_serve.ServeConfig(),
-                                 device="cpu")
+    plan = t_serve.build_serve_plan(g, spec, t_serve.ServeConfig(),
+                                    device="cpu")
+    assert plan.unit_weights
+    state = t_serve.init_serve_state(plan, t_serve.ServeState(
+        params, HistoryStore.create(51, spec.hist_dims(), device="cpu")))
+    logits, _, _ = t_serve.serve_request(plan, state, np.arange(5))
+    assert logits.shape == (5, 2) and np.isfinite(logits).all()
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        GASTrainer(g, spec, num_parts=2, fused_epoch=True, device="cpu")
     with pytest.raises(ValueError, match="history_dtype"):
         HistoryStore.create(5, [4], history_dtype="f16", device="cpu")

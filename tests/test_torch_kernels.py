@@ -103,16 +103,16 @@ def test_scatter_rows_drops_out_of_range_in_place():
 
 
 def test_scatter_rows_scan_limit_matches_the_launcher():
-    """`scatter_rows`, `scatter_rows_q` and `scatter_rows_vq` of at most
-    SCAN_MAX_ROWS rows run the one-launch scan (no winner scratch), a
-    larger push the claim passes; the limit is the launchers' own
-    (`csrc/scatter.cu` refuses a scan past it in all three), and the
-    serving refresh push (4,096 rows) is within it."""
+    """`scatter_rows`, `scatter_rows_q`, `scatter_rows_vq` and
+    `scatter_rows_raw` of at most SCAN_MAX_ROWS rows run the one-launch
+    scan (no winner scratch), a larger push the claim passes; the limit
+    is the launchers' own (`csrc/scatter.cu` refuses a scan past it in
+    all four), and the serving refresh push (4,096 rows) is within it."""
     assert t_scatter.SCAN_MAX_ROWS >= 4096
     src = (_build.CSRC / "scatter.cu").read_text()
     assert (f"constexpr int64_t kScanMax = {t_scatter.SCAN_MAX_ROWS};"
             in src)
-    assert src.count("if (winner == nullptr && m > kScanMax)") == 3
+    assert src.count("if (winner == nullptr && m > kScanMax)") == 4
     n = 7
     for m in (1, 4096, t_scatter.SCAN_MAX_ROWS):
         assert t_scatter._winner(m, n, torch.device("cpu")) is None

@@ -450,12 +450,13 @@ def test_unported_training_options_raise():
                     lam=1.0, dropout=0.5)
     with pytest.raises(TypeError):
         t_rt.GASConfig(num_parts=2, fused_epoch=True)
-    # serving carries GCN-weighted blocks only
+    # every operator serves (Queue A item 6 is ported): GAT's serve plan
+    # reads the unit-weight blocks
     from repro_torch.core import serve as t_serve
     _, tg = _graphs()
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        t_serve.build_serve_plan(tg, _specs("gat")[1], t_serve.ServeConfig(),
-                                 device="cpu")
+    plan = t_serve.build_serve_plan(tg, _specs("gat")[1],
+                                    t_serve.ServeConfig(), device="cpu")
+    assert plan.unit_weights
 
 
 # ---------------------------------------------------------------------------
