@@ -201,6 +201,36 @@ with a non-zero exit at the first failure:
    bitwise its plain version from a pinned and a device table, and its
    time at GAT's halo from each, beside the host link's bandwidth
    (one large pinned copy).
+7. evolving graphs — `benchmarks/dyn_bench.py`'s configuration at its
+   full size (2,500 nodes, 32 features, homophily 0.8, seed 77; a
+   3-layer GCN, 64 wide; 8 parts, its METIS partition computed in a
+   worker process; 2 epochs; f32 device store). (a) For each churn of
+   0.002, 0.01 and 0.05 one `random_delta` (2 new nodes, churn / 2 of
+   the features drifted) on the trained plan: the incremental
+   `advance`, one untimed pass then the best of 3, its time and its
+   partition / batches / re-push split, the closure fraction, rebuilt
+   parts and moved nodes; checked on the card: the patched batches
+   bitwise a from-scratch `build_batches` at the same pads (both block
+   families, the card's stack too), rows outside the delta's
+   out-closure bitwise the grown old store (tables and ages), rows
+   inside bitwise an independent re-push of the closure through
+   `gas_batch_forward(fuse_halo=False)` on the grown store, their ages
+   0, the old plan and state unchanged (digests before and after), and
+   the re-push's launches (`bcsr_spmm`, `gather_rows`, `scatter_rows`,
+   no fused aggregation and no backward kernel). One cold rebuild at 1%
+   churn beside it and the incremental/cold ratio beside the reference
+   bench's 30% (recorded, not asserted), then one epoch on the advanced
+   plan (step p50/p99, a finite loss). (b) GCN, GIN, GAT (8 heads of 8),
+   GCNII, APPNP and PNA, 3 layers and 64 wide, over f32 and int8, and
+   GAT over vq: 1 epoch, one incremental advance at 1% churn, the
+   checks of (a) (int8 scales bitwise too; vq codebooks and statistics
+   unchanged by `grow`), and each op's re-push kernels launched. (c)
+   GCN over f32 and int8 in pinned host memory at prefetch depth 1:
+   the advance's grown tables pinned, the store's device and host bytes,
+   every table, scale and age bitwise the device store's advance, then
+   one pipelined epoch bitwise the device store's synchronous one. (d)
+   `python -m repro_torch.launch.train_dynamic --smoke` in a child
+   process under a timeout, its "smoke OK".
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
@@ -267,6 +297,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import delta as DL  # noqa: E402
+from repro_torch.core import dynamic as DY  # noqa: E402
 from repro_torch.core import gas as G  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.core import runtime as RT  # noqa: E402
@@ -517,6 +549,30 @@ TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
               ("gcn", "bf16"), ("gcn", "vq"), ("gat", "vq"),
               ("gcnii", "f32"), ("gcnii", "int8"), ("gin", "f32"),
               ("gin+reg", "f32"), ("appnp", "f32"))
+# Phase 7, evolving graphs: benchmarks/dyn_bench.py's configuration at
+# its full size (`run(quick=False)`, :48-58): the graph, a 3-layer GCN 64
+# wide, 8 parts, 2 epochs, and one `random_delta` per churn on the trained
+# plan (deltas not chained), each advanced DYN_PASSES times after an
+# untimed pass, the best kept (the bench's PASSES); the cold rebuild at
+# DYN_COLD_CHURN only (its METIS runs on the host, ~10 s a pass)
+DYN_GRAPH = dict(num_nodes=2500, num_features=32, num_classes=4,
+                 homophily=0.8, seed=77)
+DYN_PARTS, DYN_EPOCHS, DYN_PASSES = 8, 2, 3
+DYN_CHURNS = (0.002, 0.01, 0.05)
+DYN_COLD_CHURN = 0.01
+# the reference bench's contract at 1% churn: incremental <= 30% of cold
+DYN_REF_RATIO = 0.30
+# phase 7b: every operator over f32 and int8, GAT over vq too
+DYN_OP_RUNS = tuple((op, hd) for op in ("gcn", "gin", "gat", "gcnii",
+                                        "appnp", "pna")
+                    for hd in ("f32", "int8")) + (("gat", "vq"),)
+DYN_AGG = {"gcn": "bcsr_spmm", "gin": "bcsr_spmm", "gcnii": "bcsr_spmm",
+           "appnp": "bcsr_spmm", "gat": "edge_softmax_fwd",
+           "pna": "pna_reduce_fwd"}
+DYN_PULL_PUSH = {"f32": ("gather_rows", "scatter_rows"),
+                 "int8": ("gather_rows_dq", "scatter_rows_q"),
+                 "vq": ("gather_rows_vq", "scatter_rows_vq")}
+DYN_LAUNCHER_TIMEOUT = 300
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
 # phase 3c: the operators served at their published widths (GAT at phase
 # 4's, 8 heads of 64; PNA at table 5's gas-pna, 48 wide; GIN at phase 3's
@@ -4145,6 +4201,343 @@ def split_serving_phase(g, spec, device, backend_proc, port_file):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: evolving graphs
+# ---------------------------------------------------------------------------
+
+def _dyn_config(hd="f32", storage="device", depth=0):
+    """Phase 7's dynamic configuration: the bench's GASConfig over store
+    `hd` placed as `storage`, pipelined `depth` deep, always taking the
+    incremental path (`cold_rebuild_frac` above 1)."""
+    return DY.DynamicGASConfig(base=RT.GASConfig(
+        num_parts=DYN_PARTS, epochs=DYN_EPOCHS, seed=0, history_dtype=hd,
+        history_storage=storage, prefetch_depth=depth),
+        cold_rebuild_frac=1.01)
+
+
+def _dyn_partition():
+    """Phase 7's METIS partition and the seconds it took: host work, run
+    in a worker process while the card runs the first phases."""
+    t0 = time.perf_counter()
+    g = citation_graph(**DYN_GRAPH)
+    return RT.partition(g, _dyn_config().base), time.perf_counter() - t0
+
+
+def _dyn_spec(op):
+    """A 3-layer operator 64 wide over phase 7's graph (GAT: 8 heads of
+    8)."""
+    return model.GNNSpec(op=op, d_in=DYN_GRAPH["num_features"],
+                         d_hidden=64, num_classes=DYN_GRAPH["num_classes"],
+                         num_layers=3, heads=8)
+
+
+def _dyn_delta(g, churn):
+    """dyn_bench's delta at `churn` on `g`: 2 new nodes, churn / 2 of the
+    features drifted."""
+    return DL.random_delta(g, edge_churn=churn, nodes_add=2,
+                           feat_frac=churn / 2, seed=int(churn * 1e4))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of `t`'s bits (floats viewed as integers of their
+    width), for bitwise comparisons."""
+    t = t.detach().cpu().contiguous()
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (t.view(view[t.dtype]) if t.dtype in view else t).clone()
+
+
+_INDEX_FIELDS = ("batch_nodes", "batch_mask", "halo_nodes", "halo_mask",
+                 "edge_dst", "edge_src", "edge_w")
+
+
+def _dyn_families(plan):
+    return (("unit", "unit_transposed") if plan.unit_blocks
+            else ("forward", "transposed"))
+
+
+def _dyn_digest(plan, state) -> str:
+    """One digest over a plan's graph, partition, host batches (index rows
+    and blocks), device stack (index rows) and device arrays, and over
+    every tensor of its state (params, moments, tables, scales, codebooks,
+    statistics, clock)."""
+    h = hashlib.sha256()
+    b = plan.batches
+    arrays = [plan.part, plan.graph.indptr, plan.graph.indices,
+              plan.graph.x] + [getattr(b, f) for f in _INDEX_FIELDS]
+    for fam in _dyn_families(plan):
+        arrays += [getattr(b, fam).vals, getattr(b, fam).cols]
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    tensors = [getattr(plan.batch_stack, f) for f in _INDEX_FIELDS] + [
+        plan.x, plan.y, plan.train_mask, plan.eval_w] + _state_leaves(state)
+    for t in tensors:
+        h.update(_bits(t).numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def _dyn_checks(label, plan, state, plan2, state2, d):
+    """Phase 7's checks of one incremental advance (on the card): the
+    patched batches bitwise a from-scratch `build_batches` at the same
+    pads (both block families, host and device), rows outside the
+    delta's out-closure bitwise the grown old store (tables, scales,
+    ages), rows inside bitwise an independent re-push of the closure
+    through `gas_batch_forward(fuse_halo=False)` on the grown store,
+    their ages 0, and `grow` keeping a vq store's codebooks and
+    statistics. Returns the closure's size."""
+    b = plan2.batches
+    ref = G.build_batches(plan2.graph, plan2.part, pad_to=plan2._pad_to,
+                          build_blocks=True, unit_weights=plan2.unit_blocks,
+                          pad_k=plan2._pad_k, pad_k_t=plan2._pad_k_t)
+    pairs = [(f, getattr(b, f), getattr(ref, f),
+              getattr(plan2.batch_stack, f)) for f in _INDEX_FIELDS]
+    for fam in _dyn_families(plan2):
+        for a in ("vals", "cols"):
+            pairs.append((f"{fam}.{a}", getattr(getattr(b, fam), a),
+                          getattr(getattr(ref, fam), a),
+                          getattr(getattr(plan2.batch_stack, fam), a)))
+    for name, got, want, on_card in pairs:
+        assert np.array_equal(got, want), f"{label}: patched {name}"
+        assert torch.equal(_bits(on_card), _bits(torch.from_numpy(
+            np.ascontiguousarray(want)))), f"{label}: the card's {name}"
+    n_old, n_new = plan.graph.num_nodes, d.num_new_nodes
+    N2 = plan2.graph.num_nodes
+    closure = DL.out_closure(plan2.graph, d.invalidation_seeds(n_old),
+                             plan.spec.num_layers - 1)
+    outside = np.setdiff1d(np.arange(N2), closure)
+    h = state.histories
+    grown = h.grow(n_new) if n_new else h.clone()
+    ref_store = h.grow(n_new) if n_new else h.clone()
+    indptr, src, w = G.weighted_in_csr(plan2.graph)
+    batch = G.subgraph_batch(indptr, src, w, N2, closure, build_blocks=True,
+                             transposed=False,
+                             unit_weights=plan2.unit_blocks).to(plan2.device)
+    with torch.no_grad():
+        model.gas_batch_forward(state.params, plan.spec, plan2.x, batch,
+                                ref_store, use_history=True, fuse_halo=False)
+    new, grown, ref_store = (x.sync() for x in (state2.histories, grown,
+                                                ref_store))
+    for kind in ("tables", "scales"):
+        for ell, t in enumerate(getattr(new, kind) or ()):
+            got = _bits(t)
+            where = f"{label}: {kind} {ell}"
+            assert torch.equal(got[outside], _bits(getattr(
+                grown, kind)[ell])[outside]), f"{where} outside the closure"
+            assert torch.equal(got[closure], _bits(getattr(
+                ref_store, kind)[ell])[closure]), f"{where} inside the closure"
+    age = new.age.cpu()
+    assert bool((age[closure] == 0).all()), f"{label}: closure ages"
+    assert torch.equal(age[outside], grown.age.cpu()[outside]), \
+        f"{label}: ages outside"
+    for kind in ("codebooks", "cb_counts", "cb_sums"):
+        for a, o in zip(getattr(grown, kind) or (), getattr(h, kind) or ()):
+            assert torch.equal(_bits(a), _bits(o)), f"{label}: grow {kind}"
+    return len(closure)
+
+
+def _dyn_launches(label, op, hd, counts):
+    """The re-push's kernels launched in one advance, and no fused
+    aggregation and no backward kernel."""
+    pull, push = DYN_PULL_PUSH[hd]
+    for name in (DYN_AGG[op], "gather_rows", pull, push):
+        assert counts[name] > 0, f"{label}: {name} never launched {counts}"
+    stray = {k: v for k, v in counts.items()
+             if v and ("_bwd" in k or k.startswith("gather_spmm"))}
+    assert not stray, f"{label}: launched {stray} in the re-push"
+    return {k: v for k, v in counts.items() if v}
+
+
+def _dyn_split(info) -> str:
+    return (f"partition {info.partition_s * 1e3:.1f} / batches "
+            f"{info.batches_s * 1e3:.1f} / re-push "
+            f"{info.repush_s * 1e3:.1f} ms")
+
+
+def _dyn_advance(plan, state, d, dcfg):
+    """One advance with the launch counts it made."""
+    _build.reset_launch_counts()
+    out = DY.advance(plan, state, d, dcfg)
+    return out, dict(_build.launch_counts)
+
+
+def dynamic_bench_phase(device, part, part_s):
+    """Phase 7a: dyn_bench's configuration on the card. Returns its launch
+    counts by run."""
+    launches = {}
+    g = citation_graph(**DYN_GRAPH)
+    dcfg = _dyn_config()
+    t0 = time.perf_counter()
+    plan = DY.build_dynamic_plan(g, _dyn_spec("gcn"), dcfg, device=device,
+                                 part=part)
+    state, _ = RT.fit(plan, RT.init_state(plan), epochs=DYN_EPOCHS)
+    torch.cuda.synchronize()
+    fam, fam_t = (getattr(plan.batches, f) for f in _dyn_families(plan))
+    _phase("setup", f"dynamic: {g.num_nodes} nodes, {g.num_edges} edges, "
+           f"{g.x.shape[1]} features; {DYN_PARTS} parts, pads "
+           f"{plan._pad_to}, blocks {list(fam.vals.shape)} and transposed "
+           f"{list(fam_t.vals.shape)}; the plan and {DYN_EPOCHS} epochs in "
+           f"{time.perf_counter() - t0:.1f} s (the partition in "
+           f"{part_s:.1f} s in a worker process); partition "
+           f"{_digest(part)}, {_degree_orders(g, DYN_PARTS)}")
+    before = _dyn_digest(plan, state)
+    kept = None
+    for churn in DYN_CHURNS:
+        d = _dyn_delta(g, churn)
+        DY.advance(plan, state, d, dcfg)          # untimed
+        best = None
+        for _ in range(DYN_PASSES):
+            out, counts = _dyn_advance(plan, state, d, dcfg)
+            if best is None or out[2].total_s < best[0][2].total_s:
+                best = (out, counts)
+        (plan2, state2, info), counts = best
+        label = f"dyn_bench churn {churn:g}"
+        assert not info.cold, f"{label}: {info.reason}"
+        n_closure = _dyn_checks(label, plan, state, plan2, state2, d)
+        assert n_closure == info.closure_size
+        launches[f"dynamic {churn:g}"] = counts
+        kinds = _dyn_launches(label, "gcn", "f32", counts)
+        assert _dyn_digest(plan, state) == before, \
+            f"{label}: the old plan or state changed"
+        _phase("dynamic", f"{label}: incremental advance "
+               f"{info.total_s * 1e3:.1f} ms (best of {DYN_PASSES} after an "
+               f"untimed pass: {_dyn_split(info)}), closure "
+               f"{info.closure_size} nodes ({info.closure_frac:.3f}), "
+               f"rebuilt {info.rebuilt_parts} of {DYN_PARTS} parts, moved "
+               f"{info.reassigned} nodes, +{info.num_new_nodes} nodes; "
+               f"launches {kinds}; patched batches bitwise a from-scratch "
+               f"build (host and card, both block families), outside the "
+               f"closure bitwise the grown store, inside bitwise an "
+               f"independent re-push, closure ages 0, old plan and state "
+               f"unchanged (digest {before})")
+        if churn == DYN_COLD_CHURN:
+            kept, inc_ms = (plan2, state2), info.total_s * 1e3
+            (_, cstate, cinfo), ccounts = _dyn_advance(
+                plan, state, d, dataclasses.replace(dcfg,
+                                                    cold_rebuild_frac=-1.0))
+            assert cinfo.cold and cinfo.rebuilt_parts == DYN_PARTS
+            ch = cstate.histories
+            assert bool((ch.age[:-1] == 0).all()) and all(
+                bool(torch.isfinite(t).all()) for t in ch.tables)
+            launches["dynamic cold"] = ccounts
+            ratio = inc_ms / (cinfo.total_s * 1e3)
+            _phase("dynamic", f"{label}: cold rebuild "
+                   f"{cinfo.total_s * 1e3:.1f} ms ({_dyn_split(cinfo)}; "
+                   f"{cinfo.reason}), every age 0; incremental/cold "
+                   f"{ratio:.3f} (the reference bench's contract <= "
+                   f"{DYN_REF_RATIO:.2f}, recorded, not asserted)")
+            del cstate, ch
+        del plan2, state2
+    plan2, state2 = kept
+    steps = []
+    with _timed_calls(RT, "train_step", steps):
+        state2, m = RT.train_epoch(plan2, state2, 0)
+    assert np.isfinite(m["loss"]), m
+    _phase("dynamic", f"one epoch on the plan advanced at "
+           f"{DYN_COLD_CHURN:g} churn ({plan2.graph.num_nodes} nodes, "
+           f"{len(steps)} steps): loss {m['loss']:.4f}, step "
+           f"{_p50_p99(steps)}")
+    return launches
+
+
+def _dyn_run(g, part, device, op, hd, storage="device", depth=0, epochs=1):
+    """Phase 7b/7c's run: a dynamic plan of `op` over store `hd`, `epochs`
+    epochs, then one incremental advance at 1% churn. Returns (plan,
+    state, advanced plan, advanced state, info, delta, launch counts,
+    digest of the old plan and state before the advance, loss)."""
+    dcfg = _dyn_config(hd, storage, depth)
+    plan = DY.build_dynamic_plan(g, _dyn_spec(op), dcfg, device=device,
+                                 part=part)
+    state, m = RT.fit(plan, RT.init_state(plan), epochs=epochs)
+    d = _dyn_delta(g, DYN_COLD_CHURN)
+    before = _dyn_digest(plan, state)
+    (plan2, state2, info), counts = _dyn_advance(plan, state, d, dcfg)
+    assert not info.cold, info.reason
+    return (plan, state, plan2, state2, info, d, counts, before,
+            m[-1]["loss"])
+
+
+def dynamic_ops_phase(device, part):
+    """Phase 7b: every operator's history contract through one advance.
+    Returns its launch counts by run."""
+    launches = {}
+    g = citation_graph(**DYN_GRAPH)
+    for op, hd in DYN_OP_RUNS:
+        t0 = time.perf_counter()
+        plan, state, plan2, state2, info, d, counts, before, loss = \
+            _dyn_run(g, part, device, op, hd)
+        label = f"{op} {hd}"
+        _dyn_checks(label, plan, state, plan2, state2, d)
+        kinds = _dyn_launches(label, op, hd, counts)
+        assert _dyn_digest(plan, state) == before, \
+            f"{label}: the old plan or state changed"
+        launches[f"dynamic {label}"] = counts
+        _phase("dynamic", f"{label}: 1 epoch (loss {loss:.4f}), advance "
+               f"{info.total_s * 1e3:.1f} ms ({_dyn_split(info)}), closure "
+               f"{info.closure_frac:.3f}, rebuilt {info.rebuilt_parts} "
+               f"parts; re-push launches {kinds}; batches, outside, inside"
+               + (", scales" if hd != "f32" else "")
+               + (", codebooks and statistics" if hd == "vq" else "")
+               + f" and ages as in 7a, old unchanged; "
+               f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def dynamic_host_phase(device, part):
+    """Phase 7c: GCN over f32 and int8 in pinned host memory at prefetch
+    depth 1, against the device store. Returns its launch counts by
+    run."""
+    launches = {}
+    g = citation_graph(**DYN_GRAPH)
+    for hd in ("f32", "int8"):
+        runs = {}
+        for storage, depth in (("device", 0), ("host", 1)):
+            _, _, plan2, state2, info, _, counts, _, _ = _dyn_run(
+                g, part, device, "gcn", hd, storage, depth)
+            h = state2.histories
+            host_tables = h.tables + (h.scales or [])
+            advanced = _state_leaves(state2)
+            state3, m = RT.train_epoch(plan2, state2, 1)
+            runs[storage] = (advanced, _state_leaves(state3), m,
+                             h.placement_bytes(), counts)
+            if storage == "host":
+                assert all(t.device.type == "cpu" and t.is_pinned()
+                           for t in host_tables), f"{hd}: not pinned"
+                assert counts["gather_rows_raw"] > 0
+        (a0, e0, m0, _, _), (a1, e1, m1, where, counts) = (
+            runs["device"], runs["host"])
+        assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a0, a1)), \
+            f"{hd}: the host store's advance differs from the device's"
+        assert m0 == m1 and all(torch.equal(_bits(x), _bits(y))
+                                for x, y in zip(e0, e1)), \
+            f"{hd}: the pipelined epoch differs from device/0's"
+        launches[f"dynamic host {hd}"] = counts
+        _phase("dynamic", f"gcn {hd} host/1: advance bitwise the device "
+               f"store's (every table, scale and age), then one pipelined "
+               f"epoch bitwise device/0 (params, moments, store, metrics); "
+               f"store {where['device']:,} B on the device, "
+               f"{where['host']:,} B on the host; gather_rows_raw "
+               f"{counts['gather_rows_raw']} in the advance; host tables "
+               f"pinned: yes")
+    return launches
+
+
+def dynamic_launcher_phase():
+    """Phase 7d: the launcher's smoke in a child process."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train_dynamic",
+         "--smoke"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DYN_LAUNCHER_TIMEOUT)
+    assert out.returncode == 0 and "smoke OK" in out.stdout, \
+        f"train_dynamic --smoke: rc {out.returncode}\n{out.stdout[-3000:]}" \
+        f"\n{out.stderr[-3000:]}"
+    last = [ln for ln in out.stdout.splitlines() if ln.startswith(
+        "snapshot 2")]
+    _phase("dynamic", f"python -m repro_torch.launch.train_dynamic --smoke: "
+           f"smoke OK in {time.perf_counter() - t0:.1f} s; "
+           f"{last[0] if last else ''}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
@@ -4173,9 +4566,10 @@ def main() -> int:
     # the training partitions (host work, 25-39 s) in worker processes
     # while the card builds its kernels and serves
     with concurrent.futures.ProcessPoolExecutor(
-            len(PARTITIONED),
+            len(PARTITIONED) + 1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = {op: pool.submit(_partition, op) for op in PARTITIONED}
+        futures["dynamic"] = pool.submit(_dyn_partition)
 
         def partitions():
             """{op: (partition, seconds)} once all are done; the workers
@@ -4304,6 +4698,11 @@ def _smoke(args, partitions, t_start) -> int:
     lap("table 5")
     launches.update(host_store_phase(plans, device, parts["gat"][0]))
     lap("host-store")
+    launches.update(dynamic_bench_phase(device, *parts["dynamic"]))
+    launches.update(dynamic_ops_phase(device, parts["dynamic"][0]))
+    launches.update(dynamic_host_phase(device, parts["dynamic"][0]))
+    dynamic_launcher_phase()
+    lap("evolving graphs")
     _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":

@@ -4,25 +4,51 @@ The port of `repro.core.gas`: the GCN-normalized global COO, the weighted
 in-edge CSR, `build_batches` (the stacked padded batches of one
 partition, with the weighted or the unit-weight BCSR families),
 `group_partition` / `padding_bounds` (several clusters per batch),
-`subgraph_batch` (one padded batch over an arbitrary node set, serving's),
-the per-layer helpers `staleness_diags` / `materialize_x_all`, and
-`gas_forward`, the executor over layer callbacks. The
-host code is a copy of the reference's numpy code, so its arrays are
-bitwise the reference's (tests/test_torch_host.py,
-tests/test_torch_train.py). `patch_batches` (evolving graphs) is not
-ported yet (ROADMAP Queue A item 7).
+`patch_batches` (the stack re-emitted only for the parts a graph delta
+touched, `core.dynamic.advance`'s), `subgraph_batch` (one padded batch
+over an arbitrary node set, serving's and the dynamic re-push's), the
+executor's argument guards `ensure_batch` / `resolve_store`, the
+per-layer helpers `staleness_diags` / `materialize_x_all`, and
+`gas_forward`, the executor over layer callbacks. The host code is a
+copy of the reference's numpy code, so its arrays are bitwise the
+reference's (tests/test_torch_host.py, tests/test_torch_train.py,
+tests/test_torch_dynamic.py).
 """
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.data.graphs import Graph
 from repro_torch.kernels import ops
+from . import history as H
 from .batch import BlockStructure, GASBatch
+
+
+def ensure_batch(batch: GASBatch) -> GASBatch:
+    """Type guard of the executor entry points: `GASBatch` is the only
+    batch type they take (the reference's legacy batch dict is gone)."""
+    if not isinstance(batch, GASBatch):
+        raise TypeError(
+            f"expected core.batch.GASBatch, got {type(batch)} (the legacy "
+            "dict shim was removed; build_batches returns a GASBatch)")
+    return batch
+
+
+def resolve_store(hist: Union[H.HistoryStore, H.Histories]
+                  ) -> Tuple[H.HistoryStore, bool]:
+    """Normalize the history argument of the executors: (store,
+    was_legacy). A `HistoryStore` passes as it is; the legacy `Histories`
+    tuple is wrapped (`HistoryStore.from_histories`, the same tensors, so
+    the pushes land in its tables), and the executors hand it back as a
+    `Histories`. The reference's `backend` has no counterpart: the
+    tensors' device picks the kernel or its plain version."""
+    if isinstance(hist, H.HistoryStore):
+        return hist, False
+    return H.HistoryStore.from_histories(hist), True
 
 
 def gcn_edge_weights(graph: Graph, add_self_loops: bool = True
@@ -220,6 +246,170 @@ def _pad_blocks(v: np.ndarray, c: np.ndarray, pad_k: Optional[int],
     return BlockStructure(vals, cols)
 
 
+# ---------------------------------------------------------------------------
+# Incremental batch patching (evolving graphs, core/dynamic.py)
+# ---------------------------------------------------------------------------
+
+def _part_edges(graph: Graph, part: np.ndarray, b: int, deg: np.ndarray,
+                add_self_loops: bool = True):
+    """Part `b`'s slice of the part-sorted global COO, rebuilt without
+    the global COO: the global order is [real edges (destination-major,
+    CSR source order) ; self-loops (node order)] and the part sort is
+    stable, so within a part it is (the members' real in-edges, members
+    ascending, CSR order each) then (the members' self-loops, ascending).
+    `deg` is the global float64 degree vector (the self-loop included
+    with `add_self_loops`), so the weights are bitwise
+    `gcn_edge_weights`'. Returns (nodes_b, halo, d_b, s_b, w_b) in
+    global ids."""
+    nodes_b = np.flatnonzero(part == b).astype(np.int32)
+    indptr = graph.indptr.astype(np.int64)
+    starts = indptr[nodes_b]
+    lens = indptr[nodes_b + 1] - starts
+    total = int(lens.sum())
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    flat = np.repeat(starts - offs, lens) + np.arange(total)
+    dst_r = np.repeat(nodes_b, lens)
+    src_r = graph.indices[flat].astype(np.int32)
+    if add_self_loops:
+        d_b = np.concatenate([dst_r, nodes_b]).astype(np.int32)
+        s_b = np.concatenate([src_r, nodes_b]).astype(np.int32)
+    else:
+        d_b, s_b = dst_r.astype(np.int32), src_r
+    w_b = (1.0 / np.sqrt(deg[d_b] * deg[s_b])).astype(np.float32)
+    halo = np.setdiff1d(s_b, nodes_b).astype(np.int32)
+    return nodes_b, halo, d_b, s_b, w_b
+
+
+def _fill_batch_row(bnode, bmask, hn, hm, ed, es, ew, b: int,
+                    nodes_b, halo, d_b, s_b, w_b, N: int) -> None:
+    """Overwrite batch row `b` of the padded arrays in place: the whole
+    row reset to its pad values (node N, trash row max_b, dummy zero row
+    max_b + max_h, weight 0), then filled as `build_batches`' loop fills
+    it."""
+    max_b, max_h = bnode.shape[1], hn.shape[1]
+    nb, nh, ne = len(nodes_b), len(halo), len(d_b)
+    bnode[b] = N
+    bnode[b, :nb] = nodes_b
+    bmask[b] = False
+    bmask[b, :nb] = True
+    hn[b] = N
+    hn[b, :nh] = halo
+    hm[b] = False
+    hm[b, :nh] = True
+    lookup = np.full(N + 1, max_b + max_h, np.int64)
+    lookup[nodes_b] = np.arange(nb)
+    lookup[halo] = max_b + np.arange(nh)
+    ed[b] = max_b
+    ed[b, :ne] = lookup[d_b]
+    es[b] = max_b + max_h
+    es[b, :ne] = lookup[s_b]
+    ew[b] = 0.0
+    ew[b, :ne] = w_b
+
+
+def _grow_k(vals: np.ndarray, cols: np.ndarray, k: int
+            ) -> Tuple[np.ndarray, np.ndarray]:
+    """A stacked block family zero-extended along K to `k` blocks a row:
+    padding slots are all-zero blocks at column 0, as `build_batches`
+    pads."""
+    grow = k - cols.shape[2]
+    if grow <= 0:
+        return vals, cols
+    vals = np.concatenate(
+        [vals, np.zeros(vals.shape[:2] + (grow,) + vals.shape[3:],
+                        vals.dtype)], axis=2)
+    cols = np.concatenate(
+        [cols, np.zeros(cols.shape[:2] + (grow,), cols.dtype)], axis=2)
+    return vals, cols
+
+
+def patch_batches(graph: Graph, part: np.ndarray, old: GASBatch,
+                  rebuild_parts, num_nodes_old: Optional[int] = None,
+                  add_self_loops: bool = True) -> Optional[GASBatch]:
+    """Patch a stacked host `GASBatch` after a graph delta: re-emit only
+    the batches in `rebuild_parts` (index rows and their BCSR block rows,
+    whichever family `old` carries), and copy every other batch's arrays
+    as they are. The result is bitwise what `build_batches(graph, part,
+    pad_to=old pads, pad_k=K, pad_k_t=K_t, build_blocks=..., unit_weights
+    =...)` builds (tests/test_torch_dynamic.py).
+
+    The pads hold: growing max_b or max_h would shift every untouched
+    batch's local index space (edge_src offsets, trash and dummy rows),
+    so a rebuilt part that overflows the old pads, or a changed part
+    count, returns None and the caller rebuilds cold (`core.dynamic`
+    sizes the pads with slack to make that rare). A grown node count
+    moves only the pad values (node id N), which are fixed up here in the
+    untouched rows. The block counts K and K_t may grow: their padding
+    slots are all-zero blocks at column 0, as `build_batches` pads."""
+    N = graph.num_nodes
+    if int(part.max()) + 1 != old.num_batches:
+        return None
+    B = old.num_batches
+    max_b, max_h, max_e = old.max_b, old.max_h, old.max_e
+    n_old = N if num_nodes_old is None else int(num_nodes_old)
+
+    deg = np.diff(graph.indptr).astype(np.float64)
+    if add_self_loops:
+        deg = deg + 1.0
+
+    rebuilt = {}
+    for b in sorted({int(b) for b in np.asarray(rebuild_parts).ravel()}):
+        nodes_b, halo, d_b, s_b, w_b = _part_edges(
+            graph, part, b, deg, add_self_loops)
+        if (len(nodes_b) > max_b or len(halo) > max_h
+                or len(d_b) > max_e):
+            return None
+        rebuilt[b] = (nodes_b, halo, d_b, s_b, w_b)
+
+    bnode = np.array(old.batch_nodes, np.int32)
+    bmask = np.array(old.batch_mask, bool)
+    hn = np.array(old.halo_nodes, np.int32)
+    hm = np.array(old.halo_mask, bool)
+    ed = np.array(old.edge_dst, np.int32)
+    es = np.array(old.edge_src, np.int32)
+    ew = np.array(old.edge_w, np.float32)
+    if N != n_old:
+        # the pad slots are the masked-off slots: repoint them at the new
+        # sentinel row, so that untouched batches keep gathering zeros
+        bnode[~bmask] = N
+        hn[~hm] = N
+    for b, (nodes_b, halo, d_b, s_b, w_b) in rebuilt.items():
+        _fill_batch_row(bnode, bmask, hn, hm, ed, es, ew, b,
+                        nodes_b, halo, d_b, s_b, w_b, N)
+
+    fams = {}
+    unit_weights = old.unit is not None
+    bs = old.unit if unit_weights else old.forward
+    bs_t = old.unit_transposed if unit_weights else old.transposed
+    if bs is not None:
+        bn = old.bn
+        per = {b: _emit_part_blocks(ed[b], es[b], ew[b], max_b, max_h,
+                                    bn, unit_weights) for b in rebuilt}
+        vals, cols = _grow_k(
+            np.array(bs.vals, np.float32), np.array(bs.cols, np.int32),
+            max([bs.cols.shape[2]] + [e["c"].shape[1] for e in per.values()]))
+        vals_t, cols_t = _grow_k(
+            np.array(bs_t.vals, np.float32), np.array(bs_t.cols, np.int32),
+            max([bs_t.cols.shape[2]]
+                + [e["ct"].shape[1] for e in per.values()]))
+        for b, e in per.items():
+            vals[b] = 0.0
+            cols[b] = 0
+            vals[b, :, :e["v"].shape[1]] = e["v"]
+            cols[b, :, :e["c"].shape[1]] = e["c"]
+            vals_t[b] = 0.0
+            cols_t[b] = 0
+            vals_t[b, :, :e["vt"].shape[1]] = e["vt"]
+            cols_t[b, :, :e["ct"].shape[1]] = e["ct"]
+        names = (("unit", "unit_transposed") if unit_weights
+                 else ("forward", "transposed"))
+        fams = dict(zip(names, (BlockStructure(vals, cols),
+                                BlockStructure(vals_t, cols_t))))
+    return GASBatch(bnode, bmask, hn, hm, ed, es, ew, num_batches=B,
+                    max_b=max_b, max_h=max_h, max_e=max_e, bn=old.bn,
+                    **fams)
+
+
 def subgraph_batch(indptr: np.ndarray, src: np.ndarray, w: np.ndarray,
                    num_nodes: int, nodes: np.ndarray,
                    max_b: Optional[int] = None,
@@ -368,7 +558,10 @@ def gas_forward(layer_apply: Callable[[int, torch.Tensor, GASBatch],
     table. Each hidden layer's rows are pushed into `store` in place,
     detached, and the clock ticks. Returns (the last layer's rows, the
     store, diagnostics: the halo rows' mean/max age and
-    `hist_quant_err`)."""
+    `hist_quant_err`). `store` may be a `HistoryStore` or the legacy
+    `Histories` tuple, which comes back as a `Histories`."""
+    batch = ensure_batch(batch)
+    store, legacy = resolve_store(store)
     bmask, hmask = batch.batch_mask, batch.halo_mask
     xb = ops.pull_rows(x_global, batch.batch_nodes) * bmask[:, None]
     xh = ops.pull_rows(x_global, batch.halo_nodes) * hmask[:, None]
@@ -398,4 +591,4 @@ def gas_forward(layer_apply: Callable[[int, torch.Tensor, GASBatch],
         torch.zeros((), dtype=torch.float32, device=xb.device)
         if qerr is None else qerr / max(num_layers - 1, 1))
     store.tick(batch.batch_nodes, bmask)
-    return x_cur, store, diags
+    return x_cur, (store.to_histories() if legacy else store), diags

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,6 +69,8 @@ __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
            "VQ_SUBDIM", "VQ_CODES", "VQ_SEED", "vq_table_width",
            "vq_init_codebook", "vq_row_scales", "vq_encode_rows",
            "vq_decode_rows", "vq_accumulate_stats", "vq_refit_codebook",
+           "storage_dtype", "host_storage_supported", "Histories",
+           "init_histories", "pull", "push", "tick", "history_bytes",
            "HistoryStore"]
 
 # Product quantization (history_dtype="vq"): each row is split into
@@ -202,6 +204,69 @@ def resolve_history_storage(storage: Optional[str] = None) -> str:
                     f"got {cand}")
             return cand
     return "device"
+
+
+def storage_dtype(history_dtype: str) -> torch.dtype:
+    """The table's element type for a resolved history_dtype."""
+    return get_codec(history_dtype).storage
+
+
+def host_storage_supported() -> bool:
+    """True when tables can be kept in host memory: always here. On a card
+    they are pinned and reached by unified address; on the CPU a host
+    store is a CPU store (the reference's moves are no-ops on a host-less
+    runtime too)."""
+    return True
+
+
+# ---------------------------------------------------------------------------
+# The legacy tuple and its free functions (`repro.core.history:372-412`)
+# ---------------------------------------------------------------------------
+
+class Histories(NamedTuple):
+    """The legacy history container: L-1 tables [N+1, d] and the clock
+    [N+1] int32. Allocate N + 1 rows: the last is the sentinel that padded
+    indices point at, and the executors' pushes use it as their
+    sacrificial row. `gas_forward` and `gas_batch_forward` take it as the
+    reference's do (`core.gas.resolve_store`)."""
+    tables: List[torch.Tensor]       # L-1 tables [N+1, d_hidden]
+    age: torch.Tensor                # [N+1] int32, steps since last push
+
+
+def init_histories(num_nodes: int, dims: List[int],
+                   dtype=torch.float32, device=None) -> Histories:
+    """Zero tables of `dtype` and a zero clock on `device` (None means
+    "cuda")."""
+    dev = resolve_device(device)
+    return Histories(
+        tables=[torch.zeros((num_nodes, d), dtype=dtype, device=dev)
+                for d in dims],
+        age=torch.zeros((num_nodes,), dtype=torch.int32, device=dev))
+
+
+def pull(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather halo rows; `idx` is clipped to the table, so padded indices
+    read the last row."""
+    return ops.pull_rows(table, idx)
+
+
+def push(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+         mask: torch.Tensor) -> torch.Tensor:
+    """A new table: `table` with rows `idx` set to `values` where `mask`
+    (masked rows dropped, the last writer wins), as the reference's
+    functional push; `table` itself is left as it was."""
+    return ops.push_rows(table.clone(), idx, values, mask)
+
+
+def tick(hist: Histories, batch_idx: torch.Tensor,
+         mask: torch.Tensor) -> torch.Tensor:
+    """A new clock: age + 1 everywhere, 0 for the just-pushed nodes."""
+    return HistoryStore(tables=[], age=hist.age + 1).reset_age(
+        batch_idx, mask).age
+
+
+def history_bytes(hist: Histories) -> int:
+    return _nbytes(hist.tables)
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +664,61 @@ class HistoryStore:
         self.age.masked_fill_(hit[:n], 0)
         return self
 
+    def grow(self, n_new: int) -> "HistoryStore":
+        """A store extended by `n_new` nodes (evolving graphs): zero rows
+        spliced in before the sentinel row, so every existing row, its
+        scale and age, and the sentinel keep their meaning. A zero row is
+        what `create` makes for every codec (zero f32/bf16 rows, zero int8
+        codes at scale 1.0, zero vq codes, codebook entry 0 being pinned
+        to zero), so a grown row reads as never pushed; its age is 0.
+        Codebooks and their statistics are per layer and keep their
+        values. The result owns every tensor, placed as this store's (a
+        host store's tables in new pinned buffers), and this store is left
+        as it was; `n_new <= 0` returns this store, as the reference's."""
+        if n_new <= 0:
+            return self
+        self.sync()       # the host copies a pinned table on the host
+
+        def splice(t, fill):
+            n = t.shape[0]
+            where = (dict(pin_memory=True) if t.device.type == "cpu"
+                     and self.pinned else dict(device=t.device))
+            out = torch.empty((n + n_new,) + tuple(t.shape[1:]),
+                              dtype=t.dtype, **where)
+            out[:n - 1].copy_(t[:n - 1])
+            out[n - 1:n - 1 + n_new].fill_(fill)
+            out[n - 1 + n_new:].copy_(t[n - 1:])
+            return out
+
+        def cloned(ts):
+            return None if ts is None else [t.clone() for t in ts]
+
+        return HistoryStore(
+            tables=[splice(t, 0) for t in self.tables],
+            age=splice(self.age, 0), history_dtype=self.history_dtype,
+            scales=(None if self.scales is None
+                    else [splice(t, 1.0) for t in self.scales]),
+            codebooks=cloned(self.codebooks),
+            cb_counts=cloned(self.cb_counts), cb_sums=cloned(self.cb_sums),
+            storage=self.storage)
+
+    @classmethod
+    def from_histories(cls, hist: Histories) -> "HistoryStore":
+        """A device store over the legacy tuple's own tensors (bf16 when
+        its tables are, else f32), so pushes into the store land in them.
+        The reference's `backend` argument has no counterpart."""
+        hd = ("bf16" if hist.tables and hist.tables[0].dtype == torch.bfloat16
+              else "f32")
+        return cls(tables=list(hist.tables), age=hist.age, history_dtype=hd)
+
+    def to_histories(self) -> Histories:
+        if get_codec(self.history_dtype).scaled:
+            raise ValueError(
+                f"{self.history_dtype} HistoryStore cannot round-trip "
+                "through the legacy Histories tuple (it has no "
+                "scale/codebook tables)")
+        return Histories(tables=list(self.tables), age=self.age)
+
     def clone(self) -> "HistoryStore":
         """A copy with its own tables, scales, codebooks, statistics and
         clock, placed as this store (a host store's tables in new pinned
@@ -628,12 +748,20 @@ class HistoryStore:
             out.scales = [out._placed(t, copy=True) for t in self.scales]
         return out
 
+    def bytes_per_table(self) -> List[int]:
+        """Each layer's bytes: its table with its scale table, codebook
+        and statistics."""
+        out = [_nbytes([t]) for t in self.tables]
+        for aux in (self.scales, self.codebooks, self.cb_counts,
+                    self.cb_sums):
+            if aux is not None:
+                out = [b + _nbytes([a]) for b, a in zip(out, aux)]
+        return out
+
     def bytes(self) -> int:
         """Table bytes, the scale tables, codebooks and their statistics
-        included (the reference's `bytes_per_table` summed)."""
-        return sum(_nbytes(ts) for ts in (
-            self.tables, self.scales, self.codebooks, self.cb_counts,
-            self.cb_sums))
+        included."""
+        return sum(self.bytes_per_table())
 
     def placement_bytes(self) -> dict:
         """{"device": bytes on the store's device, "host": bytes in host

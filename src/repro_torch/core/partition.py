@@ -2,17 +2,19 @@
 Inter-Connectivity Between Batches").
 
 The port of `repro.core.partition`'s `metis_like_partition`,
-`random_partition`, `edge_cut` and `inter_intra_ratio` (paper Table 6):
-the same numpy and Python, line for line, so a partition is bitwise the
-reference's and every batch built from it is too
-(tests/test_torch_train.py, tests/test_torch_trainers.py).
+`random_partition`, `edge_cut` and `inter_intra_ratio` (paper Table 6),
+and the incremental repair of evolving graphs (`assign_new_nodes`,
+`incremental_repair`, which `core.dynamic.advance` runs): the same numpy
+and Python, line for line, so a partition is bitwise the reference's and
+every batch built from it is too (tests/test_torch_train.py,
+tests/test_torch_trainers.py, tests/test_torch_dynamic.py).
 `metis_like_partition` is a multilevel partitioner with the METIS
 objective (min edge-cut, balanced parts): greedy heavy-edge-matching
 coarsening, BFS region-growing at the coarsest level, then boundary
 Kernighan-Lin/FM refinement during uncoarsening. The refinement walks
 nodes one by one in Python, which takes minutes at PubMed's size
-(ROADMAP, open findings). The incremental repair of evolving graphs is
-not ported yet (ROADMAP Queue A item 7).
+(ROADMAP, open findings). The repair refines only the delta's region,
+seeded from the old assignment: O(region), not O(N).
 """
 from __future__ import annotations
 
@@ -194,6 +196,57 @@ def metis_like_partition(indptr: np.ndarray, indices: np.ndarray,
                        seed=seed)
         part = _rebalance(fptr, fidx, fw, fnode_w, part, num_parts)
     return part.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Incremental repair (evolving graphs, core/dynamic.py)
+# ---------------------------------------------------------------------------
+
+def assign_new_nodes(indptr: np.ndarray, indices: np.ndarray,
+                     part: np.ndarray, num_parts: int) -> np.ndarray:
+    """Extend an assignment over `part.size` nodes to the whole graph:
+    each new node joins its neighbors' majority part (ties and isolated
+    arrivals go to the least-loaded part). New ids are taken in order and
+    the loads updated as they land, so a burst of arrivals spreads
+    instead of piling onto one part. Returns int32 [N]."""
+    n = len(indptr) - 1
+    n_old = len(part)
+    out = np.empty(n, np.int32)
+    out[:n_old] = part
+    loads = np.bincount(part, minlength=num_parts).astype(np.int64)
+    for v in range(n_old, n):
+        nbrs = indices[indptr[v]:indptr[v + 1]]
+        nbrs = nbrs[nbrs < v]           # only already-assigned neighbors
+        if len(nbrs):
+            votes = np.bincount(out[nbrs], minlength=num_parts)
+            top = votes.max()
+            ties = np.flatnonzero(votes == top)
+            p = int(ties[np.argmin(loads[ties])])
+        else:
+            p = int(np.argmin(loads))
+        out[v] = p
+        loads[p] += 1
+    return out
+
+
+def incremental_repair(indptr: np.ndarray, indices: np.ndarray,
+                       part: np.ndarray, num_parts: int,
+                       region: np.ndarray, passes: int = 4,
+                       seed: int = 0) -> np.ndarray:
+    """Repair an assignment after a graph delta: FM-refine only the
+    `region` nodes (the delta's boundary), seeded from the old
+    assignment, then rebalance. A node outside `region` can move only in
+    the rebalance, which acts only when a part overflowed. O(region *
+    degree), not O(N). Returns int32 [N]."""
+    ptr = np.asarray(indptr, np.int64)
+    idx = np.asarray(indices, np.int64)
+    w = np.ones(len(idx))
+    node_w = np.ones(len(ptr) - 1)
+    out = np.asarray(part, np.int64).copy()
+    out = _refine(ptr, idx, w, node_w, out, num_parts, passes=passes,
+                  seed=seed, nodes=region)
+    out = _rebalance(ptr, idx, w, node_w, out, num_parts)
+    return out.astype(np.int32)
 
 
 def edge_cut(indptr, indices, part) -> int:

@@ -55,7 +55,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.batch import GASBatch
 from repro_torch.core.config import resolve_device
-from repro_torch.core.gas import (history_view, materialize_x_all,
+from repro_torch.core.gas import (ensure_batch, history_view,
+                                  materialize_x_all, resolve_store,
                                   staleness_diags)
 from repro_torch.core.history import HistoryStore
 from repro_torch.kernels import ops
@@ -299,13 +300,15 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
                       apply_pushes: bool = True) -> tuple:
     """Returns (logits [max_b, C], the store, diagnostics). The store is
     updated in place: each hidden layer's in-batch rows are pushed and the
-    clock is ticked. `batch` must be a single batch on the store's device
-    carrying the op's block family (forward blocks for GCN, GCNII and
-    APPNP, unit blocks for GIN, GAT and PNA; the transposed ones too when
-    a gradient is taken). Diagnostics: mean/max history age of the halo
-    rows (read before the pushes), `hist_quant_err`, the mean over the
-    hidden layers of the relative error their pushes incur at the store's
-    precision (0 for f32 stores), and `reg`, the Eq. 3 regularizer (the
+    clock is ticked. A legacy `Histories` tuple is taken too and comes
+    back as one (`core.gas.resolve_store`). `batch` must be a single
+    batch on the store's device carrying the op's block family (forward
+    blocks for GCN, GCNII and APPNP, unit blocks for GIN, GAT and PNA;
+    the transposed ones too when a gradient is taken). Diagnostics:
+    mean/max history age of the halo rows (read before the pushes),
+    `hist_quant_err`, the mean over the hidden layers of the relative
+    error their pushes incur at the store's precision (0 for f32 stores),
+    and `reg`, the Eq. 3 regularizer (the
     reference's third return value; 0 unless `spec.reg_weight > 0` and a
     generator `gen` on the batch's device draws its noise).
     `halo_age_decay > 0` damps the pulled halo rows of layers >= 1 by
@@ -331,6 +334,8 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     tick. A serving frontend runs it against its pulled mini-tables and
     ships the rows to the store's owner (`core.serve_service`)."""
     _check_op(spec)
+    batch = ensure_batch(batch)
+    store, legacy = resolve_store(store)
     unit = spec.op in UNIT_BLOCK_OPS
     if (batch.ublocks if unit else batch.blocks) is None:
         raise ValueError(
@@ -402,7 +407,8 @@ def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,
     diags["reg"] = reg
     if apply_pushes:
         store.tick(batch.batch_nodes, bmask)
-    out = (_post(params, spec, x_cur), store, diags)
+    out = (_post(params, spec, x_cur),
+           store.to_histories() if legacy else store, diags)
     return out + (tuple(pushed),) if return_pushed else out
 
 

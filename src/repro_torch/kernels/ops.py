@@ -89,6 +89,12 @@ def build_bcsr(dst: np.ndarray, src: np.ndarray, w: np.ndarray,
     return vals, cols, rows_pad
 
 
+def bcsr_density(blk_cols: np.ndarray, blk_vals: np.ndarray) -> float:
+    """Fraction of stored blocks that are structurally non-empty."""
+    nonzero = (np.abs(blk_vals).sum(axis=(2, 3)) > 0).sum()
+    return float(nonzero) / blk_cols.size
+
+
 # ---------------------------------------------------------------------------
 # Ops
 # ---------------------------------------------------------------------------

@@ -43,7 +43,12 @@ both of their paths (the one-launch scan and the claim passes past
 SCAN_MAX_ROWS rows). The trainer shell and table 5's baselines:
 `GASTrainer`'s two epochs against the CPU's (losses at 1e-4), and one
 GraphSAGE step on one sampled batch and one SGC step against the CPU's
-as the training steps are held."""
+as the training steps are held. Evolving graphs: an incremental
+`advance` on the card against the CPU's (GCN, GAT and PNA over f32 and
+int8; batches bitwise, tables at 1e-5, int8 codes >= 99.9% equal, the
+old state's store unchanged, no backward kernel launched), and a pinned
+store's `grow` right after a queued push (pinned, bitwise the device
+store's)."""
 import dataclasses
 
 import numpy as np
@@ -1691,3 +1696,128 @@ def test_host_store_backend_pushes_into_pinned_tables(dev, hd):
                     b.tables + (b.scales or []) + [b.age]):
         assert torch.equal(x[:600].cpu(), y[:600].cpu())
     assert all(t.is_pinned() for t in b.tables + (b.scales or []))
+
+
+# ---------------------------------------------------------------------------
+# Evolving graphs: advance and HistoryStore.grow on the card
+# ---------------------------------------------------------------------------
+
+def _dyn_pair(dev, op, hd):
+    """The same dynamic plan (one partition) on the CPU and on the card,
+    and states with the same initial weights and one epoch trained on the
+    CPU, the card's a copy of the CPU's."""
+    from repro_torch.core import dynamic as DY
+    from repro_torch.gnn.model import to_device
+    g = citation_graph(num_nodes=600, num_features=32, num_classes=4,
+                       seed=2)
+    spec = GNNSpec(op=op, d_in=32, d_hidden=64, num_classes=4,
+                   num_layers=3, heads=8)
+    dcfg = DY.DynamicGASConfig(base=R.GASConfig(
+        num_parts=5, history_dtype=hd, seed=1), cold_rebuild_frac=1.01)
+    cplan = DY.build_dynamic_plan(g, spec, dcfg, device="cpu")
+    plan = DY.build_dynamic_plan(g, spec, dcfg, device=dev, part=cplan.part)
+    cstate, _ = R.fit(cplan, R.init_state(cplan), epochs=1)
+    from repro_torch.train.optimizer import AdamWState
+    o = cstate.opt_state
+    state = R.GASState(params=to_device(cstate.params, dev),
+                       opt_state=AdamWState(o.step.to(dev),
+                                            to_device(o.m, dev),
+                                            to_device(o.v, dev)),
+                       histories=cstate.histories.to(dev), rng=cstate.rng)
+    return dcfg, cplan, cstate, plan, state
+
+
+def _store_tensors(store):
+    h = store.sync()
+    return [t.cpu().clone() for t in h.tables + (h.scales or []) + [h.age]
+            + (h.codebooks or []) + (h.cb_counts or []) + (h.cb_sums or [])]
+
+
+@pytest.mark.parametrize("hd", ["f32", "int8"])
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna"])
+def test_advance_on_card_matches_cpu(dev, op, hd):
+    """One incremental advance on the card against the same advance on the
+    CPU: the partition and patched batches bitwise (the card's stack too),
+    tables at 1e-5 (int8: codes >= 99.9% equal, the dequantized rows
+    within one step), ages exact; the old state's store bitwise as it
+    was; the re-push launched the pulls and pushes and no backward."""
+    from repro_torch.core import delta as Dl
+    from repro_torch.core import dynamic as DY
+    dcfg, cplan, cstate, plan, state = _dyn_pair(dev, op, hd)
+    d = Dl.random_delta(cplan.graph, edge_churn=0.01, nodes_add=2,
+                        feat_frac=0.005, seed=100)
+    old = _store_tensors(state.histories)
+    cplan2, cstate2, cinfo = DY.advance(cplan, cstate, d, dcfg)
+    _build.reset_launch_counts()
+    plan2, state2, info = DY.advance(plan, state, d, dcfg)
+    counts = dict(_build.launch_counts)
+    assert not info.cold and dataclasses.asdict(info).keys() == \
+        dataclasses.asdict(cinfo).keys()
+    for f in ("closure_size", "rebuilt_parts", "reassigned",
+              "num_new_nodes"):
+        assert getattr(info, f) == getattr(cinfo, f), f
+    assert np.array_equal(plan2.part, cplan2.part)
+    for f in ("batch_nodes", "halo_nodes", "edge_dst", "edge_src",
+              "edge_w"):
+        a, b = getattr(plan2.batches, f), getattr(cplan2.batches, f)
+        assert np.array_equal(a, b), f
+        assert torch.equal(getattr(plan2.batch_stack, f).cpu(),
+                           torch.from_numpy(np.ascontiguousarray(b))), f
+    fam = "unit" if plan.unit_blocks else "forward"
+    assert np.array_equal(getattr(plan2.batches, fam).vals,
+                          getattr(cplan2.batches, fam).vals)
+    h, ch = state2.histories, cstate2.histories
+    assert torch.equal(h.age.cpu(), ch.age)
+    n = cplan2.graph.num_nodes
+    for ell in range(h.num_layers):
+        if hd == "int8":
+            codes = h.tables[ell].cpu()[:n]
+            assert (codes == ch.tables[ell][:n]).float().mean() >= 0.999
+            got = codes.float() * h.scales[ell].cpu()[:n, None]
+            want = ch.tables[ell][:n].float() * ch.scales[ell][:n, None]
+            step = torch.maximum(h.scales[ell].cpu()[:n],
+                                 ch.scales[ell][:n])[:, None]
+            assert bool((torch.abs(got - want) <= step * (1 + 1e-5)
+                         + 1e-6).all())
+        else:
+            torch.testing.assert_close(h.tables[ell].cpu()[:n],
+                                       ch.tables[ell][:n], rtol=1e-5,
+                                       atol=1e-5)
+    assert all(torch.equal(a, b)
+               for a, b in zip(old, _store_tensors(state.histories)))
+    agg = {"gcn": "bcsr_spmm", "gat": "edge_softmax_fwd",
+           "pna": "pna_reduce_fwd"}[op]
+    q = hd == "int8"
+    for name in (agg, "gather_rows", "gather_rows_dq" if q else "gather_rows",
+                 "scatter_rows_q" if q else "scatter_rows"):
+        assert counts[name] > 0, (name, counts)
+    assert not any(v for k, v in counts.items() if "_bwd" in k), counts
+
+
+@pytest.mark.parametrize("hd", ["f32", "int8", "vq"])
+def test_pinned_store_grows_pinned(dev, hd):
+    """`grow` of a host store on the card, called right after a push whose
+    kernels are still queued: every table and scale table pinned, and the
+    grown store bitwise the device store's grow after the same push."""
+    from repro_torch.core.history import HistoryStore
+    n1, dims = 30_001, [64, 64]
+    h = HistoryStore.create(n1, dims, history_dtype=hd, device=dev,
+                            storage="host")
+    d = HistoryStore.create(n1, dims, history_dtype=hd, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.randperm(n1 - 1, device=dev, generator=g)[:4000].to(
+        torch.int32)
+    vals = torch.randn(4000, 64, device=dev, generator=g)
+    mask = torch.ones(4000, dtype=torch.bool, device=dev)
+    for s in (d, h):
+        for ell in range(len(dims)):
+            s.push(ell, idx, vals * (ell + 1), mask)
+    hg = h.grow(7)              # the pushes may still run on the card
+    dg = d.grow(7)
+    for t in hg.tables + (hg.scales or []):
+        assert t.device.type == "cpu" and t.is_pinned()
+    assert hg.tables[0].shape[0] == n1 + 7 and hg.storage == "host"
+    assert hg.age.device.type == "cuda"
+    for a, b in zip(_store_tensors(hg), _store_tensors(dg)):
+        assert torch.equal(a, b)
+    assert torch.equal(h.tables[0], d.tables[0].cpu())
