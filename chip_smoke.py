@@ -231,12 +231,41 @@ with a non-zero exit at the first failure:
    one pipelined epoch bitwise the device store's synchronous one. (d)
    `python -m repro_torch.launch.train_dynamic --smoke` in a child
    process under a timeout, its "smoke OK".
+8. distributed GAS — `examples/distributed_gas.py`'s configuration at
+   its full size (2,000 nodes, 64 features, 6 classes, homophily 0.72,
+   noise 2.2, seed 7; its METIS partition into 4 parts computed in a
+   worker process; a 3-layer GCN 48 wide), 4 ranks spawned on the one
+   card in one gloo group (a `core.dist_gas.RankPool` started right
+   after the build, its ranks' start overlapping phases 2-7), every halo
+   exchange and gradient all-reduce staged through pinned host buffers.
+   (a) The example (`repro_torch.examples.distributed_gas.train_rank`):
+   80 supersteps, clip 2.0 then AdamW; a `[setup]` line with the
+   partition's digest, rows, max_halo and C; the world size, backend and
+   each rank's device; superstep p50/p99, exchange and all-reduce ms a
+   superstep and their four parts summed over every collective (the wait
+   for the rank's queued kernels, the copy to pinned memory, the gloo
+   call, the copy back), wire bytes; params bitwise across ranks; the exact
+   forward's test accuracy within 1 pp of the reference's on the same
+   partition (DIST_REF_ACC, keyed by digest); each rank's
+   `gather_rows_raw` and `scatter_rows_raw` launches, each above 0.
+   (b) Exchanges of a 48-wide f32, bf16 and int8 table (codes, then
+   scales) bitwise a direct gather on every rank, their wire bytes, and
+   GCN supersteps over f32, bf16 and int8 stores (the f32/int8 and
+   f32/bf16 wire-byte ratios a superstep; `scatter_rows_q` launched on
+   every rank for int8). (c) GCN, GIN, GAT, GCNII, APPNP and PNA, 3
+   supersteps each from fixed params: the logits within 1e-3 of the
+   exact full-graph forward after the last, the error falling, the
+   summed gradients bitwise on every rank. Phase 2's kernel JSON gains
+   three rows at the example's shapes: the exchange's pack
+   (`gather_rows_raw`) and unpack (`scatter_rows_raw`) and the int8
+   push (`scatter_rows_q`), each bitwise its plain version.
 
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
 also writes the training partitions (the port's METIS-like partitioner
 on this host; GCNII's is PNA's) for `tests/test_torch_train.py
---reference-acc [--history-dtype ...] [--op ...]`.
+--reference-acc [--history-dtype ...] [--op ...]`, and phase 8's as
+"dist" for `tests/test_torch_dist_gas.py --reference-acc`.
 
     mkdir -p build/parent-src
     git archive PARENT src/repro_torch/kernels/csrc | tar -x -C build/parent-src
@@ -298,6 +327,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import delta as DL  # noqa: E402
+from repro_torch.core import _rank_bodies as RB  # noqa: E402
+from repro_torch.core import dist_gas as DG  # noqa: E402
 from repro_torch.core import dynamic as DY  # noqa: E402
 from repro_torch.core import gas as G  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
@@ -310,6 +341,7 @@ from repro_torch.core.history import (  # noqa: E402
 from repro_torch.data.graphs import (  # noqa: E402
     citation_graph, sbm_cluster_graph)
 from repro_torch.data.tokens import MarkovTokens  # noqa: E402
+from repro_torch.examples import distributed_gas as EX  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import scatter as scatter_mod  # noqa: E402
@@ -325,6 +357,7 @@ from repro_torch.kernels.scatter import (  # noqa: E402
     scatter_rows_vq)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.train import checkpoint as CK  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
     clip_by_global_norm, tree_leaves, tree_map)
 
@@ -573,6 +606,34 @@ DYN_PULL_PUSH = {"f32": ("gather_rows", "scatter_rows"),
                  "int8": ("gather_rows_dq", "scatter_rows_q"),
                  "vq": ("gather_rows_vq", "scatter_rows_vq")}
 DYN_LAUNCHER_TIMEOUT = 300
+# Phase 8, distributed GAS: examples/distributed_gas.py's configuration
+# at its full size (the graph, 4 ranks, a 3-layer GCN 48 wide, 80
+# supersteps, clip 2.0 then AdamW; not cut), the 4 ranks on the one card
+# in one gloo group
+DIST_RANKS = 4
+DIST_SUPERSTEPS = 80
+# the reference example's test accuracy after its 80 supersteps from the
+# port's initial params (`init_gnn(spec, seed=0)`) carried across, keyed
+# by the partition's digest as TRAIN_CONFIGS is (`python
+# tests/test_torch_dist_gas.py --reference-acc [PARTITIONS.npz]`, a CPU,
+# jax 0.9.0; the file's "dist" entry, from --save-partitions): the first
+# on the partition computed there, the second on the one an H100 host
+# computed; the port is held within ACC_SLACK of it
+DIST_REF_ACC = {"1bd28335ed69": 0.9189873417721519,
+                "d1bcb9e3e979": 0.9227848101265823}
+# 8b: the exchanged tables' width (the example's hidden layers) and the
+# GCN supersteps over each store precision; 8c: every operator's
+# supersteps from fixed params, after which the logits must be the exact
+# full-graph forward's within DIST_CONV_TOL (3 layers: 3 supersteps)
+# 8a's last supersteps, run under torch.profiler on every rank (left out
+# of the superstep times)
+DIST_PROFILE_STEPS = 10
+DIST_WIDTH = 48
+DIST_STORE_STEPS = 2
+DIST_OPS = ("gcn", "gin", "gat", "gcnii", "appnp", "pna")
+DIST_CONV_STEPS = 3
+DIST_CONV_TOL = 1e-3
+DIST_KERNELS = ("gather_rows_raw", "scatter_rows_raw")
 SERVE_KERNELS = ("gather_rows", "scatter_rows", "bcsr_spmm", "gather_spmm")
 # phase 3c: the operators served at their published widths (GAT at phase
 # 4's, 8 heads of 64; PNA at table 5's gas-pna, 48 wide; GIN at phase 3's
@@ -4538,6 +4599,310 @@ def dynamic_launcher_phase():
            f"{last[0] if last else ''}")
 
 
+
+def _dist_partition():
+    """Phase 8's METIS partition (the example's: 4 parts, seed 0) and the
+    seconds it took, in a worker process."""
+    t0 = time.perf_counter()
+    g = citation_graph(**EX.GRAPH)
+    part = P.metis_like_partition(g.indptr, g.indices, DIST_RANKS, seed=0)
+    return part, time.perf_counter() - t0
+
+
+def _dist_launches(label, out, names=DIST_KERNELS):
+    """Every rank launched each of `names`; returns the counts summed over
+    the ranks and a per-rank summary."""
+    for r, o in enumerate(out):
+        for name in names:
+            assert o["launches"][name] > 0, \
+                f"{label}: rank {r} never launched {name}: {o['launches']}"
+    total = {k: sum(o["launches"][k] for o in out) for k in out[0]["launches"]}
+    per = "; ".join(f"rank {r} " + ", ".join(
+        f"{k} {o['launches'][k]}" for k in names) for r, o in enumerate(out))
+    return total, per
+
+
+def _dist_inputs(g, S):
+    return (DG.permute_node_array(S, g.x),
+            DG.permute_node_array(S, g.y.astype(np.int32)),
+            DG.permute_node_array(S, g.train_mask))
+
+
+def dist_phase(device, pool, part, part_s):
+    """Phase 8 on the ranks of `pool` (a `DG.RankPool` started after the
+    build, whose start overlapped the phases before), one task per run:
+    8a the example's `train_rank`, 8b three exchanges and three stores'
+    supersteps, 8c the six operators' supersteps. Returns (launches by
+    run, the structs)."""
+    g = citation_graph(**EX.GRAPH)
+    spec = model.GNNSpec(**EX.SPEC)
+    S = DG.build_dist_structs(g, part)
+    digest = _digest(np.asarray(part, np.int32))
+    _phase("setup", f"distributed GAS: {g.num_nodes} nodes, {g.num_edges} "
+           f"edges, {g.x.shape[1]} features; partition {digest} "
+           f"({part_s:.1f} s in a worker process), rank sizes "
+           f"{S.sizes.tolist()}, rows {S.rows}, max_halo {S.max_halo}, C "
+           f"{S.send_idx.shape[-1]}, max_edges {S.max_edges}")
+    x, y, m = _dist_inputs(g, S)
+    n = S.num_ranks * S.rows
+    vals = np.random.default_rng(8).normal(
+        size=(n, DIST_WIDTH)).astype(np.float32)
+    q, s = (t.numpy() for t in ref.quantize_rows(torch.from_numpy(vals)))
+    specs = {op: dict(EX.SPEC, op=op, heads=8, log_deg_mean=1.8)
+             for op in DIST_OPS}
+    params = {op: CK._flatten("", model.init_gnn(model.GNNSpec(**sp), seed=0,
+                                                 device="cpu"))
+              for op, sp in specs.items()}
+    common = dict(x=x, y=y, m=m, adamw=None)
+    t0 = time.perf_counter()
+    ready = pool.ready()
+    waited = time.perf_counter() - t0
+    # each run's results by rank
+    example = pool.run(EX.train_rank, S, spec, params["gcn"], x, y, m,
+                       DIST_SUPERSTEPS, False, DIST_PROFILE_STEPS)
+    stores = [pool.run(RB.exchange_rank, S, [t], [sc], [hd])
+              for t, sc, hd in ((vals, None, "f32"), (vals, None, "bf16"),
+                                (q, s, "int8"))]
+    stores += [pool.run(RB.supersteps_rank, S, dict(
+        common, spec=specs["gcn"], params=params["gcn"], history_dtype=hd,
+        steps=DIST_STORE_STEPS)) for hd in ("f32", "bf16", "int8")]
+    ops_out = [pool.run(RB.supersteps_rank, S, dict(
+        common, spec=specs[op], params=params[op], history_dtype="f32",
+        steps=DIST_CONV_STEPS)) for op in DIST_OPS]
+    wall = time.perf_counter() - t0 - waited
+    _phase("dist", f"world size {DIST_RANKS}, backend gloo (a file:// "
+           f"rendezvous), rank devices {[o['device'] for o in example]} "
+           f"({torch.cuda.get_device_name(0)}); every halo exchange and "
+           f"all-reduce staged through pinned host buffers "
+           f"({example[0]['stats']['staged']} stagings on rank 0 in 8a); "
+           f"the ranks, started after the build, had their imports, CUDA "
+           f"context and group "
+           + ", ".join(f"{a:.1f}/{b:.1f}/{c:.1f}" for a, b, c in ready)
+           + f" s after their spawn (this phase waited {waited:.1f} s for "
+           f"them); 8a-8c in {wall:.1f} s")
+    launches = _dist_example_lines(device, g, spec, digest, example)
+    launches.update(_dist_stores_lines(S, vals, q, s, stores))
+    launches.update(_dist_ops_lines(device, g, S, specs, params, ops_out))
+    return launches, S
+
+
+def _dist_example_lines(device, g, spec, digest, out):
+    """Phase 8a's lines from the ranks' `train_rank` results."""
+    for r, o in enumerate(out[1:], 1):
+        for k, v in o["params"].items():
+            assert np.array_equal(v, out[0]["params"][k]), \
+                f"dist example: rank {r}'s {k} differs from rank 0's"
+    acc = EX.exact_accuracy(g, spec, out[0]["params"], device)
+    ref_acc = DIST_REF_ACC.get(digest)
+    assert ref_acc is not None, (
+        f"dist example: no reference accuracy for partition {digest}; "
+        f"run tests/test_torch_dist_gas.py --reference-acc on it "
+        f"(--save-partitions writes it as 'dist')")
+    assert abs(acc - ref_acc) <= ACC_SLACK, ("dist example", acc, ref_acc)
+    assert all(np.isfinite(o["loss"]).all() for o in out)
+    assert all(o["stats"]["staged"] > 0 for o in out)
+    st = out[0]["stats"]
+    secs = [x * 1e3 for x in out[0]["seconds"][:-DIST_PROFILE_STEPS]]
+    n = DIST_SUPERSTEPS
+    wire = sum(o["stats"]["wire_bytes"] for o in out) / n
+    launches, per = _dist_launches("dist example f32", out)
+    _phase("dist", f"8a example f32: {n} supersteps, superstep p50/p99 "
+           f"{_p50_p99(secs[1:])} (rank 0, host clock to a sync, the last "
+           f"{DIST_PROFILE_STEPS} left out; the first {secs[0]:.1f} ms); "
+           f"exchanges {st['exchanges'] / n:.0f} a superstep, "
+           f"{st['exchange_s'] / n * 1e3:.3f} ms, all-reduces "
+           f"{st['allreduce_s'] / n * 1e3:.3f} ms a superstep (rank 0, the "
+           f"profiled ones in); wire {wire:.0f} B a superstep (all ranks)")
+    _phase("dist", "8a the staged collectives' parts, ms a superstep by "
+           "rank (host clock, the profiled ones in): " + ", ".join(
+               f"{what} {[round(o['stats'][k] / n * 1e3, 3) for o in out]}"
+               for what, k in (("wait for the queued kernels", "wait_s"),
+                               ("copy to pinned memory", "d2h_s"),
+                               ("gloo call", "gloo_s"),
+                               ("copy back", "h2d_s"))))
+    _phase("dist", f"8a result: final loss {out[0]['loss'][-1]:.4f}, train "
+           f"acc {out[0]['acc'][-1]:.4f}; test acc {acc:.4f} (the reference's "
+           f"{ref_acc:.4f} on the same partition, within {ACC_SLACK}); "
+           f"params bitwise across ranks")
+    _phase("dist", f"8a launches: {per}")
+    profs = [o.get("profile") for o in out]
+    if all(p and p["device_us"] > 0 for p in profs):
+        dev_us = [p["device_us"] for p in profs]
+        wall_us = max(p["wall_us"] for p in profs)
+        busy = (f"device time a superstep by rank "
+                f"{[round(d / DIST_PROFILE_STEPS / 1e3, 3) for d in dev_us]}"
+                f" ms; the card busy {100 * sum(dev_us) / wall_us:.1f}% of "
+                f"the {wall_us / 1e3:.1f} ms window (the ranks' device time "
+                f"summed: their contexts time-slice the card)")
+    else:
+        busy = "not measured (the profiler saw no device time)"
+    _phase("dist", f"8a, the last {DIST_PROFILE_STEPS} supersteps under "
+           f"torch.profiler on every rank: {busy}")
+    return {"dist example": launches}
+
+
+def _dist_direct(S, table):
+    """Each rank's halo rows gathered straight from the padded table, 0 at
+    the masked slots ([P, max_halo, ...])."""
+    hn = np.clip(S.batch.halo_nodes, 0, S.num_ranks * S.rows - 1)
+    m = S.batch.halo_mask.reshape(S.batch.halo_mask.shape
+                                  + (1,) * (table.ndim - 1))
+    return np.where(m, table[hn], 0)
+
+
+def _dist_stores_lines(S, vals, q, s, out):
+    """Phase 8b's lines: the three exchanges (runs 0-2) bitwise a direct
+    gather, then the GCN supersteps over each store (runs 3-5); `out[j]`
+    is run j's results by rank."""
+    launches = {}
+    want = {"f32": vals, "bf16": torch.from_numpy(vals).to(
+        torch.bfloat16).float().numpy(), "int8": q}
+    wires = {}
+    for j, hd in enumerate(("f32", "bf16", "int8")):
+        got = np.stack([o["halos"][0] for o in out[j]])
+        hm = S.batch.halo_mask[..., None]
+        assert np.array_equal(np.where(hm, got, 0), _dist_direct(S, want[hd])), \
+            f"dist exchange {hd}: the halo differs from a direct gather"
+        if hd == "int8":
+            scl = np.stack([o["scales"][0] for o in out[j]])
+            assert np.array_equal(np.where(S.batch.halo_mask, scl, 0),
+                                  _dist_direct(S, s))
+        wires[hd] = sum(o["stats"]["wire_bytes"] for o in out[j])
+        launches[f"dist exchange {hd}"] = _dist_launches(
+            f"dist exchange {hd}", out[j])[0]
+    _phase("dist", f"8b exchange of a {DIST_WIDTH}-wide table on the card: "
+           f"f32, bf16 and int8 (raw codes, then the scales) halos bitwise "
+           f"a direct gather of the same rows on every rank; wire bytes "
+           f"per exchange (all ranks) f32 {wires['f32']}, bf16 "
+           f"{wires['bf16']}, int8 {wires['int8']} (f32/int8 "
+           f"{wires['f32'] / wires['int8']:.3f})")
+    per_step = {}
+    for k, hd in enumerate(("f32", "bf16", "int8"), start=3):
+        res = out[k]
+        assert all(np.isfinite(r["loss"]).all() for r in res), hd
+        per_step[hd] = sum(r["stats"]["wire_bytes"] for r in res) / \
+            DIST_STORE_STEPS
+        names = DIST_KERNELS + (("scatter_rows_q",) if hd == "int8" else ())
+        launches[f"dist gcn {hd}"], per = _dist_launches(
+            f"dist gcn {hd}", res, names)
+        if hd == "int8":
+            assert all(t.dtype == np.int8 for r in res
+                       for t in r["tables"][-1])
+            q_per = per
+        secs = [x for r in res for x in r["seconds"][1:]]
+        _phase("dist", f"8b gcn {hd} store, {DIST_STORE_STEPS} supersteps: "
+               f"loss {res[0]['loss'][-1]:.4f}, superstep "
+               f"{statistics.median(secs) * 1e3:.2f} ms (median over the "
+               f"ranks' later steps), wire {per_step[hd]:.0f} B a "
+               f"superstep (all ranks; layer 0's f32 rows included)")
+    _phase("dist", f"8b wire bytes a superstep f32/int8 "
+           f"{per_step['f32'] / per_step['int8']:.3f}, f32/bf16 "
+           f"{per_step['f32'] / per_step['bf16']:.3f}; int8 launches: "
+           f"{q_per}")
+    return launches
+
+
+def _dist_ops_lines(device, g, S, specs, params, out):
+    """Phase 8c's lines: each operator's supersteps from fixed params
+    against the exact full-graph forward on the card (`out[k]`, operator
+    k's results by rank)."""
+    launches = {}
+    dst, src, w = G.gcn_edge_weights(g)
+    valid = S.old_of_new >= 0
+    T = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    for k, op in enumerate(DIST_OPS):
+        res = out[k]
+        sp = model.GNNSpec(**specs[op])
+        with torch.no_grad():
+            exact = model.full_forward(
+                CK.params_from_numpy(params[op], device=device), sp,
+                T(g.x), (T(dst), T(src)), T(w), g.num_nodes).cpu().numpy()
+        errs = []
+        for step in range(DIST_CONV_STEPS):
+            got = np.zeros_like(exact)
+            got[S.old_of_new[valid]] = np.concatenate(
+                [r["logits"][step] for r in res])[valid]
+            errs.append(float(np.abs(got - exact).max()))
+        assert errs[-1] < DIST_CONV_TOL and errs[0] > errs[-1], (op, errs)
+        assert all(np.isfinite(r["loss"]).all() for r in res), op
+        for r in res[1:]:
+            for key, v in r["grads"][0].items():
+                assert np.array_equal(v, res[0]["grads"][0][key]), (op, key)
+        launches[f"dist {op}"], _ = _dist_launches(f"dist {op}", res)
+        _phase("dist", f"8c {op} f32, {DIST_CONV_STEPS} supersteps from "
+               f"fixed params: loss {res[0]['loss'][0]:.4f}, logits' max "
+               f"error against the exact full-graph forward "
+               + " -> ".join(f"{e:.2e}" for e in errs)
+               + f" (< {DIST_CONV_TOL:g}); summed gradients bitwise on "
+               f"every rank; superstep "
+               f"{statistics.median(res[0]['seconds']) * 1e3:.2f} ms")
+    return launches
+
+
+def dist_kernel_rows(device, S):
+    """Phase 8's kernel rows at the example's shapes: the exchange's pack
+    (`gather_rows_raw`, rank 0's [P*C] send list over its [rows, 48] f32
+    shard), its unpack (`scatter_rows_raw` into the [max_halo, 48] halo,
+    the padded entries dropped) and the int8 store's push
+    (`scatter_rows_q` over all rows), each bitwise its plain version."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    plan = S.exchange_arrays(0, device)
+    send, recv_idx = plan["send_idx"].reshape(-1), plan["recv_idx"]
+    M, D = send.shape[0], DIST_WIDTH
+    R = D * 4
+    shard = torch.randn((S.rows, D), generator=gen, device=device)
+    packed = gather_rows_raw(shard, send)
+    assert torch.equal(packed, ref.gather_rows_raw_ref(shard, send))
+    valid = recv_idx < S.max_halo
+    n_valid = int(valid.sum())
+    halo = torch.zeros((S.max_halo, D), device=device)
+    want = ref.scatter_rows_raw_ref(halo.clone(), recv_idx, packed)
+    assert torch.equal(scatter_rows_raw(halo.clone(), recv_idx, packed), want)
+    vi, vr = recv_idx[valid].long(), packed[valid]
+    src = "src/repro_torch/kernels/csrc/gather.cu"
+    pack = _row("gather_rows_raw", src, "src/repro/core/dist_gas.py:199-236 "
+                "(jnp.take in halo_exchange; no pallas_call)", 0.0,
+                _time_ms(lambda: gather_rows_raw(shard, send)),
+                _time_ms(lambda: ref.gather_rows_raw_ref(shard, send)),
+                _time_ms(lambda: torch.index_select(shard, 0, send)),
+                M * 4 + M * R + M * R, 0)
+    pack.update(case=f"dist exchange pack, {M} rows of {R} B",
+                run="dist example")
+    unpack = _row("scatter_rows_raw", "src/repro_torch/kernels/csrc/"
+                  "scatter.cu", "src/repro/core/dist_gas.py:199-236 "
+                  "(.at[].add in halo_exchange; no pallas_call)", 0.0,
+                  _time_ms(lambda: scatter_rows_raw(halo, recv_idx, packed)),
+                  _time_ms(lambda: ref.scatter_rows_raw_ref(halo, recv_idx,
+                                                            packed)),
+                  _time_ms(lambda: halo.index_copy_(0, vi, vr)),
+                  M * 4 + 2 * n_valid * R, 0,
+                  library="index_copy_ of the real entries")
+    unpack.update(case=f"dist exchange unpack, {M} entries ({n_valid} real) "
+                       f"into {S.max_halo} halo slots", run="dist example")
+    fresh = torch.randn((S.rows, D), generator=gen, device=device)
+    idx = torch.arange(S.rows, dtype=torch.int32, device=device)
+    qt = torch.empty((S.rows, D), dtype=torch.int8, device=device)
+    st = torch.empty((S.rows,), dtype=torch.float32, device=device)
+    qw, sw, _ = ref.scatter_rows_q_ref(qt.clone(), st.clone(), idx, fresh)
+    q_out = scatter_rows_q(qt, st, idx, fresh)
+    assert torch.equal(q_out[0], qw) and torch.equal(q_out[1], sw)
+    push = _row("scatter_rows_q", "src/repro_torch/kernels/csrc/scatter.cu",
+                "src/repro/kernels/scatter.py:85 scatter_rows_q (the "
+                "reference's dist push runs the plain quantize_rows)", 0.0,
+                _time_ms(lambda: scatter_rows_q(qt, st, idx, fresh)),
+                _time_ms(lambda: ref.scatter_rows_q_ref(qt, st, idx, fresh)),
+                None, S.rows * (4 + D * 4 + D + 4 + 4), 0)
+    push.update(case=f"dist int8 push, {S.rows} rows of {D}",
+                run="dist gcn int8")
+    _phase("kernels", "dist exchange at the example's shapes: " + "; ".join(
+        f"{r['name']} ({r['case']}): bitwise its plain version, "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
+        f"bound {r['bound_ms']:.5f} by {r['bound_by']})"
+        for r in (pack, unpack, push)))
+    return [pack, unpack, push]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-partitions", metavar="NPZ",
@@ -4566,10 +4931,11 @@ def main() -> int:
     # the training partitions (host work, 25-39 s) in worker processes
     # while the card builds its kernels and serves
     with concurrent.futures.ProcessPoolExecutor(
-            len(PARTITIONED) + 1,
+            len(PARTITIONED) + 2,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = {op: pool.submit(_partition, op) for op in PARTITIONED}
         futures["dynamic"] = pool.submit(_dyn_partition)
+        futures["dist"] = pool.submit(_dist_partition)
 
         def partitions():
             """{op: (partition, seconds)} once all are done; the workers
@@ -4578,10 +4944,11 @@ def main() -> int:
             pool.shutdown()
             return out
 
-        return _smoke(args, partitions, t_start)
+        with contextlib.ExitStack() as stack:
+            return _smoke(args, partitions, t_start, stack)
 
 
-def _smoke(args, partitions, t_start) -> int:
+def _smoke(args, partitions, t_start, stack) -> int:
     global PARENT_LIB
     smi = _smi()
     _phase("toolchain", f"python {sys.version.split()[0]}, torch "
@@ -4627,6 +4994,9 @@ def _smoke(args, partitions, t_start) -> int:
                f"{time.perf_counter() - t0:.1f} s")
 
     device = resolve_device("cuda")
+    # phase 8's ranks start now, so that their processes, imports, CUDA
+    # contexts and rendezvous overlap the phases before it; they wait idle
+    dist_pool = stack.enter_context(DG.RankPool(DIST_RANKS, "cuda"))
     spent = {}                   # wall seconds per phase, for the budget
     clock = [t_start]
 
@@ -4675,7 +5045,8 @@ def _smoke(args, partitions, t_start) -> int:
             Path(args.save_partitions).parent.mkdir(parents=True,
                                                     exist_ok=True)
             np.savez(args.save_partitions,
-                     **{op: p.part for op, p in plans.items()})
+                     **{op: p.part for op, p in plans.items()},
+                     dist=parts["dist"][0])
         rows += training_kernel_phase(plans, device, _clock_hz())
         lap("training kernels")
         if args.vq_ablation:
@@ -4703,6 +5074,11 @@ def _smoke(args, partitions, t_start) -> int:
     launches.update(dynamic_host_phase(device, parts["dynamic"][0]))
     dynamic_launcher_phase()
     lap("evolving graphs")
+    dist_launches, dist_structs = dist_phase(device, dist_pool,
+                                             *parts["dist"])
+    launches.update(dist_launches)
+    rows += dist_kernel_rows(device, dist_structs)
+    lap("distributed GAS")
     _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":

@@ -137,7 +137,9 @@ def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
     With `blocks = (blk_vals, blk_cols[, blk_vals_t, blk_cols_t])` it runs
     the block SpMM (`bcsr_spmm`, forward and, on the transposed pair,
     backward); with blocks=None it sums over the padded COO in plain
-    tensor code (`index_add_`), which only the full-graph forward uses."""
+    tensor code (`index_add_`), the route of the full-graph forward
+    (`full_forward`, `evaluate_exact`) and of the distributed superstep
+    (`core.dist_gas`), as in the reference."""
     if blocks is None:
         dst, src = edges
         msg = x_all[src.long()] * edge_w[:, None]

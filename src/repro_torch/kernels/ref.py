@@ -25,7 +25,8 @@ sum over the last axis adds them.
 `edge_softmax_coo` and `pna_reduce_coo` are not kernels' plain versions:
 they are the per-edge (segment) routes of the reference's "jnp" backend,
 which `full_forward` and `evaluate_exact` run in plain tensor code, as
-the reference's `evaluate_exact` does on every backend.
+the reference's `evaluate_exact` does on every backend, and so does the
+distributed superstep (`core.dist_gas`), as the reference's does.
 """
 from __future__ import annotations
 
@@ -582,8 +583,8 @@ def pna_reduce_coo(xd: torch.Tensor, xs: torch.Tensor, edges,
     Differentiable w.r.t. xd and xs: the min and max split their
     cotangents evenly across the tied edges, as `jax.ops.segment_min` /
     `segment_max` do (each tie gets g / ties). Not a kernel's plain
-    version: `full_forward` and `evaluate_exact` run it, as the
-    reference's `evaluate_exact` runs the segment route on every
+    version: `full_forward`, `evaluate_exact` and the distributed
+    superstep (`core.dist_gas`) run it, as the reference's do on every
     backend."""
     dst, src = edges[0].long(), edges[1].long()
     valid = (edge_w > 0)[:, None]

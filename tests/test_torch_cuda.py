@@ -48,7 +48,10 @@ as the training steps are held. Evolving graphs: an incremental
 int8; batches bitwise, tables at 1e-5, int8 codes >= 99.9% equal, the
 old state's store unchanged, no backward kernel launched), and a pinned
 store's `grow` right after a queued push (pinned, bitwise the device
-store's)."""
+store's). Distributed GAS: 2 gloo ranks on the card (both on cuda:0
+with one card) against the same ranks on the CPU: f32, bf16 and int8
+halos bitwise, and GCNII's and an int8 GCN's supersteps (loss and
+summed gradients at 1e-5, int8 codes >= 99.9% equal)."""
 import dataclasses
 
 import numpy as np
@@ -1821,3 +1824,81 @@ def test_pinned_store_grows_pinned(dev, hd):
     for a, b in zip(_store_tensors(hg), _store_tensors(dg)):
         assert torch.equal(a, b)
     assert torch.equal(h.tables[0], d.tables[0].cpu())
+
+
+def _dist_structs(ranks=2, n=300):
+    from repro_torch.core import dist_gas as DG
+    from repro_torch.core.partition import metis_like_partition
+    g = citation_graph(num_nodes=n, num_features=8, num_classes=3, seed=5)
+    part = metis_like_partition(g.indptr, g.indices, ranks, seed=0)
+    return g, DG.build_dist_structs(g, part)
+
+
+def test_dist_halo_exchange_on_card_bitwise(dev):
+    """2 gloo ranks on the card (one card: both on cuda:0, the exchange
+    staged through pinned host buffers): f32, bf16 and int8 halos (raw
+    rows and scales) bitwise the same exchange on the CPU, the pack and
+    unpack launched on every rank."""
+    from repro_torch.core import _rank_bodies as RB
+    from repro_torch.core import dist_gas as DG
+    g, S = _dist_structs()
+    n = S.num_ranks * S.rows
+    vals = np.random.default_rng(0).normal(size=(n, 16)).astype(np.float32)
+    q, s = ref.quantize_rows(torch.from_numpy(vals))
+    args = (S, [vals, vals, q.numpy()], [None, None, s.numpy()],
+            ["f32", "bf16", "int8"])
+    card = DG.run_ranks(RB.exchange_rank, 2, *args, device="cuda")
+    cpu = DG.run_ranks(RB.exchange_rank, 2, *args, device="cpu")
+    for c, h in zip(card, cpu):
+        for a, b in zip(c["halos"], h["halos"]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert np.array_equal(c["scales"][2], h["scales"][2])
+        assert c["launches"]["gather_rows_raw"] == 4
+        assert c["launches"]["scatter_rows_raw"] == 4
+        assert c["stats"]["staged"] == 4
+        assert h["launches"]["gather_rows_raw"] == 0
+
+
+@pytest.mark.parametrize("op,hd", [("gcnii", "f32"), ("gcn", "int8")])
+def test_dist_superstep_on_card(dev, op, hd):
+    """One superstep of 2 gloo ranks on the card against the same on the
+    CPU: loss and summed gradients within 1e-5 (GCNII's through the
+    layer-0 exchange's backward), f32 tables at 1e-5, int8 ones within
+    one step per row with >= 99.9% of the codes equal; the row movers and,
+    for int8, `scatter_rows_q` launched on every rank."""
+    from repro_torch.core import _rank_bodies as RB
+    from repro_torch.core import dist_gas as DG
+    from repro_torch.gnn.model import init_gnn
+    from repro_torch.train import checkpoint as ckpt
+    g, S = _dist_structs()
+    spec = dict(op=op, d_in=8, d_hidden=16, num_classes=3, num_layers=3)
+    params = ckpt._flatten("", init_gnn(GNNSpec(**spec), seed=0,
+                                        device="cpu"))
+    job = dict(spec=spec, params=params, history_dtype=hd, steps=2,
+               x=DG.permute_node_array(S, g.x),
+               y=DG.permute_node_array(S, g.y.astype(np.int32)),
+               m=DG.permute_node_array(S, g.train_mask), adamw=None)
+    card = DG.run_ranks(RB.supersteps_rank, 2, S, job, device="cuda")
+    cpu = DG.run_ranks(RB.supersteps_rank, 2, S, job, device="cpu")
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for c, h in zip(card, cpu):
+        for step in range(2):
+            np.testing.assert_allclose(c["loss"][step], h["loss"][step], **tol)
+            for k, v in h["grads"][step].items():
+                np.testing.assert_allclose(c["grads"][step][k], v, **tol,
+                                           err_msg=k)
+            for ell, (a, b) in enumerate(zip(c["tables"][step],
+                                             h["tables"][step])):
+                if hd == "int8":
+                    sc = h["scales"][step][ell][:, None]
+                    np.testing.assert_allclose(c["scales"][step][ell],
+                                               sc[:, 0], **tol)
+                    assert np.all(np.abs(a.astype(np.float32) * sc
+                                         - b.astype(np.float32) * sc)
+                                  <= sc * (1 + 1e-5))
+                    assert np.mean(a == b) >= 0.999
+                else:
+                    np.testing.assert_allclose(a, b, **tol)
+        assert c["launches"]["gather_rows_raw"] > 0
+        assert c["launches"]["scatter_rows_raw"] > 0
+        assert (c["launches"]["scatter_rows_q"] > 0) == (hd == "int8")

@@ -11,11 +11,13 @@ import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
 
+from repro_torch.core import dist_gas as t_dist
 from repro_torch.core import runtime as t_rt
 from repro_torch.core import serve as t_serve
 from repro_torch.configs.base import get_config
 from repro_torch.core.history import HistoryStore
 from repro_torch.data.graphs import citation_graph
+from repro_torch.examples import distributed_gas as t_dist_example
 from repro_torch.gnn import model as t_model
 from repro_torch.launch import serve_gas, train_gas
 from repro_torch.models import transformer as t_tf
@@ -45,13 +47,13 @@ def test_import_leaves_jax_and_reference_out():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()
-    assert int(n_mods) >= 45, n_mods       # every module was imported
+    assert int(n_mods) >= 53, n_mods       # every module was imported
     assert bad == "[]", bad
 
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 46
+    assert len(files) >= 54
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -70,6 +72,7 @@ def test_entry_points_default_to_cuda():
     g = citation_graph(num_nodes=40, num_features=4, num_classes=2, seed=0)
     spec = t_model.GNNSpec(op="gcn", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
+    structs = t_dist.build_dist_structs(g, np.arange(40) % 2)
     calls = [
         lambda: t_serve.build_serve_plan(g, spec, t_serve.ServeConfig()),
         lambda: t_model.init_gnn(spec),
@@ -91,6 +94,11 @@ def test_entry_points_default_to_cuda():
             {"embed": np.zeros((4, 2), np.float32)}),
         lambda: t_ckpt.transformer_cache_from_numpy(
             {"pos": np.int32(0), "segs": []}),
+        lambda: t_dist_example.main(ranks=2, supersteps=1, nodes=60),
+        lambda: t_dist.run_ranks(t_dist_example.train_rank, 2),
+        lambda: structs.device_batch(0),
+        lambda: structs.exchange_arrays(0),
+        lambda: structs.init_store([8], rank=0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -115,3 +123,17 @@ def test_unported_options_raise():
         GASTrainer(g, spec, num_parts=2, fused_epoch=True, device="cpu")
     with pytest.raises(ValueError, match="history_dtype"):
         HistoryStore.create(5, [4], history_dtype="f16", device="cpu")
+
+
+def test_distributed_example_runs_on_cpu_when_asked():
+    """The example's command line with --device cpu: 2 spawned gloo ranks,
+    a few supersteps on a small graph, its test accuracy printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.distributed_gas",
+         "--device", "cpu", "--ranks", "2", "--supersteps", "3", "--nodes",
+         "240"], capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "240 nodes on 2 ranks" in out.stdout
+    acc = float(out.stdout.strip().splitlines()[-1].split()[-1])
+    assert 0.0 <= acc <= 1.0
