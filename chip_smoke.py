@@ -260,6 +260,31 @@ with a non-zero exit at the first failure:
    (`gather_rows_raw`) and unpack (`scatter_rows_raw`) and the int8
    push (`scatter_rows_q`), each bitwise its plain version.
 
+Phase 9, the seq-GAS scaffold and the other layer types (after phase
+8): (a) `flash_decode` at recurrentgemma-9b's heads (B 8, Kh 1, G 16, Dh
+256, the 2,048-slot window) in bf16 and f32, every slot valid and pos
+inside the buffer, against its plain version, timed beside its bound
+and SDPA (a kernels-line row, its launches from (b)). (b)
+recurrentgemma-9b at its published widths in bf16 (rec, rec, local;
+seeded weights): 8 MarkovTokens prompts of 3,072 tokens rolled into the
+2,048-slot local caches, 64 greedy decode steps, every step's logits
+against `forward` over the prompt and the tokens fed (in bf16, printed;
+against the f32 truth on 2 sequences, no farther than the bf16 forward
+is; the weights widened to f32 then decode within 1e-4 of max |logit| of
+the f32 forward), a repeated step bit-identical, one step profiled, a
+`[decode]` line; then one pattern repeat in f32 (B 1, 256 prompt
+tokens, 8 steps) on the card against the CPU. (c) seq-GAS on qwen3-0.6b at its published
+widths: the chunked forward against the full one in f32 (B 1, T 2,048,
+chunks of 256), then 20 AdamW steps of `chunked_loss` in bf16 (B 1, T
+4,096, chunks of 512; the last loss below 0.8 x the first), step p50,
+tokens/s and the peak memory of a `chunked_loss` step beside a `loss_fn`
+step. (d) hubert-xlarge at its published widths in f32 (B 1, 1,024
+frames, chunks of 256): 49 bidirectional passes, the error against the
+full forward every 8 passes, the first above its tolerance, the last
+below. (e) the moe and cross layers (no published config: SMOKE widths
+under the tests' overrides): forward, prefill and 8 decode steps on the
+card against the CPU in f32.
+
     python3 chip_smoke.py --save-partitions chiprun_out/partitions.npz
 
 also writes the training partitions (the port's METIS-like partitioner
@@ -333,6 +358,7 @@ from repro_torch.core import dynamic as DY  # noqa: E402
 from repro_torch.core import gas as G  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.core import runtime as RT  # noqa: E402
+from repro_torch.core import seq_gas as SEQ  # noqa: E402
 from repro_torch.core import serve as S  # noqa: E402
 from repro_torch.core import serve_service as SS  # noqa: E402
 from repro_torch.core.config import resolve_device  # noqa: E402
@@ -342,6 +368,7 @@ from repro_torch.data.graphs import (  # noqa: E402
     citation_graph, sbm_cluster_graph)
 from repro_torch.data.tokens import MarkovTokens  # noqa: E402
 from repro_torch.examples import distributed_gas as EX  # noqa: E402
+from repro_torch.examples import seq_gas_long_context as EXSEQ  # noqa: E402
 from repro_torch.gnn import model  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import scatter as scatter_mod  # noqa: E402
@@ -359,7 +386,7 @@ from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.train import checkpoint as CK  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
-    clip_by_global_norm, tree_leaves, tree_map)
+    clip_by_global_norm, grad_leaves, tree_leaves, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # f32 outside the tensor cores — the kernels' bound_ms uses these; and the
@@ -836,6 +863,62 @@ DECODE_KERNEL_CASES = ((8, 4096, 3000, torch.bfloat16, True),
 # must fail this limit. An H100 gave 4.9e-4 and 2.4e-4 sound (limits
 # 3.2e-3 and 8.7e-4), 0.020-0.072 with a warp's slots dropped
 DECODE_KERNEL_F32_TOL, DECODE_KERNEL_BF16_REL = 1e-5, 2e-2
+
+# Phase 9b: recurrentgemma-9b (configs/recurrentgemma_9b.py) at its
+# published widths in bf16, seeded weights: REC_B MarkovTokens prompts of
+# REC_PROMPT tokens (past the 2,048-slot window: the local caches roll),
+# REC_STEPS greedy steps (the logits held as REC_TRUTH_B says below);
+# then REC_F32: one pattern repeat (rec, rec, local) in f32, (batch,
+# prompt, steps), the card against the CPU (logits REC_F32_TOL; every
+# cache leaf, the RG-LRU's f32 state among them, the same)
+REC_ARCH, REC_B, REC_PROMPT, REC_STEPS, REC_SEED = (
+    "recurrentgemma-9b", 8, 3072, 64, 0)
+REC_F32 = (1, 256, 8)
+REC_F32_TOL = 1e-4
+# the bf16 decode is held to the f32 truth (`forward` over the same bf16
+# weights widened to f32) on the first REC_TRUTH_B sequences: its max abs
+# error no more than REC_BF16_VS_FWD x the bf16 forward's. It is not held
+# to the bf16 forward by DECODE_TOL as qwen3's is: here each bf16 path is
+# ~5% of max |logit| from the truth on its own (38 layers, 26 of them
+# rec; an H100 gave the bf16 forward 0.4016 and the decode 0.3848 of
+# 7.553, 16 steps), so the two differ by ~6% (0.4375) wherever their
+# roundings part. The widened weights then decode in f32, held to the f32
+# forward within REC_F32_EXACT_REL x max |logit| (an H100 gave 1.9e-5):
+# the program is exact at the published widths, and bf16 alone moves it
+REC_TRUTH_B, REC_BF16_VS_FWD, REC_F32_EXACT_REL = 2, 1.25, 1e-4
+# 9a: flash_decode at recurrentgemma's heads (Kh 1, G 16, Dh 256) over
+# the window's 2,048 slots; (B, S, pos, dtype, timed)
+REC_KERNEL_CASES = ((8, 2048, 3000, torch.bfloat16, True),
+                    (8, 2048, 1000, torch.bfloat16, True),
+                    (8, 2048, 3000, torch.float32, False),
+                    (8, 2048, 1000, torch.float32, False))
+# 9c: seq-GAS on qwen3-0.6b at its published widths. f32: (B, T, chunk),
+# the chunked forward against the full one within SEQ_F32_TOL absolute
+# (28 layers of f32 sums over up to 2,048 keys in another order; a chunk
+# that read a wrong or stale history row would move logits of ~1 by
+# ~0.1 or more). bf16: (B, T, chunk) at train_4k's length (its global
+# batch of 256 cut to 1), SEQ_STEPS AdamW steps at SEQ_LR on the
+# example's MarkovTokens; the last loss below SEQ_DROP x the first (the
+# reference test's rule)
+SEQ_ARCH = "qwen3-0.6b"
+SEQ_F32, SEQ_BF16 = (1, 2048, 256), (1, 4096, 512)
+SEQ_F32_TOL, SEQ_STEPS, SEQ_LR, SEQ_DROP = 1e-3, 20, 1e-3, 0.8
+# 9d: hubert-xlarge at its published widths in f32, (B, frames, chunk);
+# num_layers + 1 bidirectional passes (Theorem 2 on sequences: exact after
+# them with frozen params); the first pass's error against the full
+# forward above AUDIO_TOL, the last below (48 layers of f32 sums in
+# another order; logits of ~1)
+AUDIO_ARCH, AUDIO_SHAPE, AUDIO_TOL, AUDIO_EVERY = (
+    "hubert-xlarge", (1, 1024, 256), 1e-3, 8)
+# 9e: the moe and cross layers have no published config; the tests'
+# overrides at SMOKE widths, f32, (label, arch, overrides); forward,
+# prefill of MIXER_T tokens and MIXER_STEPS decode steps, the card
+# against the CPU at MIXER_TOL (logits and every cache leaf)
+MIXER_CASES = (
+    ("moe", "qwen3-0.6b", dict(pattern=("moe",), num_experts=4, top_k=2)),
+    ("cross", "qwen3-0.6b", dict(pattern=("dense", "cross"), family="vlm",
+                                 num_image_tokens=4)))
+MIXER_T, MIXER_STEPS, MIXER_TOL = 24, 8, 1e-5
 
 
 def _phase(name: str, msg: str) -> None:
@@ -3668,15 +3751,17 @@ def _decode_fault_controls(q, k, v, pos, want, limit) -> str:
             f"({'fails' if unr_err > limit else 'passes'} it)")
 
 
-def decode_kernel_rows(device, clock_hz):
-    """flash_decode against its plain version on seeded inputs at qwen3's
-    attention shapes (DECODE_KERNEL_CASES): f32 within 1e-5, bf16 within
-    2e-2 of the largest |output| (with two planted faults held to that
-    limit where 256 slots or more are valid), and where slots lie past
-    pos, the masked tail redrawn (k and v) leaving the output bitwise
-    unchanged; the timed cases beside the plain version and SDPA. Returns
-    the timed rows (launches filled in from the decode phase)."""
-    cfg = get_config(DECODE_ARCH, "full")
+def decode_kernel_rows(device, clock_hz, arch=DECODE_ARCH,
+                       cases=DECODE_KERNEL_CASES, run=None):
+    """flash_decode against its plain version on seeded inputs at `arch`'s
+    attention shapes (qwen3's DECODE_KERNEL_CASES by default): f32 within
+    1e-5, bf16 within 2e-2 of the largest |output| (with two planted
+    faults held to that limit where 256 slots or more are valid), and
+    where slots lie past pos, the masked tail redrawn (k and v) leaving
+    the output bitwise unchanged; the timed cases beside the plain version
+    and SDPA. Returns the timed rows (launches filled in from the decode
+    phase, or from `run`'s)."""
+    cfg = get_config(arch, "full")
     Kh, Dh = cfg.num_kv_heads, cfg.head_dim_
     G = cfg.num_heads // Kh
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -3685,7 +3770,7 @@ def decode_kernel_rows(device, clock_hz):
         return torch.randn(shape, generator=gen, device=device).to(dt)
 
     rows = []
-    for B_, S_, pos, dt, timed in DECODE_KERNEL_CASES:
+    for B_, S_, pos, dt, timed in cases:
         q = randn((B_, Kh, G, Dh), dt)
         k, v = randn((B_, S_, Kh, Dh), dt), randn((B_, S_, Kh, Dh), dt)
         out = flash_decode(q, k, v, pos)
@@ -3693,7 +3778,9 @@ def decode_kernel_rows(device, clock_hz):
         err = float((out.float() - want.float()).abs().max())
         n_valid = ref.flash_decode_valid(pos, S_)
         line = (f"flash_decode B={B_} S={S_} pos={pos} "
-                f"{str(dt).split('.')[-1]}: err {err:.3g} ")
+                f"{str(dt).split('.')[-1]}"
+                + ("" if run is None else f" Kh={Kh} G={G} Dh={Dh}")
+                + f": err {err:.3g} ")
         if dt == torch.float32:
             torch.testing.assert_close(out.float(), want.float(),
                                        rtol=DECODE_KERNEL_F32_TOL,
@@ -3747,13 +3834,17 @@ def decode_kernel_rows(device, clock_hz):
                 4.0 * B_ * Kh * G * n_valid * Dh, exps=B_ * Kh * G * n_valid,
                 clock_hz=clock_hz)
             row["case"] = f"B={B_}, S={S_}, pos={pos}, bf16"
+            if run is not None:
+                row["case"] = (f"{arch}: B={B_}, Kh={Kh}, G={G}, Dh={Dh}, "
+                               f"S={S_}, pos={pos}, bf16")
+                row["run"] = run
             rows.append(row)
             line += (f"; {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                      f"SDPA {row['library_ms']:.4f} with err {lib_err:.3g}, "
                      f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
             del qs, ks, vs
         _phase("kernels", line)
-        if timed:
+        if timed and run is None:
             _beside_parent(
                 f"flash_decode B={B_} S={S_} pos={pos}", row["ms"], out,
                 None if PARENT_LIB is None else _parent_flash_decode(
@@ -3837,21 +3928,32 @@ def _slot_fault_control(params, cfg, prompts, cache_len):
                                          cache_len)
 
 
-def _profiled_decode_step(params, cfg, cache, tok) -> str:
-    """One decode step under torch.profiler: flash_decode's share of the
-    step's device time and of its wall time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def _profile(fn, cpu=True):
+    """One call of `fn` under torch.profiler: (its device events, most
+    device time first; their device us; the call's wall us). `cpu=False`
+    records the device alone (a training step's ~10^5 host events take
+    the profiler longer to process than the step)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        TF.decode_step(params, cfg, cache, tok)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in ev)
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0),
+                key=lambda e: -e.self_device_time_total)
+    return ev, sum(e.self_device_time_total for e in ev), wall_us
+
+
+def _profiled_decode_step(params, cfg, cache, tok) -> str:
+    """One decode step under torch.profiler: flash_decode's share of the
+    step's device time and of its wall time."""
+    ev, dev_us, wall_us = _profile(
+        lambda: TF.decode_step(params, cfg, cache, tok))
     if dev_us == 0:
         return "not measured (the profiler saw no device time)"
     fd_us = sum(e.self_device_time_total for e in ev
@@ -4001,6 +4103,406 @@ def decode_phase(device, smi):
            f"(tol 1e-5)")
     del params, p2, res
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: recurrentgemma-9b decode, seq-GAS training, hubert's passes,
+# the moe and cross layers
+# ---------------------------------------------------------------------------
+
+def _open_gates(params):
+    """Every cross layer's tanh gates opened (the init closes them, which
+    would hide the layer)."""
+    for seg in params["segs"]:
+        for lp in seg.values():
+            if "g_attn" in lp:
+                lp["g_attn"].fill_(0.5)
+                lp["g_mlp"].fill_(-0.3)
+    return params
+
+
+def _max_err(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _logits_at(params, cfg, toks, T) -> torch.Tensor:
+    """`forward`'s logits at positions T - 1 onward ([n + 1, B, V] f32),
+    the last norm and lm_head applied to those positions alone (no [B,
+    T, V] logits held)."""
+    x, ctx = TF._embed_inputs(params, cfg, {"tokens": toks})
+    x, _, _ = TF._run_segments(params, x, ctx, cfg, None)
+    x = TF._norm(cfg, params["final_norm"], x[:, T - 1:])
+    return (x @ params["lm_head"]).transpose(0, 1).float()
+
+
+def _widen(tree) -> None:
+    """Every tensor of a params tree cast to f32 in place, leaf by leaf
+    (each bf16 leaf freed as its f32 copy replaces it)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, torch.Tensor):
+            tree[k] = v.float()
+        else:
+            _widen(v)
+
+
+def _profiled_ms(fn) -> str:
+    """One call of `fn` under torch.profiler: its device time, busy share
+    of the wall time, and the three kernels with the most device time."""
+    ev, dev_us, wall_us = _profile(fn, cpu=False)
+    if dev_us == 0:
+        return "not measured (the profiler saw no device time)"
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+                    f"({e.count} launches)" for e in ev[:3])
+    return (f"{dev_us / 1e3:.1f} ms device time in {wall_us / 1e3:.1f} ms "
+            f"wall (busy {100 * dev_us / wall_us:.1f}%); most: {top}")
+
+
+def _card_vs_cpu(params, cfg, toks, steps, extra=None, cache_len=None):
+    """Prefill of toks[:, :-steps] and `steps` decode steps on the card
+    and on the CPU from the same weights. Returns ({device: (logits,
+    cache leaves)} on the host, the card's flash_decode launches in its
+    decode steps, seconds per device)."""
+    extra = extra or {}
+    T = toks.shape[1] - steps
+    dev = tree_leaves(params)[0].device
+    out, secs, launches = {}, {}, None
+    for d, p in ((dev, params), ("cpu", tree_map(lambda a: a.cpu(),
+                                                 params))):
+        t0 = time.perf_counter()
+        ex = {k: v.to(d) for k, v in extra.items()}
+        full, _ = TF.forward(p, cfg, {"tokens": toks.to(d), **ex})
+        logits, cache = TF.prefill(p, cfg, {"tokens": toks[:, :T].to(d),
+                                            **ex}, cache_len)
+        outs = [full[:, T - 1], logits]
+        del full
+        if d == dev:
+            _build.reset_launch_counts()
+        for s_ in range(steps):
+            logits, cache = TF.decode_step(p, cfg, cache,
+                                           toks[:, T + s_:T + s_ + 1].to(d))
+            outs.append(logits)
+        if d == dev:
+            torch.cuda.synchronize()
+            launches = _build.launch_counts["flash_decode"]
+        out[d] = ([o.cpu() for o in outs],
+                  [a.cpu() for a in tree_leaves(cache["segs"])])
+        secs[d] = time.perf_counter() - t0
+        del p, cache
+    return out, launches, secs
+
+
+@torch.no_grad()
+def rec_decode_phase(device, smi):
+    """Phase 9b. recurrentgemma-9b at its published widths in bf16 with
+    seeded weights: a prefill of REC_B MarkovTokens prompts of REC_PROMPT
+    tokens (the local layers' caches rolled to the 2,048-slot window),
+    REC_STEPS greedy decode steps, every step's logits against `forward`
+    over the prompt and the tokens fed (bf16, printed) and against the
+    f32 truth (held as REC_TRUTH_B's comment says), the widened weights'
+    f32 decode against the f32 forward, a step repeated from two clones
+    of the cache bit-identical, one step profiled. Then one pattern
+    repeat at the same widths in f32 on the card against the CPU.
+    Returns the launch counts of the decode loop."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(REC_ARCH, "full")
+    params = TF.init_params(cfg, seed=REC_SEED, device=device)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_local = cfg.layer_types().count("local")
+    source = MarkovTokens(cfg.vocab_size, seed=REC_SEED)
+    wl, wc = TF.prefill(params, cfg, {"tokens": torch.zeros(
+        (REC_B, 16), dtype=torch.int32, device=device)}, cache_len=32)
+    TF.decode_step(params, cfg, wc, wl.argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    del wl, wc
+    _phase("decode", f"{cfg.name} at its published widths "
+           f"({cfg.num_layers} layers of {'/'.join(cfg.pattern)}, d_model "
+           f"{cfg.d_model}, lru_width {cfg.lru_width}, {cfg.num_heads} heads "
+           f"over {cfg.num_kv_heads} KV head of {cfg.head_dim_}, window "
+           f"{cfg.window}, vocab {cfg.vocab_size}): {n_params:,} params in "
+           f"bf16, seed {REC_SEED}, built in {init_s:.1f} s (peak "
+           f"{init_peak / 2**30:.2f} GiB while the layers are stacked)")
+    prompts = torch.from_numpy(source.sample(REC_B, REC_PROMPT)
+                               [:, :REC_PROMPT]).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = TF.prefill(params, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    Sc = cache["segs"][0][str(cfg.pattern.index("local"))]["k"].shape[2]
+    assert Sc == cfg.window < REC_PROMPT, Sc
+    _build.reset_launch_counts()
+    steps, fed, ms, cache = _greedy_decode(params, cfg, cache, logits,
+                                           REC_STEPS)
+    counts = dict(_build.launch_counts)
+    assert counts["flash_decode"] == REC_STEPS * n_local, (
+        counts["flash_decode"], REC_STEPS * n_local)
+    assert steps.shape == (REC_STEPS + 1, REC_B, cfg.vocab_size)
+    assert torch.isfinite(steps).all(), "non-finite decode logits"
+    toks = torch.cat([prompts, fed], dim=1)
+    fwd_b = _logits_at(params, cfg, toks, REC_PROMPT)
+    err = float((steps.float() - fwd_b).abs().max())
+    scale = float(fwd_b.abs().max())
+    agree = float((steps.argmax(-1) == fwd_b.argmax(-1)).float().mean())
+    tok = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+    c1, c2 = ({"pos": cache["pos"],
+               "segs": tree_map(torch.clone, cache["segs"])}
+              for _ in range(2))
+    l1, c1 = TF.decode_step(params, cfg, c1, tok)
+    l2, c2 = TF.decode_step(params, cfg, c2, tok)
+    assert torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(c1["segs"]),
+                                          tree_leaves(c2["segs"]))), \
+        f"{cfg.name}: a repeated decode step differs"
+    del c1, c2, l1, l2
+    prof = _profiled_decode_step(params, cfg, cache, tok)
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    torch.cuda.empty_cache()
+
+    # the f32 truth: the same weights widened in place, `forward` over the
+    # first REC_TRUTH_B sequences; then they decode in f32 from the same
+    # prompts, fed the same tokens
+    Bt = REC_TRUTH_B
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _widen(params)
+    truth = _logits_at(params, cfg32, toks[:Bt], REC_PROMPT)
+    top = float(truth.abs().max())
+    dec_err = float((steps[:, :Bt].float() - truth).abs().max())
+    fwd_err = float((fwd_b[:, :Bt] - truth).abs().max())
+    assert dec_err <= REC_BF16_VS_FWD * fwd_err, (
+        f"{cfg.name}: the bf16 decode {dec_err:.3g} from the f32 truth, "
+        f"above {REC_BF16_VS_FWD} x the bf16 forward's {fwd_err:.3g}")
+    logits32, c32 = TF.prefill(params, cfg32, {"tokens": prompts[:Bt]})
+    steps32 = [logits32]
+    for s_ in range(REC_STEPS):
+        logits32, c32 = TF.decode_step(params, cfg32, c32,
+                                       fed[:Bt, s_:s_ + 1])
+        steps32.append(logits32)
+    ex_err = float((torch.stack(steps32) - truth).abs().max())
+    assert ex_err <= REC_F32_EXACT_REL * top, (
+        f"{cfg.name}: the f32 decode {ex_err:.3g} from the f32 forward, "
+        f"above {REC_F32_EXACT_REL} x {top:.3g}")
+    del c32, steps32, truth
+    _phase("decode", f"{cfg.name}: prefill {REC_B} x {REC_PROMPT} tokens "
+           f"(each local layer's cache rolled into its {Sc} slots) in "
+           f"{prefill_ms:.1f} ms; {REC_STEPS} greedy steps (pos "
+           f"{REC_PROMPT} to {REC_PROMPT + REC_STEPS - 1}, all past the "
+           f"window's end): step p50 {np.percentile(ms, 50):.3f} ms, p99 "
+           f"{np.percentile(ms, 99):.3f} ms, "
+           f"{REC_B * REC_STEPS / (sum(ms) / 1e3):.1f} tokens/s; "
+           f"flash_decode launches {counts['flash_decode']} ({n_local} "
+           f"local layers a step); logits vs the bf16 forward's at every "
+           f"step max abs err {err:.3g} (max |logit| {scale:.3g}; "
+           f"{100 * err / scale:.2f}%, not held to qwen3's {DECODE_TOL}), "
+           f"argmax agreement {100 * agree:.2f}%; against the f32 truth on "
+           f"{Bt} sequences (max |logit| {top:.3g}): the bf16 decode "
+           f"{dec_err:.3g}, the bf16 forward {fwd_err:.3g} (held: decode <= "
+           f"{REC_BF16_VS_FWD} x forward), the f32 decode {ex_err:.3g} (tol "
+           f"{REC_F32_EXACT_REL} x max |logit|); a repeated step "
+           f"bit-identical; one step profiled: {prof}; peak device memory "
+           f"{peak / 2**30:.2f} GiB; nvidia-smi: {smi}")
+    del params, steps, fed, logits, prompts, fwd_b
+    torch.cuda.empty_cache()
+
+    # one pattern repeat at the full widths in f32: the card against the
+    # CPU on one set of weights and the same tokens
+    B1, T1, n1 = REC_F32
+    cfg3 = dataclasses.replace(cfg, num_layers=len(cfg.pattern),
+                               dtype="float32")
+    p3 = TF.init_params(cfg3, seed=REC_SEED + 1, device=device)
+    toks = torch.from_numpy(source.sample(B1, T1 + n1)[:, :T1 + n1])
+    res, n_fd, secs = _card_vs_cpu(p3, cfg3, toks, n1)
+    assert n_fd == n1 * cfg3.layer_types().count("local"), n_fd
+    lerr = _max_err(res[device][0], res["cpu"][0])
+    cerr = _max_err(res[device][1], res["cpu"][1])
+    for a, b in zip(res[device][0] + res[device][1],
+                    res["cpu"][0] + res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=REC_F32_TOL, atol=REC_F32_TOL)
+    _phase("decode", f"{cfg3.name}, one pattern repeat "
+           f"({', '.join(cfg3.pattern)}) at the full widths in f32: forward, "
+           f"prefill {B1} x {T1} tokens and {n1} decode steps, the card vs "
+           f"the CPU: logits max abs err {lerr:.3g}, caches (the RG-LRU's "
+           f"f32 h and conv, the local k / v) {cerr:.3g} (tol "
+           f"{REC_F32_TOL}); {secs[device]:.1f} s on the card, "
+           f"{secs['cpu']:.1f} s on the CPU")
+    del p3, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _peak_step_bytes(params, loss) -> int:
+    """Device bytes above what is allocated before it that one step of
+    `loss(params tree)` and its gradients peak at."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tree, leaves = grad_leaves(params)
+    grads = torch.autograd.grad(loss(tree), leaves)
+    torch.cuda.synchronize()
+    del grads
+    return torch.cuda.max_memory_allocated() - base
+
+
+def seq_gas_phase(device):
+    """Phase 9c. seq-GAS on qwen3-0.6b at its published widths: in f32
+    the chunked forward against the full one (causal chunking is exact);
+    in bf16 SEQ_STEPS AdamW steps of `chunked_loss` through the example's
+    `train` (the loss must fall by 1 - SEQ_DROP), and the peak memory of
+    a `chunked_loss` step beside a `loss_fn` step at the same B and T.
+    TF32 stays off (`resolve_device`)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(SEQ_ARCH, "full")
+    B, T, C = SEQ_F32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = TF.init_params(cfg32, seed=SEED, device=device)
+    src = MarkovTokens(cfg.vocab_size, effective=32, concentration=0.08,
+                       seed=SEED)
+    toks = torch.from_numpy(src.sample(B, T)[:, :T]).to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _ = TF.forward(p32, cfg32, {"tokens": toks})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        chunked, hist = SEQ.forward_chunked(p32, cfg32, {"tokens": toks}, C)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    err, top = float((chunked - full).abs().max()), float(full.abs().max())
+    assert err <= SEQ_F32_TOL, (err, SEQ_F32_TOL)
+    assert len(hist) == cfg.num_layers and hist[0]["k"].shape[1] == T
+    _phase("seq-gas", f"{cfg.name} at its published widths in f32, {B} x "
+           f"{T} MarkovTokens: the chunked forward ({T // C} chunks of {C}, "
+           f"{(t2 - t1) * 1e3:.1f} ms) vs the full one "
+           f"({(t1 - t0) * 1e3:.1f} ms): max abs err {err:.3g} (max "
+           f"|logit| {top:.3g}, tol {SEQ_F32_TOL}); every layer's "
+           f"{T}-position K/V history pushed")
+    del p32, full, chunked, hist
+    torch.cuda.empty_cache()
+
+    B, T, C = SEQ_BF16
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, seed=SEED, device=device)
+    b = next(MarkovTokens(cfg.vocab_size, effective=32, concentration=0.08,
+                          seed=SEED + 1).batches(B, T))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    peak_chunked = _peak_step_bytes(
+        params, lambda p: SEQ.chunked_loss(p, cfg, batch, C)[0])
+    peak_full = _peak_step_bytes(params,
+                                 lambda p: TF.loss_fn(p, cfg, batch)[0])
+    t1 = time.perf_counter()
+    losses, ms, _ = EXSEQ.train(cfg, params, batch=B, seq_len=T, chunk=C,
+                                steps=SEQ_STEPS, lr=SEQ_LR, seed=SEED,
+                                log_every=0)
+
+    def one_step():
+        tree, leaves = grad_leaves(params)
+        torch.autograd.grad(SEQ.chunked_loss(tree, cfg, batch, C)[0],
+                            leaves)
+
+    t2 = time.perf_counter()
+    prof = _profiled_ms(one_step)
+    t3 = time.perf_counter()
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < SEQ_DROP * losses[0], (losses[0], losses[-1])
+    _phase("seq-gas", f"{cfg.name} in bf16, {B} x {T} tokens ({T // C} "
+           f"chunks of {C}), {SEQ_STEPS} AdamW steps at lr {SEQ_LR}: loss "
+           f"{losses[0]:.4f} -> " + ", ".join(
+               f"{x:.4f}" for x in losses[4::5])
+           + f" (below {SEQ_DROP} x the first); step p50 "
+           f"{np.percentile(ms, 50):.1f} ms, p99 {np.percentile(ms, 99):.1f} "
+           f"ms, {B * T / (np.percentile(ms, 50) / 1e3):,.0f} tokens/s; "
+           f"peak memory above the params of a chunked_loss step "
+           f"{peak_chunked / 2**30:.2f} GiB, of a loss_fn step "
+           f"{peak_full / 2**30:.2f} GiB; one chunked_loss step and its "
+           f"gradients profiled: {prof}; seconds: init and the two peak "
+           f"steps {t1 - t0:.1f}, the {SEQ_STEPS} steps with their batches "
+           f"{t2 - t1:.1f}, the profiled step {t3 - t2:.1f}")
+    del params
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def audio_phase(device):
+    """Phase 9d. hubert-xlarge at its published widths in f32: num_layers
+    + 1 bidirectional seq-GAS passes from frozen seeded weights, each
+    reading the last pass's history for future chunks; the error against
+    the full forward every AUDIO_EVERY passes, the first above AUDIO_TOL,
+    the last below."""
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH, "full"),
+                              dtype="float32")
+    params = TF.init_params(cfg, seed=SEED, device=device)
+    B, T, C = AUDIO_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = {"frames": torch.randn((B, T, cfg.d_model), generator=gen,
+                                   device=device)}
+    full, _ = TF.forward(params, cfg, batch)
+    hist, errs = None, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg.num_layers + 1):
+        logits, hist = SEQ.forward_chunked(params, cfg, batch, C,
+                                           history=hist, bidirectional=True)
+        errs.append(float((logits - full).abs().max()))
+    torch.cuda.synchronize()
+    pass_ms = (time.perf_counter() - t0) * 1e3 / len(errs)
+    assert errs[0] > AUDIO_TOL and errs[-1] < AUDIO_TOL, errs
+    shown = [(i + 1, e) for i, e in enumerate(errs)
+             if i % AUDIO_EVERY == 0 or i == len(errs) - 1]
+    _phase("seq-gas", f"{cfg.name} at its published widths in f32 "
+           f"({cfg.num_layers} layers, d_model {cfg.d_model}, head_dim "
+           f"{cfg.head_dim_}), {B} x {T} frames in chunks of {C}: "
+           f"{len(errs)} bidirectional passes ({pass_ms:.1f} ms each), max "
+           f"abs err vs the full forward (max |logit| "
+           f"{float(full.abs().max()):.3g}) by pass: "
+           + ", ".join(f"{i}: {e:.3g}" for i, e in shown)
+           + f" (the first above {AUDIO_TOL}, the last below)")
+    del params, full, hist, logits
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def mixer_layers_phase(device):
+    """Phase 9e. The moe and cross layers at SMOKE widths under the
+    tests' overrides (no published config has them), f32: forward,
+    prefill and MIXER_STEPS decode steps on the card against the CPU.
+    Returns each decode loop's launch counts."""
+    launches = {}
+    for label, arch, over in MIXER_CASES:
+        cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                                  **over)
+        params = _open_gates(TF.init_params(cfg, seed=SEED, device=device))
+        toks = torch.from_numpy(MarkovTokens(cfg.vocab_size, seed=SEED)
+                                .sample(2, MIXER_T + MIXER_STEPS)
+                                [:, :MIXER_T + MIXER_STEPS])
+        extra = {}
+        if "cross" in cfg.layer_types():
+            extra["image_embeds"] = torch.randn(
+                (2, cfg.num_image_tokens, cfg.d_model),
+                generator=torch.Generator().manual_seed(SEED))
+        res, n_fd, _ = _card_vs_cpu(params, cfg, toks, MIXER_STEPS, extra,
+                                    cache_len=MIXER_T + MIXER_STEPS)
+        n_attn = sum(lt != "rec" for lt in cfg.layer_types())
+        assert n_fd == MIXER_STEPS * n_attn, (label, n_fd)
+        for a, b in zip(res[device][0] + res[device][1],
+                        res["cpu"][0] + res["cpu"][1]):
+            torch.testing.assert_close(a, b, rtol=MIXER_TOL, atol=MIXER_TOL)
+        launches[f"{label} decode"] = {"flash_decode": n_fd}
+        _phase("layers", f"{label} ({', '.join(f'{k}={v}' for k, v in over.items())}) "
+               f"at {arch}'s SMOKE widths in f32: forward, prefill 2 x "
+               f"{MIXER_T} tokens and {MIXER_STEPS} decode steps, the card vs "
+               f"the CPU: logits max abs err "
+               f"{_max_err(res[device][0], res['cpu'][0]):.3g}, caches "
+               f"{_max_err(res[device][1], res['cpu'][1]):.3g} (tol "
+               f"{MIXER_TOL}); flash_decode launches {n_fd}")
     return launches
 
 
@@ -5079,6 +5581,17 @@ def _smoke(args, partitions, t_start, stack) -> int:
     launches.update(dist_launches)
     rows += dist_kernel_rows(device, dist_structs)
     lap("distributed GAS")
+    rows += decode_kernel_rows(device, _clock_hz(), REC_ARCH,
+                               REC_KERNEL_CASES, run="rec decode")
+    lap("recurrentgemma kernels")
+    launches["rec decode"] = rec_decode_phase(device, smi)
+    lap("recurrentgemma decode")
+    seq_gas_phase(device)
+    lap("seq-GAS training")
+    audio_phase(device)
+    lap("hubert passes")
+    launches.update(mixer_layers_phase(device))
+    lap("moe and cross layers")
     _phase("time", ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     # each row's launches come from the run of the path it was timed on
     source = {"edge_softmax_fwd": "gat f32", "edge_softmax_bwd_row":

@@ -4,14 +4,15 @@ The port of `repro.configs.base`: every architecture has a module
 `repro_torch/configs/<id>.py` exporting ``FULL`` (the published config,
 cited in `source`) and ``SMOKE`` (a reduced variant of the same family),
 and some a ``LONG`` sliding-window variant; the values are the
-reference's. `activation_dtype` is a torch dtype. The reference's
-`input_specs` (shape stand-ins for its dry-run) has no counterpart here.
+reference's. `activation_dtype` is a torch dtype. `input_specs` gives
+meta tensors (shapes and dtypes, no allocation) in place of the
+reference's `jax.ShapeDtypeStruct`s.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -99,6 +100,24 @@ class ArchConfig:
             out.extend(list(pat) * reps)
         return out
 
+    @property
+    def has_decode(self) -> bool:
+        return self.family != "audio"          # encoder-only: no decode
+
+    def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
+        """(supported, the reason if not)."""
+        spec = INPUT_SHAPES[shape_name]
+        if spec["kind"] == "decode" and not self.has_decode:
+            return False, "encoder-only architecture has no decode step"
+        if shape_name == "long_500k":
+            # sub-quadratic = hybrid-recurrent or a sliding window set
+            subq = self.family == "hybrid" or self.window > 0
+            if not subq:
+                return False, ("full quadratic attention; 500k decode "
+                               "requires sub-quadratic variant (see "
+                               "DESIGN.md)")
+        return True, ""
+
     def decode_cache_len(self, seq_len: int, ltype: str) -> int:
         if ltype == "local" or (ltype == "dense" and self.window > 0):
             return min(seq_len, self.window)
@@ -138,3 +157,37 @@ def normalize(arch_id: str) -> str:
 def get_config(arch_id: str, variant: str = "full") -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{normalize(arch_id)}")
     return getattr(mod, variant.upper())
+
+
+def all_configs(variant: str = "full") -> Dict[str, ArchConfig]:
+    return {a: get_config(a, variant) for a in ARCH_IDS}
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, Any]:
+    """Meta-tensor stand-ins (shapes and dtypes, no allocation) for every
+    model input of this shape; a decode shape's cache comes from
+    `models.transformer.cache_specs`."""
+    spec = INPUT_SHAPES[shape_name]
+    S, B = spec["seq_len"], spec["global_batch"]
+    kind = spec["kind"]
+    act, i32 = cfg.activation_dtype, torch.int32
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out: Dict[str, Any] = {}
+    if kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            out["frames"] = sds((B, S, cfg.d_model), act)
+        else:
+            out["tokens"] = sds((B, S), i32)
+        if kind == "train":
+            out["labels"] = sds((B, S), i32)
+            if cfg.family == "audio":
+                out["mask"] = sds((B, S), i32)
+        if cfg.family == "vlm":
+            out["image_embeds"] = sds((B, cfg.num_image_tokens,
+                                       cfg.d_model), act)
+    elif kind == "decode":
+        out["token"] = sds((B, 1), i32)
+    return out

@@ -117,3 +117,19 @@ def supersteps_rank(rank: int, world_size: int, group, device,
     res["launches"] = dict(_build.launch_counts)
     res["stats"] = dict(DG.stats)
     return res
+
+
+def mesh_rank(rank: int, world_size: int, group, device, shape, axes):
+    """`launch.mesh.make_mesh` on every rank: the mesh's rank layout, its
+    device count, this rank's coordinate, and a sum over each axis's
+    group of the ranks on it (one all-reduce an axis)."""
+    import torch.distributed as dist
+    from ..launch import mesh as M
+    mesh = M.make_mesh(shape, axes)
+    sums = {}
+    for ax in axes:
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=mesh.get_group(ax))
+        sums[ax] = float(t)
+    return {"mesh": mesh.mesh.tolist(), "n": M.mesh_num_devices(mesh),
+            "coord": list(mesh.get_coordinate()), "sums": sums}

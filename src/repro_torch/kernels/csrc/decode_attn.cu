@@ -31,7 +31,7 @@
 // pos), so a masked slot, or a chunk past pos, contributes nothing and is
 // never loaded, and perturbing the masked tail leaves the output bitwise
 // unchanged. Any S is taken (the TPU kernel needs S % 256 == 0), any G >=
-// 1 and Dh in {32, 64, 128}.
+// 1 and Dh in {32, 64, 128, 256} (256: recurrentgemma-9b's heads).
 //
 // Bound on the H100: bytes. One step reads each valid k and v row once
 // (2 * B * n_valid * Kh * Dh elements) and q, and writes out; the
@@ -44,10 +44,16 @@
 // number from the SM count so that the CTAs, one on each SM, fill the card
 // in one wave (2 splits of 16,384 slots at B = 8, Kh = 8 and 32,768
 // slots), and the fold and scratch write happen once per chunk. A CTA of
-// 4 warps streams its chunk through a 4-stage ring of 64-slot tiles of k
-// and v in shared memory (128 KB at Dh = 128), filled with 16-byte
-// cp.async copies: three tiles, 96 KB, in flight while one is scored;
-// rows past the chunk's end are zero-filled, never read. Each warp scores 16
+// 4 warps streams its chunk through a ring of 64-slot tiles of k and v in
+// shared memory, filled with 16-byte cp.async copies: 4 stages (128 KB at
+// Dh = 128; three tiles, 96 KB, in flight while one is scored) up to Dh =
+// 128, 3 stages at Dh = 256 (192 KB; 4 would take 256 KB, past the 227 KB
+// a block may have); rows past the chunk's end are zero-filled, never
+// read. At Dh = 256 a lane holds q's fragments (64 registers) and the
+// accumulator (128): `-Xptxas -v` (nvcc 12.9, sm_90a) reports 255
+// registers and 0 bytes of spills for both Dh-256 instances (164 at Dh =
+// 128), and 233 registers, no spills, for the f32 instance at Dh = 256
+// and 8 group members. Each warp scores 16
 // slots of a tile on the tensor cores with mma.sync m16n8k16 (bf16 in,
 // f32 out): the group tile of up to 16 members is M (rows past G carry a
 // zero query), the slots are N, Dh is K; q's fragments stay in registers.
@@ -275,7 +281,10 @@ __global__ void __launch_bounds__(kThreads)
 // ---- bf16: a ring of k / v tiles, scored on the tensor cores ----------
 
 constexpr int kTile = 64;           // slots per ring stage (the wrapper's TILE)
-constexpr int kStages = 4;          // ring depth: three tiles in flight
+// ring depth: three tiles in flight, two at Dh = 256 (the ring's bytes,
+// kStages * 2 * kTile * DH * 2, within a block's 227 KB)
+template <int DH>
+constexpr int kStages = DH >= 256 ? 3 : 4;
 constexpr int kWarps16 = kTile / 16;  // each warp scores 16 slots of a tile
 constexpr int kThreads16 = kWarps16 * 32;
 constexpr int kMaxGroupTile = 16;   // the M of m16n8k16
@@ -346,7 +355,8 @@ __global__ void __launch_bounds__(kThreads16, 1)
                              float* __restrict__ part, int64_t S, int Kh,
                              int G, int n_gt, int gt_size, int64_t n_valid,
                              int64_t chunk, float scale) {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "Dh");
+  static_assert(DH == 32 || DH == 64 || DH == 128 || DH == 256, "Dh");
+  constexpr int kSt = kStages<DH>;
   constexpr int CH = DH / 8;                 // 16-byte chunks of a row
   constexpr int kRowBytes = DH * 2;
   constexpr int kTileBytes = kTile * kRowBytes;  // k (or v) of one stage
@@ -372,14 +382,14 @@ __global__ void __launch_bounds__(kThreads16, 1)
   const uint16_t* kb = k + (b * S * Kh + h) * DH;
   const uint16_t* vb = v + (b * S * Kh + h) * DH;
 
-  // tile t into ring stage t % kStages: thread tid copies chunk tid % CH
+  // tile t into ring stage t % kSt: thread tid copies chunk tid % CH
   // of every kRowsPerPass-th row (one commit group per tile, empty past
   // the chunk); a row past s1 is zero-filled from a valid address
   const int cc = tid % CH;
   const int cr = tid / CH;
   auto load_tile = [&](int64_t t) {
     if (t < n_tiles) {
-      unsigned char* st = smem + (t % kStages) * kStageBytes;
+      unsigned char* st = smem + (t % kSt) * kStageBytes;
       const int64_t base = s0 + t * kTile;
 #pragma unroll
       for (int p = 0; p < kPasses; ++p) {
@@ -395,7 +405,7 @@ __global__ void __launch_bounds__(kThreads16, 1)
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) load_tile(t);
+  for (int t = 0; t < kSt - 1; ++t) load_tile(t);
 
   // q as the A fragments of the scores (rows past the tile's members
   // zero): row g0 = lane / 4 and g0 + 8, columns cq, cq + 1 of each half
@@ -428,10 +438,10 @@ __global__ void __launch_bounds__(kThreads16, 1)
   for (int64_t t = 0; t < n_tiles; ++t) {
     // tile t has landed (this thread's copies; the barrier: everyone's),
     // and every warp is done with the stage the next load refills
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSt - 2) : "memory");
     __syncthreads();
-    load_tile(t + kStages - 1);
-    const unsigned char* st = smem + (t % kStages) * kStageBytes;
+    load_tile(t + kSt - 1);
+    const unsigned char* st = smem + (t % kSt) * kStageBytes;
     const int64_t base = s0 + t * kTile + wrow;
 
     // scores of 16 slots: two n-tiles of 8, Dh / 16 k-steps each
@@ -582,7 +592,8 @@ int launch_partial_bf16(const uint16_t* q, const uint16_t* k,
                         int64_t S, int64_t Kh, int64_t G, int64_t n_gt,
                         int64_t gt, int64_t n_valid, int64_t n_splits,
                         int64_t chunk, float scale, cudaStream_t stream) {
-  constexpr int kSmem = kStages * 2 * kTile * DH * 2;
+  constexpr int kSmem = kStages<DH> * 2 * kTile * DH * 2;
+  static_assert(kSmem <= 227 * 1024, "the ring fits a block");
   static_assert(kSmem >= kWarps16 * 16 * (DH + 2) * 4, "fold fits the ring");
   static bool ready = false;  // the opt-in above 48 KB, once per instance
   if (!ready) {
@@ -749,6 +760,10 @@ int launch_flash_decode(const float* q, const float* k, const float* v,
       rc = dispatch_gt<float, 4>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
                                  n_valid, n_splits, chunk, scale, st);
       break;
+    case 256:
+      rc = dispatch_gt<float, 8>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
+                                 n_valid, n_splits, chunk, scale, st);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -789,6 +804,10 @@ int launch_flash_decode(const uint16_t* q, const uint16_t* k,
       break;
     case 128:
       rc = dispatch_bf16<128>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
+                              n_valid, n_splits, chunk, scale, st);
+      break;
+    case 256:
+      rc = dispatch_bf16<256>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
                               n_valid, n_splits, chunk, scale, st);
       break;
     default:

@@ -25,7 +25,7 @@ __all__ = ["flash_decode", "flash_decode_ref", "flash_decode_plan"]
 
 _SYMBOL = {torch.float32: "repro_flash_decode_f32",
            torch.bfloat16: "repro_flash_decode_bf16"}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 # bf16: slots per ring stage (the chunks are whole tiles), the CTAs one SM
 # holds (a 128 KB ring each at Dh = 128) and the most group members one
 # CTA takes (the M of the tensor cores' m16n8k16)

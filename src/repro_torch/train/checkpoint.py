@@ -46,7 +46,11 @@ against a template; files cross-read with the reference's bitwise.
 `transformer_params_from_numpy` and `transformer_cache_from_numpy` carry
 the transformer's params tree (`repro.models.transformer.init_params`)
 and its decode cache `{"pos", "segs"}`, given as nested dicts and lists
-of numpy arrays, into the port's (`repro_torch.models.transformer`).
+of numpy arrays, into the port's (`repro_torch.models.transformer`). The
+walk is generic, so every layer type's leaves cross in their own types:
+`rg`, `moe`, the cross gates `g_attn` / `g_mlp` (f32 scalars per layer),
+`pos_embed`, and the rec caches' f32 `h` beside their activation-dtype
+`conv`.
 """
 from __future__ import annotations
 

@@ -32,8 +32,11 @@ plain version pinned: a non-finite row that only zero entries reach
 stays out of the output.
 `flash_decode` against its plain version at 1e-5 in f32 (the Pallas
 kernel's own tolerance) and in bf16 within 2e-2 of the largest
-|output|, its masked tail never read (the output bitwise unchanged), and transformer decode steps on the card
-against the CPU's: logits at 1e-4, caches at 1e-5. The operator zoo's
+|output|, its masked tail never read (the output bitwise unchanged), at
+Dh 32 to 256, and transformer decode steps on the card against the
+CPU's, for dense, rec / local, moe and cross stacks: logits at 1e-4,
+caches at 1e-5; seq-GAS's chunked_loss and gradients and hubert's
+bidirectional passes against the CPU's. The operator zoo's
 training steps (GIN, GCNII, APPNP, and GIN with the Eq. 3 regularizer
 and the staleness decay), the f32 `gather_spmm` at d = 6 and 48 over
 forward and unit-weight training blocks, the row kernels at d = 6, and
@@ -1189,7 +1192,10 @@ def _decode_inputs(seed, B, Kh, G, Dh, S, dtype):
     (2, 1, 12, 128, 2049, 2048), (1, 2, 4, 32, 512, 10_000),
     (2, 2, 2, 128, 4096, 64), (2, 2, 2, 128, 4096, 40),
     (8, 8, 2, 128, 4096, 2048), (1, 1, 2, 128, 8192, 8000),
-    (2, 1, 3, 128, 3001, 3000), (1, 1, 20, 64, 300, 299)])
+    (2, 1, 3, 128, 3001, 3000), (1, 1, 20, 64, 300, 299),
+    # recurrentgemma-9b's heads (Dh 256; MQA, G 16 in one bf16 tile)
+    (8, 1, 16, 256, 2048, 3000), (8, 1, 16, 256, 2048, 1000),
+    (2, 1, 16, 256, 700, 65), (1, 2, 5, 256, 333, 332)])
 def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     """The kernel against `flash_decode_ref` on the card: f32 at 1e-5
     (the Pallas kernel's tolerance in tests/test_kernels.py), bf16 within
@@ -1202,6 +1208,7 @@ def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     past it (a rolling buffer); for the bf16 kernel's 64-slot tiles,
     n_valid one past a tile (65), below one tile (41), 2,049 and 3,001,
     and one (b, h) pair, so the plan cuts 8,001 slots into many splits;
+    Dh 256 (a 3-stage ring) at recurrentgemma's shape, rolled and not;
     a warm repeat bitwise equal."""
     q, k, v, _ = _decode_inputs(B + S + pos, B, Kh, G, Dh, S, dtype)
     q, k, v = q.to(dev), k.to(dev), v.to(dev)
@@ -1309,10 +1316,11 @@ def test_scatter_rows_q_last_writer_matches_plain(dev, m, d):
 
 
 def test_flash_decode_rejects_unbuilt_head_dim(dev):
-    """Only Dh 32, 64 and 128 are built: another raises before a launch."""
-    q, k, v, _ = _decode_inputs(0, 1, 2, 2, 256, 64, torch.bfloat16)
+    """Only Dh 32, 64, 128 and 256 are built: another (80, hubert-xlarge's,
+    an encoder with no decode) raises before a launch."""
+    q, k, v, _ = _decode_inputs(0, 1, 2, 2, 80, 64, torch.bfloat16)
     before = _build.launch_counts["flash_decode"]
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match="head_dim 80"):
         flash_decode(q.to(dev), k.to(dev), v.to(dev), 10)
     assert _build.launch_counts["flash_decode"] == before
 
@@ -1361,6 +1369,102 @@ def test_decode_steps_on_card_match_cpu(dev):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
     for a, c in zip(out[dev][1], out["cpu"][1]):
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,over,n", [
+    ("recurrentgemma-9b", {}, 72),
+    ("qwen3-0.6b", dict(pattern=("moe",), num_experts=4, top_k=2), 24),
+    ("qwen3-0.6b", dict(pattern=("dense", "cross"), family="vlm",
+                        num_image_tokens=4), 24)])
+def test_layer_types_decode_on_card_match_cpu(dev, arch, over, n):
+    """The rec / local (recurrentgemma SMOKE: a 72-token prompt rolls the
+    64-slot window), moe and cross layers in f32 on one set of weights
+    (the cross gates opened): forward, prefill and 4 decode steps on the
+    card against the CPU, logits at 1e-4 and every cache leaf at 1e-5;
+    flash_decode launched once per attention or cross layer and step."""
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                              **over)
+    params = _open_gates(T.init_params(cfg, seed=0, device=dev))
+    cparams = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n + 4))
+                            .astype(np.int32))
+    img = torch.from_numpy(rng.normal(size=(2, 4, cfg.d_model))
+                           .astype(np.float32))
+    extra = {"image_embeds": img} if "cross" in cfg.layer_types() else {}
+    n_attn = sum(lt != "rec" for lt in cfg.layer_types())
+    out = {}
+    before = _build.launch_counts["flash_decode"]
+    for d, p in ((dev, params), ("cpu", cparams)):
+        ex = {k: v.to(d) for k, v in extra.items()}
+        full, _ = T.forward(p, cfg, {"tokens": toks.to(d), **ex})
+        logits, cache = T.prefill(p, cfg, {"tokens": toks[:, :n].to(d),
+                                           **ex}, cache_len=n + 8)
+        steps = [full, logits]
+        for s in range(4):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          toks[:, n + s:n + s + 1].to(d))
+            steps.append(logits)
+        out[d] = ([x.cpu() for x in steps],
+                  [x.cpu() for x in tree_leaves(cache["segs"])])
+    assert _build.launch_counts["flash_decode"] == before + 4 * n_attn
+    for a, c in zip(out[dev][0], out["cpu"][0]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    for a, c in zip(out[dev][1], out["cpu"][1]):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+def _open_gates(params):
+    """Every cross layer's tanh gates opened (the init closes them)."""
+    for seg in params["segs"]:
+        for lp in seg.values():
+            if "g_attn" in lp:
+                lp["g_attn"].fill_(0.5)
+                lp["g_mlp"].fill_(-0.3)
+    return params
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge"])
+def test_chunked_loss_on_card_matches_cpu(dev, arch):
+    """seq-GAS in f32 at SMOKE widths on one set of weights: qwen3's
+    chunked_loss and every gradient (remat on), hubert's 3 bidirectional
+    passes' logits, on the card against the CPU (loss and logits at 1e-5,
+    gradients at 1e-4)."""
+    from repro_torch.core import seq_gas as SG
+    from repro_torch.train.optimizer import grad_leaves
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32")
+    params = T.init_params(cfg, seed=3, device=dev)
+    cparams = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(2)
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.normal(size=(2, 96, cfg.d_model))
+                                  .astype(np.float32))
+        outs = {}
+        for d, p in ((dev, params), ("cpu", cparams)):
+            hist, logits = None, []
+            with torch.no_grad():
+                for _ in range(cfg.num_layers + 1):
+                    lg, hist = SG.forward_chunked(
+                        p, cfg, {"frames": frames.to(d)}, 32, history=hist,
+                        bidirectional=True)
+                    logits.append(lg.cpu())
+            outs[d] = logits
+        for a, c in zip(outs[dev], outs["cpu"]):
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+        return
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96))
+                            .astype(np.int32))
+    res = {}
+    for d, p in ((dev, params), ("cpu", cparams)):
+        tree, leaves = grad_leaves(p)
+        loss, _ = SG.chunked_loss(tree, cfg, {"tokens": toks.to(d),
+                                              "labels": toks.to(d)}, 32)
+        grads = torch.autograd.grad(loss, leaves)
+        res[d] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(res[dev][0], res["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, c in zip(res[dev][1], res["cpu"][1]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
 
 
 def test_gas_trainer_on_card_matches_cpu(dev):

@@ -43,6 +43,8 @@ def _inputs(seed, B, Kh, G, Dh, S, dtype):
     (2, 2, 4, 64, 512, 511), (1, 4, 2, 128, 1024, 300),
     (2, 1, 8, 64, 512, 600),   # pos >= S: the rolling buffer, all valid
     (2, 2, 2, 32, 1024, 0),    # one valid slot, three blocks wholly masked
+    # recurrentgemma-9b's heads (Dh 256, MQA: Kh 1, G 16), rolled and not
+    (2, 1, 16, 256, 512, 600), (2, 1, 16, 256, 512, 300),
 ])
 def test_flash_decode_ref_matches_pallas(dtype, B, Kh, G, Dh, S, pos):
     (jq, jk, jv), (tq, tk, tv), _ = _inputs(B + S + pos, B, Kh, G, Dh, S,
@@ -80,7 +82,7 @@ def test_flash_decode_ref_ignores_masked_tail(pos, dtype, data):
 @pytest.mark.parametrize("B,Kh,G,n_valid", [
     (8, 8, 2, 3001), (8, 8, 2, 32768), (1, 1, 1, 1), (2, 4, 3, 255),
     (1, 2, 12, 70000), (128, 8, 8, 32768), (8, 8, 2, 4096), (1, 1, 2, 65),
-    (1, 2, 20, 500), (100, 1, 2, 5000)])
+    (1, 2, 20, 500), (100, 1, 2, 5000), (8, 1, 16, 2048)])
 def test_flash_decode_plan_covers_valid_slots(B, Kh, G, n_valid):
     """The bf16 kernel's grid on a card of 132 SMs: the chunks cover
     exactly the valid slots with none empty (the launcher refuses any

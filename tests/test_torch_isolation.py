@@ -13,14 +13,21 @@ torch = pytest.importorskip("torch",
 
 from repro_torch.core import dist_gas as t_dist
 from repro_torch.core import runtime as t_rt
+from repro_torch.core import seq_gas as t_seq_gas  # noqa: F401
 from repro_torch.core import serve as t_serve
 from repro_torch.configs.base import get_config
 from repro_torch.core.history import HistoryStore
 from repro_torch.data.graphs import citation_graph
+from repro_torch.examples import deep_gnn_large_graph as t_deep_example
 from repro_torch.examples import distributed_gas as t_dist_example
+from repro_torch.examples import seq_gas_long_context as t_seq_example
 from repro_torch.gnn import model as t_model
+from repro_torch.launch import mesh as t_mesh  # noqa: F401
 from repro_torch.launch import serve_gas, train_gas
+from repro_torch.models import moe as t_moe  # noqa: F401
+from repro_torch.models import rglru as t_rglru  # noqa: F401
 from repro_torch.models import transformer as t_tf
+from repro_torch.utils import tree as t_tree  # noqa: F401
 from repro_torch.train import checkpoint as t_ckpt
 from repro_torch.train.baselines import GraphSAGETrainer, SGCTrainer
 from repro_torch.train.gas_trainer import FullBatchTrainer, GASTrainer
@@ -47,13 +54,13 @@ def test_import_leaves_jax_and_reference_out():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()
-    assert int(n_mods) >= 53, n_mods       # every module was imported
+    assert int(n_mods) >= 62, n_mods       # every module was imported
     assert bad == "[]", bad
 
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 54
+    assert len(files) >= 63
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -90,6 +97,10 @@ def test_entry_points_default_to_cuda():
         lambda: train_gas.main(["--smoke"]),
         lambda: t_tf.init_params(get_config("qwen3-0.6b", "smoke")),
         lambda: t_tf.init_cache(get_config("qwen3-0.6b", "smoke"), 1, 8),
+        lambda: t_tf.init_params(get_config("recurrentgemma-9b", "smoke")),
+        lambda: t_tf.init_params(get_config("hubert-xlarge", "smoke")),
+        lambda: t_seq_example.main(["--steps", "1"]),
+        lambda: t_deep_example.main(["--nodes", "200", "--epochs", "1"]),
         lambda: t_ckpt.transformer_params_from_numpy(
             {"embed": np.zeros((4, 2), np.float32)}),
         lambda: t_ckpt.transformer_cache_from_numpy(
@@ -137,3 +148,21 @@ def test_distributed_example_runs_on_cpu_when_asked():
     assert "240 nodes on 2 ranks" in out.stdout
     acc = float(out.stdout.strip().splitlines()[-1].split()[-1])
     assert 0.0 <= acc <= 1.0
+
+
+@pytest.mark.parametrize("example,args,expect", [
+    ("seq_gas_long_context", ["--steps", "2", "--seq-len", "128",
+                              "--chunk", "32"], "max |chunked - full| ="),
+    ("deep_gnn_large_graph", ["--nodes", "600", "--epochs", "1"],
+     "GIN-4L on CLUSTER-SBM:"),
+])
+def test_examples_run_on_cpu_when_asked(example, args, expect):
+    """The seq-GAS and deep-GNN examples' command lines with --device cpu
+    at a small size."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{example}", "--device",
+         "cpu", *args], capture_output=True, text=True, env=env,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert expect in out.stdout

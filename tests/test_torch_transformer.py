@@ -1,7 +1,10 @@
-"""PyTorch port, transformer serving: configs, the building blocks, the
-attention layers and the model's entry points (`forward`, `prefill`,
-`decode_step`) against the JAX package, on the same numpy inputs and with
-the reference's params carried across (`transformer_params_from_numpy`).
+"""PyTorch port, the transformer substrate: configs, the building blocks,
+the attention layers and the model's entry points (`forward`, `loss_fn`,
+`prefill`, `decode_step`) for every layer type (dense, local, moe, cross,
+rec) and the audio family, and the shape-only helpers (`abstract_params`,
+`cache_specs`, `input_specs`), against the JAX package, on the same numpy
+inputs and with the reference's params carried across
+(`transformer_params_from_numpy`).
 
 Tolerances. f32: the building blocks and attention at 1e-5, the whole
 model at 1e-4 (the same f32 operations, summed in another order by the
@@ -38,6 +41,9 @@ from repro_torch.models import common as t_common
 from repro_torch.models import transformer as t_tf
 from repro_torch.train.checkpoint import (transformer_cache_from_numpy,
                                           transformer_params_from_numpy)
+from repro_torch.train.optimizer import grad_leaves, tree_leaves
+from repro_torch.utils import tree as t_tree
+from repro.utils import tree as r_tree
 
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 
@@ -219,56 +225,104 @@ def test_attention_decode_matches_reference(dtype, Sc, pos):
     np.testing.assert_allclose(_np(got), _np(want), **tol)
     for n in ("k", "v"):
         np.testing.assert_allclose(_np(gc[n]), _np(wc[n]), **tol)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_attn.attention_decode(tp, _to_torch(x), tcache, pos, cross=True,
-                                **kw)
+    # cross attention: the same cache as image K/V, every slot valid
+    # whatever pos, no RoPE, the cache left as it was
+    before = {n: a.clone() for n, a in gc.items()}
+    kw["use_rope"] = False
+    want, _ = r_attn.attention_decode(jp, x, wc, jnp.array(pos, jnp.int32),
+                                      cross=True, **kw)
+    got, gc2 = t_attn.attention_decode(tp, _to_torch(x), gc, pos,
+                                       cross=True, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    assert gc2 is gc and all(torch.equal(gc[n], before[n]) for n in gc)
 
 
 # ---------------------------------------------------------------------------
 # the model: forward, prefill and decode steps
 # ---------------------------------------------------------------------------
 
+# the image tokens of the cross-attention cases, and the tanh gates the
+# reference initializes at zero (a closed gate would hide the layer)
+N_IMG = 4
+GATES = {"g_attn": 0.5, "g_mlp": -0.3}
+
+
+def _cross_ready(rp, rc):
+    """The reference's params with every cross layer's gates opened."""
+    if "cross" not in rc.layer_types():
+        return rp
+    segs = [{i: ({**lp, **{g: jnp.full_like(lp[g], v)
+                           for g, v in GATES.items()}} if "g_attn" in lp
+                 else lp) for i, lp in seg.items()} for seg in rp["segs"]]
+    return {**rp, "segs": segs}
+
+
 @pytest.mark.parametrize("arch,over", [
     ("qwen3-0.6b", dict(dtype="float32")),
     ("qwen3-0.6b", dict(dtype="float32", window=16)),   # rolled cache
     ("stablelm-1.6b", dict(dtype="float32")),           # layernorm, bias, G=1
     ("qwen3-0.6b", dict(dtype="bfloat16")),
+    # rec, rec, local: the 64-slot local cache rolled by a 72-token prompt
+    ("recurrentgemma-9b", dict(dtype="float32")),
+    ("qwen3-0.6b", dict(dtype="float32", pattern=("moe",), num_experts=4,
+                        top_k=2)),
+    ("qwen3-0.6b", dict(dtype="float32", pattern=("dense", "cross"),
+                        family="vlm", num_image_tokens=N_IMG)),
+    ("qwen2-72b", dict(dtype="float32")),               # qkv bias
+    ("qwen2-72b", dict(dtype="float32", window=16)),
+    ("stablelm-1.6b", dict(dtype="float32", window=16)),
 ])
 def test_serving_matches_reference(arch, over):
     """From the reference's `init_params`, carried across: `forward`'s
-    logits over prompt and continuation; `prefill`'s last logits and cache
-    (24 prompt tokens into 40 slots, or rolled into a 16-slot window);
-    then 4 `decode_step`s, each one's logits and cache against the
-    reference's, fed the reference's cache carried across for the first
-    step and the port's own after it."""
+    logits and aux losses over prompt and continuation; `prefill`'s last
+    logits and every cache leaf (24 prompt tokens into 40 slots, or
+    rolled into a 16-slot window; recurrentgemma's 72 into its 64-slot
+    window); then 4 `decode_step`s, each one's logits and cache against
+    the reference's, fed the reference's cache carried across for the
+    first step and the port's own after it. MoE decode is held to the
+    reference's decode, not to `forward`: capacity drops depend on the
+    group, 2 tokens in a decode step."""
     rc, tc = _configs(arch, **over)
-    rp = r_tf.init_params(jax.random.key(1), rc)
+    rp = _cross_ready(r_tf.init_params(jax.random.key(1), rc), rc)
     tp = _to_torch(rp)
-    T, steps, cache_len = 24, 4, 40
-    toks = np.random.default_rng(5).integers(
-        0, rc.vocab_size, (2, T + steps)).astype(np.int32)
+    T = 72 if arch == "recurrentgemma-9b" else 24
+    steps, cache_len = 4, T + 16
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, rc.vocab_size, (2, T + steps)).astype(np.int32)
+    extra = {}
+    if "cross" in rc.layer_types():
+        extra["image_embeds"] = rng.normal(
+            size=(2, N_IMG, rc.d_model)).astype(np.float32)
+    rx = {k: jnp.asarray(v) for k, v in extra.items()}
+    tx = {k: torch.from_numpy(v) for k, v in extra.items()}
     tol = BF16_TOL if over["dtype"] == "bfloat16" else dict(rtol=1e-4,
                                                            atol=1e-4)
-    want, _ = r_tf.forward(rp, rc, {"tokens": jnp.asarray(toks)})
-    got, aux = t_tf.forward(tp, tc, {"tokens": torch.from_numpy(toks)})
+    want, waux = r_tf.forward(rp, rc, {"tokens": jnp.asarray(toks), **rx})
+    got, aux = t_tf.forward(tp, tc, {"tokens": torch.from_numpy(toks), **tx})
     np.testing.assert_allclose(_np(got), _np(want), **tol)
-    assert float(aux["load_balance_loss"]) == 0.0
+    for name in ("load_balance_loss", "z_loss"):
+        np.testing.assert_allclose(_np(aux[name]), _np(waux[name]),
+                                   rtol=1e-5, atol=1e-6)
 
-    rlast, rcache = r_tf.prefill(rp, rc, {"tokens": jnp.asarray(toks[:, :T])},
-                                 cache_len)
+    rlast, rcache = r_tf.prefill(rp, rc, {"tokens": jnp.asarray(toks[:, :T]),
+                                          **rx}, cache_len)
     tlast, tcache = t_tf.prefill(tp, tc, {"tokens": torch.from_numpy(
-        toks[:, :T])}, cache_len)
+        toks[:, :T]), **tx}, cache_len)
     assert tcache["pos"] == int(rcache["pos"]) == T
 
     def check(logits, cache, rlogits, rc_):
         np.testing.assert_allclose(_np(logits), _np(rlogits), **tol)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(_np(cache["segs"][0]["0"][name]),
-                                       _np(rc_["segs"][0]["0"][name]), **tol)
+        got_l = tree_leaves(cache["segs"])
+        want_l = jax.tree_util.tree_leaves(rc_["segs"])
+        assert len(got_l) == len(want_l)
+        for a, b in zip(got_l, want_l):
+            assert tuple(a.shape) == b.shape
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
 
     check(tlast, tcache, rlast, rcache)
-    Sc = tcache["segs"][0]["0"]["k"].shape[2]
-    assert Sc == (16 if over.get("window") else cache_len)
+    if tc.pattern == ("dense",):
+        Sc = tcache["segs"][0]["0"]["k"].shape[2]
+        assert Sc == (16 if over.get("window") else cache_len)
     tcache = transformer_cache_from_numpy(
         jax.tree_util.tree_map(np.asarray, rcache), device="cpu")
     decode = jax.jit(r_tf.decode_step, static_argnums=1)
@@ -279,6 +333,122 @@ def test_serving_matches_reference(arch, over):
                                           torch.from_numpy(tok))
         assert tcache["pos"] == int(rcache["pos"]) == T + s + 1
         check(logits, tcache, rlogits, rcache)
+
+
+def test_audio_forward_and_loss_match_reference():
+    """hubert SMOKE (frames in, learned positions, bidirectional,
+    layernorm): `forward`'s logits, then `loss_fn` with a mask; an
+    encoder has no decode step."""
+    rc, tc = _configs("hubert-xlarge", dtype="float32")
+    rp = r_tf.init_params(jax.random.key(2), rc)
+    tp = _to_torch(rp)
+    rng = np.random.default_rng(3)
+    frames = rng.normal(size=(2, 40, rc.d_model)).astype(np.float32)
+    labels = rng.integers(0, rc.vocab_size, (2, 40)).astype(np.int32)
+    mask = (rng.random((2, 40)) < 0.5).astype(np.int32)
+    want, _ = r_tf.forward(rp, rc, {"frames": jnp.asarray(frames)})
+    got, _ = t_tf.forward(tp, tc, {"frames": torch.from_numpy(frames)})
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    rb = {"frames": jnp.asarray(frames), "labels": jnp.asarray(labels),
+          "mask": jnp.asarray(mask)}
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in rb.items()}
+    wl, wm = r_tf.loss_fn(rp, rc, rb)
+    with torch.no_grad():
+        gl, gm = t_tf.loss_fn(tp, tc, tb)
+    np.testing.assert_allclose(_np(gl), _np(wl), rtol=1e-5, atol=1e-5)
+    assert sorted(gm) == sorted(wm)
+    assert not tc.has_decode
+    with pytest.raises(ValueError, match="encoder-only"):
+        t_tf.decode_step(tp, tc, {"pos": 0, "segs": []},
+                         torch.zeros((2, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3-0.6b", dict(chunked_ce=0)),
+    ("qwen3-0.6b", dict(chunked_ce=200)),     # V = 512: the last chunk padded
+    ("qwen3-0.6b", dict(chunked_ce=0, pattern=("moe",), num_experts=4,
+                        top_k=2)),
+    ("recurrentgemma-9b", dict(chunked_ce=128)),
+])
+def test_loss_fn_matches_reference(arch, over):
+    """`loss_fn` (ce + 0.01 lb + 1e-3 z) with and without `chunked_ce`,
+    remat on (per layer under torch.utils.checkpoint): the loss, its
+    metrics and every param's gradient against jax.grad (1e-4: sums over
+    the whole backward)."""
+    rc, tc = _configs(arch, dtype="float32", **over)
+    rp = r_tf.init_params(jax.random.key(3), rc)
+    tp = _to_torch(rp)
+    toks = np.random.default_rng(4).integers(
+        0, rc.vocab_size, (2, 33)).astype(np.int32)
+    rb = {"tokens": jnp.asarray(toks[:, :-1]),
+          "labels": jnp.asarray(toks[:, 1:])}
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in rb.items()}
+    (wl, wm), wg = jax.value_and_grad(
+        lambda p: r_tf.loss_fn(p, rc, rb), has_aux=True)(rp)
+    tree, leaves = grad_leaves(tp)
+    gl, gm = t_tf.loss_fn(tree, tc, tb)
+    grads = torch.autograd.grad(gl, leaves)
+    assert sorted(gm) == sorted(wm)
+    for name in wm:
+        np.testing.assert_allclose(_np(gm[name]), _np(wm[name]), rtol=1e-5,
+                                   atol=1e-5)
+    if "moe" in rc.layer_types():
+        assert float(gm["load_balance_loss"].detach()) > 0
+    wgl = jax.tree_util.tree_leaves(wg)
+    assert len(wgl) == len(grads)
+    for w, g in zip(wgl, grads):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# shapes without allocation
+# ---------------------------------------------------------------------------
+
+def _spec_leaves(tree):
+    return [(tuple(a.shape), str(a.dtype).split(".")[-1])
+            for a in jax.tree_util.tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("arch", r_base.ARCH_IDS)
+def test_abstract_params_and_cache_specs_match_reference(arch):
+    """At the published widths: every params leaf and every cache leaf
+    (B = 2 at decode_32k's length; hubert has no decode but its cache
+    struct builds) with the reference's shape and dtype, all on the meta
+    device, and the byte totals equal."""
+    rc, tc = r_base.get_config(arch, "full"), t_base.get_config(arch,
+                                                               "full")
+    rp, tp = r_tf.abstract_params(rc), t_tf.abstract_params(tc)
+    assert jax.tree_util.tree_structure(rp) == \
+        jax.tree_util.tree_structure(tp)
+    assert _spec_leaves(tp) == _spec_leaves(rp)
+    assert all(a.device.type == "meta" for a in tree_leaves(tp))
+    assert t_tree.tree_size_bytes(tp) == r_tree.tree_size_bytes(rp)
+    assert t_tree.tree_num_params(tp) == r_tree.tree_num_params(rp)
+    rcs, tcs = r_tf.cache_specs(rc, 2, 32768), t_tf.cache_specs(tc, 2, 32768)
+    assert _spec_leaves(tcs["segs"]) == _spec_leaves(rcs["segs"])
+    assert tcs["pos"].dtype == torch.int32 and tcs["pos"].shape == ()
+    assert all(a.device.type == "meta" for a in tree_leaves(tcs["segs"]))
+
+
+def test_input_specs_and_all_configs_match_reference():
+    rall, tall = r_base.all_configs(), t_base.all_configs()
+    assert list(tall) == list(rall)
+    for arch, rc in rall.items():
+        tc = tall[arch]
+        assert dataclasses.asdict(tc) == dataclasses.asdict(rc)
+        assert tc.has_decode == rc.has_decode
+        for shape in r_base.INPUT_SHAPES:
+            assert tc.supports_shape(shape) == rc.supports_shape(shape)
+            want = r_base.input_specs(rc, shape)
+            got = t_base.input_specs(tc, shape)
+            assert list(got) == list(want)
+            for k in want:
+                assert tuple(got[k].shape) == want[k].shape
+                assert str(got[k].dtype).split(".")[-1] == \
+                    want[k].dtype.name
+                assert got[k].device.type == "meta"
+    smoke = t_base.all_configs("smoke")
+    assert list(smoke) == list(r_base.all_configs("smoke"))
 
 
 def test_init_params_match_reference_distributions():
@@ -311,8 +481,20 @@ def test_init_params_match_reference_distributions():
     ("hubert-xlarge", {}),
 ])
 def test_unported_layers_raise(arch, over):
-    _, tc = _configs(arch, **over)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_tf.init_params(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_tf.init_cache(tc, 1, 8, device="cpu")
+    """The layer types and the family that raised before they were ported
+    (moe, rec and local, cross, audio): the port's own `init_params` and
+    `init_cache` trees against the reference's, key for key, in shape and
+    dtype (the rec state's h in f32, the cross gates f32 scalars)."""
+    rc, tc = _configs(arch, **over)
+    rp = r_tf.init_params(jax.random.key(0), rc)
+    tp = t_tf.init_params(tc, seed=0, device="cpu")
+    assert jax.tree_util.tree_structure(rp) == \
+        jax.tree_util.tree_structure(tp)
+    assert _spec_leaves(tp) == _spec_leaves(rp)
+    rcache = r_tf.init_cache(rc, 2, 96)
+    tcache = t_tf.init_cache(tc, 2, 96, device="cpu")
+    assert tcache["pos"] == int(rcache["pos"]) == 96
+    assert jax.tree_util.tree_structure(rcache["segs"]) == \
+        jax.tree_util.tree_structure(tcache["segs"])
+    assert _spec_leaves(tcache["segs"]) == _spec_leaves(rcache["segs"])
+    assert not any(bool(a.any()) for a in tree_leaves(tcache["segs"]))
