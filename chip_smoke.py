@@ -19,8 +19,11 @@ with a non-zero exit at the first failure:
    library call (or a composition of a few, marked so) where one computes
    the same function, and the card's bound (`gather_rows` also beside
    `index_select` in alternating rounds, with the timings' spread and
-   whether the gap is resolved): the f32 kernels, the int8
-   body of `gather_spmm` and `scatter_rows_q` over an int8 store, the
+   whether the gap is resolved; the history pulls `gather_rows` and
+   `gather_rows_dq` also with the L2 flushed before each launch, beside
+   an empty kernel's launch on the same grid): the f32 kernels, the int8
+   body of `gather_spmm`, `gather_rows_dq` (the refresh batch's 4,096
+   rows of d = 256) and `scatter_rows_q` over an int8 store, the
    bf16 instantiations of `gather_spmm` and `scatter_rows`, and the vq
    body of `gather_spmm` and `scatter_rows_vq` over a vq store (S = 32
    codes a row, a 256 KB codebook; codes and scales bitwise; the push's
@@ -298,9 +301,13 @@ on this host; GCNII's is PNA's) for `tests/test_torch_train.py
 
 also builds the kernels of another checkout (its C entry points must
 have this build's signatures, but for `scatter_rows` and `flash_decode`,
-which are called with the parent's own; `scatter_rows_q` is always
-handed a winner scratch) and times its block contraction,
-`scatter_rows` (f32 and bf16), `scatter_rows_q` and `scatter_rows_vq`
+which are called with the parent's own, and the history pulls, whose
+plan-taking entries map onto a parent's from before the launch plans,
+`_PlanlessParent`; `scatter_rows_q` is always handed a winner scratch)
+and times its block contraction, the history
+pulls `gather_rows` (f32 and bf16) and `gather_rows_dq` (warm and with
+the L2 flushed, outputs bitwise), `scatter_rows` (f32 and bf16),
+`scatter_rows_q` and `scatter_rows_vq`
 (at both push shapes; and on rows holding inf and NaN, bitwise),
 `flash_decode`, the three edge-softmax kernels and PNA's three kernels
 beside this build's on the same inputs in phases 2 and 3b, their
@@ -378,7 +385,8 @@ from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
 from repro_torch.kernels.decode_attn import flash_decode  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
-    gather_rows, gather_rows_dq, gather_rows_raw, gather_rows_vq)
+    dq_plan, gather_rows, gather_rows_dq, gather_rows_raw,
+    gather_rows_vq, row_plan)
 from repro_torch.kernels.scatter import (  # noqa: E402
     SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_raw,
     scatter_rows_vq)
@@ -403,6 +411,11 @@ N_REQUESTS, QUERY_SIZE, SEED = 16, 128, 0
 # against the full-graph forward: the same f32 sums taken in another order
 RTOL, ATOL = 1e-4, 1e-4
 TIMED_REPS = 25
+# `_times_ms(fn, cold=True)` reads this many bytes (more than twice the
+# H100's 50 MB L2) before each timed call: its lines are clean, so no
+# write-back of an earlier call's dirty lines lands in the timed interval
+L2_FLUSH_BYTES = 128 << 20
+_L2_FLUSH = []
 # `--parent-csrc DIR`: the kernel library built from another checkout's
 # sources (the parent commit's), whose block contraction phase 2 runs
 # through the same wrappers on the same inputs beside this build's; None
@@ -959,16 +972,25 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn) -> float:
+def _time_ms(fn, cold=False) -> float:
     """Median over TIMED_REPS calls of CUDA-event time (`_times_ms`)."""
-    return statistics.median(_times_ms(fn))
+    return statistics.median(_times_ms(fn, cold))
 
 
-def _times_ms(fn) -> list:
+def _flush_l2() -> None:
+    """Queue a read of L2_FLUSH_BYTES, evicting what the L2 held."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(L2_FLUSH_BYTES // 4, device="cuda"))
+    _L2_FLUSH[0].sum()
+
+
+def _times_ms(fn, cold=False) -> list:
     """TIMED_REPS calls' CUDA-event times, after warm-up. Each call is
     queued behind a ~1 ms device sleep, so the host has issued all of its
     launches before the start event fires and the interval holds device
-    time only, not the host's launch gaps."""
+    time only, not the host's launch gaps. `cold`: the L2 is flushed
+    (`_flush_l2`) before each sleep, outside the timed interval, so the
+    call reads its inputs from device memory."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -976,6 +998,8 @@ def _times_ms(fn) -> list:
     for _ in range(TIMED_REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _flush_l2()
         torch.cuda._sleep(2_000_000)
         start.record()
         fn()
@@ -1068,14 +1092,15 @@ def _beside_earlier(label, fn, out, ms):
            f"{float((old - out).abs().max()):.3g}")
 
 
-def _beside_library_spread(label, fn, lib_name, lib_fn):
+def _beside_library_spread(label, fn, lib_name, lib_fn, cold=False):
     """A kernel's time beside one PyTorch call's on the same inputs, with
     the spread: TIMED_REPS timings of each in the order kernel, library,
-    library, kernel, pooled per side; the gap counts as resolved where
-    the two sides' interquartile ranges do not overlap."""
+    library, kernel, pooled per side (`cold`: the L2 flushed before each
+    call); the gap counts as resolved where the two sides' interquartile
+    ranges do not overlap."""
     times = {"kernel": [], lib_name: []}
     for side in ("kernel", lib_name, lib_name, "kernel"):
-        times[side] += _times_ms(fn if side == "kernel" else lib_fn)
+        times[side] += _times_ms(fn if side == "kernel" else lib_fn, cold)
 
     def spread(t):
         q = statistics.quantiles(t, n=4)
@@ -1090,6 +1115,82 @@ def _beside_library_spread(label, fn, lib_name, lib_fn):
     _phase("kernels", f"{label}: {len(times['kernel'])} timings a side in "
            f"two rounds of {TIMED_REPS}, the kernel {spread(times['kernel'])}"
            f", {lib_name} {spread(times[lib_name])}; {verdict}")
+
+
+class _PlanlessParent:
+    """A parent checkout's kernel library from before the history pulls
+    took a launch plan (`repro_gather_rows_f32` / `_bf16`, and
+    `repro_gather_rows_dq` without one), as this build's wrappers call
+    it: their plan-taking entries map onto the parent's own, the row copy
+    through its f32 or bf16 entry by the row's bytes (both copy 16-byte
+    units where the row and the buffers allow, else 4 or 2 bytes a lane:
+    the same bytes); every other entry is the parent's."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        ptrs_ints = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+        for name, argtypes in (
+                ("repro_gather_rows_f32", ptrs_ints + [ctypes.c_void_p]),
+                ("repro_gather_rows_bf16", ptrs_ints + [ctypes.c_void_p]),
+                ("repro_gather_rows_dq", [ctypes.c_void_p] + ptrs_ints
+                 + [ctypes.c_void_p])):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def repro_gather_rows(self, table, idx, out, m, row_bytes, *plan_stream):
+        if row_bytes % 4 == 0:
+            return self._lib.repro_gather_rows_f32(
+                table, idx, out, m, row_bytes // 4, plan_stream[-1])
+        return self._lib.repro_gather_rows_bf16(
+            table, idx, out, m, row_bytes // 2, plan_stream[-1])
+
+    def repro_gather_rows_dq(self, q, scales, idx, out, m, d, *plan_stream):
+        return self._lib.repro_gather_rows_dq(q, scales, idx, out, m, d,
+                                              plan_stream[-1])
+
+
+def _pull_row(label, name, replaces, fn, plain_fn, lib_fn, library,
+              parent_fn, n_bytes, ctas, case=None):
+    """A history pull's kernel row (`gather_rows` or `gather_rows_dq`):
+    its output bitwise the plain version's; its time warm (the median of
+    `_time_ms`) and with the L2 flushed before each launch (`cold_ms`),
+    beside the same for the library yardstick (`lib_fn`), the plain
+    version's, the bound (bytes) and the launch floor (an empty kernel on
+    the plan's `ctas` CTAs); with --parent-csrc the parent's kernel
+    (`parent_fn`) warm and cold on the same inputs, its output bitwise
+    this one's."""
+    out = fn()
+    assert torch.equal(_bits(out), _bits(plain_fn())), \
+        f"{label}: {name} differs from its plain version"
+    ms, cold = _time_ms(fn), _time_ms(fn, cold=True)
+    lib_ms, lib_cold = _time_ms(lib_fn), _time_ms(lib_fn, cold=True)
+    floor = _launch_floor(out.device, (ctas,))[ctas]
+    row = _row(name, "src/repro_torch/kernels/csrc/gather.cu", replaces, 0.0,
+               ms, _time_ms(plain_fn), lib_ms, n_bytes, 0,
+               library=library if library.startswith("composition") else None)
+    row.update(cold_ms=cold, library_cold_ms=lib_cold, floor_ms=floor,
+               ctas=ctas)
+    if case is not None:
+        row["case"] = case
+    parent = "the parent's kernel not measured (no --parent-csrc)"
+    if PARENT_LIB is not None:
+        assert torch.equal(_bits(parent_fn()), _bits(out)), \
+            f"{label}: {name} differs from the parent's kernel"
+        old, old_cold = _time_ms(parent_fn), _time_ms(parent_fn, cold=True)
+        row.update(parent_ms=old, parent_cold_ms=old_cold)
+        parent = (f"the parent's kernel {old:.4f} ms warm ({old / ms:.2f}x)"
+                  f", {old_cold:.4f} cold ({old_cold / cold:.2f}x), outputs "
+                  f"bitwise equal")
+    _phase("kernels", f"{label}: {name} {ms:.4f} ms warm ({ms - floor:.4f} "
+           f"above the launch floor {floor:.4f} ms at {ctas} CTAs), "
+           f"{cold:.4f} cold; bound {row['bound_ms']:.5f} ms by bytes "
+           f"({100 * row['bound_ms'] / cold:.1f}% of the cold time); "
+           f"{library} {lib_ms:.4f} warm, "
+           f"{lib_cold:.4f} cold; plain {row['plain_ms']:.4f}; {parent}")
+    return row
 
 
 def _parent_scatter_rows(table, idx, values):
@@ -1527,16 +1628,20 @@ def kernel_phase(g, spec, device):
     # bytes this run's data needs: each distinct source row read once
     # (the padding indices all clamp to row N-1), every output row written
     n_src = int(torch.unique(idx).numel())
-    rows.append(_row(
-        "gather_rows", "src/repro_torch/kernels/csrc/gather.cu",
-        "src/repro/kernels/gather.py:37", 0.0,
-        _time_ms(lambda: gather_rows(table, idx)),
-        _time_ms(lambda: ref.gather_rows_ref(table, idx)),
-        _time_ms(lambda: torch.index_select(table, 0, idx)),
-        M * 4 + n_src * D * 4 + M * D * 4, 0))
-    _beside_library_spread(f"gather_rows (f32, M = {M}, d = {D})",
-                           lambda: gather_rows(table, idx), "index_select",
-                           lambda: torch.index_select(table, 0, idx))
+    rows.append(_pull_row(
+        f"serving refresh batch's feature pull (M = {M}, d = {D}, f32)",
+        "gather_rows", "src/repro/kernels/gather.py:37",
+        lambda: gather_rows(table, idx),
+        lambda: ref.gather_rows_ref(table, idx),
+        lambda: torch.index_select(table, 0, idx), "index_select",
+        lambda: _parent_call(lambda: gather_rows(table, idx)),
+        M * 4 + n_src * D * 4 + M * D * 4,
+        row_plan(M, D * 4, table.data_ptr()).ctas))
+    for cold in (False, True):
+        _beside_library_spread(
+            f"gather_rows (f32, M = {M}, d = {D}{', L2 flushed' * cold})",
+            lambda: gather_rows(table, idx), "index_select",
+            lambda: torch.index_select(table, 0, idx), cold)
 
     # scatter_rows: the push into a [N+1, 256] table — first a check with
     # duplicate valid indices and masked rows, then timings on the real
@@ -1719,6 +1824,28 @@ def _quantized_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup,
             x_in, table, vals, cols, sel, xrow, trow, scales), out,
             rows[-1]["ms"])
 
+    # gather_rows_dq: the refresh batch's rows pulled from the int8 store
+    # (masked rows read the sentinel row), d = 256: the int8 pull where
+    # it moves real bytes
+    M = push_idx.shape[0]
+    n_src = int(torch.unique(push_idx).numel())
+    row = _pull_row(
+        f"serving refresh batch's int8 pull (M = {M}, d = {D})",
+        "gather_rows_dq", "src/repro/kernels/gather.py:107",
+        lambda: gather_rows_dq(q8, s8, push_idx),
+        lambda: ref.gather_rows_dq_ref(q8, s8, push_idx),
+        lambda: torch.index_select(q8, 0, push_idx).to(torch.float32).mul_(
+            torch.index_select(s8, 0, push_idx)[:, None]),
+        "composition: index_select of codes and scales, convert, multiply",
+        lambda: _parent_call(lambda: gather_rows_dq(q8, s8, push_idx)),
+        M * 4 + n_src * (D + 4) + M * D * 4,
+        dq_plan(M, D, q8.data_ptr(), 0).ctas,
+        case=f"serving refresh batch, M={M}, d={D}; launches: GAT's int8 "
+             f"serving pulls, d=64")
+    # its launches: the served int8 pulls (GAT's, d = 64)
+    row["run"] = "gat int8 serving"
+    rows.append(row)
+
     # scatter_rows_q: the push of the refresh batch into the int8 store,
     # codes and scales bitwise (duplicates and masked rows first), each
     # pushed row's relative error to rounding (sums in another order)
@@ -1823,9 +1950,10 @@ def _vq_kernel_rows(hist, x_in, vals, cols, plan, vals_p, dup, push_idx,
 
 def _history_pull_rows(plan, device, gen, clock_hz):
     """Phase 2: the GAT hidden layer's history pull (batch 0's halo rows,
-    d = 64) from an int8 table (`gather_rows_dq`), a bf16 one
-    (`gather_rows_bf16`) and a vq one (`gather_rows_vq`, S = 8, codebook
-    [8, 256, 8]), bitwise against the plain versions; and the same
+    d = 64) from an int8 table (`gather_rows_dq`) and a bf16 one
+    (`gather_rows_bf16`), each a `_pull_row`, and from a vq one
+    (`gather_rows_vq`, S = 8, codebook [8, 256, 8]), bitwise against the
+    plain versions; and the same
     layer's push into the vq table (`scatter_rows_vq`: batch 0's rows,
     masked ones on the sentinel row), its second kernel row, and the same
     push into the int8 table (`scatter_rows_q`), its second row."""
@@ -1837,13 +1965,6 @@ def _history_pull_rows(plan, device, gen, clock_hz):
     b16 = hist.to(torch.bfloat16)
     M, D = idx.shape[0], TRAIN_HIDDEN
     n_src = int(torch.unique(idx).numel())
-    out = gather_rows_dq(q8, s8, idx)
-    assert torch.equal(out, ref.gather_rows_dq_ref(q8, s8, idx)), \
-        "gather_rows_dq differs from its plain version"
-    assert torch.equal(out, gather_rows_dq(q8, s8, idx))
-    out = gather_rows(b16, idx)
-    assert torch.equal(out, ref.gather_rows_ref(b16, idx)), \
-        "gather_rows (bf16) differs from its plain version"
     cb = vq_init_codebook(D, device=device)
     vq, vs = ref.vq_encode_rows(hist, cb)
     S = D // 8
@@ -1857,21 +1978,27 @@ def _history_pull_rows(plan, device, gen, clock_hz):
     # reads (32 B each)
     n_entries = int(torch.unique(vq[idx.long()].long() + offs).numel())
     rows = [
-        _row("gather_rows_dq", "src/repro_torch/kernels/csrc/gather.cu",
-             "src/repro/kernels/gather.py:107", 0.0,
-             _time_ms(lambda: gather_rows_dq(q8, s8, idx)),
-             _time_ms(lambda: ref.gather_rows_dq_ref(q8, s8, idx)),
-             _time_ms(lambda: torch.index_select(q8, 0, idx).to(
-                 torch.float32).mul_(torch.index_select(s8, 0, idx)[:, None])),
-             M * 4 + n_src * (D + 4) + M * D * 4, 0,
-             library="composition: index_select of codes and scales, "
-                     "convert, multiply"),
-        _row("gather_rows_bf16", "src/repro_torch/kernels/csrc/gather.cu",
-             "src/repro/kernels/gather.py:37 (bf16 table)", 0.0,
-             _time_ms(lambda: gather_rows(b16, idx)),
-             _time_ms(lambda: ref.gather_rows_ref(b16, idx)),
-             _time_ms(lambda: torch.index_select(b16, 0, idx)),
-             M * 4 + n_src * D * 2 + M * D * 2, 0),
+        _pull_row(
+            f"GAT hidden layer's int8 pull (M = {M}, d = {D})",
+            "gather_rows_dq", "src/repro/kernels/gather.py:107",
+            lambda: gather_rows_dq(q8, s8, idx),
+            lambda: ref.gather_rows_dq_ref(q8, s8, idx),
+            lambda: torch.index_select(q8, 0, idx).to(torch.float32).mul_(
+                torch.index_select(s8, 0, idx)[:, None]),
+            "composition: index_select of codes and scales, convert, "
+            "multiply",
+            lambda: _parent_call(lambda: gather_rows_dq(q8, s8, idx)),
+            M * 4 + n_src * (D + 4) + M * D * 4,
+            dq_plan(M, D, q8.data_ptr(), 0).ctas),
+        _pull_row(
+            f"GAT hidden layer's bf16 pull (M = {M}, d = {D})",
+            "gather_rows_bf16", "src/repro/kernels/gather.py:37 (bf16 table)",
+            lambda: gather_rows(b16, idx),
+            lambda: ref.gather_rows_ref(b16, idx),
+            lambda: torch.index_select(b16, 0, idx), "index_select",
+            lambda: _parent_call(lambda: gather_rows(b16, idx)),
+            M * 4 + n_src * D * 2 + M * D * 2,
+            row_plan(M, D * 2, b16.data_ptr()).ctas),
         _row("gather_rows_vq", "src/repro_torch/kernels/csrc/gather.cu",
              "src/repro/kernels/gather.py:189", 0.0,
              _time_ms(lambda: gather_rows_vq(vq, cb, vs, idx)),
@@ -5469,6 +5596,8 @@ def _smoke(args, partitions, t_start, stack) -> int:
         t0 = time.perf_counter()
         PARENT_LIB = _build.load(_build.build(
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
+        if not hasattr(PARENT_LIB, "repro_gather_rows"):
+            PARENT_LIB = _PlanlessParent(PARENT_LIB)
         _phase("build", f"the kernels of {args.parent_csrc} in "
                f"{time.perf_counter() - t0:.1f} s")
     if args.pna_edges:

@@ -17,17 +17,31 @@
 // Bound: bytes. gather_rows reads M*D*E bytes of table rows and writes
 // M*D*E bytes (E = 4 for f32, 2 for bf16; plus 4*M of indices) and does no
 // arithmetic; gather_rows_dq reads M*D int8 bytes and 8*M bytes of index
-// and scale and writes 4*M*D bytes, one multiply per element. Design: one
-// warp per output row, 8 rows per 256-thread CTA. The row copy moves 16
-// bytes per lane (4 f32 or 8 bf16) when the row's bytes and both buffers
-// allow, so a warp moves 512 contiguous bytes per instruction; the
-// dequant reads 4 codes per lane (char4) and writes a float4 when D % 4
-// == 0 and the buffers are aligned. The ragged edge is masked in the loop
-// bound, so no caller pads the table to a tile width. The index is read
-// in the kernel; callers pre-clip it to [0, N). The dequant is one
-// IEEE-rounded multiply per element (__fmul_rn, never contracted into
-// anything), so the result is bitwise the plain version's and the
-// reference's `dequantize_rows`.
+// and scale and writes 4*M*D bytes, one multiply per element. Design (both
+// kernels, on a launch plan the wrapper makes, kernels/gather.py
+// `row_plan`): a row is cut into units, for the copy the widest of 16, 8,
+// 4, 2 or 1 bytes that divides the row and both buffers' alignment, for
+// the dequant 4 codes (one char4 load, one float4 store) where D % 4 == 0
+// and the buffers allow, else 1; 2^shift lanes take a row, the least
+// power of two (at most 32) that covers its units, so rows of fewer than
+// 32 units share a warp (32 >> shift consecutive rows: no lane idles at
+// d = 64 int8 or bf16); a lane holds `unroll` (1, 2 or 4) units of its
+// row in registers and issues all their loads before any store, so a warp
+// has up to 32 x 4 x 16 = 2 KB in flight (a 2,000-byte f32 row of D = 500
+// is one warp's single pass). Each lane loads its own row's index (the
+// lanes of a warp load their rows' indices in one coalesced instruction),
+// and the dequant its row's scale once; the grid is one warp per row
+// group. Measured on an H100 and left out (PERF.md, section 6): 16 codes
+// a lane for the dequant (one 16-byte load, four float4 stores 64 bytes
+// apart; slower), a grid sized from the SM count with a grid stride and
+// a warp's indices loaded together and handed out by __shfl_sync
+// (slower), streaming stores (no faster) and, for the copy, whole rows
+// through shared memory by Hopper's bulk asynchronous copies (slower). The
+// ragged edge is masked, so no caller pads the table to a tile width.
+// The index is read in the kernel; callers pre-clip it to [0, N). The
+// dequant is one IEEE-rounded multiply per element (__fmul_rn, never
+// contracted into anything), so the result is bitwise the plain
+// version's and the reference's `dequantize_rows`.
 //
 // gather_rows_vq reads S code bytes and 8 bytes of index and scale per row
 // and writes 4*S*8 bytes, one multiply per element: bound by bytes (the
@@ -64,77 +78,138 @@
 // index through __ldg and clipped in the kernel.
 #include "common.cuh"
 
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerCta = kThreads / 32;
+constexpr int kWarps = kThreads / 32;
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const V* __restrict__ table,
-                   const int32_t* __restrict__ idx,
-                   V* __restrict__ out, int64_t m, int64_t dv) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
-  if (row >= m) return;
-  const int lane = threadIdx.x % 32;
-  const V* src = table + static_cast<int64_t>(__ldg(idx + row)) * dv;
-  V* dst = out + row * dv;
-  for (int64_t c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
+// The output row of this lane: warp w of the grid takes rows [w << (5 -
+// shift), (w + 1) << (5 - shift)), 2^shift lanes a row; lane_col is the
+// lane's place in its row.
+__device__ __forceinline__ int64_t lane_row(int shift) {
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  return (warp << (5 - shift)) + ((threadIdx.x % 32) >> shift);
 }
 
-// A row copy of `elem`-byte elements: 16-byte lanes (uint4) where the
-// row's bytes and both buffers allow, else one element (E) per lane.
-template <typename E>
-int launch_row_copy(const void* table, const int32_t* idx, void* out,
-                    int64_t m, int64_t d, void* stream) {
-  if (m == 0 || d == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int64_t kPerVec = sizeof(uint4) / sizeof(E);
-  const bool vec = d % kPerVec == 0 &&
-                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    gather_rows_kernel<uint4><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint4*>(table), idx, static_cast<uint4*>(out), m,
-        d / kPerVec);
-  } else {
-    gather_rows_kernel<E><<<grid, kThreads, 0, s>>>(
-        static_cast<const E*>(table), idx, static_cast<E*>(out), m, d);
+__device__ __forceinline__ int lane_col(int shift) {
+  return threadIdx.x & ((1 << shift) - 1);
+}
+
+// out[row] = table[t], `nu` units V a row
+template <typename V, int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const V* __restrict__ table,
+                   const int32_t* __restrict__ idx, V* __restrict__ out,
+                   int64_t m, int64_t nu, int shift) {
+  const int64_t row = lane_row(shift);
+  if (row >= m) return;
+  const int lanes = 1 << shift;
+  const V* src = table + static_cast<int64_t>(__ldg(idx + row)) * nu;
+  V* dst = out + row * nu;
+  for (int64_t c = lane_col(shift); c < nu; c += lanes * kUnroll) {
+    V v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      if (c + k * lanes < nu) v[k] = __ldg(src + c + k * lanes);
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      if (c + k * lanes < nu) dst[c + k * lanes] = v[k];
   }
+}
+
+template <typename V>
+int launch_row_copy(const void* table, const int32_t* idx, void* out,
+                    int64_t m, int64_t nu, int shift, int unroll, int ctas,
+                    cudaStream_t s) {
+  const V* tv = static_cast<const V*>(table);
+  V* ov = static_cast<V*>(out);
+  if (unroll == 1)
+    gather_rows_kernel<V, 1><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
+                                                       shift);
+  else if (unroll == 2)
+    gather_rows_kernel<V, 2><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
+                                                       shift);
+  else
+    gather_rows_kernel<V, 4><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
+                                                       shift);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
 
+// a unit of C int8 codes (4 or 1), loaded as one V
+template <int C> struct CodeUnit;
+template <> struct CodeUnit<4> { using V = uint32_t; };
+template <> struct CodeUnit<1> { using V = uint8_t; };
+
+// code b of word w (a signed byte) times the row's scale, IEEE-rounded
+__device__ __forceinline__ float dq(uint32_t w, int b, float s) {
+  return __fmul_rn(static_cast<float>(static_cast<int8_t>(
+                       static_cast<uint8_t>(w >> (8 * b)))), s);
+}
+
+// out[row] = float(q[t]) * scales[t], `d / C` units of C codes a row
+template <int C, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_dq_kernel(const int8_t* __restrict__ q,
                       const float* __restrict__ scales,
                       const int32_t* __restrict__ idx,
                       float* __restrict__ out, int64_t m, int64_t d,
-                      bool vec) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+                      int shift) {
+  using V = typename CodeUnit<C>::V;
+  const int64_t row = lane_row(shift);
   if (row >= m) return;
-  const int lane = threadIdx.x % 32;
+  const int lanes = 1 << shift;
+  const int64_t nu = d / C;
   const int64_t t = __ldg(idx + row);
   const float s = __ldg(scales + t);
-  const int8_t* src = q + t * d;
+  const V* src = reinterpret_cast<const V*>(q + t * d);
   float* dst = out + row * d;
-  if (vec) {
-    const char4* src4 = reinterpret_cast<const char4*>(src);
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    for (int64_t c = lane; c < d / 4; c += 32) {
-      const char4 v = __ldg(src4 + c);
-      dst4[c] = make_float4(__fmul_rn(static_cast<float>(v.x), s),
-                            __fmul_rn(static_cast<float>(v.y), s),
-                            __fmul_rn(static_cast<float>(v.z), s),
-                            __fmul_rn(static_cast<float>(v.w), s));
+  for (int64_t c = lane_col(shift); c < nu; c += lanes * kUnroll) {
+    V v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      if (c + k * lanes < nu) v[k] = __ldg(src + c + k * lanes);
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (c + k * lanes >= nu) continue;
+      float* o = dst + (c + k * lanes) * C;
+      const uint32_t w = v[k];
+      if constexpr (C == 1)
+        *o = dq(w, 0, s);
+      else
+        *reinterpret_cast<float4*>(o) = make_float4(
+            dq(w, 0, s), dq(w, 1, s), dq(w, 2, s), dq(w, 3, s));
     }
-  } else {
-    for (int64_t c = lane; c < d; c += 32)
-      dst[c] = __fmul_rn(static_cast<float>(__ldg(src + c)), s);
   }
+}
+
+template <int C>
+int launch_dq(const int8_t* q, const float* scales, const int32_t* idx,
+              float* out, int64_t m, int64_t d, int shift, int unroll,
+              int ctas, cudaStream_t s) {
+  if (unroll == 1)
+    gather_rows_dq_kernel<C, 1><<<ctas, kThreads, 0, s>>>(q, scales, idx,
+                                                          out, m, d, shift);
+  else if (unroll == 2)
+    gather_rows_dq_kernel<C, 2><<<ctas, kThreads, 0, s>>>(q, scales, idx,
+                                                          out, m, d, shift);
+  else
+    gather_rows_dq_kernel<C, 4><<<ctas, kThreads, 0, s>>>(q, scales, idx,
+                                                          out, m, d, shift);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+// a plan (kernels/gather.py `row_plan`) the kernels can run: 1 to 32
+// lanes a row, an unroll of 1, 2 or 4, and a grid of at most 2^31 - 1
+// CTAs whose warps cover the m rows
+bool plan_ok(int64_t m, int64_t shift, int64_t unroll, int64_t ctas) {
+  return shift >= 0 && shift <= 5 &&
+         (unroll == 1 || unroll == 2 || unroll == 4) && ctas >= 1 &&
+         ctas <= 0x7fffffff && ((ctas * kWarps) << (5 - shift)) >= m;
 }
 
 // codes [N, S] uint8, codebook [S, 256, 8] f32, out [M, S*8] f32
@@ -217,30 +292,64 @@ REPRO_API int repro_gather_rows_raw(const void* table, const int32_t* idx,
   return launch_raw<uint8_t>(table, idx, out, m, n, row_bytes, s);
 }
 
-REPRO_API int repro_gather_rows_f32(const float* table, const int32_t* idx,
-                                    float* out, int64_t m, int64_t d,
-                                    void* stream) {
-  return launch_row_copy<float>(table, idx, out, m, d, stream);
+// out [M, row_bytes] = table[idx] for an f32 or bf16 table: the row copy
+// in `unit`-byte units (16, 8, 4, 2 or 1; it must divide the row and both
+// buffers' alignment) on the wrapper's plan
+REPRO_API int repro_gather_rows(const void* table, const int32_t* idx,
+                                void* out, int64_t m, int64_t row_bytes,
+                                int64_t unit, int64_t shift, int64_t unroll,
+                                int64_t ctas, void* stream) {
+  if (m == 0 || row_bytes == 0) return 0;
+  if (!plan_ok(m, shift, unroll, ctas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
+                          reinterpret_cast<uintptr_t>(out) |
+                          static_cast<uintptr_t>(row_bytes);
+  if (unit <= 0 || align % static_cast<uintptr_t>(unit) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t nu = row_bytes / unit;
+  const int sh = static_cast<int>(shift), un = static_cast<int>(unroll);
+  const int g = static_cast<int>(ctas);
+  switch (unit) {
+    case 16: return launch_row_copy<uint4>(table, idx, out, m, nu, sh, un,
+                                           g, s);
+    case 8: return launch_row_copy<uint2>(table, idx, out, m, nu, sh, un, g,
+                                          s);
+    case 4: return launch_row_copy<uint32_t>(table, idx, out, m, nu, sh, un,
+                                             g, s);
+    case 2: return launch_row_copy<uint16_t>(table, idx, out, m, nu, sh, un,
+                                             g, s);
+    case 1: return launch_row_copy<uint8_t>(table, idx, out, m, nu, sh, un,
+                                            g, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-REPRO_API int repro_gather_rows_bf16(const uint16_t* table,
-                                     const int32_t* idx, uint16_t* out,
-                                     int64_t m, int64_t d, void* stream) {
-  return launch_row_copy<uint16_t>(table, idx, out, m, d, stream);
-}
-
+// out [M, D] f32 = float(q[idx]) * scales[idx][:, None] in `unit`-code
+// units (4: it must divide D and q's alignment, and out must be 16-byte
+// aligned; or 1) on the wrapper's plan
 REPRO_API int repro_gather_rows_dq(const int8_t* q, const float* scales,
                                    const int32_t* idx, float* out, int64_t m,
-                                   int64_t d, void* stream) {
+                                   int64_t d, int64_t unit, int64_t shift,
+                                   int64_t unroll, int64_t ctas,
+                                   void* stream) {
   if (m == 0 || d == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  gather_rows_dq_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      q, scales, idx, out, m, d, vec);
-  REPRO_CHECK_LAUNCH();
-  return 0;
+  if (!plan_ok(m, shift, unroll, ctas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
+                          static_cast<uintptr_t>(d);
+  if (unit == 4 && (align % 4 != 0 ||
+                    reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int sh = static_cast<int>(shift), un = static_cast<int>(unroll);
+  const int g = static_cast<int>(ctas);
+  switch (unit) {
+    case 4: return launch_dq<4>(q, scales, idx, out, m, d, sh, un, g, s);
+    case 1: return launch_dq<1>(q, scales, idx, out, m, d, sh, un, g, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 REPRO_API int repro_gather_rows_vq(const uint8_t* codes,

@@ -6,12 +6,14 @@ Replaces `src/repro/kernels/gather.py:37 gather_rows` (f32 and bf16
 tables), `gather.py:107 gather_rows_dq` (int8 tables with a per-row f32
 scale) and `gather.py:189 gather_rows_vq` (vq code tables with a per-row
 f32 scale and a codebook). On CUDA tensors each launches its kernel in
-`csrc/gather.cu` (one warp per row, 16-byte lanes, ragged D masked in the
-kernel; bound by bytes: M*D*E read plus M*D*E written for the row copy,
-E = 4 or 2; M*D int8 bytes and 8*M of index and scale read plus M*D*4
-written for the dequant; M*S code bytes, 8*M and the codebook read plus
-M*S*8*4 written for the decode); on CPU tensors it runs the plain version
-in `ref.py`.
+`csrc/gather.cu` (bound by bytes: M*D*E read plus M*D*E written for the
+row copy, E = 4 or 2; M*D int8 bytes and 8*M of index and scale read plus
+M*D*4 written for the dequant; M*S code bytes, 8*M and the codebook read
+plus M*S*8*4 written for the decode); on CPU tensors it runs the plain
+version in `ref.py`. The row copy and the dequant launch on `row_plan`, a
+pure function of the shape and the buffers' alignment (units as wide as
+the row and the buffers allow, rows narrower than 32 units sharing a
+warp, up to 4 units a lane in flight); the decode keeps one warp a row.
 
 `gather_rows_raw` replaces no Pallas kernel: the reference's
 `HistoryStore.prefetch` (`src/repro/core/history.py:596-600`) takes its
@@ -23,6 +25,8 @@ written, R the row's bytes.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build as B
@@ -33,8 +37,53 @@ __all__ = ["gather_rows", "gather_rows_ref", "gather_rows_dq",
            "gather_rows_dq_ref", "gather_rows_vq", "gather_rows_vq_ref",
            "gather_rows_raw", "gather_rows_raw_ref", "check_codebook"]
 
-_ROW_COPY = {torch.float32: ("repro_gather_rows_f32", "gather_rows"),
-             torch.bfloat16: ("repro_gather_rows_bf16", "gather_rows_bf16")}
+_ROW_COPY = {torch.float32: "gather_rows", torch.bfloat16: "gather_rows_bf16"}
+# csrc/gather.cu: CTAs of 8 warps; a lane holds at most MAX_UNROLL units of
+# its row at once
+WARPS_PER_CTA, MAX_UNROLL = 8, 4
+COPY_UNITS = (16, 8, 4, 2, 1)     # bytes
+
+
+class RowPlan(NamedTuple):
+    """One launch of the row copy or the dequant (csrc/gather.cu): a row
+    cut into `unit`-byte units (the dequant: `unit` codes), 2**shift lanes
+    a row and so 32 >> shift rows a warp, `unroll` units a lane loaded
+    before any is stored, and `ctas` CTAs, a warp for each row group."""
+    unit: int
+    shift: int
+    unroll: int
+    ctas: int
+
+
+def _plan(m: int, unit: int, n_units: int) -> RowPlan:
+    """The least power of two of lanes that covers a row's `n_units`
+    units, at most 32; 1, 2 or 4 units a lane a pass (4 where a lane has
+    more, in several passes); a warp for each group of 32 >> shift
+    rows."""
+    shift = min(5, max(n_units - 1, 0).bit_length())
+    per_lane = max(1, -(-n_units // (1 << shift)))
+    unroll = min(MAX_UNROLL, 1 << (per_lane - 1).bit_length())
+    groups = -(-m // (32 >> shift))
+    return RowPlan(unit, shift, unroll, max(1, -(-groups // WARPS_PER_CTA)))
+
+
+def row_plan(m: int, row_bytes: int, align: int) -> RowPlan:
+    """The row copy's plan for `m` rows of `row_bytes` bytes. `align` is
+    the OR of the buffers' addresses: the unit is the widest of
+    COPY_UNITS that divides it and the row. A D = 500 f32 row (125 units
+    of 16 bytes) takes a warp and 4 units a lane, so 4,096 rows are 512
+    CTAs; a d = 64 bf16 row (8 units) takes 8 lanes, 4 rows a warp."""
+    unit = next(u for u in COPY_UNITS if (align | row_bytes) % u == 0)
+    return _plan(m, unit, row_bytes // unit)
+
+
+def dq_plan(m: int, d: int, q_addr: int, out_addr: int) -> RowPlan:
+    """The dequant's plan for `m` rows of `d` codes: 4 codes a unit (one
+    char4 load, one float4 store) where D and the code table's address
+    are multiples of 4 and the output is 16-byte aligned, else one code.
+    A d = 64 row (16 units) takes 16 lanes, 2 rows a warp."""
+    unit = 4 if (q_addr | d) % 4 == 0 and out_addr % 16 == 0 else 1
+    return _plan(m, unit, d // unit)
 
 
 def _check_shapes(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -42,6 +91,19 @@ def _check_shapes(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"{name}: table [N, D] and idx [M], got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
+
+
+def _row_copy(name: str, table: torch.Tensor, idx: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """out [M, D] = table[idx] by the row copy's kernel on its plan, the
+    operands checked by the caller; `out` may be any contiguous buffer."""
+    m, row_bytes = idx.shape[0], table.shape[1] * table.element_size()
+    plan = row_plan(m, row_bytes, table.data_ptr() | out.data_ptr())
+    B.check(B.lib().repro_gather_rows(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, row_bytes,
+        *plan, B.stream_ptr(out.device)), name)
+    B.launch_counts[name] += 1
+    return out
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,15 +114,25 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.dtype not in _ROW_COPY:
         raise TypeError(f"gather_rows: table must be float32 or bfloat16, "
                         f"got {table.dtype}")
-    symbol, name = _ROW_COPY[table.dtype]
+    name = _ROW_COPY[table.dtype]
     dev = B.require_cuda(name, table, idx)
     _check_shapes(name, table, idx)
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=dev)
+    return _row_copy(name, table, idx, out)
+
+
+def _dequant(table: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor,
+             out: torch.Tensor) -> torch.Tensor:
+    """out [M, D] = float(table[idx]) * scales[idx][:, None] by the
+    dequant's kernel on its plan, the operands checked by the caller;
+    `out` may be any contiguous f32 buffer."""
     m, d = idx.shape[0], table.shape[1]
-    out = torch.empty((m, d), dtype=table.dtype, device=dev)
-    B.check(getattr(B.lib(), symbol)(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, d,
-        B.stream_ptr(dev)), name)
-    B.launch_counts[name] += 1
+    plan = dq_plan(m, d, table.data_ptr(), out.data_ptr())
+    B.check(B.lib().repro_gather_rows_dq(
+        table.data_ptr(), scales.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        m, d, *plan, B.stream_ptr(out.device)), "gather_rows_dq")
+    B.launch_counts["gather_rows_dq"] += 1
     return out
 
 
@@ -79,13 +151,9 @@ def gather_rows_dq(table: torch.Tensor, scales: torch.Tensor,
     if scales.shape != (table.shape[0],):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
                          f"{(table.shape[0],)}")
-    m, d = idx.shape[0], table.shape[1]
-    out = torch.empty((m, d), dtype=torch.float32, device=dev)
-    B.check(B.lib().repro_gather_rows_dq(
-        table.data_ptr(), scales.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        m, d, B.stream_ptr(dev)), name)
-    B.launch_counts[name] += 1
-    return out
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=dev)
+    return _dequant(table, scales, idx, out)
 
 
 def check_codebook(name: str, codebook: torch.Tensor, width: int) -> None:

@@ -526,11 +526,12 @@ def _quant_values(rng, m, d):
 
 @pytest.mark.parametrize("d", [256, 64, 20, 130, 6])
 def test_int8_row_kernels_match_plain(dev, d):
-    """`gather_rows_dq` and `scatter_rows_q` against their plain versions,
-    bitwise: duplicate indices (last writer wins, for codes and scales
-    alike), dropped out-of-range rows, the sentinel row, ties, clipping
-    and zero rows; aligned (D % 4 == 0) and ragged D; a warm repeat
-    bit-identical. The push's per-row relative errors at 1e-5."""
+    """`scatter_rows_q` against its plain version, bitwise: duplicate
+    indices (last writer wins, for codes and scales alike), dropped
+    out-of-range rows, the sentinel row, ties, clipping and zero rows;
+    aligned (D % 4 == 0) and ragged D; a warm repeat bit-identical. The
+    push's per-row relative errors at 1e-5. (The pull of the pushed
+    table, `gather_rows_dq`, is test_row_pulls_match_plain's.)"""
     rng = np.random.default_rng(d)
     n, m = 301, 220
     v = torch.from_numpy(_quant_values(rng, m, d))
@@ -565,18 +566,14 @@ def test_int8_row_kernels_match_plain(dev, d):
                                equal_nan=True)
     assert torch.equal(errs[0].isnan(), errs[1].isnan())
     assert torch.equal(errs[0].nan_to_num(), errs[1].nan_to_num())
-    gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
-    want = ref.gather_rows_dq_ref(want_q, want_s, gidx)
-    for _ in range(2):
-        got = gather_rows_dq(got_q, got_s, gidx.to(dev))
-        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("d", [256, 20])
 def test_bf16_row_kernels_match_plain(dev, d):
-    """The bf16 instantiations of `gather_rows` and `scatter_rows`
-    (through `ops.push_rows`, which rounds the f32 rows to bf16 first)
-    against their plain versions, bitwise."""
+    """The bf16 instantiation of `scatter_rows` (through `ops.push_rows`,
+    which rounds the f32 rows to bf16 first) against its plain version,
+    bitwise, and its launch counted apart. (The bf16 `gather_rows` is
+    test_row_pulls_match_plain's.)"""
     rng = np.random.default_rng(d + 1)
     n, m = 301, 220
     table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
@@ -589,14 +586,98 @@ def test_bf16_row_kernels_match_plain(dev, d):
     got = ops.push_rows(table.clone().to(dev), idx.to(dev), v.to(dev),
                         mask.to(dev), scratch_last_row=True)
     assert torch.equal(got.cpu()[:-1], want[:-1])
-    gidx = torch.from_numpy(rng.integers(0, n, 500).astype(np.int32))
-    out = gather_rows(got, gidx.to(dev))
-    assert out.dtype == torch.bfloat16
-    assert torch.equal(out.cpu(), ref.gather_rows_ref(got.cpu(), gidx))
     before = dict(_build.launch_counts)
-    scatter_rows(got, gidx[:4].to(dev), out[:4])
+    scatter_rows(got, idx[:4].to(dev), v[:4].to(dev, torch.bfloat16))
     assert _build.launch_counts["scatter_rows_bf16"] == \
         before["scatter_rows_bf16"] + 1
+
+
+ROW_PULL_D = (1, 3, 4, 6, 8, 16, 20, 64, 125, 130, 256, 500)
+ROW_PULL_M = (1, 7, 8, 9, 4096)
+ROW_PULL_NAME = {"f32": "gather_rows", "bf16": "gather_rows_bf16",
+                 "int8": "gather_rows_dq"}
+
+
+def _bits(t):
+    return t.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype])
+
+
+@pytest.mark.parametrize("m", ROW_PULL_M)
+@pytest.mark.parametrize("d", ROW_PULL_D)
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_row_pulls_match_plain(dev, kind, d, m):
+    """`gather_rows` over f32 and bf16 tables and `gather_rows_dq` over
+    int8 ones, bitwise their plain versions at the edges of their launch
+    plan (`kernels/gather.py` `row_plan`): rows of 1 to 500 elements
+    (ragged, narrower than a unit, sharing a warp, several passes a
+    lane), 1 to 4,096 rows (one warp part full, one full, one past it, a
+    wave); a table view offset by one element, and an output offset by
+    one element (through the wrappers' launch helpers, since the wrappers
+    allocate aligned outputs), each breaking 16-byte units; duplicate
+    indices and index N - 1; NaN, inf and -0.0 entries copied bit for bit,
+    scales from 0 and subnormal to overflowing products; exactly one
+    launch per call; a warm repeat bit-identical."""
+    from repro_torch.kernels.gather import _dequant, _row_copy
+    rng = np.random.default_rng(1000 * d + m)
+    n, name = 301, ROW_PULL_NAME[kind]
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx[0] = n - 1
+    idx[-1] = idx[m // 2]
+    idx_c = torch.from_numpy(idx)
+    idx_d = idx_c.to(dev)
+    if kind == "int8":
+        flat = torch.from_numpy(rng.integers(-128, 128, n * d + 1,
+                                             dtype=np.int8))
+        s = (rng.random(n) * 10.0 ** rng.integers(-40, 38, n)).astype(
+            np.float32)
+        s[:3] = (0.0, 1e-40, 3e38)
+        scales = torch.from_numpy(s)
+        scales_d = scales.to(dev)
+
+        def plain(t):
+            return ref.gather_rows_dq_ref(t, scales, idx_c)
+
+        def pull(t):
+            return gather_rows_dq(t, scales_d, idx_d)
+
+        def pull_into(t, out):
+            return _dequant(t, scales_d, idx_d, out)
+
+        out_dtype = torch.float32
+    else:
+        v = rng.normal(size=n * d + 1).astype(np.float32)
+        v[:4] = (np.nan, np.inf, -0.0, -np.inf)
+        flat = torch.from_numpy(v).to(
+            torch.bfloat16 if kind == "bf16" else torch.float32)
+
+        def plain(t):
+            return ref.gather_rows_ref(t, idx_c)
+
+        def pull(t):
+            return gather_rows(t, idx_d)
+
+        def pull_into(t, out):
+            return _row_copy(name, t, idx_d, out)
+
+        out_dtype = flat.dtype
+    flat_d = flat.to(dev)
+    for t_off, o_off in ((0, 0), (1, 0), (0, 1)):
+        case = (kind, d, m, t_off, o_off)
+        table_d = flat_d[t_off:t_off + n * d].view(n, d)
+        want = _bits(plain(flat[t_off:t_off + n * d].view(n, d)))
+        before = _build.launch_counts[name]
+        if o_off:
+            buf = torch.empty(m * d + 1, dtype=out_dtype, device=dev)
+            got = pull_into(table_d, buf[1:].view(m, d))
+        else:
+            got = pull(table_d)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1, case
+        assert got.dtype == out_dtype and got.shape == (m, d), case
+        assert torch.equal(_bits(got).cpu(), want), case
+        if not (t_off or o_off):
+            assert torch.equal(_bits(pull(table_d)), _bits(got)), case
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
