@@ -61,6 +61,7 @@ import torch.distributed as dist
 from repro_torch.data.graphs import Graph
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather import gather_rows_raw
+from repro_torch.kernels.ref import segment_sum
 from repro_torch.kernels.scatter import scatter_rows_q, scatter_rows_raw
 from repro_torch.train import optimizer as opt
 from . import gas as G
@@ -365,9 +366,7 @@ class _HaloExchange(torch.autograd.Function):
                                 ctx.group)
         back = torch.where(send_mask.reshape(-1, 1), back,
                            torch.zeros_like(back))
-        dhb = torch.zeros((ctx.rows, g.shape[1]), dtype=g.dtype,
-                          device=g.device)
-        dhb.index_add_(0, send_idx.reshape(-1).long(), back)
+        dhb = segment_sum(send_idx.reshape(-1).long(), back, ctx.rows)
         stats["exchange_s"] += time.perf_counter() - t0
         stats["exchanges"] += 1
         return dhb, None, None, None, None, None

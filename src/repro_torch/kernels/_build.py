@@ -56,9 +56,9 @@ _SIGNATURES = {
     "repro_gather_rows_raw": [_P, _P, _P, _I, _I, _I, _P],
     "repro_scatter_rows_raw": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_host_device_ptr": [_P, ctypes.POINTER(ctypes.c_void_p)],
-    "repro_gather_rows": [_P, _P, _P] + [_I] * 6 + [_P],
-    "repro_gather_rows_dq": [_P] * 4 + [_I] * 6 + [_P],
-    "repro_gather_rows_vq": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_gather_rows": [_P, _P, _P] + [_I] * 7 + [_P],
+    "repro_gather_rows_dq": [_P] * 4 + [_I] * 7 + [_P],
+    "repro_gather_rows_vq": [_P] * 5 + [_I] * 7 + [_P],
     "repro_scatter_rows_vq": [_P] * 8 + [_I] * 6 + [_P],
     "repro_gather_spmm_vq": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                              _I, _P, _P],

@@ -38,21 +38,30 @@
 // (slower), streaming stores (no faster) and, for the copy, whole rows
 // through shared memory by Hopper's bulk asynchronous copies (slower). The
 // ragged edge is masked, so no caller pads the table to a tile width.
-// The index is read in the kernel; callers pre-clip it to [0, N). The
-// dequant is one IEEE-rounded multiply per element (__fmul_rn, never
-// contracted into anything), so the result is bitwise the plain
-// version's and the reference's `dequantize_rows`.
+// Every pull's kernel reads its row's index and clips it to [0, N - 1]
+// itself (the reference's `pull_rows` clips with `jnp.clip`), so a pull
+// is one launch with no clamp before it. The dequant is one IEEE-rounded
+// multiply per element (__fmul_rn, never contracted into anything), so
+// the result is bitwise the plain version's and the reference's
+// `dequantize_rows`.
 //
 // gather_rows_vq reads S code bytes and 8 bytes of index and scale per row
 // and writes 4*S*8 bytes, one multiply per element: bound by bytes (the
 // codebook, S*256*8*4 bytes, <= 256 KB at d = 256, is read once from
-// device memory and then from L2). Design: one warp per output row, each
-// lane a 4-wide half of one subvector: it reads the row's code for that
-// subvector, one float4 of the codebook entry and writes one float4, so
-// a warp writes 512 contiguous bytes; the codebook stays in L2 and no
-// shared memory is staged, whatever S. The output is exactly S*8 wide
-// (the reference pads it to 128 lanes and its callers slice). Each
-// element is one IEEE multiply (__fmul_rn), bitwise `vq_decode_rows`.
+// device memory and then from L2). At the training pulls (GAT's: 274
+// rows of S = 8) it is latency, not bytes: each output float4 ends a
+// chain of dependent reads, index -> code byte -> codebook float4.
+// Design: the row copy's launch plan (kernels/gather.py `vq_plan`) over
+// 2*S float4 units a row, unit u the half u % 2 of subvector u / 2:
+// 2^shift lanes a row, so rows of fewer than 32 units share a warp (S = 8
+// takes 16 lanes, two rows a warp: no lane idles); a lane holds up to 4
+// units and issues all its code loads, then all its codebook loads,
+// before any store, so its chains overlap; each lane loads its row's
+// index and scale once. The codebook stays in L2 and no shared memory is
+// staged, whatever S: a CTA would read S*8 KB of codebook to write a few
+// KB of rows. The output is exactly S*8 wide (the reference pads it to
+// 128 lanes and its callers slice). Each element is one IEEE multiply
+// (__fmul_rn), bitwise `vq_decode_rows`.
 //
 // gather_rows_raw: out[i, :] = table[clip(idx[i], 0, N-1), :], the raw
 // storage bits of a row of any width (f32, bf16, int8 codes, vq's uint8
@@ -82,8 +91,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerCta = kThreads / 32;
 constexpr int kWarps = kThreads / 32;
+
+// a pull's row index clipped to a table of n rows, as `jnp.clip` does
+__device__ __forceinline__ int64_t clip_row(int64_t t, int64_t n) {
+  return t < 0 ? 0 : (t >= n ? n - 1 : t);
+}
 
 // The output row of this lane: warp w of the grid takes rows [w << (5 -
 // shift), (w + 1) << (5 - shift)), 2^shift lanes a row; lane_col is the
@@ -98,16 +111,16 @@ __device__ __forceinline__ int lane_col(int shift) {
   return threadIdx.x & ((1 << shift) - 1);
 }
 
-// out[row] = table[t], `nu` units V a row
+// out[row] = table[t], `nu` units V a row, t = idx[row] clipped to n rows
 template <typename V, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const V* __restrict__ table,
                    const int32_t* __restrict__ idx, V* __restrict__ out,
-                   int64_t m, int64_t nu, int shift) {
+                   int64_t m, int64_t n, int64_t nu, int shift) {
   const int64_t row = lane_row(shift);
   if (row >= m) return;
   const int lanes = 1 << shift;
-  const V* src = table + static_cast<int64_t>(__ldg(idx + row)) * nu;
+  const V* src = table + clip_row(__ldg(idx + row), n) * nu;
   V* dst = out + row * nu;
   for (int64_t c = lane_col(shift); c < nu; c += lanes * kUnroll) {
     V v[kUnroll];
@@ -122,19 +135,19 @@ gather_rows_kernel(const V* __restrict__ table,
 
 template <typename V>
 int launch_row_copy(const void* table, const int32_t* idx, void* out,
-                    int64_t m, int64_t nu, int shift, int unroll, int ctas,
-                    cudaStream_t s) {
+                    int64_t m, int64_t n, int64_t nu, int shift, int unroll,
+                    int ctas, cudaStream_t s) {
   const V* tv = static_cast<const V*>(table);
   V* ov = static_cast<V*>(out);
   if (unroll == 1)
-    gather_rows_kernel<V, 1><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
-                                                       shift);
+    gather_rows_kernel<V, 1><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, n,
+                                                       nu, shift);
   else if (unroll == 2)
-    gather_rows_kernel<V, 2><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
-                                                       shift);
+    gather_rows_kernel<V, 2><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, n,
+                                                       nu, shift);
   else
-    gather_rows_kernel<V, 4><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, nu,
-                                                       shift);
+    gather_rows_kernel<V, 4><<<ctas, kThreads, 0, s>>>(tv, idx, ov, m, n,
+                                                       nu, shift);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
@@ -150,20 +163,21 @@ __device__ __forceinline__ float dq(uint32_t w, int b, float s) {
                        static_cast<uint8_t>(w >> (8 * b)))), s);
 }
 
-// out[row] = float(q[t]) * scales[t], `d / C` units of C codes a row
+// out[row] = float(q[t]) * scales[t], `d / C` units of C codes a row,
+// t = idx[row] clipped to n rows
 template <int C, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_dq_kernel(const int8_t* __restrict__ q,
                       const float* __restrict__ scales,
                       const int32_t* __restrict__ idx,
-                      float* __restrict__ out, int64_t m, int64_t d,
-                      int shift) {
+                      float* __restrict__ out, int64_t m, int64_t n,
+                      int64_t d, int shift) {
   using V = typename CodeUnit<C>::V;
   const int64_t row = lane_row(shift);
   if (row >= m) return;
   const int lanes = 1 << shift;
   const int64_t nu = d / C;
-  const int64_t t = __ldg(idx + row);
+  const int64_t t = clip_row(__ldg(idx + row), n);
   const float s = __ldg(scales + t);
   const V* src = reinterpret_cast<const V*>(q + t * d);
   float* dst = out + row * d;
@@ -188,17 +202,17 @@ gather_rows_dq_kernel(const int8_t* __restrict__ q,
 
 template <int C>
 int launch_dq(const int8_t* q, const float* scales, const int32_t* idx,
-              float* out, int64_t m, int64_t d, int shift, int unroll,
-              int ctas, cudaStream_t s) {
+              float* out, int64_t m, int64_t n, int64_t d, int shift,
+              int unroll, int ctas, cudaStream_t s) {
   if (unroll == 1)
-    gather_rows_dq_kernel<C, 1><<<ctas, kThreads, 0, s>>>(q, scales, idx,
-                                                          out, m, d, shift);
+    gather_rows_dq_kernel<C, 1><<<ctas, kThreads, 0, s>>>(
+        q, scales, idx, out, m, n, d, shift);
   else if (unroll == 2)
-    gather_rows_dq_kernel<C, 2><<<ctas, kThreads, 0, s>>>(q, scales, idx,
-                                                          out, m, d, shift);
+    gather_rows_dq_kernel<C, 2><<<ctas, kThreads, 0, s>>>(
+        q, scales, idx, out, m, n, d, shift);
   else
-    gather_rows_dq_kernel<C, 4><<<ctas, kThreads, 0, s>>>(q, scales, idx,
-                                                          out, m, d, shift);
+    gather_rows_dq_kernel<C, 4><<<ctas, kThreads, 0, s>>>(
+        q, scales, idx, out, m, n, d, shift);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
@@ -212,29 +226,44 @@ bool plan_ok(int64_t m, int64_t shift, int64_t unroll, int64_t ctas) {
          ctas <= 0x7fffffff && ((ctas * kWarps) << (5 - shift)) >= m;
 }
 
-// codes [N, S] uint8, codebook [S, 256, 8] f32, out [M, S*8] f32
+// out[row] = decode(codes[t]) * scales[t], t = idx[row] clipped to n
+// rows: codes [N, S] uint8, the codebook [S, n_codes, 8] f32 read as
+// float4 halves, out [M, S*8] f32 written as 2*S float4 units a row, unit
+// u the half u % 2 of subvector u / 2
+template <int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_vq_kernel(const uint8_t* __restrict__ codes,
-                      const float* __restrict__ codebook,
+                      const float4* __restrict__ codebook,
                       const float* __restrict__ scales,
                       const int32_t* __restrict__ idx,
-                      float* __restrict__ out, int64_t m, int64_t s_n,
-                      int64_t n_codes) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+                      float4* __restrict__ out, int64_t m, int64_t n,
+                      int64_t s_n, int64_t n_codes, int shift) {
+  const int64_t row = lane_row(shift);
   if (row >= m) return;
-  const int lane = threadIdx.x % 32;
-  const int64_t t = __ldg(idx + row);
+  const int lanes = 1 << shift;
+  const int64_t nu = 2 * s_n;
+  const int64_t t = clip_row(__ldg(idx + row), n);
   const float s = __ldg(scales + t);
   const uint8_t* src = codes + t * s_n;
-  float4* dst = reinterpret_cast<float4*>(out + row * s_n * 8);
-  const float4* cb = reinterpret_cast<const float4*>(codebook);
-  for (int64_t q = lane; q < 2 * s_n; q += 32) {
-    const int64_t sub = q / 2;
-    const int64_t code = __ldg(src + sub);
-    const float4 v = __ldg(cb + (sub * n_codes + code) * 2 + q % 2);
-    dst[q] = make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s),
-                         __fmul_rn(v.z, s), __fmul_rn(v.w, s));
+  float4* dst = out + row * nu;
+  for (int64_t c = lane_col(shift); c < nu; c += lanes * kUnroll) {
+    int64_t code[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      code[k] = c + k * lanes < nu ? __ldg(src + (c + k * lanes) / 2) : 0;
+    float4 v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int64_t u = c + k * lanes;
+      if (u < nu)
+        v[k] = __ldg(codebook + ((u / 2) * n_codes + code[k]) * 2 + u % 2);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      if (c + k * lanes < nu)
+        dst[c + k * lanes] = make_float4(
+            __fmul_rn(v[k].x, s), __fmul_rn(v[k].y, s),
+            __fmul_rn(v[k].z, s), __fmul_rn(v[k].w, s));
   }
 }
 
@@ -248,8 +277,7 @@ gather_rows_raw_kernel(const V* table, const int32_t* __restrict__ idx,
   for (int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        u < total; u += stride) {
     const int64_t row = u / per_row;
-    int64_t t = __ldg(idx + row);
-    t = t < 0 ? 0 : (t >= n ? n - 1 : t);
+    const int64_t t = clip_row(__ldg(idx + row), n);
     out[u] = table[t * per_row + (u - row * per_row)];
   }
 }
@@ -292,15 +320,16 @@ REPRO_API int repro_gather_rows_raw(const void* table, const int32_t* idx,
   return launch_raw<uint8_t>(table, idx, out, m, n, row_bytes, s);
 }
 
-// out [M, row_bytes] = table[idx] for an f32 or bf16 table: the row copy
-// in `unit`-byte units (16, 8, 4, 2 or 1; it must divide the row and both
-// buffers' alignment) on the wrapper's plan
+// out [M, row_bytes] = table[clip(idx, 0, n - 1)] for an f32 or bf16 table
+// of n rows: the row copy in `unit`-byte units (16, 8, 4, 2 or 1; it must
+// divide the row and both buffers' alignment) on the wrapper's plan
 REPRO_API int repro_gather_rows(const void* table, const int32_t* idx,
-                                void* out, int64_t m, int64_t row_bytes,
-                                int64_t unit, int64_t shift, int64_t unroll,
-                                int64_t ctas, void* stream) {
+                                void* out, int64_t m, int64_t n,
+                                int64_t row_bytes, int64_t unit,
+                                int64_t shift, int64_t unroll, int64_t ctas,
+                                void* stream) {
   if (m == 0 || row_bytes == 0) return 0;
-  if (!plan_ok(m, shift, unroll, ctas))
+  if (n <= 0 || !plan_ok(m, shift, unroll, ctas))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
                           reinterpret_cast<uintptr_t>(out) |
@@ -312,30 +341,30 @@ REPRO_API int repro_gather_rows(const void* table, const int32_t* idx,
   const int sh = static_cast<int>(shift), un = static_cast<int>(unroll);
   const int g = static_cast<int>(ctas);
   switch (unit) {
-    case 16: return launch_row_copy<uint4>(table, idx, out, m, nu, sh, un,
-                                           g, s);
-    case 8: return launch_row_copy<uint2>(table, idx, out, m, nu, sh, un, g,
-                                          s);
-    case 4: return launch_row_copy<uint32_t>(table, idx, out, m, nu, sh, un,
-                                             g, s);
-    case 2: return launch_row_copy<uint16_t>(table, idx, out, m, nu, sh, un,
-                                             g, s);
-    case 1: return launch_row_copy<uint8_t>(table, idx, out, m, nu, sh, un,
-                                            g, s);
+    case 16: return launch_row_copy<uint4>(table, idx, out, m, n, nu, sh,
+                                           un, g, s);
+    case 8: return launch_row_copy<uint2>(table, idx, out, m, n, nu, sh, un,
+                                          g, s);
+    case 4: return launch_row_copy<uint32_t>(table, idx, out, m, n, nu, sh,
+                                             un, g, s);
+    case 2: return launch_row_copy<uint16_t>(table, idx, out, m, n, nu, sh,
+                                             un, g, s);
+    case 1: return launch_row_copy<uint8_t>(table, idx, out, m, n, nu, sh,
+                                            un, g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// out [M, D] f32 = float(q[idx]) * scales[idx][:, None] in `unit`-code
-// units (4: it must divide D and q's alignment, and out must be 16-byte
-// aligned; or 1) on the wrapper's plan
+// out [M, D] f32 = float(q[t]) * scales[t][:, None], t = clip(idx, 0,
+// n - 1), in `unit`-code units (4: it must divide D and q's alignment, and
+// out must be 16-byte aligned; or 1) on the wrapper's plan
 REPRO_API int repro_gather_rows_dq(const int8_t* q, const float* scales,
                                    const int32_t* idx, float* out, int64_t m,
-                                   int64_t d, int64_t unit, int64_t shift,
-                                   int64_t unroll, int64_t ctas,
-                                   void* stream) {
+                                   int64_t n, int64_t d, int64_t unit,
+                                   int64_t shift, int64_t unroll,
+                                   int64_t ctas, void* stream) {
   if (m == 0 || d == 0) return 0;
-  if (!plan_ok(m, shift, unroll, ctas))
+  if (n <= 0 || !plan_ok(m, shift, unroll, ctas))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           static_cast<uintptr_t>(d);
@@ -346,26 +375,43 @@ REPRO_API int repro_gather_rows_dq(const int8_t* q, const float* scales,
   const int sh = static_cast<int>(shift), un = static_cast<int>(unroll);
   const int g = static_cast<int>(ctas);
   switch (unit) {
-    case 4: return launch_dq<4>(q, scales, idx, out, m, d, sh, un, g, s);
-    case 1: return launch_dq<1>(q, scales, idx, out, m, d, sh, un, g, s);
+    case 4: return launch_dq<4>(q, scales, idx, out, m, n, d, sh, un, g,
+                                s);
+    case 1: return launch_dq<1>(q, scales, idx, out, m, n, d, sh, un, g,
+                                s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// out [M, S*8] f32 = decode(codes[t]) * scales[t][:, None], t = clip(idx,
+// 0, n - 1), in float4 units (the codebook and out 16-byte aligned) on the
+// wrapper's plan (kernels/gather.py `vq_plan`)
 REPRO_API int repro_gather_rows_vq(const uint8_t* codes,
                                    const float* codebook,
                                    const float* scales, const int32_t* idx,
-                                   float* out, int64_t m, int64_t s_n,
-                                   int64_t n_codes, void* stream) {
+                                   float* out, int64_t m, int64_t n,
+                                   int64_t s_n, int64_t n_codes,
+                                   int64_t shift, int64_t unroll,
+                                   int64_t ctas, void* stream) {
   if (m == 0 || s_n == 0) return 0;
-  // float4 lanes: the wrapper hands 16-byte aligned codebook and output
+  if (n <= 0 || !plan_ok(m, shift, unroll, ctas))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(codebook) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
-  gather_rows_vq_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      codes, codebook, scales, idx, out, m, s_n, n_codes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* cb = reinterpret_cast<const float4*>(codebook);
+  float4* o = reinterpret_cast<float4*>(out);
+  const int sh = static_cast<int>(shift), g = static_cast<int>(ctas);
+  if (unroll == 1)
+    gather_rows_vq_kernel<1><<<g, kThreads, 0, s>>>(
+        codes, cb, scales, idx, o, m, n, s_n, n_codes, sh);
+  else if (unroll == 2)
+    gather_rows_vq_kernel<2><<<g, kThreads, 0, s>>>(
+        codes, cb, scales, idx, o, m, n, s_n, n_codes, sh);
+  else
+    gather_rows_vq_kernel<4><<<g, kThreads, 0, s>>>(
+        codes, cb, scales, idx, o, m, n, s_n, n_codes, sh);
   REPRO_CHECK_LAUNCH();
   return 0;
 }

@@ -10,10 +10,13 @@ f32 scale and a codebook). On CUDA tensors each launches its kernel in
 row copy, E = 4 or 2; M*D int8 bytes and 8*M of index and scale read plus
 M*D*4 written for the dequant; M*S code bytes, 8*M and the codebook read
 plus M*S*8*4 written for the decode); on CPU tensors it runs the plain
-version in `ref.py`. The row copy and the dequant launch on `row_plan`, a
-pure function of the shape and the buffers' alignment (units as wide as
-the row and the buffers allow, rows narrower than 32 units sharing a
-warp, up to 4 units a lane in flight); the decode keeps one warp a row.
+version in `ref.py`. The row copy, the dequant and the decode launch on a
+plan that is a pure function of the shape and the buffers' alignment
+(`row_plan`, `dq_plan`, `vq_plan`: units as wide as the row and the
+buffers allow, float4 for the decode, rows narrower than 32 units sharing
+a warp, up to 4 units a lane in flight). Each kernel clips its row's
+index to [0, N - 1], as the reference's `pull_rows` clips it, so a pull
+is one launch.
 
 `gather_rows_raw` replaces no Pallas kernel: the reference's
 `HistoryStore.prefetch` (`src/repro/core/history.py:596-600`) takes its
@@ -45,8 +48,9 @@ COPY_UNITS = (16, 8, 4, 2, 1)     # bytes
 
 
 class RowPlan(NamedTuple):
-    """One launch of the row copy or the dequant (csrc/gather.cu): a row
-    cut into `unit`-byte units (the dequant: `unit` codes), 2**shift lanes
+    """One launch of the row copy, the dequant or the decode
+    (csrc/gather.cu): a row cut into `unit`-byte units (the dequant:
+    `unit` codes; the decode: float4 halves of subvectors), 2**shift lanes
     a row and so 32 >> shift rows a warp, `unroll` units a lane loaded
     before any is stored, and `ctas` CTAs, a warp for each row group."""
     unit: int
@@ -86,6 +90,14 @@ def dq_plan(m: int, d: int, q_addr: int, out_addr: int) -> RowPlan:
     return _plan(m, unit, d // unit)
 
 
+def vq_plan(m: int, s_n: int) -> RowPlan:
+    """The decode's plan for `m` rows of `s_n` codes: 2 * s_n units of 16
+    bytes (one float4 half of a decoded subvector each). GAT's pull (S =
+    8, 16 units) takes 16 lanes a row, 2 rows a warp; the refresh batch's
+    (S = 32) a warp a row, 2 units a lane."""
+    return _plan(m, 16, 2 * s_n)
+
+
 def _check_shapes(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     B.require_dtype(name, idx, torch.int32, "idx")
     if table.dim() != 2 or idx.dim() != 1:
@@ -100,15 +112,15 @@ def _row_copy(name: str, table: torch.Tensor, idx: torch.Tensor,
     m, row_bytes = idx.shape[0], table.shape[1] * table.element_size()
     plan = row_plan(m, row_bytes, table.data_ptr() | out.data_ptr())
     B.check(B.lib().repro_gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, row_bytes,
-        *plan, B.stream_ptr(out.device)), name)
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, table.shape[0],
+        row_bytes, *plan, B.stream_ptr(out.device)), name)
     B.launch_counts[name] += 1
     return out
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out [M, D] = table[idx], in the table's type (f32 or bf16); `idx`
-    int32 [M], pre-clipped to [0, N)."""
+    """out [M, D] = table[clip(idx, 0, N - 1)], in the table's type (f32
+    or bf16); `idx` int32 [M], clipped in the kernel."""
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_ref(table, idx)
     if table.dtype not in _ROW_COPY:
@@ -127,20 +139,20 @@ def _dequant(table: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor,
     """out [M, D] = float(table[idx]) * scales[idx][:, None] by the
     dequant's kernel on its plan, the operands checked by the caller;
     `out` may be any contiguous f32 buffer."""
-    m, d = idx.shape[0], table.shape[1]
+    (n, d), m = table.shape, idx.shape[0]
     plan = dq_plan(m, d, table.data_ptr(), out.data_ptr())
     B.check(B.lib().repro_gather_rows_dq(
         table.data_ptr(), scales.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        m, d, *plan, B.stream_ptr(out.device)), "gather_rows_dq")
+        m, n, d, *plan, B.stream_ptr(out.device)), "gather_rows_dq")
     B.launch_counts["gather_rows_dq"] += 1
     return out
 
 
 def gather_rows_dq(table: torch.Tensor, scales: torch.Tensor,
                    idx: torch.Tensor) -> torch.Tensor:
-    """out [M, D] f32 = float(table[idx]) * scales[idx][:, None]: the pull
-    of an int8 table [N, D] with its f32 scale table [N]; `idx` int32
-    [M], pre-clipped to [0, N)."""
+    """out [M, D] f32 = float(table[t]) * scales[t][:, None], t =
+    clip(idx, 0, N - 1): the pull of an int8 table [N, D] with its f32
+    scale table [N]; `idx` int32 [M], clipped in the kernel."""
     if all(t.device.type == "cpu" for t in (table, scales, idx)):
         return gather_rows_dq_ref(table, scales, idx)
     name = "gather_rows_dq"
@@ -167,10 +179,10 @@ def check_codebook(name: str, codebook: torch.Tensor, width: int) -> None:
 
 def gather_rows_vq(table: torch.Tensor, codebook: torch.Tensor,
                    scales: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out [M, S*8] f32 = decode(table[idx], codebook) * scales[idx][:, None]:
-    the pull of a vq table (uint8 codes [N, S]) with its codebook [S, 256,
-    8] f32 and its f32 scale table [N]; `idx` int32 [M], pre-clipped to
-    [0, N). Unpadded: exactly S*8 columns."""
+    """out [M, S*8] f32 = decode(table[t], codebook) * scales[t][:, None],
+    t = clip(idx, 0, N - 1): the pull of a vq table (uint8 codes [N, S])
+    with its codebook [S, 256, 8] f32 and its f32 scale table [N]; `idx`
+    int32 [M], clipped in the kernel. Unpadded: exactly S*8 columns."""
     operands = (table, codebook, scales, idx)
     if all(t.device.type == "cpu" for t in operands):
         return gather_rows_vq_ref(table, codebook, scales, idx)
@@ -183,13 +195,24 @@ def gather_rows_vq(table: torch.Tensor, codebook: torch.Tensor,
     check_codebook(name, codebook, s_n)
     if scales.shape != (n,):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} != {(n,)}")
-    m = idx.shape[0]
-    out = torch.empty((m, s_n * 8), dtype=torch.float32, device=dev)
+    out = torch.empty((idx.shape[0], s_n * 8), dtype=torch.float32,
+                      device=dev)
+    return _decode(table, codebook, scales, idx, out)
+
+
+def _decode(table: torch.Tensor, codebook: torch.Tensor,
+            scales: torch.Tensor, idx: torch.Tensor,
+            out: torch.Tensor) -> torch.Tensor:
+    """out [M, S*8] = the decoding pull by its kernel on `vq_plan`, the
+    operands checked by the caller; `out` may be any contiguous f32
+    buffer (the kernel refuses one that is not 16-byte aligned)."""
+    (n, s_n), m = table.shape, idx.shape[0]
+    _, shift, unroll, ctas = vq_plan(m, s_n)
     B.check(B.lib().repro_gather_rows_vq(
         table.data_ptr(), codebook.data_ptr(), scales.data_ptr(),
-        idx.data_ptr(), out.data_ptr(), m, s_n, codebook.shape[1],
-        B.stream_ptr(dev)), name)
-    B.launch_counts[name] += 1
+        idx.data_ptr(), out.data_ptr(), m, n, s_n, codebook.shape[1], shift,
+        unroll, ctas, B.stream_ptr(out.device)), "gather_rows_vq")
+    B.launch_counts["gather_rows_vq"] += 1
     return out
 
 

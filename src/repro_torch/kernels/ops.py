@@ -34,7 +34,7 @@ from .fused import gather_plan, gather_spmm
 from .gather import gather_rows, gather_rows_dq, gather_rows_vq
 from .pna_reduce import (pna_reduce_bwd_col, pna_reduce_bwd_row,
                          pna_reduce_fwd)
-from .ref import edge_softmax_coo, pna_reduce_coo
+from .ref import edge_softmax_coo, pna_reduce_coo, segment_sum
 from .scatter import scatter_rows, scatter_rows_q, scatter_rows_vq
 
 
@@ -137,15 +137,14 @@ def gcn_aggregate(x_all: torch.Tensor, edges, edge_w: torch.Tensor,
     With `blocks = (blk_vals, blk_cols[, blk_vals_t, blk_cols_t])` it runs
     the block SpMM (`bcsr_spmm`, forward and, on the transposed pair,
     backward); with blocks=None it sums over the padded COO in plain
-    tensor code (`index_add_`), the route of the full-graph forward
-    (`full_forward`, `evaluate_exact`) and of the distributed superstep
-    (`core.dist_gas`), as in the reference."""
+    tensor code (`ref.segment_sum`, the same bits on every run), the
+    route of the full-graph forward (`full_forward`, `evaluate_exact`)
+    and of the distributed superstep (`core.dist_gas`), as in the
+    reference."""
     if blocks is None:
         dst, src = edges
         msg = x_all[src.long()] * edge_w[:, None]
-        out = torch.zeros((n_out + 1, x_all.shape[1]), dtype=msg.dtype,
-                          device=msg.device)
-        return out.index_add_(0, dst.long(), msg)[:n_out]
+        return segment_sum(dst.long(), msg, n_out + 1)[:n_out]
     t = tuple(blocks[2:4]) if len(blocks) >= 4 else (None, None)
     return spmm(x_all, blocks[0], blocks[1], *t)[:n_out]
 
@@ -345,15 +344,16 @@ def pna_reduce(xd: torch.Tensor, xs: torch.Tensor, edges,
 def pull_rows(table: torch.Tensor, idx: torch.Tensor, *,
               scales: Optional[torch.Tensor] = None,
               codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """History pull: out[i] = table[idx[i]] (idx clipped to [0, N)), in
-    the table's type for f32 and bf16 tables. With `scales` [N] f32 the
+    """History pull: out[i] = table[idx[i]] (idx clipped to [0, N) inside
+    the pull's one kernel launch), in the table's type for f32 and bf16
+    tables. With `scales` [N] f32 the
     table holds int8 rows and the pull dequantizes: out[i] =
     float(table[idx[i]]) * scales[idx[i]] in f32 (`gather_rows_dq`, the
     multiply fused into the row gather, so only int8 table bytes are
     read). With `codebook` [S, 256, 8] as well, the table holds uint8 vq
     code rows [N, S] and the pull decodes them into [M, S*8] f32
     (`gather_rows_vq`: only S code bytes per row are read)."""
-    idx = torch.clamp(idx, 0, table.shape[0] - 1).to(torch.int32)
+    idx = idx.to(torch.int32)      # the batches' indices are int32 already
     if codebook is not None:
         return gather_rows_vq(table, codebook, scales, idx)
     if scales is not None:

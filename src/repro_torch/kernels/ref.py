@@ -26,7 +26,10 @@ sum over the last axis adds them.
 they are the per-edge (segment) routes of the reference's "jnp" backend,
 which `full_forward` and `evaluate_exact` run in plain tensor code, as
 the reference's `evaluate_exact` does on every backend, and so does the
-distributed superstep (`core.dist_gas`), as the reference's does.
+distributed superstep (`core.dist_gas`), as the reference's does. Every
+per-destination sum of those routes goes through `segment_sum`, the
+reference's `jax.ops.segment_sum`: the same bits on every run, on the
+card too.
 """
 from __future__ import annotations
 
@@ -132,10 +135,16 @@ def vq_decode_rows(codes: torch.Tensor, codebook: torch.Tensor,
         scales[:, None].to(torch.float32)
 
 
+def _clipped(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """A pull's row indices clipped to [0, n - 1], as its kernel clips
+    them (and the reference's `pull_rows`, with `jnp.clip`)."""
+    return idx.long().clamp(0, n - 1)
+
+
 def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = table[idx[i]] (f32 or bf16 rows, in the table's type);
-    idx pre-clipped to [0, N)."""
-    return table[idx.long()]
+    """out[i] = table[clip(idx[i], 0, N-1)] (f32 or bf16 rows, in the
+    table's type)."""
+    return table[_clipped(idx, table.shape[0])]
 
 
 def gather_rows_raw_ref(table: torch.Tensor,
@@ -143,25 +152,25 @@ def gather_rows_raw_ref(table: torch.Tensor,
     """out[i] = table[clip(idx[i], 0, N-1)], the raw storage bits of a
     row of any type (a 1-d table's rows are single elements): the plain
     version of `gather_rows_raw`, the epoch pipeline's prefetch."""
-    return table[idx.long().clamp(0, table.shape[0] - 1)]
+    return table[_clipped(idx, table.shape[0])]
 
 
 def gather_rows_dq_ref(table: torch.Tensor, scales: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
-    """The dequantizing pull: out[i] = float(q[idx[i]]) * scales[idx[i]]
-    in f32, bitwise `dequantize_rows` of the gathered rows; idx
-    pre-clipped to [0, N)."""
-    i = idx.long()
+    """The dequantizing pull: out[i] = float(q[t]) * scales[t] in f32, t =
+    clip(idx[i], 0, N-1), bitwise `dequantize_rows` of the gathered
+    rows."""
+    i = _clipped(idx, table.shape[0])
     return dequantize_rows(table[i], scales[i])
 
 
 def gather_rows_vq_ref(table: torch.Tensor, codebook: torch.Tensor,
                        scales: torch.Tensor, idx: torch.Tensor
                        ) -> torch.Tensor:
-    """The decoding pull of a vq table: out[i] = decode(table[idx[i]]) *
-    scales[idx[i]] in f32 [M, S*ds], bitwise `vq_decode_rows` of the
-    gathered code rows; idx pre-clipped to [0, N)."""
-    i = idx.long()
+    """The decoding pull of a vq table: out[i] = decode(table[t]) *
+    scales[t] in f32 [M, S*ds], t = clip(idx[i], 0, N-1), bitwise
+    `vq_decode_rows` of the gathered code rows."""
+    i = _clipped(idx, table.shape[0])
     return vq_decode_rows(table[i], codebook, scales[i])
 
 
@@ -254,8 +263,8 @@ def _gather_blocks(rows: torch.Tensor, blk_cols: torch.Tensor,
     """[n, D] rows -> [R, K, bn, D]: the bn-row block at each column block
     id, rows past n reading as zeros."""
     n, D = rows.shape
-    pad = -(-n // bn) * bn - n
-    xb = F.pad(rows, (0, 0, 0, pad)).view(-1, bn, D)
+    nb = -(-n // bn)        # named: view cannot infer -1 when D = 0
+    xb = F.pad(rows, (0, 0, 0, nb * bn - n)).view(nb, bn, D)
     return xb[blk_cols.long()]
 
 
@@ -423,6 +432,22 @@ def edge_softmax_bwd_col_ref(ad, as_, wx, g, M_, L_, delta, ublk_vals_t,
             das.reshape(R_t * bn, H)[:n_src])
 
 
+def segment_sum(dst: torch.Tensor, msg: torch.Tensor, n: int) -> torch.Tensor:
+    """out [n, ...] = per destination the sum of the rows of `msg` whose
+    `dst` names it (zeros where none does); `dst` int64 [E] in [0, n),
+    `msg` [E, ...]. Differentiable w.r.t. `msg` (its gradient is a
+    gather). On the CPU it is `index_add`, which adds each destination's
+    rows in edge order. On the card `index_add` adds with atomics in an
+    order that changes from run to run; `index_put_` with
+    accumulate=True sorts the edges by destination (a stable radix sort)
+    and reduces each destination's run, so the sum has the same bits on
+    every run."""
+    out = msg.new_zeros((n,) + tuple(msg.shape[1:]))
+    if msg.device.type == "cpu":
+        return out.index_add(0, dst, msg)
+    return out.index_put((dst,), msg, accumulate=True)
+
+
 def edge_softmax_coo(wx: torch.Tensor, ad: torch.Tensor, as_: torch.Tensor,
                      edges, edge_w: torch.Tensor, n_out: int,
                      neg_slope: float = 0.2) -> torch.Tensor:
@@ -446,11 +471,9 @@ def edge_softmax_coo(wx: torch.Tensor, ad: torch.Tensor, as_: torch.Tensor,
     emax = F.pad(emax, (0, 0, 0, 1))                        # trash row
     ee = torch.exp(e - emax[dst])
     ee = torch.where(valid, ee, torch.zeros_like(ee))
-    denom = torch.zeros((n_out + 1, H), dtype=e.dtype, device=e.device
-                        ).index_add(0, dst, ee)[:n_out]
+    denom = segment_sum(dst, ee, n_out + 1)[:n_out]
     msg = ee[:, :, None] * wx[src]
-    out = torch.zeros((n_out + 1,) + wx.shape[1:], dtype=msg.dtype,
-                      device=msg.device).index_add(0, dst, msg)[:n_out]
+    out = segment_sum(dst, msg, n_out + 1)[:n_out]
     tiny = torch.finfo(denom.dtype).tiny
     return out / torch.clamp(denom, min=tiny)[:, :, None]
 
@@ -592,9 +615,8 @@ def pna_reduce_coo(xd: torch.Tensor, xs: torch.Tensor, edges,
     n1, Fd = n_out + 1, pre.shape[1]
     big = torch.finfo(pre.dtype).max / 2        # the reference's -neg_cap
     idx = dst[:, None].expand(-1, Fd)
-    cnt = pre.new_zeros(n1).index_add(0, dst, valid[:, 0].to(pre.dtype))
-    s = pre.new_zeros((n1, Fd)).index_add(
-        0, dst, torch.where(valid, pre, 0.0))[:n_out]
+    cnt = segment_sum(dst, valid[:, 0].to(pre.dtype), n1)
+    s = segment_sum(dst, torch.where(valid, pre, 0.0), n1)[:n_out]
     has = (cnt[:n_out] > 0)[:, None]
     out = [s]
     for fill, reduce in ((big, "amin"), (-big, "amax")):
@@ -604,10 +626,10 @@ def pna_reduce_coo(xd: torch.Tensor, xs: torch.Tensor, edges,
         # the value is the detached extreme; its gradient reaches each
         # tied edge as g / ties through a term that adds exact zeros
         tie = valid & (v == ext[dst])
-        ties = pre.new_zeros((n1, Fd)).index_add(0, dst, tie.to(pre.dtype))
+        ties = segment_sum(dst, tie.to(pre.dtype), n1)
         share = torch.where(tie, (pre - v) / torch.clamp(ties[dst], min=1.0),
                             0.0)
-        ext = ext + pre.new_zeros((n1, Fd)).index_add(0, dst, share)
+        ext = ext + segment_sum(dst, share, n1)
         out.append(torch.where(has, ext[:n_out], 0.0))
     return out[0], out[1], out[2], cnt[:n_out]
 

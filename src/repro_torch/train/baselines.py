@@ -12,8 +12,8 @@ The port of `repro.train.baselines`. The host sampler is the reference's
 numpy, line for line: from `np.random.default_rng(seed)` it draws the
 same shuffles and neighbor choices, so every sampled batch is bitwise
 the reference's. Both baselines aggregate over a COO in plain tensor
-code (`index_add_`), as the reference does with `jax.ops.segment_sum`
-outside any kernel. Initial weights are the reference's distribution
+code (`kernels.ref.segment_sum`, the same bits on every run), as the
+reference does with `jax.ops.segment_sum` outside any kernel. Initial weights are the reference's distribution
 (Glorot) drawn from a `torch.Generator` seeded with `tcfg.seed`, not its
 bits. The reference jits the step; the port runs it eagerly, updating
 params and moments in place. Entry points run on the card unless the
@@ -32,6 +32,7 @@ from repro_torch.core.runtime import _accuracy, masked_cross_entropy
 from repro_torch.data.graphs import Graph
 from repro_torch.gnn import layers as L
 from repro_torch.gnn.model import to_device
+from repro_torch.kernels.ref import segment_sum
 from .gas_trainer import TrainConfig
 from .optimizer import (adamw_init, adamw_update, clip_by_global_norm,
                         grad_leaves)
@@ -212,7 +213,7 @@ class SGCTrainer:
         x = torch.from_numpy(graph.x).to(dev)
         for _ in range(k):   # Â^k X precomputed once (decoupled propagation)
             msg = x[src.long()] * w[:, None]
-            x = torch.zeros_like(x).index_add_(0, dst.long(), msg)
+            x = segment_sum(dst.long(), msg, x.shape[0])
         self.features = x
         gen = torch.Generator().manual_seed(tcfg.seed)
         self.params = to_device(

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import runtime as r_rt
 from repro.data.graphs import citation_graph as r_citation

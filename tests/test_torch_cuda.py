@@ -19,7 +19,10 @@ torch.exp in the last bits); a warm repeat of each kernel is bitwise
 identical (no atomics). Quantized training steps hold the tables as
 dequantized values within one quantization step s_i per row, with at
 least 99.9% of the codes equal: a pushed value a rounding away from a
-code's .5 boundary may land on the other side. The vq kernels: the
+code's .5 boundary may land on the other side. Every history pull
+(`ops.pull_rows` over an f32, bf16, int8 or vq table) is one device
+kernel that clips its indices itself, bitwise its plain version for
+indices below 0 and past N - 1. The vq kernels: the
 decoding pull and the encoding push bitwise (codes, scales, decoded
 rows: one division, distances summed left to right, the first minimum,
 one multiply), the fused vq body at 1e-5, a refit on the card against
@@ -54,7 +57,9 @@ store's `grow` right after a queued push (pinned, bitwise the device
 store's). Distributed GAS: 2 gloo ranks on the card (both on cuda:0
 with one card) against the same ranks on the CPU: f32, bf16 and int8
 halos bitwise, and GCNII's and an int8 GCN's supersteps (loss and
-summed gradients at 1e-5, int8 codes >= 99.9% equal)."""
+summed gradients at 1e-5, int8 codes >= 99.9% equal). The full-graph
+forward (`full_forward`, every sum of its COO route through
+`ref.segment_sum`) of all six operators bitwise across two runs."""
 import dataclasses
 
 import numpy as np
@@ -73,7 +78,9 @@ from repro_torch.kernels import pna_reduce as pnk
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
 from repro_torch.kernels.decode_attn import _sm_count, flash_decode
 from repro_torch.kernels.fused import gather_plan, gather_spmm
+from repro_torch.core.gas import gcn_edge_weights
 from repro_torch.core.history import vq_init_codebook
+from repro_torch.gnn import model as gnn_model
 from repro_torch.kernels.gather import (gather_rows, gather_rows_dq,
                                         gather_rows_vq)
 from repro_torch.kernels.scatter import (SCAN_MAX_ROWS, scatter_rows,
@@ -594,8 +601,11 @@ def test_bf16_row_kernels_match_plain(dev, d):
 
 ROW_PULL_D = (1, 3, 4, 6, 8, 16, 20, 64, 125, 130, 256, 500)
 ROW_PULL_M = (1, 7, 8, 9, 4096)
+# the vq pull's codes a row (subvectors of 8): one to 63, one lane's units
+# and several, rows sharing a warp and a warp's single pass
+ROW_PULL_S = (1, 2, 3, 4, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63)
 ROW_PULL_NAME = {"f32": "gather_rows", "bf16": "gather_rows_bf16",
-                 "int8": "gather_rows_dq"}
+                 "int8": "gather_rows_dq", "vq": "gather_rows_vq"}
 
 
 def _bits(t):
@@ -604,36 +614,45 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("m", ROW_PULL_M)
-@pytest.mark.parametrize("d", ROW_PULL_D)
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind,d", [(k, d) for k in ("f32", "bf16", "int8")
+                                    for d in ROW_PULL_D]
+                         + [("vq", 8 * s) for s in ROW_PULL_S])
 def test_row_pulls_match_plain(dev, kind, d, m):
-    """`gather_rows` over f32 and bf16 tables and `gather_rows_dq` over
-    int8 ones, bitwise their plain versions at the edges of their launch
-    plan (`kernels/gather.py` `row_plan`): rows of 1 to 500 elements
-    (ragged, narrower than a unit, sharing a warp, several passes a
-    lane), 1 to 4,096 rows (one warp part full, one full, one past it, a
+    """`gather_rows` over f32 and bf16 tables, `gather_rows_dq` over int8
+    ones and `gather_rows_vq` over vq codes, bitwise their plain versions
+    at the edges of their launch plans (`kernels/gather.py` `row_plan`,
+    `dq_plan`, `vq_plan`): rows of 1 to 500 elements (ragged, narrower
+    than a unit, sharing a warp, several passes a lane; vq: 1 to 63
+    codes), 1 to 4,096 rows (one warp part full, one full, one past it, a
     wave); a table view offset by one element, and an output offset by
     one element (through the wrappers' launch helpers, since the wrappers
-    allocate aligned outputs), each breaking 16-byte units; duplicate
-    indices and index N - 1; NaN, inf and -0.0 entries copied bit for bit,
-    scales from 0 and subnormal to overflowing products; exactly one
-    launch per call; a warm repeat bit-identical."""
-    from repro_torch.kernels.gather import _dequant, _row_copy
+    allocate aligned outputs), each breaking 16-byte units (the vq
+    decode's float4 stores refuse it); duplicate indices, index N - 1 and
+    indices -7, N and N + 3, which the kernels clip; NaN, inf and -0.0
+    entries copied bit for bit (vq codebooks: -0.0, subnormal and huge
+    entries; a NaN product would take the card's canonical NaN), scales
+    from 0 and subnormal to overflowing products; exactly one launch per
+    call; a warm repeat bit-identical."""
+    from repro_torch.kernels.gather import _decode, _dequant, _row_copy
     rng = np.random.default_rng(1000 * d + m)
     n, name = 301, ROW_PULL_NAME[kind]
     idx = rng.integers(0, n, m).astype(np.int32)
-    idx[0] = n - 1
+    k = min(m, 4)
+    idx[:k] = (n - 1, -7, n, n + 3)[:k]
     idx[-1] = idx[m // 2]
     idx_c = torch.from_numpy(idx)
     idx_d = idx_c.to(dev)
-    if kind == "int8":
-        flat = torch.from_numpy(rng.integers(-128, 128, n * d + 1,
-                                             dtype=np.int8))
+    width = d // 8 if kind == "vq" else d
+    if kind in ("int8", "vq"):
         s = (rng.random(n) * 10.0 ** rng.integers(-40, 38, n)).astype(
             np.float32)
         s[:3] = (0.0, 1e-40, 3e38)
         scales = torch.from_numpy(s)
         scales_d = scales.to(dev)
+        out_dtype = torch.float32
+    if kind == "int8":
+        flat = torch.from_numpy(rng.integers(-128, 128, n * d + 1,
+                                             dtype=np.int8))
 
         def plain(t):
             return ref.gather_rows_dq_ref(t, scales, idx_c)
@@ -643,8 +662,22 @@ def test_row_pulls_match_plain(dev, kind, d, m):
 
         def pull_into(t, out):
             return _dequant(t, scales_d, idx_d, out)
+    elif kind == "vq":
+        flat = torch.from_numpy(rng.integers(0, 256, n * width + 1,
+                                             dtype=np.uint8))
+        c = rng.normal(size=(width, 256, 8)).astype(np.float32)
+        c[0, 1, :3] = (-0.0, 1e-40, 3e38)   # no NaN: the card's is canonical
+        cb = torch.from_numpy(c)
+        cb_d = cb.to(dev)
 
-        out_dtype = torch.float32
+        def plain(t):
+            return ref.gather_rows_vq_ref(t, cb, scales, idx_c)
+
+        def pull(t):
+            return gather_rows_vq(t, cb_d, scales_d, idx_d)
+
+        def pull_into(t, out):
+            return _decode(t, cb_d, scales_d, idx_d, out)
     else:
         v = rng.normal(size=n * d + 1).astype(np.float32)
         v[:4] = (np.nan, np.inf, -0.0, -np.inf)
@@ -664,11 +697,16 @@ def test_row_pulls_match_plain(dev, kind, d, m):
     flat_d = flat.to(dev)
     for t_off, o_off in ((0, 0), (1, 0), (0, 1)):
         case = (kind, d, m, t_off, o_off)
-        table_d = flat_d[t_off:t_off + n * d].view(n, d)
-        want = _bits(plain(flat[t_off:t_off + n * d].view(n, d)))
+        table_d = flat_d[t_off:t_off + n * width].view(n, width)
+        want = _bits(plain(flat[t_off:t_off + n * width].view(n, width)))
         before = _build.launch_counts[name]
         if o_off:
             buf = torch.empty(m * d + 1, dtype=out_dtype, device=dev)
+            if kind == "vq":
+                with pytest.raises(RuntimeError, match="misaligned"):
+                    pull_into(table_d, buf[1:].view(m, d))
+                assert _build.launch_counts[name] == before, case
+                continue
             got = pull_into(table_d, buf[1:].view(m, d))
         else:
             got = pull(table_d)
@@ -678,6 +716,68 @@ def test_row_pulls_match_plain(dev, kind, d, m):
         assert torch.equal(_bits(got).cpu(), want), case
         if not (t_off or o_off):
             assert torch.equal(_bits(pull(table_d)), _bits(got)), case
+
+
+@pytest.mark.parametrize("hd", ["f32", "bf16", "int8", "vq"])
+def test_pull_rows_is_one_device_kernel(dev, hd):
+    """`ops.pull_rows`, the history pull of every store, given int32
+    indices (as the batches hold them) with -7, N and N + 3 among them:
+    torch.profiler sees exactly one device kernel a call, the pull's own
+    (the clip runs inside it), and the rows are bitwise the plain
+    version's."""
+    rng = np.random.default_rng(7)
+    n, d, m = 301, 64, 274
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx[:3] = (-7, n, n + 3)
+    v = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    kw = {}
+    if hd in ("f32", "bf16"):
+        table = v.to(torch.bfloat16) if hd == "bf16" else v
+    elif hd == "int8":
+        table, s = ref.quantize_rows(v)
+        kw = dict(scales=s)
+    else:
+        cb = vq_init_codebook(d, device="cpu")
+        table, s = ref.vq_encode_rows(v, cb)
+        kw = dict(scales=s, codebook=cb)
+    want = ops.pull_rows(table, torch.from_numpy(idx), **kw)
+    table_d, idx_d = table.to(dev), torch.from_numpy(idx).to(dev)
+    kw_d = {k: t.to(dev) for k, t in kw.items()}
+    got = ops.pull_rows(table_d, idx_d, **kw_d)
+    assert torch.equal(_bits(got).cpu(), _bits(want))
+    kernels = _device_kernels(lambda: ops.pull_rows(table_d, idx_d, **kw_d))
+    assert len(kernels) == 1 and "gather_rows" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("op", ["gcn", "gat", "pna", "gin", "gcnii",
+                                "appnp"])
+def test_full_forward_bitwise_across_runs(dev, op):
+    """`full_forward` (the full-graph route of `evaluate_exact` and of
+    serving's SLO=0 check: every per-destination sum through
+    `ref.segment_sum`) twice on fresh copies of the features and the
+    COO, another allocation between them so that the second lands
+    elsewhere: the two outputs bitwise equal. Atomic adds would order
+    each destination's sum by arrival."""
+    g = citation_graph(num_nodes=6000, num_features=96, num_classes=3,
+                       seed=2)
+    spec = GNNSpec(op=op, d_in=96, d_hidden=48 if op == "pna" else 64,
+                   num_classes=3, num_layers=3, heads=4,
+                   log_deg_mean=1.8 if op == "pna" else 1.0)
+    params = gnn_model.init_gnn(spec, seed=0, device=dev)
+    dst, src, w = gcn_edge_weights(g)
+    outs, spacers = [], []
+    for _ in range(2):
+        x = torch.from_numpy(g.x).to(dev)
+        coo = (torch.from_numpy(dst).to(dev), torch.from_numpy(src).to(dev))
+        ew = torch.from_numpy(w).to(dev)
+        outs.append(gnn_model.full_forward(params, spec, x, coo, ew,
+                                           g.num_nodes))
+        spacers.append(torch.empty(12345, device=dev))
+    torch.cuda.synchronize()
+    assert outs[0].shape == (g.num_nodes, 3)
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(_bits(outs[0]), _bits(outs[1])), \
+        float((outs[0] - outs[1]).abs().max())
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])

@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import dist_gas as r_dg
 from repro.core.partition import metis_like_partition as r_metis
@@ -256,8 +257,9 @@ def runs(tmp_path_factory):
     for name, ps in params.items():
         inp.update({f"{name}/{k}": v for k, v in ps.items()})
     np.savez(tmp / "in.npz", **inp)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={RANKS}")
+    env = _torch_threads.subprocess_env(
+        PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+        XLA_FLAGS=f"--xla_force_host_platform_device_count={RANKS}")
     env.pop("REPRO_HISTORY_DTYPE", None)
     proc = subprocess.Popen(
         [sys.executable, __file__, "--reference", str(tmp / "in.npz"),

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import delta as r_delta
 from repro.core import dynamic as r_dyn

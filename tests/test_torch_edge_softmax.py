@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.kernels import edge_softmax as r_esk
 from repro.kernels import ops as r_ops
@@ -144,6 +145,40 @@ def test_edge_softmax_empty_rows_and_poisoned_sources():
                                  T(as_), (T(edges[0]), T(edges[1])), T(w),
                                  n_out)
     np.testing.assert_allclose(coo.numpy(), clean.numpy(), **BWD)
+
+
+@pytest.mark.parametrize("H", [1, 3, 70])
+def test_edge_softmax_plain_versions_at_zero_features(H):
+    """Heads of F = 0 features, as the kernels take them on the card
+    (`tests/test_torch_cuda.py::test_edge_softmax_zero_features`): out
+    and dwx are empty, M, L, dad and das bitwise what the plain versions
+    give at F = 1 on zero features (the g . wx terms vanish either way),
+    and dad and das 0 under the delta the op hands them there (sum_f g *
+    out over no feature)."""
+    _, _, (uv, uc, uvt, uct), rng = _problem(seed=H, empty_from=280)
+    uv, uc, uvt, uct = (T(a) for a in (uv, uc, uvt, uct))
+    ad = T(rng.normal(size=(300, H)).astype(np.float32))
+    as_ = T(rng.normal(size=(600, H)).astype(np.float32))
+    z = torch.zeros
+    out, mm, ll = t_ref.edge_softmax_fwd_ref(ad, as_, z(600, H, 0), uv, uc)
+    _, mm1, ll1 = t_ref.edge_softmax_fwd_ref(ad, as_, z(600, H, 1), uv, uc)
+    assert out.shape == (300, H, 0)
+    assert torch.equal(mm, mm1) and torch.equal(ll, ll1)
+    for delta in (T(rng.normal(size=(300, H)).astype(np.float32)),
+                  z(300, H)):
+        got = [t_ref.edge_softmax_bwd_row_ref(
+            ad, as_, z(600, H, f), z(300, H, f), mm, ll, delta, uv, uc)
+            for f in (0, 1)]
+        cols = [t_ref.edge_softmax_bwd_col_ref(
+            ad, as_, z(600, H, f), z(300, H, f), mm, ll, delta, uvt, uct)
+            for f in (0, 1)]
+        assert cols[0][0].shape == (600, H, 0)
+        assert torch.equal(got[0], got[1])
+        assert torch.equal(cols[0][1], cols[1][1])
+        if not delta.any():
+            assert not got[0].any() and not cols[0][1].any()
+        else:
+            assert got[0].any() and cols[0][1].any()
 
 
 @pytest.mark.parametrize("H,F", [(2, 8), (1, 7)])

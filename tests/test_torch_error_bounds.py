@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 try:
     from hypothesis import given, settings

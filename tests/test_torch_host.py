@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import delta as r_delta
 from repro.core import gas as r_gas

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro_torch.core import dist_gas as t_dist
 from repro_torch.core import runtime as t_rt
@@ -49,7 +50,7 @@ def test_import_leaves_jax_and_reference_out():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "print(bad)\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_threads.subprocess_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -139,7 +140,7 @@ def test_unported_options_raise():
 def test_distributed_example_runs_on_cpu_when_asked():
     """The example's command line with --device cpu: 2 spawned gloo ranks,
     a few supersteps on a small graph, its test accuracy printed."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_threads.subprocess_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.examples.distributed_gas",
          "--device", "cpu", "--ranks", "2", "--supersteps", "3", "--nodes",
@@ -159,7 +160,7 @@ def test_distributed_example_runs_on_cpu_when_asked():
 def test_examples_run_on_cpu_when_asked(example, args, expect):
     """The seq-GAS and deep-GNN examples' command lines with --device cpu
     at a small size."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_threads.subprocess_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", f"repro_torch.examples.{example}", "--device",
          "cpu", *args], capture_output=True, text=True, env=env,

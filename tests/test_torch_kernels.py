@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.kernels import bcsr_spmm as r_bcsr
 from repro.kernels import fused as r_fused

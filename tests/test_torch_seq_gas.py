@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.configs import base as r_base
 from repro.core import seq_gas as r_sg

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import gas as r_gas
 from repro.core import history as r_hist
@@ -287,7 +288,7 @@ def test_load_reference_checkpoint(tmp_path):
 
 
 def test_launcher_smoke_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_threads.subprocess_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_gas", "--smoke",
          "--device", "cpu"], capture_output=True, text=True, env=env,

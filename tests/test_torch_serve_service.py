@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch",
                             reason="the PyTorch port's tests need torch")
+import _torch_threads  # noqa: E402  one torch thread a test process
 
 from repro.core import history as r_hist
 from repro.core import serve as r_serve
@@ -631,7 +632,7 @@ def test_two_process_launcher_smoke_cpu(tmp_path):
     on an ephemeral port), `--role frontend --smoke` in another: the
     frontend's smoke holds the SLO contract through the wire, SLO=0 at the
     launcher's SMOKE_TOL of the full forward."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_threads.subprocess_env(PYTHONPATH=str(ROOT / "src"))
     port_file = tmp_path / "port"
     common = [sys.executable, "-m", "repro_torch.launch.serve_gas",
               "--smoke", "--slo", "0", "--device", "cpu", "--op", "gat",
