@@ -103,12 +103,20 @@ with a non-zero exit at the first failure:
    in process from a pinned host store, bitwise the device store; then
    the launcher's two processes (`serve_gas --role backend --port 0
    --port-file F`, started before phase 3c, then `--role frontend
-   --smoke`), each under a timeout, the frontend's smoke OK. In phase 2
-   `scatter_rows_raw` (the backend's push of a frontend's encoded rows)
-   has its rows: every width bitwise its plain version into pinned and
-   device tables at the frontend's 128-row query push, timed into both
-   beside the plain version, `index_copy_` or a pinned copy, and the
-   bound.
+   --smoke`), each under a timeout, the frontend's smoke OK. Each split
+   run asserts one `gather_rows_raw` launch a prefetch (an `_op_pull`,
+   or a host store's pull in the backend's refresh) and one
+   `scatter_rows_raw` launch an `_op_push`. In phase 2
+   `scatter_rows_raw_many` (the backend's push of a frontend's encoded
+   rows, every layer's table and scale table in one launch) has its
+   rows: every width bitwise its plain version into pinned and device
+   tables, one a call and all in one call, then the split int8 push (2
+   layers of codes and scales into pinned tables) and the split f32
+   push (2 layers into device tables) at the frontend's 128-row query
+   push, each beside the launch floor on its grid, a pinned line's round
+   trip (a one-row pull), the plain version, a pinned copy or
+   `index_copy_`, the bound and, with --parent-csrc, the parent's
+   one-table kernels once a table.
 3b. decode — first `flash_decode` against its plain version at qwen3's
    attention shapes (8 KV heads, G = 2, Dh = 128): B = 8 over a
    4,096-slot cache at pos 3,000, 0 and past the end (a rolling buffer),
@@ -198,14 +206,21 @@ with a non-zero exit at the first failure:
    and device/1 in turn. For each: bitwise equal to device/0 (params,
    moments, tables, scales, codes, codebooks, clock, epoch metrics),
    the store's device and host bytes, the run's peak device memory,
-   step p50/p99, the launches of `gather_rows_raw` and the pushes, and
-   every host table pinned. Then one depth-1 host epoch of GAT under
-   torch.profiler in a child process: the device's busy share and how
-   much of the side stream's prefetch time overlaps main-stream kernels.
-   In phase 2 `gather_rows_raw` has its rows: every element width
-   bitwise its plain version from a pinned and a device table, and its
-   time at GAT's halo from each, beside the host link's bandwidth
-   (one large pinned copy).
+   step p50/p99, the launches of `gather_rows_raw` (asserted one a
+   prefetch) and the pushes, one prefetch's host time to enqueue and
+   device time (with --parent-csrc beside the parent's, one launch a
+   table), and every host table pinned. Then one depth-1 host epoch of
+   GAT under torch.profiler in a child process: the device's busy share
+   and how much of the side stream's prefetch time overlaps main-stream
+   kernels. In phase 2 `gather_rows_raw_many` has its rows: every element
+   width bitwise its plain version from a pinned and a device table, one
+   a call and all in one call, then each run's prefetch at the shape it
+   pulls (GAT vq's codes and scales, GCNII-32L's 31 f32 tables, the GCN
+   quickstart's one table), from pinned and from device tables, beside
+   the launch floor on the grid the C entry plans for it, a pinned
+   line's round trip, a bound over the link's nominal PCIe Gen5 x16 rate
+   beside the rate one large pinned copy reaches and, with
+   --parent-csrc, the parent's one-table kernels once a table.
 7. evolving graphs — `benchmarks/dyn_bench.py`'s configuration at its
    full size (2,500 nodes, 32 features, homophily 0.8, seed 77; a
    3-layer GCN, 64 wide; 8 parts, its METIS partition computed in a
@@ -314,7 +329,11 @@ indices clipped once before any timing), `scatter_rows` (f32 and bf16),
 (at both push shapes; and on rows holding inf and NaN, bitwise),
 `flash_decode`, the three edge-softmax kernels and PNA's three kernels
 beside this build's on the same inputs in phases 2 and 3b, their
-outputs compared.
+outputs compared; and the raw pull and push (its one-table
+`repro_gather_rows_raw` and `repro_scatter_rows_raw`, bound by
+`_parent_raw_entries`, once a table back to back, timed as one) on every
+row-18 and row-19 line of phase 2 and on one prefetch of each phase-6
+run.
 
     python3 chip_smoke.py --pna-edges 2,8
 
@@ -389,10 +408,10 @@ from repro_torch.kernels.decode_attn import flash_decode  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
     dq_plan, gather_rows, gather_rows_dq, gather_rows_raw,
-    gather_rows_vq, row_plan, vq_plan)
+    gather_rows_raw_many, gather_rows_vq, row_plan, vq_plan)
 from repro_torch.kernels.scatter import (  # noqa: E402
     SCAN_MAX_ROWS, scatter_rows, scatter_rows_q, scatter_rows_raw,
-    scatter_rows_vq)
+    scatter_rows_raw_many, scatter_rows_vq)
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.train import checkpoint as CK  # noqa: E402
@@ -452,6 +471,19 @@ PNA_EDGE_LIBS = {}
 # GAT over vq pulls its halo rows through gather_rows_vq and its features
 # through gather_rows)
 PARENT_EPOCH_RUN = ("gat", "vq")
+# the host link's nominal rate one way, bytes/s: PCIe Gen5 x16, 32 GT/s on
+# each of 16 lanes under 128b/130b line coding (63.0 GB/s; NVIDIA's H100
+# data sheet gives 128 GB/s both ways). The bound of a pinned raw line is
+# its bytes over it; the rate one pinned copy reaches is printed beside.
+PCIE_GEN5_X16 = 32e9 * 16 / 8 * 128 / 130
+RAW_GATHER_SOURCE = "src/repro_torch/kernels/csrc/gather.cu"
+RAW_GATHER_REPLACES = ("src/repro/core/history.py:595-601 (jnp.take of "
+                       "every layer's table and scales in prefetch; no "
+                       "pallas_call)")
+RAW_SCATTER_SOURCE = "src/repro_torch/kernels/csrc/scatter.cu"
+RAW_SCATTER_REPLACES = ("src/repro/core/serve_service.py:255-298 (.at[].set "
+                        "of every layer's table and scales in "
+                        "HistoryBackend._op_push; no pallas_call)")
 # the history pulls' kernels (`ops.pull_rows`), one launch a pull
 PULL_KERNELS = ("gather_rows", "gather_rows_bf16", "gather_rows_dq",
                 "gather_rows_vq")
@@ -1795,7 +1827,7 @@ def kernel_phase(g, spec, device):
         uniq_idx, uniq_vals, blk_bytes, nnz)
     rows += _vq_kernel_rows(hist, x_in, vals, cols, (sel, xrow, trow),
                             vals_p, dup, push_idx, blk_bytes, nnz)
-    rows += _raw_scatter_rows(kplan, q0, hist, gen)
+    rows += _raw_scatter_rows(kplan, q0, hist, gen, spec.hist_dims())
     for r in rows:
         _phase("kernels", f"{r['name']}: err {r['max_abs_err']:.3g}, "
                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -2538,7 +2570,7 @@ def training_kernel_phase(plans, device, clock_hz):
                                                   o["max_abs_err"])
         rows.append(row)
     rows += _history_pull_rows(plans["gat"], device, gen, clock_hz)
-    rows += _raw_gather_rows(plans["gat"], device, gen)
+    rows += _raw_gather_rows(plans, device, gen)
     rows += _pna_kernel_rows(plans["pna"], device, gen)
     rows += _zoo_kernel_rows(plans, device, gen)
 
@@ -3244,6 +3276,29 @@ def _timed_calls(obj, name, times):
             delattr(obj, name)
 
 
+@contextlib.contextmanager
+def _counted_calls(obj, name):
+    """Count the calls of `obj.name` (a module function, a class's method,
+    or an instance's) while the context is open: yields a one-entry
+    list."""
+    fn = getattr(obj, name)
+    own = name in vars(obj)
+    n = [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    setattr(obj, name, counted)
+    try:
+        yield n
+    finally:
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
+
+
 def table5_phase(device, part, summaries):
     """Table 5 at its full sizes through the port's trainers on the card:
     GraphSAGE (its host sampler, then each step on the card), SGC, and
@@ -3365,100 +3420,372 @@ def _profiled_epoch(plan, state) -> str:
 
 
 
-def _raw_gather_rows(plan, device, gen):
-    """Phase 2: `gather_rows_raw` at the GAT hidden layer's halo (batch
-    0's halo ids, d = 64 f32, the sentinel's padding clipped in the
-    kernel), bitwise its plain version for every element width a store
-    holds (f32 and bf16 rows, int8 codes, vq's uint8 codes, the f32
-    scales as 1-wide rows), each from a pinned host table and from a
-    device table. Timed from both beside the plain version and the
-    library: from the pinned table a contiguous non_blocking copy of the
-    same bytes to the card, its bound the pulled rows over the host
-    link's bandwidth measured here (one 64 MiB pinned copy_); from the
-    device table `index_select`, its bound by HBM bytes. Returns the two
-    rows (their launches from phase 6's GAT vq runs)."""
-    batch = plan.batch(0)
-    n1 = plan.graph.num_nodes + 1
+def _row_bytes(t) -> int:
+    return t[0].numel() * t.element_size() if t.shape[0] else 0
+
+
+def _raw_ctas(entry, tables, rows, m) -> int:
+    """The CTAs, summed over its launches, of a raw pull or push over
+    `tables` and `rows` (the pull's outputs or the pushed rows) of `m`
+    rows, from the C entry's own plan (`entry`:
+    `repro_gather_rows_raw_many_ctas` or
+    `repro_scatter_rows_raw_many_ctas`)."""
+    out = ctypes.c_int64()
+    _build.check(getattr(_build.lib(), entry)(
+        _build.pointers([_build.device_ptr(t) for t in tables]),
+        _build.pointers([r.data_ptr() for r in rows]),
+        _build.int64s([t.shape[0] for t in tables]),
+        _build.int64s([_row_bytes(r) for r in rows]),
+        len(tables), m, ctypes.byref(out)), entry)
+    return out.value
+
+
+def _parent_raw_entries(lib) -> None:
+    """The parent checkout's one-table raw entries (this build has only the
+    many-table ones, whose signatures `_build.load` sets)."""
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    for name, argtypes in (("repro_gather_rows_raw", [p, p, p, i, i, i, p]),
+                           ("repro_scatter_rows_raw",
+                            [p, p, p, p, i, i, i, p])):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+
+def _parent_gather_many(tables, idx):
+    """The parent commit's raw pull of `tables` at `idx`: its one-table
+    wrapper's checks, output and entry once per table, back to back on the
+    current stream. No launch is counted."""
+    outs, m = [], idx.shape[0]
+    for t in tables:
+        dev = _build.require_cuda("gather_rows_raw", idx, pinned=(t,))
+        _build.require_dtype("gather_rows_raw", idx, torch.int32, "idx")
+        out = torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=dev)
+        _build.check(PARENT_LIB.repro_gather_rows_raw(
+            _build.device_ptr(t), idx.data_ptr(), out.data_ptr(), m,
+            t.shape[0], _row_bytes(t), _build.stream_ptr(dev)),
+            "the parent's gather_rows_raw")
+        outs.append(out)
+    return outs
+
+
+def _parent_scatter_many(tables, idx, rows):
+    """The parent commit's raw push: its one-table entry once per table
+    (each deciding its own last writers), back to back on the current
+    stream. In place; no launch is counted."""
+    m = idx.shape[0]
+    for t, r in zip(tables, rows):
+        dev = _build.require_cuda("scatter_rows_raw", idx, r, pinned=(t,))
+        winner = scatter_mod._winner(m, t.shape[0], dev)
+        _build.check(PARENT_LIB.repro_scatter_rows_raw(
+            _build.device_ptr(t), idx.data_ptr(), r.data_ptr(),
+            None if winner is None else winner.data_ptr(), m, t.shape[0],
+            _row_bytes(r), _build.stream_ptr(dev)),
+            "the parent's scatter_rows_raw")
+    return tables
+
+
+def _parent_prefetch(store, idx):
+    """The parent commit's `HistoryStore.prefetch`: one raw pull a layer's
+    table and one a scale table, on the parent's kernels."""
+    idx = idx.to(device=store.device, dtype=torch.int32)
+    return tuple(
+        (_parent_gather_many([store.tables[ell]], idx)[0],
+         None if store.scales is None else
+         _parent_gather_many([store.scales[ell]], idx)[0])
+        for ell in range(store.num_layers))
+
+
+def _link_gbs(device, to_host):
+    """The host link's bandwidth (bytes/s) one way, from one 64 MiB
+    pinned copy_, and its time in ms."""
+    big = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
+    big_d = torch.empty_like(big, device=device)
+    ms = _time_ms(lambda: big.copy_(big_d, non_blocking=True) if to_host
+                  else big_d.copy_(big, non_blocking=True))
+    return big.numel() / (ms * 1e-3), ms
+
+
+def _raw_parent(label, name, parent_fn, same) -> tuple:
+    """(parent ms or None, a phrase): the parent's per-table launches of
+    the same call, timed as one, their outputs held by `same`."""
+    if PARENT_LIB is None:
+        return None, "the parent's kernels not measured (no --parent-csrc)"
+    assert same(parent_fn()), f"{label}: {name} differs from the parent's"
+    old = _time_ms(parent_fn)
+    return old, (f"the parent's one-table kernels, launched once a table "
+                 f"back to back, {old:.4f} ms, outputs bitwise equal")
+
+
+def _copies(tables):
+    """Copies of `tables`, pinned where they are pinned."""
+    return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+            if t.device.type == "cpu" else t.clone() for t in tables]
+
+
+def _raw_pull_line(label, tables, idx, run, link):
+    """One row-18 line: `gather_rows_raw_many` over `tables` (all pinned,
+    or all on the card) at `idx`, bitwise its plain version and the
+    parent's kernels, its time beside the launch floor on the grid its C
+    entry plans, for a pinned line the round trip (a one-row pull from its
+    first table) and the same pull at its distinct rows only (what the
+    repeats cost), the bound (pinned: the distinct rows' bytes over the
+    link's nominal rate, PCIE_GEN5_X16, with `link`, the rate one pinned
+    copy reached in this run, beside it; on the card: HBM bytes), the
+    library (pinned: one contiguous non_blocking copy of the same bytes;
+    on the card: index_select), the plain version, and the parent's
+    one-table kernels once per table timed as one. Its launches come from
+    `run`."""
+    dev, m, T = idx.device, idx.shape[0], len(tables)
+    pinned = tables[0].device.type == "cpu"
+    idx_cpu = idx.cpu()
+    want = ref.gather_rows_raw_many_ref([t.cpu() for t in tables], idx_cpu)
+    got = gather_rows_raw_many(tables, idx)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+        f"{label}: gather_rows_raw_many differs from its plain version"
+    ms = _time_ms(lambda: gather_rows_raw_many(tables, idx))
+    R = sum(_row_bytes(t) for t in tables)
+    n_src = int(torch.unique(idx.clamp(0, tables[0].shape[0] - 1)).numel())
+    ctas = _raw_ctas("repro_gather_rows_raw_many_ctas", tables, got, m)
+    floor = _launch_floor(dev, (ctas,))[ctas]
+    if pinned:
+        def plain():
+            # the plain version runs on the CPU; its rows then go to the
+            # card
+            t0 = time.perf_counter()
+            [o.to(dev) for o in ref.gather_rows_raw_many_ref(tables,
+                                                             idx_cpu)]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        plain()
+        plain_ms = statistics.median(plain() for _ in range(TIMED_REPS))
+        flat = torch.empty(m * R, dtype=torch.uint8, pin_memory=True)
+        flat_d = torch.empty_like(flat, device=dev)
+        lib_ms = _time_ms(lambda: flat_d.copy_(flat, non_blocking=True))
+        library = ("a contiguous non_blocking copy of the same bytes from "
+                   "pinned memory")
+        rt = _time_ms(lambda: gather_rows_raw(tables[0], idx[:1]))
+        # the same tables at the distinct rows only: what the repeats cost
+        uniq = torch.unique(idx.clamp(0, tables[0].shape[0] - 1)).to(
+            torch.int32)
+        distinct = _time_ms(lambda: gather_rows_raw_many(tables, uniq))
+        hbm = m * 4 + m * R
+    else:
+        plain_ms = _time_ms(lambda: ref.gather_rows_raw_many_ref(tables,
+                                                                 idx))
+        lib_ms = _time_ms(lambda: [torch.index_select(t, 0, idx)
+                                   for t in tables])
+        library = ("index_select" if T == 1 else
+                   f"composition: index_select once a table ({T} calls)")
+        rt = None
+        hbm = m * 4 + n_src * R + m * R
+    row = _row("gather_rows_raw", RAW_GATHER_SOURCE, RAW_GATHER_REPLACES, 0.0,
+               ms, plain_ms, lib_ms, hbm, 0, library=library)
+    if pinned and n_src * R / PCIE_GEN5_X16 * 1e3 > row["bound_ms"]:
+        row["bound_ms"] = n_src * R / PCIE_GEN5_X16 * 1e3
+        row["bound_by"] = "bytes"
+    parent_ms, parent = _raw_parent(
+        label, "gather_rows_raw", lambda: _parent_gather_many(tables, idx),
+        lambda old: all(torch.equal(a, b) for a, b in zip(old, got)))
+    where = "pinned host" if pinned else "device"
+    row.update(case=f"{where} tables, {label}", run=run, floor_ms=floor,
+               ctas=ctas, tables=T)
+    if rt is not None:
+        row.update(round_trip_ms=rt, distinct_rows_ms=distinct,
+                   copy_gbs=link / 1e9)
+    if parent_ms is not None:
+        row["parent_ms"] = parent_ms
+    _phase("kernels", f"gather_rows_raw, {label}, {where} tables: {T} "
+           f"table(s) x {m} rows ({R:,} B a row over them, {n_src} "
+           f"distinct) bitwise the plain version; {ms:.4f} ms in one launch "
+           f"({ms - floor:.4f} above the launch floor {floor:.4f} ms at "
+           f"{ctas} CTAs" + (f"; round trip, a one-row pull from the first "
+                             f"table, {rt:.4f} ms; the distinct rows only, "
+                             f"{distinct:.4f} ms" if pinned else "")
+           + f"); bound {row['bound_ms']:.5f} ms by {row['bound_by']}"
+           + (f" ({n_src * R:,} B over the link's nominal "
+              f"{PCIE_GEN5_X16 / 1e9:.2f} GB/s; one pinned copy reached "
+              f"{link / 1e9:.2f})" if pinned else "")
+           + f"; {library} {lib_ms:.4f} ms; plain {plain_ms:.4f}; {parent}"
+           f"; launches from {run}")
+    return row
+
+
+def _raw_gather_rows(plans, device, gen):
+    """Phase 2: `gather_rows_raw_many` (row 18), bitwise its plain version
+    for every element width a store holds (f32 and bf16 rows, int8 codes,
+    vq's uint8 codes, the f32 scales as 1-wide rows) from pinned host and
+    device tables, one table a call and all of them mixed in one call;
+    then one line per prefetch of phase 6's host and device/1 runs at the
+    shape that run pulls: GAT vq's codes [N+1, 8] and scales at batch 0's
+    halo (2 tables), GCNII-32L's 31 f32 tables [10,001, 64] at its batch
+    0's max_h halo ids, and the GCN quickstart's one f32 table [N+1, 64]
+    at its batch 0's halo, each from pinned and from device tables
+    (`_raw_pull_line`). Returns the six rows."""
+    batch = plans["gat"].batch(0)
+    n1 = plans["gat"].graph.num_nodes + 1
     idx = batch.halo_nodes
     idx_cpu = idx.cpu()
     D = TRAIN_HIDDEN
     hist = torch.randn((n1, D), generator=gen, device=device)
     q8, s8 = ref.quantize_rows(hist)
-    codes = ref.vq_encode_rows(hist, vq_init_codebook(D, device=device))[0]
-    for what, t in (("f32", hist), ("bf16", hist.to(torch.bfloat16)),
-                    ("int8 codes", q8), ("vq codes", codes),
-                    ("scales", s8)):
+    cb = vq_init_codebook(D, device=device)
+    codes, vs = ref.vq_encode_rows(hist, cb)[:2]
+    widths = (("f32", hist), ("bf16", hist.to(torch.bfloat16)),
+              ("int8 codes", q8), ("vq codes", codes), ("scales", s8))
+    for what, t in widths:
         want = ref.gather_rows_raw_ref(t.cpu(), idx_cpu)
         for where, src in (("pinned", t.cpu().pin_memory()), ("device", t)):
             got = gather_rows_raw(src, idx)
             assert torch.equal(got.cpu(), want), \
                 f"gather_rows_raw ({what}, {where} table) differs"
-    big = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
-    big_d = torch.empty_like(big, device=device)
-    link_ms = _time_ms(lambda: big_d.copy_(big, non_blocking=True))
-    link = big.numel() / (link_ms * 1e-3)
-    M, R = idx.shape[0], D * 4
-    n_src = int(torch.unique(idx.clamp(0, n1 - 1)).numel())
-    host = hist.cpu().pin_memory()
-    flat = torch.empty(M * R, dtype=torch.uint8, pin_memory=True)
-    flat_d = torch.empty_like(flat, device=device)
-
-    def plain_from_host():
-        # the plain version runs on the CPU; its rows then go to the card
-        t0 = time.perf_counter()
-        ref.gather_rows_raw_ref(host, idx_cpu).to(device)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    plain_from_host()
-    pinned = _row("gather_rows_raw", "src/repro_torch/kernels/csrc/gather.cu",
-                  "src/repro/core/history.py:596-600 (jnp.take in "
-                  "prefetch; no pallas_call)", 0.0,
-                  _time_ms(lambda: gather_rows_raw(host, idx)),
-                  statistics.median(plain_from_host()
-                                    for _ in range(TIMED_REPS)),
-                  _time_ms(lambda: flat_d.copy_(flat, non_blocking=True)),
-                  M * 4 + M * R, 0,
-                  library="a contiguous non_blocking copy of the same "
-                          "bytes from pinned memory")
-    pinned["case"] = "pinned host table, GAT hidden-layer halo"
-    link_bound = n_src * R / link * 1e3
-    if link_bound > pinned["bound_ms"]:
-        pinned["bound_ms"], pinned["bound_by"] = link_bound, "bytes"
-    pinned["run"] = "host-store gat vq host/1"
-    device_row = _row(
-        "gather_rows_raw", "src/repro_torch/kernels/csrc/gather.cu",
-        "src/repro/core/history.py:596-600 (jnp.take in prefetch; no "
-        "pallas_call)", 0.0, _time_ms(lambda: gather_rows_raw(hist, idx)),
-        _time_ms(lambda: ref.gather_rows_raw_ref(hist, idx)),
-        _time_ms(lambda: torch.index_select(hist, 0, idx)),
-        M * 4 + n_src * R + M * R, 0)
-    device_row["case"] = "device table, GAT hidden-layer halo"
-    device_row["run"] = "host-store gat vq device/1"
-    _phase("kernels", f"gather_rows_raw, GAT hidden-layer halo ({M} rows of "
-           f"{R} B, {n_src} distinct): every width (f32, bf16, int8 and vq "
+    mixed = [t.cpu().pin_memory() if j % 2 else t
+             for j, (_, t) in enumerate(widths + widths)]
+    got = gather_rows_raw_many(mixed, idx)
+    assert all(torch.equal(g.cpu(), ref.gather_rows_raw_ref(t.cpu(), idx_cpu))
+               for g, t in zip(got, mixed)), \
+        "gather_rows_raw_many over mixed widths and placements differs"
+    link, link_ms = _link_gbs(device, to_host=False)
+    _phase("kernels", f"gather_rows_raw: every width (f32, bf16, int8 and vq "
            f"codes, 1-wide scales) bitwise its plain version from pinned "
-           f"and device tables; the host link {link / 1e9:.2f} GB/s (a "
-           f"64 MiB pinned copy_, {link_ms:.4f} ms); " + "; ".join(
-               f"{r['case'].split(',')[0]}: {r['ms']:.4f} ms (plain "
-               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-               f"{r['bound_ms']:.5f} by {r['bound_by']})"
-               for r in (pinned, device_row)))
-    return [pinned, device_row]
+           f"and device tables, one a call and all 10 in one call; one "
+           f"64 MiB pinned copy_ to the card {link / 1e9:.2f} GB/s "
+           f"({link_ms:.4f} ms; the link's nominal rate "
+           f"{PCIE_GEN5_X16 / 1e9:.2f})")
+    cases = [("GAT vq's prefetch (codes [N+1, 8] and scales)", [codes, vs],
+              idx, "gat vq")]
+    g2 = plans["gcnii32"]
+    dims = g2.spec.hist_dims()
+    deep = [torch.randn((g2.graph.num_nodes + 1, d), generator=gen,
+                        device=device) for d in dims]
+    cases.append((f"GCNII-32L's prefetch ({len(dims)} f32 tables "
+                  f"[{g2.graph.num_nodes + 1:,}, {dims[0]}])", deep,
+                  g2.batch(0).halo_nodes, "gcnii-32L f32"))
+    g1 = plans["gcn"]
+    quick = [torch.randn((g1.graph.num_nodes + 1, d), generator=gen,
+                         device=device) for d in g1.spec.hist_dims()]
+    cases.append(("the GCN quickstart's prefetch (one f32 table [N+1, "
+                  f"{quick[0].shape[1]}])", quick, g1.batch(0).halo_nodes,
+                  "gcn f32"))
+    rows = []
+    for label, tables, ids, run in cases:
+        rows.append(_raw_pull_line(
+            label, [t.cpu().pin_memory() for t in tables], ids,
+            f"host-store {run} host/1", link))
+        rows.append(_raw_pull_line(label, tables, ids,
+                                   f"host-store {run} device/1", link))
+    return rows
 
 
-def _raw_scatter_rows(kplan, q0, hist, gen):
-    """Phase 2: `scatter_rows_raw` at the split frontend's query push (the
-    128 rows of a query batch, d = 256), bitwise its plain version for
-    every width a store holds (f32 and bf16 rows, int8 and vq codes, the
-    f32 scales as 1-wide rows) into a pinned host table and a device one,
-    with repeated indices and dropped rows. Timed into both beside the
-    plain version and the library: into the device table `index_copy_`,
-    its bound by HBM bytes; into the pinned table a contiguous
-    non_blocking copy of the same bytes from the card, its bound the
-    pushed rows over the card-to-host link's bandwidth measured here (one
-    64 MiB copy_). Returns the two rows (their launches from phase 3d's
-    split runs: f32 into a device store, int8 into a host one)."""
+def _raw_push_line(label, tables, idx, rows, run, link):
+    """One row-19 line: `scatter_rows_raw_many` of `rows` into `tables`
+    (all pinned, or all on the card) at `idx` (dropped rows where the
+    batch is padded), the tables after it bitwise the plain version's and
+    the parent's kernels'; its time beside the launch floor on its grid,
+    for a pinned line the round trip (a one-row pull from its first
+    table), the bound (pinned: the pushed rows' bytes over the link's
+    nominal rate, PCIE_GEN5_X16, with `link`, the card-to-host rate one
+    pinned copy reached in this run, beside it; on the card: HBM bytes),
+    the library (pinned: one contiguous non_blocking copy of the
+    same bytes into pinned memory; on the card: index_copy_ of the real
+    rows once a table), the plain version, and the parent's one-table
+    kernels once per table timed as one. Its launches come from
+    `run`."""
+    dev, m, T = idx.device, idx.shape[0], len(tables)
+    pinned = tables[0].device.type == "cpu"
+    fresh = _copies(tables)
+    want = ref.scatter_rows_raw_many_ref([t.cpu().clone() for t in tables],
+                                         idx.cpu(), [r.cpu() for r in rows])
+    scatter_rows_raw_many(tables, idx, rows)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t.cpu(), w) for t, w in zip(tables, want)), \
+        f"{label}: scatter_rows_raw_many differs from its plain version"
+    ms = _time_ms(lambda: scatter_rows_raw_many(tables, idx, rows))
+    R = sum(_row_bytes(r) for r in rows)
+    valid = (idx >= 0) & (idx < tables[0].shape[0])
+    n_tgt = int(torch.unique(idx[valid]).numel())
+    ctas = _raw_ctas("repro_scatter_rows_raw_many_ctas", tables, rows, m)
+    floor = _launch_floor(dev, (ctas,))[ctas]
+    if pinned:
+        idx_cpu = idx.cpu()
+
+        def plain():
+            # the plain version runs on the CPU, after the rows reach the
+            # host
+            t0 = time.perf_counter()
+            ref.scatter_rows_raw_many_ref(tables, idx_cpu,
+                                          [r.cpu() for r in rows])
+            return (time.perf_counter() - t0) * 1e3
+
+        plain()
+        plain_ms = statistics.median(plain() for _ in range(TIMED_REPS))
+        flat = torch.empty(m * R, dtype=torch.uint8, pin_memory=True)
+        flat_d = torch.empty_like(flat, device=dev)
+        lib_ms = _time_ms(lambda: flat.copy_(flat_d, non_blocking=True))
+        library = ("a contiguous non_blocking copy of the same bytes into "
+                   "pinned memory")
+        rt = _time_ms(lambda: gather_rows_raw(tables[0], idx[:1]))
+        hbm = m * 4 + m * R
+    else:
+        uniq_idx = idx[valid].long()
+        uniq = [r[valid] for r in rows]
+        plain_ms = _time_ms(lambda: ref.scatter_rows_raw_many_ref(
+            tables, idx, rows))
+        lib_ms = _time_ms(lambda: [t.index_copy_(0, uniq_idx, u)
+                                   for t, u in zip(tables, uniq)])
+        library = ("index_copy_ of the real rows" if T == 1 else
+                   f"composition: index_copy_ of the real rows once a "
+                   f"table ({T} calls)")
+        rt = None
+        hbm = m * 4 + m * R + n_tgt * R
+    row = _row("scatter_rows_raw", RAW_SCATTER_SOURCE, RAW_SCATTER_REPLACES,
+               0.0, ms, plain_ms, lib_ms, hbm, 0, library=library)
+    if pinned and n_tgt * R / PCIE_GEN5_X16 * 1e3 > row["bound_ms"]:
+        row["bound_ms"] = n_tgt * R / PCIE_GEN5_X16 * 1e3
+        row["bound_by"] = "bytes"
+
+    into = _copies(fresh)
+    parent_ms, phrase = _raw_parent(
+        label, "scatter_rows_raw",
+        lambda: _parent_scatter_many(into, idx, rows),
+        lambda old: torch.cuda.synchronize() or all(
+            torch.equal(a.cpu(), b.cpu()) for a, b in zip(old, tables)))
+    where = "pinned host" if pinned else "device"
+    row.update(case=f"{where} tables, {label}", run=run, floor_ms=floor,
+               ctas=ctas, tables=T)
+    if rt is not None:
+        row.update(round_trip_ms=rt, copy_gbs=link / 1e9)
+    if parent_ms is not None:
+        row["parent_ms"] = parent_ms
+    _phase("kernels", f"scatter_rows_raw, {label}, {where} tables: {T} "
+           f"table(s) x {m} rows ({R:,} B a row over them, {n_tgt} "
+           f"distinct targets) bitwise the plain version; {ms:.4f} ms in "
+           f"one launch ({ms - floor:.4f} above the launch floor "
+           f"{floor:.4f} ms at {ctas} CTAs"
+           + (f"; round trip, a one-row pull from the first table, "
+              f"{rt:.4f} ms" if pinned else "")
+           + f"); bound {row['bound_ms']:.5f} ms by {row['bound_by']}"
+           + (f" ({n_tgt * R:,} B over the link's nominal "
+              f"{PCIE_GEN5_X16 / 1e9:.2f} GB/s; one pinned copy reached "
+              f"{link / 1e9:.2f})" if pinned else "")
+           + f"; {library} {lib_ms:.4f} ms; plain {plain_ms:.4f}; {phrase}"
+           f"; launches from {run}")
+    return row
+
+
+def _raw_scatter_rows(kplan, q0, hist, gen, dims):
+    """Phase 2: `scatter_rows_raw_many` (row 19), bitwise its plain version
+    for every width a store holds (f32 and bf16 rows, int8 and vq codes,
+    the f32 scales as 1-wide rows) into pinned host and device tables,
+    one table a call and all of them mixed in one call, with repeated
+    indices and dropped rows; then one line per push of phase 3d's split
+    runs at the split frontend's query push (the 128 rows of a query
+    batch, its padding dropped) over every history layer (`dims`): the
+    int8 store's codes [128, 256] and scales [128] a layer into pinned
+    tables, and the f32 store's rows [128, 256] a layer into device
+    tables (`_raw_push_line`). Returns the two rows."""
     device = hist.device
     n1 = hist.shape[0]
     batch = S.build_request_batch(kplan, np.sort(q0), QUERY_SIZE)
@@ -3472,13 +3799,14 @@ def _raw_scatter_rows(kplan, q0, hist, gen):
     dup = idx.clone()
     dup[1::9] = dup[0:-1:9]                  # repeats of earlier rows
     dup[4::13] = n1                          # dropped rows
-    for what, t, rows in (
-            ("f32", hist, pay), ("bf16", hist.to(torch.bfloat16),
-                                 pay.to(torch.bfloat16)),
-            ("int8 codes", ref.quantize_rows(hist)[0], q8),
-            ("vq codes", torch.zeros((n1, D // VQ_SUBDIM), dtype=torch.uint8,
-                                     device=device), codes),
-            ("scales", torch.ones(n1, device=device), s8)):
+    widths = (("f32", hist, pay),
+              ("bf16", hist.to(torch.bfloat16), pay.to(torch.bfloat16)),
+              ("int8 codes", ref.quantize_rows(hist)[0], q8),
+              ("vq codes", torch.zeros((n1, D // VQ_SUBDIM),
+                                       dtype=torch.uint8, device=device),
+               codes),
+              ("scales", torch.ones(n1, device=device), s8))
+    for what, t, rows in widths:
         want = ref.scatter_rows_raw_ref(t.cpu(), dup.cpu(), rows.cpu())
         for where, dst in (("pinned", t.cpu().pin_memory()),
                            ("device", t.clone())):
@@ -3486,62 +3814,53 @@ def _raw_scatter_rows(kplan, q0, hist, gen):
             torch.cuda.synchronize()
             assert torch.equal(dst.cpu(), want), \
                 f"scatter_rows_raw ({what}, {where} table) differs"
-    big = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
-    big_d = torch.empty_like(big, device=device)
-    link_ms = _time_ms(lambda: big.copy_(big_d, non_blocking=True))
-    link = big.numel() / (link_ms * 1e-3)
-    R = D * 4
-    n_tgt = int(torch.unique(idx).numel())
-    host = hist.cpu().pin_memory()
-    idx_cpu = idx.cpu()
-    flat = torch.empty(M * R, dtype=torch.uint8, pin_memory=True)
-    flat_d = torch.empty_like(flat, device=device)
-
-    def plain_into_host():
-        # the plain version runs on the CPU, after the rows reach the host
-        t0 = time.perf_counter()
-        ref.scatter_rows_raw_ref(host, idx_cpu, pay.cpu())
-        return (time.perf_counter() - t0) * 1e3
-
-    plain_into_host()
-    replaces = ("src/repro/core/serve_service.py:255-298 (.at[].set in "
-                "HistoryBackend._op_push; no pallas_call)")
-    source = "src/repro_torch/kernels/csrc/scatter.cu"
-    pinned = _row("scatter_rows_raw", source, replaces, 0.0,
-                  _time_ms(lambda: scatter_rows_raw(host, idx, pay)),
-                  statistics.median(plain_into_host()
-                                    for _ in range(TIMED_REPS)),
-                  _time_ms(lambda: flat.copy_(flat_d, non_blocking=True)),
-                  M * 4 + M * R + n_tgt * R, 0,
-                  library="a contiguous non_blocking copy of the same "
-                          "bytes into pinned memory")
-    pinned["case"] = "pinned host table, split frontend's query push"
-    link_bound = n_tgt * R / link * 1e3
-    if link_bound > pinned["bound_ms"]:
-        pinned["bound_ms"], pinned["bound_by"] = link_bound, "bytes"
-    pinned["run"] = "split serving gcn int8"
-    valid = batch.batch_mask
-    uniq_idx, uniq_vals = idx[valid].long(), pay[valid]
-    tgt = hist.clone()
-    device_row = _row(
-        "scatter_rows_raw", source, replaces, 0.0,
-        _time_ms(lambda: scatter_rows_raw(tgt, idx, pay)),
-        _time_ms(lambda: ref.scatter_rows_raw_ref(tgt, idx, pay)),
-        _time_ms(lambda: tgt.index_copy_(0, uniq_idx, uniq_vals)),
-        M * 4 + M * R + n_tgt * R, 0)
-    device_row["case"] = "device table, split frontend's query push"
-    device_row["run"] = "split serving gcn f32"
-    _phase("kernels", f"scatter_rows_raw, the split frontend's query push "
-           f"({M} rows of {R} B, {n_tgt} distinct targets): every width "
-           f"(f32, bf16, int8 and vq codes, 1-wide scales) bitwise its plain "
-           f"version into pinned and device tables, repeats and dropped "
-           f"rows included; the card-to-host link {link / 1e9:.2f} GB/s (a "
-           f"64 MiB pinned copy_, {link_ms:.4f} ms); " + "; ".join(
-               f"{r['case'].split(',')[0]}: {r['ms']:.4f} ms (plain "
-               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-               f"{r['bound_ms']:.5f} by {r['bound_by']})"
-               for r in (pinned, device_row)))
-    return [pinned, device_row]
+    mixed = [t.cpu().pin_memory() if j % 2 else t.clone()
+             for j, (_, t, _) in enumerate(widths + widths)]
+    pushed = [r for _, _, r in widths + widths]
+    want = ref.scatter_rows_raw_many_ref([t.cpu().clone() for t in mixed],
+                                         dup.cpu(),
+                                         [r.cpu() for r in pushed])
+    scatter_rows_raw_many(mixed, dup, pushed)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t.cpu(), w) for t, w in zip(mixed, want)), \
+        "scatter_rows_raw_many over mixed widths and placements differs"
+    link, link_ms = _link_gbs(device, to_host=True)
+    _phase("kernels", f"scatter_rows_raw: every width (f32, bf16, int8 and "
+           f"vq codes, 1-wide scales) bitwise its plain version into pinned "
+           f"and device tables, one a call and all 10 in one call, repeats "
+           f"and dropped rows included; one 64 MiB pinned copy_ to the "
+           f"host {link / 1e9:.2f} GB/s ({link_ms:.4f} ms; the link's "
+           f"nominal rate {PCIE_GEN5_X16 / 1e9:.2f})")
+    int8_tables, int8_rows = [], []
+    for d in dims:
+        layer = torch.randn((M, d), generator=gen, device=device)
+        q, s = ref.quantize_rows(layer)
+        int8_tables += [torch.zeros((n1, d), dtype=torch.int8,
+                                    pin_memory=True),
+                        torch.ones((n1,), pin_memory=True)]
+        int8_rows += [q, s]
+    f32_tables = [hist.clone() for _ in dims]
+    f32_rows = [torch.randn((M, d), generator=gen, device=device)
+                for d in dims]
+    L = len(dims)
+    rows = [
+        _raw_push_line(f"the split frontend's int8 push ({L} layers of "
+                       f"codes [{M}, {dims[0]}] and scales [{M}])",
+                       int8_tables, idx, int8_rows,
+                       "split serving gcn int8", link),
+        _raw_push_line(f"the split frontend's f32 push ({L} layers of "
+                       f"rows [{M}, {dims[0]}])", f32_tables, idx,
+                       f32_rows, "split serving gcn f32", link)]
+    # one table alone (the distributed exchange's unpack is one-table
+    # calls): this build's launch beside the parent's one-table kernel
+    one = _time_ms(lambda: scatter_rows_raw(f32_tables[0], idx, f32_rows[0]))
+    _phase("kernels", f"scatter_rows_raw, one table of the f32 push (rows "
+           f"[{M}, {dims[0]}] into a device table): {one:.4f} ms; " +
+           _raw_parent("one table of the f32 push", "scatter_rows_raw",
+                       lambda: _parent_scatter_many(
+                           [f32_tables[0]], idx, [f32_rows[0]]),
+                       lambda old: torch.equal(old[0], f32_tables[0]))[1])
+    return rows
 
 
 def _state_leaves(state):
@@ -3556,6 +3875,40 @@ def _state_leaves(state):
     for name in ("scales", "codebooks", "cb_counts", "cb_sums"):
         out += getattr(h, name) or []
     return [t.detach().cpu().clone() for t in out]
+
+
+def _prefetch_times(store, idx) -> str:
+    """One `store.prefetch(idx)` as a phrase: its host time to enqueue (to
+    its return, with no sync; the median of TIMED_REPS, the card
+    synchronised between calls) and its device time
+    (`_time_ms`); with --parent-csrc the same for the parent's `prefetch`,
+    one launch a table on the parent's kernels (`_parent_prefetch`), its
+    rows bitwise these."""
+
+    def enqueue_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TIMED_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def both(fn):
+        return f"enqueue {enqueue_us(fn):.1f} us, device {_time_ms(fn):.4f} ms"
+
+    new = both(lambda: store.prefetch(idx))
+    if PARENT_LIB is None:
+        return f"{new} (the parent's kernels not measured)"
+    got, old = store.prefetch(idx), _parent_prefetch(store, idx)
+    assert all(torch.equal(a, b) for p, q in zip(got, old)
+               for a, b in zip(p, q) if a is not None), \
+        "prefetch differs from the parent's"
+    return (f"{new}; the parent's, one launch a table: "
+            f"{both(lambda: _parent_prefetch(store, idx))}, rows bitwise "
+            f"equal")
 
 
 def host_store_phase(plans, device, gat_part):
@@ -3583,13 +3936,17 @@ def host_store_phase(plans, device, gat_part):
             where = state.histories.placement_bytes()
             steps = []
             with _timed_calls(RT, "train_step", steps), \
-                    _timed_calls(RT, "prefetch_step", steps):
+                    _timed_calls(RT, "prefetch_step", steps), \
+                    _counted_calls(HistoryStore, "prefetch") as prefetches:
                 metrics = [RT.train_epoch(plan, state, e)[1]
                            for e in range(HOST_EPOCHS)]
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - before
             counts = dict(_build.launch_counts)
             launches[f"host-store {label} {tag}"] = counts
+            # one raw pull a prefetch, over every table it reads
+            assert counts["gather_rows_raw"] == prefetches[0], \
+                (label, tag, counts["gather_rows_raw"], prefetches[0])
             h = state.histories
             host_tables = h.tables + (h.scales or [])
             if storage == "host":
@@ -3597,6 +3954,8 @@ def host_store_phase(plans, device, gat_part):
                            for t in host_tables), \
                     f"{label} {tag}: a host table is not pinned"
             leaves = _state_leaves(state)
+            one = ("no prefetch in this run" if prefetches[0] == 0 else
+                   _prefetch_times(h, plan.batch(0).halo_nodes))
             table_bytes = sum(t.numel() * t.element_size()
                               for t in host_tables)
             host_tables_rows = h.tables[0].shape[0]
@@ -3635,8 +3994,11 @@ def host_store_phase(plans, device, gat_part):
                    f"{(ref_peak - peak) / 2**20:.2f} MiB below device/0's "
                    f"(the tables {table_bytes / 2**20:.2f} MiB); step p50 {np.percentile(steps, 50):.3f} ms, "
                    f"p99 {np.percentile(steps, 99):.3f} ms; launches "
-                   f"gather_rows_raw {counts['gather_rows_raw']}, pushes "
-                   f"{pushes}; host tables pinned: "
+                   f"gather_rows_raw {counts['gather_rows_raw']} in "
+                   f"{prefetches[0]} prefetches (one each; "
+                   f"{counts['gather_rows_raw'] / n_steps:.2f} a step), "
+                   f"pushes {pushes}; one prefetch of batch 0's halo: "
+                   f"{one}; host tables pinned: "
                    + ("yes" if storage == "host" else "none (device)"))
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -4915,18 +5277,26 @@ def split_serving_phase(g, spec, device, backend_proc, port_file):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         lat, retries = [], 0.0
-        for q, w in zip(queries, want):
-            t0 = time.perf_counter()
-            got, d = front.serve_request(q)
-            lat.append((time.perf_counter() - t0) * 1e3)
-            assert np.array_equal(got, w), \
-                f"split serving {hd} differs from in-process serving"
-            retries += d["num_retries"]
+        with _counted_calls(HistoryStore, "prefetch") as prefetches, \
+                _counted_calls(backend, "_op_pull") as op_pulls, \
+                _counted_calls(backend, "_op_push") as op_pushes:
+            for q, w in zip(queries, want):
+                t0 = time.perf_counter()
+                got, d = front.serve_request(q)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                assert np.array_equal(got, w), \
+                    f"split serving {hd} differs from in-process serving"
+                retries += d["num_retries"]
         torch.cuda.synchronize()
         counts = dict(_build.launch_counts)
         launches[f"split serving gcn {hd}"] = counts
-        assert counts["scatter_rows_raw"] and counts["gather_rows_raw"], \
-            counts
+        # one raw pull a prefetch (an _op_pull, or a host store's pull in
+        # the backend's refresh) and one raw push an _op_push
+        assert op_pulls[0] and op_pushes[0], (op_pulls, op_pushes)
+        assert counts["gather_rows_raw"] == prefetches[0] >= op_pulls[0], \
+            (counts["gather_rows_raw"], prefetches, op_pulls)
+        assert counts["scatter_rows_raw"] == op_pushes[0], \
+            (counts["scatter_rows_raw"], op_pushes)
         a, b = state_in.histories, backend.state.histories.sync()
         for x, y in zip(a.tables + (a.scales or []) + [a.age],
                         b.tables + (b.scales or []) + [b.age]):
@@ -4939,7 +5309,11 @@ def split_serving_phase(g, spec, device, backend_proc, port_file):
                f"{N_REQUESTS} x {QUERY_SIZE} queries at SLO=0 bitwise the "
                f"in-process serve_request, the store too; split "
                f"{_p50_p99(lat)} beside in-process {_p50_p99(lat_in)}; "
-               f"retries {retries:.0f}; launches "
+               f"retries {retries:.0f}; gather_rows_raw "
+               f"{counts['gather_rows_raw']} launches in {prefetches[0]} "
+               f"prefetches ({op_pulls[0]} of them _op_pull), "
+               f"scatter_rows_raw {counts['scatter_rows_raw']} in "
+               f"{op_pushes[0]} _op_push; launches "
                + str({k: v for k, v in counts.items() if v}))
         del backend, front, state_in
     # in process from a host store: bitwise the device store's answers
@@ -5563,7 +5937,9 @@ def dist_kernel_rows(device, S):
     (`gather_rows_raw`, rank 0's [P*C] send list over its [rows, 48] f32
     shard), its unpack (`scatter_rows_raw` into the [max_halo, 48] halo,
     the padded entries dropped) and the int8 store's push
-    (`scatter_rows_q` over all rows), each bitwise its plain version."""
+    (`scatter_rows_q` over all rows), each bitwise its plain version;
+    with --parent-csrc the pack and the unpack also beside the parent's
+    one-table kernels on the same operands."""
     gen = torch.Generator(device=device).manual_seed(8)
     plan = S.exchange_arrays(0, device)
     send, recv_idx = plan["send_idx"].reshape(-1), plan["recv_idx"]
@@ -5613,11 +5989,25 @@ def dist_kernel_rows(device, S):
                 None, S.rows * (4 + D * 4 + D + 4 + 4), 0)
     push.update(case=f"dist int8 push, {S.rows} rows of {D}",
                 run="dist gcn int8")
+    # the one-table pull and push beside the parent's one-table kernels
+    halo_p = torch.zeros_like(halo)
+    for row, (parent_ms, _) in (
+            (pack, _raw_parent("the dist pack", "gather_rows_raw",
+                               lambda: _parent_gather_many([shard], send),
+                               lambda old: torch.equal(old[0], packed))),
+            (unpack, _raw_parent("the dist unpack", "scatter_rows_raw",
+                                 lambda: _parent_scatter_many(
+                                     [halo_p], recv_idx, [packed]),
+                                 lambda old: torch.equal(old[0], halo)))):
+        if parent_ms is not None:
+            row["parent_ms"] = parent_ms
     _phase("kernels", "dist exchange at the example's shapes: " + "; ".join(
         f"{r['name']} ({r['case']}): bitwise its plain version, "
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
         f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, "
-        f"bound {r['bound_ms']:.5f} by {r['bound_by']})"
+        f"bound {r['bound_ms']:.5f} by {r['bound_by']}"
+        + (f"; the parent's {r['parent_ms']:.4f}" if "parent_ms" in r
+           else "") + ")"
         for r in (pack, unpack, push)))
     return [pack, unpack, push]
 
@@ -5686,6 +6076,7 @@ def _smoke(args, partitions, t_start, stack) -> int:
         t0 = time.perf_counter()
         PARENT_LIB = _build.load(_build.build(
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
+        _parent_raw_entries(PARENT_LIB)
         if "clip_row" not in (Path(args.parent_csrc) /
                               "gather.cu").read_text():
             PARENT_LIB = _UnclippedParent(PARENT_LIB)

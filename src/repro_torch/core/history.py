@@ -36,12 +36,12 @@ everything on the store's device; "host" keeps the tables and the int8
 table capacity then scales with host RAM, and only pulled rows reach the
 card), while the clock, the vq codebooks and their statistics stay on
 the card. The pushes write a host table through its unified address, and
-every read of one goes through `prefetch`: `gather_rows_raw` copies the
-halo's raw rows (and scales) into device mini-tables, and `with_pulled`
-makes a read view of them, so no contraction kernel ever reads a host
-table. On the CPU (`device="cpu"`) a host store is a CPU store and the
-same code runs, as the reference's moves are no-ops on a host-less
-runtime. `prefetch`, `with_pulled` and `patch_pulled` also carry the
+every read of one goes through `prefetch`: one `gather_rows_raw_many`
+launch copies every layer's halo rows (and scales) into device
+mini-tables, and `with_pulled` makes a read view of them, so no
+contraction kernel ever reads a host table. On the CPU
+(`device="cpu"`) a host store is a CPU store and the same code runs, as
+the reference's moves are no-ops on a host-less runtime. `prefetch`, `with_pulled` and `patch_pulled` also carry the
 epoch pipeline (`GASConfig.prefetch_depth`) over either placement.
 """
 from __future__ import annotations
@@ -53,13 +53,14 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.gather import gather_rows_raw
+from repro_torch.kernels.gather import gather_rows_raw_many
 from repro_torch.kernels.ref import (dequantize_rows, quantize_rows,
                                      relative_row_error, row_scales,
                                      vq_decode_rows, vq_encode_rows,
                                      vq_row_scales)
 from repro_torch.kernels.scatter import (SCAN_MAX_ROWS, scatter_rows_q,
-                                         scatter_rows_raw, scatter_rows_vq)
+                                         scatter_rows_raw_many,
+                                         scatter_rows_vq)
 from .config import resolve_device
 
 __all__ = ["HistoryCodec", "HISTORY_DTYPES", "get_codec",
@@ -481,19 +482,20 @@ class HistoryStore:
                  layers: Optional[Tuple[int, ...]] = None) -> tuple:
         """Every layer's rows `idx` (clipped to the table) in raw storage
         precision, with their scales for int8 and vq: one `(rows,
-        scales|None)` pair a layer, on the store's device, through
-        `gather_rows_raw` (which reads a pinned host table across the
-        link). No dequantization happens here: the rows are the table's
-        bits, so a read view of them (`with_pulled`) gives what a pull of
-        the full table gives, bit for bit. `layers` picks some layers
-        only."""
+        scales|None)` pair a layer, on the store's device, through one
+        `gather_rows_raw_many` call over every table and scale table (one
+        launch, which reads a pinned host table across the link). No
+        dequantization happens here: the rows are the table's bits, so a
+        read view of them (`with_pulled`) gives what a pull of the full
+        table gives, bit for bit. `layers` picks some layers only."""
         idx = idx.to(device=self.device, dtype=torch.int32)
-        out = []
-        for ell in range(self.num_layers) if layers is None else layers:
-            scl = self.layer_scales(ell)
-            out.append((gather_rows_raw(self.tables[ell], idx),
-                        None if scl is None else gather_rows_raw(scl, idx)))
-        return tuple(out)
+        ells = range(self.num_layers) if layers is None else layers
+        if self.scales is None:
+            return tuple((rows, None) for rows in gather_rows_raw_many(
+                [self.tables[ell] for ell in ells], idx))
+        out = gather_rows_raw_many([t for ell in ells for t in (
+            self.tables[ell], self.scales[ell])], idx)
+        return tuple(zip(out[0::2], out[1::2]))
 
     def with_pulled(self, pulled) -> "HistoryStore":
         """A read view whose layer tables are the prefetched rows (`pulled`
@@ -586,14 +588,16 @@ class HistoryStore:
         never re-quantized, at `idx` where `mask`, with `scales[ell]` [M]
         beside them for int8 and vq; masked and out-of-range rows are
         dropped, and a repeated index takes its last row. The serving
-        backend lands a frontend's push through it (`scatter_rows_raw`,
-        which writes a pinned host table through its unified address, on
-        the current stream). The clock is not touched. Returns the
-        store."""
+        backend lands a frontend's push through it: one
+        `scatter_rows_raw_many` call over every table and scale table (one
+        launch, which writes a pinned host table through its unified
+        address, on the current stream, and takes each target's rows in
+        every table from the same pushed row). The clock is not touched.
+        Returns the store."""
         n = self.age.shape[0]
         idx = idx.to(device=self.device)
         mask = mask.to(device=self.device, dtype=torch.bool)
-        safe = torch.where(mask, idx.long(), n).to(torch.int32)
+        safe = torch.where(mask, idx.to(torch.int32), n)
         if len(rows) != self.num_layers or (scales is None) != (
                 self.scales is None) or (scales is not None and len(
                     scales) != self.num_layers):
@@ -601,12 +605,14 @@ class HistoryStore:
                 f"push_raw: {len(rows)} row sets and "
                 f"{'no' if scales is None else len(scales)} scale sets for "
                 f"a {self.history_dtype} store of {self.num_layers} layers")
+        tables, pushed = [], []
         for ell in range(self.num_layers):
-            scatter_rows_raw(self.tables[ell], safe,
-                             rows[ell].to(self.device).contiguous())
+            tables.append(self.tables[ell])
+            pushed.append(rows[ell].to(self.device).contiguous())
             if self.scales is not None:
-                scatter_rows_raw(self.scales[ell], safe,
-                                 scales[ell].to(self.device).contiguous())
+                tables.append(self.scales[ell])
+                pushed.append(scales[ell].to(self.device).contiguous())
+        scatter_rows_raw_many(tables, safe, pushed)
         return self
 
     def quant_error(self, values: torch.Tensor, mask: torch.Tensor,

@@ -43,9 +43,10 @@ one; any mismatch retries the chunk from the age pull, up to
 `_RETRY_LIMIT` times. At SLO=0 a frontend's answers are bitwise the
 in-process `serve_request`'s: the refreshes run on the backend through the
 same `serve_step`, the pulled mini-tables are the tables' bits
-(`HistoryStore.prefetch`, `gather_rows_raw`), and the pushes carry the
-bits an in-process push would write, landed raw by `HistoryStore.push_raw`
-(`scatter_rows_raw`). The sentinel row N is outside that contract.
+(`HistoryStore.prefetch`, one `gather_rows_raw_many` launch), and the
+pushes carry the bits an in-process push would write, landed raw by
+`HistoryStore.push_raw` (one `scatter_rows_raw_many` launch). The
+sentinel row N is outside that contract.
 
 Transports: `InProcTransport` (same process; every message still goes
 through the framing) and `SocketTransport` (length-prefixed frames over
@@ -277,8 +278,9 @@ class HistoryBackend:
     def _op_pull(self, meta, arrays):
         """Every layer table's rows at the requested ids (clipped) in raw
         storage precision, with the per-row scales of int8 and vq stores:
-        `HistoryStore.prefetch` (`gather_rows_raw`), in one locked request
-        so the rows cannot straddle a write."""
+        `HistoryStore.prefetch` (one `gather_rows_raw_many` launch over
+        every table), in one locked request so the rows cannot straddle a
+        write."""
         store = self.state.histories
         idx = _tensor(arrays[0], store.device, torch.int32)
         out: List[Any] = []

@@ -53,8 +53,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "repro_gather_rows_raw": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_scatter_rows_raw": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (tables, rows, row counts, row bytes: host arrays of T entries; T,
+    # idx, [winner,] M, stream); the `_ctas` entries (T, M, int64 out): the
+    # CTAs the call would launch on the same plan
+    "repro_gather_rows_raw_many": [_P] * 4 + [_I, _P, _I, _P],
+    "repro_scatter_rows_raw_many": [_P] * 4 + [_I, _P, _P, _I, _P],
+    "repro_gather_rows_raw_many_ctas": [_P] * 4 + [_I, _I, _P],
+    "repro_scatter_rows_raw_many_ctas": [_P] * 4 + [_I, _I, _P],
     "repro_host_device_ptr": [_P, ctypes.POINTER(ctypes.c_void_p)],
     "repro_gather_rows": [_P, _P, _P] + [_I] * 7 + [_P],
     "repro_gather_rows_dq": [_P] * 4 + [_I] * 7 + [_P],
@@ -207,7 +212,8 @@ def require_cuda(name: str, *tensors: torch.Tensor,
     """The checks every wrapper makes before a launch: all tensors on one
     CUDA device (the current one) and contiguous. A tensor in `pinned` (a
     history table or scale table, in the wrappers that read or write one
-    through its unified address: `gather_rows_raw` and the three pushes)
+    through its unified address: the raw pull and push and the three
+    pushes)
     may instead be a pinned CPU tensor; a CPU tensor that is not pinned
     raises, and so does any other mix of devices."""
     dev = tensors[0].device
@@ -242,6 +248,17 @@ def device_ptr(t: torch.Tensor) -> int:
         raise ValueError(f"no device address for a CPU tensor: "
                          f"{lib().repro_error_string(rc).decode()}")
     return out.value
+
+
+def pointers(values: List[int]) -> ctypes.Array:
+    """A host array of addresses, for a launcher that takes one entry a
+    table (the raw pull and push)."""
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def int64s(values: List[int]) -> ctypes.Array:
+    """A host array of int64, one entry a table."""
+    return (ctypes.c_int64 * len(values))(*values)
 
 
 def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype,

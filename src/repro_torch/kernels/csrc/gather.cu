@@ -63,28 +63,50 @@
 // 128 lanes and its callers slice). Each element is one IEEE multiply
 // (__fmul_rn), bitwise `vq_decode_rows`.
 //
-// gather_rows_raw: out[i, :] = table[clip(idx[i], 0, N-1), :], the raw
-// storage bits of a row of any width (f32, bf16, int8 codes, vq's uint8
-// codes, and the [N] f32 scale tables as 1-wide rows). It replaces no
-// Pallas kernel: the reference's `HistoryStore.prefetch`
-// (src/repro/core/history.py:596-600) gathers the raw rows and scales
-// with `jnp.take(..., mode="clip")`, which XLA lowers itself, and streams
-// them device-ward with `jax.device_put`. The port needs a kernel of its
-// own there because a history table may live in pinned host memory
-// (`history_storage="host"`), which no PyTorch gather reads with a CUDA
-// index: the table pointer is the pinned buffer's unified address, so
-// each load crosses the host link, and only the pulled rows ever reach
-// the card. Every pull of a host store and every prefetch of the epoch
-// pipeline (any store) goes through it. Bound: bytes, M*R read (R the
-// row's bytes; over the host link for a pinned table, over HBM for a
-// device one) plus M*R written and 4*M of index; no arithmetic. Design:
-// the output is cut into 16-byte units where the row's bytes and both
-// buffers allow (else 8, 4, 2 or 1), one thread per unit, so that a
-// narrow row (a 4-byte scale) does not idle a warp and a wide one is read
-// by neighbouring threads at neighbouring addresses; every unit is an
-// independent load, so a warp keeps many link reads in flight. The table
-// is read with plain loads (no read-only cache path for host memory), the
-// index through __ldg and clipped in the kernel.
+// gather_rows_raw: rows_j[i, :] = table_j[clip(idx[i], 0, N_j - 1), :] for
+// every table j of a call under one index, the raw storage bits of rows
+// of any width (f32, bf16, int8 codes, vq's uint8 codes, and the [N] f32
+// scale tables as 1-wide rows). It replaces no Pallas kernel: the
+// reference's `HistoryStore.prefetch` (src/repro/core/history.py:595-601)
+// takes every layer's raw rows and scales with `jnp.take(...,
+// mode="clip")`, which XLA lowers itself and is free to fuse, and streams
+// them device-ward with `jax.device_put`; its serving backend's pull
+// (src/repro/core/serve_service.py:255-298) does the same. The port needs
+// a kernel of its own there because a history table may live in pinned
+// host memory (`history_storage="host"`), which no PyTorch gather reads
+// with a CUDA index: the table pointer is the pinned buffer's unified
+// address, so each load crosses the host link, and only the pulled rows
+// ever reach the card. Every prefetch of the epoch pipeline (any store),
+// every read of a host store and every `_op_pull` of the split backend
+// goes through it, one call over every layer's table and scale table.
+// Bound: bytes, M*R read (R the row's bytes summed over the tables; over
+// the host link for a pinned table, over HBM for a device one) plus M*R
+// written and 4*M of index; no arithmetic. Design: one launch moves up to
+// kRawMaxTables (64) tables: the C entry plans it (each table's unit, the
+// widest of 16, 8, 4, 2 or 1 bytes that divides its row's bytes and both
+// of its buffers' addresses) into a descriptor passed to the kernel by
+// value (csrc/common.cuh RawTables: no device buffer, no copy, no sync);
+// more tables are ceil(T / 64) launches, and a launch over at most 8
+// tables takes a descriptor of 8 (288 bytes, not 2,304: a launch's
+// parameters take time to send), over one table a descriptor of one.
+// blockIdx.y is the table, so the unit's branch is uniform within a CTA;
+// blockIdx.x strides over its units, one thread a unit, so that a narrow
+// row (a 4-byte scale) does not idle a warp and a wide one is read by
+// neighbouring threads at neighbouring addresses. Where one unit a thread
+// would launch more than kRawSpreadCtas (528) CTAs, a thread holds
+// kRawUnroll (4) units kThreads apart and issues all their loads, each an
+// independent read of the table, before any store; a smaller pull keeps
+// one unit a thread, so it spreads over as many SMs as it can (each SM
+// keeps only so many link reads in flight: 4 units a thread on 5 CTAs
+// took 0.0121 ms for a 314-row pinned pull that 20 CTAs took in 0.0097 on
+// an H100: PERF.md, row 18).
+// Each unit's row index is read through __ldg (an L1 hit for its row's
+// other units) and clipped in the kernel; the table is read with plain
+// loads (no read-only cache path for host memory). So a prefetch pays one
+// launch floor and one link round trip for all its tables, where one
+// launch a table paid both per table (PERF.md section 6, rows 18 and 19,
+// with the units in flight, grids and descriptor sizes measured beside
+// this design: see kRawUnroll below).
 #include "common.cuh"
 
 
@@ -267,57 +289,184 @@ gather_rows_vq_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-// one thread per V-sized unit of the output; `per_row` units a row
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_raw_kernel(const V* table, const int32_t* __restrict__ idx,
-                       V* __restrict__ out, int64_t total, int64_t per_row,
-                       int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       u < total; u += stride) {
-    const int64_t row = u / per_row;
-    const int64_t t = clip_row(__ldg(idx + row), n);
-    out[u] = table[t * per_row + (u - row * per_row)];
+// The raw pull's units in flight a thread where its grid would fill the
+// card, and the most CTAs a launch may have at one unit a thread before
+// it takes kRawUnroll units a thread instead (4 CTAs an SM of a 132-SM
+// card). A small pull spreads over as many SMs as it can: each SM keeps
+// only so many host-link reads in flight. (GCNII-32L's 31-table pinned
+// pull on an H100: 0.5701 ms at 4 units, 0.5969 at 2, 0.5952 at 8, 0.6196
+// at one unit a thread whatever the grid; the GCN quickstart's 1-table
+// pull 0.0117 ms unrolled whatever the grid against 0.0089 spread: PERF.md
+// section 6, PR 32.)
+constexpr int kRawUnroll = 4;
+constexpr int64_t kRawSpreadCtas = 528;
+
+// u / d for u, d >= 0, in 32 bits where both fit (a 64-bit division is
+// tens of instructions)
+__device__ __forceinline__ int64_t div_units(int64_t u, int64_t d) {
+  if ((u | d) < (int64_t{1} << 32))
+    return static_cast<uint32_t>(u) / static_cast<uint32_t>(d);
+  return u / d;
+}
+
+// rows[u] = table[t * per_row + u % per_row], t = idx[u / per_row] clipped
+// to n rows: one thread per V-sized unit of the output, kU units a thread
+// kThreads apart, every load issued before any store
+template <int kU, typename V>
+__device__ __forceinline__ void raw_gather_table(
+    const V* table, V* __restrict__ rows, const int32_t* __restrict__ idx,
+    int64_t m, int64_t n, int64_t per_row) {
+  const int64_t total = m * per_row;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kU;
+  for (int64_t u0 = static_cast<int64_t>(blockIdx.x) * kThreads * kU +
+                    threadIdx.x;
+       u0 < total; u0 += step) {
+    V v[kU];
+#pragma unroll
+    for (int k = 0; k < kU; ++k) {
+      const int64_t u = u0 + k * kThreads;
+      if (u < total) {
+        const int64_t row = div_units(u, per_row);
+        v[k] = table[clip_row(__ldg(idx + row), n) * per_row +
+                     (u - row * per_row)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (u0 + k * kThreads < total) rows[u0 + k * kThreads] = v[k];
   }
 }
 
-template <typename V>
-int launch_raw(const void* table, const int32_t* idx, void* out, int64_t m,
-               int64_t n, int64_t row_bytes, cudaStream_t s) {
-  const int64_t per_row = row_bytes / static_cast<int64_t>(sizeof(V));
-  const int64_t total = m * per_row;
-  // enough CTAs to cover the output once, at most 16 a SM's worth of 132
-  const int64_t ctas = (total + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(ctas < 132 * 16 ? ctas : 132 * 16));
-  gather_rows_raw_kernel<V><<<grid, kThreads, 0, s>>>(
-      static_cast<const V*>(table), idx, static_cast<V*>(out), total,
-      per_row, n);
+// table blockIdx.y of `p`, its unit width uniform within the CTA
+template <int kU, int K>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_raw_kernel(const RawTables<K> p,
+                       const int32_t* __restrict__ idx, int64_t m) {
+  const int j = blockIdx.y;
+  const int64_t n = p.n[j], nu = p.units[j];
+  void* out = p.rows[j];
+  const void* in = p.table[j];
+  switch (p.unit_log[j]) {
+    case 4:
+      raw_gather_table<kU>(static_cast<const uint4*>(in),
+                           static_cast<uint4*>(out), idx, m, n, nu);
+      break;
+    case 3:
+      raw_gather_table<kU>(static_cast<const uint2*>(in),
+                           static_cast<uint2*>(out), idx, m, n, nu);
+      break;
+    case 2:
+      raw_gather_table<kU>(static_cast<const uint32_t*>(in),
+                           static_cast<uint32_t*>(out), idx, m, n, nu);
+      break;
+    case 1:
+      raw_gather_table<kU>(static_cast<const uint16_t*>(in),
+                           static_cast<uint16_t*>(out), idx, m, n, nu);
+      break;
+    default:
+      raw_gather_table<kU>(static_cast<const uint8_t*>(in),
+                           static_cast<uint8_t*>(out), idx, m, n, nu);
+  }
+}
+
+// One launch over the next tables with bytes to move, at most K (*next
+// moves past them; *done once none is left): one unit a thread while the
+// grid stays within kRawSpreadCtas, else kRawUnroll units a thread. With
+// `ctas` set, nothing is launched: the launch's CTAs are added to *ctas.
+template <int K>
+int launch_raw_gather(void* const* tables, void* const* rows_out,
+                      const int64_t* rows_n, const int64_t* row_bytes,
+                      int64_t count, const int32_t* idx, int64_t m,
+                      cudaStream_t s, int64_t* next, bool* done,
+                      int64_t* ctas) {
+  RawTables<K> p{};
+  int64_t most = 0;
+  const int k = raw_tables_next(p, tables, rows_out, rows_n, row_bytes, count,
+                                next, &most);
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0) {
+    *done = true;
+    return 0;
+  }
+  const int64_t units = m * most;
+  int64_t x = (units + kThreads - 1) / kThreads;
+  const bool spread = x * k <= kRawSpreadCtas;
+  if (!spread) {
+    x = (units + kThreads * kRawUnroll - 1) / (kThreads * kRawUnroll);
+    if (x > 0x7fffffff) x = 0x7fffffff;
+  }
+  if (ctas != nullptr) {
+    *ctas += x * k;
+    return 0;
+  }
+  const dim3 grid(static_cast<unsigned>(x), k);
+  if (spread)
+    gather_rows_raw_kernel<1, K><<<grid, kThreads, 0, s>>>(p, idx, m);
+  else
+    gather_rows_raw_kernel<kRawUnroll, K><<<grid, kThreads, 0, s>>>(p, idx, m);
   REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+// The raw pull's launches, one for every kRawMaxTables tables, the last on
+// a descriptor of kRawSmallTables where that few are left and of one where
+// one is left (a one-table pull's parameters are 36 bytes, as the
+// one-table kernel's were); with `ctas` set, their CTAs are counted
+// instead
+int gather_rows_raw_calls(void* const* tables, void* const* rows_out,
+                          const int64_t* rows_n, const int64_t* row_bytes,
+                          int64_t count, const int32_t* idx, int64_t m,
+                          cudaStream_t s, int64_t* ctas) {
+  int64_t next = 0;
+  bool done = false;
+  while (!done) {
+    const int64_t left = count - next;
+    const int rc =
+        left <= 1 ? launch_raw_gather<1>(tables, rows_out, rows_n, row_bytes,
+                                         count, idx, m, s, &next, &done, ctas)
+        : left <= kRawSmallTables
+            ? launch_raw_gather<kRawSmallTables>(tables, rows_out, rows_n,
+                                                 row_bytes, count, idx, m, s,
+                                                 &next, &done, ctas)
+            : launch_raw_gather<kRawMaxTables>(tables, rows_out, rows_n,
+                                               row_bytes, count, idx, m, s,
+                                               &next, &done, ctas);
+    if (rc) return rc;
+  }
   return 0;
 }
 
 }  // namespace
 
-REPRO_API int repro_gather_rows_raw(const void* table, const int32_t* idx,
-                                    void* out, int64_t m, int64_t n,
-                                    int64_t row_bytes, void* stream) {
-  if (m == 0 || row_bytes == 0) return 0;
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the widest unit that divides the row and both buffers' alignment
-  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
-                          reinterpret_cast<uintptr_t>(out) |
-                          static_cast<uintptr_t>(row_bytes);
-  if (align % 16 == 0) return launch_raw<uint4>(table, idx, out, m, n,
-                                                row_bytes, s);
-  if (align % 8 == 0) return launch_raw<uint2>(table, idx, out, m, n,
-                                               row_bytes, s);
-  if (align % 4 == 0) return launch_raw<uint32_t>(table, idx, out, m, n,
-                                                  row_bytes, s);
-  if (align % 2 == 0) return launch_raw<uint16_t>(table, idx, out, m, n,
-                                                  row_bytes, s);
-  return launch_raw<uint8_t>(table, idx, out, m, n, row_bytes, s);
+// rows_out[j] [M, row_bytes[j]] = tables[j][clip(idx, 0, rows_n[j] - 1)]
+// for each of `count` tables under one index: one launch for every
+// kRawMaxTables tables, each table's rows in its own widest unit (the plan
+// is made here, from the addresses and sizes)
+REPRO_API int repro_gather_rows_raw_many(void* const* tables,
+                                         void* const* rows_out,
+                                         const int64_t* rows_n,
+                                         const int64_t* row_bytes,
+                                         int64_t count, const int32_t* idx,
+                                         int64_t m, void* stream) {
+  if (m == 0) return 0;
+  return gather_rows_raw_calls(tables, rows_out, rows_n, row_bytes, count,
+                               idx, m, static_cast<cudaStream_t>(stream),
+                               nullptr);
+}
+
+// *ctas = the CTAs, summed over its launches, that repro_gather_rows_raw_many
+// would launch for the same tables, outputs and M (on the same plan; for
+// the launch floor an empty kernel takes on that grid)
+REPRO_API int repro_gather_rows_raw_many_ctas(void* const* tables,
+                                              void* const* rows_out,
+                                              const int64_t* rows_n,
+                                              const int64_t* row_bytes,
+                                              int64_t count, int64_t m,
+                                              int64_t* ctas) {
+  *ctas = 0;
+  if (m == 0) return 0;
+  return gather_rows_raw_calls(tables, rows_out, rows_n, row_bytes, count,
+                               nullptr, m, nullptr, ctas);
 }
 
 // out [M, row_bytes] = table[clip(idx, 0, n - 1)] for an f32 or bf16 table

@@ -303,11 +303,17 @@ scatter_rows_last_kernel(V* __restrict__ table,
 }
 
 // the copy after the claim passes, or the one-launch scan without them
+// the CTAs of a push of m rows, kRowsPerCta rows a CTA (the copy's and
+// the raw push's grid)
+inline int64_t copy_ctas(int64_t m) {
+  return (m + kRowsPerCta - 1) / kRowsPerCta;
+}
+
 template <typename V>
 void launch_copy(V* table, const int32_t* idx, const V* vals,
                  const int32_t* winner, int64_t m, int64_t n, int64_t dv,
                  cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((m + kRowsPerCta - 1) / kRowsPerCta));
+  const dim3 grid(static_cast<unsigned>(copy_ctas(m)));
   if (winner != nullptr)
     scatter_rows_kernel<V><<<grid, kThreads, 0, s>>>(table, idx, vals, winner,
                                                      m, n, dv);
@@ -742,6 +748,295 @@ int launch_vq(uint8_t* table, float* scales, uint8_t* codes_out, float* err,
   return 0;
 }
 
+// scatter_rows_raw: table_j[idx[i], :] = rows_j[i, :] bit for bit for
+// every table j of a call under one index, the rows already in storage
+// precision (f32 or bf16 rows, int8 or vq codes, and the [N] f32 scale
+// tables as 4-byte rows), indices outside [0, N_j) dropped, the last
+// writer winning. It replaces no Pallas kernel: the reference's serving
+// backend lands a frontend's encoded push with `.at[].set` of every
+// layer's table and scale table (src/repro/core/serve_service.py:255-298).
+// The port needs it because a history table may live in pinned host
+// memory (`history_storage="host"`), which no PyTorch scatter writes with
+// a CUDA index, and a host-side index_put_ would race the refresh step's
+// kernel writes still queued on the stream; through the buffer's unified
+// address the rows are written in stream order, with no host sync. The
+// split backend's `_op_push` (`HistoryStore.push_raw`, one call over
+// every table) and the distributed exchange's unpack go through it. It is
+// the mirror of gather_rows_raw (csrc/gather.cu). Bound: bytes, M*R read
+// and M*R written (R the row's bytes summed over the tables; over the
+// host link for a pinned table) plus 4*M of index. Design: one launch for
+// up to kRawMaxTables tables, planned in the C entry as the pull's
+// (csrc/common.cuh RawTables, each table's widest unit). A CTA takes
+// kRowsPerCta pushed rows and decides once which are their targets' last
+// writers, by the one-launch scan of the later indices up to kScanMax rows
+// (last_writers above) or from the claim passes past it (run once for
+// all the tables); then the CTA's threads, in as many groups as tables (a
+// power of two, at most 8), write those rows into their tables, each
+// group's threads over the unit columns, a thread loading its column of
+// all 8 rows before it stores any (no division), each unit moved through
+// a uint4 register whatever its width, and each thread's first column
+// requested before the scan so that its latency overlaps it (as the
+// one-table copy loads its row's head). A call with one table to move (a
+// `scatter_rows_raw`, the distributed exchange's unpack) runs that
+// one-table copy itself, which was 1.2-1.7 us faster on one table. So a
+// target's rows in every table (an int8 layer's codes and its scale) come
+// from the same pushed row, as scatter_rows_q and scatter_rows_vq
+// guarantee, and a push pays one launch floor for all its tables
+// (PERF.md section 6, row 19).
+//
+// One unit of 2^lg bytes (16, 8, 4, 2 or 1) at unit index `at`, through
+// a uint4 register whatever its width; `lg` is uniform within a thread
+// group, so the switch does not diverge.
+__device__ __forceinline__ uint4 load_unit(const void* base, int64_t at,
+                                           int lg) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  switch (lg) {
+    case 4:
+      v = __ldg(static_cast<const uint4*>(base) + at);
+      break;
+    case 3: {
+      const uint2 w = __ldg(static_cast<const uint2*>(base) + at);
+      v.x = w.x;
+      v.y = w.y;
+      break;
+    }
+    case 2:
+      v.x = __ldg(static_cast<const uint32_t*>(base) + at);
+      break;
+    case 1:
+      v.x = __ldg(static_cast<const uint16_t*>(base) + at);
+      break;
+    default:
+      v.x = __ldg(static_cast<const uint8_t*>(base) + at);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_unit(void* base, int64_t at, int lg,
+                                           const uint4& v) {
+  switch (lg) {
+    case 4:
+      static_cast<uint4*>(base)[at] = v;
+      break;
+    case 3:
+      static_cast<uint2*>(base)[at] = make_uint2(v.x, v.y);
+      break;
+    case 2:
+      static_cast<uint32_t*>(base)[at] = v.x;
+      break;
+    case 1:
+      static_cast<uint16_t*>(base)[at] = static_cast<uint16_t>(v.x);
+      break;
+    default:
+      static_cast<uint8_t*>(base)[at] = static_cast<uint8_t>(v.x);
+  }
+}
+
+// One table's part of the raw push by one thread of a group of
+// `threads`: unit columns c = c0, c0 + threads, ... of its CTA's
+// kRowsPerCta pushed rows (`per_row` units of 2^lg bytes a row), every
+// row's unit loaded before any is stored (kRowsPerCta loads in flight,
+// and no division: a 64-bit one is tens of instructions). Row r writes
+// table row tgt[r] where bit r of `last` is set and the target lies within
+// the table's n rows.
+__device__ __forceinline__ void raw_push_cols(void* table, const void* rows,
+                                              int64_t n, int64_t per_row,
+                                              int lg, const int32_t* tgt,
+                                              uint32_t last, int64_t row0,
+                                              int64_t c0, int threads) {
+  uint32_t live = 0u;
+#pragma unroll
+  for (int r = 0; r < kRowsPerCta; ++r)
+    live |= static_cast<uint32_t>(((last >> r) & 1u) && tgt[r] < n) << r;
+  for (int64_t c = c0; c < per_row; c += threads) {
+    uint4 v[kRowsPerCta];
+#pragma unroll
+    for (int r = 0; r < kRowsPerCta; ++r)
+      if ((live >> r) & 1u)
+        v[r] = load_unit(rows, (row0 + r) * per_row + c, lg);
+#pragma unroll
+    for (int r = 0; r < kRowsPerCta; ++r)
+      if ((live >> r) & 1u) store_unit(table, tgt[r] * per_row + c, lg, v[r]);
+  }
+}
+
+// The raw push into the `count` tables of `p`, one launch. A CTA takes
+// kRowsPerCta consecutive pushed rows and decides once which are their
+// targets' last writers: by the scan of the later indices (last_writers
+// above), or from the claim passes' `winner` past kScanMax rows; a target
+// must lie in [0, n_max), n_max the most rows of any table. The CTA's
+// threads split into `groups` groups, the least power of two at or above
+// the table count (at most one a warp), and group g writes those rows
+// into tables g, g + groups, ... in turn, so a target's rows in every
+// table (an int8 layer's codes and its scale) come from the same pushed
+// row, and a push of one or two wide tables still has every warp of the
+// CTA copying. Each thread loads its first column of its first table
+// before the scan, as the one-table copy loads its row's head.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_raw_kernel(const RawTables<K> p, int count,
+                        const int32_t* __restrict__ idx,
+                        const int32_t* __restrict__ winner, int64_t m,
+                        int64_t n_max) {
+  __shared__ int32_t tgt_s[kRowsPerCta];  // a candidate's target, else kNone
+  __shared__ uint32_t later_s;  // last_writers' flags
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerCta;
+  const int64_t row = row0 + warp;
+  int groups = 1;
+  while (groups < count && groups < kRowsPerCta) groups *= 2;
+  const int threads = kThreads / groups;
+  const int j0 = tid / threads, q_lane = tid % threads;
+  const int32_t t = row < m ? __ldg(idx + row) : -1;
+  bool cand = t >= 0 && t < n_max;
+  if (winner != nullptr)
+    cand = cand && winner[t] == static_cast<int32_t>(row);
+  else
+    cand = cand && t != (row + 1 < m ? __ldg(idx + row + 1) : -1);
+  if (lane == 0) tgt_s[warp] = cand ? t : kNone;
+  if (tid == 0) later_s = 0u;
+  int32_t x[kScanLoads];
+  if (winner == nullptr) scan_first<kRowsPerCta>(idx, m, row0, x);
+  // this thread's first column of its group's first table, every pushed
+  // row's unit, is requested now, so that its latency overlaps the scan
+  uint4 head[kRowsPerCta];
+  if (j0 < count && q_lane < p.units[j0]) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerCta; ++r)
+      if (row0 + r < m)
+        head[r] = load_unit(p.rows[j0], (row0 + r) * p.units[j0] + q_lane,
+                            p.unit_log[j0]);
+  }
+  if (!__syncthreads_or(lane == 0 && cand)) return;
+  uint32_t last = 0u;
+  if (winner == nullptr) {
+    last = last_writers<kRowsPerCta>(idx, m, row0, tgt_s, &later_s, x);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRowsPerCta; ++r)
+      last |= static_cast<uint32_t>(tgt_s[r] != kNone) << r;
+  }
+  if (j0 >= count) return;
+  const int64_t per_row = p.units[j0], n = p.n[j0];
+  const int lg = p.unit_log[j0];
+  void* table = p.table[j0];
+  if (q_lane < per_row) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerCta; ++r) {
+      const int32_t tr = tgt_s[r];
+      if (((last >> r) & 1u) && tr < n)
+        store_unit(table, tr * per_row + q_lane, lg, head[r]);
+    }
+  }
+  raw_push_cols(table, p.rows[j0], n, per_row, lg, tgt_s, last, row0,
+                q_lane + threads, threads);
+  for (int j = j0 + groups; j < count; j += groups)
+    raw_push_cols(p.table[j], p.rows[j], p.n[j], p.units[j], p.unit_log[j],
+                  tgt_s, last, row0, q_lane, threads);
+}
+
+// One launch of the raw push over the next tables with bytes to move, at
+// most K (*next moves past them; *done once none is left). With `ctas`
+// set, nothing is launched: the launch's CTAs are added to *ctas.
+template <int K>
+int launch_raw_push(void* const* tables, void* const* rows,
+                    const int64_t* rows_n, const int64_t* row_bytes,
+                    int64_t count, const int32_t* idx, const int32_t* winner,
+                    int64_t m, int64_t n_max, cudaStream_t s, int64_t* next,
+                    bool* done, int64_t* ctas) {
+  RawTables<K> p{};
+  int64_t most = 0;
+  const int k = raw_tables_next(p, tables, rows, rows_n, row_bytes, count,
+                                next, &most);
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0) {
+    *done = true;
+    return 0;
+  }
+  if (ctas != nullptr) {
+    *ctas += copy_ctas(m);
+    return 0;
+  }
+  const dim3 grid(static_cast<unsigned>(copy_ctas(m)));
+  scatter_rows_raw_kernel<K><<<grid, kThreads, 0, s>>>(p, k, idx, winner, m,
+                                                       n_max);
+  REPRO_CHECK_LAUNCH();
+  return 0;
+}
+
+// The raw push's launches after the claim passes (run by the caller where
+// it hands a winner scratch): a call with one table to move runs
+// scatter_rows' one-table copy, a warp a row with its head loaded before
+// the scan (0.0059-0.0062 ms on an H100 where the many-table kernel over
+// one table took 0.0071-0.0077: PERF.md, row 19); otherwise one launch for
+// every kRawMaxTables tables, the last on a descriptor of kRawSmallTables
+// where that few are left. With `ctas` set, their CTAs are counted
+// instead.
+int scatter_rows_raw_calls(void* const* tables, void* const* rows,
+                           const int64_t* rows_n, const int64_t* row_bytes,
+                           int64_t count, const int32_t* idx,
+                           const int32_t* winner, int64_t m, cudaStream_t s,
+                           int64_t* ctas) {
+  int64_t n_max = 0, live = 0, only = 0;
+  for (int64_t j = 0; j < count; ++j) {
+    if (row_bytes[j] <= 0) continue;
+    ++live;
+    only = j;
+    if (rows_n[j] > n_max) n_max = rows_n[j];
+  }
+  if (n_max == 0) return 0;
+  if (live == 1 && ctas != nullptr) {
+    *ctas += copy_ctas(m);
+    return 0;
+  }
+  if (live == 1) {
+    const int64_t rb = row_bytes[only];
+    void* t = tables[only];
+    const void* r = rows[only];
+    const int64_t n = rows_n[only];
+    switch (raw_unit_log(t, r, rb)) {
+      case 4:
+        launch_copy(static_cast<uint4*>(t), idx, static_cast<const uint4*>(r),
+                    winner, m, n, rb / 16, s);
+        break;
+      case 3:
+        launch_copy(static_cast<uint2*>(t), idx, static_cast<const uint2*>(r),
+                    winner, m, n, rb / 8, s);
+        break;
+      case 2:
+        launch_copy(static_cast<uint32_t*>(t), idx,
+                    static_cast<const uint32_t*>(r), winner, m, n, rb / 4, s);
+        break;
+      case 1:
+        launch_copy(static_cast<uint16_t*>(t), idx,
+                    static_cast<const uint16_t*>(r), winner, m, n, rb / 2, s);
+        break;
+      default:
+        launch_copy(static_cast<uint8_t*>(t), idx,
+                    static_cast<const uint8_t*>(r), winner, m, n, rb, s);
+    }
+    REPRO_CHECK_LAUNCH();
+    return 0;
+  }
+  int64_t next = 0;
+  bool done = false;
+  while (!done) {
+    const int rc =
+        count - next <= kRawSmallTables
+            ? launch_raw_push<kRawSmallTables>(tables, rows, rows_n,
+                                               row_bytes, count, idx, winner,
+                                               m, n_max, s, &next, &done,
+                                               ctas)
+            : launch_raw_push<kRawMaxTables>(tables, rows, rows_n, row_bytes,
+                                             count, idx, winner, m, n_max, s,
+                                             &next, &done, ctas);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 REPRO_API int repro_scatter_rows_f32(float* table, const int32_t* idx,
@@ -758,60 +1053,50 @@ REPRO_API int repro_scatter_rows_bf16(uint16_t* table, const int32_t* idx,
   return launch_scatter<uint16_t>(table, idx, vals, winner, m, n, d, stream);
 }
 
-// scatter_rows_raw: table[idx[i], :] = rows[i, :] bit for bit, the rows
-// already in storage precision (f32 or bf16 rows, int8 or vq codes, and
-// the [N] f32 scale tables as 4-byte rows), indices outside [0, N)
-// dropped, the last writer winning. It replaces no Pallas kernel: the
-// reference's serving backend lands a frontend's encoded push with
-// `.at[].set` (src/repro/core/serve_service.py:255-298). The port needs
-// it because a history table may live in pinned host memory
-// (`history_storage="host"`), which no PyTorch scatter writes with a CUDA
-// index, and a host-side index_put_ would race the refresh step's kernel
-// writes still queued on the stream; through the buffer's unified
-// address the rows are written in stream order, with no host sync. It is
-// the mirror of gather_rows_raw (csrc/gather.cu). Bound: bytes, M*R read
-// and M*R written (R the row's bytes; over the host link for a pinned
-// table) plus 4*M of index. Design: scatter_rows' copy (the one-launch
-// scan of the later indices up to kScanMax rows, the claim passes past
-// it; a warp per row), on the widest unit, 16, 8, 4, 2 or 1 bytes, that
-// divides the row's bytes and both buffers' addresses.
-REPRO_API int repro_scatter_rows_raw(void* table, const int32_t* idx,
-                                     const void* vals, int32_t* winner,
-                                     int64_t m, int64_t n, int64_t row_bytes,
-                                     void* stream) {
-  if (m == 0 || row_bytes == 0) return 0;
+// tables[j][idx[i]] = rows[j][i] bit for bit for each of `count` tables
+// under one index, indices outside a table's rows_n[j] dropped, the last
+// writer winning in every table alike: the claim passes first where the
+// caller hands a winner scratch (more than kScanMax rows; rows_n's largest
+// entries), then one launch for every kRawMaxTables tables (a call with
+// one table to move, scatter_rows' one-table copy), each table's rows in
+// its own widest unit (the plan is made here)
+REPRO_API int repro_scatter_rows_raw_many(void* const* tables,
+                                          void* const* rows,
+                                          const int64_t* rows_n,
+                                          const int64_t* row_bytes,
+                                          int64_t count, const int32_t* idx,
+                                          int32_t* winner, int64_t m,
+                                          void* stream) {
+  if (m == 0) return 0;
   // no winner scratch: the one-launch scan, which takes at most kScanMax
   if (winner == nullptr && m > kScanMax)
     return static_cast<int>(cudaErrorInvalidValue);
+  int64_t n_max = 0;
+  for (int64_t j = 0; j < count; ++j)
+    if (row_bytes[j] > 0 && rows_n[j] > n_max) n_max = rows_n[j];
+  if (n_max == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (winner != nullptr) {
-    if (int rc = claim(idx, winner, m, n, s)) return rc;
+    if (int rc = claim(idx, winner, m, n_max, s)) return rc;
   }
-  const uintptr_t align = reinterpret_cast<uintptr_t>(table) |
-                          reinterpret_cast<uintptr_t>(vals) |
-                          static_cast<uintptr_t>(row_bytes);
-  if (align % 16 == 0)
-    launch_copy(static_cast<uint4*>(table), idx,
-                static_cast<const uint4*>(vals), winner, m, n, row_bytes / 16,
-                s);
-  else if (align % 8 == 0)
-    launch_copy(static_cast<uint2*>(table), idx,
-                static_cast<const uint2*>(vals), winner, m, n, row_bytes / 8,
-                s);
-  else if (align % 4 == 0)
-    launch_copy(static_cast<uint32_t*>(table), idx,
-                static_cast<const uint32_t*>(vals), winner, m, n,
-                row_bytes / 4, s);
-  else if (align % 2 == 0)
-    launch_copy(static_cast<uint16_t*>(table), idx,
-                static_cast<const uint16_t*>(vals), winner, m, n,
-                row_bytes / 2, s);
-  else
-    launch_copy(static_cast<uint8_t*>(table), idx,
-                static_cast<const uint8_t*>(vals), winner, m, n, row_bytes,
-                s);
-  REPRO_CHECK_LAUNCH();
-  return 0;
+  return scatter_rows_raw_calls(tables, rows, rows_n, row_bytes, count, idx,
+                                winner, m, s, nullptr);
+}
+
+// *ctas = the CTAs, summed over its copy launches (not the claim passes),
+// that repro_scatter_rows_raw_many would launch for the same tables, rows
+// and M (on the same plan; for the launch floor an empty kernel takes on
+// that grid)
+REPRO_API int repro_scatter_rows_raw_many_ctas(void* const* tables,
+                                               void* const* rows,
+                                               const int64_t* rows_n,
+                                               const int64_t* row_bytes,
+                                               int64_t count, int64_t m,
+                                               int64_t* ctas) {
+  *ctas = 0;
+  if (m == 0) return 0;
+  return scatter_rows_raw_calls(tables, rows, rows_n, row_bytes, count,
+                                nullptr, nullptr, m, nullptr, ctas);
 }
 
 REPRO_API int repro_scatter_rows_q(int8_t* q, float* scales, float* err,

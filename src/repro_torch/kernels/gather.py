@@ -18,33 +18,41 @@ a warp, up to 4 units a lane in flight). Each kernel clips its row's
 index to [0, N - 1], as the reference's `pull_rows` clips it, so a pull
 is one launch.
 
-`gather_rows_raw` replaces no Pallas kernel: the reference's
-`HistoryStore.prefetch` (`src/repro/core/history.py:596-600`) takes its
-raw rows and scales with `jnp.take`. Its kernel (`csrc/gather.cu`) reads
-a device table or a pinned host one (`history_storage="host"`) through
-its unified address, so that only the pulled rows cross the host link;
-bound by bytes, M*R read (over the link for a host table) plus M*R
-written, R the row's bytes.
+`gather_rows_raw_many` replaces no Pallas kernel: the reference's
+`HistoryStore.prefetch` (`src/repro/core/history.py:595-601`) takes every
+layer's raw rows and scales under one index with `jnp.take`, which XLA is
+free to fuse. Its kernel (`csrc/gather.cu`) moves the rows of up to
+MAX_RAW_TABLES tables in one launch, each a device table or a pinned host
+one (`history_storage="host"`) read through its unified address, so that
+only the pulled rows cross the host link; the C entry plans each table's
+unit width itself. Bound by bytes, M*R read (over the link for a host
+table) plus M*R written, R the row's bytes summed over the tables.
+`gather_rows_raw` is its one-table case.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import List, NamedTuple, Sequence
 
 import torch
 
 from . import _build as B
-from .ref import (gather_rows_dq_ref, gather_rows_raw_ref, gather_rows_ref,
-                  gather_rows_vq_ref)
+from .ref import (gather_rows_dq_ref, gather_rows_raw_many_ref,
+                  gather_rows_raw_ref, gather_rows_ref, gather_rows_vq_ref)
 
 __all__ = ["gather_rows", "gather_rows_ref", "gather_rows_dq",
            "gather_rows_dq_ref", "gather_rows_vq", "gather_rows_vq_ref",
-           "gather_rows_raw", "gather_rows_raw_ref", "check_codebook"]
+           "gather_rows_raw", "gather_rows_raw_ref", "gather_rows_raw_many",
+           "gather_rows_raw_many_ref", "check_codebook", "MAX_RAW_TABLES"]
 
 _ROW_COPY = {torch.float32: "gather_rows", torch.bfloat16: "gather_rows_bf16"}
 # csrc/gather.cu: CTAs of 8 warps; a lane holds at most MAX_UNROLL units of
 # its row at once
 WARPS_PER_CTA, MAX_UNROLL = 8, 4
 COPY_UNITS = (16, 8, 4, 2, 1)     # bytes
+# the most tables one launch of the raw pull or push moves (csrc/common.cuh
+# kRawMaxTables); a call over more is ceil(T / MAX_RAW_TABLES) launches
+MAX_RAW_TABLES = 64
 
 
 class RowPlan(NamedTuple):
@@ -216,30 +224,81 @@ def _decode(table: torch.Tensor, codebook: torch.Tensor,
     return out
 
 
-def gather_rows_raw(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out [M, ...] = table[clip(idx, 0, N-1)] on the card: the raw
-    storage bits of the rows (f32, bf16, int8 or uint8 codes; a 1-d [N]
-    scale table gives [M]), bitwise, from a device table or from a pinned
-    host one; `idx` int32 [M] on the card, clipped in the kernel. All-CPU
-    operands run the plain version."""
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return gather_rows_raw_ref(table, idx)
+def raw_launches(n_tables: int) -> int:
+    """The launches of a raw pull or push over `n_tables` tables that have
+    bytes to move: one for every MAX_RAW_TABLES."""
+    return -(-n_tables // MAX_RAW_TABLES)
+
+
+def gather_rows_raw_many(tables: Sequence[torch.Tensor],
+                         idx: torch.Tensor) -> List[torch.Tensor]:
+    """[table[clip(idx, 0, N - 1)] for table in tables] on the card: the
+    raw storage bits of the rows (f32, bf16, int8 or uint8 codes; a 1-d
+    [N] scale table gives [M]), bitwise, each table on the card or
+    pinned on the host, in one launch for up to MAX_RAW_TABLES tables;
+    `idx` int32 [M] on the card, clipped in the kernel. Each output is
+    contiguous (the outputs of tables of one type and row shape are views
+    of one allocation, `raw_outputs`). All-CPU operands run the plain
+    version."""
+    tables = list(tables)
+    if idx.device.type == "cpu" and all(t.device.type == "cpu"
+                                        for t in tables):
+        return gather_rows_raw_many_ref(tables, idx)
     name = "gather_rows_raw"
-    dev = B.require_cuda(name, idx, pinned=(table,))
+    dev = B.require_cuda(name, idx, pinned=tuple(tables))
     B.require_dtype(name, idx, torch.int32, "idx")
-    if table.dim() not in (1, 2) or idx.dim() != 1:
-        raise ValueError(f"{name}: table [N] or [N, D] and idx [M], got "
-                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
-    m, n = idx.shape[0], table.shape[0]
-    if n == 0 and m > 0:
+    if idx.dim() != 1 or any(t.dim() not in (1, 2) for t in tables):
+        raise ValueError(f"{name}: tables [N] or [N, D] and idx [M], got "
+                         f"{[tuple(t.shape) for t in tables]} and "
+                         f"{tuple(idx.shape)}")
+    m = idx.shape[0]
+    if m and any(t.shape[0] == 0 for t in tables):
         raise ValueError(f"{name}: an empty table has no row to clip to")
-    out = torch.empty((m,) + tuple(table.shape[1:]), dtype=table.dtype,
-                      device=dev)
-    if out.numel() == 0:
-        return out
-    row_bytes = table[0].numel() * table.element_size()
-    B.check(B.lib().repro_gather_rows_raw(
-        B.device_ptr(table), idx.data_ptr(), out.data_ptr(), m, n, row_bytes,
-        B.stream_ptr(dev)), name)
-    B.launch_counts[name] += 1
-    return out
+    outs = raw_outputs(tables, m, dev)
+    live = [(t, o) for t, o in zip(tables, outs) if o.numel()]
+    if live:
+        B.check(B.lib().repro_gather_rows_raw_many(
+            B.pointers([B.device_ptr(t) for t, _ in live]),
+            B.pointers([o.data_ptr() for _, o in live]),
+            B.int64s([t.shape[0] for t, _ in live]),
+            B.int64s([row_bytes(t) for t, _ in live]),
+            len(live), idx.data_ptr(), m, B.stream_ptr(dev)), name)
+        B.launch_counts[name] += raw_launches(len(live))
+    return outs
+
+
+def row_bytes(t: torch.Tensor) -> int:
+    """The bytes of one row of a table [N] or [N, D] (from its shape)."""
+    return math.prod(t.shape[1:]) * t.element_size()
+
+
+def raw_outputs(tables: List[torch.Tensor], m: int,
+                dev: torch.device) -> List[torch.Tensor]:
+    """The raw pull's outputs, [m, ...] like each table: one allocation for
+    the tables of each type and row shape, unbound into contiguous views,
+    and a table unlike any other its own. On an H100 one allocation for
+    GCNII-32L's 31 alike tables took 64-372 us less host time a prefetch
+    than 31, while a 1- or 2-table prefetch took up to 27 us more through
+    one block a group (PERF.md section 6, PR 32)."""
+    groups = {}
+    for i, t in enumerate(tables):
+        groups.setdefault((t.dtype, tuple(t.shape[1:])), []).append(i)
+    outs = [None] * len(tables)
+    for (dtype, shape), members in groups.items():
+        if len(members) == 1:
+            outs[members[0]] = torch.empty((m,) + shape, dtype=dtype,
+                                           device=dev)
+            continue
+        block = torch.empty((len(members), m) + shape, dtype=dtype,
+                            device=dev)
+        for i, o in zip(members, block.unbind(0)):
+            outs[i] = o
+    return outs
+
+
+def gather_rows_raw(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out [M, ...] = table[clip(idx, 0, N-1)]: `gather_rows_raw_many` of
+    one table (on the card or pinned on the host; a 1-d [N] scale table
+    gives [M]); `idx` int32 [M] on the card. All-CPU operands run the
+    plain version."""
+    return gather_rows_raw_many([table], idx)[0]

@@ -33,7 +33,7 @@ card too.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -155,6 +155,13 @@ def gather_rows_raw_ref(table: torch.Tensor,
     return table[_clipped(idx, table.shape[0])]
 
 
+def gather_rows_raw_many_ref(tables: Sequence[torch.Tensor],
+                             idx: torch.Tensor) -> List[torch.Tensor]:
+    """`gather_rows_raw_ref` of each table under the one index: the plain
+    version of `gather_rows_raw_many`, a prefetch's tables."""
+    return [gather_rows_raw_ref(t, idx) for t in tables]
+
+
 def gather_rows_dq_ref(table: torch.Tensor, scales: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """The dequantizing pull: out[i] = float(q[t]) * scales[t] in f32, t =
@@ -217,6 +224,18 @@ def scatter_rows_raw_ref(table: torch.Tensor, idx: torch.Tensor,
     win = _last_writer(idx, table.shape[0])
     table[idx[win]] = rows[win]
     return table
+
+
+def scatter_rows_raw_many_ref(tables: Sequence[torch.Tensor],
+                              idx: torch.Tensor,
+                              rows: Sequence[torch.Tensor]
+                              ) -> List[torch.Tensor]:
+    """`scatter_rows_raw_ref` of each table with its rows under the one
+    index, in place: the plain version of `scatter_rows_raw_many`, a raw
+    push's tables. Returns the tables."""
+    for table, r in zip(tables, rows):
+        scatter_rows_raw_ref(table, idx, r)
+    return list(tables)
 
 
 def scatter_rows_q_ref(table: torch.Tensor, scales: torch.Tensor,

@@ -24,34 +24,39 @@ the kernels write their rows through the buffers' unified addresses,
 and their only atomics target the device winner scratch and shared
 memory, never the table.
 
-`scatter_rows_raw` replaces no Pallas kernel: the reference's serving
-backend lands a frontend's encoded rows with `.at[].set`
+`scatter_rows_raw_many` replaces no Pallas kernel: the reference's
+serving backend lands a frontend's encoded rows with `.at[].set`
 (`src/repro/core/serve_service.py:255-298`). It is the mirror of
-`gather_rows_raw`: rows of any element width (f32 or bf16 rows, int8 or
-vq codes, a [N] scale table's single elements) copied bit for bit into a
-device table or a pinned host one (through its unified address, on the
-current stream, so after the refresh kernels queued before it and with no
-host sync), last writer winning, with `scatter_rows`' one-launch scan
-(or its claim passes past SCAN_MAX_ROWS) and copy in 16-, 8-, 4-, 2- or
-1-byte units, the widest the row and both buffers allow (csrc/scatter.cu).
-Bound by bytes: M*R read plus M*R written, R the row's bytes, and 4*M of
-index; over the host link for a pinned table.
+`gather_rows_raw_many`: the rows of up to MAX_RAW_TABLES tables under one
+index (every layer's table and scale table of a push) copied bit for bit
+in one launch into device tables or pinned host ones (through their
+unified addresses, on the current stream, so after the refresh kernels
+queued before it and with no host sync), last writer winning. The last
+writer of each target is decided once, by `scatter_rows`' one-launch scan
+(or its claim passes past SCAN_MAX_ROWS), and applied to every table, so
+a target's codes and its scale come from the same pushed row; each
+table's rows move in the widest unit, 16, 8, 4, 2 or 1 bytes, its row and
+both buffers allow (csrc/scatter.cu). Bound by bytes: M*R read plus M*R
+written, R the row's bytes summed over the tables, and 4*M of index; over
+the host link for a pinned table. `scatter_rows_raw` is its one-table
+case.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build as B
 from .decode_attn import _sm_count
-from .gather import check_codebook
-from .ref import (scatter_rows_q_ref, scatter_rows_raw_ref,
-                  scatter_rows_ref, scatter_rows_vq_ref)
+from .gather import check_codebook, raw_launches, row_bytes
+from .ref import (scatter_rows_q_ref, scatter_rows_raw_many_ref,
+                  scatter_rows_raw_ref, scatter_rows_ref, scatter_rows_vq_ref)
 
 __all__ = ["scatter_rows", "scatter_rows_ref", "scatter_rows_q",
            "scatter_rows_q_ref", "scatter_rows_vq", "scatter_rows_vq_ref",
            "scatter_rows_raw", "scatter_rows_raw_ref",
+           "scatter_rows_raw_many", "scatter_rows_raw_many_ref",
            "scatter_rows_vq_plan", "SCAN_MAX_ROWS"]
 
 _ROW_COPY = {torch.float32: ("repro_scatter_rows_f32", "scatter_rows"),
@@ -204,36 +209,71 @@ def scatter_rows_vq(table: torch.Tensor, scales: torch.Tensor,
     return table, scales, codes, err
 
 
-def scatter_rows_raw(table: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor) -> torch.Tensor:
-    """In place: table[idx[i]] = rows[i] for idx[i] in [0, N), bit for bit
-    (f32, bf16, int8 or uint8 rows [N, D], or a 1-d [N] table of single
-    elements such as a scale table); other rows are dropped; duplicates
-    resolve to the last occurrence. `rows` has the table's type and shape
-    past the first axis; `table` is on the card or a pinned host tensor,
-    `idx` int32 [M] and `rows` on the card. All-CPU operands run the plain
-    version. Returns `table`."""
-    if all(t.device.type == "cpu" for t in (table, idx, rows)):
-        return scatter_rows_raw_ref(table, idx, rows)
+def _check_raw_push(tables: List[torch.Tensor], idx: torch.Tensor,
+                    rows: List[torch.Tensor]) -> None:
+    """What a raw push checks on any device: one row set a table, each of
+    the table's type and of shape [M, ...] like the table."""
     name = "scatter_rows_raw"
-    dev = B.require_cuda(name, idx, rows, pinned=(table,))
+    if len(tables) != len(rows):
+        raise ValueError(f"{name}: {len(tables)} tables and {len(rows)} "
+                         "row sets")
+    for table, r in zip(tables, rows):
+        if r.dtype != table.dtype:
+            raise TypeError(f"{name}: rows are {r.dtype}, the table "
+                            f"{table.dtype}")
+        if table.dim() not in (1, 2) or idx.dim() != 1 or \
+                r.shape != idx.shape + table.shape[1:]:
+            raise ValueError(f"{name}: table [N] or [N, D], idx [M] and rows"
+                             f" [M, ...] like the table, got "
+                             f"{tuple(table.shape)}, {tuple(idx.shape)} and "
+                             f"{tuple(r.shape)}")
+
+
+def scatter_rows_raw_many(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+                          rows: Sequence[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+    """In place, for each table and its rows: table[idx[i]] = rows[i] for
+    idx[i] in [0, N), bit for bit (f32, bf16, int8 or uint8 rows [N, D],
+    or a 1-d [N] table of single elements such as a scale table); other
+    rows are dropped; duplicates resolve to the last occurrence, the same
+    pushed row in every table. Each rows tensor has its table's type and
+    shape past the first axis; a table is on the card or a pinned host
+    tensor, `idx` int32 [M] and the rows on the card; one launch for up to
+    MAX_RAW_TABLES tables. All-CPU operands run the plain version.
+    Returns the tables."""
+    tables, rows = list(tables), list(rows)
+    _check_raw_push(tables, idx, rows)
+    if all(t.device.type == "cpu" for t in tables + rows + [idx]):
+        return scatter_rows_raw_many_ref(tables, idx, rows)
+    name = "scatter_rows_raw"
+    dev = B.require_cuda(name, idx, *rows, pinned=tuple(tables))
     B.require_dtype(name, idx, torch.int32, "idx")
-    B.require_dtype(name, rows, table.dtype, "rows")
-    if table.dim() not in (1, 2) or idx.dim() != 1 or \
-            rows.shape != idx.shape + table.shape[1:]:
-        raise ValueError(f"{name}: table [N] or [N, D], idx [M] and rows "
-                         f"[M, ...] like the table, got {tuple(table.shape)}"
-                         f", {tuple(idx.shape)} and {tuple(rows.shape)}")
-    m, n = idx.shape[0], table.shape[0]
+    m = idx.shape[0]
     if m >= 2 ** 31:
         raise ValueError(f"{name}: {m} rows exceed the int32 winner pass")
-    row_bytes = rows[0].numel() * rows.element_size() if m else 0
-    if m == 0 or row_bytes == 0:
-        return table
-    winner = _winner(m, n, dev)
-    B.check(B.lib().repro_scatter_rows_raw(
-        B.device_ptr(table), idx.data_ptr(), rows.data_ptr(),
-        None if winner is None else winner.data_ptr(), m, n, row_bytes,
+    # a table of no rows drops every pushed row
+    live = [(t, r) for t, r in zip(tables, rows)
+            if r.numel() and t.shape[0]]
+    if not live:
+        return tables
+    winner = _winner(m, max(t.shape[0] for t, _ in live), dev)
+    B.check(B.lib().repro_scatter_rows_raw_many(
+        B.pointers([B.device_ptr(t) for t, _ in live]),
+        B.pointers([r.data_ptr() for _, r in live]),
+        B.int64s([t.shape[0] for t, _ in live]),
+        B.int64s([row_bytes(r) for _, r in live]),
+        len(live), idx.data_ptr(),
+        None if winner is None else winner.data_ptr(), m,
         B.stream_ptr(dev)), name)
-    B.launch_counts[name] += 1
-    return table
+    B.launch_counts[name] += raw_launches(len(live))
+    return tables
+
+
+def scatter_rows_raw(table: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """In place: table[idx[i]] = rows[i] for idx[i] in [0, N), bit for bit:
+    `scatter_rows_raw_many` of one table (on the card or pinned on the
+    host; a 1-d [N] table of single elements such as a scale table); other
+    rows are dropped; duplicates resolve to the last occurrence. All-CPU
+    operands run the plain version. Returns `table`."""
+    return scatter_rows_raw_many([table], idx, [rows])[0]

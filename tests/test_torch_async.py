@@ -312,7 +312,7 @@ def test_pipelined_step_call_order(monkeypatch):
     spy(ops, "scatter_rows", table_arg=0)
     spy(ops, "gather_spmm", table_arg=1)
     spy(ops, "bcsr_spmm")
-    spy(t_hist, "gather_rows_raw")
+    spy(t_hist, "gather_rows_raw_many")
     state, _, queue = t_rt.prefetch_step(plan, state, plan.batch(0),
                                          plan.batch(2), queue)
     assert len(queue) == 2
@@ -325,10 +325,10 @@ def test_pipelined_step_call_order(monkeypatch):
     assert at["gather_spmm(mini)"][-1] > last_push
     # then the other entry's patch (a push into each mini-table), the
     # prefetch of batch 2, and only then the backward
-    patches, raw = at["scatter_rows(mini)"], at["gather_rows_raw"]
-    assert len(patches) == 2 and len(raw) == 2
+    patches, raw = at["scatter_rows(mini)"], at["gather_rows_raw_many"]
+    assert len(patches) == 2 and len(raw) == 1     # both layers, one call
     bwd = [i for i in at["bcsr_spmm"] if i > last_push]
-    assert last_push < patches[0] and patches[-1] < raw[0] < raw[-1] < bwd[0]
+    assert last_push < patches[0] and patches[-1] < raw[0] < bwd[0]
     assert not [i for i in raw if i < last_push]
 
 

@@ -59,8 +59,15 @@ with one card) against the same ranks on the CPU: f32, bf16 and int8
 halos bitwise, and GCNII's and an int8 GCN's supersteps (loss and
 summed gradients at 1e-5, int8 codes >= 99.9% equal). The full-graph
 forward (`full_forward`, every sum of its COO route through
-`ref.segment_sum`) of all six operators bitwise across two runs."""
+`ref.segment_sum`) of all six operators bitwise across two runs. The raw
+pull and push over many tables (`gather_rows_raw_many`,
+`scatter_rows_raw_many`) bitwise their plain versions at 1 to 65 tables
+of every width, pinned, on the card and mixed, and one raw kernel a
+`HistoryStore.prefetch` and a `push_raw` (torch.profiler, one window);
+the raw entries' grid queries against grids worked by hand."""
+import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -425,6 +432,78 @@ def test_autograd_functions_launch_their_kernels(dev):
                 assert _build.launch_counts[k] == before[k] + 1, k
     for x, y in zip(grads["cpu"], grads[str(dev)]):
         torch.testing.assert_close(y, x, **TOL)
+
+
+def test_prefetch_and_push_raw_are_one_kernel(dev):
+    """For each store (f32, bf16, int8, vq; 3 layers) on the card and on
+    the host: `HistoryStore.prefetch` (every table and scale table) is
+    one device kernel, and `push_raw` of the rows one raw kernel beside
+    the elementwise ones that mask its index. One torch.profiler window
+    for all sixteen calls (late in a long run the profiler misses events,
+    and every window brings that nearer), each call's kernels between
+    marker kernels (a one-row `scatter_rows`). The pulled rows are
+    bitwise the tables', the pushed ones land bitwise."""
+    from repro_torch.core.history import HistoryStore
+    n1, cases = 2001, []
+    g = torch.Generator(device=dev).manual_seed(2)
+    for hd in ("f32", "bf16", "int8", "vq"):
+        for storage in ("host", "device"):
+            store = HistoryStore.create(n1, [64, 64, 64], hd, dev,
+                                        storage=storage)
+            idx = torch.randperm(n1 - 1, device=dev, generator=g)[:300].to(
+                torch.int32)
+            for ell in range(3):
+                store.push(ell, idx, torch.randn(300, 64, device=dev,
+                                                 generator=g),
+                           torch.ones(300, dtype=torch.bool, device=dev))
+            pull = idx[:274]
+            pulled = store.prefetch(pull)
+            store.sync()
+            for ell, (rows, scl) in enumerate(pulled):
+                assert torch.equal(rows.cpu(), ref.gather_rows_raw_ref(
+                    store.tables[ell].cpu(), pull.cpu()))
+                if scl is not None:
+                    assert torch.equal(scl.cpu(), ref.gather_rows_raw_ref(
+                        store.scales[ell].cpu(), pull.cpu()))
+            cases.append((store, pull, torch.flip(pull, [0]),
+                          torch.ones(274, dtype=torch.bool, device=dev),
+                          [p[0] for p in pulled],
+                          None if store.scales is None else
+                          [p[1] for p in pulled]))
+    mark = (torch.zeros(2, 8, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.ones(1, 8, device=dev))
+
+    def calls():
+        for store, pull, back, mask, rows, scales in cases:
+            scatter_rows(*mark)
+            store.prefetch(pull)
+            scatter_rows(*mark)
+            store.push_raw(back, mask, rows, scales)
+        scatter_rows(*mark)
+
+    kernels = _device_kernels(calls)
+    spans, span = [], None
+    for k in kernels:
+        if "scatter_rows_last_kernel" in k:
+            if span is not None:
+                spans.append(span)
+            span = []
+        elif span is not None:
+            span.append(k)
+    assert len(spans) == 2 * len(cases), kernels
+    for pre, push in zip(spans[0::2], spans[1::2]):
+        assert len(pre) == 1 and "gather_rows_raw" in pre[0], pre
+        raw = [k for k in push if "rows_raw" in k]
+        assert len(raw) == 1 and "scatter_rows_raw" in raw[0], push
+    for store, pull, back, mask, rows, scales in cases:
+        store.sync()
+        at = back.long().cpu()
+        for ell, r in enumerate(rows):
+            assert torch.equal(store.tables[ell].cpu()[at], r.cpu())
+            if scales is not None:
+                assert torch.equal(store.scales[ell].cpu()[at],
+                                   scales[ell].cpu())
 
 
 @pytest.mark.parametrize("op", ["gcn", "gat", "pna", "gin", "gcnii",
@@ -1852,6 +1931,155 @@ def test_mixed_devices_raise(dev):
     scatter_rows(t, idx, vals)
     torch.cuda.synchronize()
     assert torch.equal(t[:10], vals.cpu())
+
+
+# the raw pull's and push's many-table launches: (dtype, width) of each
+# table in turn, the widths a store holds (vq codes, scales, bf16 rows,
+# int8 codes) and misaligned ones (odd row bytes: 37, 66, 20 bytes), each
+# table of _RAW_N rows; every third table is a view that starts one
+# element into its buffer (an offset pointer)
+_RAW_WIDTHS = ((torch.uint8, (8,)), (torch.float32, ()),
+               (torch.bfloat16, (64,)), (torch.int8, (256,)),
+               (torch.int8, (37,)), (torch.bfloat16, (33,)),
+               (torch.float32, (5,)))
+_RAW_N = 300
+
+
+def _raw_draw(g, dtype, shape):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=g).to(dtype)
+    lo = -128 if dtype == torch.int8 else 0
+    return torch.randint(lo, lo + 256, shape, generator=g, dtype=dtype)
+
+
+def _raw_tables(dev, where, count, seed):
+    """`count` tables of _RAW_WIDTHS in turn, with their CPU copies: all
+    pinned, all on the card, or alternating ("mixed")."""
+    g = torch.Generator().manual_seed(seed)
+    host, placed = [], []
+    for j in range(count):
+        dtype, width = _RAW_WIDTHS[j % len(_RAW_WIDTHS)]
+        t = _raw_draw(g, dtype, (_RAW_N,) + width)
+        pin = where == "pinned" or (where == "mixed" and j % 2 == 0)
+        flat = torch.empty(t.numel() + 1, dtype=dtype,
+                           pin_memory=pin, device="cpu" if pin else dev)
+        # every third table an offset view into its buffer
+        off = 1 if j % 3 == 2 else 0
+        view = flat[off:off + t.numel()].view(t.shape)
+        view.copy_(t)
+        host.append(t)
+        placed.append(view)
+    return host, placed
+
+
+@pytest.mark.parametrize("count", [1, 2, 31, 62, 65])
+@pytest.mark.parametrize("where", ["pinned", "device", "mixed"])
+def test_gather_rows_raw_many_matches_plain(dev, where, count):
+    """One many-table pull over every width (1-d scales, odd row bytes,
+    offset views) from pinned, device and mixed tables, indices past both
+    ends clipped: each output bitwise the plain version's, one launch for
+    up to 64 tables (65 take two)."""
+    from repro_torch.kernels.gather import gather_rows_raw_many
+    host, tables = _raw_tables(dev, where, count, seed=count)
+    g = torch.Generator().manual_seed(7)
+    idx = torch.randint(-20, _RAW_N + 20, (274,), generator=g,
+                        dtype=torch.int32)
+    n0 = _build.launch_counts["gather_rows_raw"]
+    got = gather_rows_raw_many(tables, idx.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_rows_raw"] == n0 + -(-count // 64)
+    for h, o in zip(host, got):
+        assert o.device == dev and o.dtype == h.dtype and o.is_contiguous()
+        assert torch.equal(o.cpu(), ref.gather_rows_raw_ref(h, idx))
+
+
+@pytest.mark.parametrize("m", [128, SCAN_MAX_ROWS + 3])
+@pytest.mark.parametrize("count", [1, 2, 31, 62, 65])
+@pytest.mark.parametrize("where", ["pinned", "device", "mixed"])
+def test_scatter_rows_raw_many_matches_plain(dev, where, count, m):
+    """One many-table push of every width into pinned, device and mixed
+    tables (offset views, odd row bytes, 1-d scales), with repeated and
+    dropped rows, on the one-launch scan and past SCAN_MAX_ROWS on the
+    claim passes, right after a queued kernel write into the same tables
+    (stream order, no host sync): every table bitwise the plain version's,
+    one counted launch for up to 64 tables."""
+    from repro_torch.kernels.scatter import (scatter_rows_raw,
+                                             scatter_rows_raw_many)
+    host, tables = _raw_tables(dev, where, count, seed=count + m)
+    g = torch.Generator().manual_seed(m)
+    rows = [_raw_draw(g, h.dtype, (m,) + tuple(h.shape[1:])) for h in host]
+    idx = torch.randint(-20, _RAW_N + 20, (m,), generator=g,
+                        dtype=torch.int32)
+    idx[m // 2:m // 2 + 30] = idx[:30]               # repeats
+    first = torch.arange(7, dtype=torch.int32)
+    for t, r in zip(tables, rows):                   # queued writes first
+        scatter_rows_raw(t, first.to(dev), r[:7].to(dev))
+    for h, r in zip(host, rows):
+        ref.scatter_rows_raw_ref(h, first, r[:7])
+    want = ref.scatter_rows_raw_many_ref(host, idx, rows)
+    n0 = _build.launch_counts["scatter_rows_raw"]
+    scatter_rows_raw_many(tables, idx.to(dev), [r.to(dev) for r in rows])
+    torch.cuda.synchronize()
+    assert _build.launch_counts["scatter_rows_raw"] == n0 + -(-count // 64)
+    for t, w in zip(tables, want):
+        assert torch.equal(t.cpu(), w)
+
+
+def test_raw_many_refuse_pageable_and_mixed_devices(dev):
+    """A pageable host table, in any slot, raises; so does an index or a
+    rows tensor off the card, as the one-table wrappers refuse them."""
+    from repro_torch.kernels.gather import gather_rows_raw_many
+    from repro_torch.kernels.scatter import scatter_rows_raw_many
+    _, tables = _raw_tables(dev, "mixed", 4, seed=1)
+    idx = torch.arange(10, dtype=torch.int32, device=dev)
+    rows = [t[:10].to(dev) for t in tables]
+    for slot in range(4):
+        bad = list(tables)
+        bad[slot] = bad[slot].cpu().clone()            # pageable
+        if bad[slot].is_pinned():
+            continue
+        with pytest.raises(ValueError):
+            gather_rows_raw_many(bad, idx)
+        with pytest.raises(ValueError):
+            scatter_rows_raw_many(bad, idx, rows)
+        off = list(rows)
+        off[slot] = off[slot].cpu()                    # rows on the host
+        with pytest.raises(ValueError):
+            scatter_rows_raw_many(tables, idx, off)
+    with pytest.raises(ValueError):
+        gather_rows_raw_many(tables, idx.cpu())        # index on the host
+    with pytest.raises(ValueError):
+        scatter_rows_raw_many(tables, idx.cpu(), rows)
+
+
+# (entry, tables, row shape, M, CTAs): the grids the raw entries plan,
+# worked by hand. A 256-byte row is 16 units of 16 bytes and a 4-byte one
+# one unit; the pull keeps one unit a thread while its grid stays within
+# 528 CTAs (20 at the GCN quickstart's 314 rows), else takes 4 (61 CTAs a
+# table at GCNII-32L's 3,885 rows, 31 tables); 65 tables are a launch of
+# 64 and one of 1; the push is a CTA for every 8 rows in each launch.
+@pytest.mark.parametrize("entry,count,shape,m,ctas", [
+    ("gather", 1, (64,), 314, 20), ("gather", 31, (64,), 3885, 1891),
+    ("gather", 65, (), 300, 130), ("gather", 2, (64,), 0, 0),
+    ("scatter", 1, (64,), 128, 16), ("scatter", 4, (64,), 128, 16),
+    ("scatter", 65, (), 128, 32)])
+def test_raw_many_ctas_is_the_launch_plan(dev, entry, count, shape, m, ctas):
+    """`repro_gather_rows_raw_many_ctas` and
+    `repro_scatter_rows_raw_many_ctas` (chip_smoke.py sizes each raw
+    line's launch floor by them) return the CTAs of the entry's own plan
+    for device tables and rows from the allocator."""
+    tables = [torch.zeros((_RAW_N,) + shape, device=dev)
+              for _ in range(count)]
+    rows = [torch.zeros((m,) + shape, device=dev) for _ in range(count)]
+    name = f"repro_{entry}_rows_raw_many_ctas"
+    out = ctypes.c_int64(-1)
+    _build.check(getattr(_build.lib(), name)(
+        _build.pointers([t.data_ptr() for t in tables]),
+        _build.pointers([r.data_ptr() for r in rows]),
+        _build.int64s([_RAW_N] * count),
+        _build.int64s([4 * math.prod(shape)] * count),
+        count, m, ctypes.byref(out)), name)
+    assert out.value == ctas
 
 
 # ---------------------------------------------------------------------------
