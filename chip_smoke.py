@@ -120,13 +120,14 @@ with a non-zero exit at the first failure:
 3b. decode — first `flash_decode` against its plain version at qwen3's
    attention shapes (8 KV heads, G = 2, Dh = 128): B = 8 over a
    4,096-slot cache at pos 3,000, 0 and past the end (a rolling buffer),
-   B = 8 over decode_32k's 32,768 slots, and one f32 case, within 1e-5
-   in f32 and 2e-2 of the largest |output| in bf16 (a planted fault, one
-   warp's slots dropped from the plain version, must fail that limit),
-   the masked tail redrawn without moving the output a bit; the
-   4,096-slot cases at pos 3,000 and past the end (LONG's shape) and the
-   32,768-slot case timed beside the plain version and SDPA (and, with
-   --parent-csrc, the parent checkout's kernel on its own plan).
+   B = 8 over decode_32k's 32,768 slots, and the FULL and LONG shapes in
+   f32, within 1e-5 in f32 and 2e-2 of the largest |output| in bf16 (a
+   planted fault, one warp's slots dropped from the plain version, must
+   fail that limit), a repeated call bitwise, the masked tail redrawn
+   without moving the output a bit; the 4,096-slot cases at pos 3,000
+   and past the end (LONG's shape) in both types and the 32,768-slot
+   case timed beside the plain version and SDPA (and, with
+   --parent-csrc, the parent checkout's kernel on its wrapper's plan).
    Then transformer serving: qwen3-0.6b at its published widths in bf16
    with seeded random weights (`init_params`), 8 MarkovTokens prompts
    each; FULL prefills 2,048 tokens into a 4,096-slot cache, LONG
@@ -141,7 +142,7 @@ with a non-zero exit at the first failure:
    (flash_decode's share), prefill time, step p50/p99, tokens/s and peak
    device memory; and 2 layers at the same widths in f32, prefill and 8
    decode steps on the card against the same on the CPU (logits 1e-4,
-   caches 1e-5).
+   caches 1e-5; their 16 `flash_decode` launches are the f32 rows').
 4. training — (a) the GCN quickstart (2,500 nodes, 128 features, 7
    classes, 16 METIS parts, 2 layers, d_hidden=64), (b) GAT on the
    Cora shape (2,708 nodes, 1,433 features, 7 classes, 16 parts, 2
@@ -283,15 +284,19 @@ with a non-zero exit at the first failure:
 Phase 9, the seq-GAS scaffold and the other layer types (after phase
 8): (a) `flash_decode` at recurrentgemma-9b's heads (B 8, Kh 1, G 16, Dh
 256, the 2,048-slot window) in bf16 and f32, every slot valid and pos
-inside the buffer, against its plain version, timed beside its bound
-and SDPA (a kernels-line row, its launches from (b)). (b)
+inside the buffer, and at (b)'s f32 decode (B 2, rolled), against its
+plain version, timed beside its bound, SDPA and (with --parent-csrc)
+the parent's kernel (kernels-line rows, their launches from (b)'s bf16
+and f32 decode loops). (b)
 recurrentgemma-9b at its published widths in bf16 (rec, rec, local;
 seeded weights): 8 MarkovTokens prompts of 3,072 tokens rolled into the
 2,048-slot local caches, 64 greedy decode steps, every step's logits
 against `forward` over the prompt and the tokens fed (in bf16, printed;
 against the f32 truth on 2 sequences, no farther than the bf16 forward
 is; the weights widened to f32 then decode within 1e-4 of max |logit| of
-the f32 forward), a repeated step bit-identical, one step profiled, a
+the f32 forward, their step p50 / p99 on the host clock to a sync and
+their launches counted), a repeated step bit-identical, one step
+profiled, a
 `[decode]` line; then one pattern repeat in f32 (B 1, 256 prompt
 tokens, 8 steps) on the card against the CPU. (c) seq-GAS on qwen3-0.6b at its published
 widths: the chunked forward against the full one in f32 (B 1, T 2,048,
@@ -318,10 +323,8 @@ on this host; GCNII's is PNA's) for `tests/test_torch_train.py
 
 also builds the kernels of another checkout (its C entry points must
 have this build's signatures, but for `scatter_rows` and `flash_decode`,
-which are called with the parent's own, and the history pulls, whose
-entries from before the pulls clipped their own indices take no row
-count, `_UnclippedParent`; `scatter_rows_q` is always handed a winner
-scratch) and times its block contraction, the history
+which are called with the parent's own; `scatter_rows_q` is always
+handed a winner scratch) and times its block contraction, the history
 pulls `gather_rows` (f32 and bf16), `gather_rows_dq` and
 `gather_rows_vq` (warm and with the L2 flushed, outputs bitwise; the
 indices clipped once before any timing), `scatter_rows` (f32 and bf16),
@@ -329,11 +332,9 @@ indices clipped once before any timing), `scatter_rows` (f32 and bf16),
 (at both push shapes; and on rows holding inf and NaN, bitwise),
 `flash_decode`, the three edge-softmax kernels and PNA's three kernels
 beside this build's on the same inputs in phases 2 and 3b, their
-outputs compared; and the raw pull and push (its one-table
-`repro_gather_rows_raw` and `repro_scatter_rows_raw`, bound by
-`_parent_raw_entries`, once a table back to back, timed as one) on every
-row-18 and row-19 line of phase 2 and on one prefetch of each phase-6
-run.
+outputs compared; and the raw pull and push (this build's wrappers on
+its many-table entries) on every row-18 and row-19 line of phase 2 and
+on one prefetch of each phase-6 run.
 
     python3 chip_smoke.py --pna-edges 2,8
 
@@ -404,6 +405,7 @@ from repro_torch.kernels import scatter as scatter_mod  # noqa: E402
 from repro_torch.kernels import edge_softmax as esk  # noqa: E402
 from repro_torch.kernels import pna_reduce as pnk  # noqa: E402
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm  # noqa: E402
+from repro_torch.kernels import decode_attn as decode_mod  # noqa: E402
 from repro_torch.kernels.decode_attn import flash_decode  # noqa: E402
 from repro_torch.kernels.fused import gather_plan, gather_spmm  # noqa: E402
 from repro_torch.kernels.gather import (  # noqa: E402
@@ -446,6 +448,8 @@ _L2_FLUSH = []
 # 80GB HBM3, 700.00 W), from PERF.md's kernel table and, for the
 # dense-block and training lines, from this script run with --parent-csrc
 PARENT_LIB = None
+# whether the parent's f32 flash_decode is this build's design (its plan)
+PARENT_F32_REDESIGNED = True
 # `--vq-ablation`: the encoding push's search with each of its mechanisms
 # turned off, one library per csrc/scatter.cu build switch
 # ({label: (defines, library)}), timed at the main path's pushes into a vq
@@ -898,12 +902,22 @@ DECODE_CACHE_TOL = 0.1
 DECODE_CONTROL_STEPS = 16
 # flash_decode's rows: qwen3's attention shapes (Kh = 8, G = 2, Dh = 128)
 # over the FULL cell's cache (B = 8, S = 4,096) and decode_32k's length
-# (configs/base.py) at 8 of its 128 sequences; (B, S, pos, dtype, timed)
+# (configs/base.py) at 8 of its 128 sequences, in bf16 and f32 (FULL and
+# LONG); (B, S, pos, dtype, timed)
 DECODE_KERNEL_CASES = ((8, 4096, 3000, torch.bfloat16, True),
                        (8, 4096, 0, torch.bfloat16, False),
                        (8, 4096, 5000, torch.bfloat16, True),
                        (8, 32768, 40000, torch.bfloat16, True),
-                       (8, 4096, 3000, torch.float32, False))
+                       (8, 4096, 3000, torch.float32, True),
+                       (8, 4096, 5000, torch.float32, True))
+# the run whose launches a timed row takes, by type: (its name, its
+# batch, its shape, which a row of another batch names in its case): the
+# FULL and LONG decode loops (bf16), the 2-layer f32 decode against the
+# CPU (f32)
+DECODE_KERNEL_RUNS = {
+    torch.bfloat16: ("decode", 8, "the FULL and LONG decode loops"),
+    torch.float32: ("f32 decode", 2, "3b's 2-layer f32 check: B 2 over 300 "
+                    "slots, 257-264 valid")}
 # flash_decode against its plain version: f32 at the Pallas test's 1e-5
 # (tests/test_kernels.py:148), rtol and atol; bf16 within
 # DECODE_KERNEL_BF16_REL of the largest |output|. A sound bf16 kernel
@@ -940,11 +954,19 @@ REC_F32_TOL = 1e-4
 # the program is exact at the published widths, and bf16 alone moves it
 REC_TRUTH_B, REC_BF16_VS_FWD, REC_F32_EXACT_REL = 2, 1.25, 1e-4
 # 9a: flash_decode at recurrentgemma's heads (Kh 1, G 16, Dh 256) over
-# the window's 2,048 slots; (B, S, pos, dtype, timed)
+# the window's 2,048 slots, and at 9b's f32 decode (REC_TRUTH_B
+# sequences, the window rolled); (B, S, pos, dtype, timed)
 REC_KERNEL_CASES = ((8, 2048, 3000, torch.bfloat16, True),
                     (8, 2048, 1000, torch.bfloat16, True),
-                    (8, 2048, 3000, torch.float32, False),
-                    (8, 2048, 1000, torch.float32, False))
+                    (8, 2048, 3000, torch.float32, True),
+                    (8, 2048, 1000, torch.float32, True),
+                    (REC_TRUTH_B, 2048, 3000, torch.float32, True))
+# the runs the rows take their launches from: 9b's bf16 decode loop and
+# its f32 decode of the widened weights
+REC_KERNEL_RUNS = {
+    torch.bfloat16: ("rec decode", 8, "9b's bf16 decode"),
+    torch.float32: ("rec f32 decode", REC_TRUTH_B,
+                    f"9b's f32 decode: B {REC_TRUTH_B}, the window rolled")}
 # 9c: seq-GAS on qwen3-0.6b at its published widths. f32: (B, T, chunk),
 # the chunked forward against the full one within SEQ_F32_TOL absolute
 # (28 layers of f32 sums over up to 2,048 keys in another order; a chunk
@@ -1155,54 +1177,6 @@ def _beside_library_spread(label, fn, lib_name, lib_fn, cold=False):
     _phase("kernels", f"{label}: {len(times['kernel'])} timings a side in "
            f"two rounds of {TIMED_REPS}, the kernel {spread(times['kernel'])}"
            f", {lib_name} {spread(times[lib_name])}; {verdict}")
-
-
-class _UnclippedParent:
-    """A parent checkout's kernel library from before the history pulls
-    clipped their own indices (`repro_gather_rows`, `_dq` and `_vq`
-    without the table's row count, `_vq` without a launch plan), as this
-    build's wrappers call it: each such entry drops what the parent's
-    lacks and calls the parent's, so it must be handed indices already in
-    [0, N). Phase 2's pulls are: their indices are clipped once, before
-    any timing, so a parent's time leaves out the clamp launch its
-    `pull_rows` paid; the parent's profiled epoch runs `_parent_pull_rows`,
-    the parent's path. Every other entry is the parent's."""
-
-    def __init__(self, lib):
-        self._lib = lib
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name, argtypes in (
-                ("repro_gather_rows", [ptr] * 3 + [i64] * 6 + [ptr]),
-                ("repro_gather_rows_dq", [ptr] * 4 + [i64] * 6 + [ptr]),
-                ("repro_gather_rows_vq", [ptr] * 5 + [i64] * 3 + [ptr])):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    def repro_gather_rows(self, table, idx, out, m, n, *rest):
-        return self._lib.repro_gather_rows(table, idx, out, m, *rest)
-
-    def repro_gather_rows_dq(self, q, scales, idx, out, m, n, *rest):
-        return self._lib.repro_gather_rows_dq(q, scales, idx, out, m, *rest)
-
-    def repro_gather_rows_vq(self, codes, codebook, scales, idx, out, m, n,
-                             s_n, n_codes, *plan_stream):
-        return self._lib.repro_gather_rows_vq(codes, codebook, scales, idx,
-                                              out, m, s_n, n_codes,
-                                              plan_stream[-1])
-
-
-def _parent_pull_rows(table, idx, **kw):
-    """The parent commit's `ops.pull_rows`: a clamp launch, then the
-    pull's kernel (`_NEW_PULL_ROWS`, this build's wrapper, which the
-    parent's epoch runs on the parent's library)."""
-    return _NEW_PULL_ROWS(table, torch.clamp(idx, 0, table.shape[0] - 1)
-                          .to(torch.int32), **kw)
-
-
-_NEW_PULL_ROWS = ops.pull_rows
 
 
 def _pull_row(label, name, replaces, fn, plain_fn, lib_fn, library,
@@ -1497,15 +1471,20 @@ def _vq_non_finite_beside_parent(idx, values, codebook, table, scales):
 
 
 def _parent_flash_decode(q, k, v, pos):
-    """The parent checkout's `flash_decode` (PARENT_LIB) on its own plan,
-    the one its wrapper made for both types: group tiles of the least
-    power of two >= min(G, 8) members, chunks of 256 slots. No launch is
-    counted."""
+    """The parent checkout's `flash_decode` (PARENT_LIB) on the plan its
+    wrapper made: this build's, but for an f32 kernel from before its
+    redesign (no `flash_decode_f32_kernel` in the parent's source), whose
+    plan took group tiles of the least power of two >= min(G, 8) members
+    and chunks of 256 slots. No launch is counted."""
     b_, kh, g, dh = q.shape
     n_valid = ref.flash_decode_valid(pos, k.shape[1])
-    gt = 1 << (min(g, 8) - 1).bit_length()
-    chunk = min(256, n_valid)
-    n_splits = -(-n_valid // chunk)
+    if q.dtype == torch.float32 and not PARENT_F32_REDESIGNED:
+        gt = 1 << (min(g, 8) - 1).bit_length()
+        chunk = min(256, n_valid)
+        n_splits = -(-n_valid // chunk)
+    else:
+        gt, n_splits, chunk = decode_mod.flash_decode_plan(
+            b_, kh, g, n_valid, decode_mod._sm_count(q.device), q.dtype, dh)
     part = torch.empty((b_ * kh * -(-g // gt), n_splits, gt, dh + 2),
                        dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
@@ -3101,17 +3080,10 @@ def training_phase(op, hd, plan, device):
     _phase("training", f"{tag}: one more epoch under torch.profiler: {busy}")
     if PARENT_LIB is not None and (op, hd) == PARENT_EPOCH_RUN:
         # the same epoch on the parent's kernels (the ones this version
-        # redesigned) and the parent's pull_rows (a clamp before each
-        # pull), then once more on this build's, in the same call
-        def on_parent():
-            ops.pull_rows = _parent_pull_rows
-            try:
-                return _profiled_epoch(plan, state)
-            finally:
-                ops.pull_rows = _NEW_PULL_ROWS
-
-        for which, run in (("the parent's kernels and pull_rows",
-                            lambda: _parent_call(on_parent)),
+        # redesigned), then once more on this build's, in the same call
+        for which, run in (("the parent's kernels",
+                            lambda: _parent_call(
+                                lambda: _profiled_epoch(plan, state))),
                            ("this build's kernels again",
                             lambda: _profiled_epoch(plan, state))):
             _phase("training", f"{tag}: one more epoch under "
@@ -3440,61 +3412,10 @@ def _raw_ctas(entry, tables, rows, m) -> int:
     return out.value
 
 
-def _parent_raw_entries(lib) -> None:
-    """The parent checkout's one-table raw entries (this build has only the
-    many-table ones, whose signatures `_build.load` sets)."""
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    for name, argtypes in (("repro_gather_rows_raw", [p, p, p, i, i, i, p]),
-                           ("repro_scatter_rows_raw",
-                            [p, p, p, p, i, i, i, p])):
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-
-
-def _parent_gather_many(tables, idx):
-    """The parent commit's raw pull of `tables` at `idx`: its one-table
-    wrapper's checks, output and entry once per table, back to back on the
-    current stream. No launch is counted."""
-    outs, m = [], idx.shape[0]
-    for t in tables:
-        dev = _build.require_cuda("gather_rows_raw", idx, pinned=(t,))
-        _build.require_dtype("gather_rows_raw", idx, torch.int32, "idx")
-        out = torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype,
-                          device=dev)
-        _build.check(PARENT_LIB.repro_gather_rows_raw(
-            _build.device_ptr(t), idx.data_ptr(), out.data_ptr(), m,
-            t.shape[0], _row_bytes(t), _build.stream_ptr(dev)),
-            "the parent's gather_rows_raw")
-        outs.append(out)
-    return outs
-
-
-def _parent_scatter_many(tables, idx, rows):
-    """The parent commit's raw push: its one-table entry once per table
-    (each deciding its own last writers), back to back on the current
-    stream. In place; no launch is counted."""
-    m = idx.shape[0]
-    for t, r in zip(tables, rows):
-        dev = _build.require_cuda("scatter_rows_raw", idx, r, pinned=(t,))
-        winner = scatter_mod._winner(m, t.shape[0], dev)
-        _build.check(PARENT_LIB.repro_scatter_rows_raw(
-            _build.device_ptr(t), idx.data_ptr(), r.data_ptr(),
-            None if winner is None else winner.data_ptr(), m, t.shape[0],
-            _row_bytes(r), _build.stream_ptr(dev)),
-            "the parent's scatter_rows_raw")
-    return tables
-
-
 def _parent_prefetch(store, idx):
-    """The parent commit's `HistoryStore.prefetch`: one raw pull a layer's
-    table and one a scale table, on the parent's kernels."""
-    idx = idx.to(device=store.device, dtype=torch.int32)
-    return tuple(
-        (_parent_gather_many([store.tables[ell]], idx)[0],
-         None if store.scales is None else
-         _parent_gather_many([store.scales[ell]], idx)[0])
-        for ell in range(store.num_layers))
+    """The parent commit's `HistoryStore.prefetch`: this build's on the
+    parent's kernels. No launch is counted."""
+    return _parent_call(lambda: store.prefetch(idx))
 
 
 def _link_gbs(device, to_host):
@@ -3508,14 +3429,13 @@ def _link_gbs(device, to_host):
 
 
 def _raw_parent(label, name, parent_fn, same) -> tuple:
-    """(parent ms or None, a phrase): the parent's per-table launches of
-    the same call, timed as one, their outputs held by `same`."""
+    """(parent ms or None, a phrase): the same wrapper call on the parent's
+    kernel (`parent_fn`, no launch counted), its outputs held by `same`."""
     if PARENT_LIB is None:
         return None, "the parent's kernels not measured (no --parent-csrc)"
     assert same(parent_fn()), f"{label}: {name} differs from the parent's"
     old = _time_ms(parent_fn)
-    return old, (f"the parent's one-table kernels, launched once a table "
-                 f"back to back, {old:.4f} ms, outputs bitwise equal")
+    return old, f"the parent's kernel {old:.4f} ms, outputs bitwise equal"
 
 
 def _copies(tables):
@@ -3587,7 +3507,8 @@ def _raw_pull_line(label, tables, idx, run, link):
         row["bound_ms"] = n_src * R / PCIE_GEN5_X16 * 1e3
         row["bound_by"] = "bytes"
     parent_ms, parent = _raw_parent(
-        label, "gather_rows_raw", lambda: _parent_gather_many(tables, idx),
+        label, "gather_rows_raw",
+        lambda: _parent_call(lambda: gather_rows_raw_many(tables, idx)),
         lambda old: all(torch.equal(a, b) for a, b in zip(old, got)))
     where = "pinned host" if pinned else "device"
     row.update(case=f"{where} tables, {label}", run=run, floor_ms=floor,
@@ -3749,7 +3670,7 @@ def _raw_push_line(label, tables, idx, rows, run, link):
     into = _copies(fresh)
     parent_ms, phrase = _raw_parent(
         label, "scatter_rows_raw",
-        lambda: _parent_scatter_many(into, idx, rows),
+        lambda: _parent_call(lambda: scatter_rows_raw_many(into, idx, rows)),
         lambda old: torch.cuda.synchronize() or all(
             torch.equal(a.cpu(), b.cpu()) for a, b in zip(old, tables)))
     where = "pinned host" if pinned else "device"
@@ -3852,13 +3773,13 @@ def _raw_scatter_rows(kplan, q0, hist, gen, dims):
                        f"rows [{M}, {dims[0]}])", f32_tables, idx,
                        f32_rows, "split serving gcn f32", link)]
     # one table alone (the distributed exchange's unpack is one-table
-    # calls): this build's launch beside the parent's one-table kernel
+    # calls): this build's launch beside the parent's
     one = _time_ms(lambda: scatter_rows_raw(f32_tables[0], idx, f32_rows[0]))
     _phase("kernels", f"scatter_rows_raw, one table of the f32 push (rows "
            f"[{M}, {dims[0]}] into a device table): {one:.4f} ms; " +
            _raw_parent("one table of the f32 push", "scatter_rows_raw",
-                       lambda: _parent_scatter_many(
-                           [f32_tables[0]], idx, [f32_rows[0]]),
+                       lambda: _parent_call(lambda: scatter_rows_raw_many(
+                           [f32_tables[0]], idx, [f32_rows[0]])),
                        lambda old: torch.equal(old[0], f32_tables[0]))[1])
     return rows
 
@@ -3881,9 +3802,8 @@ def _prefetch_times(store, idx) -> str:
     """One `store.prefetch(idx)` as a phrase: its host time to enqueue (to
     its return, with no sync; the median of TIMED_REPS, the card
     synchronised between calls) and its device time
-    (`_time_ms`); with --parent-csrc the same for the parent's `prefetch`,
-    one launch a table on the parent's kernels (`_parent_prefetch`), its
-    rows bitwise these."""
+    (`_time_ms`); with --parent-csrc the same for `prefetch` on the
+    parent's kernels (`_parent_prefetch`), its rows bitwise these."""
 
     def enqueue_us(fn):
         fn()
@@ -3906,7 +3826,7 @@ def _prefetch_times(store, idx) -> str:
     assert all(torch.equal(a, b) for p, q in zip(got, old)
                for a, b in zip(p, q) if a is not None), \
         "prefetch differs from the parent's"
-    return (f"{new}; the parent's, one launch a table: "
+    return (f"{new}; the parent's: "
             f"{both(lambda: _parent_prefetch(store, idx))}, rows bitwise "
             f"equal")
 
@@ -4303,16 +4223,30 @@ def _decode_fault_controls(q, k, v, pos, want, limit) -> str:
             f"({'fails' if unr_err > limit else 'passes'} it)")
 
 
+def _sdpa_backend(q, k, v, mask) -> str:
+    """The backend PyTorch's dispatcher picks for the SDPA yardstick's call
+    (GQA, a boolean mask), by name."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False, scale=None, enable_gqa=True)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError) as e:
+        return f"backend not known: {type(e).__name__}"
+
+
 def decode_kernel_rows(device, clock_hz, arch=DECODE_ARCH,
-                       cases=DECODE_KERNEL_CASES, run=None):
+                       cases=DECODE_KERNEL_CASES, runs=DECODE_KERNEL_RUNS):
     """flash_decode against its plain version on seeded inputs at `arch`'s
     attention shapes (qwen3's DECODE_KERNEL_CASES by default): f32 within
     1e-5, bf16 within 2e-2 of the largest |output| (with two planted
-    faults held to that limit where 256 slots or more are valid), and
-    where slots lie past pos, the masked tail redrawn (k and v) leaving
-    the output bitwise unchanged; the timed cases beside the plain version
-    and SDPA. Returns the timed rows (launches filled in from the decode
-    phase, or from `run`'s)."""
+    faults held to that limit where 256 slots or more are valid), a
+    repeated call bitwise, and where slots lie past pos, the masked tail
+    redrawn (k and v) leaving the output bitwise unchanged; the timed
+    cases beside the plain version, SDPA and (with --parent-csrc) the
+    parent's kernel; SDPA's backend named. Returns the timed rows, each
+    taking its launches from the run `runs` names for its type (a row of
+    another batch than that run's names the run's shape in its case)."""
     cfg = get_config(arch, "full")
     Kh, Dh = cfg.num_kv_heads, cfg.head_dim_
     G = cfg.num_heads // Kh
@@ -4329,15 +4263,20 @@ def decode_kernel_rows(device, clock_hz, arch=DECODE_ARCH,
         want = ref.flash_decode_ref(q, k, v, pos)
         err = float((out.float() - want.float()).abs().max())
         n_valid = ref.flash_decode_valid(pos, S_)
-        line = (f"flash_decode B={B_} S={S_} pos={pos} "
-                f"{str(dt).split('.')[-1]}"
-                + ("" if run is None else f" Kh={Kh} G={G} Dh={Dh}")
-                + f": err {err:.3g} ")
+        tname = str(dt).split('.')[-1]
+        label = (f"flash_decode B={B_} S={S_} pos={pos} {tname}"
+                 + ("" if arch == DECODE_ARCH else f" Kh={Kh} G={G} Dh={Dh}"))
+        line = f"{label}: err {err:.3g} "
+        assert torch.equal(flash_decode(q, k, v, pos), out), \
+            f"{label}: a repeated call differs"
         if dt == torch.float32:
             torch.testing.assert_close(out.float(), want.float(),
                                        rtol=DECODE_KERNEL_F32_TOL,
                                        atol=DECODE_KERNEL_F32_TOL)
             line += f"(tol {DECODE_KERNEL_F32_TOL})"
+            # the parent's kernel is held to this one within both tolerances
+            limit = 2 * DECODE_KERNEL_F32_TOL * (
+                1 + float(want.float().abs().max()))
         else:
             top = float(want.float().abs().max())
             limit = DECODE_KERNEL_BF16_REL * top
@@ -4373,6 +4312,7 @@ def decode_kernel_rows(device, clock_hz, arch=DECODE_ARCH,
 
             lib_err = float((sdpa().reshape(q.shape).float()
                              - want.float()).abs().max())
+            backend = _sdpa_backend(qs, ks, vs, mask)
             E = q.element_size()
             # bytes: each valid k and v row once, q read and out written;
             # operations: the two products' FMAs and one exp per slot
@@ -4385,20 +4325,24 @@ def decode_kernel_rows(device, clock_hz, arch=DECODE_ARCH,
                 2 * B_ * n_valid * Kh * Dh * E + 2 * q.numel() * E,
                 4.0 * B_ * Kh * G * n_valid * Dh, exps=B_ * Kh * G * n_valid,
                 clock_hz=clock_hz)
-            row["case"] = f"B={B_}, S={S_}, pos={pos}, bf16"
-            if run is not None:
+            row["case"] = f"B={B_}, S={S_}, pos={pos}, {tname}"
+            if arch != DECODE_ARCH:
                 row["case"] = (f"{arch}: B={B_}, Kh={Kh}, G={G}, Dh={Dh}, "
-                               f"S={S_}, pos={pos}, bf16")
-                row["run"] = run
+                               f"S={S_}, pos={pos}, {tname}")
+            row["run"], run_b, run_shape = runs[dt]
+            if run_b != B_:
+                row["case"] += f"; launches from {run_shape}"
             rows.append(row)
+            row["sdpa_backend"] = backend
             line += (f"; {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-                     f"SDPA {row['library_ms']:.4f} with err {lib_err:.3g}, "
+                     f"SDPA {row['library_ms']:.4f} ({backend}) with err "
+                     f"{lib_err:.3g}, "
                      f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
             del qs, ks, vs
         _phase("kernels", line)
-        if timed and run is None:
+        if timed:
             _beside_parent(
-                f"flash_decode B={B_} S={S_} pos={pos}", row["ms"], out,
+                label, row["ms"], out,
                 None if PARENT_LIB is None else _parent_flash_decode(
                     q, k, v, pos),
                 lambda: _parent_flash_decode(q, k, v, pos), limit)
@@ -4528,7 +4472,7 @@ def decode_phase(device, smi):
     clones of the cache bit-identical; one step profiled. Then 2 layers of
     the same widths in f32: prefill and 8 decode steps on the card
     against the same on the CPU. Returns the launch counts of the decode
-    loops."""
+    loops and those of the card's f32 decode steps."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg_full = get_config(DECODE_ARCH, "full")
@@ -4636,10 +4580,14 @@ def decode_phase(device, smi):
         logits, cache = TF.prefill(p, cfg2, {"tokens": toks[:, :256].to(d)},
                                    cache_len=300)
         outs = [logits]
+        _build.reset_launch_counts()
         for s in range(8):
             logits, cache = TF.decode_step(p, cfg2, cache,
                                            toks[:, 256 + s:257 + s].to(d))
             outs.append(logits)
+        if d == device:
+            counts32 = dict(_build.launch_counts)
+            assert counts32["flash_decode"] == 8 * cfg2.num_layers, counts32
         res[d] = (torch.stack(outs).cpu(),
                   [a.cpu() for a in tree_leaves(cache["segs"])])
     torch.testing.assert_close(res[device][0], res["cpu"][0], rtol=1e-4,
@@ -4652,10 +4600,10 @@ def decode_phase(device, smi):
     _phase("decode", f"2 layers at the full widths in f32, prefill 2 x 256 "
            f"tokens into 300 slots and 8 decode steps: the card vs the CPU "
            f"logits max abs err {lerr:.3g} (tol 1e-4), caches {cerr:.3g} "
-           f"(tol 1e-5)")
+           f"(tol 1e-5); flash_decode launches {counts32['flash_decode']}")
     del params, p2, res
     torch.cuda.empty_cache()
-    return launches
+    return launches, counts32
 
 
 # ---------------------------------------------------------------------------
@@ -4757,7 +4705,8 @@ def rec_decode_phase(device, smi):
     f32 decode against the f32 forward, a step repeated from two clones
     of the cache bit-identical, one step profiled. Then one pattern
     repeat at the same widths in f32 on the card against the CPU.
-    Returns the launch counts of the decode loop."""
+    Returns the launch counts of the bf16 decode loop and of the f32
+    one."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4833,11 +4782,19 @@ def rec_decode_phase(device, smi):
         f"{cfg.name}: the bf16 decode {dec_err:.3g} from the f32 truth, "
         f"above {REC_BF16_VS_FWD} x the bf16 forward's {fwd_err:.3g}")
     logits32, c32 = TF.prefill(params, cfg32, {"tokens": prompts[:Bt]})
-    steps32 = [logits32]
+    steps32, ms32 = [logits32], []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
     for s_ in range(REC_STEPS):
+        t0 = time.perf_counter()
         logits32, c32 = TF.decode_step(params, cfg32, c32,
                                        fed[:Bt, s_:s_ + 1])
+        torch.cuda.synchronize()
+        ms32.append((time.perf_counter() - t0) * 1e3)
         steps32.append(logits32)
+    counts32 = dict(_build.launch_counts)
+    assert counts32["flash_decode"] == REC_STEPS * n_local, (
+        counts32["flash_decode"], REC_STEPS * n_local)
     ex_err = float((torch.stack(steps32) - truth).abs().max())
     assert ex_err <= REC_F32_EXACT_REL * top, (
         f"{cfg.name}: the f32 decode {ex_err:.3g} from the f32 forward, "
@@ -4858,7 +4815,10 @@ def rec_decode_phase(device, smi):
            f"{Bt} sequences (max |logit| {top:.3g}): the bf16 decode "
            f"{dec_err:.3g}, the bf16 forward {fwd_err:.3g} (held: decode <= "
            f"{REC_BF16_VS_FWD} x forward), the f32 decode {ex_err:.3g} (tol "
-           f"{REC_F32_EXACT_REL} x max |logit|); a repeated step "
+           f"{REC_F32_EXACT_REL} x max |logit|; step p50 "
+           f"{np.percentile(ms32, 50):.3f} ms, p99 "
+           f"{np.percentile(ms32, 99):.3f} ms, flash_decode launches "
+           f"{counts32['flash_decode']}); a repeated step "
            f"bit-identical; one step profiled: {prof}; peak device memory "
            f"{peak / 2**30:.2f} GiB; nvidia-smi: {smi}")
     del params, steps, fed, logits, prompts, fwd_b
@@ -4887,7 +4847,7 @@ def rec_decode_phase(device, smi):
            f"{secs['cpu']:.1f} s on the CPU")
     del p3, res
     torch.cuda.empty_cache()
-    return counts
+    return counts, counts32
 
 
 def _peak_step_bytes(params, loss) -> int:
@@ -5989,15 +5949,17 @@ def dist_kernel_rows(device, S):
                 None, S.rows * (4 + D * 4 + D + 4 + 4), 0)
     push.update(case=f"dist int8 push, {S.rows} rows of {D}",
                 run="dist gcn int8")
-    # the one-table pull and push beside the parent's one-table kernels
+    # the one-table pull and push beside the parent's kernels
     halo_p = torch.zeros_like(halo)
     for row, (parent_ms, _) in (
             (pack, _raw_parent("the dist pack", "gather_rows_raw",
-                               lambda: _parent_gather_many([shard], send),
+                               lambda: _parent_call(lambda: (
+                                   gather_rows_raw_many([shard], send))),
                                lambda old: torch.equal(old[0], packed))),
             (unpack, _raw_parent("the dist unpack", "scatter_rows_raw",
-                                 lambda: _parent_scatter_many(
-                                     [halo_p], recv_idx, [packed]),
+                                 lambda: _parent_call(lambda: (
+                                     scatter_rows_raw_many(
+                                         [halo_p], recv_idx, [packed]))),
                                  lambda old: torch.equal(old[0], halo)))):
         if parent_ms is not None:
             row["parent_ms"] = parent_ms
@@ -6058,7 +6020,7 @@ def main() -> int:
 
 
 def _smoke(args, partitions, t_start, stack) -> int:
-    global PARENT_LIB
+    global PARENT_LIB, PARENT_F32_REDESIGNED
     smi = _smi()
     _phase("toolchain", f"python {sys.version.split()[0]}, torch "
            f"{torch.__version__}, numpy {np.__version__}, CUDA "
@@ -6076,10 +6038,8 @@ def _smoke(args, partitions, t_start, stack) -> int:
         t0 = time.perf_counter()
         PARENT_LIB = _build.load(_build.build(
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
-        _parent_raw_entries(PARENT_LIB)
-        if "clip_row" not in (Path(args.parent_csrc) /
-                              "gather.cu").read_text():
-            PARENT_LIB = _UnclippedParent(PARENT_LIB)
+        PARENT_F32_REDESIGNED = "flash_decode_f32_kernel" in (
+            Path(args.parent_csrc) / "decode_attn.cu").read_text()
         _phase("build", f"the kernels of {args.parent_csrc} in "
                f"{time.perf_counter() - t0:.1f} s")
     if args.pna_edges:
@@ -6148,7 +6108,8 @@ def _smoke(args, partitions, t_start, stack) -> int:
             _stop(backend_proc)
         rows += decode_kernel_rows(device, _clock_hz())
         lap("decode kernels")
-        launches["decode"] = decode_phase(device, smi)
+        launches["decode"], launches["f32 decode"] = decode_phase(device,
+                                                                  smi)
         lap("decode serving")
         parts = partitions()
         lap("waiting for the partitions")
@@ -6193,9 +6154,10 @@ def _smoke(args, partitions, t_start, stack) -> int:
     rows += dist_kernel_rows(device, dist_structs)
     lap("distributed GAS")
     rows += decode_kernel_rows(device, _clock_hz(), REC_ARCH,
-                               REC_KERNEL_CASES, run="rec decode")
+                               REC_KERNEL_CASES, REC_KERNEL_RUNS)
     lap("recurrentgemma kernels")
-    launches["rec decode"] = rec_decode_phase(device, smi)
+    launches["rec decode"], launches["rec f32 decode"] = rec_decode_phase(
+        device, smi)
     lap("recurrentgemma decode")
     seq_gas_phase(device)
     lap("seq-GAS training")
@@ -6213,7 +6175,7 @@ def _smoke(args, partitions, t_start, stack) -> int:
               "bf16 serving", "gather_rows_bf16": "gat bf16",
               "gather_spmm_vq": "vq serving", "scatter_rows_vq":
               "vq serving", "gather_rows_vq": "gat vq",
-              "flash_decode": "decode", **{k: "pna f32" for k in _PNA}}
+              **{k: "pna f32" for k in _PNA}}
     for r in rows:
         run = r.pop("run", None) or source.get(r["name"], "f32 serving")
         r["launches"] = launches[run][r["name"]]

@@ -26,7 +26,11 @@
 // n_splits, GT, 2 + Dh] f32, and a second small kernel folds the chunks:
 // M = max_i m_i, out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i -
 // M), 1e-30). It is launched as a programmatic dependent of the first, so
-// its launch overlaps the first one's tail. Only slots below n_valid are
+// its launch overlaps the first one's tail; from 16 chunks up it reads
+// their states 16 at a time, every load of a batch in flight at once (one
+// chunk's loads at a time cost an L2 round trip a chunk, slow past a few
+// dozen chunks: the Dh-256 lines of PERF.md row 17). Only slots below
+// n_valid are
 // read: the grid covers the valid slots alone (the wrapper sizes it from
 // pos), so a masked slot, or a chunk past pos, contributes nothing and is
 // never loaded, and perturbing the masked tail leaves the output bitwise
@@ -52,11 +56,10 @@
 // read. At Dh = 256 a lane holds q's fragments (64 registers) and the
 // accumulator (128): `-Xptxas -v` (nvcc 12.9, sm_90a) reports 255
 // registers and 0 bytes of spills for both Dh-256 instances (164 at Dh =
-// 128), and 233 registers, no spills, for the f32 instance at Dh = 256
-// and 8 group members. Each warp scores 16
-// slots of a tile on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// f32 out): the group tile of up to 16 members is M (rows past G carry a
-// zero query), the slots are N, Dh is K; q's fragments stay in registers.
+// 128). Each warp scores 16 slots of a tile on the tensor cores with
+// mma.sync m16n8k16 (bf16 in, f32 out): the group tile of up to 16
+// members is M (rows past G carry a zero query), the slots are N, Dh is
+// K; q's fragments stay in registers.
 // A bf16 product is exact in f32, so the scores keep the contract; only
 // the order of the f32 sums differs. p is rounded to bf16 and fed back as
 // the A fragment of p . v (ldmatrix.trans reads v's tile as B), while l
@@ -66,15 +69,43 @@
 // when a member's max moved); the CTA folds its 4 warps through shared
 // memory.
 //
-// f32 (tests and the CPU comparison only, held at 1e-5): chunks of 256
-// slots, one CTA of 8 warps each, each warp walking runs of U slots, 8 * U
-// apart, with the next run's k and v rows loaded while the current one is
-// scored. A lane holds DPL = Dh / 32 consecutive features of q, of the k
-// and v rows (one coalesced row read per slot) and of the accumulator,
-// for GT group members at once (group tiles of GT in {1, 2, 4, 8}), so
-// each k and v row is read once for the whole group; a slot's score is a
-// warp sum. Each warp keeps its own online (m, l, acc); the CTA folds its
-// warps' states through shared memory.
+// f32 (the f32 decode of every config: recurrentgemma-9b's exact path
+// at its published widths, qwen3's f32 comparison, any `dtype="float32"`
+// caller; held at 1e-5). The same split as bf16: the wrapper sizes the
+// chunks from the SM count so that the CTAs fill the card in one wave
+// (its F32_CTAS_PER_SM a SM: 1 at Dh = 256, 2 at 128, 4 at 64, 8 at 32,
+// which the static_asserts below check against the shared memory; the
+// launch checks only what the kernel needs of a plan), each chunk
+// whole 32-slot tiles, and the group in one tile of up to 16 members
+// (tiles of 16 past that), so each k and v row is read from device
+// memory once a step for G <= 16. A CTA of Dh / 32 warps streams its
+// chunk through a 2-stage ring of 32-slot k and v tiles (16-byte cp.async
+// copies; 64 KB a stage at Dh = 256, so one tile is in flight while the
+// other is scored, ~64 KB on every SM; rows past the chunk's end
+// zero-filled, never read). A tile takes three steps, each closed by a
+// barrier:
+//   scores: warp w takes the 32 features 32w..32w+31 of every slot and
+//     member; lane (gg = lane / 8, jj = lane % 8) sums exact f32 products
+//     for members gg + 4i (i < MP, MP = ceil(members / 4)) and slots jj +
+//     8b (b < 4), an outer product of 4-float chunks: per chunk MP q
+//     loads (rows padded by 16 bytes) and 4 k loads (chunk c of row r
+//     stored at c ^ (r % 8), so the 8 rows a load reads hit 8 bank
+//     groups) feed 16 MP FMAs. The partial scores go to shared memory.
+//   softmax: 2W lanes a member row sum the W partials in order, scale
+//     them after the dot, mask slots past s1, and keep the row's online
+//     (m, l) (l from the unrounded p: f32 needs no rounding of p); p and
+//     the rescale exp(m_old - m_new) go to shared memory.
+//   p . v: lane (pg = lane / 8, dg = lane % 8) of warp w holds the 4
+//     columns of chunk 8w + dg for members pg + 4i: acc is MP x 4
+//     registers, rescaled, then 4 MP FMAs a slot from one v load and one
+//     p load. The warps own disjoint columns, so nothing is folded across
+//     them: each lane writes its acc to the chunk's partial state.
+// No warp sum a slot: a tile's scores cost one barrier-separated pass
+// through 2.5 KB of shared memory a warp. `-Xptxas -v` (nvcc 12.9,
+// sm_90a) reports, for (Dh, MP): 128 registers at MP 4 (every Dh), 114 /
+// 74 / 71 at Dh 256 and MP 3 / 2 / 1, 72-136 at the other Dh; no spill
+// but 12 bytes at (128, 3) and 8 at (64, 3), instances no config's main
+// path takes (G 9-12). The fold: 95 registers, no spill.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -83,14 +114,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-// element types: f32 as float, bf16 as its raw 16 bits
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
+// f32 as float, bf16 as its raw 16 bits, from f32
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -98,184 +122,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ uint16_t from_f<uint16_t>(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-// p as v's type holds it (the Pallas kernel's p.astype(v.dtype))
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-// N consecutive elements (one vector load) widened to f32
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(x.v[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// one CTA per (pair = (b, h, group tile), chunk); writes the chunk's
-// folded (m, l, acc) per group member of the tile
-template <typename T, int DPL, int GT>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_partial_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                float* __restrict__ part, int64_t S, int Kh,
-                                int G, int n_gt, int64_t n_valid,
-                                int64_t chunk, float scale) {
-  constexpr int Dh = DPL * 32;
-  // slots a warp scores per step: more loads in flight where the
-  // registers allow it
-  constexpr int U = GT * DPL >= 32 ? 1 : (GT * DPL >= 16 ? 2 : 4);
-  const int pair = blockIdx.x;
-  const int split = blockIdx.y;
-  const int gt = pair % n_gt;
-  const int64_t bh = pair / n_gt;
-  const int64_t h = bh % Kh;
-  const int64_t b = bh / Kh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  float qr[GT][DPL];
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    const int gg = gt * GT + g;
-    if (gg < G) {
-      load_row<T, DPL>(q + (bh * G + gg) * Dh + lane * DPL, qr[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) qr[g][i] = 0.f;
-    }
-  }
-
-  float m[GT], l[GT], acc[GT][DPL];
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  }
-
-  const int64_t s0 = split * chunk;
-  const int64_t s1 = min(s0 + chunk, n_valid);
-  const int64_t slot_stride = static_cast<int64_t>(Kh) * Dh;
-  const T* kb = k + (b * S * Kh + h) * Dh + lane * DPL;
-  const T* vb = v + (b * S * Kh + h) * Dh + lane * DPL;
-
-  // each warp walks runs of U slots, kWarps * U apart; the next run's
-  // rows are loaded while this one is scored (slots past s1 read as 0)
-  using Row = Vec<T, DPL>;
-  auto fetch = [&](int64_t at, Row (&kn)[U], Row (&vn)[U]) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (at + u < s1) {
-        kn[u] = *reinterpret_cast<const Row*>(kb + (at + u) * slot_stride);
-        vn[u] = *reinterpret_cast<const Row*>(vb + (at + u) * slot_stride);
-      } else {
-        kn[u] = Row{};
-        vn[u] = Row{};
-      }
-    }
-  };
-  constexpr int kStep = kWarps * U;
-  Row kc[U], vc[U];
-  fetch(s0 + warp * U, kc, vc);
-  for (int64_t base = s0 + warp * U; base < s1; base += kStep) {
-    Row kn[U], vn[U];
-    fetch(base + kStep, kn, vn);
-    float kr[U][DPL], vr[U][DPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        kr[u][i] = to_f(kc[u].v[i]);
-        vr[u][i] = to_f(vc[u].v[i]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      float sc[U];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) d = fmaf(qr[g][i], kr[u][i], d);
-        sc[u] = warp_sum(d) * scale;
-        if (base + u < s1) mx = fmaxf(mx, sc[u]);
-      }
-      // the first step of a warp has m = -inf: alpha = 0 on zero state
-      const float alpha = expf(m[g] - mx);
-      l[g] *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (base + u < s1) {
-          const float p = expf(sc[u] - mx);
-          l[g] += p;
-          const float pr = round_to<T>(p);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pr, vr[u][i], acc[g][i]);
-        }
-      }
-      m[g] = mx;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      kc[u] = kn[u];
-      vc[u] = vn[u];
-    }
-  }
-
-  // fold the warps' states; a warp that drew no slot holds m = -inf,
-  // l = 0, acc = 0 and weighs exp(-inf) = 0 (warp 0 always draws one: the
-  // wrapper leaves no chunk empty, so M is finite)
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][Dh];
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    if (lane == 0) {
-      sm_m[warp] = m[g];
-      sm_l[warp] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[warp][lane * DPL + i] = acc[g][i];
-    __syncthreads();
-    if (t < Dh) {
-      float M = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w]);
-      float L = 0.f, A = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float e = expf(sm_m[w] - M);
-        L = fmaf(sm_l[w], e, L);
-        A = fmaf(sm_acc[w][t], e, A);
-      }
-      float* dst = part + ((static_cast<int64_t>(pair) * gridDim.y + split) *
-                               GT + g) * (Dh + 2);
-      if (t == 0) {
-        dst[0] = M;
-        dst[1] = L;
-      }
-      dst[2 + t] = A;
-    }
-    __syncthreads();
-  }
 }
 
 // ---- bf16: a ring of k / v tiles, scored on the tensor cores ----------
@@ -629,7 +475,18 @@ int dispatch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
 
 // one CTA of Dh threads per (pair, group member): folds the chunks. It
 // runs as a programmatic dependent of the partial kernel and reads the
-// scratch only after that grid has finished and flushed
+// scratch only after that grid has finished and flushed. From kFoldBatch
+// chunks up, their states are read kFoldBatch at a time, every load of a
+// batch issued before the first is used (one L2 round trip a batch, not
+// one a chunk). Fewer (qwen3's 2-4) are read one by one, where the batch,
+// mostly predicated off, was slower. On an H100 (700 W, `chip_smoke.py
+// --parent-csrc`, PERF.md row 17): recurrentgemma's 16-chunk bf16 lines
+// 0.0190 / 0.0166 ms batched against 0.0216 / 0.0194 one chunk at a
+// time; qwen3's 2-chunk bf16 lines 0.0420 / 0.0532 batched against
+// 0.0412 / 0.0524. Either way the chunks fold in order, so the output's
+// bits do not depend on the path
+constexpr int kFoldBatch = 16;
+
 template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ part,
                                             T* __restrict__ out, int n_splits,
@@ -645,13 +502,43 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part,
   const int64_t stride = static_cast<int64_t>(gt_size) * (Dh + 2);
   const float* src =
       part + (static_cast<int64_t>(pair) * n_splits * gt_size + g) * (Dh + 2);
-  float M = -INFINITY;
-  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, src[i * stride]);
-  float L = 0.f, A = 0.f;
-  for (int i = 0; i < n_splits; ++i) {
-    const float e = expf(src[i * stride] - M);
-    L = fmaf(src[i * stride + 1], e, L);
-    A = fmaf(src[i * stride + 2 + t], e, A);
+  float M = -INFINITY, L = 0.f, A = 0.f;
+  if (n_splits < kFoldBatch) {
+    for (int i = 0; i < n_splits; ++i) M = fmaxf(M, src[i * stride]);
+    for (int i = 0; i < n_splits; ++i) {
+      const float e = expf(src[i * stride] - M);
+      L = fmaf(src[i * stride + 1], e, L);
+      A = fmaf(src[i * stride + 2 + t], e, A);
+    }
+  } else {
+    for (int i0 = 0; i0 < n_splits; i0 += kFoldBatch) {
+      float mb[kFoldBatch];
+#pragma unroll
+      for (int j = 0; j < kFoldBatch; ++j)
+        mb[j] = i0 + j < n_splits ? src[(i0 + j) * stride] : -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kFoldBatch; ++j) M = fmaxf(M, mb[j]);
+    }
+    for (int i0 = 0; i0 < n_splits; i0 += kFoldBatch) {
+      float mb[kFoldBatch], lb[kFoldBatch], ab[kFoldBatch];
+#pragma unroll
+      for (int j = 0; j < kFoldBatch; ++j) {
+        if (i0 + j < n_splits) {
+          const float* s = src + (i0 + j) * stride;
+          mb[j] = s[0];
+          lb[j] = s[1];
+          ab[j] = s[2 + t];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kFoldBatch; ++j) {
+        if (i0 + j < n_splits) {
+          const float e = expf(mb[j] - M);
+          L = fmaf(lb[j], e, L);
+          A = fmaf(ab[j], e, A);
+        }
+      }
+    }
   }
   out[(bh * G + gg) * Dh + t] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
@@ -678,44 +565,321 @@ int launch_combine(const float* part, T* out, int64_t n_pairs, int64_t G,
   return 0;
 }
 
-template <typename T, int DPL, int GT>
-int launch_partial(const T* q, const T* k, const T* v, float* part,
-                   int64_t n_pairs, int64_t S, int64_t Kh, int64_t G,
-                   int64_t n_gt, int64_t n_valid, int64_t n_splits,
-                   int64_t chunk, float scale, cudaStream_t stream) {
-  flash_decode_partial_kernel<T, DPL, GT>
+// ---- f32: a ring of k / v tiles, scored in f32 on the CUDA cores ------
+
+constexpr int kTileF32 = 32;  // slots per ring stage (the wrapper's TILE_F32)
+constexpr int kStagesF32 = 2;     // one tile in flight while one is scored
+constexpr int kSlotsF32 = kTileF32 / 8;  // slots a lane scores
+constexpr int kMaxGroupF32 = 16;  // members one CTA takes: 4 x MP a lane
+constexpr int kRedStride = 40;    // a member's partial scores, padded so
+                                  // that the 4 rows a store hits differ
+template <int DH>
+constexpr int f32_smem_bytes() {
+  return (kStagesF32 * 2 * kTileF32 * DH             // the ring
+          + kMaxGroupF32 * (DH + 4)              // q
+          + DH / 32 * kMaxGroupF32 * kRedStride  // partial scores
+          + kTileF32 * kMaxGroupF32              // p
+          + kMaxGroupF32) * 4;                   // the rescale
+}
+
+// component i of v (i a constant once the loops are unrolled, so no
+// local array)
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a,
+                                     const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+
+// one CTA of DH threads per (pair = (b, h, group tile), chunk); writes the
+// chunk's (m, l, acc) per member of the group tile. MP: ceil(members / 4)
+template <int DH, int MP>
+__global__ void __launch_bounds__(DH)
+    flash_decode_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ part, int64_t S, int Kh,
+                            int G, int n_gt, int gt_size, int64_t n_valid,
+                            int64_t chunk, float scale) {
+  static_assert(DH == 32 || DH == 64 || DH == 128 || DH == 256, "Dh");
+  constexpr int W = DH / 32;              // warps
+  constexpr int CH = DH / 4;              // 16-byte chunks of a row
+  constexpr int kTileFloats = kTileF32 * DH;
+  constexpr int kQStride = DH + 4;
+  constexpr int kRowsPerPass = DH / CH;   // 4 rows a copy pass
+  constexpr int kPasses = kTileF32 / kRowsPerPass;
+  constexpr int LPM = 2 * W;              // softmax lanes a member row
+  constexpr int SPL = kTileF32 / LPM;     // slots a softmax lane
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* qs = ring + kStagesF32 * 2 * kTileFloats;
+  float* red = qs + kMaxGroupF32 * kQStride;
+  float* ps = red + W * kMaxGroupF32 * kRedStride;
+  float* alpha_s = ps + kTileF32 * kMaxGroupF32;
+
+  const int pair = blockIdx.x;
+  const int split = blockIdx.y;
+  const int gt = pair % n_gt;
+  const int64_t bh = pair / n_gt;
+  const int64_t h = bh % Kh;
+  const int64_t b = bh / Kh;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int members = min(gt_size, G - gt * gt_size);
+
+  const int64_t s0 = split * chunk;
+  const int64_t s1 = min(s0 + chunk, n_valid);
+  const int64_t n_tiles = (s1 - s0 + kTileF32 - 1) / kTileF32;
+  const int64_t slot_stride = static_cast<int64_t>(Kh) * DH;
+  const float* kb = k + (b * S * Kh + h) * DH;
+  const float* vb = v + (b * S * Kh + h) * DH;
+
+  // tile t into ring stage t % kStagesF32: thread tid copies chunk tid % CH
+  // of every 4th row (one commit group per tile, empty past the chunk); a
+  // row past s1 is zero-filled from a valid address. k's chunks swizzled
+  const int cc = tid % CH;
+  const int cr = tid / CH;
+  auto load_tile = [&](int64_t t) {
+    if (t < n_tiles) {
+      float* st = ring + (t % kStagesF32) * 2 * kTileFloats;
+      const int64_t base = s0 + t * kTileF32;
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) {
+        const int r = cr + p * kRowsPerPass;
+        const bool ok = base + r < s1;
+        const int64_t off = (ok ? base + r : s0) * slot_stride + cc * 4;
+        cp_async16(smem_addr(st + r * DH + ((cc ^ (r & 7)) << 2)), kb + off,
+                   ok ? 16 : 0);
+        cp_async16(smem_addr(st + kTileFloats + r * DH + (cc << 2)),
+                   vb + off, ok ? 16 : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int t = 0; t < kStagesF32 - 1; ++t) load_tile(t);
+
+  // the tile's q rows, rows past its members zero (the first barrier
+  // below publishes them)
+  const float* qp = q + (bh * G + static_cast<int64_t>(gt) * gt_size) * DH;
+  for (int e = tid; e < 4 * MP * CH; e += DH) {
+    const int g = e / CH;
+    const int c = e % CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < members) x = *reinterpret_cast<const float4*>(qp + g * DH + 4 * c);
+    *reinterpret_cast<float4*>(qs + g * kQStride + 4 * c) = x;
+  }
+
+  const int gg = lane >> 3;  // scores: members gg + 4i; p . v: the same
+  const int jj = lane & 7;   // scores: slots jj + 8b; p . v: column chunk
+  const int sg = tid / LPM;  // softmax: member row sg, slots sr + LPM s
+  const int sr = tid % LPM;
+  const int pslot = (sg & 3) * 4 + (sg >> 2);  // p's column of member sg
+  const int vc = warp * 8 + jj;                // p . v's column chunk
+  float m_run = -INFINITY, l_run = 0.f;        // member sg's online state
+  float acc[MP][4];
+#pragma unroll
+  for (int i = 0; i < MP; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    // tile t has landed (this thread's copies; the barrier: everyone's),
+    // and every warp is done with the stage the next load refills
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStagesF32 - 2)
+                 : "memory");
+    __syncthreads();
+    load_tile(t + kStagesF32 - 1);
+    const float* kt = ring + (t % kStagesF32) * 2 * kTileFloats;
+    const float* vt = kt + kTileFloats;
+    const int64_t base = s0 + t * kTileF32;
+
+    // scores over this warp's 32 features
+    float sc[MP][kSlotsF32];
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < kSlotsF32; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      const int c = warp * 8 + c8;
+      float4 qv[MP], kv[kSlotsF32];
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (gg + 4 * i) * kQStride +
+                                                 4 * c);
+#pragma unroll
+      for (int j = 0; j < kSlotsF32; ++j)  // row jj + 8j: chunk c at c ^ jj
+        kv[j] = *reinterpret_cast<const float4*>(kt + (jj + 8 * j) * DH +
+                                                 4 * (c ^ jj));
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+#pragma unroll
+        for (int j = 0; j < kSlotsF32; ++j) fma4(sc[i][j], qv[i], kv[j]);
+    }
+    float* rw = red + warp * kMaxGroupF32 * kRedStride;
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < kSlotsF32; ++j)
+        rw[(gg + 4 * i) * kRedStride + jj + 8 * j] = sc[i][j];
+    __syncthreads();
+
+    // softmax: every thread runs it (the shuffles take whole warps); rows
+    // past 4 MP are never written, and neither are their p
+    float x[SPL];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int j = sr + LPM * s;
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        a += red[(w * kMaxGroupF32 + sg) * kRedStride + j];
+      a *= scale;
+      if (base + j >= s1) a = -INFINITY;
+      x[s] = a;
+      mx = fmaxf(mx, a);
+    }
+#pragma unroll
+    for (int o = LPM / 2; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    // finite: every tile holds a valid slot (the chunks are whole tiles,
+    // none empty); the first tile has m_run = -inf, so alpha = 0
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      x[s] = expf(x[s] - m_new);
+      sum += x[s];
+    }
+    l_run = fmaf(l_run, alpha, sum);
+    m_run = m_new;
+    if (sg < 4 * MP) {
+#pragma unroll
+      for (int s = 0; s < SPL; ++s)
+        ps[(sr + LPM * s) * kMaxGroupF32 + pslot] = x[s];
+      if (sr == 0) alpha_s[pslot] = alpha;
+    }
+    __syncthreads();
+
+    // p . v: members gg + 4i at columns 4 vc .. 4 vc + 3
+    const float4 al = *reinterpret_cast<const float4*>(alpha_s + 4 * gg);
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= comp(al, i);
+#pragma unroll
+    for (int j = 0; j < kTileF32; ++j) {
+      const float4 p4 =
+          *reinterpret_cast<const float4*>(ps + j * kMaxGroupF32 + 4 * gg);
+      const float4 v4 = *reinterpret_cast<const float4*>(vt + j * DH + 4 * vc);
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        const float p = comp(p4, i);
+        acc[i][0] = fmaf(p, v4.x, acc[i][0]);
+        acc[i][1] = fmaf(p, v4.y, acc[i][1]);
+        acc[i][2] = fmaf(p, v4.z, acc[i][2]);
+        acc[i][3] = fmaf(p, v4.w, acc[i][3]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // the fold kernel may launch now: it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the chunk's state: l summed over the row's LPM lanes, m and l from
+  // its first lane, acc from every lane (the warps' columns disjoint)
+#pragma unroll
+  for (int o = LPM / 2; o > 0; o >>= 1)
+    l_run += __shfl_xor_sync(0xffffffffu, l_run, o);
+  float* dst = part + (static_cast<int64_t>(pair) * gridDim.y + split) *
+                          gt_size * (DH + 2);
+  if (sr == 0 && sg < members) {
+    dst[sg * (DH + 2)] = m_run;
+    dst[sg * (DH + 2) + 1] = l_run;
+  }
+#pragma unroll
+  for (int i = 0; i < MP; ++i) {
+    const int g = gg + 4 * i;
+    if (g < members) {
+      float* d = dst + g * (DH + 2) + 2 + 4 * vc;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = acc[i][e];
+    }
+  }
+}
+
+template <int DH, int MP>
+int launch_partial_f32(const float* q, const float* k, const float* v,
+                       float* part, int64_t n_pairs, int64_t S, int64_t Kh,
+                       int64_t G, int64_t n_gt, int64_t gt, int64_t n_valid,
+                       int64_t n_splits, int64_t chunk, float scale,
+                       cudaStream_t stream) {
+  constexpr int kSmem = f32_smem_bytes<DH>();
+  static_assert(kSmem <= 227 * 1024, "the ring fits a block");
+  static bool ready = false;  // the opt-in above 48 KB, once per instance
+  if (!ready) {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            flash_decode_f32_kernel<DH, MP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem))
+      return static_cast<int>(e);
+    // the whole of the SM's 228 KB as shared memory, for the wrapper's
+    // F32_CTAS_PER_SM CTAs
+    if (cudaError_t e = cudaFuncSetAttribute(
+            flash_decode_f32_kernel<DH, MP>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared))
+      return static_cast<int>(e);
+    ready = true;
+  }
+  flash_decode_f32_kernel<DH, MP>
       <<<dim3(static_cast<unsigned>(n_pairs), static_cast<unsigned>(n_splits)),
-         kThreads, 0, stream>>>(q, k, v, part, S, static_cast<int>(Kh),
-                                static_cast<int>(G), static_cast<int>(n_gt),
-                                n_valid, chunk, scale);
+         DH, kSmem, stream>>>(
+          q, k, v, part, S, static_cast<int>(Kh), static_cast<int>(G),
+          static_cast<int>(n_gt), static_cast<int>(gt), n_valid, chunk, scale);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
 
-template <typename T, int DPL>
-int dispatch_gt(int64_t gt, const T* q, const T* k, const T* v, float* part,
-                int64_t n_pairs, int64_t S, int64_t Kh, int64_t G,
-                int64_t n_gt, int64_t n_valid, int64_t n_splits,
-                int64_t chunk, float scale, cudaStream_t stream) {
-  switch (gt) {
+// the SM's 228 KB of shared memory hold the wrapper's F32_CTAS_PER_SM
+// CTAs (1 / 2 / 4 / 8 at Dh 256 / 128 / 64 / 32), 1 KB each
+// reserved beside their own
+static_assert(1 * (f32_smem_bytes<256>() + 1024) <= 228 * 1024, "Dh 256");
+static_assert(2 * (f32_smem_bytes<128>() + 1024) <= 228 * 1024, "Dh 128");
+static_assert(4 * (f32_smem_bytes<64>() + 1024) <= 228 * 1024, "Dh 64");
+static_assert(8 * (f32_smem_bytes<32>() + 1024) <= 228 * 1024, "Dh 32");
+
+template <int DH>
+int dispatch_f32(const float* q, const float* k, const float* v,
+                 float* part, int64_t n_pairs, int64_t S, int64_t Kh,
+                 int64_t G, int64_t n_gt, int64_t gt, int64_t n_valid,
+                 int64_t n_splits, int64_t chunk, float scale,
+                 cudaStream_t stream) {
+  switch ((gt + 3) / 4) {
     case 1:
-      return launch_partial<T, DPL, 1>(q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                       n_valid, n_splits, chunk, scale,
-                                       stream);
+      return launch_partial_f32<DH, 1>(q, k, v, part, n_pairs, S, Kh, G,
+                                       n_gt, gt, n_valid, n_splits, chunk,
+                                       scale, stream);
     case 2:
-      return launch_partial<T, DPL, 2>(q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                       n_valid, n_splits, chunk, scale,
-                                       stream);
-    case 4:
-      return launch_partial<T, DPL, 4>(q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                       n_valid, n_splits, chunk, scale,
-                                       stream);
-    case 8:
-      return launch_partial<T, DPL, 8>(q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                       n_valid, n_splits, chunk, scale,
-                                       stream);
+      return launch_partial_f32<DH, 2>(q, k, v, part, n_pairs, S, Kh, G,
+                                       n_gt, gt, n_valid, n_splits, chunk,
+                                       scale, stream);
+    case 3:
+      return launch_partial_f32<DH, 3>(q, k, v, part, n_pairs, S, Kh, G,
+                                       n_gt, gt, n_valid, n_splits, chunk,
+                                       scale, stream);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_partial_f32<DH, 4>(q, k, v, part, n_pairs, S, Kh, G,
+                                       n_gt, gt, n_valid, n_splits, chunk,
+                                       scale, stream);
   }
 }
 
@@ -738,31 +902,35 @@ int launch_flash_decode(const float* q, const float* k, const float* v,
   if (B == 0 || Kh == 0 || G == 0) return 0;
   const int64_t n_gt = (G + gt - 1) / gt;
   const int64_t n_pairs = B * Kh * n_gt;
-  if (int rc = check_plan(S, gt, 8, n_pairs, n_valid, n_splits, chunk))
+  if (int rc = check_plan(S, gt, kMaxGroupF32, n_pairs, n_valid, n_splits,
+                          chunk))
     return rc;
-  const uintptr_t align = sizeof(float) * (Dh / 32);
-  if (reinterpret_cast<uintptr_t>(q) % align != 0 ||
-      reinterpret_cast<uintptr_t>(k) % align != 0 ||
-      reinterpret_cast<uintptr_t>(v) % align != 0)
+  // chunks of whole tiles, as bf16's (the plan's split count is the
+  // wrapper's choice; any cut that meets these checks is computed right)
+  if (chunk % kTileF32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte q loads and cp.async rows
+  if (reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const auto st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (Dh) {
     case 32:
-      rc = dispatch_gt<float, 1>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                 n_valid, n_splits, chunk, scale, st);
+      rc = dispatch_f32<32>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
+                            n_valid, n_splits, chunk, scale, st);
       break;
     case 64:
-      rc = dispatch_gt<float, 2>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                 n_valid, n_splits, chunk, scale, st);
+      rc = dispatch_f32<64>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
+                            n_valid, n_splits, chunk, scale, st);
       break;
     case 128:
-      rc = dispatch_gt<float, 4>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                 n_valid, n_splits, chunk, scale, st);
+      rc = dispatch_f32<128>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
+                             n_valid, n_splits, chunk, scale, st);
       break;
     case 256:
-      rc = dispatch_gt<float, 8>(gt, q, k, v, part, n_pairs, S, Kh, G, n_gt,
-                                 n_valid, n_splits, chunk, scale, st);
+      rc = dispatch_f32<256>(q, k, v, part, n_pairs, S, Kh, G, n_gt, gt,
+                             n_valid, n_splits, chunk, scale, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

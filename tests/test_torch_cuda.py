@@ -1453,9 +1453,15 @@ def _decode_inputs(seed, B, Kh, G, Dh, S, dtype):
     (2, 2, 2, 128, 4096, 64), (2, 2, 2, 128, 4096, 40),
     (8, 8, 2, 128, 4096, 2048), (1, 1, 2, 128, 8192, 8000),
     (2, 1, 3, 128, 3001, 3000), (1, 1, 20, 64, 300, 299),
-    # recurrentgemma-9b's heads (Dh 256; MQA, G 16 in one bf16 tile)
+    # recurrentgemma-9b's heads (Dh 256; MQA, G 16 in one tile)
     (8, 1, 16, 256, 2048, 3000), (8, 1, 16, 256, 2048, 1000),
-    (2, 1, 16, 256, 700, 65), (1, 2, 5, 256, 333, 332)])
+    (2, 1, 16, 256, 700, 65), (1, 2, 5, 256, 333, 332),
+    # phase 9b's f32 decode (B 2, the window rolled); one valid slot; one
+    # past an f32 tile (33 slots); G 17 (tiles of 16 and 1); G 16 at Dh
+    # 32 and 64
+    (2, 1, 16, 256, 2048, 3000), (2, 1, 16, 256, 2048, 0),
+    (1, 2, 16, 128, 500, 32), (2, 1, 17, 128, 1000, 900),
+    (2, 2, 16, 32, 1000, 999), (1, 1, 16, 64, 3000, 2500)])
 def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     """The kernel against `flash_decode_ref` on the card: f32 at 1e-5
     (the Pallas kernel's tolerance in tests/test_kernels.py), bf16 within
@@ -1469,7 +1475,9 @@ def test_flash_decode_matches_plain(dev, dtype, B, Kh, G, Dh, S, pos):
     n_valid one past a tile (65), below one tile (41), 2,049 and 3,001,
     and one (b, h) pair, so the plan cuts 8,001 slots into many splits;
     Dh 256 (a 3-stage ring) at recurrentgemma's shape, rolled and not;
-    a warm repeat bitwise equal."""
+    for the f32 kernel's 32-slot tiles and 16-member group tile, phase
+    9b's B 2 shape, n_valid 1 and 33, G 17 and G 16 at Dh 32 and 64; a
+    warm repeat bitwise equal."""
     q, k, v, _ = _decode_inputs(B + S + pos, B, Kh, G, Dh, S, dtype)
     q, k, v = q.to(dev), k.to(dev), v.to(dev)
     before = _build.launch_counts["flash_decode"]
@@ -1585,12 +1593,49 @@ def test_flash_decode_rejects_unbuilt_head_dim(dev):
     assert _build.launch_counts["flash_decode"] == before
 
 
+@pytest.mark.parametrize("plan,ok", [
+    ((16, 64, 32), True), ((8, 8, 256), True), ((16, 32, 64), True),
+    ((16, 1, 2048), True), ((16, 65, 32), False), ((16, 63, 32), False),
+    ((16, 63, 33), False), ((17, 1, 2048), False)])
+def test_flash_decode_f32_checks_its_plan(dev, plan, ok):
+    """The f32 launcher takes any plan its kernel can compute and refuses
+    the rest before a launch, at phase 9b's shape (B 2, Kh 1, G 16, Dh
+    256, 2,048 valid slots): the wrapper's plan on 132 SMs (64 splits of
+    one tile), two group tiles of 8 on 256-slot chunks, fewer splits and
+    one split all match the plain version; an empty chunk, chunks short
+    of the valid slots, a chunk of no whole tiles and a group tile of 17
+    are refused, and nothing is written."""
+    B, Kh, G, Dh, S, pos = 2, 1, 16, 256, 2048, 3000
+    q, k, v, _ = _decode_inputs(0, B, Kh, G, Dh, S, torch.float32)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    gt, n_splits, chunk = plan
+    part = torch.empty((B * Kh * -(-G // gt), n_splits, gt, Dh + 2),
+                       device=dev)
+    out = torch.zeros_like(q)
+    rc = _build.lib().repro_flash_decode_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, S, Kh, G, Dh, gt, S, n_splits, chunk, Dh ** -0.5,
+        _build.stream_ptr(q.device))
+    torch.cuda.synchronize()
+    if ok:
+        assert rc == 0
+        torch.testing.assert_close(out, ref.flash_decode_ref(q, k, v, pos),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert rc != 0, plan
+        assert not out.any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pos", [0, 255, 256, 1000, 4094, 63, 64, 3000])
-def test_flash_decode_ignores_masked_tail(dev, dtype, pos):
+@pytest.mark.parametrize("B,Kh,G,Dh,S", [(2, 8, 2, 128, 4096),
+                                         (2, 1, 16, 256, 2048)])
+@pytest.mark.parametrize("pos", [0, 255, 256, 1000, 4094, 63, 64, 3000, 32,
+                                 2020])
+def test_flash_decode_ignores_masked_tail(dev, dtype, B, Kh, G, Dh, S, pos):
     """Slots past `pos` are never read: new values there (NaN included)
-    leave the output bitwise unchanged."""
-    B, Kh, G, Dh, S = 2, 8, 2, 128, 4096
+    leave the output bitwise unchanged, at qwen3's heads and at
+    recurrentgemma's (Dh 256, G 16), with the last f32 tile ragged (33,
+    1,001 and 2,021 valid slots among others) or whole (256, 64)."""
     q, k, v, rng = _decode_inputs(pos, B, Kh, G, Dh, S, dtype)
     q, k, v = q.to(dev), k.to(dev), v.to(dev)
     out = flash_decode(q, k, v, pos)

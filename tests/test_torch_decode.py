@@ -20,8 +20,8 @@ from hypothesis import strategies as st
 
 from repro.kernels.decode_attn import flash_decode as pallas_flash_decode
 from repro_torch.kernels.decode_attn import (
-    CTAS_PER_SM, F32_CHUNK, MAX_GROUP_TILE, TILE, flash_decode,
-    flash_decode_plan)
+    CTAS_PER_SM, F32_CTAS_PER_SM, MAX_GROUP_TILE, TILE, TILE_F32,
+    flash_decode, flash_decode_plan)
 from repro_torch.kernels.ref import flash_decode_ref
 
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
@@ -118,18 +118,56 @@ def test_flash_decode_plan_follows_the_sm_count(pairs, n_sm, want):
     assert (n_splits - 1) * chunk < 2049 <= n_splits * chunk
 
 
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
 @pytest.mark.parametrize("B,Kh,G,n_valid", [
-    (8, 8, 2, 3001), (1, 1, 1, 1), (2, 4, 3, 255), (1, 2, 12, 70000)])
-def test_flash_decode_plan_f32_keeps_short_chunks(B, Kh, G, n_valid):
-    """The f32 kernel (tests and the CPU comparison) keeps its plan: group
-    tiles of a power of two covering min(G, 8) members, chunks of
-    F32_CHUNK slots whatever the SM count."""
-    for n_sm in (132, 8):
-        gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid, n_sm,
-                                                torch.float32)
-        assert gt == 1 << (min(G, 8) - 1).bit_length()
-        assert chunk == min(F32_CHUNK, n_valid)
-        assert (n_splits - 1) * chunk < n_valid <= n_splits * chunk
+    (8, 8, 2, 3001), (1, 1, 1, 1), (2, 4, 3, 255), (1, 2, 12, 70000),
+    (8, 1, 16, 2048), (2, 1, 16, 2048), (1, 1, 20, 500)])
+def test_flash_decode_plan_f32_covers_valid_slots(B, Kh, G, n_valid, dh):
+    """The f32 kernel's grid on a card of 132 SMs: the chunks cover
+    exactly the valid slots with none empty (the launcher refuses any
+    other cut), each a whole number of TILE_F32-slot
+    tiles, the group in one tile of up to MAX_GROUP_TILE members (so a k
+    and v row is read once a step for G <= 16; 20 takes tiles of 16), and
+    no more CTAs than F32_CTAS_PER_SM[dh] on each SM hold in one wave
+    unless each (b, h, group tile) already has a single chunk."""
+    gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid, 132,
+                                            torch.float32, dh)
+    assert gt == min(G, MAX_GROUP_TILE)
+    assert (n_splits - 1) * chunk < n_valid <= n_splits * chunk
+    assert chunk % TILE_F32 == 0 and 1 <= n_splits <= 65535
+    pairs = B * Kh * -(-G // gt)
+    per_sm = F32_CTAS_PER_SM[dh]
+    assert n_splits == 1 or pairs * n_splits <= per_sm * 132
+    tiles = -(-n_valid // TILE_F32)
+    fit = max(1, min(per_sm * 132 // pairs, tiles))
+    assert chunk == TILE_F32 * -(-tiles // fit)
+
+
+@pytest.mark.parametrize("B,Kh,G,n_valid,dh,n_sm,want", [
+    # phase 9b's f32 decode of recurrentgemma-9b: 64 splits of one tile,
+    # 128 CTAs (two group tiles of 8 on 256-slot chunks ran 32)
+    (2, 1, 16, 2048, 256, 132, 64), (8, 1, 16, 2048, 256, 132, 16),
+    (8, 8, 2, 3001, 128, 132, 4), (8, 8, 2, 3001, 128, 66, 2),
+    (8, 8, 2, 3001, 128, 16, 1), (1, 1, 2, 2049, 32, 132, 65),
+    (1, 1, 2, 2049, 64, 8, 22)])
+def test_flash_decode_plan_f32_follows_the_sm_count(B, Kh, G, n_valid, dh,
+                                                    n_sm, want):
+    """The f32 splits come from the SM count passed in: F32_CTAS_PER_SM
+    [dh] CTAs on each SM over the (b, h) pairs, at least one per pair, at
+    most one per 32-slot tile (2,049 slots are 65 tiles; the 32 CTAs that
+    8 SMs hold at Dh 64 take chunks of 3 tiles, so 22 splits)."""
+    gt, n_splits, chunk = flash_decode_plan(B, Kh, G, n_valid, n_sm,
+                                            torch.float32, dh)
+    assert n_splits == want, (n_splits, chunk)
+    assert (n_splits - 1) * chunk < n_valid <= n_splits * chunk
+
+
+@pytest.mark.parametrize("dh", [None, 80])
+def test_flash_decode_plan_f32_needs_head_dim(dh):
+    """The f32 CTAs an SM holds depend on the head_dim: the f32 plan takes
+    no default and no head_dim the kernel is not built for."""
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode_plan(8, 8, 2, 3001, 132, torch.float32, dh)
 
 
 def test_flash_decode_rejects_negative_pos():
