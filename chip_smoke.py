@@ -222,6 +222,19 @@ with a non-zero exit at the first failure:
    line's round trip, a bound over the link's nominal PCIe Gen5 x16 rate
    beside the rate one large pinned copy reaches and, with
    --parent-csrc, the parent's one-table kernels once a table.
+6b. fused-epoch — `GASConfig(fused_epoch=True)`: each epoch one CUDA
+   graph replay (the plan's first epoch runs the body eagerly, the second
+   captures it). In a child process of its own (a fresh profiler): the GCN
+   quickstart over f32, GAT over vq (a refit at epochs 2 and 4), PNA over
+   int8, the deep-GNN example's GIN with the Eq. 3 regularizer, its
+   GCNII-32L over a pinned host store at depth 1 and the GCN quickstart
+   at two clusters a batch, each FUSED_EPOCHS epochs beside the per-step
+   epochs of the same plan: every epoch's metrics and the final state
+   bitwise, the launches counted at the capture equal to a per-step
+   epoch's, one graph launch a replayed epoch, and the epoch ms, the
+   step p50 (an epoch's time over its steps), peak device memory and,
+   from one profiled epoch of each in one window, the device's busy
+   share beside the per-step epoch's.
 7. evolving graphs — `benchmarks/dyn_bench.py`'s configuration at its
    full size (2,500 nodes, 32 features, homophily 0.8, seed 77; a
    3-layer GCN, 64 wide; 8 parts, its METIS partition computed in a
@@ -300,7 +313,7 @@ profiled, a
 `[decode]` line; then one pattern repeat in f32 (B 1, 256 prompt
 tokens, 8 steps) on the card against the CPU. (c) seq-GAS on qwen3-0.6b at its published
 widths: the chunked forward against the full one in f32 (B 1, T 2,048,
-chunks of 256), then 20 AdamW steps of `chunked_loss` in bf16 (B 1, T
+chunks of 256), then 14 AdamW steps of `chunked_loss` in bf16 (B 1, T
 4,096, chunks of 512; the last loss below 0.8 x the first), step p50,
 tokens/s and the peak memory of a `chunked_loss` step beside a `loss_fn`
 step. (d) hubert-xlarge at its published widths in f32 (B 1, 1,024
@@ -448,8 +461,6 @@ _L2_FLUSH = []
 # 80GB HBM3, 700.00 W), from PERF.md's kernel table and, for the
 # dense-block and training lines, from this script run with --parent-csrc
 PARENT_LIB = None
-# whether the parent's f32 flash_decode is this build's design (its plan)
-PARENT_F32_REDESIGNED = True
 # `--vq-ablation`: the encoding push's search with each of its mechanisms
 # turned off, one library per csrc/scatter.cu build switch
 # ({label: (defines, library)}), timed at the main path's pushes into a vq
@@ -659,6 +670,19 @@ HOST_RUNS = (("gcn f32", "gcn", "f32", {}), ("gcn int8", "gcn", "int8", {}),
              ("gat vq", "gat", "vq", {"vq_refit_every": 2}),
              ("gcnii-32L f32", "gcnii32", "f32", {}))
 HOST_VARIANTS = (("device", 0), ("host", 0), ("host", 1), ("device", 1))
+# Phase 6b, fused-epoch: (label, configuration, store precision, config
+# changes), each FUSED_EPOCHS epochs fused and per-step (then one more of
+# each under the profiler): epoch 0 runs the fused body eagerly, epoch 1
+# captures it, the rest replay it
+FUSED_EPOCHS = 4
+FUSED_RUNS = (("gcn f32", "gcn", "f32", {}),
+              ("gat vq", "gat", "vq", {"vq_refit_every": 2}),
+              ("pna int8", "pna", "int8", {}),
+              ("gin+reg f32", "gin+reg", "f32", {}),
+              ("gcnii-32L f32 host/1", "gcnii32", "f32",
+               {"history_storage": "host", "prefetch_depth": 1}),
+              ("gcn f32, 2 clusters a batch", "gcn", "f32",
+               {"clusters_per_batch": 2}))
 # the training runs of phase 4, in order: (configuration, history
 # precision)
 TRAIN_RUNS = (("gcn", "f32"), ("gat", "f32"), ("pna", "f32"),
@@ -977,7 +1001,8 @@ REC_KERNEL_RUNS = {
 # reference test's rule)
 SEQ_ARCH = "qwen3-0.6b"
 SEQ_F32, SEQ_BF16 = (1, 2048, 256), (1, 4096, 512)
-SEQ_F32_TOL, SEQ_STEPS, SEQ_LR, SEQ_DROP = 1e-3, 20, 1e-3, 0.8
+# 14 steps, cut from 20: the first depth cut when the script grows
+SEQ_F32_TOL, SEQ_STEPS, SEQ_LR, SEQ_DROP = 1e-3, 14, 1e-3, 0.8
 # 9d: hubert-xlarge at its published widths in f32, (B, frames, chunk);
 # num_layers + 1 bidirectional passes (Theorem 2 on sequences: exact after
 # them with frozen params); the first pass's error against the full
@@ -1471,20 +1496,13 @@ def _vq_non_finite_beside_parent(idx, values, codebook, table, scales):
 
 
 def _parent_flash_decode(q, k, v, pos):
-    """The parent checkout's `flash_decode` (PARENT_LIB) on the plan its
-    wrapper made: this build's, but for an f32 kernel from before its
-    redesign (no `flash_decode_f32_kernel` in the parent's source), whose
-    plan took group tiles of the least power of two >= min(G, 8) members
-    and chunks of 256 slots. No launch is counted."""
+    """The parent checkout's `flash_decode` (PARENT_LIB, whose f32 kernel
+    is this build's design) on the plan this build's wrapper makes. No
+    launch is counted."""
     b_, kh, g, dh = q.shape
     n_valid = ref.flash_decode_valid(pos, k.shape[1])
-    if q.dtype == torch.float32 and not PARENT_F32_REDESIGNED:
-        gt = 1 << (min(g, 8) - 1).bit_length()
-        chunk = min(256, n_valid)
-        n_splits = -(-n_valid // chunk)
-    else:
-        gt, n_splits, chunk = decode_mod.flash_decode_plan(
-            b_, kh, g, n_valid, decode_mod._sm_count(q.device), q.dtype, dh)
+    gt, n_splits, chunk = decode_mod.flash_decode_plan(
+        b_, kh, g, n_valid, decode_mod._sm_count(q.device), q.dtype, dh)
     part = torch.empty((b_ * kh * -(-g // gt), n_splits, gt, dh + 2),
                        dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
@@ -3992,6 +4010,150 @@ def _profiled_host_epoch(part):
             f"on the main stream")
 
 
+def fused_epoch_phase(parts):
+    """Phase 6b: FUSED_RUNS in a child process of its own
+    (`_fused_epoch_runs`), each run's line printed here; the child raises
+    where a run is not bitwise its per-step epochs, or its capture
+    launched other kernels, or a replayed epoch was not one graph
+    launch."""
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        lines = pool.submit(_fused_epoch_runs, {
+            name: parts[TRAIN_CONFIGS[name].get("partition_of", name)][0]
+            for _, name, _, _ in FUSED_RUNS}).result()
+    for line in lines:
+        _phase("fused-epoch", line)
+
+
+def _busy(events, wall_us) -> str:
+    """The device's busy share of a host interval: the union of the
+    device events' intervals over its wall time."""
+    busy = sum(b - a for a, b in _intervals_union(
+        [(e.time_range.start, e.time_range.end) for e in events]))
+    return f"{busy / 1e3:.3f} of {wall_us / 1e3:.1f} ms " \
+           f"({100 * busy / wall_us:.1f}%)"
+
+
+def _fused_epoch_runs(parts):
+    """Phase 6b's runs, in a child process of its own: for each of
+    FUSED_RUNS a per-step plan and a fused one on the same partition
+    (the fused one with its own batch stack, which its regrouping
+    overwrites), FUSED_EPOCHS epochs each; then one more epoch of every
+    plan in one torch.profiler window (per-step, then fused, each between
+    marker kernels; a window's first device event may be dropped, and
+    every further window brings the profiler's blindness nearer). Returns
+    one line a run."""
+    resolve_device("cuda")
+    _build.lib()
+    runs = []
+    for label, name, hd, extra in FUSED_RUNS:
+        g, spec = _train_graph(name)
+        cfg = dataclasses.replace(_train_config(name), history_dtype=hd,
+                                  epochs=FUSED_EPOCHS, **extra)
+        stepwise = RT.build_plan(g, spec, cfg, device="cuda",
+                                 part=parts[name])
+        fused = dataclasses.replace(
+            stepwise, config=dataclasses.replace(cfg, fused_epoch=True),
+            batch_stack=stepwise.batch_stack.map_arrays(torch.clone),
+            _np_rng=copy.deepcopy(stepwise._np_rng))
+        run = dict(label=label, layers=spec.num_layers,
+                   nb=stepwise.batches.num_batches)
+        for tag, plan in (("per-step", stepwise), ("fused", fused)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            state = RT.init_state(plan)
+            epochs, counts = [], []
+            for e in range(FUSED_EPOCHS):
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                m = RT.train_epoch(plan, state, e)[1]
+                torch.cuda.synchronize()
+                epochs.append(((time.perf_counter() - t0) * 1e3, m))
+                counts.append({k: v for k, v in
+                               _build.launch_counts.items() if v})
+            run[tag] = dict(plan=plan, state=state, epochs=epochs,
+                            counts=counts,
+                            peak=torch.cuda.max_memory_allocated() - before)
+        runs.append(run)
+    # one more epoch of every plan, all in one window
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)          # the opening marker, alone
+        torch.cuda.synchronize()
+        for run in runs:
+            for tag in ("per-step", "fused"):
+                r = run[tag]
+                torch.cuda._sleep(1000)
+                t0 = time.perf_counter()
+                r["last"] = RT.train_epoch(r["plan"], r["state"],
+                                           FUSED_EPOCHS)[1]
+                torch.cuda.synchronize()
+                r["wall_us"] = (time.perf_counter() - t0) * 1e6
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+    want = 2 * len(runs) + 1
+    if len(marks) == want + 1 and marks[1] == marks[0] + 1:
+        marks = marks[1:]                # the opening marker was seen
+    # each fused epoch after the first is one `CUDAGraph.replay` (its
+    # count asserted below); the profiler's count of the runtime call
+    graph_launches = sum(1 for e in prof.events()
+                         if e.name == "cudaGraphLaunch")
+    lines = []
+    for i, run in enumerate(runs):
+        label, nb = run["label"], run["nb"]
+        a, f = run["per-step"], run["fused"]
+        fe = f["plan"]._fused
+        assert [m for _, m in a["epochs"]] + [a["last"]] == \
+            [m for _, m in f["epochs"]] + [f["last"]], \
+            f"{label}: epoch metrics differ"
+        assert all(torch.equal(x, y) for x, y in zip(
+            _state_leaves(a["state"]), _state_leaves(f["state"]))), \
+            f"{label}: the fused state differs from the per-step one"
+        # epoch 1 is the capture: the launches the graph holds
+        assert f["counts"][1] == a["counts"][1], \
+            (label, f["counts"][1], a["counts"][1])
+        refit = ("gather_rows_vq", "scatter_rows_vq")
+        assert all(set(c) <= set(refit) for c in f["counts"][2:]) or \
+            fe.captures > 1, (label, f["counts"])
+        assert fe.replays == FUSED_EPOCHS, (label, fe.replays)
+        if len(marks) == want:
+            busy = [_busy(dev[marks[j] + 1:marks[j + 1]], r["wall_us"])
+                    for j, r in ((2 * i, a), (2 * i + 1, f))]
+        else:
+            busy = ["not measured (the profiler saw "
+                    f"{len(marks)} of {want} marker kernels)"] * 2
+        ms_a = [ms for ms, _ in a["epochs"][1:]]
+        ms_f = [ms for ms, _ in f["epochs"][2:]]
+        lines.append(
+            f"{label}: {FUSED_EPOCHS + 1} epochs x {nb} steps of "
+            f"{run['layers']} layers, bitwise the per-step epochs (every "
+            f"epoch metric; params, moments, step, tables, scales, "
+            f"codebooks, statistics, clock); launches at the capture "
+            f"{f['counts'][1]}, the per-step epoch's; {fe.captures} "
+            f"capture(s), {fe.replays} replays (one graph launch a fused "
+            f"epoch: {graph_launches} cudaGraphLaunch in the profiled "
+            f"window's {len(runs)} fused epochs); epoch p50 "
+            f"{np.percentile(ms_a, 50):.3f} ms per-step (epochs 1-"
+            f"{FUSED_EPOCHS - 1}), {np.percentile(ms_f, 50):.3f} ms fused "
+            f"(replays, epochs 2-{FUSED_EPOCHS - 1}); step p50 "
+            f"{np.percentile(ms_a, 50) / nb:.3f} ms per-step, "
+            f"{np.percentile(ms_f, 50) / nb:.3f} ms fused (each an epoch "
+            f"over its {nb} steps); the fused plan's first epoch (eager, "
+            f"host syncs made errors) {f['epochs'][0][0]:.1f} ms, its "
+            f"capture and first replay {f['epochs'][1][0]:.1f} ms; device "
+            f"busy {busy[0]} per-step, {busy[1]} fused (the profiled "
+            f"epoch); peak device memory +{a['peak'] / 2**20:.2f} MiB "
+            f"per-step, +{f['peak'] / 2**20:.2f} MiB fused")
+    return lines
+
+
 def _serve_stream(plan, state, queries, slo):
     """`serve_request` over `queries` in turn: (latencies ms, logits, the
     next state, host batch-build ms, the refreshed rows of each request).
@@ -6020,7 +6182,7 @@ def main() -> int:
 
 
 def _smoke(args, partitions, t_start, stack) -> int:
-    global PARENT_LIB, PARENT_F32_REDESIGNED
+    global PARENT_LIB
     smi = _smi()
     _phase("toolchain", f"python {sys.version.split()[0]}, torch "
            f"{torch.__version__}, numpy {np.__version__}, CUDA "
@@ -6038,8 +6200,6 @@ def _smoke(args, partitions, t_start, stack) -> int:
         t0 = time.perf_counter()
         PARENT_LIB = _build.load(_build.build(
             Path(args.parent_csrc).resolve(), ROOT / "build" / "parent"))
-        PARENT_F32_REDESIGNED = "flash_decode_f32_kernel" in (
-            Path(args.parent_csrc) / "decode_attn.cu").read_text()
         _phase("build", f"the kernels of {args.parent_csrc} in "
                f"{time.perf_counter() - t0:.1f} s")
     if args.pna_edges:
@@ -6143,6 +6303,8 @@ def _smoke(args, partitions, t_start, stack) -> int:
     lap("table 5")
     launches.update(host_store_phase(plans, device, parts["gat"][0]))
     lap("host-store")
+    fused_epoch_phase(parts)
+    lap("fused epoch")
     launches.update(dynamic_bench_phase(device, *parts["dynamic"]))
     launches.update(dynamic_ops_phase(device, parts["dynamic"][0]))
     launches.update(dynamic_host_phase(device, parts["dynamic"][0]))

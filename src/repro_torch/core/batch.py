@@ -29,7 +29,7 @@ blocks at column 0):
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,14 +122,26 @@ class GASBatch:
 
     def to(self, device) -> "GASBatch":
         """A copy whose array fields are torch tensors on `device`."""
+        return self.map_arrays(lambda a: _to(a, device))
+
+    def replace(self, **kw) -> "GASBatch":
+        return replace(self, **kw)
+
+    def map_arrays(self, fn) -> "GASBatch":
+        """A batch whose every array (the block families' `vals` and
+        `cols` included) is `fn` of this batch's."""
         kw = {}
         for f in fields(self):
             v = getattr(self, f.name)
             if f.name in _BLOCK_FIELDS:
-                kw[f.name] = None if v is None else v.to(device)
+                kw[f.name] = None if v is None else BlockStructure(
+                    fn(v.vals), fn(v.cols))
             elif isinstance(v, (np.ndarray, torch.Tensor)):
-                kw[f.name] = _to(v, device)
+                kw[f.name] = fn(v)
         return replace(self, **kw)
 
-    def replace(self, **kw) -> "GASBatch":
-        return replace(self, **kw)
+    def arrays(self) -> List[Any]:
+        """Every array, in the order `map_arrays` visits them."""
+        out = []
+        self.map_arrays(out.append)
+        return out

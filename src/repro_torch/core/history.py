@@ -27,8 +27,9 @@ The reference store is a frozen pytree whose methods return new stores,
 and XLA performs its push in place only when the jitted step donates the
 tables. Here the store is mutable: `push` scatters into the table (and
 scale) tensors themselves and `tick` updates `age` in place, and both
-return the store for chaining; a refit replaces the codebooks and zeroes
-the statistics in place.
+return the store for chaining; a vq push adds into the k-means
+statistics, and a refit copies the new codebooks into the old ones and
+zeroes the statistics, all in place.
 
 Placement (`storage`, `repro.core.history:165-215`): "device" keeps
 everything on the store's device; "host" keeps the tables and the int8
@@ -307,11 +308,13 @@ def vq_accumulate_stats(codes: torch.Tensor, values: torch.Tensor,
                         counts: torch.Tensor, sums: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold one push's assignments into the k-means statistics (counts
-    [S, C], sums [S, C, ds]; the E-step came free with the encode):
-    returns the new (counts, sums). Masked rows contribute nothing;
-    duplicates count once each. The sums are the one-hot assignments
-    times the normalized subvectors as one batched matrix product, so
-    they are deterministic on the card (no atomics)."""
+    [S, C], sums [S, C, ds]; the E-step came free with the encode), in
+    place, so that a captured training epoch (`core.runtime`) finds them
+    where it did: returns (counts, sums), the reference's new statistics.
+    Masked rows contribute nothing; duplicates count once each. The sums
+    are the one-hot assignments times the normalized subvectors as one
+    batched matrix product, so they are deterministic on the card (no
+    atomics)."""
     s_, c = counts.shape
     v = values.to(torch.float32)
     u = (v / scales[:, None]).reshape(v.shape[0], s_, -1)
@@ -319,7 +322,7 @@ def vq_accumulate_stats(codes: torch.Tensor, values: torch.Tensor,
     onehot = (codes.long()[:, :, None] == entries).to(torch.float32)
     onehot = onehot * mask.to(torch.float32)[:, None, None]
     dsum = torch.bmm(onehot.permute(1, 2, 0), u.permute(1, 0, 2))
-    return counts + onehot.sum(0), sums + dsum
+    return counts.add_(onehot.sum(0)), sums.add_(dsum)
 
 
 def vq_refit_codebook(codebook: torch.Tensor, counts: torch.Tensor,
@@ -479,7 +482,8 @@ class HistoryStore:
     # -- the epoch pipeline's reads (`repro.core.history:581-616, 702-743`)
 
     def prefetch(self, idx: torch.Tensor,
-                 layers: Optional[Tuple[int, ...]] = None) -> tuple:
+                 layers: Optional[Tuple[int, ...]] = None,
+                 out: Optional[tuple] = None) -> tuple:
         """Every layer's rows `idx` (clipped to the table) in raw storage
         precision, with their scales for int8 and vq: one `(rows,
         scales|None)` pair a layer, on the store's device, through one
@@ -487,15 +491,29 @@ class HistoryStore:
         launch, which reads a pinned host table across the link). No
         dequantization happens here: the rows are the table's bits, so a
         read view of them (`with_pulled`) gives what a pull of the full
-        table gives, bit for bit. `layers` picks some layers only."""
+        table gives, bit for bit. `layers` picks some layers only. `out`,
+        buffers shaped like the result (`prefetch_buffers`), takes the
+        rows in place of new tensors: the fused epoch's ring slots."""
         idx = idx.to(device=self.device, dtype=torch.int32)
         ells = range(self.num_layers) if layers is None else layers
+        dst = None if out is None else [t for pair in out for t in pair
+                                        if t is not None]
         if self.scales is None:
             return tuple((rows, None) for rows in gather_rows_raw_many(
-                [self.tables[ell] for ell in ells], idx))
-        out = gather_rows_raw_many([t for ell in ells for t in (
-            self.tables[ell], self.scales[ell])], idx)
-        return tuple(zip(out[0::2], out[1::2]))
+                [self.tables[ell] for ell in ells], idx, out=dst))
+        got = gather_rows_raw_many([t for ell in ells for t in (
+            self.tables[ell], self.scales[ell])], idx, out=dst)
+        return tuple(zip(got[0::2], got[1::2]))
+
+    def prefetch_buffers(self, m: int) -> tuple:
+        """Device buffers shaped like `prefetch` of `m` indices over every
+        layer, one `(rows, scales|None)` pair a layer, for its `out`."""
+        def like(t):
+            return torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               device=self.device)
+        return tuple((like(t), None if self.scales is None
+                      else like(self.scales[ell]))
+                     for ell, t in enumerate(self.tables))
 
     def with_pulled(self, pulled) -> "HistoryStore":
         """A read view whose layer tables are the prefetched rows (`pulled`
@@ -566,9 +584,8 @@ class HistoryStore:
                 self.codebooks[ell], scratch_last_row=True)
             if stats:
                 v = values.to(torch.float32)
-                self.cb_counts[ell], self.cb_sums[ell] = vq_accumulate_stats(
-                    codes, v, vq_row_scales(v), mask, self.cb_counts[ell],
-                    self.cb_sums[ell])
+                vq_accumulate_stats(codes, v, vq_row_scales(v), mask,
+                                    self.cb_counts[ell], self.cb_sums[ell])
             return _masked_mean(err, mask)
         if self.scales is not None:
             err = ops.push_rows_q(self.tables[ell], self.scales[ell], idx,
@@ -634,7 +651,10 @@ class HistoryStore:
         host store REFIT_CHUNK_ROWS rows at a time, so that no O(N) f32
         table or winner scratch lands on the card. Each row is re-encoded
         on its own, so the chunks give the one pass's codes bit for bit.
-        A no-op for other stores."""
+        The codebooks and statistics keep their tensors (the new
+        codebook is copied into the old one), so that a captured training
+        epoch (`core.runtime`) reads them where it did. A no-op for other
+        stores."""
         if self.codebooks is None:
             return self
         for ell in range(self.num_layers):
@@ -648,7 +668,7 @@ class HistoryStore:
                 idx = torch.arange(a, min(a + chunk, n), dtype=torch.int32,
                                    device=self.device)
                 scatter_rows_vq(table, scales, idx, self.pull(ell, idx), cb)
-            self.codebooks[ell] = cb
+            cb_old.copy_(cb)
             self.cb_counts[ell].zero_()
             self.cb_sums[ell].zero_()
         return self
@@ -663,10 +683,12 @@ class HistoryStore:
     def reset_age(self, idx: torch.Tensor,
                   mask: torch.Tensor) -> "HistoryStore":
         """In place: age[idx[i]] = 0 where mask[i] (masked entries are
-        dropped). A mask over the clock, so no host sync."""
+        dropped). A mask over the clock, filled on the device, so no host
+        sync (an indexed assignment of a Python value would copy it from
+        the host)."""
         n = self.age.shape[0]
         hit = torch.zeros((n + 1,), dtype=torch.bool, device=self.device)
-        hit[torch.where(mask, idx.long(), n)] = True
+        hit.index_fill_(0, torch.where(mask, idx.long(), n), True)
         self.age.masked_fill_(hit[:n], 0)
         return self
 

@@ -241,7 +241,8 @@ def pna_combine(params: Params, x_in: torch.Tensor, s, mn, mx, cnt,
     deg = torch.clamp(cnt, min=1.0)
     mean = s / deg[:, None]
     logd = torch.log(deg + 1.0)
-    ldm = logd.new_tensor(log_deg_mean)
+    ldm = torch.full((), log_deg_mean, dtype=logd.dtype,
+                     device=logd.device)
     s_amp = (logd / ldm)[:, None]
     s_att = (ldm / torch.clamp(logd, min=1e-6))[:, None]
     aggs = []

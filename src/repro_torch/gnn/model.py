@@ -284,9 +284,11 @@ def _eq3_term(x_next, x_pert, bmask, num_layers: int) -> torch.Tensor:
     divisor is a tensor, so that the card divides as the reference does
     (PyTorch multiplies by a Python divisor's reciprocal on CUDA)."""
     sq = torch.sum(torch.square((x_next - x_pert) * bmask[:, None]), dim=-1)
-    diff = torch.sqrt(sq + 1e-12) / sq.new_tensor(math.sqrt(x_next.shape[-1]))
+    diff = torch.sqrt(sq + 1e-12) / torch.full(
+        (), math.sqrt(x_next.shape[-1]), dtype=sq.dtype, device=sq.device)
     n = torch.clamp(bmask.sum(), min=1).to(torch.float32)
-    return torch.sum(diff) / n / n.new_tensor(float(num_layers))
+    return torch.sum(diff) / n / torch.full((), float(num_layers),
+                                            dtype=n.dtype, device=n.device)
 
 
 def gas_batch_forward(params, spec: GNNSpec, x_global: torch.Tensor,

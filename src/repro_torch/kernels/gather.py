@@ -32,7 +32,7 @@ table) plus M*R written, R the row's bytes summed over the tables.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -231,19 +231,29 @@ def raw_launches(n_tables: int) -> int:
 
 
 def gather_rows_raw_many(tables: Sequence[torch.Tensor],
-                         idx: torch.Tensor) -> List[torch.Tensor]:
+                         idx: torch.Tensor,
+                         out: Optional[Sequence[torch.Tensor]] = None
+                         ) -> List[torch.Tensor]:
     """[table[clip(idx, 0, N - 1)] for table in tables] on the card: the
     raw storage bits of the rows (f32, bf16, int8 or uint8 codes; a 1-d
     [N] scale table gives [M]), bitwise, each table on the card or
     pinned on the host, in one launch for up to MAX_RAW_TABLES tables;
     `idx` int32 [M] on the card, clipped in the kernel. Each output is
     contiguous (the outputs of tables of one type and row shape are views
-    of one allocation, `raw_outputs`). All-CPU operands run the plain
-    version."""
+    of one allocation, `raw_outputs`), or is the given `out` entry, a
+    contiguous [M, ...] tensor of the table's type on idx's device, which
+    the rows are written into. All-CPU operands run the plain version."""
     tables = list(tables)
+    if out is not None:
+        _check_raw_outputs(tables, idx, out)
     if idx.device.type == "cpu" and all(t.device.type == "cpu"
                                         for t in tables):
-        return gather_rows_raw_many_ref(tables, idx)
+        got = gather_rows_raw_many_ref(tables, idx)
+        if out is None:
+            return got
+        for o, r in zip(out, got):
+            o.copy_(r)
+        return list(out)
     name = "gather_rows_raw"
     dev = B.require_cuda(name, idx, pinned=tuple(tables))
     B.require_dtype(name, idx, torch.int32, "idx")
@@ -254,7 +264,7 @@ def gather_rows_raw_many(tables: Sequence[torch.Tensor],
     m = idx.shape[0]
     if m and any(t.shape[0] == 0 for t in tables):
         raise ValueError(f"{name}: an empty table has no row to clip to")
-    outs = raw_outputs(tables, m, dev)
+    outs = raw_outputs(tables, m, dev) if out is None else list(out)
     live = [(t, o) for t, o in zip(tables, outs) if o.numel()]
     if live:
         B.check(B.lib().repro_gather_rows_raw_many(
@@ -265,6 +275,23 @@ def gather_rows_raw_many(tables: Sequence[torch.Tensor],
             len(live), idx.data_ptr(), m, B.stream_ptr(dev)), name)
         B.launch_counts[name] += raw_launches(len(live))
     return outs
+
+
+def _check_raw_outputs(tables: List[torch.Tensor], idx: torch.Tensor,
+                       out: Sequence[torch.Tensor]) -> None:
+    """The raw pull's given outputs: one a table, each contiguous, of the
+    table's type and of its row shape under M = idx's length, on idx's
+    device."""
+    m = idx.shape[0]
+    if len(out) != len(tables) or any(
+            o.shape != (m,) + tuple(t.shape[1:]) or o.dtype != t.dtype
+            or o.device != idx.device or not o.is_contiguous()
+            for t, o in zip(tables, out)):
+        raise ValueError(
+            "gather_rows_raw: out must hold one contiguous tensor a table, "
+            f"[{m}, ...] of its type on {idx.device}; got "
+            f"{[(tuple(o.shape), o.dtype, str(o.device)) for o in out]} "
+            f"for {[(tuple(t.shape), t.dtype) for t in tables]}")
 
 
 def row_bytes(t: torch.Tensor) -> int:

@@ -5,9 +5,9 @@ The port of `repro.train.gas_trainer`. `GASTrainer` is a thin shell over
 reference's, with `device` for its `backend`), `build_plan` and an
 initial `GASState`; the train / predict / evaluate methods delegate to
 `runtime.train_step`, `train_epoch`, `fit`, `predict` and
-`evaluate_exact` and keep `self.state` threaded. `fused_epoch=True`
-raises: the whole epoch as one replayable unit is not ported yet
-(ROADMAP Queue A item 12).
+`evaluate_exact` and keep `self.state` threaded; `fused_epoch=True` runs
+each epoch as one unit (on the card one CUDA graph replay an epoch,
+`runtime.train_epoch`).
 
 `FullBatchTrainer`: every step runs the model on the whole graph over the
 COO in plain tensor code (`gnn.model.full_forward`, no kernel), with the
@@ -55,17 +55,13 @@ class GASTrainer:
                  history_dtype: Optional[str] = None,
                  tcfg: Optional[TrainConfig] = None,
                  part: Optional[np.ndarray] = None):
-        if fused_epoch:
-            raise NotImplementedError(
-                "fused_epoch (an epoch as one replayable unit) is not "
-                "ported yet (ROADMAP Queue A item 12)")
         tcfg = TrainConfig() if tcfg is None else tcfg
         self.tcfg = tcfg
         config = GASConfig(
             num_parts=num_parts, partitioner=partitioner,
             clusters_per_batch=clusters_per_batch,
-            use_history=use_history, fuse_halo=fuse_halo,
-            history_dtype=history_dtype,
+            use_history=use_history, fused_epoch=fused_epoch,
+            fuse_halo=fuse_halo, history_dtype=history_dtype,
             lr=tcfg.lr, weight_decay=tcfg.weight_decay,
             grad_clip=tcfg.grad_clip, epochs=tcfg.epochs, seed=tcfg.seed)
         self.plan = R.build_plan(graph, spec, config, device=device,

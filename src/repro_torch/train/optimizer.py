@@ -7,8 +7,10 @@ port's param trees (dicts and lists of tensors). Plain tensor code, not
 `torch.optim.AdamW`, which orders its rounding differently: each update
 is the reference's expression, step by step, in float32. The reference
 returns new params and moments (XLA reuses the donated buffers); here
-`adamw_update` overwrites the params and both moments in place and
-returns them.
+`adamw_update` overwrites the params, both moments and the step count in
+place and returns them, so that a training step captured in a CUDA graph
+(`core.runtime`'s fused epoch) reads and writes the same tensors at
+every replay.
 """
 from __future__ import annotations
 
@@ -72,16 +74,18 @@ def adamw_init(params) -> AdamWState:
 def adamw_update(grads, state: AdamWState, params, *, lr: float,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1) -> Tuple[Any, AdamWState]:
-    """One AdamW step, in place on `params` and the moments. `grads` is a
-    list in `tree_leaves(params)` order or a tree shaped like `params`."""
-    step = state.step + 1
+    """One AdamW step, in place on `params`, the moments and the step
+    count. `grads` is a list in `tree_leaves(params)` order or a tree
+    shaped like `params`."""
+    step = state.step.add_(1)
     stepf = step.to(torch.float32)
     # the bias corrections in f32, as the reference computes
-    # `b1 ** step.astype(f32)` with a weakly typed python float
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                     device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                     device=stepf.device), stepf)
+    # `b1 ** step.astype(f32)` with a weakly typed python float (filled on
+    # the device: no host copy, which a CUDA graph's capture refuses)
+    bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                   device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                   device=stepf.device), stepf)
     flat_g = grads if isinstance(grads, list) else tree_leaves(grads)
     for g, m, v, p in zip(flat_g, tree_leaves(state.m), tree_leaves(state.v),
                           tree_leaves(params)):

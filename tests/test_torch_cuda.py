@@ -65,9 +65,15 @@ pull and push over many tables (`gather_rows_raw_many`,
 of every width, pinned, on the card and mixed, and one raw kernel a
 `HistoryStore.prefetch` and a `push_raw` (torch.profiler, one window);
 the raw entries' grid queries against grids worked by hand."""
+import collections
 import ctypes
 import dataclasses
+import json
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -98,6 +104,7 @@ from repro_torch.train.optimizer import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -1173,6 +1180,57 @@ def _vq_values(rng, m, d, cb):
     return v
 
 
+def _in_child(name, **kw):
+    """`_child_<name>(**kw)` of this file run in a Python process of its
+    own on the card (`python tests/test_torch_cuda.py NAME JSON`); its
+    JSON result. A count of device kernels taken there sees a profiler
+    that has not gone blind late in a long run (ROADMAP Queue B notes),
+    and a CUDA graph's capture there leaves this process as it was."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, __file__, name, json.dumps(kw)],
+                         capture_output=True, text=True, env=env,
+                         timeout=900)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _marked_segments(fns):
+    """(the device events of each call of `fns`, names in start order;
+    every event of the window): all in one torch.profiler window, each
+    call between marker kernels (`torch.cuda._sleep`'s `spin_kernel`);
+    raises if the profiler missed a marker. The window opens with one
+    more marker, alone: the profiler may drop the first device event of
+    a window, even early in a process."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for fn in fns:
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    segments, cur = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if cur is not None:
+                segments.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(e.name)
+    if len(segments) == len(fns) + 1 and not segments[0]:
+        segments = segments[1:]          # the opening marker was seen
+    if len(segments) != len(fns):
+        raise RuntimeError(f"the profiler saw {len(segments) + 1} of "
+                           f"{len(fns) + 2} marker kernels")
+    return segments, prof.events()
+
+
 def _device_kernels(fn, windows=3):
     """The names of the device kernels one call of `fn` ran
     (torch.profiler). A marker kernel (`torch.cuda._sleep`'s
@@ -1529,22 +1587,12 @@ def test_scatter_rows_last_writer_matches_plain(dev, dtype, m, d):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("m,d", [(1, 256), (37, 20), (194, 64),
-                                 (4096, 256), (4097, 256)])
-def test_scatter_rows_q_last_writer_matches_plain(dev, m, d):
-    """`scatter_rows_q` against its plain version: codes and scales
-    bitwise over the whole table, the sentinel row included, with
-    duplicate valid indices (the last writer wins, codes and scale
-    alike), negative and >= N indices (dropped) and about a quarter of
-    the rows on the last row as a serving push's padding; every pushed
-    row's error at 1e-5. Beside `_quant_values`' rows, a row of
-    denormals (a denormal scale) and a row of exact ties at the scale
-    2^-3. M = 1, 37 (d = 20), 194 (GAT's training
-    push) and 4,096 take the one-launch scan, 4,097 the claim passes:
-    one launch counted per call, one device kernel up to SCAN_MAX_ROWS
-    and three past it (torch.profiler, which must see the card); a
-    repeat bitwise equal."""
-    assert SCAN_MAX_ROWS == 4096     # 4,096 scans, 4,097 claims
+_Q_PUSH_CASES = [(1, 256), (37, 20), (194, 64), (4096, 256), (4097, 256)]
+
+
+def _q_push_case(m, d):
+    """`test_scatter_rows_q_last_writer_matches_plain`'s operands at (m, d),
+    on the CPU: the table, the scales, the pushed rows and the index."""
     rng = np.random.default_rng(m + d)
     n = 5000
     q0 = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8))
@@ -1560,7 +1608,50 @@ def test_scatter_rows_q_last_writer_matches_plain(dev, m, d):
     idx[dup] = idx[rng.integers(0, m, m)][dup]   # duplicates of any row
     bad = rng.random(m) < 0.05
     idx[bad] = rng.choice([-7, -1, n, n + 3], int(bad.sum()))
-    idx = torch.from_numpy(idx.astype(np.int32))
+    return q0, s0, vals, torch.from_numpy(idx.astype(np.int32))
+
+
+def _child_q_push_kernels():
+    """In a child process: the device kernels of one `scatter_rows_q` at
+    each of _Q_PUSH_CASES, all in one torch.profiler window, each case's
+    between marker kernels (`torch.cuda._sleep`'s `spin_kernel`)."""
+    dev = resolve_device("cuda")
+    calls = []
+    for m, d in _Q_PUSH_CASES:
+        q0, s0, vals, idx = _q_push_case(m, d)
+        args = (q0.to(dev), s0.to(dev), idx.to(dev), vals.to(dev))
+        scatter_rows_q(*(a.clone() for a in args))      # built and warm
+        calls.append(args)
+    segments, _ = _marked_segments([lambda a=a: scatter_rows_q(*a)
+                                    for a in calls])
+    return {f"{m},{d}": seg for (m, d), seg in zip(_Q_PUSH_CASES, segments)}
+
+
+@pytest.fixture(scope="module")
+def q_push_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return _in_child("q_push_kernels")
+
+
+@pytest.mark.parametrize("m,d", _Q_PUSH_CASES)
+def test_scatter_rows_q_last_writer_matches_plain(dev, m, d, q_push_kernels):
+    """`scatter_rows_q` against its plain version: codes and scales
+    bitwise over the whole table, the sentinel row included, with
+    duplicate valid indices (the last writer wins, codes and scale
+    alike), negative and >= N indices (dropped) and about a quarter of
+    the rows on the last row as a serving push's padding; every pushed
+    row's error at 1e-5. Beside `_quant_values`' rows, a row of
+    denormals (a denormal scale) and a row of exact ties at the scale
+    2^-3. M = 1, 37 (d = 20), 194 (GAT's training
+    push) and 4,096 take the one-launch scan, 4,097 the claim passes:
+    one launch counted per call, one device kernel up to SCAN_MAX_ROWS
+    and three past it (torch.profiler, which must see the card; counted
+    for every case in one window of a child process of its own, where
+    the profiler has not gone blind late in a long run); a repeat
+    bitwise equal."""
+    assert SCAN_MAX_ROWS == 4096     # 4,096 scans, 4,097 claims
+    q0, s0, vals, idx = _q_push_case(m, d)
     want_q, want_s, want_e = ref.scatter_rows_q_ref(q0.clone(), s0.clone(),
                                                     idx, vals)
     args = (idx.to(dev), vals.to(dev))
@@ -1578,8 +1669,7 @@ def test_scatter_rows_q_last_writer_matches_plain(dev, m, d):
                                equal_nan=True)
     assert torch.equal(errs[0].isnan(), errs[1].isnan())
     assert torch.equal(errs[0].nan_to_num(), errs[1].nan_to_num())
-    q1, s1 = q0.clone().to(dev), s0.clone().to(dev)
-    kernels = _device_kernels(lambda: scatter_rows_q(q1, s1, *args))
+    kernels = q_push_kernels[f"{m},{d}"]
     assert len(kernels) == (1 if m <= SCAN_MAX_ROWS else 3), kernels
 
 
@@ -2460,3 +2550,261 @@ def test_dist_superstep_on_card(dev, op, hd):
         assert c["launches"]["gather_rows_raw"] > 0
         assert c["launches"]["scatter_rows_raw"] > 0
         assert (c["launches"]["scatter_rows_q"] > 0) == (hd == "int8")
+
+
+# ---------------------------------------------------------------------------
+# The fused epoch on the card: one CUDA graph an epoch (`runtime.
+# _fused_on_card`), each test's body in a child process (`_in_child`)
+# ---------------------------------------------------------------------------
+
+# (op, GASConfig changes, regularizer weight): the cases a captured epoch
+# is held to the eager body on
+FUSED_CASES = {
+    "gcn": ("gcn", {}, 0.0),
+    "gat-int8-host1": ("gat", dict(history_dtype="int8",
+                                   history_storage="host",
+                                   prefetch_depth=1), 0.0),
+    "gin-reg": ("gin", {}, 0.5),
+    "pna-vq-cpb2": ("pna", dict(history_dtype="vq", clusters_per_batch=2,
+                                vq_refit_every=1), 0.0),
+    "gat-vq-refit2": ("gat", dict(history_dtype="vq", vq_refit_every=2),
+                      0.0),
+}
+
+
+def _fused_plan(case):
+    """A fused plan of `case` on the card (2,000 nodes, 8 parts, 2 layers
+    32 wide) and its initial state."""
+    op, cfg, reg = FUSED_CASES[case]
+    g = citation_graph(num_nodes=2000, num_features=32, num_classes=4,
+                       seed=1)
+    spec = GNNSpec(op=op, d_in=32, d_hidden=32, num_classes=4, num_layers=2,
+                   heads=2, log_deg_mean=1.5, reg_weight=reg)
+    plan = R.build_plan(g, spec, R.GASConfig(num_parts=8, fused_epoch=True,
+                                             **cfg),
+                        device=resolve_device("cuda"))
+    return plan, R.init_state(plan)
+
+
+def _eager_body_epoch(plan, state, epoch):
+    """`train_epoch` with the fused body run eagerly on the card (no
+    graph): what each replay is held to."""
+    on_card = R._fused_on_card
+    R._fused_on_card = lambda p, s, fe: R.fused_body(p, s, fe)
+    try:
+        return R.train_epoch(plan, state, epoch)[1]
+    finally:
+        R._fused_on_card = on_card
+
+
+def _state_bits(state):
+    h = state.histories.sync()
+    out = tree_leaves(state.params) + [state.opt_state.step] + \
+        tree_leaves(state.opt_state.m) + tree_leaves(state.opt_state.v) + \
+        h.tables + [h.age]
+    for name in ("scales", "codebooks", "cb_counts", "cb_sums"):
+        out += getattr(h, name) or []
+    return [t.detach().cpu().clone() for t in out]
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _counts():
+    return {k: v for k, v in _build.launch_counts.items() if v}
+
+
+def _child_fused_replays(case):
+    """Three fused epochs of `case` beside three epochs of its body run
+    eagerly: epoch 0 eager on both (the plan's first), epoch 1 the
+    capture and one replay, epoch 2 one replay in another order. Each
+    epoch's state and metrics compared bitwise; the launches counted in
+    each epoch; epoch 2's replay and the eager body's epoch 2 in one
+    torch.profiler window (device kernels and graph launches each)."""
+    (gp, gs), (ep, es) = _fused_plan(case), _fused_plan(case)
+    out, buffers = {"epochs": []}, []
+    for e in range(3):
+        _build.reset_launch_counts()
+        if e < 2:
+            mg = R.train_epoch(gp, gs, e)[1]
+            cg = _counts()
+            _build.reset_launch_counts()
+            me = _eager_body_epoch(ep, es, e)
+        else:
+            box = {}
+
+            def graph_epoch():
+                box["g"] = R.train_epoch(gp, gs, e)[1]
+                box["cg"] = _counts()
+                _build.reset_launch_counts()
+
+            def eager_epoch():
+                box["e"] = _eager_body_epoch(ep, es, e)
+
+            segs, events = _marked_segments([graph_epoch, eager_epoch])
+            mg, cg, me = box["g"], box["cg"], box["e"]
+            # a copy or fill is a copy activity ("Memcpy DtoD ...") in an
+            # eager epoch and may run as a kernel ("memcpy32_post") in a
+            # graph: the kernels compared are the rest
+            kernels = [[n for n in seg if not n.lower().startswith(
+                ("memcpy", "memset"))] for seg in segs]
+            out["replay_kernels"] = sorted(kernels[0])
+            out["eager_kernels"] = sorted(kernels[1])
+            out["graph_launches"] = sum(1 for ev in events
+                                        if ev.name == "cudaGraphLaunch")
+        ce = _counts()
+        # a regrouping that grows the padded shapes makes new buffers,
+        # captured anew
+        new = not any(gp._fused is b for b in buffers)
+        buffers.append(gp._fused)
+        out["epochs"].append(dict(
+            new_buffers=new,
+            metrics=mg == me, state=_same(_state_bits(gs), _state_bits(es)),
+            graph_counts=cg, eager_counts=ce, order=np.random.default_rng(
+                gp.config.seed * 1000 + e).permutation(
+                    gp.batches.num_batches).tolist()))
+    out["captures"], out["replays"] = gp._fused.captures, gp._fused.replays
+    return out
+
+
+def _child_fused_moves(tmp):
+    """GAT over vq, refit at epoch 2: epochs 0-2 fused beside the eager
+    body, then both states saved and restored (new tensors and a new
+    generator) and a fourth epoch run on each; the captures and replays
+    after every epoch, each epoch bitwise."""
+    from repro_torch.train import checkpoint as ckpt
+    (gp, gs), (ep, es) = _fused_plan("gat-vq-refit2"), \
+        _fused_plan("gat-vq-refit2")
+    out = []
+    for e in range(4):
+        if e == 3:
+            ckpt.save_gas_state(f"{tmp}/g.npz", gs, step=3)
+            ckpt.save_gas_state(f"{tmp}/e.npz", es, step=3)
+            gs = ckpt.load_gas_state(f"{tmp}/g.npz", history_dtype="vq")[0]
+            es = ckpt.load_gas_state(f"{tmp}/e.npz", history_dtype="vq")[0]
+        mg = R.train_epoch(gp, gs, e)[1]
+        me = _eager_body_epoch(ep, es, e)
+        out.append(dict(metrics=mg == me,
+                        state=_same(_state_bits(gs), _state_bits(es)),
+                        captures=gp._fused.captures,
+                        replays=gp._fused.replays))
+    return out
+
+
+def _child_fused_sync():
+    """A host sync in the body (`float` of a metric where a step writes
+    its row): in the plan's first fused epoch, which runs eagerly under
+    the sync debug mode, and in the capture of its second. Whether each
+    raised, and whether the failed capture left the state as it was (no
+    step ran in its place), no graph and no replay; then, the sync
+    removed, whether the epoch captures and replays."""
+    gp, gs = _fused_plan("gcn")
+    write = R._write_metrics
+
+    def syncing(row, metrics):
+        float(metrics["loss"])
+        write(row, metrics)
+
+    out = {}
+    R._write_metrics = syncing
+    try:
+        R.train_epoch(gp, gs, 0)
+        out["first"] = "no error"
+    except RuntimeError as err:
+        out["first"] = str(err)[:200]
+    R._write_metrics = write
+    gp, gs = _fused_plan("gcn")
+    R.train_epoch(gp, gs, 0)
+    before = _state_bits(gs)
+    R._write_metrics = syncing
+    try:
+        R.train_epoch(gp, gs, 1)
+        out["capture"] = "no error"
+    except RuntimeError as err:
+        out["capture"] = str(err)[:200]
+    R._write_metrics = write
+    torch.cuda.synchronize()
+    out["unchanged"] = _same(before, _state_bits(gs))
+    out["graph"] = gp._fused.graph is not None
+    out["replays"] = gp._fused.replays
+    R.train_epoch(gp, gs, 1)
+    out["after"] = (gp._fused.captures, gp._fused.replays)
+    return out
+
+
+@pytest.mark.parametrize("case", ["gcn", "gat-int8-host1", "gin-reg",
+                                  "pna-vq-cpb2"])
+def test_fused_epoch_replays_match_eager_body(dev, case):
+    """A fused epoch on the card is one graph launch, bitwise its body run
+    eagerly: the first epoch eager (no capture), the second captured and
+    replayed, the third replayed in another order; every state leaf and
+    epoch metric equal in each. The launches counted at the capture equal
+    the eager body's, and a replay counts none; in one profiler window
+    the replay ran the eager body's device kernels, name for name, in one
+    cudaGraphLaunch (copies aside, and the two fills of the generator's
+    seed and offset that precede a replay that draws noise). GCN, GAT over a pinned int8
+    store at depth 1, GIN with the Eq. 3 regularizer (its noise from the
+    state's generator, registered with the graph) and PNA over vq with
+    two clusters a batch and a refit every epoch."""
+    got = _in_child("fused_replays", case=case)
+    ep = got["epochs"]
+    assert ep[1]["order"] != ep[2]["order"]
+    for e, r in enumerate(ep):
+        assert r["metrics"] and r["state"], (e, r)
+    assert ep[0]["graph_counts"] == ep[0]["eager_counts"]
+    assert ep[1]["graph_counts"] == ep[1]["eager_counts"]
+    if ep[2]["new_buffers"]:
+        # captured again over the new buffers
+        assert ep[2]["graph_counts"] == ep[2]["eager_counts"]
+    elif FUSED_CASES[case][1].get("vq_refit_every"):
+        # the refit runs before the replay, outside the graph
+        assert ep[2]["graph_counts"] and set(ep[2]["graph_counts"]) <= {
+            "gather_rows_vq", "scatter_rows_vq"}
+    else:
+        assert ep[2]["graph_counts"] == {}
+    assert got["captures"] == 1 + ep[2]["new_buffers"]
+    assert got["replays"] == 2
+    assert got["graph_launches"] == 1
+    # the replay ran the eager body's kernels; before it PyTorch fills a
+    # generator's seed and offset buffers (two int64 fills) when the graph
+    # draws from it (the regularizer's noise)
+    replay = collections.Counter(got["replay_kernels"])
+    eager = collections.Counter(got["eager_kernels"])
+    fills = {n: 2 for n in replay if "FillFunctor<long>" in n} \
+        if FUSED_CASES[case][2] else {}
+    assert len(fills) <= 1 and eager, (replay - eager, eager - replay)
+    assert replay - eager == collections.Counter(fills) and \
+        not eager - replay, (replay - eager, eager - replay)
+
+
+def test_fused_epoch_follows_moved_tensors(dev, tmp_path):
+    """After a vq refit (codebooks copied in place) the graph replays
+    with no new capture; after a checkpoint restore (new tensors, a new
+    generator) it is captured again; every epoch bitwise the eager
+    body's."""
+    got = _in_child("fused_moves", tmp=str(tmp_path))
+    for e, r in enumerate(got):
+        assert r["metrics"] and r["state"], (e, r)
+    assert [(r["captures"], r["replays"]) for r in got] == \
+        [(0, 0), (1, 1), (1, 2), (2, 3)]
+
+
+def test_fused_epoch_host_sync_raises(dev):
+    """A host sync in the body raises in the first fused epoch (eager,
+    under the sync debug mode) and in the capture of the second; the
+    failed capture runs no step in its place (the state as it was, no
+    graph, no replay); with the sync gone the next epoch captures and
+    replays."""
+    got = _in_child("fused_sync")
+    assert "synchroniz" in got["first"], got
+    assert got["capture"] != "no error", got
+    assert got["unchanged"] and not got["graph"] and got["replays"] == 0
+    assert got["after"] == [1, 1]
+
+
+if __name__ == "__main__":
+    name, kw = sys.argv[1], json.loads(sys.argv[2]) if len(sys.argv) > 2 \
+        else {}
+    print(json.dumps(globals()[f"_child_{name}"](**kw)))

@@ -119,7 +119,7 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_options_raise():
     # every operator trains and serves: GIN's serve plan reads the
-    # unit-weight blocks; what is still unported raises naming its item
+    # unit-weight blocks; an unknown store precision raises
     spec = t_model.GNNSpec(op="gin", d_in=4, d_hidden=8, num_classes=2,
                            num_layers=2)
     params = t_model.init_gnn(spec, device="cpu")
@@ -131,8 +131,9 @@ def test_unported_options_raise():
         params, HistoryStore.create(51, spec.hist_dims(), device="cpu")))
     logits, _, _ = t_serve.serve_request(plan, state, np.arange(5))
     assert logits.shape == (5, 2) and np.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        GASTrainer(g, spec, num_parts=2, fused_epoch=True, device="cpu")
+    # the fused epoch is ported: the trainer takes it
+    tr = GASTrainer(g, spec, num_parts=2, fused_epoch=True, device="cpu")
+    assert np.isfinite(tr.fit(1)[0]["loss"]) and tr.plan._fused is not None
     with pytest.raises(ValueError, match="history_dtype"):
         HistoryStore.create(5, [4], history_dtype="f16", device="cpu")
 

@@ -449,8 +449,15 @@ def test_unported_training_options_raise():
     t_model.GNNSpec(op="gat", d_in=4, d_hidden=8, num_classes=2,
                     num_layers=2, reg_weight=0.1, reg_delta=0.1, alpha=0.2,
                     lam=1.0, dropout=0.5)
-    with pytest.raises(TypeError):
-        t_rt.GASConfig(num_parts=2, fused_epoch=True)
+    # fused_epoch builds, with the reference's name and default, and
+    # trains (tests/test_torch_fused_epoch.py)
+    assert not t_rt.GASConfig(num_parts=2).fused_epoch
+    assert t_rt.GASConfig(num_parts=2, fused_epoch=True).fused_epoch
+    rg, tg = _graphs()
+    plan = t_rt.build_plan(tg, _specs("gcn")[1], t_rt.GASConfig(
+        num_parts=2, fused_epoch=True, epochs=1), device="cpu")
+    _, (m,) = t_rt.fit(plan, t_rt.init_state(plan))
+    assert np.isfinite(m["loss"]) and plan._fused is not None
     # every operator serves (Queue A item 6 is ported): GAT's serve plan
     # reads the unit-weight blocks
     from repro_torch.core import serve as t_serve

@@ -9,7 +9,7 @@ families (0.4 of their size) under random and METIS-like partitions;
 other package bitwise, `step` kept; `train.gas_trainer.GASTrainer`
 against the port's runtime (losses, `gas_predict` and `evaluate`
 exactly equal), its kwargs landing in `GASConfig`, `tcfg` not shared,
-`fused_epoch` raising, and two epochs against the reference's
+`fused_epoch=True` bitwise the stepwise trainer, and two epochs against the reference's
 `GASTrainer` from its initial state carried across at 1e-5;
 `train.baselines.GraphSAGETrainer`'s sampled batches bitwise, then its
 step losses and final params at 1e-5 from the reference's weights, and
@@ -272,11 +272,21 @@ def test_trainer_tcfg_not_shared_between_instances():
 
 
 def test_trainer_fused_epoch_raises():
+    """`fused_epoch=True`, refused until the fused epoch was ported, now
+    reaches the trainer's config and trains: two fused epochs give the
+    stepwise trainer's losses, params and `gas_predict` bitwise."""
     g = t_citation(num_nodes=120, num_features=8, num_classes=3, seed=1)
     spec = TSpec(op="gcn", d_in=8, d_hidden=8, num_classes=3, num_layers=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        t_trainer.GASTrainer(g, spec, num_parts=2, fused_epoch=True,
-                             device="cpu")
+    tcfg = t_trainer.TrainConfig(epochs=2)
+    a = t_trainer.GASTrainer(g, spec, num_parts=2, device="cpu", tcfg=tcfg)
+    b = t_trainer.GASTrainer(g, spec, num_parts=2, fused_epoch=True,
+                             device="cpu", tcfg=tcfg)
+    assert b.config.fused_epoch and not a.config.fused_epoch
+    assert a.fit() == b.fit()
+    assert b.plan._fused is not None
+    for x, y in zip(t_opt.tree_leaves(a.params), t_opt.tree_leaves(b.params)):
+        assert torch.equal(x, y)
+    assert torch.equal(a.gas_predict(), b.gas_predict())
 
 
 def test_trainer_matches_reference_trainer():
